@@ -1,0 +1,497 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (smk_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Needs one CUDA card (compute
+capability 9.0, an H100), the CUDA toolkit's nvcc, and PyTorch built
+for CUDA; imports nothing of JAX or of the JAX package. Phases, each
+printed as one JSON line:
+
+1. device   — the card (nvidia-smi name and power limit), its compute
+              capability, the TF32 flags (both off).
+2. build    — nvcc builds every kernel of the port from the sources in
+              the checkout (one nvcc per source, started together).
+3. kernels  — every fused-build entry point on the card against its
+              plain PyTorch version on the same inputs: three models,
+              masked/shifted/cross variants at a ragged m = 147, a
+              mismatched cross (147, 123), and the main-path shapes
+              (K = 32, m = 3906, t = 64), with the exact invariants
+              (unit diagonal, pad identity, bitwise symmetry) and, at
+              the main-path shapes, kernel / plain / library times
+              (CUDA events, median of 20) beside the device-memory bound.
+4. fit_small_parity — a small fit through the kernel on the card
+              against the same fit through the plain version on the
+              CPU, with the same random numbers.
+5. fit_config5 — fit_meta_kriging at the repo's per-chip north-star
+              shape (n = 124,992, K = 32, m = 3906, q = 1, p = 2,
+              t = 64, exponential, fused_build="pallas", 40 sweeps:
+              30 burn-in, 10 kept), with its kernel launch counts.
+6. fit_q2   — the bivariate case (q = 2, K = 8, m = 3906, 20 sweeps).
+
+Then the kernel summary line {"kernels": [...]}, the card's
+nvidia-smi line, and last {"ok": true, "device": {...}}. A failing phase
+raises: the script exits non-zero and prints no ok line. It exits
+non-zero at once where no CUDA card is visible, or where the port
+cannot be imported (the script alone, outside a checkout).
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 (non
+# tensor-core) rate — the bound of a kernel is the larger of its bytes
+# over the first and its operations over the second
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+SEED = 20261016
+# the main path's shapes: config5's per-chip slice (K subsets of m rows,
+# t test sites)
+MAIN_K, MAIN_M, MAIN_T = 32, 3906, 64
+KERNEL_SOURCE = "smk_torch/csrc/fused_corr.cu"
+# file:line of the TPU entry point each wrapper replaces (all launch
+# the one Pallas kernel _corr_kernel, smk_tpu/ops/pallas_build.py:179)
+REPLACES = {
+    "fused_masked_correlation_stack": "smk_tpu/ops/pallas_build.py:366",
+    "fused_masked_shifted_build": "smk_tpu/ops/pallas_build.py:405",
+    "fused_cross_correlation": "smk_tpu/ops/pallas_build.py:387",
+    "fused_correlation_stack": "smk_tpu/ops/pallas_build.py:349",
+}
+MAIN_PATH = (
+    "fused_masked_correlation_stack",
+    "fused_masked_shifted_build",
+    "fused_cross_correlation",
+    "fused_correlation_stack",
+)
+# kernel vs plain version on the same card: the two follow the same
+# operation order (the kernel disables FMA contraction), so they differ
+# only where expf and torch.exp round differently — a few fp32 ulps of
+# values <= 1; the relative term covers the 1e8 pad shifts
+ATOL, RTOL = 4e-6, 1e-6
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def ms_median(fn, reps: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ----------------------------------------------------------------------
+# phase 3: kernels
+# ----------------------------------------------------------------------
+MODEL_OPS = {"exponential": 2, "matern32": 5, "matern52": 8}
+
+
+def bound(inputs, out, model, masked, shifted):
+    """(bound_ms, bound_by): the least time for the function — each
+    input read once and the output written once over the HBM rate, or
+    its operations over the fp32 rate, whichever is larger. Operations
+    per element: 3 per coordinate (sub, mul, add), max and sqrt, the
+    model's own, 4 for the mask blend, 1 for the shift."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs if t is not None)
+    nbytes += out.numel() * out.element_size()
+    d = inputs[0].shape[-1]
+    ops = out.numel() * (3 * d + 2 + MODEL_OPS[model] + 4 * masked + shifted)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(got, want, what):
+    """max |got - want|, checked against ATOL + RTOL |want|."""
+    err = (got - want).abs()
+    check(bool((err <= ATOL + RTOL * want.abs()).all()),
+          f"{what}: kernel disagrees with plain version (max err {err.max().item():.3e})")
+    return float(err.max())
+
+
+def square_invariants(out, mask, shift, what):
+    """Exact invariants of a square zero-diagonal build (K, s, m, m):
+    bitwise symmetry, unit (or 1 + shift) diagonal, identity pad rows."""
+    import torch
+
+    check(torch.equal(out, out.transpose(-1, -2)), f"{what}: not bitwise symmetric")
+    diag = torch.diagonal(out, dim1=-2, dim2=-1)
+    want_diag = torch.ones_like(diag)
+    if shift is not None:
+        want_diag = want_diag + shift[:, None, :]
+    check(torch.equal(diag, want_diag), f"{what}: diagonal is not exactly 1 (+ shift)")
+    if mask is not None:
+        pad = mask == 0  # (K, m)
+        m = out.shape[-1]
+        eye = torch.eye(m, dtype=out.dtype, device=out.device)
+        rows = out.masked_select(pad[:, None, :, None].expand_as(out))
+        ref = (eye[None, None] + torch.diag_embed(
+            torch.zeros_like(diag) if shift is None else shift[:, None, :].expand_as(diag)
+        )).masked_select(pad[:, None, :, None].expand_as(out))
+        check(torch.equal(rows, ref), f"{what}: pad rows are not exactly the identity")
+
+
+def kernels_phase(device):
+    import torch
+    from smk_torch.ops import fused_build as fb
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+
+    def uni(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    checks = []
+    # ---- ragged m = 147 and the mismatched cross (147, 123), K = 3 ----
+    k, m, mb = 3, 147, 123
+    coords = uni(k, m, 2, hi=2.0)
+    other = uni(k, mb, 2, hi=2.0) + 0.3
+    phis = uni(k, 3, lo=4.0, hi=12.0)
+    mask = torch.ones(k, m, device=device)
+    mask[:, -11:] = 0.0
+    shift = torch.where(mask > 0, uni(k, m, lo=0.5, hi=2.0), torch.full_like(mask, 1e8))
+    for model in ("exponential", "matern32", "matern52"):
+        cases = [
+            ("fused_masked_correlation_stack",
+             lambda: fb.fused_masked_correlation_stack(coords, phis, mask, model),
+             dict(ca=coords, cb=coords, mask=mask, zero_diag=True), mask, None),
+            ("fused_masked_shifted_build",
+             lambda: fb.fused_masked_shifted_build(coords, phis, mask, shift, model),
+             dict(ca=coords, cb=coords, mask=mask, shift=shift, zero_diag=True), mask, shift),
+            ("fused_masked_shifted_build",  # scalar shift, broadcast
+             lambda: fb.fused_masked_shifted_build(coords, phis, mask, 0.25, model),
+             dict(ca=coords, cb=coords, mask=mask, shift=torch.full_like(mask, 0.25),
+                  zero_diag=True), mask, torch.full_like(mask, 0.25)),
+            ("fused_correlation_stack",
+             lambda: fb.fused_correlation_stack(coords, phis, model),
+             dict(ca=coords, cb=coords, zero_diag=True), None, None),
+            ("fused_cross_correlation",
+             lambda: fb.fused_cross_correlation(coords, other, phis, model),
+             dict(ca=coords, cb=other), None, None),
+            ("fused_correlation",
+             lambda: fb.fused_correlation(coords, phis[:, 0], model)[:, None],
+             dict(ca=coords, cb=coords, zero_diag=True, phis=phis[:, :1]), None, None),
+        ]
+        for name, run, spec, mk, sh in cases:
+            before = fb.LAUNCHES[name]
+            got = run()
+            torch.cuda.synchronize()
+            check(fb.LAUNCHES[name] == before + 1, f"{name}: launch not counted")
+            want = fb.plain_build(
+                spec["ca"], spec["cb"], spec.get("phis", phis), model,
+                mask=spec.get("mask"), shift=spec.get("shift"),
+                zero_diag=spec.get("zero_diag", False),
+            )
+            err = compare(got, want, f"{name}/{model}/m={m}")
+            if spec.get("zero_diag"):
+                square_invariants(got, mk, sh, f"{name}/{model}")
+            checks.append({"entry": name, "model": model, "shape": list(got.shape),
+                           "max_abs_err": err})
+    # shared 2-D coords (the kriging test build) keep stride 0 on K
+    got = fb.fused_correlation_stack(other[0], phis, "exponential")
+    want = fb.plain_build(other[:1].expand(k, mb, 2), other[:1], phis, "exponential",
+                          zero_diag=True)
+    checks.append({"entry": "fused_correlation_stack", "model": "exponential",
+                   "shape": list(got.shape), "shared_coords": True,
+                   "max_abs_err": compare(got, want, "shared-coords stack")})
+
+    # ---- main-path shapes: K = 32, m = 3906, t = 64, s = q = 1 ----
+    k, m, t = MAIN_K, MAIN_M, MAIN_T
+    coords = uni(k, m, 2)
+    test = uni(t, 2)
+    phis = uni(k, 1, lo=4.0, hi=12.0)
+    mask = torch.ones(k, m, device=device)
+    shift = uni(k, m, lo=0.5, hi=2.0) + 4.0e-3
+    model = "exponential"
+    main = {
+        "fused_masked_correlation_stack": (
+            lambda: fb.fused_masked_correlation_stack(coords, phis, mask, model),
+            dict(ca=coords, cb=coords, mask=mask, zero_diag=True),
+            [coords, phis, mask], (True, False), (coords, coords)),
+        "fused_masked_shifted_build": (
+            lambda: fb.fused_masked_shifted_build(coords, phis, mask, shift, model),
+            dict(ca=coords, cb=coords, mask=mask, shift=shift, zero_diag=True),
+            [coords, phis, mask, shift], (True, True), (coords, coords)),
+        "fused_cross_correlation": (
+            lambda: fb.fused_cross_correlation(coords, test, phis, model),
+            dict(ca=coords, cb=test[None]),
+            [coords, test, phis], (False, False), (coords, test[None].expand(k, t, 2))),
+        "fused_correlation_stack": (
+            lambda: fb.fused_correlation_stack(test, phis, model),
+            dict(ca=test[None].expand(k, t, 2), cb=test[None], zero_diag=True),
+            [test, phis], (False, False), (test[None], test[None])),
+    }
+    timings = {}
+    for name, (run, spec, inputs, (masked, shifted), (a, b)) in main.items():
+        got = run()
+        want = fb.plain_build(
+            spec["ca"], spec["cb"], phis, model, mask=spec.get("mask"),
+            shift=spec.get("shift"), zero_diag=spec.get("zero_diag", False),
+        )
+        err = compare(got, want, f"{name} at the main-path shape")
+        if spec.get("zero_diag") and masked:
+            square_invariants(got, spec.get("mask"), spec.get("shift"), name)
+        del want
+        plain = lambda: fb.plain_build(  # noqa: E731
+            spec["ca"], spec["cb"], phis, model, mask=spec.get("mask"),
+            shift=spec.get("shift"), zero_diag=spec.get("zero_diag", False),
+        )
+        library = lambda: torch.exp(  # noqa: E731
+            -phis[:, :, None, None] * torch.cdist(a, b)[:, None]
+        )
+        ms = ms_median(run)
+        plain_ms = ms_median(plain)
+        library_ms = ms_median(library)
+        b_ms, b_by = bound(inputs, got, model, masked, shifted)
+        timings[name] = {
+            "shape": list(got.shape), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "achieved_GBps": got.numel() * 4 / (ms * 1e-3) / 1e9,
+            "write_bytes": got.numel() * 4,
+        }
+        del got
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "tolerance": {"atol": ATOL, "rtol": RTOL},
+          "checks": checks, "main_path": timings, "launches_in_phase": dict(fb.LAUNCHES)})
+    return timings
+
+
+# ----------------------------------------------------------------------
+# phases 4-6: fits
+# ----------------------------------------------------------------------
+def binary_field(n, q, p, t, seed, phi=6.0, n_features=256):
+    """Probit binary field over uniform locations with an
+    RFF-approximated exponential-type GP latent (the bench's
+    make_binary_field recipe), in numpy from ``seed``; the last t points
+    are the test sites."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(size=(n + t, 2))
+    freqs = phi * rng.standard_cauchy(size=(n_features, 2))
+    phase = rng.uniform(0.0, 2.0 * np.pi, size=n_features)
+    coef = rng.normal(size=(q, n_features))
+    w = np.sqrt(2.0 / n_features) * np.cos(coords @ freqs.T + phase) @ coef.T
+    x = np.concatenate(
+        [np.ones((n + t, q, 1)), rng.normal(size=(n + t, q, p - 1))], -1
+    )
+    beta = np.linspace(0.8, -0.6, q * p).reshape(q, p)
+    eta = np.einsum("nqp,qp->nq", x, beta) + w
+    import torch
+
+    prob = torch.special.ndtr(torch.from_numpy(eta)).numpy()
+    y = (rng.uniform(size=eta.shape) < prob).astype(np.float32)
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    return f32(y[:n]), f32(x[:n]), f32(coords[:n]), f32(coords[n:]), f32(x[n:])
+
+
+class NoiseOnDevice:
+    """A FitRandomness whose numbers are drawn on the CPU and moved to
+    the card, so a card fit and a CPU fit consume the same numbers."""
+
+    def __init__(self, seed, device):
+        from smk_torch.api import TorchRandomness
+
+        self.rng = TorchRandomness(seed, "cpu")
+        self.device = device
+
+    def permutation(self, n):
+        return self.rng.permutation(n)
+
+    def sweep_noise(self, shapes):
+        from smk_torch.models.probit_gp import SweepNoise
+
+        src = self.rng.sweep_noise(shapes)
+
+        def on_device(it, collect):
+            return SweepNoise(*(None if a is None else a.to(self.device)
+                                for a in src(it, collect)))
+
+        return on_device
+
+    def resample_index(self, n_draws, n_grid):
+        return self.rng.resample_index(n_draws, n_grid)
+
+
+def expected_launches(cfg, q):
+    """Launches per entry point implied by the sampler (phi updated every
+    sweep): B1a once at init and once per sweep (the phi proposal); B1b
+    once per component per sweep (the u-draw's S build); B1c and B1d
+    once at the start of sampling (the kriging cache) and once per kept
+    sweep (the proposal's kriging operators)."""
+    return {
+        "fused_correlation": 0,
+        "fused_correlation_stack": 1 + cfg.n_kept,
+        "fused_masked_correlation_stack": 1 + cfg.n_samples,
+        "fused_cross_correlation": 1 + cfg.n_kept,
+        "fused_masked_shifted_build": q * cfg.n_samples,
+    }
+
+
+def run_fit(name, *, n, k, q, p, t, n_samples, device):
+    import numpy as np
+    import torch
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.models.probit_gp import n_params
+    from smk_torch.ops import fused_build as fb
+
+    cfg = SMKConfig(n_subsets=k, n_samples=n_samples, fused_build="pallas")
+    data = binary_field(n, q, p, t, SEED + n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_counts()
+    start = time.perf_counter()
+    res = fit_meta_kriging(*data, config=cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dict(fb.LAUNCHES)
+    want = expected_launches(cfg, q)
+    check(launches == want, f"{name}: launches {launches} != expected {want}")
+    check(all(launches[e] > 0 for e in MAIN_PATH), f"{name}: a main-path kernel never launched")
+    check(sum(fb.PLAIN_CALLS.values()) == 0, f"{name}: a plain build ran on the card path")
+    check(tuple(res.p_quant.shape) == (3, t * q), f"{name}: p_quant shape {tuple(res.p_quant.shape)}")
+    check(tuple(res.param_quant.shape) == (3, n_params(q, p)), f"{name}: param_quant shape")
+    check(bool(torch.isfinite(res.p_quant).all()), f"{name}: non-finite p_quant")
+    check(bool(torch.isfinite(res.param_quant).all()), f"{name}: non-finite param_quant")
+    acc = res.phi_accept_rate
+    check(bool(((acc >= 0) & (acc <= 1)).all()), f"{name}: phi_accept_rate outside [0, 1]")
+    p_q = res.p_quant.cpu().numpy()
+    check(bool(((p_q >= 0) & (p_q <= 1)).all()), f"{name}: p outside [0, 1]")
+    secs = res.phase_seconds
+    out = {
+        "phase": name, "n": n, "K": k, "m": -(-n // k), "q": q, "p": p, "t": t,
+        "n_samples": cfg.n_samples, "n_burn_in": cfg.n_burn_in, "n_kept": cfg.n_kept,
+        "fused_build": cfg.fused_build, "wall_s": wall, "phase_seconds": secs,
+        "ms_per_sweep": secs["subset_fits"] / cfg.n_samples * 1e3,
+        "latent_ess_per_sec": res.latent_ess_per_sec,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_expected": want,
+        "phi_accept_rate_mean": float(acc.mean()),
+        "param_quant_median": np.round(res.param_quant[0].cpu().numpy(), 4).tolist(),
+    }
+    emit(out)
+    return out
+
+
+def fit_small_parity(device):
+    """A small fit through the kernel on the card against the same fit
+    through the plain version on the CPU (same random numbers). Both
+    sides are fp32 with cuSOLVER vs LAPACK factorizations; over 12
+    sweeps the chains agree to ~1e-5, so 2e-3 flags a real fault."""
+    import torch
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.ops import fused_build as fb
+
+    cfg = SMKConfig(n_subsets=4, n_samples=12, fused_build="pallas")
+    data = binary_field(400, 2, 2, 8, SEED)
+    fb.reset_counts()
+    gpu = fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, device),
+                           device=device)
+    check(sum(fb.LAUNCHES.values()) > 0 and sum(fb.PLAIN_CALLS.values()) == 0,
+          "small parity: the card fit did not run the kernel")
+    cpu = fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, "cpu"),
+                           device="cpu")
+    check(sum(fb.PLAIN_CALLS.values()) > 0, "small parity: the CPU fit did not run the plain version")
+    errs = {}
+    for f in ("param_grid", "w_grid", "p_quant", "param_quant"):
+        err = float((getattr(gpu, f).cpu() - getattr(cpu, f)).abs().max())
+        errs[f] = err
+        check(err <= 2e-3, f"small parity: {f} differs by {err:.3e}")
+    emit({"phase": "fit_small_parity", "max_abs_err": errs, "tolerance": 2e-3})
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this smoke run needs one card",
+              file=sys.stderr)
+        return 1
+    try:
+        from smk_torch.ops import cuda_build
+    except ImportError as e:
+        print(f"chip_smoke: the port (smk_torch) is not importable here: {e}",
+              file=sys.stderr)
+        return 1
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    cap = torch.cuda.get_device_capability(0)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0), "capability": list(cap),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+    check(tuple(cap) == (9, 0), f"compute capability {cap}, expected (9, 0)")
+
+    start = time.perf_counter()
+    report = cuda_build.build()
+    emit({"phase": "build", "wall_s": time.perf_counter() - start,
+          "libraries": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"][-2000:]}
+                        for k, v in report.items()}})
+
+    timings = kernels_phase(device)
+    torch.cuda.empty_cache()
+    fit_small_parity(device)
+    torch.cuda.empty_cache()
+    c5 = run_fit("fit_config5", n=MAIN_K * MAIN_M, k=MAIN_K, q=1, p=2, t=MAIN_T,
+                 n_samples=40, device=device)
+    torch.cuda.empty_cache()
+    run_fit("fit_q2", n=8 * MAIN_M, k=8, q=2, p=2, t=MAIN_T, n_samples=20,
+            device=device)
+
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES[name], "launches": c5["launches"][name],
+         "max_abs_err": timings[name]["max_abs_err"], "ms": timings[name]["ms"],
+         "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
+         "bound_by": timings[name]["bound_by"],
+         "library_ms": timings[name]["library_ms"]}
+        for name in MAIN_PATH
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,293 @@
+"""Top-level API — twin of the default path of ``smk_tpu/api.py``:
+
+    partition -> IRLS warm start -> K batched probit-GP Gibbs chains ->
+    200-quantile compression -> Wasserstein-mean combine ->
+    inverse-CDF resample -> probit p(y=1) with credible summaries.
+
+Runs on the CUDA device unless ``device="cpu"`` is passed; with no
+device given and no card present it raises. All randomness of a fit
+comes from one :class:`FitRandomness` (the default draws from
+``torch.Generator`` streams seeded by ``seed``); the tests pass one that
+replays the JAX package's key schedule instead.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Protocol
+
+import numpy as np
+import torch
+from torch.special import ndtr
+
+from smk_torch.config import SMKConfig, check_ported
+from smk_torch.device import resolve_device
+from smk_torch.models.probit_gp import (
+    GeneratorNoise,
+    NoiseSource,
+    SpatialGPSampler,
+    SubsetResult,
+    SweepShapes,
+    subset_generators,
+)
+from smk_torch.ops.glm import glm_warm_start
+from smk_torch.ops.quantiles import (
+    credible_summary,
+    interp_quantile_grid,
+    inverse_cdf_resample,
+    resample_index,
+)
+from smk_torch.parallel.combine import combine_quantile_grids
+from smk_torch.parallel.executor import fit_subsets_vmap
+from smk_torch.parallel.partition import random_partition, random_permutation
+from smk_torch.utils.tracing import PhaseTimes, phase_timer
+
+
+class MetaKrigingResult(NamedTuple):
+    """Everything the reference script materializes, plus diagnostics —
+    the twin's fields (see smk_tpu/api.py); the fields of the chunked,
+    fault-tolerant and adaptive executors keep their defaults here."""
+
+    param_grid: torch.Tensor
+    w_grid: torch.Tensor
+    sample_par: torch.Tensor
+    sample_w: torch.Tensor
+    p_samples: torch.Tensor
+    param_quant: torch.Tensor
+    w_quant: torch.Tensor
+    p_quant: torch.Tensor
+    subset_results: SubsetResult
+    phi_accept_rate: torch.Tensor
+    param_ess: torch.Tensor
+    param_rhat: torch.Tensor
+    w_ess: torch.Tensor
+    w_rhat: torch.Tensor
+    latent_ess_per_sec: float
+    phase_seconds: dict
+    subsets_dropped: tuple = ()
+    run_log_path: Optional[str] = None
+    domains_dropped: tuple = ()
+    pad_waste_frac: Optional[float] = None
+    frozen_at: Optional[tuple] = None
+    chunks_saved_frac: Optional[float] = None
+
+
+class FitRandomness(Protocol):
+    """Every random number of a fit: the partition's permutation, the
+    sweeps' noise, and the resample's row indices."""
+
+    def permutation(self, n: int) -> torch.Tensor: ...
+
+    def sweep_noise(self, shapes: SweepShapes) -> NoiseSource: ...
+
+    def resample_index(self, n_draws: int, n_grid: int) -> torch.Tensor: ...
+
+
+class TorchRandomness:
+    """The default :class:`FitRandomness`: ``torch.Generator`` streams on
+    the fit's device, seeded from ``seed`` (three independent children,
+    as the twin splits its key three ways)."""
+
+    def __init__(self, seed: int, device, dtype=torch.float32):
+        self.device = torch.device(device)
+        self.dtype = dtype
+        part, fit, res = np.random.SeedSequence(seed).spawn(3)
+        self._fit_seed = int(fit.generate_state(1, np.uint32)[0])
+        self._part = self._generator(part)
+        self._res = self._generator(res)
+
+    def _generator(self, seq) -> torch.Generator:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(seq.generate_state(1, np.uint32)[0]))
+        return g
+
+    def permutation(self, n: int) -> torch.Tensor:
+        return random_permutation(self._part, n, self.device)
+
+    def sweep_noise(self, shapes: SweepShapes) -> NoiseSource:
+        gens = subset_generators(self._fit_seed, shapes.k, self.device)
+        return GeneratorNoise(gens, shapes, dtype=self.dtype, device=self.device)
+
+    def resample_index(self, n_draws: int, n_grid: int) -> torch.Tensor:
+        return resample_index(self._res, n_draws, n_grid, self.device)
+
+
+def param_names(q: int, p: int) -> list:
+    """Column names of the parameter grid: beta by (response,
+    covariate), lower-tri of K = A A^T, phi."""
+    names = [f"beta[{j},{r}]" for j in range(q) for r in range(p)]
+    names += [f"K[{i},{j}]" for i in range(q) for j in range(i + 1)]
+    names += [f"phi[{j}]" for j in range(q)]
+    return names
+
+
+def stacked_design(y: torch.Tensor, x: torch.Tensor):
+    """(n, q) responses and (n, q, p) designs in the reference's long
+    warm-start layout (R:53): response-major blocks, block-diagonal
+    design."""
+    n, q, p = x.shape
+    y_long = y.T.reshape(-1)
+    x_long = torch.zeros((q * n, q * p), dtype=x.dtype, device=x.device)
+    for j in range(q):
+        x_long[j * n : (j + 1) * n, j * p : (j + 1) * p] = x[:, j, :]
+    return y_long, x_long
+
+
+def predict_probability(
+    sample_par: torch.Tensor, sample_w: torch.Tensor, x_test: torch.Tensor,
+    *, link: str = "probit",
+) -> torch.Tensor:
+    """p(y=1 | data) per combined posterior draw (R:153-161); the first
+    q*p parameter columns are the betas, sample_w is response-fastest
+    over test sites."""
+    if link != "probit":
+        raise NotImplementedError(
+            f"link {link!r} is not ported to smk_torch yet (ROADMAP A6)"
+        )
+    t, q, p = x_test.shape
+    betas = sample_par[:, : q * p].reshape(-1, q, p)
+    eta_fixed = torch.einsum("tqp,sqp->stq", x_test, betas)
+    return ndtr(eta_fixed.reshape(sample_par.shape[0], -1) + sample_w)
+
+
+def combine(grids_par: torch.Tensor, grids_w: torch.Tensor, config: SMKConfig):
+    """The combine phase: (K, n_q, d) subset grids -> combined grids."""
+    kw = dict(n_iter=config.weiszfeld_iters, eps=config.weiszfeld_eps)
+    return (
+        combine_quantile_grids(grids_par, config.combiner, **kw),
+        combine_quantile_grids(grids_w, config.combiner, **kw),
+    )
+
+
+def resample_predict(
+    param_grid: torch.Tensor,
+    w_grid: torch.Tensor,
+    x_test: torch.Tensor,
+    index: torch.Tensor,
+    config: SMKConfig,
+):
+    """The resample/predict phase: densify the combined grids, draw the
+    rows ``index`` from both, and summarise. Returns (sample_par,
+    sample_w, p_samples, param_quant, w_quant, p_quant)."""
+    dense_par = interp_quantile_grid(param_grid, config.interp_grid_step)
+    dense_w = interp_quantile_grid(w_grid, config.interp_grid_step)
+    sample_par, sample_w = inverse_cdf_resample(index, [dense_par, dense_w])
+    p_samples = predict_probability(sample_par, sample_w, x_test, link=config.link)
+    return (
+        sample_par, sample_w, p_samples,
+        credible_summary(sample_par), credible_summary(sample_w),
+        credible_summary(p_samples),
+    )
+
+
+def _as_tensor(a, dtype, device) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.to(dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def fit_meta_kriging(
+    y,
+    x,
+    coords,
+    coords_test,
+    x_test,
+    *,
+    config: Optional[SMKConfig] = None,
+    weight: int = 1,
+    seed: int = 0,
+    randomness: Optional[FitRandomness] = None,
+    device=None,
+) -> MetaKrigingResult:
+    """Full spatial meta-kriging pipeline (the twin's default path:
+    unmeshed, unchunked).
+
+    y: (n, q) binary/binomial counts; x: (n, q, p) designs; coords:
+    (n, d); coords_test: (t, d); x_test: (t, q, p); weight: binomial
+    trials. Arrays may be numpy or tensors. ``device`` defaults to the
+    CUDA device; ``randomness`` to :class:`TorchRandomness` (``seed``).
+    """
+    cfg = config or SMKConfig()
+    check_ported(cfg)
+    dev = resolve_device(device)
+    # the reference runs under matmul_precision="highest": keep every
+    # fp32 product in full fp32 (cuBLAS and cuDNN)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = torch.float32
+    y, x, coords, coords_test, x_test = (
+        _as_tensor(a, dt, dev) for a in (y, x, coords, coords_test, x_test)
+    )
+    if y.dim() != 2:
+        raise ValueError(
+            f"y must be (n, q) success counts, got shape {tuple(y.shape)} — "
+            "a single response is y[:, None]"
+        )
+    n, q = y.shape
+    if x.dim() != 3 or tuple(x.shape[:2]) != (n, q):
+        raise ValueError(f"x must be (n={n}, q={q}, p) designs, got shape {tuple(x.shape)}")
+    if coords.dim() != 2 or coords.shape[0] != n:
+        raise ValueError(f"coords must be (n={n}, d) locations, got shape {tuple(coords.shape)}")
+    if coords_test.dim() != 2 or coords_test.shape[1] != coords.shape[1]:
+        raise ValueError(
+            f"coords_test must be (t, d={coords.shape[1]}) locations, got "
+            f"shape {tuple(coords_test.shape)}"
+        )
+    p = x.shape[2]
+    if tuple(x_test.shape) != (coords_test.shape[0], q, p):
+        raise ValueError(
+            f"x_test must be (t={coords_test.shape[0]}, q={q}, p={p}) "
+            f"designs, got shape {tuple(x_test.shape)}"
+        )
+    rng = randomness if randomness is not None else TorchRandomness(seed, dev, dt)
+    times = PhaseTimes()
+
+    with phase_timer(times, "partition", dev):
+        part = random_partition(
+            rng.permutation(n).to(dev), y, x, coords, cfg.n_subsets
+        )
+
+    with phase_timer(times, "warm_start", dev):
+        y_long, x_long = stacked_design(y, x)
+        beta_init = glm_warm_start(
+            y_long, x_long, weight=weight, link=cfg.link
+        ).coef.reshape(q, p)
+
+    model = SpatialGPSampler(cfg, weight=weight)
+    shapes = SweepShapes(
+        part.n_subsets, part.subset_size, q, p, coords_test.shape[0], weight
+    )
+    with phase_timer(times, "subset_fits", dev):
+        results = fit_subsets_vmap(
+            model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init
+        )
+
+    with phase_timer(times, "combine", dev):
+        param_grid, w_grid = combine(results.param_grid, results.w_grid, cfg)
+
+    with phase_timer(times, "resample_predict", dev):
+        n_grid = int(round((1.0 - 1.0 / cfg.n_quantiles) / cfg.interp_grid_step)) + 1
+        index = rng.resample_index(cfg.resample_size, n_grid).to(dev)
+        (sample_par, sample_w, p_samples, param_quant, w_quant,
+         p_quant) = resample_predict(param_grid, w_grid, x_test, index, cfg)
+
+    secs = times.as_dict()
+    fit_s = secs.get("subset_fits", 0.0)
+    ess_total = float(torch.sum(torch.nan_to_num(results.w_ess, nan=0.0)))
+    return MetaKrigingResult(
+        param_grid=param_grid,
+        w_grid=w_grid,
+        sample_par=sample_par,
+        sample_w=sample_w,
+        p_samples=p_samples,
+        param_quant=param_quant,
+        w_quant=w_quant,
+        p_quant=p_quant,
+        subset_results=results,
+        phi_accept_rate=results.phi_accept_rate,
+        param_ess=results.param_ess,
+        param_rhat=results.param_rhat,
+        w_ess=results.w_ess,
+        w_rhat=results.w_rhat,
+        latent_ess_per_sec=ess_total / fit_s if fit_s > 0.0 else 0.0,
+        phase_seconds=secs,
+    )

@@ -1,0 +1,75 @@
+"""State carried across from the JAX package: its arrays (as numpy, or
+anything ``np.asarray`` takes) into the port's objects.
+
+A JAX fit's sampler state, partition and subset grids can be picked up
+by the port — to continue a chain on the card, or to combine and
+predict from a JAX fit (api.combine / api.resample_predict). The JAX
+PRNG key has no counterpart: the port's randomness comes from its own
+generators, seeded anew.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from smk_torch.models.probit_gp import SamplerState, subset_generators
+from smk_torch.parallel.partition import Partition
+
+_STATE_FIELDS = (
+    "beta", "u", "a", "phi", "chol_r", "phi_accept", "phi_log_step",
+)
+
+
+def _field(src, name):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def _tensor(a, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, copy=True), dtype=dtype, device=device)
+
+
+def sampler_state_from_numpy(
+    state, *, seed: int = 0, device="cpu"
+) -> Tuple[SamplerState, List[torch.Generator]]:
+    """A K-stacked JAX ``SamplerState`` (a NamedTuple or a dict of its
+    arrays, leading K axis on every field) as the port's SamplerState,
+    plus one generator per subset seeded from ``seed`` in place of the
+    JAX key."""
+    out = SamplerState(
+        **{f: _tensor(_field(state, f), device) for f in _STATE_FIELDS}
+    )
+    if out.beta.dim() != 3:
+        raise ValueError(
+            "sampler state must carry a leading K (subset) axis: beta is "
+            f"{tuple(out.beta.shape)}, expected (K, q, p)"
+        )
+    return out, subset_generators(seed, out.beta.shape[0], device)
+
+
+def partition_from_numpy(part, *, device="cpu") -> Partition:
+    """A JAX ``Partition`` (or a dict of its arrays) as the port's."""
+    return Partition(
+        y=_tensor(_field(part, "y"), device),
+        x=_tensor(_field(part, "x"), device),
+        coords=_tensor(_field(part, "coords"), device),
+        mask=_tensor(_field(part, "mask"), device),
+        index=_tensor(_field(part, "index"), device, torch.long),
+    )
+
+
+def grids_from_numpy(
+    param_grid, w_grid, *, device="cpu"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, n_q, d) subset quantile grids of a JAX fit
+    (``SubsetResult.param_grid`` / ``w_grid``) as tensors, ready for
+    api.combine."""
+    pg, wg = _tensor(param_grid, device), _tensor(w_grid, device)
+    if pg.dim() != 3 or wg.dim() != 3 or pg.shape[:2] != wg.shape[:2]:
+        raise ValueError(
+            "expected (K, n_q, d) subset grids with matching (K, n_q), got "
+            f"{tuple(pg.shape)} and {tuple(wg.shape)}"
+        )
+    return pg, wg

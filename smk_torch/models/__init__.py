@@ -1,0 +1,1 @@
+"""models of the PyTorch port (see the twin package smk_tpu/models)."""

@@ -1,0 +1,669 @@
+"""Multivariate binary spatial GP regression — the per-subset model,
+twin of ``smk_tpu/models/probit_gp.py`` (dense engine, probit link,
+conditional phi sampler, Cholesky u-draw, factor reuse, kriging cache).
+
+The JAX sampler is written for one subset and vmapped over K; here the K
+subsets are a leading axis written out in every tensor, and the
+``lax.scan`` over sweeps is a Python loop. Randomness is split from the
+sweep: each sweep consumes one :class:`SweepNoise`, whose fields stand
+for the nine JAX subkeys of a sweep, from a noise source (per-subset
+``torch.Generator`` streams by default). A source that replays the JAX
+key schedule makes this sampler and the JAX one consume the same
+numbers, which is how the tests hold the two draw for draw.
+
+The correlation builds go through the dispatch seam below: with
+``fused_build="pallas"`` every build is the fused kernel
+(ops/fused_build.py), with ``"off"`` it is the distance-matrix build.
+No sweep reads a device value on the host.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from smk_torch.config import SMKConfig, check_ported
+from smk_torch.ops.chol import (
+    chol_logdet,
+    chol_solve,
+    cholesky,
+    jittered_cholesky,
+    shifted_cholesky,
+    tri_solve,
+)
+from smk_torch.ops.distance import cross_distance, pairwise_distance
+from smk_torch.ops.factor_cache import (
+    FactorCache,
+    empty_counter,
+    select_accept,
+    tick,
+)
+from smk_torch.ops.fused_build import (
+    fused_correlation_stack,
+    fused_cross_correlation,
+    fused_masked_correlation_stack,
+    fused_masked_shifted_build,
+)
+from smk_torch.ops.kernels import correlation
+from smk_torch.ops.quantiles import quantile_grid
+from smk_torch.ops.truncnorm import _TINY, sample_albert_chib_latent
+from smk_torch.utils.diagnostics import effective_sample_size, rhat
+
+
+class SubsetData(NamedTuple):
+    """The K stacked (padded) subsets.
+
+    coords: (K, m, d); x: (K, m, q, p); y: (K, m, q); mask: (K, m) 1.0
+    real / 0.0 pad; coords_test: (t, d) and x_test: (t, q, p), shared
+    by every subset."""
+
+    coords: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    mask: torch.Tensor
+    coords_test: torch.Tensor
+    x_test: torch.Tensor
+
+
+class BuildConsts(NamedTuple):
+    """Geometry the correlation builds consume: the distance matrices
+    on the unfused path (dist (K, m, m), dist_cross (K, m, t),
+    dist_test (t, t)), the raw coordinates on the fused path."""
+
+    dist: Optional[torch.Tensor]
+    dist_cross: Optional[torch.Tensor]
+    dist_test: Optional[torch.Tensor]
+    coords: Optional[torch.Tensor]
+    coords_test: Optional[torch.Tensor]
+
+
+class SamplerState(NamedTuple):
+    """The carried chain state, K stacked. The JAX twin's PRNG ``key``
+    has no counterpart: randomness comes from the noise source."""
+
+    beta: torch.Tensor  # (K, q, p)
+    u: torch.Tensor  # (K, m, q) component GPs
+    a: torch.Tensor  # (K, q, q) lower-triangular coregionalization
+    phi: torch.Tensor  # (K, q)
+    chol_r: torch.Tensor  # (K, q, m, m) Cholesky of R~(phi)
+    phi_accept: torch.Tensor  # (K, q) running acceptance count
+    phi_log_step: torch.Tensor  # (K, q) log MH step
+
+
+class SubsetResult(NamedTuple):
+    """Per-subset compressed posteriors and diagnostics, K stacked."""
+
+    param_grid: torch.Tensor  # (K, n_quantiles, n_params)
+    w_grid: torch.Tensor  # (K, n_quantiles, t*q)
+    phi_accept_rate: torch.Tensor  # (K, q)
+    param_samples: torch.Tensor  # (K, n_kept, n_params)
+    w_samples: torch.Tensor  # (K, n_kept, t*q)
+    param_ess: torch.Tensor  # (K, n_params)
+    param_rhat: torch.Tensor  # (K, n_params)
+    w_ess: torch.Tensor  # (K, t*q)
+    w_rhat: torch.Tensor  # (K, t*q)
+
+
+class SweepShapes(NamedTuple):
+    k: int
+    m: int
+    q: int
+    p: int
+    t: int
+    weight: int = 1
+
+
+class SweepNoise(NamedTuple):
+    """The random numbers of one Gibbs sweep, K stacked — one field per
+    subkey of the JAX sweep (probit_gp.py:700-702).
+
+    kz: uniforms on [_TINY, 1), (K, m, q) (a leading (weight,) trial
+        axis after K when weight > 1) — the Albert–Chib latents;
+    kb: normals (K, q, p) — the beta draw;
+    kprop: normals (K, q) — the phi proposal;
+    kphi: uniforms on [1e-12, 1), (K, q) — the phi accept test;
+    ku_prior, ku_noise: normals (K, q, m) — the Matheron u-draw;
+    ka: normals (K, q, q), row l using its first l+1 entries — the A rows;
+    ka_u: uniforms on [1e-12, 1), (K,) — the inverse-Wishart accept test;
+    kpred: normals (K, q, t) — the kriging draw (collecting sweeps only,
+        else None)."""
+
+    kz: torch.Tensor
+    kb: torch.Tensor
+    kprop: torch.Tensor
+    kphi: torch.Tensor
+    ku_prior: torch.Tensor
+    ku_noise: torch.Tensor
+    ka: torch.Tensor
+    ka_u: torch.Tensor
+    kpred: Optional[torch.Tensor]
+
+
+# a noise source: (sweep index, collecting?) -> that sweep's SweepNoise
+NoiseSource = Callable[[int, bool], SweepNoise]
+
+
+def _uniform(u01: torch.Tensor, minval: float) -> torch.Tensor:
+    """[0, 1) uniforms mapped to [minval, 1), as jax.random.uniform."""
+    return torch.clamp(u01 * (1.0 - minval) + minval, min=minval)
+
+
+def draw_sweep_noise(
+    generator: torch.Generator,
+    shapes: SweepShapes,
+    *,
+    collect: bool,
+    dtype=torch.float32,
+    device=None,
+) -> SweepNoise:
+    """One subset's sweep noise (no K axis) from ``generator``: one
+    uniform and one normal draw, sliced into the fields."""
+    m, q, p, t, w = shapes.m, shapes.q, shapes.p, shapes.t, shapes.weight
+    z_shape = (m, q) if w == 1 else (w, m, q)
+    n_z = math.prod(z_shape)
+    uni = torch.rand(
+        (n_z + q + 1,), generator=generator, dtype=dtype, device=device
+    )
+    sizes = [q * p, q, q * m, q * m, q * q] + ([q * t] if collect else [])
+    nor = torch.randn(
+        (sum(sizes),), generator=generator, dtype=dtype, device=device
+    )
+    kb, kprop, ku_p, ku_n, ka, *kpred = torch.split(nor, sizes)
+    return SweepNoise(
+        kz=_uniform(uni[:n_z], _TINY).reshape(z_shape),
+        kb=kb.reshape(q, p),
+        kprop=kprop,
+        kphi=_uniform(uni[n_z : n_z + q], 1e-12),
+        ku_prior=ku_p.reshape(q, m),
+        ku_noise=ku_n.reshape(q, m),
+        ka=ka.reshape(q, q),
+        ka_u=_uniform(uni[n_z + q], 1e-12),
+        kpred=kpred[0].reshape(q, t) if collect else None,
+    )
+
+
+def stack_noise(per_subset: Sequence[SweepNoise]) -> SweepNoise:
+    """K per-subset SweepNoise tuples -> one with a leading K axis."""
+    return SweepNoise(*(
+        None if f[0] is None else torch.stack(f)
+        for f in zip(*per_subset)
+    ))
+
+
+def subset_generators(seed: int, k: int, device) -> List[torch.Generator]:
+    """One generator per subset, seeded from ``seed`` by numpy's
+    SeedSequence (independent streams; twin of the per-subset key split
+    of parallel/executor.subset_chain_keys)."""
+    gens = []
+    for child in np.random.SeedSequence(seed).spawn(k):
+        g = torch.Generator(device=device)
+        g.manual_seed(int(child.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+        gens.append(g)
+    return gens
+
+
+class GeneratorNoise:
+    """The default noise source: each subset draws its sweep noise from
+    its own generator."""
+
+    def __init__(self, generators: Sequence[torch.Generator], shapes: SweepShapes,
+                 *, dtype=torch.float32, device=None):
+        self.generators = list(generators)
+        self.shapes = shapes
+        self.dtype = dtype
+        self.device = device
+
+    def __call__(self, it: int, collect: bool) -> SweepNoise:
+        return stack_noise([
+            draw_sweep_noise(g, self.shapes, collect=collect,
+                             dtype=self.dtype, device=self.device)
+            for g in self.generators
+        ])
+
+
+def n_params(q: int, p: int) -> int:
+    """beta (q*p) + lower-tri of K = A A^T (q(q+1)/2) + phi (q)."""
+    return q * p + q * (q + 1) // 2 + q
+
+
+def _pad_identity(r: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """R~ = M R M + (I - M) per subset: r is (K, ..., m, m), mask (K, m)."""
+    mm = mask[:, :, None] * mask[:, None, :]
+    mm = mm.reshape((mm.shape[0],) + (1,) * (r.dim() - 3) + mm.shape[1:])
+    eye = torch.eye(mask.shape[-1], dtype=r.dtype, device=r.device)
+    return mm * r + (1.0 - mm) * eye
+
+
+def _f32(x) -> float:
+    """A Python float holding the float32 rounding of ``x``."""
+    return float(np.float32(x))
+
+
+class SpatialGPSampler:
+    """The K-batched subset sampler (probit link, dense engine,
+    conditional phi MH)."""
+
+    def __init__(self, config: SMKConfig, *, weight: int = 1):
+        check_ported(config)
+        self.config = config
+        self.weight = int(weight)
+        self._fused = config.fused_build == "pallas"
+
+    # ------------------------------------------------------------------
+    # Correlation builds — the one dispatch seam between the sampler and
+    # its (m, m) builds (twin of probit_gp.py:367-549). phis carry a
+    # leading K axis.
+    # ------------------------------------------------------------------
+    def _corr(self, dist, phi):
+        return correlation(dist, phi, self.config.cov_model)
+
+    def _masked_corr_stack(self, consts, phis, mask):
+        """(K, s, m, m) masked correlation stack for (K, s) phis."""
+        if self._fused:
+            return fused_masked_correlation_stack(
+                consts.coords, phis, mask, self.config.cov_model
+            )
+        return _pad_identity(
+            self._corr(consts.dist[:, None], phis[..., None, None]), mask
+        )
+
+    def _masked_corr_one(self, consts, phi, mask):
+        """(K, m, m) masked correlation at one phi per subset."""
+        if self._fused:
+            return fused_masked_correlation_stack(
+                consts.coords, phi[:, None], mask, self.config.cov_model
+            )[:, 0]
+        return _pad_identity(self._corr(consts.dist, phi[:, None, None]), mask)
+
+    def _shifted_chol_one(self, consts, phi, mask, shift):
+        """(chol_s, s_mat, r) for S = R~(phi) + diag(shift), one phi per
+        subset. Fused: s_mat is the kernel's shifted build (handed back
+        for the u-draw's back-multiply) and r is None; off: r is R~ and
+        s_mat None."""
+        if self._fused:
+            s_mat = fused_masked_shifted_build(
+                consts.coords, phi[:, None], mask, shift,
+                self.config.cov_model,
+            )[:, 0]
+            return cholesky(s_mat), s_mat, None
+        r = self._masked_corr_one(consts, phi, mask)
+        return shifted_cholesky(r, shift), None, r
+
+    def _chol_r(self, r):
+        """Factor the (stacked) correlation under the scale-aware jitter.
+        ``r`` is always a fresh build that nothing else reads, so the
+        jitter goes onto its diagonal in place rather than into a copy
+        (the same values as the twin's jittered_cholesky)."""
+        r.diagonal(dim1=-2, dim2=-1).add_(self.config.effective_jitter(r.shape[-1]))
+        return cholesky(r)
+
+    def _cross_test_corr(self, consts, phi, mask):
+        """(r_cross (K, q, m, t) with pad rows zeroed, r_test
+        (K, q, t, t)) for the kriging draw."""
+        model = self.config.cov_model
+        if self._fused:
+            r_cross = mask[:, None, :, None] * fused_cross_correlation(
+                consts.coords, consts.coords_test, phi, model
+            )
+            r_test = fused_correlation_stack(consts.coords_test, phi, model)
+        else:
+            r_cross = mask[:, None, :, None] * self._corr(
+                consts.dist_cross[:, None], phi[..., None, None]
+            )
+            r_test = self._corr(consts.dist_test, phi[..., None, None])
+        return r_cross, r_test
+
+    def _krige_ops(self, chol_r, phi, mask, consts):
+        """(krige_w, krige_chol): W = R~^{-1} R_c and
+        chol(R_t - R_c^T W + jitter) for the carried factor."""
+        r_cross, r_test = self._cross_test_corr(consts, phi, mask)
+        jit_eff = self.config.effective_jitter(chol_r.shape[-1])
+        v = tri_solve(chol_r, r_cross)
+        w = tri_solve(chol_r, v, trans=True)
+        cond_cov = r_test - r_cross.mT @ w
+        return w, jittered_cholesky(cond_cov, jit_eff)
+
+    def _proposal_operators(self, chol_prop, phi_prop, mask, consts, cache):
+        """Proposal-side values of every populated FactorCache field."""
+        kw_p = kc_p = None
+        if cache.krige_w is not None:
+            kw_p, kc_p = self._krige_ops(chol_prop, phi_prop, mask, consts)
+        return FactorCache(
+            r_mv=None, nys_z=None, chol_inv=None, krige_w=kw_p,
+            krige_chol=kc_p, n_chol=cache.n_chol,
+            n_chol_calls=cache.n_chol_calls,
+        )
+
+    def _solve_cache(self, consts, mask, state, *, predict: bool = False) -> FactorCache:
+        """The cache for the current (phi, chol_r); ``predict`` adds the
+        kriging operators (collecting sweeps only)."""
+        krige_w = krige_chol = None
+        if predict and self.config.krige_cache:
+            krige_w, krige_chol = self._krige_ops(
+                state.chol_r, state.phi, mask, consts
+            )
+        return FactorCache(
+            r_mv=None, nys_z=None, chol_inv=None, krige_w=krige_w,
+            krige_chol=krige_chol, n_chol=empty_counter(),
+            n_chol_calls=empty_counter(),
+        )
+
+    # ------------------------------------------------------------------
+    def init_state(
+        self, data: SubsetData, beta_init: Optional[torch.Tensor] = None
+    ) -> SamplerState:
+        """Starting values mirroring the reference (R:56-60): beta from
+        the warm start, phi = 3/0.5, A = I, u = 0."""
+        k, m, q, p = data.x.shape
+        dtype, dev = data.x.dtype, data.x.device
+        if beta_init is None:
+            beta_init = torch.zeros((q, p), dtype=dtype, device=dev)
+        lo, hi = self.config.priors.phi_min, self.config.priors.phi_max
+        phi0 = torch.full((k, q), 3.0 / 0.5, dtype=dtype, device=dev)
+        phi0 = torch.clamp(phi0, lo + 1e-3 * (hi - lo), hi - 1e-3 * (hi - lo))
+        if self._fused:
+            r0 = fused_masked_correlation_stack(
+                data.coords, phi0, data.mask, self.config.cov_model
+            )
+        else:
+            dist = pairwise_distance(data.coords)
+            r0 = _pad_identity(
+                self._corr(dist[:, None], phi0[..., None, None]), data.mask
+            )
+        log_step = _f32(np.log(np.float32(self.config.phi_step)))
+        return SamplerState(
+            beta=beta_init.to(dtype).expand(k, q, p).clone(),
+            u=torch.zeros((k, m, q), dtype=dtype, device=dev),
+            a=torch.eye(q, dtype=dtype, device=dev).expand(k, q, q).clone(),
+            phi=phi0,
+            chol_r=self._chol_r(r0),
+            phi_accept=torch.zeros((k, q), dtype=dtype, device=dev),
+            phi_log_step=torch.full((k, q), log_step, dtype=dtype, device=dev),
+        )
+
+    # ------------------------------------------------------------------
+    def _gibbs_step(
+        self,
+        data: SubsetData,
+        consts: BuildConsts,
+        state: SamplerState,
+        cache: FactorCache,
+        it: int,
+        noise: SweepNoise,
+        *,
+        collect: bool,
+    ) -> Tuple[SamplerState, FactorCache, Optional[tuple]]:
+        """One Gibbs sweep of every subset. Returns (state, cache,
+        (params (K, n_params), w_star (K, t*q)) or None)."""
+        cfg = self.config
+        k, m, q, p = data.x.shape
+        dtype, dev = data.x.dtype, data.x.device
+        mask = data.mask
+        jit_eff = cfg.effective_jitter(m)
+        beta, u, a, phi = state.beta, state.u, state.a, state.phi
+
+        # --- 1. Albert–Chib augmentation: z ~ N(eta + w, 1/omega) -----
+        eta_fixed = torch.einsum("kmqp,kqp->kmq", data.x, beta)
+        w = torch.einsum("kmj,klj->kml", u, a)  # u @ a^T
+        mu = eta_fixed + w
+        # binomial trials: the noise carries its trial axis after K
+        kz = noise.kz if self.weight == 1 else noise.kz.movedim(1, 0)
+        zbar = sample_albert_chib_latent(kz, mu, data.y, self.weight)
+        womega = float(self.weight) * mask[..., None].expand(k, m, q)
+        ts = 1.0 / cfg.n_subsets if cfg.priors.temper == "power" else 1.0
+
+        # --- 2. beta | z, w (conjugate, near-flat normal prior) ------
+        resid_b = zbar - w
+        prec_b = torch.einsum("kmqp,kmq,kmqr->kqpr", data.x, womega, data.x)
+        chol_pb = jittered_cholesky(prec_b, ts / cfg.priors.beta_scale ** 2)
+        rhs = torch.einsum("kmqp,kmq->kqp", data.x, womega * resid_b)
+        beta = chol_solve(chol_pb, rhs) + tri_solve(chol_pb, noise.kb, trans=True)
+        eta_fixed = torch.einsum("kmqp,kqp->kmq", data.x, beta)
+
+        # --- 3. phi: batched random-walk MH on p(phi_j | u_j) ---------
+        lo, hi = cfg.priors.phi_min, cfg.priors.phi_max
+
+        def u_loglik(chol):
+            alpha = tri_solve(chol, u.transpose(1, 2))  # (K, q, m)
+            return -0.5 * torch.sum(alpha * alpha, dim=-1) - 0.5 * chol_logdet(chol)
+
+        is_update = it % cfg.phi_update_every == 0
+        if is_update:
+            step = torch.exp(state.phi_log_step)
+            t_cur = torch.log((phi - lo) / (hi - phi))
+            t_prop = t_cur + step * noise.kprop
+            sig_cur = torch.sigmoid(t_cur)
+            sig_prop = torch.sigmoid(t_prop)
+            phi_prop = lo + (hi - lo) * sig_prop
+            log_jac_cur = torch.log(sig_cur * (1.0 - sig_cur))
+            log_jac_prop = torch.log(sig_prop * (1.0 - sig_prop))
+            chol_prop = self._chol_r(self._masked_corr_stack(consts, phi_prop, mask))
+            cache = tick(cache, q, n_calls=1)
+            log_ratio = (
+                u_loglik(chol_prop) + log_jac_prop
+                - u_loglik(state.chol_r) - log_jac_cur
+            )
+            accept = torch.log(noise.kphi) < log_ratio
+            # the JAX sampler gates this refresh on any(accept) with a
+            # lax.cond, which its vmapped K axis lowers to a select: the
+            # select is what runs here, with no host sync
+            if cache.krige_w is not None:
+                prop_ops = self._proposal_operators(
+                    chol_prop, phi_prop, mask, consts, cache
+                )
+                cache = select_accept(prop_ops, cache, accept)
+            phi = torch.where(accept, phi_prop, phi)
+            chol_r = torch.where(accept[..., None, None], chol_prop, state.chol_r)
+            del chol_prop
+            accepted = accept.to(dtype)
+        else:
+            chol_r = state.chol_r
+            accepted = torch.zeros((k, q), dtype=dtype, device=dev)
+
+        phi_accept = state.phi_accept + accepted
+        phi_log_step = state.phi_log_step
+        if cfg.phi_adapt and not collect:
+            # Robbins–Monro toward the target acceptance, burn-in only;
+            # the gain clock counts phi updates (float32, as the twin)
+            f32 = np.float32
+            gain = f32(cfg.phi_adapt_rate) * (
+                f32(1.0) + f32(it) / f32(cfg.phi_update_every)
+            ) ** f32(-0.6)
+            scale = _f32(gain * f32(1.0 if is_update else 0.0))
+            phi_log_step = torch.clamp(
+                phi_log_step + scale * (accepted - cfg.phi_target_accept),
+                _f32(np.log(f32(1e-3))), _f32(np.log(f32(50.0))),
+            )
+
+        # --- 4. U | z, beta, A, phi — per-component Matheron draw -----
+        e0 = zbar - eta_fixed
+        big = cfg.mask_noise_var
+        u = u.clone()
+        for j in range(q):
+            a_j = a[:, :, j]  # (K, q)
+            w_full = torch.einsum("kmi,kli->kml", u, a)
+            partial_resid = e0 - w_full + u[:, :, j, None] * a_j[:, None, :]
+            c_vec = torch.einsum("kml,kl->km", womega, a_j * a_j)
+            b_vec = torch.einsum("kml,kl->km", womega * partial_resid, a_j)
+            c_safe = torch.clamp(c_vec, min=_f32(1.0 / np.float32(big)))
+            ytilde = b_vec / c_safe
+            d_vec = torch.clamp(1.0 / c_safe, max=big)
+            u_star = (chol_r[:, j] @ noise.ku_prior[:, j, :, None])[..., 0]
+            eta_star = torch.sqrt(d_vec) * noise.ku_noise[:, j]
+            rhs_vec = ytilde - u_star - eta_star
+            if self._fused:
+                # one fused shifted build serves the factor and the
+                # back-multiply: R~ s + jit s = (S - diag(d)) s
+                chol_s, s_mat, _ = self._shifted_chol_one(
+                    consts, phi[:, j], mask, jit_eff + d_vec
+                )
+                cache = tick(cache, 1)
+                s = chol_solve(chol_s, rhs_vec)
+                u[:, :, j] = u_star + (s_mat @ s[..., None])[..., 0] - d_vec * s
+            else:
+                r0 = self._masked_corr_one(consts, phi[:, j], mask)
+                chol_s = shifted_cholesky(r0, jit_eff + d_vec)
+                cache = tick(cache, 1)
+                s = chol_solve(chol_s, rhs_vec)
+                u[:, :, j] = u_star + (r0 @ s[..., None])[..., 0] + jit_eff * s
+            del chol_s
+
+        # --- 5. A | z, beta, U (lower-triangular rows) ----------------
+        prior_prec = ts / _f32(cfg.priors.a_scale) ** 2
+        a_new = torch.zeros_like(a)
+        for l in range(q):
+            u_sub = u[:, :, : l + 1]
+            wom_l = womega[:, :, l]
+            eye_l = torch.eye(l + 1, dtype=dtype, device=dev)
+            prec = u_sub.mT @ (wom_l[..., None] * u_sub) + prior_prec * eye_l
+            chol_p = jittered_cholesky(prec, cfg.jitter)
+            mean_l = chol_solve(
+                chol_p, torch.einsum("kmi,km->ki", u_sub, wom_l * e0[:, :, l])
+            )
+            row = mean_l + tri_solve(chol_p, noise.ka[:, l, : l + 1], trans=True)
+            a_new[:, l, : l + 1] = row
+
+        if cfg.priors.a_prior == "invwishart":
+            # independence MH with the conjugate normal draw as proposal:
+            # the likelihood cancels, leaving prior densities (R:64)
+            nu = cfg.priors.iw_df if cfg.priors.iw_df > 0 else q
+            s_iw = cfg.priors.iw_scale
+            eye_q = torch.eye(q, dtype=dtype, device=dev)
+            tril_r, tril_c = torch.tril_indices(q, q, device=dev)
+            jac_w = (q - torch.arange(q, device=dev)).to(dtype)
+
+            def log_prior_ratio(a_mat):
+                diag = torch.abs(torch.diagonal(a_mat, dim1=-2, dim2=-1)) + 1e-30
+                jac = torch.sum(jac_w * torch.log(diag), dim=-1)
+                log_det_k = 2.0 * torch.sum(torch.log(diag), dim=-1)
+                a_inv = tri_solve(a_mat, eye_q.expand_as(a_mat))
+                tr_psi_kinv = s_iw * torch.sum(a_inv * a_inv, dim=(-2, -1))
+                lp_iw = -0.5 * (nu + q + 1) * log_det_k - 0.5 * tr_psi_kinv
+                lp_n = -0.5 * prior_prec * torch.sum(
+                    a_mat[:, tril_r, tril_c] ** 2, dim=-1
+                )
+                return ts * lp_iw + jac - lp_n
+
+            log_alpha = log_prior_ratio(a_new) - log_prior_ratio(a)
+            acc_a = torch.log(noise.ka_u) < log_alpha
+            a = torch.where(acc_a[:, None, None], a_new, a)
+        else:
+            a = a_new
+
+        new_state = SamplerState(
+            beta=beta, u=u, a=a, phi=phi, chol_r=chol_r,
+            phi_accept=phi_accept, phi_log_step=phi_log_step,
+        )
+        if not collect:
+            return new_state, cache, None
+
+        # --- 6. predictive kriging draw (spPredict equivalent) --------
+        if cache.krige_w is not None:
+            cond_mean = torch.einsum("kqmt,kmq->kqt", cache.krige_w, u)
+            u_star_test = cond_mean + torch.einsum(
+                "kqts,kqs->kqt", cache.krige_chol, noise.kpred
+            )
+        else:
+            r_cross, r_test = self._cross_test_corr(consts, phi, mask)
+            v = tri_solve(chol_r, r_cross)  # (K, q, m, t)
+            alpha = tri_solve(chol_r, u.transpose(1, 2))  # (K, q, m)
+            cond_mean = torch.einsum("kqmt,kqm->kqt", v, alpha)
+            chol_c = jittered_cholesky(r_test - v.mT @ v, jit_eff)
+            u_star_test = cond_mean + (chol_c @ noise.kpred[..., None])[..., 0]
+        # (t, q) rows per subset, response-fastest: (u*_test^T A^T)
+        w_star = torch.einsum("kqt,klq->ktl", u_star_test, a).reshape(k, -1)
+        k_mat = a @ a.mT
+        tril_r, tril_c = torch.tril_indices(q, q, device=dev)
+        params = torch.cat(
+            [beta.reshape(k, -1), k_mat[:, tril_r, tril_c], phi], dim=-1
+        )
+        return new_state, cache, (params, w_star)
+
+    # ------------------------------------------------------------------
+    def _consts(self, data: SubsetData) -> BuildConsts:
+        """Distance matrices on the unfused path; the raw coordinates on
+        the fused path (no (m, m) distance matrix exists there)."""
+        if self._fused:
+            return BuildConsts(None, None, None, data.coords, data.coords_test)
+        return BuildConsts(
+            pairwise_distance(data.coords),
+            cross_distance(data.coords, data.coords_test[None]),
+            pairwise_distance(data.coords_test),
+            None,
+            None,
+        )
+
+    def run(
+        self,
+        data: SubsetData,
+        init_state: SamplerState,
+        noise: Optional[NoiseSource] = None,
+        *,
+        seed: int = 0,
+    ) -> SubsetResult:
+        """Burn-in sweeps, collecting sweeps, compression. ``noise``
+        defaults to per-subset generators seeded from ``seed``."""
+        if noise is None:
+            k, m, q, p = data.x.shape
+            shapes = SweepShapes(k, m, q, p, data.coords_test.shape[0], self.weight)
+            noise = GeneratorNoise(
+                subset_generators(seed, k, data.x.device), shapes,
+                dtype=data.x.dtype, device=data.x.device,
+            )
+        cfg = self.config
+        state = self._burn_in(data, init_state, noise)
+        state, (param_draws, w_draws) = self._sample_chunk(
+            data, state, cfg.n_burn_in, cfg.n_kept, noise
+        )
+        return self.finalize(state, param_draws, w_draws)
+
+    def _burn_in(self, data, state, noise: NoiseSource) -> SamplerState:
+        consts = self._consts(data)
+        cache = self._solve_cache(consts, data.mask, state)
+        for it in range(self.config.n_burn_in):
+            state, cache, _ = self._gibbs_step(
+                data, consts, state, cache, it, noise(it, False), collect=False
+            )
+        return state._replace(phi_accept=torch.zeros_like(state.phi_accept))
+
+    def _sample_chunk(self, data, state, start_it: int, n_iters: int,
+                      noise: NoiseSource):
+        """Collecting sweeps [start_it, start_it + n_iters); returns
+        (state, (param_draws (K, n, n_params), w_draws (K, n, t*q)))."""
+        k, m, q, p = data.x.shape
+        t = data.coords_test.shape[0]
+        consts = self._consts(data)
+        cache = self._solve_cache(consts, data.mask, state, predict=True)
+        opts = dict(dtype=data.x.dtype, device=data.x.device)
+        param_draws = torch.empty((k, n_iters, n_params(q, p)), **opts)
+        w_draws = torch.empty((k, n_iters, t * q), **opts)
+        for i in range(n_iters):
+            it = start_it + i
+            state, cache, (params, w_star) = self._gibbs_step(
+                data, consts, state, cache, it, noise(it, True), collect=True
+            )
+            param_draws[:, i] = params
+            w_draws[:, i] = w_star
+        return state, (param_draws, w_draws)
+
+    def finalize(self, state, param_draws, w_draws) -> SubsetResult:
+        """Quantile compression and diagnostics over the kept draws."""
+        cfg = self.config
+        n_phi_updates = sum(
+            1 for i in range(cfg.n_burn_in, cfg.n_samples)
+            if i % cfg.phi_update_every == 0
+        )
+        return SubsetResult(
+            param_grid=quantile_grid(param_draws, cfg.n_quantiles, dim=1),
+            w_grid=quantile_grid(w_draws, cfg.n_quantiles, dim=1),
+            phi_accept_rate=state.phi_accept / float(max(n_phi_updates, 1)),
+            param_samples=param_draws,
+            w_samples=w_draws,
+            param_ess=effective_sample_size(param_draws, dim=1),
+            param_rhat=rhat(param_draws[:, None]),
+            w_ess=effective_sample_size(w_draws, dim=1),
+            w_rhat=rhat(w_draws[:, None]),
+        )

@@ -1,0 +1,85 @@
+"""Cholesky factorization and solves with jitter — twin of
+``smk_tpu/ops/chol.py`` (the XLA-native factorizations, here through
+``torch.linalg``: cuSOLVER/cuBLAS on the card).
+
+The one behaviour the port must add: ``lax.linalg.cholesky`` returns an
+all-NaN factor for a matrix that is not positive definite, and the
+sampler's accept logic relies on that (a NaN log-ratio rejects;
+:func:`finite_factor` guards). ``torch.linalg.cholesky`` raises
+instead, and ``cholesky_ex`` returns a finite partial factor with
+``info > 0``, so every factor here is NaN-filled where ``info != 0`` —
+with no host sync.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cholesky(mat: torch.Tensor) -> torch.Tensor:
+    """Lower factor of ``mat`` (batched); where ``mat`` is not PD, its
+    lower triangle is all NaN and its upper triangle zero — what the
+    twin's ``jnp.tril(lax.linalg.cholesky(mat))`` gives. The fill is
+    one in-place select over the factor, with no host sync."""
+    chol, info = torch.linalg.cholesky_ex(mat)
+    m = mat.shape[-1]
+    nan_lower = torch.full((m, m), float("nan"), dtype=chol.dtype,
+                           device=chol.device).tril_()
+    return torch.where((info != 0)[..., None, None], nan_lower, chol, out=chol)
+
+
+def _add_diag(mat: torch.Tensor, diag) -> torch.Tensor:
+    """``mat + diag(diag)`` as a new tensor (diag: scalar or (..., m))."""
+    out = mat.clone()
+    out.diagonal(dim1=-2, dim2=-1).add_(diag)
+    return out
+
+
+def jittered_cholesky(mat: torch.Tensor, jitter: float = 1e-5) -> torch.Tensor:
+    """Lower Cholesky factor of ``mat + jitter * I`` over (..., m, m)."""
+    return cholesky(_add_diag(mat, jitter))
+
+
+def shifted_cholesky(r: torch.Tensor, shift) -> torch.Tensor:
+    """Lower Cholesky factor of ``r + diag(shift)``; shift is a scalar or
+    a (..., m) diagonal."""
+    shift = torch.zeros(r.shape[:-1], dtype=r.dtype, device=r.device) + shift
+    return cholesky(_add_diag(r, shift))
+
+
+def batched_shifted_cholesky(r_stack: torch.Tensor, shift) -> torch.Tensor:
+    """Factor a (..., s, m, m) stack sharing one diagonal shift (scalar
+    or (..., m), broadcast across the stack axis)."""
+    if torch.is_tensor(shift) and shift.dim() >= 1:
+        shift = shift[..., None, :]
+    return shifted_cholesky(r_stack, shift)
+
+
+def finite_factor(chol_l: torch.Tensor) -> torch.Tensor:
+    """Per batch element: every diagonal entry of the factor finite."""
+    diag = torch.diagonal(chol_l, dim1=-2, dim2=-1)
+    return torch.all(torch.isfinite(diag), dim=-1)
+
+
+def tri_solve(chol_l: torch.Tensor, b: torch.Tensor, *, trans: bool = False) -> torch.Tensor:
+    """Solve L x = b (or L^T x = b when ``trans``) for lower-triangular
+    L (..., m, m); b is (..., m) or (..., m, n)."""
+    vec = b.dim() == chol_l.dim() - 1
+    if vec:
+        b = b[..., None]
+    if trans:
+        x = torch.linalg.solve_triangular(chol_l.mT, b, upper=True)
+    else:
+        x = torch.linalg.solve_triangular(chol_l, b, upper=False)
+    return x[..., 0] if vec else x
+
+
+def chol_solve(chol_l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) x = b given the lower factor L."""
+    return tri_solve(chol_l, tri_solve(chol_l, b), trans=True)
+
+
+def chol_logdet(chol_l: torch.Tensor) -> torch.Tensor:
+    """log det(L L^T) = 2 * sum(log diag(L)); batched over leading dims."""
+    diag = torch.diagonal(chol_l, dim1=-2, dim2=-1)
+    return 2.0 * torch.sum(torch.log(diag), dim=-1)

@@ -1,0 +1,286 @@
+"""Fused correlation build — the port of ``smk_tpu/ops/pallas_build.py``.
+
+One hand-written CUDA kernel (``smk_torch/csrc/fused_corr.cu``)
+computes what the TPU kernel ``_corr_kernel`` computes: per pair, the
+direct squared coordinate differences summed over d, the sqrt, an
+optional exact-zero diagonal, ``CORRELATION_FNS[model]``, the optional
+pad-row identity R~ = M R M + (I - M) and an optional + diag(shift) —
+emitted straight into a contiguous fp32 (K, s, ma, mb) tensor, with no
+(m, m) distance matrix in device memory.
+
+Five entry points wrap it, as in the twin: :func:`fused_correlation`,
+:func:`fused_correlation_stack`, :func:`fused_masked_correlation_stack`,
+:func:`fused_cross_correlation` and :func:`fused_masked_shifted_build`.
+Each accepts the JAX shapes ((m, d) coords, (s,) phis -> (s, m, m)) and
+an optional leading K axis on coords, phis, mask and shift (coords
+without it are shared across K).
+
+Dispatch is by the device of the tensors: on a CUDA tensor the wrapper
+launches the kernel or raises (there is no fall-back); on a CPU tensor
+it runs the plain PyTorch version, :func:`plain_build`, which is also
+what ``chip_smoke.py`` holds the kernel against on the card.
+``LAUNCHES`` counts kernel launches per entry point and ``PLAIN_CALLS``
+counts the plain version's calls, so a run can show which path it took.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from smk_torch.ops import cuda_build
+from smk_torch.ops.kernels import CORRELATION_FNS
+
+ENTRY_POINTS = (
+    "fused_correlation",
+    "fused_correlation_stack",
+    "fused_masked_correlation_stack",
+    "fused_cross_correlation",
+    "fused_masked_shifted_build",
+)
+LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
+PLAIN_CALLS: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
+
+# output tile edge of the CUDA kernel (csrc/fused_corr.cu TILE)
+TILE = 32
+_MAX_D = 8
+_MODEL_IDS = {"exponential": 0, "matern32": 1, "matern52": 2}
+
+
+def reset_counts() -> None:
+    """Set every launch and plain-call count to 0."""
+    for name in ENTRY_POINTS:
+        LAUNCHES[name] = 0
+        PLAIN_CALLS[name] = 0
+
+
+def _kernel():
+    lib = cuda_build.load("fused_corr")
+    fn = lib.smk_fused_corr
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def plain_build(
+    coords_a: torch.Tensor,
+    coords_b: torch.Tensor,
+    phis: torch.Tensor,
+    model: str,
+    *,
+    mask: Optional[torch.Tensor] = None,
+    shift: Optional[torch.Tensor] = None,
+    zero_diag: bool = False,
+) -> torch.Tensor:
+    """The kernel's function in PyTorch ops, on batched operands:
+    coords_a (K, ma, d); coords_b (K or 1, mb, d); phis (K, s);
+    mask/shift (K, ma). Returns (K, s, ma, mb). Same per-pair arithmetic
+    as the kernel and as the TPU kernel (differences summed in d order,
+    no norm trick)."""
+    ma, d = coords_a.shape[-2:]
+    mb = coords_b.shape[-2]
+    sq = torch.zeros(
+        (coords_a.shape[0], ma, mb), dtype=coords_a.dtype,
+        device=coords_a.device,
+    )
+    for c in range(d):
+        diff = coords_a[..., :, None, c] - coords_b[..., None, :, c]
+        sq = sq + diff * diff
+    dist = torch.sqrt(torch.clamp(sq, min=0.0))
+    need_eye = mask is not None or shift is not None or zero_diag
+    if need_eye:
+        eye = torch.eye(ma, mb, dtype=torch.bool, device=dist.device)
+    if zero_diag:
+        dist = torch.where(eye, torch.zeros_like(dist), dist)
+    rho = CORRELATION_FNS[model](dist[:, None], phis[:, :, None, None])
+    if mask is not None:
+        mm = mask[:, None, :, None] * mask[:, None, None, :]
+        rho = mm * rho + (1.0 - mm) * eye.to(rho.dtype)
+    if shift is not None:
+        rho = rho + torch.where(
+            eye, shift[:, None, :, None], torch.zeros_like(rho)
+        )
+    return rho
+
+
+def _launch(ca, cb, phis, mask, shift, model, zero_diag, out):
+    """One kernel launch on the current stream; raises on a launch
+    error (the C function returns cudaGetLastError())."""
+    k, s, ma, mb = out.shape
+    d = ca.shape[-1]
+    err = _kernel()(
+        ca.data_ptr(), cb.data_ptr(), phis.data_ptr(),
+        0 if mask is None else mask.data_ptr(),
+        0 if shift is None else shift.data_ptr(),
+        out.data_ptr(), k, s, ma, mb, d,
+        ca.stride(0), cb.stride(0),
+        _MODEL_IDS[model], int(mask is not None), int(shift is not None),
+        int(zero_diag),
+        torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_corr kernel launch failed: CUDA error {err} "
+            f"(K={k}, s={s}, ma={ma}, mb={mb}, d={d})"
+        )
+
+
+def _fused_build(
+    entry: str,
+    coords_a: torch.Tensor,
+    coords_b: torch.Tensor,
+    phis: torch.Tensor,
+    model: str,
+    *,
+    mask: Optional[torch.Tensor] = None,
+    shift=None,
+    zero_diag: bool = False,
+) -> torch.Tensor:
+    """Shared body of the five entry points (twin of
+    ``pallas_build._fused_build``)."""
+    if model not in CORRELATION_FNS:
+        raise ValueError(
+            f"unknown cov model {model!r}; expected one of "
+            f"{sorted(CORRELATION_FNS)}"
+        )
+    masked = mask is not None
+    shifted = shift is not None
+    if (masked or shifted) and coords_a is not coords_b:
+        # the in-tile row == col test is the "same point" diagonal only
+        # when both operands are the same coordinate set
+        raise ValueError(
+            "mask/shift require a square same-coordinates build "
+            "(pass the identical coords tensor for both operands)"
+        )
+    batched = coords_a.dim() == 3 or coords_b.dim() == 3 or phis.dim() == 2
+    ca = coords_a if coords_a.dim() == 3 else coords_a[None]
+    cb = coords_b if coords_b.dim() == 3 else coords_b[None]
+    ph = phis if phis.dim() == 2 else phis[None]
+    k = max(ca.shape[0], cb.shape[0], ph.shape[0])
+    ma, d = ca.shape[-2:]
+    mb = cb.shape[-2]
+    dev = ca.device
+    dtype = ca.dtype
+    ph = ph.to(dtype).expand(k, ph.shape[-1])
+    mk = sh = None
+    if masked:
+        mk = mask.to(dtype)
+        mk = (mk if mk.dim() == 2 else mk[None]).expand(k, ma)
+    if shifted:
+        sh = torch.as_tensor(shift, dtype=dtype, device=dev)
+        sh = torch.zeros((k, ma), dtype=dtype, device=dev) + sh
+    if dev.type == "cpu":
+        PLAIN_CALLS[entry] += 1
+        out = plain_build(
+            ca.expand(k, ma, d), cb, ph, model, mask=mk, shift=sh,
+            zero_diag=zero_diag,
+        )
+    else:
+        if dev.type != "cuda":
+            raise ValueError(f"fused build: unsupported device {dev}")
+        tensors = [("coords_a", ca), ("coords_b", cb), ("phis", ph)]
+        if masked:
+            tensors.append(("mask", mk))
+        if shifted:
+            tensors.append(("shift", sh))
+        for name, t in tensors:
+            if t.device != dev:
+                raise ValueError(f"fused build: {name} is on {t.device}, not {dev}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"fused build: {name} must be float32, got {t.dtype}")
+        if not 1 <= d <= _MAX_D or cb.shape[-1] != d:
+            raise ValueError(
+                f"fused build: coordinate dimension must be 1..{_MAX_D} "
+                f"and equal on both operands, got {d} and {cb.shape[-1]}"
+            )
+        # a K-shared operand keeps stride 0 on K (no copy); the (m, d)
+        # block of each k must be contiguous
+        ca = ca.contiguous() if ca.shape[0] == k else ca[:1].contiguous().expand(k, ma, d)
+        cb = cb.contiguous() if cb.shape[0] == k else cb[:1].contiguous().expand(k, mb, d)
+        ph = ph.contiguous()
+        mk = None if mk is None else mk.contiguous()
+        sh = None if sh is None else sh.contiguous()
+        out = torch.empty((k, ph.shape[-1], ma, mb), dtype=dtype, device=dev)
+        if out.numel():
+            _launch(ca, cb, ph, mk, sh, model, zero_diag, out)
+            LAUNCHES[entry] += 1
+    return out if batched else out[0]
+
+
+def fused_correlation(coords, phi, model: str) -> torch.Tensor:
+    """(m, m) correlation from (m, d) coords and a scalar phi, with an
+    exact-unit diagonal (or (K, m, m) from (K, m, d) coords and (K,)
+    phis)."""
+    phi = torch.as_tensor(phi, dtype=coords.dtype, device=coords.device)
+    phis = phi.reshape(-1, 1) if coords.dim() == 3 else phi.reshape(1)
+    out = _fused_build(
+        "fused_correlation", coords, coords, phis, model, zero_diag=True
+    )
+    return out[:, 0] if coords.dim() == 3 else out[0]
+
+
+def fused_correlation_stack(coords, phis, model: str) -> torch.Tensor:
+    """(s, m, m) correlation stack for an (s,) phi vector (the kriging
+    test build)."""
+    return _fused_build(
+        "fused_correlation_stack", coords, coords, phis, model,
+        zero_diag=True,
+    )
+
+
+def fused_masked_correlation_stack(coords, phis, mask, model: str) -> torch.Tensor:
+    """(s, m, m) stack of R~ = M R(phi_k) M + (I - M) — the masked
+    build of the phi proposal and the initial factor."""
+    return _fused_build(
+        "fused_masked_correlation_stack", coords, coords, phis, model,
+        mask=mask, zero_diag=True,
+    )
+
+
+def fused_cross_correlation(coords_a, coords_b, phis, model: str) -> torch.Tensor:
+    """(s, ma, mb) cross-correlation stack between two coordinate sets
+    (the kriging cross build; no diagonal treatment — mask rows
+    outside)."""
+    return _fused_build(
+        "fused_cross_correlation", coords_a, coords_b, phis, model
+    )
+
+
+def fused_masked_shifted_build(coords, phis, mask, shift, model: str) -> torch.Tensor:
+    """(s, m, m) stack of S = M R(phi_k) M + (I - M) + diag(shift), ready
+    for a plain Cholesky — the u-draw's S build. shift: scalar, (m,) or
+    (K, m), shared across the stack."""
+    return _fused_build(
+        "fused_masked_shifted_build", coords, coords, phis, model,
+        mask=mask, shift=shift, zero_diag=True,
+    )
+
+
+def build_bytes_model(
+    m: int,
+    s: int = 1,
+    *,
+    d: int = 2,
+    tile: int = TILE,
+    fused: bool,
+    dtype_bytes: int = 4,
+) -> dict:
+    """Device-memory traffic of one (s, m, m) correlation-stack build
+    (twin of ``pallas_build.build_bytes_model``, at this kernel's tile).
+
+    Unfused (distance matrix + elementwise correlation): s*m^2 reads of
+    the distance matrix and s*m^2 writes. Fused: each (tile, tile)
+    output tile reads two (tile, d) coordinate blocks plus up to three
+    (tile,) mask/shift rows; writes are s*m^2 either way — the floor
+    both paths share, which bounds the kernel."""
+    nt = -(-m // tile)
+    write = s * m * m * dtype_bytes
+    if not fused:
+        read = s * m * m * dtype_bytes
+    else:
+        read = s * nt * nt * (2 * tile * d + 3 * tile) * dtype_bytes
+    return {"read_bytes": read, "write_bytes": write, "total_bytes": read + write}

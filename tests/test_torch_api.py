@@ -1,0 +1,251 @@
+"""The port's public API (smk_torch/api.py) end to end against
+smk_tpu.api.fit_meta_kriging, draw for draw, plus the port's contracts:
+state conversion from the JAX package, the device rule, unported knobs,
+and that no port module imports JAX or the JAX package.
+
+The whole-fit comparison replays the JAX fit's randomness into the
+port (FitRandomness below): the partition permutation of the fit key's
+first split, each subset's sweep keys, and the resample indices. n =
+200, K = 2, q = 2, p = 2, t = 6, 8 sweeps (6 burn-in, 2 kept), for
+fused_build "off" and "pallas" (interpret-mode Pallas in the JAX fit).
+
+Tolerance: the two fits agree to fp32 roundoff through 8 sweeps,
+quantile compression, combine and resample (observed <= 7e-6); asserted
+at 5e-5 absolute + 5e-5 relative.
+"""
+
+# smklint: test-budget=the two JAX reference fits (6-20 s each on this CPU) run once each in a module fixture; every test compares stored arrays or runs the port at n <= 200
+import ast
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from smk_tpu.api import fit_meta_kriging as jax_fit
+from smk_tpu.config import SMKConfig as JaxConfig
+from smk_tpu.parallel import partition as jpart
+from smk_torch import SMKConfig, api, convert, fit_meta_kriging
+from smk_torch.config import PriorConfig
+from smk_torch.models import probit_gp as tp
+from smk_torch.parallel import partition as tpart
+from test_torch_sampler import JaxSweepReplay
+
+N, Q, P, T, KSUB, NS = 200, 2, 2, 6, 2, 8
+TOL = dict(atol=5e-5, rtol=5e-5)
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+class JaxRandomness:
+    """Every random number of a JAX fit with ``key``, for the port:
+    the key splits as api.py:671, the subset keys as
+    executor.subset_chain_keys, the sweeps as JaxSweepReplay."""
+
+    def __init__(self, key):
+        self.k_part, self.k_fit, self.k_resample = jax.random.split(key, 3)
+
+    def permutation(self, n):
+        return torch.as_tensor(np.array(jax.random.permutation(self.k_part, n)))
+
+    def sweep_noise(self, shapes):
+        return JaxSweepReplay(jax.random.split(self.k_fit, shapes.k), shapes)
+
+    def resample_index(self, n_draws, n_grid):
+        idx = jax.random.randint(self.k_resample, (n_draws,), 0, n_grid)
+        return torch.as_tensor(np.array(idx))
+
+
+def _problem():
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(N, 2)).astype(np.float32)
+    x = np.concatenate(
+        [np.ones((N, Q, 1)), rng.normal(size=(N, Q, P - 1))], -1
+    ).astype(np.float32)
+    y = (rng.uniform(size=(N, Q)) < 0.5).astype(np.float32)
+    coords_test = rng.uniform(size=(T, 2)).astype(np.float32)
+    x_test = np.ones((T, Q, P), np.float32)
+    return y, x, coords, coords_test, x_test
+
+
+@pytest.fixture(scope="module", params=["off", "pallas"])
+def fits(request):
+    data = _problem()
+    kw = dict(n_subsets=KSUB, n_samples=NS, fused_build=request.param)
+    key = jax.random.key(7)
+    ref = jax_fit(key, *data, config=JaxConfig(**kw))
+    port = fit_meta_kriging(
+        *data, config=SMKConfig(**kw), randomness=JaxRandomness(key), device="cpu"
+    )
+    return {"ref": ref, "port": port, "key": key, "data": data, "kw": kw}
+
+
+@pytest.mark.parametrize(
+    "field",
+    ["param_grid", "w_grid", "p_quant", "param_quant", "w_quant", "sample_par",
+     "p_samples", "phi_accept_rate"],
+)
+def test_whole_fit_matches_twin_draw_for_draw(fits, field):
+    got = getattr(fits["port"], field).numpy()
+    want = np.asarray(getattr(fits["ref"], field))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_subset_draws_and_diagnostics_match_twin(fits):
+    got, want = fits["port"].subset_results, fits["ref"].subset_results
+    np.testing.assert_allclose(got.param_samples.numpy(), np.asarray(want.param_samples), **TOL)
+    np.testing.assert_allclose(got.w_samples.numpy(), np.asarray(want.w_samples), **TOL)
+    np.testing.assert_allclose(got.param_ess.numpy(), np.asarray(want.param_ess), rtol=1e-4)
+    assert set(fits["port"].phase_seconds) == {
+        "partition", "warm_start", "subset_fits", "combine", "resample_predict"
+    }
+
+
+def test_combine_and_predict_from_the_twins_grids(fits):
+    """grids_from_numpy: the JAX fit's subset grids, combined and
+    resampled by the port (with the JAX resample indices), give the
+    JAX fit's combined posterior and predictions."""
+    ref = fits["ref"]
+    cfg = SMKConfig(**fits["kw"])
+    pg, wg = convert.grids_from_numpy(ref.subset_results.param_grid, ref.subset_results.w_grid)
+    param_grid, w_grid = api.combine(pg, wg, cfg)
+    np.testing.assert_allclose(param_grid.numpy(), np.asarray(ref.param_grid), atol=1e-6)
+    idx = JaxRandomness(fits["key"]).resample_index(cfg.resample_size, 996)
+    sample_par, _, p_samples, _, _, p_quant = api.resample_predict(
+        param_grid, w_grid, torch.as_tensor(fits["data"][4]), idx, cfg
+    )
+    np.testing.assert_allclose(sample_par.numpy(), np.asarray(ref.sample_par), atol=1e-5)
+    np.testing.assert_allclose(p_quant.numpy(), np.asarray(ref.p_quant), atol=1e-5)
+
+
+def test_sampler_state_and_partition_from_numpy_round_trip(fits):
+    """A JAX partition and the JAX init states, carried into the port,
+    equal what the port builds itself; a state carried back out as
+    numpy converts to the same tensors."""
+    y, x, coords, coords_test, x_test = fits["data"]
+    k_part = jax.random.split(fits["key"], 3)[0]
+    jp = jpart.random_partition(k_part, y, x, coords, KSUB)
+    part = convert.partition_from_numpy(jp)
+    mine = tpart.partition_from_indices(
+        torch.as_tensor(y), torch.as_tensor(x), torch.as_tensor(coords), part.index
+    )
+    for f in ("y", "x", "mask", "index"):
+        assert torch.equal(getattr(part, f), getattr(mine, f))
+    from smk_tpu.models.probit_gp import SpatialGPSampler as JaxSampler
+    from smk_tpu.parallel.executor import init_subset_states, stacked_subset_data
+
+    jm = JaxSampler(JaxConfig(**fits["kw"]))
+    beta0 = np.array([[0.2, -0.1], [0.0, 0.3]], np.float32)
+    jstate = init_subset_states(
+        jm, jax.random.split(fits["key"], KSUB),
+        stacked_subset_data(jp, coords_test, x_test), beta0,
+    )
+    state, gens = convert.sampler_state_from_numpy(jstate, seed=3)
+    assert len(gens) == KSUB
+    model = tp.SpatialGPSampler(SMKConfig(**fits["kw"]))
+    data = tp.SubsetData(part.coords, part.x, part.y, part.mask,
+                         torch.as_tensor(coords_test), torch.as_tensor(x_test))
+    mine = model.init_state(data, torch.as_tensor(beta0))
+    for f in ("beta", "u", "a", "phi", "phi_accept", "phi_log_step"):
+        assert torch.equal(getattr(state, f), getattr(mine, f)), f
+    np.testing.assert_allclose(state.chol_r.numpy(), mine.chol_r.numpy(), **TOL)
+    back, _ = convert.sampler_state_from_numpy(
+        {f: getattr(state, f).numpy() for f in convert._STATE_FIELDS}
+    )
+    for f in convert._STATE_FIELDS:
+        assert torch.equal(getattr(back, f), getattr(state, f))
+    with pytest.raises(ValueError, match="leading K"):
+        convert.sampler_state_from_numpy({f: np.asarray(getattr(state, f))[0]
+                                          for f in convert._STATE_FIELDS})
+
+
+def test_no_device_given_and_no_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit_meta_kriging(*_problem(), config=SMKConfig(n_subsets=2, n_samples=4))
+
+
+def test_default_randomness_fit_is_finite_and_seeded():
+    data = _problem()
+    cfg = SMKConfig(n_subsets=2, n_samples=8, fused_build="pallas")
+    a = fit_meta_kriging(*data, config=cfg, seed=1, device="cpu")
+    b = fit_meta_kriging(*data, config=cfg, seed=1, device="cpu")
+    assert tuple(a.p_quant.shape) == (3, T * Q)
+    assert torch.isfinite(a.p_quant).all() and torch.isfinite(a.param_quant).all()
+    assert ((a.p_quant >= 0) & (a.p_quant <= 1)).all()
+    assert torch.equal(a.p_quant, b.p_quant)
+    assert api.param_names(Q, P)[-Q:] == ["phi[0]", "phi[1]"]
+
+
+@pytest.mark.parametrize(
+    "knob, item",
+    [
+        (dict(subset_engine="vecchia"), "A7"),
+        (dict(partition_method="coherent"), "A7"),
+        (dict(phi_sampler="collapsed"), "A6"),
+        (dict(u_solver="cg"), "A6"),
+        (dict(link="logit"), "A6"),
+        (dict(n_chains=2), "A6"),
+        (dict(chol_block_size=512), "A6"),
+        (dict(trisolve_block_size=512), "A6"),
+        (dict(build_dtype="bfloat16"), "A6"),
+        (dict(fault_policy="quarantine"), "A8"),
+        (dict(live_diagnostics=True), "A8"),
+        (dict(run_log_dir="logs"), "A8"),
+        (dict(compile_store_dir="store"), "A10"),
+    ],
+)
+def test_unported_knobs_raise_naming_their_roadmap_item(knob, item):
+    with pytest.raises(NotImplementedError, match=item):
+        fit_meta_kriging(*_problem(), config=SMKConfig(**knob), device="cpu")
+
+
+def test_config_validates_like_the_twin():
+    with pytest.raises(ValueError, match="fused_build"):
+        SMKConfig(fused_build="triton")
+    with pytest.raises(ValueError, match="a_prior"):
+        SMKConfig(priors=PriorConfig(a_prior="flat"))
+    assert SMKConfig(n_samples=40.0).n_samples == 40
+    assert (SMKConfig(n_samples=40).n_burn_in, SMKConfig(n_samples=40).n_kept) == (30, 10)
+    twin, mine = JaxConfig(), SMKConfig()
+    assert {f: getattr(twin, f) for f in JaxConfig.__dataclass_fields__} == {
+        f: getattr(mine, f) for f in SMKConfig.__dataclass_fields__
+        if f != "priors"
+    } | {"priors": twin.priors}
+    assert vars(twin.priors) == vars(mine.priors)
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "smk_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [
+        (str(f.relative_to(REPO)), mod)
+        for f in files for mod in _imports(f)
+        if mod.split(".")[0] in ("jax", "jaxlib", "smk_tpu")
+    ]
+    assert bad == []
+
+
+@pytest.mark.gpu
+def test_fit_on_the_card_runs_the_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused build kernel has no CPU mode")
+    from smk_torch.ops import fused_build as tfb
+
+    tfb.reset_counts()
+    res = fit_meta_kriging(
+        *_problem(), config=SMKConfig(n_subsets=2, n_samples=8, fused_build="pallas")
+    )
+    assert torch.isfinite(res.p_quant).all()
+    assert tfb.LAUNCHES["fused_masked_shifted_build"] == Q * 8
+    assert sum(tfb.PLAIN_CALLS.values()) == 0

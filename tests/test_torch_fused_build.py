@@ -1,0 +1,263 @@
+"""The port's fused correlation build (smk_torch/ops/fused_build.py)
+against the JAX package's Pallas kernel (smk_tpu/ops/pallas_build.py),
+run in interpret mode as tests/test_fused_build.py runs it.
+
+On the CPU every entry point runs its plain PyTorch version (the CUDA
+kernel needs the card: the gpu-marked test holds the kernel against the
+plain version there). Inputs are made with numpy from a seed and passed
+to both packages.
+
+Tolerance: both sides compute the same per-pair arithmetic (direct
+squared differences summed in d order, sqrt, the model function, mask
+blend, shift); they differ only where XLA's and PyTorch's exp round
+differently — a few fp32 ulps of values <= 1. ATOL = 2e-6 covers that
+with margin; the relative term covers the 1e8 pad-row shifts. The
+invariants (unit diagonal, pad identity, symmetry) are exact.
+"""
+
+# smklint: test-budget=interpret-mode Pallas calls at m <= 147 take under a second each; the plain torch builds are milliseconds
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smk_tpu.ops import pallas_build as jpb
+from smk_torch.ops import cuda_build
+from smk_torch.ops import fused_build as tfb
+
+MODELS = ("exponential", "matern32", "matern52")
+ATOL, RTOL = 2e-6, 1e-7
+
+
+def _inputs(k, m, s, seed, mb=None):
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(0.0, 2.0, size=(k, m, 2)).astype(np.float32)
+    other = (rng.uniform(0.0, 2.0, size=(k, mb or m, 2)) + 0.3).astype(np.float32)
+    phis = rng.uniform(4.0, 12.0, size=(k, s)).astype(np.float32)
+    mask = np.ones((k, m), np.float32)
+    mask[:, -7:] = 0.0
+    shift = np.where(
+        mask > 0, rng.uniform(0.5, 2.0, size=(k, m)), 1e8
+    ).astype(np.float32)
+    return coords, other, phis, mask, shift
+
+
+def _jax(entry, model, coords, phis, mask=None, shift=None, other=None):
+    """The Pallas entry point in interpret mode, vmapped over K."""
+    fn = getattr(jpb, entry)
+    c = jnp.asarray(coords)
+    ph = jnp.asarray(phis)
+    if entry == "fused_masked_correlation_stack":
+        out = jax.vmap(lambda a, b, mk: fn(a, b, mk, model, interpret=True))(
+            c, ph, jnp.asarray(mask)
+        )
+    elif entry == "fused_masked_shifted_build":
+        out = jax.vmap(
+            lambda a, b, mk, sh: fn(a, b, mk, sh, model, interpret=True)
+        )(c, ph, jnp.asarray(mask), jnp.asarray(shift))
+    elif entry == "fused_cross_correlation":
+        out = jax.vmap(lambda a, o, b: fn(a, o, b, model, interpret=True))(
+            c, jnp.asarray(other), ph
+        )
+    elif entry == "fused_correlation":
+        out = jax.vmap(lambda a, b: fn(a, b[0], model, interpret=True))(c, ph)[:, None]
+    else:
+        out = jax.vmap(lambda a, b: fn(a, b, model, interpret=True))(c, ph)
+    return np.asarray(out)
+
+
+def _torch(entry, model, coords, phis, mask=None, shift=None, other=None):
+    fn = getattr(tfb, entry)
+    c = torch.as_tensor(coords)
+    ph = torch.as_tensor(phis)
+    if entry == "fused_masked_correlation_stack":
+        return fn(c, ph, torch.as_tensor(mask), model)
+    if entry == "fused_masked_shifted_build":
+        return fn(c, ph, torch.as_tensor(mask), torch.as_tensor(shift), model)
+    if entry == "fused_cross_correlation":
+        return fn(c, torch.as_tensor(other), ph, model)
+    if entry == "fused_correlation":
+        return fn(c, ph[:, 0], model)[:, None]
+    return fn(c, ph, model)
+
+
+def _check_invariants(out, entry, mask, shift):
+    """Exact invariants of a square zero-diagonal build (K, s, m, m)."""
+    out = out.numpy()
+    np.testing.assert_array_equal(out, np.swapaxes(out, -1, -2))
+    diag = np.diagonal(out, axis1=-2, axis2=-1)
+    if entry == "fused_masked_shifted_build":
+        np.testing.assert_array_equal(
+            diag, np.broadcast_to((np.float32(1.0) + shift)[:, None], diag.shape)
+        )
+    else:
+        assert (diag == 1.0).all()
+    if mask is not None:
+        pad = mask == 0
+        m = out.shape[-1]
+        for k in range(out.shape[0]):
+            rows = out[k][:, pad[k]]  # (s, n_pad, m)
+            want = np.eye(m, dtype=np.float32)[pad[k]]
+            if shift is not None:
+                want = want * (np.float32(1.0) + shift[k][pad[k]])[:, None]
+            np.testing.assert_array_equal(rows, np.broadcast_to(want, rows.shape))
+
+
+SQUARE = (
+    "fused_masked_correlation_stack",
+    "fused_masked_shifted_build",
+    "fused_correlation_stack",
+    "fused_correlation",
+)
+
+
+class TestPlainAgainstPallas:
+    @pytest.mark.parametrize("m", [40, 147])
+    @pytest.mark.parametrize("model", MODELS)
+    @pytest.mark.parametrize("entry", SQUARE)
+    def test_square_entry_points(self, entry, model, m):
+        coords, _, phis, mask, shift = _inputs(2, m, 3, seed=m)
+        kw = {}
+        if "masked" in entry:
+            kw["mask"] = mask
+        if "shifted" in entry:
+            kw["shift"] = shift
+        got = _torch(entry, model, coords, phis, **kw)
+        want = _jax(entry, model, coords, phis, **kw)
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+        _check_invariants(got, entry, kw.get("mask"), kw.get("shift"))
+
+    @pytest.mark.parametrize("model", MODELS)
+    @pytest.mark.parametrize("ma, mb", [(40, 17), (147, 123)])
+    def test_cross(self, model, ma, mb):
+        coords, other, phis, _, _ = _inputs(2, ma, 2, seed=ma + mb, mb=mb)
+        got = _torch("fused_cross_correlation", model, coords, phis, other=other)
+        want = _jax("fused_cross_correlation", model, coords, phis, other=other)
+        assert tuple(got.shape) == (2, 2, ma, mb)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+    def test_no_k_axis_keeps_jax_shapes(self):
+        coords, other, phis, mask, shift = _inputs(1, 40, 3, seed=5, mb=9)
+        c, ph = torch.as_tensor(coords[0]), torch.as_tensor(phis[0])
+        out = tfb.fused_masked_shifted_build(
+            c, ph, torch.as_tensor(mask[0]), torch.as_tensor(shift[0]), "exponential"
+        )
+        want = jpb.fused_masked_shifted_build(
+            jnp.asarray(coords[0]), jnp.asarray(phis[0]), jnp.asarray(mask[0]),
+            jnp.asarray(shift[0]), "exponential", interpret=True,
+        )
+        assert tuple(out.shape) == (3, 40, 40)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+        single = tfb.fused_correlation(c, ph[0], "matern32")
+        assert tuple(single.shape) == (40, 40)
+        cross = tfb.fused_cross_correlation(c, torch.as_tensor(other[0]), ph, "exponential")
+        assert tuple(cross.shape) == (3, 40, 9)
+
+    def test_shared_test_coords_broadcast_over_k(self):
+        # the kriging test build: (t, d) coords shared by K subsets,
+        # (K, s) phis -> (K, s, t, t)
+        coords, _, phis, _, _ = _inputs(3, 12, 2, seed=9)
+        got = tfb.fused_correlation_stack(torch.as_tensor(coords[0]), torch.as_tensor(phis), "matern52")
+        want = np.stack([
+            np.asarray(jpb.fused_correlation_stack(
+                jnp.asarray(coords[0]), jnp.asarray(phis[k]), "matern52", interpret=True
+            ))
+            for k in range(3)
+        ])
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+    def test_scalar_shift_broadcast(self):
+        coords, _, phis, mask, _ = _inputs(2, 30, 1, seed=3)
+        got = _torch("fused_masked_shifted_build", "exponential", coords, phis,
+                     mask=mask, shift=np.full((2, 30), 0.25, np.float32))
+        scalar = tfb.fused_masked_shifted_build(
+            torch.as_tensor(coords), torch.as_tensor(phis), torch.as_tensor(mask),
+            0.25, "exponential",
+        )
+        assert torch.equal(got, scalar)
+
+
+class TestWrapperContract:
+    def test_unknown_model_raises(self):
+        c = torch.rand(8, 2)
+        with pytest.raises(ValueError, match="unknown cov model"):
+            tfb.fused_correlation(c, 1.0, "gaussianish")
+
+    def test_masked_build_needs_same_coords(self):
+        c = torch.rand(8, 2)
+        with pytest.raises(ValueError, match="same-coordinates"):
+            tfb._fused_build(
+                "fused_masked_correlation_stack", c, c.clone(), torch.ones(1),
+                "exponential", mask=torch.ones(8),
+            )
+
+    def test_cpu_tensors_take_the_plain_version_and_count_it(self):
+        tfb.reset_counts()
+        c = torch.rand(2, 10, 2)
+        tfb.fused_masked_correlation_stack(c, torch.ones(2, 1), torch.ones(2, 10), "exponential")
+        tfb.fused_cross_correlation(c, torch.rand(4, 2), torch.ones(2, 1), "exponential")
+        assert tfb.PLAIN_CALLS["fused_masked_correlation_stack"] == 1
+        assert tfb.PLAIN_CALLS["fused_cross_correlation"] == 1
+        assert sum(tfb.LAUNCHES.values()) == 0
+        tfb.reset_counts()
+        assert sum(tfb.PLAIN_CALLS.values()) == 0
+
+    @pytest.mark.parametrize("fused", [True, False])
+    @pytest.mark.parametrize("m, s", [(3906, 1), (147, 3)])
+    def test_build_bytes_model_matches_twin_at_equal_tile(self, fused, m, s):
+        mine = tfb.build_bytes_model(m, s, tile=128, fused=fused)
+        assert mine == jpb.build_bytes_model(m, s, tile=128, fused=fused)
+        # the kernel's own tile: writes are s m^2 floats either way
+        assert tfb.build_bytes_model(m, s, fused=fused)["write_bytes"] == s * m * m * 4
+
+    def test_build_module_is_lazy_and_digest_named(self, monkeypatch, tmp_path):
+        monkeypatch.setenv("SMK_TORCH_BUILD_DIR", str(tmp_path))
+        path = cuda_build.library_path("fused_corr")
+        assert path.parent == tmp_path
+        assert path.name.startswith("libfused_corr-") and path.suffix == ".so"
+        assert path == cuda_build.library_path("fused_corr")  # stable digest
+        assert (cuda_build.csrc_dir() / "fused_corr.cu").exists()
+
+
+@pytest.mark.gpu
+class TestKernelOnCard:
+    """The CUDA kernel against its plain version on the card — runs only
+    where a CUDA device is visible (the chip smoke run covers the same
+    ground at the main-path shapes)."""
+
+    @pytest.mark.parametrize("entry", SQUARE + ("fused_cross_correlation",))
+    def test_kernel_matches_plain(self, entry):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        coords, other, phis, mask, shift = _inputs(2, 147, 3, seed=1, mb=123)
+        kw = {}
+        if "masked" in entry:
+            kw["mask"] = mask
+        if "shifted" in entry:
+            kw["shift"] = shift
+        if entry == "fused_cross_correlation":
+            kw["other"] = other
+        plain = _torch(entry, "matern32", coords, phis, **kw)
+        before = tfb.LAUNCHES[entry]
+        fn = getattr(tfb, entry)
+        c = torch.as_tensor(coords).cuda()
+        ph = torch.as_tensor(phis).cuda()
+        if entry == "fused_masked_correlation_stack":
+            got = fn(c, ph, torch.as_tensor(mask).cuda(), "matern32")
+        elif entry == "fused_masked_shifted_build":
+            got = fn(c, ph, torch.as_tensor(mask).cuda(), torch.as_tensor(shift).cuda(),
+                     "matern32")
+        elif entry == "fused_cross_correlation":
+            got = fn(c, torch.as_tensor(other).cuda(), ph, "matern32")
+        elif entry == "fused_correlation":
+            got = fn(c, ph[:, 0], "matern32")[:, None]
+        else:
+            got = fn(c, ph, "matern32")
+        torch.cuda.synchronize()
+        assert tfb.LAUNCHES[entry] == before + 1
+        # CPU plain vs card kernel: exp rounds differently on the two
+        np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), atol=4e-6, rtol=1e-6)
+        if entry != "fused_cross_correlation":
+            _check_invariants(got.cpu(), entry, kw.get("mask"), kw.get("shift"))

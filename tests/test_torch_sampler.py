@@ -1,0 +1,308 @@
+"""The port's K-batched sampler (smk_torch/models/probit_gp.py) against
+the JAX sampler, draw for draw.
+
+The JAX sampler draws its randomness from nine subkeys per sweep; the
+port takes one SweepNoise per sweep from a noise source. The replay
+below draws exactly the numbers the JAX sweep draws from its keys
+(jax.random inside this file), so both samplers consume the same
+numbers: init_state, one sweep and three sweeps (two burn-in, one
+collecting) are compared at m = 40 (3 pad rows), q = 2, p = 2, t = 6,
+K = 2, for fused_build "off" and "pallas" (the JAX Pallas kernel in
+interpret mode, the port's plain version), and for the variants in
+VARIANTS (uncached kriging, normal A prior, tempering, a sparse phi
+schedule, binomial trials).
+
+Tolerances: every state field, the collected draws and the accept
+vectors agree to fp32 roundoff (observed <= 2e-6; asserted at 5e-5
+absolute + 5e-5 relative, which leaves room for LAPACK vs XLA
+factorizations at m = 40) — except the PAD rows of u on the fused path:
+there the u-draw forms R~ s + jit s as S s - d s with d = 1e8 (the pad
+rows' pseudo-noise), which cancels two ~1e4-sized terms, so pad-row
+latents agree only to ~1e-7 of 1e4 (observed 6e-4; asserted 1e-2).
+Pad latents enter no likelihood and no prediction.
+"""
+
+# smklint: test-budget=the JAX sweeps run once per config variant in a module fixture (two small jit compiles, interpret-mode Pallas at m=40); each test compares stored arrays
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smk_tpu.config import PriorConfig as JaxPriors
+from smk_tpu.config import SMKConfig as JaxConfig
+from smk_tpu.models.probit_gp import SpatialGPSampler as JaxSampler
+from smk_tpu.models.probit_gp import SubsetData as JaxData
+from smk_torch.config import PriorConfig, SMKConfig
+from smk_torch.models import probit_gp as tp
+from smk_torch.ops import fused_build as tfb
+
+K, M, Q, P, T = 2, 40, 2, 2, 6
+N_PAD = 3
+STATE_FIELDS = ("beta", "u", "a", "phi", "chol_r", "phi_accept", "phi_log_step")
+TOL = dict(atol=5e-5, rtol=5e-5)
+
+
+def jax_sweep_noise(key, m, q, p, t, weight=1):
+    """The numbers one JAX sweep draws from ``key``
+    (probit_gp.py:700-702 and the draw sites it feeds), and the key the
+    sweep carries on."""
+    key, kz, kb, kphi, kprop, ku_prior, ku_noise, ka, kpred = jax.random.split(key, 9)
+    f32 = jnp.float32
+    rows = jax.random.split(ka, q + 1)
+    ka_ = jnp.zeros((q, q), f32)
+    for l in range(q):
+        ka_ = ka_.at[l, : l + 1].set(jax.random.normal(rows[l], (l + 1,), f32))
+
+    def per_component(k, n):
+        return jnp.stack([jax.random.normal(kk, (n,), f32) for kk in jax.random.split(k, q)])
+
+    return key, (
+        jax.random.uniform(
+            kz, (m, q) if weight == 1 else (weight, m, q), f32, minval=1e-7, maxval=1.0
+        ),
+        jax.random.normal(kb, (q, p), f32),
+        jax.random.normal(kprop, (q,), f32),
+        jax.random.uniform(kphi, (q,), f32, minval=1e-12),
+        per_component(ku_prior, m),
+        per_component(ku_noise, m),
+        ka_,
+        jax.random.uniform(rows[q], (), f32, minval=1e-12),
+        per_component(kpred, t),
+    )
+
+
+def to_sweep_noise(arrays, collect):
+    nz = tp.SweepNoise(*(torch.as_tensor(np.array(a)) for a in arrays))
+    return nz if collect else nz._replace(kpred=None)
+
+
+class JaxSweepReplay:
+    """A noise source replaying the JAX key schedule of K subsets from
+    their chain keys (one sweep per call, in order)."""
+
+    def __init__(self, keys, shapes: tp.SweepShapes):
+        self.keys = keys
+        self._draw = jax.jit(jax.vmap(
+            lambda kk: jax_sweep_noise(
+                kk, shapes.m, shapes.q, shapes.p, shapes.t, shapes.weight
+            )
+        ))
+        self.next_it = 0
+
+    def __call__(self, it, collect):
+        assert it == self.next_it, "sweeps must be replayed in order"
+        self.next_it += 1
+        self.keys, arrays = self._draw(self.keys)
+        return to_sweep_noise(arrays, collect)
+
+
+def _data(weight=1):
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(K, M, 2)).astype(np.float32)
+    x = np.concatenate(
+        [np.ones((K, M, Q, 1)), rng.normal(size=(K, M, Q, P - 1))], -1
+    ).astype(np.float32)
+    y = rng.binomial(weight, 0.5, size=(K, M, Q)).astype(np.float32)
+    mask = np.ones((K, M), np.float32)
+    mask[:, -N_PAD:] = 0.0
+    y[:, -N_PAD:] = 0.0
+    x[:, -N_PAD:] = 0.0
+    coords[:, -N_PAD:] += 5.0  # far-away pad pseudo-coordinates
+    coords_test = rng.uniform(size=(T, 2)).astype(np.float32)
+    x_test = np.ones((T, Q, P), np.float32)
+    beta0 = np.array([[0.1, -0.2], [0.3, 0.05]], np.float32)
+    return coords, x, y, mask, coords_test, x_test, beta0
+
+
+def _stack(states, field):
+    return np.stack([np.asarray(getattr(s, field)) for s in states])
+
+
+# (fused_build, other SMKConfig fields, binomial weight): the default
+# config on both build paths, then the uncached kriging draw with the
+# normal A prior, tempering and a sparse phi schedule, then binomial
+# trials
+VARIANTS = {
+    "off": ("off", {}, 1),
+    "pallas": ("pallas", {}, 1),
+    "pallas-nocache-normal-every2": (
+        "pallas",
+        dict(krige_cache=False, phi_update_every=2,
+             priors=dict(a_prior="normal", temper="power")),
+        1,
+    ),
+    "off-weight2": ("off", {}, 2),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(VARIANTS))
+def reference(request):
+    """Three JAX sweeps per subset (burn, burn, collect) with the noise
+    each consumed, stored as numpy."""
+    fused, extra, weight = VARIANTS[request.param]
+    coords, x, y, mask, coords_test, x_test, beta0 = _data(weight)
+    extra = dict(extra)
+    priors = extra.pop("priors", {})
+    cfg = dict(n_subsets=K, n_samples=8, fused_build=fused, **extra)
+    jm = JaxSampler(JaxConfig(**cfg, priors=JaxPriors(**priors)), weight=weight)
+    keys = jax.random.split(jax.random.key(3), K)
+    data = [
+        JaxData(*(jnp.asarray(a[k]) for a in (coords, x, y, mask)),
+                jnp.asarray(coords_test), jnp.asarray(x_test))
+        for k in range(K)
+    ]
+    states = [jm.init_state(keys[k], data[k], jnp.asarray(beta0)) for k in range(K)]
+    init = {f: _stack(states, f) for f in STATE_FIELDS}
+    consts = [jm._consts(d) for d in data]
+    caches = [jm._solve_cache(consts[k], data[k].mask, states[k]) for k in range(K)]
+    steps = {c: jax.jit(lambda d, cs, carry, it, c=c: jm._gibbs_step(d, cs, carry, it, collect=c))
+             for c in (False, True)}
+    sweeps = []
+    for it, collect in enumerate((False, False, True)):
+        if collect:
+            caches = [
+                jm._solve_cache(consts[k], data[k].mask, states[k], predict=True)
+                for k in range(K)
+            ]
+        noise, draws = [], []
+        for k in range(K):
+            noise.append(jax_sweep_noise(states[k].key, M, Q, P, T, weight)[1])
+            (states[k], caches[k]), out = steps[collect](
+                data[k], consts[k], (states[k], caches[k]), jnp.asarray(it)
+            )
+            draws.append(out)
+        sweeps.append({
+            "noise": [np.stack([np.asarray(n[i]) for n in noise]) for i in range(9)],
+            "state": {f: _stack(states, f) for f in STATE_FIELDS},
+            "draws": None if not collect else tuple(
+                np.stack([np.asarray(d[i]) for d in draws]) for i in range(2)
+            ),
+        })
+    return {
+        "fused": fused == "pallas", "weight": weight,
+        "config": SMKConfig(**cfg, priors=PriorConfig(**priors)),
+        "init": init, "sweeps": sweeps,
+        "data": tp.SubsetData(*(torch.as_tensor(a) for a in (coords, x, y, mask, coords_test, x_test))),
+        "beta0": torch.as_tensor(beta0),
+    }
+
+
+def _assert_state(got: tp.SamplerState, want: dict, fused: bool):
+    for f in STATE_FIELDS:
+        g = getattr(got, f).numpy()
+        w = want[f]
+        if f == "u":
+            np.testing.assert_allclose(g[:, :-N_PAD], w[:, :-N_PAD], **TOL, err_msg=f)
+            pad_tol = dict(atol=1e-2, rtol=0) if fused else TOL
+            np.testing.assert_allclose(g[:, -N_PAD:], w[:, -N_PAD:], **pad_tol, err_msg="u pad")
+        elif f == "phi_accept":
+            np.testing.assert_array_equal(g, w, err_msg=f)  # equal accept vectors
+        else:
+            np.testing.assert_allclose(g, w, **TOL, err_msg=f)
+
+
+def _port_sweeps(ref, n):
+    model = tp.SpatialGPSampler(ref["config"], weight=ref["weight"])
+    data = ref["data"]
+    state = model.init_state(data, ref["beta0"])
+    consts = model._consts(data)
+    cache = model._solve_cache(consts, data.mask, state)
+    out = []
+    for it in range(n):
+        collect = it == 2
+        if collect:
+            cache = model._solve_cache(consts, data.mask, state, predict=True)
+        noise = to_sweep_noise(ref["sweeps"][it]["noise"], collect)
+        state, cache, draws = model._gibbs_step(
+            data, consts, state, cache, it, noise, collect=collect
+        )
+        out.append((state, draws))
+    return model, state, out
+
+
+def test_init_state_matches_twin(reference):
+    model = tp.SpatialGPSampler(reference["config"], weight=reference["weight"])
+    state = model.init_state(reference["data"], reference["beta0"])
+    _assert_state(state, reference["init"], reference["fused"])
+
+
+def test_one_sweep_matches_twin(reference):
+    _, state, _ = _port_sweeps(reference, 1)
+    _assert_state(state, reference["sweeps"][0]["state"], reference["fused"])
+
+
+def test_three_sweeps_burn_and_collect_match_twin(reference):
+    _, state, out = _port_sweeps(reference, 3)
+    for it in range(3):
+        _assert_state(out[it][0], reference["sweeps"][it]["state"], reference["fused"])
+    params, w_star = out[2][1]
+    want_params, want_w = reference["sweeps"][2]["draws"]
+    np.testing.assert_allclose(params.numpy(), want_params, **TOL)
+    np.testing.assert_allclose(w_star.numpy(), want_w, **TOL)
+    # the accept vectors of the three sweeps: some moves accepted, some
+    # not, the same ones in both packages
+    acc = reference["sweeps"][2]["state"]["phi_accept"]
+    assert 0 < acc.sum() < 3 * K * Q
+
+
+def test_build_calls_follow_the_sweep_formula(reference):
+    """On the fused path, init builds R~ once; a phi-update sweep builds
+    the proposal stack once; every sweep builds S once per component;
+    the kriging cross and test builds run once at the start of sampling
+    and once per collecting update sweep (the proposal's kriging
+    operators) — or, without the kriging cache, once per collecting
+    sweep for the draw itself."""
+    tfb.reset_counts()
+    _port_sweeps(reference, 3)
+    calls = dict(tfb.PLAIN_CALLS)
+    if not reference["fused"]:
+        assert sum(calls.values()) == 0
+        return
+    cfg = reference["config"]
+    updates = sum(1 for it in range(3) if it % cfg.phi_update_every == 0)
+    krige = 1 + (2 % cfg.phi_update_every == 0) if cfg.krige_cache else 1
+    assert calls == {
+        "fused_correlation": 0,
+        "fused_masked_correlation_stack": 1 + updates,
+        "fused_masked_shifted_build": Q * 3,
+        "fused_cross_correlation": krige,
+        "fused_correlation_stack": krige,
+    }
+
+
+def test_run_with_default_generators(reference):
+    """run() with the default per-subset generators: finite compressed
+    posteriors of the right shapes, reproducible from the seed."""
+    cfg = reference["config"]
+    model = tp.SpatialGPSampler(cfg, weight=reference["weight"])
+    data = reference["data"]
+    runs = [
+        model.run(data, model.init_state(data, reference["beta0"]), seed=5)
+        for _ in range(2)
+    ]
+    res = runs[0]
+    n_par = tp.n_params(Q, P)
+    assert tuple(res.param_grid.shape) == (K, cfg.n_quantiles, n_par)
+    assert tuple(res.w_grid.shape) == (K, cfg.n_quantiles, T * Q)
+    assert tuple(res.param_samples.shape) == (K, cfg.n_kept, n_par)
+    assert torch.isfinite(res.param_grid).all() and torch.isfinite(res.w_grid).all()
+    assert ((res.phi_accept_rate >= 0) & (res.phi_accept_rate <= 1)).all()
+    assert torch.equal(runs[0].param_grid, runs[1].param_grid)
+
+
+def test_sweep_noise_shapes_and_ranges():
+    shapes = tp.SweepShapes(k=3, m=7, q=2, p=3, t=4, weight=1)
+    gens = tp.subset_generators(0, 3, "cpu")
+    nz = tp.GeneratorNoise(gens, shapes)(0, True)
+    assert tuple(nz.kz.shape) == (3, 7, 2) and float(nz.kz.min()) >= 1e-7
+    assert tuple(nz.kb.shape) == (3, 2, 3)
+    assert tuple(nz.ku_prior.shape) == tuple(nz.ku_noise.shape) == (3, 2, 7)
+    assert tuple(nz.ka.shape) == (3, 2, 2) and tuple(nz.ka_u.shape) == (3,)
+    assert tuple(nz.kpred.shape) == (3, 2, 4)
+    assert tp.GeneratorNoise(gens, shapes)(1, False).kpred is None
+    binom = tp.draw_sweep_noise(torch.Generator().manual_seed(1),
+                                shapes._replace(weight=4), collect=False)
+    assert tuple(binom.kz.shape) == (4, 7, 2)
+    # one independent stream per subset
+    assert not torch.equal(nz.kb[0], nz.kb[1])
