@@ -19,7 +19,17 @@ printed as one JSON line:
               (K = 32, m = 3906, t = 64), with the exact invariants
               (unit diagonal, pad identity, bitwise symmetry) and, at
               the main-path shapes, kernel / plain / library times
-              (CUDA events, median of 20) beside the device-memory bound.
+              (CUDA events around one call from an idle card, so the
+              wrapper's host time counts; median of 20) beside the
+              device-memory bound, and the kernel's device time alone
+              (`device_ms`: each call queued behind a short device
+              sleep).
+              Square builds run the symmetric kernel: at the main-path
+              shape it must be bitwise equal to the tile kernel for
+              both big builds, and a ragged sweep (m from 1 to 3907,
+              every row alignment mod 4) holds it against the plain
+              version and the tile kernel, into NaN-filled outputs so
+              that an element it misses fails.
 4. fit_small_parity — a small fit through the kernel on the card
               against the same fit through the plain version on the
               CPU, with the same random numbers.
@@ -58,6 +68,7 @@ KERNEL_SOURCE = "smk_torch/csrc/fused_corr.cu"
 # file:line of the TPU entry point each wrapper replaces (all launch
 # the one Pallas kernel _corr_kernel, smk_tpu/ops/pallas_build.py:179)
 REPLACES = {
+    "fused_correlation": "smk_tpu/ops/pallas_build.py:330",
     "fused_masked_correlation_stack": "smk_tpu/ops/pallas_build.py:366",
     "fused_masked_shifted_build": "smk_tpu/ops/pallas_build.py:405",
     "fused_cross_correlation": "smk_tpu/ops/pallas_build.py:387",
@@ -69,6 +80,13 @@ MAIN_PATH = (
     "fused_cross_correlation",
     "fused_correlation_stack",
 )
+# every kernel of the summary line: the main path's four and
+# fused_correlation, which the fit does not launch
+KERNELS = MAIN_PATH + ("fused_correlation",)
+# the symmetric kernel's ragged sweep: one tile, a partial last tile,
+# the diagonal tile, and every row alignment mod 4
+RAGGED_M = (1, 2, 3, 63, 64, 65, 127, 129, 3905, 3906, 3907)
+MODELS = ("exponential", "matern32", "matern52")
 # kernel vs plain version on the same card: the two follow the same
 # operation order (the kernel disables FMA contraction), so they differ
 # only where expf and torch.exp round differently — a few fp32 ulps of
@@ -93,7 +111,18 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def ms_median(fn, reps: int = 20, warmup: int = 3) -> float:
+# device clock cycles (~0.5 ms) the card spins before a call timed as
+# device time, so that the host has queued the call's launches when its
+# start event is reached
+SLEEP_CYCLES = 1_000_000
+
+
+def ms_median(fn, reps: int = 20, warmup: int = 3, device_only: bool = False) -> float:
+    """Median time of one call by CUDA events. The card is idle when the
+    start event is recorded, so the time holds the call's host time (the
+    wrapper's Python, the launch) with its device time. With
+    `device_only`, each call is queued behind a short device sleep, so
+    the time is the device's alone."""
     import torch
 
     for _ in range(warmup):
@@ -103,6 +132,8 @@ def ms_median(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -117,17 +148,21 @@ def ms_median(fn, reps: int = 20, warmup: int = 3) -> float:
 MODEL_OPS = {"exponential": 2, "matern32": 5, "matern52": 8}
 
 
-def bound(inputs, out, model, masked, shifted):
-    """(bound_ms, bound_by): the least time for the function — each
-    input read once and the output written once over the HBM rate, or
-    its operations over the fp32 rate, whichever is larger. Operations
-    per element: 3 per coordinate (sub, mul, add), max and sqrt, the
-    model's own, 4 for the mask blend, 1 for the shift."""
+def min_bytes(inputs, out):
+    """Each input read once and the output written once."""
     nbytes = sum(t.numel() * t.element_size() for t in inputs if t is not None)
-    nbytes += out.numel() * out.element_size()
+    return nbytes + out.numel() * out.element_size()
+
+
+def bound(inputs, out, model, masked, shifted):
+    """(bound_ms, bound_by): the least time for the function — its
+    bytes (min_bytes) over the HBM rate, or its operations over the
+    fp32 rate, whichever is larger. Operations per element: 3 per
+    coordinate (sub, mul, add), max and sqrt, the model's own, 4 for
+    the mask blend, 1 for the shift."""
     d = inputs[0].shape[-1]
     ops = out.numel() * (3 * d + 2 + MODEL_OPS[model] + 4 * masked + shifted)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = min_bytes(inputs, out) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -162,6 +197,55 @@ def square_invariants(out, mask, shift, what):
         check(torch.equal(rows, ref), f"{what}: pad rows are not exactly the identity")
 
 
+def launch_layout(coords, phis, mask, shift, model, layout):
+    """One launch of the square build with the kernel `layout` (tile or
+    symmetric) into a NaN-filled (K, s, m, m) output, so that an element
+    the kernel does not write fails every comparison. Not counted:
+    LAUNCHES counts the entry points' launches."""
+    import torch
+    from smk_torch.ops import fused_build as fb
+
+    k, m = coords.shape[:2]
+    out = torch.full((k, phis.shape[1], m, m), float("nan"), device=coords.device)
+    fb._launch(coords, coords, phis, mask, shift, model, True, out, layout)
+    return out
+
+
+def ragged_sweep(uni):
+    """The symmetric kernel at every m of RAGGED_M (K = 2, s = 2, d = 2;
+    three models; masked, masked + shifted, scalar shift, unmasked), and
+    at d = 1, 3, 8: equal to the plain version within tolerance, bitwise
+    equal to the tile kernel, with the exact invariants."""
+    import torch
+    from smk_torch.ops import fused_build as fb
+
+    k, s = 2, 2
+    worst, cases = 0.0, 0
+    # d = 2 (the fit's) at every m and all models; the other dimensions,
+    # which take the kernel's generic instantiation, at two m
+    sizes = [(m, 2, MODELS) for m in RAGGED_M]
+    sizes += [(m, d, ("matern32",)) for d in (1, 3, 8) for m in (129, 3907)]
+    for m, d, models in sizes:
+        coords = uni(k, m, d, hi=2.0)
+        phis = uni(k, s, lo=4.0, hi=12.0)
+        mask = (uni(k, m) > 0.1).float()
+        shift = torch.where(mask > 0, uni(k, m, lo=0.5, hi=2.0), torch.full_like(mask, 1e8))
+        scalar = torch.full_like(mask, 0.25)
+        for model in models:
+            for mk, sh in ((mask, None), (mask, shift), (mask, scalar), (None, None)):
+                what = f"ragged m={m}/d={d}/{model}/masked={mk is not None}/shift={sh is not None}"
+                got = launch_layout(coords, phis, mk, sh, model, fb.SYMMETRIC)
+                tile = launch_layout(coords, phis, mk, sh, model, fb.TILED)
+                want = fb.plain_build(coords, coords, phis, model, mask=mk, shift=sh,
+                                      zero_diag=True)
+                worst = max(worst, compare(got, want, what))
+                check(torch.equal(got, tile), f"{what}: symmetric kernel != tile kernel")
+                square_invariants(got, mk, sh, what)
+                cases += 1
+    return {"m": list(RAGGED_M), "d": [1, 2, 3, 8], "K": k, "s": s, "cases": cases,
+            "max_abs_err": worst}
+
+
 def kernels_phase(device):
     import torch
     from smk_torch.ops import fused_build as fb
@@ -181,7 +265,7 @@ def kernels_phase(device):
     mask = torch.ones(k, m, device=device)
     mask[:, -11:] = 0.0
     shift = torch.where(mask > 0, uni(k, m, lo=0.5, hi=2.0), torch.full_like(mask, 1e8))
-    for model in ("exponential", "matern32", "matern52"):
+    for model in MODELS:
         cases = [
             ("fused_masked_correlation_stack",
              lambda: fb.fused_masked_correlation_stack(coords, phis, mask, model),
@@ -226,6 +310,9 @@ def kernels_phase(device):
                    "shape": list(got.shape), "shared_coords": True,
                    "max_abs_err": compare(got, want, "shared-coords stack")})
 
+    sweep = ragged_sweep(uni)
+    torch.cuda.empty_cache()
+
     # ---- main-path shapes: K = 32, m = 3906, t = 64, s = q = 1 ----
     k, m, t = MAIN_K, MAIN_M, MAIN_T
     coords = uni(k, m, 2)
@@ -251,6 +338,10 @@ def kernels_phase(device):
             lambda: fb.fused_correlation_stack(test, phis, model),
             dict(ca=test[None].expand(k, t, 2), cb=test[None], zero_diag=True),
             [test, phis], (False, False), (test[None], test[None])),
+        "fused_correlation": (
+            lambda: fb.fused_correlation(coords, phis[:, 0], model)[:, None],
+            dict(ca=coords, cb=coords, zero_diag=True),
+            [coords, phis], (False, False), (coords, coords)),
     }
     timings = {}
     for name, (run, spec, inputs, (masked, shifted), (a, b)) in main.items():
@@ -260,9 +351,23 @@ def kernels_phase(device):
             shift=spec.get("shift"), zero_diag=spec.get("zero_diag", False),
         )
         err = compare(got, want, f"{name} at the main-path shape")
-        if spec.get("zero_diag") and masked:
+        if spec.get("zero_diag"):
             square_invariants(got, spec.get("mask"), spec.get("shift"), name)
         del want
+        tile_ms = tile_device_ms = None
+        if name in ("fused_masked_correlation_stack", "fused_masked_shifted_build"):
+            # the symmetric kernel against the tile kernel, bitwise, and
+            # the tile kernel's times on the same inputs
+            sym = launch_layout(coords, phis, mask, spec.get("shift"), model, fb.SYMMETRIC)
+            tile = launch_layout(coords, phis, mask, spec.get("shift"), model, fb.TILED)
+            check(torch.equal(sym, tile), f"{name}: symmetric kernel != tile kernel at the main-path shape")
+            check(torch.equal(sym, got), f"{name}: entry point != symmetric kernel")
+            del sym
+            tile_run = lambda: fb._launch(  # noqa: E731
+                coords, coords, phis, mask, spec.get("shift"), model, True, tile, fb.TILED)
+            tile_ms = ms_median(tile_run)
+            tile_device_ms = ms_median(tile_run, device_only=True)
+            del tile
         plain = lambda: fb.plain_build(  # noqa: E731
             spec["ca"], spec["cb"], phis, model, mask=spec.get("mask"),
             shift=spec.get("shift"), zero_diag=spec.get("zero_diag", False),
@@ -271,20 +376,24 @@ def kernels_phase(device):
             -phis[:, :, None, None] * torch.cdist(a, b)[:, None]
         )
         ms = ms_median(run)
+        device_ms = ms_median(run, device_only=True)
         plain_ms = ms_median(plain)
         library_ms = ms_median(library)
         b_ms, b_by = bound(inputs, got, model, masked, shifted)
         timings[name] = {
             "shape": list(got.shape), "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "achieved_GBps": got.numel() * 4 / (ms * 1e-3) / 1e9,
-            "write_bytes": got.numel() * 4,
+            "achieved_GBps": min_bytes(inputs, got) / (ms * 1e-3) / 1e9,
+            "bound_fraction": b_ms / ms,
+            "write_bytes": got.numel() * 4, "tile_kernel_ms": tile_ms,
+            "tile_kernel_device_ms": tile_device_ms,
         }
         del got
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "tolerance": {"atol": ATOL, "rtol": RTOL},
-          "checks": checks, "main_path": timings, "launches_in_phase": dict(fb.LAUNCHES)})
+          "checks": checks, "ragged_sweep": sweep, "main_path": timings,
+          "launches_in_phase": dict(fb.LAUNCHES)})
     return timings
 
 
@@ -482,10 +591,12 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": c5["launches"][name],
          "max_abs_err": timings[name]["max_abs_err"], "ms": timings[name]["ms"],
-         "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
+         "device_ms": timings[name]["device_ms"], "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
          "bound_by": timings[name]["bound_by"],
-         "library_ms": timings[name]["library_ms"]}
-        for name in MAIN_PATH
+         "library_ms": timings[name]["library_ms"],
+         "achieved_GBps": timings[name]["achieved_GBps"],
+         "bound_fraction": timings[name]["bound_fraction"]}
+        for name in KERNELS
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

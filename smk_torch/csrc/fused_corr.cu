@@ -1,8 +1,9 @@
 // Fused correlation build for Hopper (sm_90a).
 //
-// Replaces the TPU kernel smk_tpu/ops/pallas_build.py::_corr_kernel
-// (:179-234), launched by _fused_build (:237-327). For each (k, s)
-// matrix of the output it computes, per pair (i, j),
+// Two kernels replace the TPU kernel
+// smk_tpu/ops/pallas_build.py::_corr_kernel (:179-234), launched by
+// _fused_build (:237-327). For each (k, s) matrix of the output they
+// compute, per pair (i, j),
 //
 //   dist = sqrt(sum_c (a[k, i, c] - b[k, j, c])^2)      (c in d order)
 //   rho  = CORRELATION_FNS[model](dist, phi[k, s])
@@ -13,27 +14,72 @@
 // into a contiguous fp32 (K, S, MA, MB) tensor. The diagonal is tested
 // on global indices, as the TPU kernel does.
 //
-// Bound on the H100: the kernel writes S*MA*MB*4 bytes per k and reads
-// only O((MA + MB) d) coordinates, and it does ~15 fp32 operations per
-// element, so it is write-bound: the (32, 1, 3906, 3906) build writes
-// 1.95 GB, at least 0.58 ms at 3.35 TB/s, against ~0.1 ms for its
-// operations at 67 TFLOP/s. The simple design answers that with
-// coalesced stores (each warp stores 32 consecutive floats of one
-// row, 128 bytes) and reads each tile's coordinates once, into shared
-// memory. Wider stores, writing one symmetric half, or a persistent
-// grid are left for later.
+//   fused_corr_kernel      (layout 0, the cross build): one block per
+//                          32 x 32 output tile, 256 threads, each thread
+//                          4 rows of one column.
+//   fused_corr_sym_kernel  (layout 1, every square same-coordinates
+//                          build): computes only the tile pairs I <= J
+//                          of 64 x 64 tiles and stores each off-diagonal
+//                          pair twice, at (I, J) and mirrored at (J, I).
 //
-// Layout: one block per 32 x 32 output tile of one (k, s) matrix, 256
-// threads (32 x 8); each thread writes 4 rows of its column. Reads and
-// writes are guarded at ragged edges: nothing outside the inputs is
-// read, nothing outside the output is written.
+// Bound on the H100: a build writes S*MA*MB*4 bytes per k and reads
+// only O((MA + MB) d) coordinates, so it is write-bound: the
+// (32, 1, 3906, 3906) build writes 1.95 GB, at least 0.58 ms at
+// 3.35 TB/s. Its ~15 fp32 operations per element count 0.1 ms at
+// 67 TFLOP/s, but IEEE sqrtf, accurate expf, the rounded blend, the
+// diagonal and bounds tests and the address arithmetic make issue time
+// a second limit. At m = 3906 the symmetric kernel (0.86 ms) meets the
+// two about equally: without its stores it takes 0.81 ms, and without
+// sqrt, exp and the blend 0.87 ms, against 0.60 ms for a plain fill of
+// the same bytes, so its stores alone hold it there (the sector shared
+// where one row ends and the next begins, and the scalar stores at the
+// row ends). At m = 3904, where every row starts on a sector, issue
+// time leads: 0.81 ms without stores, 0.67 ms without the arithmetic
+// (H100 80GB HBM3, 700 W; scripts/torch_build_probe.py).
+//
+// Writes that cover a 32-byte sector only in part cost far more than
+// whole ones: with column segments aligned to the 64-column tiles
+// instead of to sectors, the symmetric kernel takes 0.80 ms at
+// m = 3904 (every row starts on a sector) but 1.82 ms at m = 3906
+// (rows start 8 bytes apart mod 32; torch_build_probe.py). The tile
+// kernel's 32-float rows share sectors the same way. So the symmetric
+// kernel:
+//   - writes whole sectors only: each row's column segments start on a
+//     sector boundary (shifted left by the row's offset into its
+//     sector, below), so a segment is 16 aligned 16-byte stores; only
+//     the sector where one row ends and the next begins is shared;
+//   - computes one half: an off-diagonal tile pair is computed once,
+//     with an 8-wide halo, into a 72 x 73 shared-memory region, and
+//     both its stores, at (I, J) and mirrored at (J, I), read that
+//     region, so both are coalesced rows. The output bytes stay the
+//     same (cuSOLVER's potrf reads the lower triangle, but the u-draw
+//     multiplies by the full matrix). Stores are evict-first
+//     (__stcs): the output is ~40 times the 50 MB L2;
+//   - compiles d = 2, the fit's only dimension, as a constant, holding
+//     a thread's column coordinates and mask in registers (any other d
+//     runs a generic instantiation, which at d = 2 takes 0.95 ms at
+//     m = 3906 instead of 0.86: 3656 SASS instructions against 2336;
+//     torch_build_probe.py generic_d2);
+//   - runs persistent blocks: SMs x resident blocks walk the (ks, I, J)
+//     work items with a stride; the next item's coordinate panels,
+//     mask, shift and phi are loaded into registers before the current
+//     item is computed and stored, and land in the other half of a
+//     double buffer in shared memory after it.
+//
+// Guards: every read and write is bounded at the ragged edge: nothing
+// outside the inputs is read, nothing outside the output is written.
+// Shared memory stays under 48 KB (no opt-in needed); nothing is
+// allocated; the entry point returns cudaGetLastError().
 //
 // Numerics: expf (not __expf), IEEE sqrt and division (no fast math),
 // and the distance sum and the mask blend are rounded operation by
 // operation (__fmul_rn / __fadd_rn: no contraction into FMA), so the
-// result follows the plain version's arithmetic. Because the
-// per-pair arithmetic is the same for (i, j) and (j, i), a square
-// same-coordinates build is symmetric bit for bit.
+// result follows the plain version's arithmetic. Both kernels run the
+// same per-pair code, and (x - y)^2 == (y - x)^2 and m_i m_j == m_j m_i
+// in IEEE, so the symmetric kernel's output is bitwise equal to the
+// tile kernel's, and symmetric bit for bit by construction.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -43,6 +89,10 @@ constexpr int TILE = 32;
 constexpr int ROWS_PER_THREAD = 4;
 constexpr int BLOCK_Y = TILE / ROWS_PER_THREAD;  // 8: 256 threads
 constexpr int MAX_D = 8;
+
+// symmetric kernel: 64 x 64 output tiles, 256 threads
+constexpr int STILE = 64;
+constexpr int SYM_THREADS = 256;
 
 constexpr float SQRT3 = 1.7320508075688772f;
 constexpr float SQRT5 = 2.23606797749979f;
@@ -71,6 +121,23 @@ struct Args {
   int K, S, MA, MB, D;
   long long a_kstride, b_kstride;
 };
+
+// The per-pair arithmetic after the distance sum, shared by both
+// kernels so that they agree bit for bit.
+template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG>
+__device__ __forceinline__ float pair_value(float sq, bool diag, float phi,
+                                            float mi, float mj, float sh) {
+  float dist = sqrtf(fmaxf(sq, 0.0f));
+  if (ZERO_DIAG && diag) dist = 0.0f;
+  float rho = corr<MODEL>(dist, phi);
+  if (MASKED) {
+    const float mm = __fmul_rn(mi, mj);
+    rho = __fadd_rn(__fmul_rn(mm, rho),
+                    __fmul_rn(__fsub_rn(1.0f, mm), diag ? 1.0f : 0.0f));
+  }
+  if (SHIFTED && diag) rho = __fadd_rn(rho, sh);
+  return rho;
+}
 
 template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG>
 __global__ void __launch_bounds__(TILE * BLOCK_Y)
@@ -132,75 +199,378 @@ fused_corr_kernel(const Args args) {
       const float diff = __fsub_rn(sa[r][c], sb[c][tx]);
       sq = __fadd_rn(sq, __fmul_rn(diff, diff));
     }
-    const bool diag = (i == j);
-    float dist = sqrtf(fmaxf(sq, 0.0f));
-    if (ZERO_DIAG && diag) dist = 0.0f;
-    float rho = corr<MODEL>(dist, phi);
-    if (MASKED) {
-      const float mm = __fmul_rn(mrow[r], mcol[tx]);
-      rho = __fadd_rn(__fmul_rn(mm, rho),
-                      __fmul_rn(__fsub_rn(1.0f, mm), diag ? 1.0f : 0.0f));
-    }
-    if (SHIFTED && diag) rho = __fadd_rn(rho, srow[r]);
-    out[(long long)i * MB + j] = rho;
+    out[(long long)i * MB + j] = pair_value<MODEL, MASKED, SHIFTED, ZERO_DIAG>(
+        sq, i == j, phi, MASKED ? mrow[r] : 0.0f, MASKED ? mcol[tx] : 0.0f,
+        SHIFTED ? srow[r] : 0.0f);
   }
 }
 
+// ---- the symmetric kernel ------------------------------------------
+//
+// Whole sectors: a 32-byte sector of the output is written by one block
+// only. Output row i starts `off_i` floats into a sector (its address
+// mod 32, over 4), and its column segment J is [J*64 - off_i,
+// (J+1)*64 - off_i), clipped to [0, MB): sector-aligned, so every
+// 4-column group of it is one aligned 16-byte store. Segment J reaches
+// up to HALO - 1 columns into tile J - 1, so a pair (I, J) computes the
+// region of rows [I*64 - HALO, I*64 + 64) x columns [J*64 - HALO,
+// J*64 + 64) of its matrix (all but the HALO x HALO corner, which no
+// store reads) into shared memory, once, and stores from it both the
+// rows of tile I over segment J and, mirrored, the rows of tile J over
+// segment I. There are ceil((MB + HALO - 1) / 64) tiles and segments a
+// side, so the last segment of every row reaches MB.
+
+constexpr int HALO = 8;               // one sector of floats
+constexpr int SPAN = STILE + HALO;    // 72: a panel's rows, the region's edge
+constexpr int QUADS = STILE / 4;      // 16 four-column groups in a segment
+constexpr int STAGE_COORDS = (2 * SPAN * MAX_D + SYM_THREADS - 1) / SYM_THREADS;  // 5
+
+// Work item w -> (ks, I, J) with I <= J: the tile pairs of one (k, s)
+// matrix are numbered p = J (J + 1) / 2 + I, so J is the triangular
+// root of p (a float square root, then an integer correction; the
+// triangular numbers in 64 bits). The entry point keeps w in an int.
+__device__ __forceinline__ void decode_item(int w, int pairs, int& ks, int& I,
+                                            int& J) {
+  ks = w / pairs;
+  const long long p = w - ks * pairs;
+  long long a = (long long)((sqrtf(8.0f * (float)p + 1.0f) - 1.0f) * 0.5f);
+  while (a > 0 && a * (a + 1) / 2 > p) --a;
+  while ((a + 1) * (a + 2) / 2 <= p) ++a;
+  J = (int)a;
+  I = (int)(p - a * (a + 1) / 2);
+}
+
+struct __align__(16) SymShared {
+  // coordinates of rows [I*64 - HALO, I*64 + 64) and [J*64 - HALO,
+  // J*64 + 64), c-major, double buffered
+  float pa[2][MAX_D][SPAN];
+  float pb[2][MAX_D][SPAN];
+  float ma[2][SPAN];  // mask of the pa rows
+  float mb[2][SPAN];  // mask of the pb rows
+  float sh[2][SPAN];  // shift of the pa rows
+  float phi[2];
+  // the region: val[a][b] = rho(pa row a, pb row b); the odd pitch
+  // spreads a column's reads over the banks
+  float val[SPAN][SPAN + 1];
+};
+
+// One work item as one thread holds it: its (ks, I, J), and what the
+// thread fetches of its inputs: up to 5 coordinate floats of the two
+// panels, one mask or shift value, and (thread 216) phi.
+struct Stage {
+  int ks, I, J;
+  float c[STAGE_COORDS];
+  float ms;
+  float phi;
+};
+
+template <bool MASKED, bool SHIFTED>
+__device__ __forceinline__ void stage_load(const Args& args, int D, int w,
+                                           int pairs, int tid, Stage& st) {
+  decode_item(w, pairs, st.ks, st.I, st.J);
+  const int M = args.MA;
+  const int k = st.ks / args.S;
+  const float* c = args.ca + k * args.a_kstride;
+  const int nd = SPAN * D;
+#pragma unroll
+  for (int q = 0; q < STAGE_COORDS; ++q) {
+    const int e = tid + q * SYM_THREADS;
+    float v = 0.0f;
+    if (e < 2 * nd) {
+      const int panel = e >= nd;
+      const int el = e - panel * nd;
+      const int first = (panel ? st.J : st.I) * STILE - HALO;
+      const int row = first + el / D;
+      if (row >= 0 && row < M) v = c[(long long)first * D + el];
+    }
+    st.c[q] = v;
+  }
+  const long long base = (long long)k * M;
+  st.ms = 0.0f;
+  if (MASKED && tid < 2 * SPAN) {
+    const int row = (tid < SPAN ? st.I : st.J) * STILE - HALO + tid % SPAN;
+    if (row >= 0 && row < M) st.ms = args.mask[base + row];
+  }
+  if (SHIFTED && tid >= 2 * SPAN && tid < 3 * SPAN) {
+    const int row = st.I * STILE - HALO + (tid - 2 * SPAN);
+    if (row >= 0 && row < M) st.ms = args.shift[base + row];
+  }
+  if (tid == 3 * SPAN) st.phi = args.phis[st.ks];
+}
+
+template <bool MASKED, bool SHIFTED>
+__device__ __forceinline__ void stage_store(SymShared& sm, int buf, int D,
+                                            int tid, const Stage& st) {
+  const int nd = SPAN * D;
+#pragma unroll
+  for (int q = 0; q < STAGE_COORDS; ++q) {
+    const int e = tid + q * SYM_THREADS;
+    if (e < 2 * nd) {
+      const int panel = e >= nd;
+      const int el = e - panel * nd;
+      const int r = el / D;
+      const int c = el - r * D;
+      (panel ? sm.pb : sm.pa)[buf][c][r] = st.c[q];
+    }
+  }
+  if (MASKED && tid < 2 * SPAN) {
+    (tid < SPAN ? sm.ma : sm.mb)[buf][tid % SPAN] = st.ms;
+  }
+  if (SHIFTED && tid >= 2 * SPAN && tid < 3 * SPAN) {
+    sm.sh[buf][tid - 2 * SPAN] = st.ms;
+  }
+  if (tid == 3 * SPAN) sm.phi[buf] = st.phi;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Region columns [b, b + 4) of row a: the distance sums (pb
+// coordinates from `bq` where the caller holds them, else from shared
+// memory), then the per-pair tail, into val.
+template <int MODEL, bool MASKED, bool SHIFTED, int DIM>
+__device__ __forceinline__ void region_group(SymShared& sm, int buf, int D,
+                                             int a, int b, const float4* bq,
+                                             float4 mbq, int ia, int jb,
+                                             float phi) {
+  float sq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < (DIM > 0 ? DIM : MAX_D); ++c) {
+    if (DIM == 0 && c >= D) break;
+    const float ai = sm.pa[buf][c][a];
+    const float4 bj = bq != nullptr ? bq[c] : lds4(&sm.pb[buf][c][b]);
+    const float b4[4] = {bj.x, bj.y, bj.z, bj.w};
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const float diff = __fsub_rn(ai, b4[cc]);
+      sq[cc] = __fadd_rn(sq[cc], __fmul_rn(diff, diff));
+    }
+  }
+  const float mi = MASKED ? sm.ma[buf][a] : 0.0f;
+  const float si = SHIFTED ? sm.sh[buf][a] : 0.0f;
+  const float m4[4] = {mbq.x, mbq.y, mbq.z, mbq.w};
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    sm.val[a][b + cc] = pair_value<MODEL, MASKED, SHIFTED, true>(
+        sq[cc], ia + a == jb + b + cc, phi, mi, m4[cc], si);
+  }
+}
+
+// Floats from the start of its 32-byte sector to `p`.
+__device__ __forceinline__ int sector_offset(const float* p) {
+  return (int)((reinterpret_cast<unsigned long long>(p) >> 2) & 7);
+}
+
+// Columns [j, j + 4) of the output row at `row`, those in [0, M) only:
+// one 16-byte store where all four are in (the address is aligned
+// inside a segment), else scalars. Evict-first: the output is ~40
+// times the L2 and read back long after.
+__device__ __forceinline__ void store4(float* row, int j, int M, float4 v) {
+  if (j >= 0 && j + 4 <= M) {
+    __stcs(reinterpret_cast<float4*>(row + j), v);
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (j + q >= 0 && j + q < M) __stcs(row + j + q, e[q]);
+  }
+}
+
+// DIM: the coordinate dimension where it is known when compiling (2,
+// the only one the fit uses), 0 for any other (read from args.D).
+template <int MODEL, bool MASKED, bool SHIFTED, int DIM>
+__global__ void __launch_bounds__(SYM_THREADS, 3)
+fused_corr_sym_kernel(const Args args, int pairs, int items) {
+  __shared__ SymShared sm;
+
+  const int M = args.MA;
+  const int D = DIM > 0 ? DIM : args.D;
+  const int tid = threadIdx.x;
+  // region phase: the thread's four columns b = HALO + 4 * quad of rows
+  // rsub + 16 k (k < 4), then one more group (below); store phase: its
+  // four columns 4 * quad of a segment, of rows rsub + 16 k
+  const int quad = tid % QUADS;
+  const int rsub = tid / QUADS;
+
+  int w = blockIdx.x;
+  if (w >= items) return;
+  Stage st;
+  stage_load<MASKED, SHIFTED>(args, D, w, pairs, tid, st);
+  stage_store<MASKED, SHIFTED>(sm, 0, D, tid, st);
+  __syncthreads();
+
+  int buf = 0;
+  for (; w < items; w += gridDim.x) {
+    const int ks = st.ks;
+    const int I = st.I;
+    const int J = st.J;
+    // the next item's inputs are in flight while this one is computed
+    const bool more = w + (int)gridDim.x < items;  // no overflow: items + grid < 2^31
+    if (more) stage_load<MASKED, SHIFTED>(args, D, w + gridDim.x, pairs, tid, st);
+
+    // The region: all but its HALO x HALO corner. Columns [HALO, SPAN)
+    // of rows [0, SPAN) are 16 x 72 groups of four; threads hold their
+    // column group's coordinates and mask. Columns [0, HALO) of rows
+    // [HALO, SPAN) are the other 128 groups.
+    const int ia = I * STILE - HALO;  // global row of pa row 0
+    const int jb = J * STILE - HALO;  // global row of pb row 0
+    const float phi = sm.phi[buf];
+    const int b1 = HALO + 4 * quad;
+    float4 bq[DIM > 0 ? DIM : 1];
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) bq[c] = lds4(&sm.pb[buf][c][b1]);
+    const float4 m1 = MASKED ? lds4(&sm.mb[buf][b1]) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      region_group<MODEL, MASKED, SHIFTED, DIM>(
+          sm, buf, D, rsub + 16 * k, b1, DIM > 0 ? bq : nullptr, m1, ia, jb, phi);
+    }
+    if (rsub < HALO) {
+      region_group<MODEL, MASKED, SHIFTED, DIM>(
+          sm, buf, D, STILE + rsub, b1, DIM > 0 ? bq : nullptr, m1, ia, jb, phi);
+    } else {
+      const int h = tid - HALO * QUADS;  // 0..127
+      const int a = HALO + h / 2;
+      const int b = 4 * (h % 2);
+      const float4 m0 = MASKED ? lds4(&sm.mb[buf][b]) : make_float4(0.f, 0.f, 0.f, 0.f);
+      region_group<MODEL, MASKED, SHIFTED, DIM>(sm, buf, D, a, b, nullptr, m0,
+                                                ia, jb, phi);
+    }
+    __syncthreads();
+
+    float* out = args.out + (long long)ks * M * M;
+    // rows of tile I over segment J: 4 columns a thread, 16 a row
+#pragma unroll
+    for (int r = 0; r < STILE / 16; ++r) {
+      const int li = rsub + 16 * r;
+      const int i = I * STILE + li;
+      if (i < M) {
+        float* row = out + (long long)i * M;
+        const int b = HALO - sector_offset(row) + 4 * quad;
+        const float* v = &sm.val[HALO + li][b];
+        store4(row, jb + b, M, make_float4(v[0], v[1], v[2], v[3]));
+      }
+    }
+    // rows of tile J over segment I, from the same region (block-uniform)
+    if (I != J) {
+#pragma unroll
+      for (int r = 0; r < STILE / 16; ++r) {
+        const int lj = rsub + 16 * r;
+        const int j = J * STILE + lj;
+        if (j < M) {
+          float* row = out + (long long)j * M;
+          const int a = HALO - sector_offset(row) + 4 * quad;
+          store4(row, ia + a, M,
+                 make_float4(sm.val[a][HALO + lj], sm.val[a + 1][HALO + lj],
+                             sm.val[a + 2][HALO + lj], sm.val[a + 3][HALO + lj]));
+        }
+      }
+    }
+    if (more) stage_store<MASKED, SHIFTED>(sm, buf ^ 1, D, tid, st);
+    __syncthreads();
+    buf ^= 1;
+  }
+}
+
+int sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  n = n > 0 ? n : 1;
+  if (dev >= 0 && dev < 64) cached[dev] = n;
+  return n;
+}
+
+template <int MODEL, bool MASKED, bool SHIFTED, int DIM>
+cudaError_t launch_sym(const Args& args, cudaStream_t stream) {
+  const long long nt = (args.MA + HALO - 1 + STILE - 1) / STILE;
+  const long long pairs = nt * (nt + 1) / 2;
+  const long long items = (long long)args.K * args.S * pairs;
+  if (items > INT_MAX / 2) return cudaErrorInvalidValue;  // w + grid stays an int
+  static int per_sm = 0;  // resident blocks per SM, asked once
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_corr_sym_kernel<MODEL, MASKED, SHIFTED, DIM>, SYM_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  const long long resident = (long long)sm_count() * per_sm;
+  const int grid = (int)(items < resident ? items : resident);
+  fused_corr_sym_kernel<MODEL, MASKED, SHIFTED, DIM>
+      <<<grid, SYM_THREADS, 0, stream>>>(args, (int)pairs, (int)items);
+  return cudaSuccess;
+}
+
 template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG>
-void launch(const Args& args, cudaStream_t stream) {
+cudaError_t launch(const Args& args, cudaStream_t stream) {
   const dim3 grid((args.MB + TILE - 1) / TILE, (args.MA + TILE - 1) / TILE,
                   args.K * args.S);
   const dim3 block(TILE, BLOCK_Y);
   fused_corr_kernel<MODEL, MASKED, SHIFTED, ZERO_DIAG>
       <<<grid, block, 0, stream>>>(args);
+  return cudaSuccess;
 }
 
 template <int MODEL, bool MASKED, bool SHIFTED>
-void dispatch_diag(const Args& args, int zero_diag, cudaStream_t stream) {
-  if (zero_diag) {
-    launch<MODEL, MASKED, SHIFTED, true>(args, stream);
-  } else {
-    launch<MODEL, MASKED, SHIFTED, false>(args, stream);
+cudaError_t dispatch_layout(const Args& args, int zero_diag, int layout,
+                            cudaStream_t stream) {
+  if (layout == 1) {
+    if (args.D == 2) return launch_sym<MODEL, MASKED, SHIFTED, 2>(args, stream);
+    return launch_sym<MODEL, MASKED, SHIFTED, 0>(args, stream);
   }
+  if (zero_diag) return launch<MODEL, MASKED, SHIFTED, true>(args, stream);
+  return launch<MODEL, MASKED, SHIFTED, false>(args, stream);
 }
 
 template <int MODEL>
-void dispatch_flags(const Args& args, int masked, int shifted, int zero_diag,
-                    cudaStream_t stream) {
+cudaError_t dispatch_flags(const Args& args, int masked, int shifted,
+                           int zero_diag, int layout, cudaStream_t stream) {
   if (masked && shifted) {
-    dispatch_diag<MODEL, true, true>(args, zero_diag, stream);
+    return dispatch_layout<MODEL, true, true>(args, zero_diag, layout, stream);
   } else if (masked) {
-    dispatch_diag<MODEL, true, false>(args, zero_diag, stream);
+    return dispatch_layout<MODEL, true, false>(args, zero_diag, layout, stream);
   } else if (shifted) {
-    dispatch_diag<MODEL, false, true>(args, zero_diag, stream);
-  } else {
-    dispatch_diag<MODEL, false, false>(args, zero_diag, stream);
+    return dispatch_layout<MODEL, false, true>(args, zero_diag, layout, stream);
   }
+  return dispatch_layout<MODEL, false, false>(args, zero_diag, layout, stream);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, does
-// not synchronise and allocates nothing. Returns cudaGetLastError()
+// not synchronise and allocates nothing. `layout` 0 is the tile kernel,
+// 1 the symmetric kernel, which takes only square same-coordinates
+// zero-diagonal builds (cb == ca, MA == MB). Returns cudaGetLastError()
 // (0 on success); the caller raises on anything else.
 extern "C" int smk_fused_corr(const float* ca, const float* cb,
                               const float* phis, const float* mask,
                               const float* shift, float* out, int K, int S,
                               int MA, int MB, int D, long long a_kstride,
                               long long b_kstride, int model, int masked,
-                              int shifted, int zero_diag, void* stream) {
+                              int shifted, int zero_diag, int layout,
+                              void* stream) {
   if (K < 1 || S < 1 || MA < 1 || MB < 1 || D < 1 || D > MAX_D ||
       (long long)K * S > 65535 || (MA + TILE - 1) / TILE > 65535 ||
-      model < 0 || model > 2 || ((masked || shifted) && MA != MB)) {
+      model < 0 || model > 2 || ((masked || shifted) && MA != MB) ||
+      layout < 0 || layout > 1 ||
+      (layout == 1 && (ca != cb || a_kstride != b_kstride || MA != MB ||
+                       !zero_diag))) {
     return (int)cudaErrorInvalidValue;
   }
   const Args args{ca, cb, phis, mask, shift, out, K, S,
                   MA, MB, D, a_kstride, b_kstride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (model) {
-    case 0: dispatch_flags<0>(args, masked, shifted, zero_diag, s); break;
-    case 1: dispatch_flags<1>(args, masked, shifted, zero_diag, s); break;
-    default: dispatch_flags<2>(args, masked, shifted, zero_diag, s); break;
+    case 0: err = dispatch_flags<0>(args, masked, shifted, zero_diag, layout, s); break;
+    case 1: err = dispatch_flags<1>(args, masked, shifted, zero_diag, layout, s); break;
+    default: err = dispatch_flags<2>(args, masked, shifted, zero_diag, layout, s); break;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

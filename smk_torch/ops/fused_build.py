@@ -1,12 +1,15 @@
 """Fused correlation build — the port of ``smk_tpu/ops/pallas_build.py``.
 
-One hand-written CUDA kernel (``smk_torch/csrc/fused_corr.cu``)
-computes what the TPU kernel ``_corr_kernel`` computes: per pair, the
+Two hand-written CUDA kernels (``smk_torch/csrc/fused_corr.cu``)
+compute what the TPU kernel ``_corr_kernel`` computes: per pair, the
 direct squared coordinate differences summed over d, the sqrt, an
 optional exact-zero diagonal, ``CORRELATION_FNS[model]``, the optional
 pad-row identity R~ = M R M + (I - M) and an optional + diag(shift) —
 emitted straight into a contiguous fp32 (K, s, ma, mb) tensor, with no
-(m, m) distance matrix in device memory.
+(m, m) distance matrix in device memory. Square same-coordinates
+builds run the symmetric kernel (layout 1: one half of the tile pairs
+computed, the mirror stored from it); the cross build runs the tile
+kernel (layout 0). :func:`kernel_layout` makes that choice.
 
 Five entry points wrap it, as in the twin: :func:`fused_correlation`,
 :func:`fused_correlation_stack`, :func:`fused_masked_correlation_stack`,
@@ -43,8 +46,11 @@ ENTRY_POINTS = (
 LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 
-# output tile edge of the CUDA kernel (csrc/fused_corr.cu TILE)
-TILE = 32
+# output tile edge of the square builds' kernel (csrc/fused_corr.cu
+# STILE); the cross build's tile kernel uses 32
+TILE = 64
+# the kernel a build launches (the C entry point's `layout` argument)
+TILED, SYMMETRIC = 0, 1
 _MAX_D = 8
 _MODEL_IDS = {"exponential": 0, "matern32": 1, "matern52": 2}
 
@@ -56,14 +62,21 @@ def reset_counts() -> None:
         PLAIN_CALLS[name] = 0
 
 
-def _kernel():
-    lib = cuda_build.load("fused_corr")
+def bind_kernel(lib):
+    """The C entry point ``smk_fused_corr`` of a built ``fused_corr``
+    library, with its ctypes signature: six pointers (ca, cb, phis, mask,
+    shift, out), K, S, MA, MB, D, the two K strides, model, masked,
+    shifted, zero_diag, layout and the stream."""
     fn = lib.smk_fused_corr
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _kernel():
+    return bind_kernel(cuda_build.load("fused_corr"))
 
 
 def plain_build(
@@ -107,9 +120,17 @@ def plain_build(
     return rho
 
 
-def _launch(ca, cb, phis, mask, shift, model, zero_diag, out):
+def kernel_layout(coords_a, coords_b, zero_diag: bool) -> int:
+    """SYMMETRIC for a square same-coordinates zero-diagonal build (its
+    output is symmetric, so the kernel computes one half and mirrors
+    it), TILED otherwise."""
+    return SYMMETRIC if coords_a is coords_b and zero_diag else TILED
+
+
+def _launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout):
     """One kernel launch on the current stream; raises on a launch
-    error (the C function returns cudaGetLastError())."""
+    error (the C function returns cudaGetLastError()). ``layout``
+    SYMMETRIC needs ``cb`` to be ``ca``."""
     k, s, ma, mb = out.shape
     d = ca.shape[-1]
     err = _kernel()(
@@ -119,13 +140,13 @@ def _launch(ca, cb, phis, mask, shift, model, zero_diag, out):
         out.data_ptr(), k, s, ma, mb, d,
         ca.stride(0), cb.stride(0),
         _MODEL_IDS[model], int(mask is not None), int(shift is not None),
-        int(zero_diag),
+        int(zero_diag), layout,
         torch.cuda.current_stream(out.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
             f"fused_corr kernel launch failed: CUDA error {err} "
-            f"(K={k}, s={s}, ma={ma}, mb={mb}, d={d})"
+            f"(K={k}, s={s}, ma={ma}, mb={mb}, d={d}, layout={layout})"
         )
 
 
@@ -149,6 +170,7 @@ def _fused_build(
         )
     masked = mask is not None
     shifted = shift is not None
+    layout = kernel_layout(coords_a, coords_b, zero_diag)
     if (masked or shifted) and coords_a is not coords_b:
         # the in-tile row == col test is the "same point" diagonal only
         # when both operands are the same coordinate set
@@ -200,13 +222,16 @@ def _fused_build(
         # a K-shared operand keeps stride 0 on K (no copy); the (m, d)
         # block of each k must be contiguous
         ca = ca.contiguous() if ca.shape[0] == k else ca[:1].contiguous().expand(k, ma, d)
-        cb = cb.contiguous() if cb.shape[0] == k else cb[:1].contiguous().expand(k, mb, d)
+        if layout == SYMMETRIC:
+            cb = ca
+        else:
+            cb = cb.contiguous() if cb.shape[0] == k else cb[:1].contiguous().expand(k, mb, d)
         ph = ph.contiguous()
         mk = None if mk is None else mk.contiguous()
         sh = None if sh is None else sh.contiguous()
         out = torch.empty((k, ph.shape[-1], ma, mb), dtype=dtype, device=dev)
         if out.numel():
-            _launch(ca, cb, ph, mk, sh, model, zero_diag, out)
+            _launch(ca, cb, ph, mk, sh, model, zero_diag, out, layout)
             LAUNCHES[entry] += 1
     return out if batched else out[0]
 

@@ -3,8 +3,9 @@ against the JAX package's Pallas kernel (smk_tpu/ops/pallas_build.py),
 run in interpret mode as tests/test_fused_build.py runs it.
 
 On the CPU every entry point runs its plain PyTorch version (the CUDA
-kernel needs the card: the gpu-marked test holds the kernel against the
-plain version there). Inputs are made with numpy from a seed and passed
+kernels need the card: the gpu-marked tests hold them against the
+plain version there, and the symmetric kernel against the tile kernel
+bit for bit). Inputs are made with numpy from a seed and passed
 to both packages.
 
 Tolerance: both sides compute the same per-pair arithmetic (direct
@@ -16,6 +17,10 @@ invariants (unit diagonal, pad identity, symmetry) are exact.
 """
 
 # smklint: test-budget=interpret-mode Pallas calls at m <= 147 take under a second each; the plain torch builds are milliseconds
+import ctypes
+import re
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,6 +217,27 @@ class TestWrapperContract:
         # the kernel's own tile: writes are s m^2 floats either way
         assert tfb.build_bytes_model(m, s, fused=fused)["write_bytes"] == s * m * m * 4
 
+    @pytest.mark.parametrize("entry", tfb.ENTRY_POINTS)
+    def test_square_builds_pick_the_symmetric_kernel(self, entry, monkeypatch):
+        seen = []
+        real = tfb.kernel_layout
+
+        def spy(a, b, zero_diag):
+            seen.append(real(a, b, zero_diag))
+            return seen[-1]
+
+        monkeypatch.setattr(tfb, "kernel_layout", spy)
+        coords, other, phis, mask, shift = _inputs(2, 20, 1, seed=4, mb=7)
+        _torch(entry, "exponential", coords, phis, mask=mask, shift=shift, other=other)
+        want = tfb.TILED if entry == "fused_cross_correlation" else tfb.SYMMETRIC
+        assert seen == [want]
+
+    def test_layout_needs_the_same_coords_and_a_zero_diagonal(self):
+        c = torch.rand(3, 8, 2)
+        assert tfb.kernel_layout(c, c, True) == tfb.SYMMETRIC
+        assert tfb.kernel_layout(c, c.clone(), True) == tfb.TILED
+        assert tfb.kernel_layout(c, c, False) == tfb.TILED
+
     def test_build_module_is_lazy_and_digest_named(self, monkeypatch, tmp_path):
         monkeypatch.setenv("SMK_TORCH_BUILD_DIR", str(tmp_path))
         path = cuda_build.library_path("fused_corr")
@@ -219,6 +245,14 @@ class TestWrapperContract:
         assert path.name.startswith("libfused_corr-") and path.suffix == ".so"
         assert path == cuda_build.library_path("fused_corr")  # stable digest
         assert (cuda_build.csrc_dir() / "fused_corr.cu").exists()
+
+    def test_bound_signature_matches_the_c_entry_point(self):
+        src = (cuda_build.csrc_dir() / "fused_corr.cu").read_text()
+        params = re.search(r'extern "C" int smk_fused_corr\(([^)]*)\)', src).group(1)
+        fn = types.SimpleNamespace(argtypes=None, restype=None)
+        assert tfb.bind_kernel(types.SimpleNamespace(smk_fused_corr=fn)) is fn
+        assert len(fn.argtypes) == params.count(",") + 1
+        assert fn.restype is ctypes.c_int
 
 
 @pytest.mark.gpu
@@ -261,3 +295,39 @@ class TestKernelOnCard:
         np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), atol=4e-6, rtol=1e-6)
         if entry != "fused_cross_correlation":
             _check_invariants(got.cpu(), entry, kw.get("mask"), kw.get("shift"))
+
+    # one tile, a partial last tile, the diagonal tile, every row
+    # alignment mod 4
+    # and d = 2 (the fit's, compiled as a constant) against the generic
+    # instantiation's d = 1, 3, 8
+    @pytest.mark.parametrize("m, d", [(m, 2) for m in (1, 2, 3, 63, 64, 65, 127, 129,
+                                                        3905, 3906, 3907)]
+                             + [(129, 1), (129, 3), (3907, 8)])
+    def test_symmetric_kernel_equals_tile_kernel_bitwise(self, m, d):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        coords, _, phis, mask, shift = _inputs(2, m, 2, seed=m)
+        coords = np.random.default_rng(m).uniform(0.0, 2.0, size=(2, m, d)).astype(np.float32)
+        mask = np.where(np.random.default_rng(m).uniform(size=mask.shape) < 0.1, 0.0, 1.0)
+        shift = np.where(mask > 0, shift, 1e8).astype(np.float32)
+        c, ph = torch.as_tensor(coords).cuda(), torch.as_tensor(phis).cuda()
+        mk = torch.as_tensor(mask, dtype=torch.float32).cuda()
+        sh = torch.as_tensor(shift).cuda()
+        for model in MODELS:
+            for kw_mask, kw_shift in ((mk, None), (mk, sh), (None, None)):
+                outs = []
+                for layout in (tfb.SYMMETRIC, tfb.TILED):
+                    # NaN-filled: an element the kernel misses fails
+                    out = torch.full((2, 2, m, m), float("nan"), device="cuda")
+                    tfb._launch(c, c, ph, kw_mask, kw_shift, model, True, out, layout)
+                    outs.append(out)
+                torch.cuda.synchronize()
+                assert torch.equal(outs[0], outs[1])
+                want = tfb.plain_build(c, c, ph, model, mask=kw_mask, shift=kw_shift,
+                                       zero_diag=True)
+                np.testing.assert_allclose(outs[0].cpu().numpy(), want.cpu().numpy(),
+                                           atol=4e-6, rtol=1e-6)
+                entry = "fused_masked_shifted_build" if kw_shift is not None else "fused_correlation_stack"
+                _check_invariants(outs[0].cpu(), entry,
+                                  None if kw_mask is None else mask.astype(np.float32),
+                                  None if kw_shift is None else shift)
