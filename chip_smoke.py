@@ -23,13 +23,23 @@ printed as one JSON line:
               wrapper's host time counts; median of 20) beside the
               device-memory bound, and the kernel's device time alone
               (`device_ms`: each call queued behind a short device
-              sleep).
-              Square builds run the symmetric kernel: at the main-path
-              shape it must be bitwise equal to the tile kernel for
-              both big builds, and a ragged sweep (m from 1 to 3907,
-              every row alignment mod 4) holds it against the plain
-              version and the tile kernel, into NaN-filled outputs so
-              that an element it misses fails.
+              sleep), beside an empty launch's device time.
+              Masked square builds run the symmetric kernel: at the
+              main-path shape it must be bitwise equal to the tile
+              kernel for both big builds, and a ragged sweep (m from 1
+              to 3907, every row alignment mod 4) holds it against the
+              plain version and the tile kernel, into NaN-filled
+              outputs so that an element it misses fails. The kriging
+              builds run the narrow kernel: at the main-path shapes it
+              must be bitwise equal to the tile kernel (cross build;
+              with its row mask in the kernel, to the tile kernel's
+              output masked afterwards) and to the symmetric kernel
+              (test stack); a second ragged sweep (1 to 257 columns,
+              1 to 3907 rows, shared or per-k columns) does the same.
+              Then the narrow and tile kernels at wider cross builds
+              (up to 4096 columns), and the sampler's whole kriging build
+              (SpatialGPSampler._cross_test_corr) timed at the main
+              path's shape.
 4. fit_small_parity — a small fit through the kernel on the card
               against the same fit through the plain version on the
               CPU, with the same random numbers.
@@ -86,6 +96,15 @@ KERNELS = MAIN_PATH + ("fused_correlation",)
 # the symmetric kernel's ragged sweep: one tile, a partial last tile,
 # the diagonal tile, and every row alignment mod 4
 RAGGED_M = (1, 2, 3, 63, 64, 65, 127, 129, 3905, 3906, 3907)
+# the narrow kernel's ragged sweep: one to five columns, every row
+# alignment mod 4 around 64 and 128, the main path's t = 64, the widest
+# rows the layout takes and one past them; one row, a ragged strip,
+# and the main path's m + 1 rows
+NARROW_MB = (1, 3, 4, 5, 63, 64, 65, 123, 128, 256, 257)
+NARROW_MA = (1, 147, 3907)
+# cross builds timed on both the narrow and the tile kernel: t = 123
+# (rows not on 16 bytes) and prediction rasters of 1024 and 4096 sites
+WIDE_MB = (123, 1024, 4096)
 MODELS = ("exponential", "matern32", "matern52")
 # kernel vs plain version on the same card: the two follow the same
 # operation order (the kernel disables FMA contraction), so they differ
@@ -154,14 +173,14 @@ def min_bytes(inputs, out):
     return nbytes + out.numel() * out.element_size()
 
 
-def bound(inputs, out, model, masked, shifted):
+def bound(inputs, out, model, masked, shifted, row_masked=False):
     """(bound_ms, bound_by): the least time for the function — its
     bytes (min_bytes) over the HBM rate, or its operations over the
     fp32 rate, whichever is larger. Operations per element: 3 per
     coordinate (sub, mul, add), max and sqrt, the model's own, 4 for
-    the mask blend, 1 for the shift."""
+    the mask blend, 1 for the shift, 1 for the row mask."""
     d = inputs[0].shape[-1]
-    ops = out.numel() * (3 * d + 2 + MODEL_OPS[model] + 4 * masked + shifted)
+    ops = out.numel() * (3 * d + 2 + MODEL_OPS[model] + 4 * masked + shifted + row_masked)
     t_bytes = min_bytes(inputs, out) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -197,17 +216,19 @@ def square_invariants(out, mask, shift, what):
         check(torch.equal(rows, ref), f"{what}: pad rows are not exactly the identity")
 
 
-def launch_layout(coords, phis, mask, shift, model, layout):
-    """One launch of the square build with the kernel `layout` (tile or
-    symmetric) into a NaN-filled (K, s, m, m) output, so that an element
-    the kernel does not write fails every comparison. Not counted:
-    LAUNCHES counts the entry points' launches."""
+def launch_nan(ca, cb, phis, model, layout, *, mask=None, shift=None, zero_diag=False,
+               row_mask=None):
+    """One launch of the kernel `layout` (tile, symmetric or narrow) on
+    (K, ma, d) and (K, mb, d) coordinates into a NaN-filled
+    (K, s, ma, mb) output, so that an element the kernel does not write
+    fails every comparison. Not counted: LAUNCHES counts the entry
+    points' launches."""
     import torch
     from smk_torch.ops import fused_build as fb
 
-    k, m = coords.shape[:2]
-    out = torch.full((k, phis.shape[1], m, m), float("nan"), device=coords.device)
-    fb._launch(coords, coords, phis, mask, shift, model, True, out, layout)
+    out = torch.full((ca.shape[0], phis.shape[1], ca.shape[1], cb.shape[1]), float("nan"),
+                     device=ca.device)
+    fb._launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout, row_mask)
     return out
 
 
@@ -234,8 +255,10 @@ def ragged_sweep(uni):
         for model in models:
             for mk, sh in ((mask, None), (mask, shift), (mask, scalar), (None, None)):
                 what = f"ragged m={m}/d={d}/{model}/masked={mk is not None}/shift={sh is not None}"
-                got = launch_layout(coords, phis, mk, sh, model, fb.SYMMETRIC)
-                tile = launch_layout(coords, phis, mk, sh, model, fb.TILED)
+                got = launch_nan(coords, coords, phis, model, fb.SYMMETRIC, mask=mk, shift=sh,
+                                 zero_diag=True)
+                tile = launch_nan(coords, coords, phis, model, fb.TILED, mask=mk, shift=sh,
+                                  zero_diag=True)
                 want = fb.plain_build(coords, coords, phis, model, mask=mk, shift=sh,
                                       zero_diag=True)
                 worst = max(worst, compare(got, want, what))
@@ -244,6 +267,54 @@ def ragged_sweep(uni):
                 cases += 1
     return {"m": list(RAGGED_M), "d": [1, 2, 3, 8], "K": k, "s": s, "cases": cases,
             "max_abs_err": worst}
+
+
+def narrow_sweep(uni):
+    """The narrow kernel at every (ma, mb) of NARROW_MA x NARROW_MB
+    (K = 2, s = 2, d = 2, three models): the cross build with and
+    without the row mask, its columns per k and shared over K (stride
+    0), equal to the plain version within tolerance and bitwise equal
+    to the tile kernel (with the row mask: to the tile kernel's output
+    masked afterwards); then the square zero-diagonal build on shared
+    coordinates (the test stack) at every mb and at d = 1, 3, 8, bitwise
+    equal to the symmetric kernel, with the exact invariants."""
+    import torch
+    from smk_torch.ops import fused_build as fb
+
+    k, s = 2, 2
+    worst, cases = 0.0, 0
+    for ma in NARROW_MA:
+        coords = uni(k, ma, 2, hi=2.0)
+        rmask = (uni(k, ma) > 0.2).float()
+        for mb in NARROW_MB:
+            other = uni(k, mb, 2, hi=2.0) + 0.3
+            phis = uni(k, s, lo=4.0, hi=12.0)
+            for model in MODELS:
+                for cb in (other, other[:1].expand(k, mb, 2)):
+                    tile = launch_nan(coords, cb, phis, model, fb.TILED)
+                    for rm in (None, rmask):
+                        what = (f"narrow cross ma={ma}/mb={mb}/{model}/shared={cb.stride(0) == 0}"
+                                f"/row_mask={rm is not None}")
+                        got = launch_nan(coords, cb, phis, model, fb.NARROW, row_mask=rm)
+                        want = fb.plain_build(coords, cb, phis, model, row_mask=rm)
+                        worst = max(worst, compare(got, want, what))
+                        ref = tile if rm is None else rm[:, None, :, None] * tile
+                        check(torch.equal(got, ref), f"{what}: narrow kernel != tile kernel")
+                        cases += 1
+    for m, d in [(m, 2) for m in NARROW_MB] + [(123, 1), (123, 3), (64, 8)]:
+        sites = uni(m, d, hi=2.0)[None].expand(k, m, d)
+        phis = uni(k, s, lo=4.0, hi=12.0)
+        for model in MODELS:
+            what = f"narrow square m={m}/d={d}/{model}"
+            got = launch_nan(sites, sites, phis, model, fb.NARROW, zero_diag=True)
+            sym = launch_nan(sites, sites, phis, model, fb.SYMMETRIC, zero_diag=True)
+            want = fb.plain_build(sites, sites[:1], phis, model, zero_diag=True)
+            worst = max(worst, compare(got, want, what))
+            check(torch.equal(got, sym), f"{what}: narrow kernel != symmetric kernel")
+            square_invariants(got, None, None, what)
+            cases += 1
+    return {"ma": list(NARROW_MA), "mb": list(NARROW_MB), "d": [1, 2, 3, 8], "K": k, "s": s,
+            "cases": cases, "max_abs_err": worst}
 
 
 def kernels_phase(device):
@@ -283,6 +354,9 @@ def kernels_phase(device):
             ("fused_cross_correlation",
              lambda: fb.fused_cross_correlation(coords, other, phis, model),
              dict(ca=coords, cb=other), None, None),
+            ("fused_cross_correlation",  # the sampler's call: pad rows zeroed
+             lambda: fb.fused_cross_correlation(coords, other, phis, model, row_mask=mask),
+             dict(ca=coords, cb=other, row_mask=mask), None, None),
             ("fused_correlation",
              lambda: fb.fused_correlation(coords, phis[:, 0], model)[:, None],
              dict(ca=coords, cb=coords, zero_diag=True, phis=phis[:, :1]), None, None),
@@ -295,13 +369,13 @@ def kernels_phase(device):
             want = fb.plain_build(
                 spec["ca"], spec["cb"], spec.get("phis", phis), model,
                 mask=spec.get("mask"), shift=spec.get("shift"),
-                zero_diag=spec.get("zero_diag", False),
+                zero_diag=spec.get("zero_diag", False), row_mask=spec.get("row_mask"),
             )
             err = compare(got, want, f"{name}/{model}/m={m}")
             if spec.get("zero_diag"):
                 square_invariants(got, mk, sh, f"{name}/{model}")
             checks.append({"entry": name, "model": model, "shape": list(got.shape),
-                           "max_abs_err": err})
+                           "row_mask": "row_mask" in spec, "max_abs_err": err})
     # shared 2-D coords (the kriging test build) keep stride 0 on K
     got = fb.fused_correlation_stack(other[0], phis, "exponential")
     want = fb.plain_build(other[:1].expand(k, mb, 2), other[:1], phis, "exponential",
@@ -311,6 +385,7 @@ def kernels_phase(device):
                    "max_abs_err": compare(got, want, "shared-coords stack")})
 
     sweep = ragged_sweep(uni)
+    narrow = narrow_sweep(uni)
     torch.cuda.empty_cache()
 
     # ---- main-path shapes: K = 32, m = 3906, t = 64, s = q = 1 ----
@@ -321,6 +396,7 @@ def kernels_phase(device):
     mask = torch.ones(k, m, device=device)
     shift = uni(k, m, lo=0.5, hi=2.0) + 4.0e-3
     model = "exponential"
+    test_k = test[None].expand(k, t, 2)  # the test sites, shared over K
     main = {
         "fused_masked_correlation_stack": (
             lambda: fb.fused_masked_correlation_stack(coords, phis, mask, model),
@@ -330,10 +406,10 @@ def kernels_phase(device):
             lambda: fb.fused_masked_shifted_build(coords, phis, mask, shift, model),
             dict(ca=coords, cb=coords, mask=mask, shift=shift, zero_diag=True),
             [coords, phis, mask, shift], (True, True), (coords, coords)),
-        "fused_cross_correlation": (
-            lambda: fb.fused_cross_correlation(coords, test, phis, model),
-            dict(ca=coords, cb=test[None]),
-            [coords, test, phis], (False, False), (coords, test[None].expand(k, t, 2))),
+        "fused_cross_correlation": (  # as the sampler calls it
+            lambda: fb.fused_cross_correlation(coords, test, phis, model, row_mask=mask),
+            dict(ca=coords, cb=test[None], row_mask=mask),
+            [coords, test, phis, mask], (False, False), (coords, test_k)),
         "fused_correlation_stack": (
             lambda: fb.fused_correlation_stack(test, phis, model),
             dict(ca=test[None].expand(k, t, 2), cb=test[None], zero_diag=True),
@@ -349,17 +425,20 @@ def kernels_phase(device):
         want = fb.plain_build(
             spec["ca"], spec["cb"], phis, model, mask=spec.get("mask"),
             shift=spec.get("shift"), zero_diag=spec.get("zero_diag", False),
+            row_mask=spec.get("row_mask"),
         )
         err = compare(got, want, f"{name} at the main-path shape")
         if spec.get("zero_diag"):
             square_invariants(got, spec.get("mask"), spec.get("shift"), name)
         del want
-        tile_ms = tile_device_ms = None
+        tile_ms = tile_device_ms = sym_ms = sym_device_ms = None
         if name in ("fused_masked_correlation_stack", "fused_masked_shifted_build"):
             # the symmetric kernel against the tile kernel, bitwise, and
             # the tile kernel's times on the same inputs
-            sym = launch_layout(coords, phis, mask, spec.get("shift"), model, fb.SYMMETRIC)
-            tile = launch_layout(coords, phis, mask, spec.get("shift"), model, fb.TILED)
+            sym = launch_nan(coords, coords, phis, model, fb.SYMMETRIC, mask=mask,
+                             shift=spec.get("shift"), zero_diag=True)
+            tile = launch_nan(coords, coords, phis, model, fb.TILED, mask=mask,
+                              shift=spec.get("shift"), zero_diag=True)
             check(torch.equal(sym, tile), f"{name}: symmetric kernel != tile kernel at the main-path shape")
             check(torch.equal(sym, got), f"{name}: entry point != symmetric kernel")
             del sym
@@ -368,32 +447,120 @@ def kernels_phase(device):
             tile_ms = ms_median(tile_run)
             tile_device_ms = ms_median(tile_run, device_only=True)
             del tile
+        elif name == "fused_cross_correlation":
+            # the narrow kernel against the tile kernel, bitwise, without
+            # the row mask, and with it in the kernel against the tile
+            # kernel's output masked afterwards (the sampler's product
+            # before the mask moved into the kernel), with pad rows so
+            # that the mask has zeros; and the tile kernel's times (no
+            # mask) on the same inputs
+            pad = mask.clone()
+            pad[:, -11:] = 0.0
+            tile = launch_nan(coords, test_k, phis, model, fb.TILED)
+            nar = launch_nan(coords, test_k, phis, model, fb.NARROW)
+            check(torch.equal(nar, tile), f"{name}: narrow kernel != tile kernel at the main-path shape")
+            nar = launch_nan(coords, test_k, phis, model, fb.NARROW, row_mask=pad)
+            check(torch.equal(nar, pad[:, None, :, None] * tile),
+                  f"{name}: the in-kernel row mask != the tile kernel masked afterwards")
+            nar = launch_nan(coords, test_k, phis, model, fb.NARROW, row_mask=mask)
+            check(torch.equal(nar, got), f"{name}: entry point != narrow kernel")
+            del nar
+            tile_run = lambda: fb._launch(  # noqa: E731
+                coords, test_k, phis, None, None, model, False, tile, fb.TILED)
+            tile_ms = ms_median(tile_run)
+            tile_device_ms = ms_median(tile_run, device_only=True)
+            del tile
+        elif name == "fused_correlation_stack":
+            # the narrow kernel against the symmetric kernel (this build's
+            # kernel before the narrow one), bitwise, and the latter's times
+            nar = launch_nan(test_k, test_k, phis, model, fb.NARROW, zero_diag=True)
+            sym = launch_nan(test_k, test_k, phis, model, fb.SYMMETRIC, zero_diag=True)
+            check(torch.equal(nar, sym), f"{name}: narrow kernel != symmetric kernel at the main-path shape")
+            check(torch.equal(nar, got), f"{name}: entry point != narrow kernel")
+            sym_run = lambda: fb._launch(  # noqa: E731
+                test_k, test_k, phis, None, None, model, True, sym, fb.SYMMETRIC)
+            sym_ms = ms_median(sym_run)
+            sym_device_ms = ms_median(sym_run, device_only=True)
+            del nar, sym
+        rm = spec.get("row_mask")
         plain = lambda: fb.plain_build(  # noqa: E731
             spec["ca"], spec["cb"], phis, model, mask=spec.get("mask"),
-            shift=spec.get("shift"), zero_diag=spec.get("zero_diag", False),
+            shift=spec.get("shift"), zero_diag=spec.get("zero_diag", False), row_mask=rm,
         )
-        library = lambda: torch.exp(  # noqa: E731
-            -phis[:, :, None, None] * torch.cdist(a, b)[:, None]
-        )
+
+        def library():
+            rho = torch.exp(-phis[:, :, None, None] * torch.cdist(a, b)[:, None])
+            return rho if rm is None else rm[:, None, :, None] * rho
+
         ms = ms_median(run)
         device_ms = ms_median(run, device_only=True)
         plain_ms = ms_median(plain)
         library_ms = ms_median(library)
-        b_ms, b_by = bound(inputs, got, model, masked, shifted)
+        b_ms, b_by = bound(inputs, got, model, masked, shifted, rm is not None)
         timings[name] = {
             "shape": list(got.shape), "max_abs_err": err, "ms": ms,
             "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "achieved_GBps": min_bytes(inputs, got) / (ms * 1e-3) / 1e9,
-            "bound_fraction": b_ms / ms,
+            "bound_fraction": b_ms / ms, "device_bound_fraction": b_ms / device_ms,
             "write_bytes": got.numel() * 4, "tile_kernel_ms": tile_ms,
             "tile_kernel_device_ms": tile_device_ms,
+            "symmetric_kernel_ms": sym_ms, "symmetric_kernel_device_ms": sym_device_ms,
         }
         del got
         torch.cuda.empty_cache()
+
+    # the narrow and the tile kernel on wider cross builds
+    wide = []
+    for mb in WIDE_MB:
+        sites = uni(mb, 2)[None].expand(k, mb, 2)
+        row = {"shape": [k, 1, m, mb]}
+        outs = []
+        for label, layout in (("narrow", fb.NARROW), ("tile", fb.TILED)):
+            out = launch_nan(coords, sites, phis, model, layout)
+            outs.append(out)
+            row[f"{label}_device_ms"] = ms_median(
+                lambda out=out, layout=layout: fb._launch(
+                    coords, sites, phis, None, None, model, False, out, layout),
+                device_only=True)
+        check(torch.equal(outs[0], outs[1]), f"cross mb={mb}: narrow kernel != tile kernel")
+        row["bound_ms"] = bound([coords, sites[0], phis], outs[0], model, False, False)[0]
+        wide.append(row)
+        del outs, out
+        torch.cuda.empty_cache()
+
+    # an empty launch: the floor of the small stack's device time
+    floor = {"launch_floor_ms": ms_median(lambda: torch.cuda._sleep(1)),
+             "launch_floor_device_ms": ms_median(lambda: torch.cuda._sleep(1),
+                                                 device_only=True)}
+
+    # the sampler's whole kriging build (cross build with its row mask,
+    # test stack) as the fit calls it
+    from smk_torch import SMKConfig
+    from smk_torch.models.probit_gp import BuildConsts, SpatialGPSampler
+
+    sampler = SpatialGPSampler(SMKConfig(n_subsets=k, fused_build="pallas"))
+    consts = BuildConsts(None, None, None, coords, test)
+    before = dict(fb.LAUNCHES)
+    r_cross, r_test = sampler._cross_test_corr(consts, phis, mask)
+    check(fb.LAUNCHES["fused_cross_correlation"] == before["fused_cross_correlation"] + 1
+          and fb.LAUNCHES["fused_correlation_stack"] == before["fused_correlation_stack"] + 1,
+          "_cross_test_corr: its two builds did not launch their kernels")
+    krige = {
+        "shapes": [list(r_cross.shape), list(r_test.shape)],
+        "max_abs_err": max(
+            compare(r_cross, fb.plain_build(coords, test[None], phis, model, row_mask=mask),
+                    "_cross_test_corr cross"),
+            compare(r_test, fb.plain_build(test_k, test[None], phis, model, zero_diag=True),
+                    "_cross_test_corr test")),
+        "ms": ms_median(lambda: sampler._cross_test_corr(consts, phis, mask)),
+        "device_ms": ms_median(lambda: sampler._cross_test_corr(consts, phis, mask),
+                               device_only=True),
+    }
     emit({"phase": "kernels", "tolerance": {"atol": ATOL, "rtol": RTOL},
-          "checks": checks, "ragged_sweep": sweep, "main_path": timings,
-          "launches_in_phase": dict(fb.LAUNCHES)})
+          "checks": checks, "ragged_sweep": sweep, "narrow_sweep": narrow,
+          "main_path": timings, "wide_cross": wide, **floor,
+          "cross_test_corr": krige, "launches_in_phase": dict(fb.LAUNCHES)})
     return timings
 
 
@@ -488,6 +655,17 @@ def run_fit(name, *, n, k, q, p, t, n_samples, device):
     launches = dict(fb.LAUNCHES)
     want = expected_launches(cfg, q)
     check(launches == want, f"{name}: launches {launches} != expected {want}")
+    # the kriging builds on the narrow kernel, the masked ones on the
+    # symmetric kernel, none on the tile kernel
+    layouts = {"tile": fb.LAYOUT_LAUNCHES[fb.TILED],
+               "symmetric": fb.LAYOUT_LAUNCHES[fb.SYMMETRIC],
+               "narrow": fb.LAYOUT_LAUNCHES[fb.NARROW]}
+    want_layouts = {
+        "tile": 0,
+        "symmetric": want["fused_masked_correlation_stack"] + want["fused_masked_shifted_build"],
+        "narrow": want["fused_cross_correlation"] + want["fused_correlation_stack"],
+    }
+    check(layouts == want_layouts, f"{name}: launches by kernel {layouts} != {want_layouts}")
     check(all(launches[e] > 0 for e in MAIN_PATH), f"{name}: a main-path kernel never launched")
     check(sum(fb.PLAIN_CALLS.values()) == 0, f"{name}: a plain build ran on the card path")
     check(tuple(res.p_quant.shape) == (3, t * q), f"{name}: p_quant shape {tuple(res.p_quant.shape)}")
@@ -506,7 +684,7 @@ def run_fit(name, *, n, k, q, p, t, n_samples, device):
         "ms_per_sweep": secs["subset_fits"] / cfg.n_samples * 1e3,
         "latent_ess_per_sec": res.latent_ess_per_sec,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "launches": launches, "launches_expected": want,
+        "launches": launches, "launches_expected": want, "launches_by_kernel": layouts,
         "phi_accept_rate_mean": float(acc.mean()),
         "param_quant_median": np.round(res.param_quant[0].cpu().numpy(), 4).tolist(),
     }
@@ -595,7 +773,8 @@ def main() -> int:
          "bound_by": timings[name]["bound_by"],
          "library_ms": timings[name]["library_ms"],
          "achieved_GBps": timings[name]["achieved_GBps"],
-         "bound_fraction": timings[name]["bound_fraction"]}
+         "bound_fraction": timings[name]["bound_fraction"],
+         "device_bound_fraction": timings[name]["device_bound_fraction"]}
         for name in KERNELS
     ]})
     print(smi, flush=True)

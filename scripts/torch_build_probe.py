@@ -1,6 +1,7 @@
-"""What bounds the symmetric correlation-build kernel on one CUDA card.
+"""What bounds the correlation-build kernels on one CUDA card.
 
     python3 scripts/torch_build_probe.py [--k 32] [--m 3904,3906]
+    python3 scripts/torch_build_probe.py --narrow [--k 32] [--m 3906]
 
 Builds variants of smk_torch/csrc/fused_corr.cu, each the shipped
 source with one text substitution, and times the square masked build
@@ -27,6 +28,27 @@ kernel's bit for bit where it computes the same function. Prints the
 card's nvidia-smi line, one JSON line per variant build (registers,
 spills, SASS instructions of the masked exponential kernel that d = 2
 runs), and one per m.
+
+With --narrow it probes the narrow kernel (layout 2) instead, timed on
+the kriging builds at (K, 1, m, t): the cross build with its row mask
+at t = 64 and 123 and the test stack (K, 1, 64, 64), beside the tile
+kernel (which has no row mask) and a plain fill of the same output.
+Variants:
+
+- shipped          the source as it is;
+- rows32 .. rows128  32, 64 or 128 rows a work item (NARROW_ROWS; the
+                   shipped kernel takes 96);
+- item_per_block   one work item a block (no persistent grid);
+- batch1           each pass loads its rows' operands on its own
+                   (NARROW_BATCH = 1);
+- plain_stores     the output stores without the evict-first hint;
+- no_store         the output stores are skipped;
+- no_correlation   sqrt, exp and the row mask are skipped (the output
+                   holds the squared distances).
+
+Every variant that computes the shipped function must equal the tile
+kernel bit for bit. Its build lines report the row-masked d = 2 cross
+kernel.
 """
 
 from __future__ import annotations
@@ -67,21 +89,58 @@ VARIANTS = {
 }
 # variants whose output is the shipped kernel's
 SAME_FUNCTION = ("shipped", "tile_aligned", "blocks2", "blocks4", "generic_d2")
+NARROW_ROWS_LINE = re.compile(r"constexpr int NARROW_ROWS = \d+;")
+NARROW_STORE4 = "__stcs(reinterpret_cast<float4*>(row + j0), make_float4(v[0], v[1], v[2], v[3]));"
+NARROW_STORE1 = "__stcs(row + j0 + js * cc, v[cc]);"
+NARROW_VARIANTS = {
+    "shipped": [],
+    "rows32": [(None, "constexpr int NARROW_ROWS = 32;")],
+    "rows64": [(None, "constexpr int NARROW_ROWS = 64;")],
+    "rows128": [(None, "constexpr int NARROW_ROWS = 128;")],
+    "item_per_block": [("  const int grid = (int)(items < resident ? items : resident);\n"
+                        "  fused_corr_narrow_kernel", "  const int grid = (int)items;\n"
+                        "  fused_corr_narrow_kernel")],
+    "batch1": [("constexpr int NARROW_BATCH = 4;", "constexpr int NARROW_BATCH = 1;")],
+
+    "plain_stores": [
+        (NARROW_STORE4, "*reinterpret_cast<float4*>(row + j0) = make_float4(v[0], v[1], v[2], v[3]);"),
+        (NARROW_STORE1, "row[j0 + js * cc] = v[cc];"),
+    ],
+    "no_store": [
+        (NARROW_STORE4, "if (v[0] == 1234.5f) " + NARROW_STORE4),
+        (NARROW_STORE1, "if (v[cc] == 1234.5f) " + NARROW_STORE1),
+    ],
+    "no_correlation": [
+        ("          v[cc] = pair_value<MODEL, false, false, ZERO_DIAG>(\n"
+         "              sq, i == j0 + js * cc, phi, 0.0f, 0.0f, 0.0f);\n"
+         "          if (ROW_MASK) v[cc] = __fmul_rn(ri[p], v[cc]);\n",
+         "          v[cc] = sq;\n"),
+    ],
+}
+NARROW_SAME_FUNCTION = ("shipped", "rows32", "rows64", "rows128", "item_per_block",
+                        "batch1", "plain_stores")
 # the exponential masked kernel that d = 2 runs (its last template
 # argument is the compiled dimension, 0 for the generic one)
 SASS_KERNEL = "fused_corr_sym_kernelILi0ELb1ELb0ELi2E"
 SASS_KERNEL_GENERIC = "fused_corr_sym_kernelILi0ELb1ELb0ELi0E"
+# the row-masked exponential cross kernel at d = 2 (layout 2)
+SASS_KERNEL_NARROW = "fused_corr_narrow_kernelILi0ELb1ELb0ELi2E"
 
 
-def build_variants(out_dir: Path) -> dict:
-    """One nvcc per variant, all started together; returns name ->
-    (library path, build report)."""
+def build_variants(out_dir: Path, narrow: bool = False) -> dict:
+    """One nvcc per variant (VARIANTS, or NARROW_VARIANTS), all started
+    together; returns name -> (library path, build report)."""
     from smk_torch.ops import cuda_build
 
     src = (cuda_build.csrc_dir() / "fused_corr.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in VARIANTS.items():
+    variants = VARIANTS
+    if narrow:  # None stands for the source's NARROW_ROWS line
+        rows_line = NARROW_ROWS_LINE.search(src).group(0)
+        variants = {name: [(rows_line if old is None else old, new) for old, new in subs]
+                    for name, subs in NARROW_VARIANTS.items()}
+    for name, subs in variants.items():
         text = src
         for old, new in subs:
             if old not in text:
@@ -131,12 +190,64 @@ def sass_count(lib: Path, kernel: str) -> int | None:
     return None
 
 
+def probe_narrow(fns: dict, k: int, m: int, gen) -> dict:
+    """Every narrow variant on the kriging builds at (k, 1, m, t), in
+    turns, beside the tile kernel and a fill of the same output."""
+    import torch
+    from chip_smoke import ms_median
+
+    dev = torch.device("cuda", 0)
+    coords = torch.rand(k, m, 2, device=dev, generator=gen)
+    phis = 4.0 + 8.0 * torch.rand(k, 1, device=dev, generator=gen)
+    mask = torch.ones(k, m, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = {}
+    # (label, row coordinates, column coordinates, zero_diag, row mask)
+    for t in (64, 123):
+        sites = torch.rand(t, 2, device=dev, generator=gen)[None].expand(k, t, 2)
+        rows[f"cross_t{t}"] = (coords, sites, 0, mask)
+    stack = torch.rand(64, 2, device=dev, generator=gen)[None].expand(k, 64, 2)
+    rows["stack_t64"] = (stack, stack, 1, None)
+    out_rows = []
+    for label, (ca, cb, zero_diag, rm) in rows.items():
+        ma, mb = ca.shape[1], cb.shape[1]
+        out = torch.empty(k, 1, ma, mb, device=dev)
+
+        def launch(fn, layout):
+            # the row mask on the narrow kernel only (the tile kernel has none)
+            row_mask = rm if layout == 2 else None
+            err = fn(ca.data_ptr(), cb.data_ptr(), phis.data_ptr(), 0, 0,
+                     0 if row_mask is None else row_mask.data_ptr(), out.data_ptr(),
+                     k, 1, ma, mb, 2, ca.stride(0), cb.stride(0), 0, 0, 0,
+                     int(row_mask is not None), zero_diag, layout, stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+
+        launch(fns["shipped"], 0)
+        torch.cuda.synchronize()
+        want = out.clone() if rm is None else rm[:, None, :, None] * out
+        row = {"build": label, "shape": [k, 1, ma, mb], "write_MB": out.numel() * 4 / 1e6,
+               "fill_ms": ms_median(lambda: out.fill_(1.0), device_only=True),
+               "tile_kernel_ms": ms_median(lambda: launch(fns["shipped"], 0), device_only=True)}
+        order = list(fns)
+        for name in order + order[::-1]:
+            row.setdefault(name + "_ms", []).append(
+                ms_median(lambda: launch(fns[name], 2), device_only=True))
+            torch.cuda.synchronize()
+            if name in NARROW_SAME_FUNCTION and not torch.equal(out, want):
+                raise AssertionError(f"{label}: narrow variant {name} != the tile kernel")
+        out_rows.append(row)
+    return out_rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=32)
-    ap.add_argument("--m", default="3904,3906")
+    ap.add_argument("--m", default=None, help="rows (default 3904,3906; --narrow 3906)")
+    ap.add_argument("--narrow", action="store_true", help="probe the narrow kernel")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
+    args.m = args.m or ("3906" if args.narrow else "3904,3906")
 
     import torch
 
@@ -148,11 +259,12 @@ def main() -> int:
     from smk_torch.ops.fused_build import bind_kernel
 
     print(nvidia_smi_line(), flush=True)
-    built = build_variants(cuda_build.build_dir() / "probe")
+    built = build_variants(cuda_build.build_dir() / "probe", narrow=args.narrow)
     fns = {}
     for name, (lib, err) in built.items():
         fns[name] = bind_kernel(ctypes.CDLL(str(lib)))
-        kernel = SASS_KERNEL_GENERIC if name == "generic_d2" else SASS_KERNEL
+        kernel = (SASS_KERNEL_NARROW if args.narrow else
+                  SASS_KERNEL_GENERIC if name == "generic_d2" else SASS_KERNEL)
         print(json.dumps({"variant": name, "kernel": kernel, **ptxas_report(err, kernel),
                           "sass_instructions": sass_count(lib, kernel)}), flush=True)
 
@@ -160,6 +272,11 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     k = args.k
+    if args.narrow:
+        for m in (int(v) for v in args.m.split(",")):
+            for row in probe_narrow(fns, k, m, gen):
+                print(json.dumps(row), flush=True)
+        return 0
     for m in (int(v) for v in args.m.split(",")):
         coords = torch.rand(k, m, 2, device=dev, generator=gen)
         phis = 4.0 + 8.0 * torch.rand(k, 1, device=dev, generator=gen)
@@ -168,8 +285,8 @@ def main() -> int:
 
         def launch(fn, layout):
             err = fn(coords.data_ptr(), coords.data_ptr(), phis.data_ptr(), mask.data_ptr(),
-                     0, out.data_ptr(), k, 1, m, m, 2, coords.stride(0), coords.stride(0),
-                     0, 1, 0, 1, layout, torch.cuda.current_stream().cuda_stream)
+                     0, 0, out.data_ptr(), k, 1, m, m, 2, coords.stride(0), coords.stride(0),
+                     0, 1, 0, 0, 1, layout, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
 

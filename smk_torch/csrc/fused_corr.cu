@@ -1,6 +1,6 @@
 // Fused correlation build for Hopper (sm_90a).
 //
-// Two kernels replace the TPU kernel
+// Three kernels replace the TPU kernel
 // smk_tpu/ops/pallas_build.py::_corr_kernel (:179-234), launched by
 // _fused_build (:237-327). For each (k, s) matrix of the output they
 // compute, per pair (i, j),
@@ -10,17 +10,25 @@
 //   ZERO_DIAG: dist = 0 on the diagonal i == j (exact unit diagonal)
 //   MASKED:    rho = m_i m_j rho + (1 - m_i m_j) [i == j]   (R~ = M R M + I - M)
 //   SHIFTED:   rho += shift[k, i] on the diagonal
+//   ROW_MASK:  rho = r_i rho              (the kriging cross build's pad rows)
 //
 // into a contiguous fp32 (K, S, MA, MB) tensor. The diagonal is tested
 // on global indices, as the TPU kernel does.
 //
-//   fused_corr_kernel      (layout 0, the cross build): one block per
-//                          32 x 32 output tile, 256 threads, each thread
-//                          4 rows of one column.
-//   fused_corr_sym_kernel  (layout 1, every square same-coordinates
-//                          build): computes only the tile pairs I <= J
-//                          of 64 x 64 tiles and stores each off-diagonal
-//                          pair twice, at (I, J) and mirrored at (J, I).
+//   fused_corr_kernel        (layout 0): one block per 32 x 32 output
+//                            tile, 256 threads, each thread 4 rows of
+//                            one column. The first port's kernel; no
+//                            entry point runs it any more, and the other
+//                            two are held against it bit for bit.
+//   fused_corr_sym_kernel    (layout 1, every masked build and square
+//                            same-coordinates builds wider than 256):
+//                            computes only the tile pairs I <= J of
+//                            64 x 64 tiles and stores each off-diagonal
+//                            pair twice, at (I, J) and mirrored at (J, I).
+//   fused_corr_narrow_kernel (layout 2, every cross build, pallas_build.py
+//                            :387, and square builds of at most 256
+//                            columns, such as the kriging test stack
+//                            (t, t), :349): whole rows, no shared memory.
 //
 // Bound on the H100: a build writes S*MA*MB*4 bytes per k and reads
 // only O((MA + MB) d) coordinates, so it is write-bound: the
@@ -66,6 +74,51 @@
 //     item is computed and stored, and land in the other half of a
 //     double buffer in shared memory after it.
 //
+// The narrow kernel (kriging builds). Its output is MA rows of MB = 64
+// floats at the main path's shapes: the cross build (32, 1, 3906, 64)
+// writes 32 MB, at least 9.5 us at 3.35 TB/s; the test stack
+// (32, 1, 64, 64) writes 0.5 MB, 0.16 us, so one kernel launch is its
+// floor. Neither suits a square tile: the tile kernel spends a 256-thread
+// block, a shared-memory stage and a barrier on every 4 KB it writes, and
+// the symmetric kernel's 72 x 72 halo regions cost more than the 64 x 64
+// stack itself (0.0078 ms against 0.0063 for the narrow kernel and
+// 0.0049 for an empty launch). So the narrow kernel:
+//   - gives every row of the output to ceil(MB / 4) threads, each of
+//     which owns 4 columns and keeps their coordinates in registers for
+//     as long as its items share them (the whole run when the columns'
+//     coordinates are shared over K, as the test sites are); a row's
+//     own coordinates, row mask and phi are broadcast loads;
+//   - stores each thread's 4 values of a row as one 16-byte evict-first
+//     store where rows start on 16 bytes (MB % 4 == 0: at MB = 64 a warp
+//     writes two whole 256-byte rows), else as 4 scalar stores whose
+//     columns are strided so that each store instruction of a warp
+//     covers consecutive columns (MB = 123 and other ragged widths);
+//   - needs no shared memory and no barrier: a work item is (ks, a strip
+//     of rows); strips are 96 rows, fewer where that would leave SMs
+//     idle (the 64 x 64 stack runs 128 items of 16 rows), and the grid
+//     is persistent (SMs x resident blocks) only where there are more
+//     items than that;
+//   - loads the row operands of 4 passes over a strip together, before
+//     it computes and stores the first of them;
+//   - folds the sampler's row mask into the store (ROW_MASK: the product
+//     r_i rho the sampler took as a separate pass over the output);
+//   - compiles d = 2 as a constant beside one generic instantiation, as
+//     the symmetric kernel does. Rows wider than 1024 columns are cut
+//     into column panels of at most 256 threads' worth.
+// What holds it at the cross build (32, 1, 3906, 64), device time on an
+// H100 80GB HBM3 at 700 W (scripts/torch_build_probe.py --narrow):
+// with 64-row strips 0.021-0.022 ms, the same without its stores,
+// 0.015 ms without sqrt, exp and the row mask, against 0.013 ms for a
+// fill of the same bytes: its instruction stream, not its stores. Each
+// work item also pays a start: 32-row strips take 0.025 ms, 48-row
+// 0.022, 96-row 0.020-0.021, 128-row 0.021 (and 6-13 % slower than 96
+// at t = 123). One pass's operands at a time takes 0.022 ms;
+// loading the next item's first batch while one is computed (64
+// registers instead of 52) was 2 % slower. It beats the tile kernel at
+// every cross width measured (t = 123, 1024, 4096: 0.036, 0.191, 0.73
+// ms against 0.058, 0.403, 1.57 ms; chip_smoke.py), so it takes every
+// cross build.
+//
 // Guards: every read and write is bounded at the ragged edge: nothing
 // outside the inputs is read, nothing outside the output is written.
 // Shared memory stays under 48 KB (no opt-in needed); nothing is
@@ -74,12 +127,14 @@
 // Numerics: expf (not __expf), IEEE sqrt and division (no fast math),
 // and the distance sum and the mask blend are rounded operation by
 // operation (__fmul_rn / __fadd_rn: no contraction into FMA), so the
-// result follows the plain version's arithmetic. Both kernels run the
-// same per-pair code, and (x - y)^2 == (y - x)^2 and m_i m_j == m_j m_i
-// in IEEE, so the symmetric kernel's output is bitwise equal to the
-// tile kernel's, and symmetric bit for bit by construction.
+// result follows the plain version's arithmetic. All three kernels run
+// the same per-pair code, and (x - y)^2 == (y - x)^2 and m_i m_j ==
+// m_j m_i in IEEE, so the symmetric and narrow kernels' outputs are
+// bitwise equal to the tile kernel's, and square builds are symmetric
+// bit for bit by construction.
 
 #include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -117,12 +172,13 @@ struct Args {
   const float* phis;
   const float* mask;
   const float* shift;
+  const float* row_mask;
   float* out;
   int K, S, MA, MB, D;
   long long a_kstride, b_kstride;
 };
 
-// The per-pair arithmetic after the distance sum, shared by both
+// The per-pair arithmetic after the distance sum, shared by all three
 // kernels so that they agree bit for bit.
 template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG>
 __device__ __forceinline__ float pair_value(float sq, bool diag, float phi,
@@ -474,6 +530,119 @@ fused_corr_sym_kernel(const Args args, int pairs, int items) {
   }
 }
 
+// ---- the narrow kernel ---------------------------------------------
+//
+// A row of the output is cut into panels of 4 * quads columns (one
+// panel where MB <= 4 * NARROW_THREADS); a work item is (ks, a strip of
+// `rows` rows, a panel). Thread t of the block serves row t / quads of
+// every pass over the strip and 4 columns of the panel: 4 * (t % quads)
+// and the next three where rows start on 16 bytes (`vec`), else
+// t % quads + quads * c, c < 4.
+
+constexpr int NARROW_THREADS = 256;
+constexpr int NARROW_ROWS = 96;  // rows of a work item, at most
+constexpr int NARROW_BATCH = 4;  // passes whose row operands load together
+
+struct NarrowGrid {
+  int quads;   // threads a row
+  int rows;    // rows of a work item: a multiple of NARROW_THREADS / quads
+  int strips;  // ceil(MA / rows)
+  int panels;  // column panels a row
+  int items;   // K * S * strips * panels
+  int vec;     // MB % 4 == 0 and the output on 16 bytes: 16-byte stores
+};
+
+template <int MODEL, bool ROW_MASK, bool ZERO_DIAG, int DIM>
+__global__ void __launch_bounds__(NARROW_THREADS)
+fused_corr_narrow_kernel(const Args args, const NarrowGrid g) {
+  constexpr int CD = DIM > 0 ? DIM : MAX_D;  // coordinate registers a column
+  const int D = DIM > 0 ? DIM : args.D;
+  const int MA = args.MA;
+  const int MB = args.MB;
+  const int step = NARROW_THREADS / g.quads;  // rows a pass
+  const int rsub = threadIdx.x / g.quads;
+  const int quad = threadIdx.x - rsub * g.quads;
+  if (rsub >= step) return;  // the block has no barrier
+  const int jq = g.vec ? 4 * quad : quad;  // the thread's first column in a panel
+  const int js = g.vec ? 1 : g.quads;      // and the stride of its four
+
+  float bc[4][CD];  // the four columns' coordinates
+  int held = -1;    // (k of the columns, panel) that bc holds
+  for (int w = blockIdx.x; w < g.items; w += gridDim.x) {
+    const int panel = w % g.panels;
+    const int rest = w / g.panels;
+    const int strip = rest % g.strips;
+    const int ks = rest / g.strips;
+    const int k = ks / args.S;
+    const int j0 = panel * 4 * g.quads + jq;
+    const int key = (args.b_kstride == 0 ? 0 : k) * g.panels + panel;
+    if (key != held) {
+      const float* b = args.cb + k * args.b_kstride;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int j = j0 + js * cc;
+#pragma unroll
+        for (int c = 0; c < CD; ++c) {
+          if (DIM == 0 && c >= D) break;
+          bc[cc][c] = j < MB ? b[(long long)j * D + c] : 0.0f;
+        }
+      }
+      held = key;
+    }
+    const float phi = args.phis[ks];
+    const float* a = args.ca + k * args.a_kstride;
+    float* out = args.out + (long long)ks * MA * MB;
+    const int end = min(MA, (strip + 1) * g.rows);
+    // NARROW_BATCH passes at a time: their rows' coordinates and masks
+    // are all loaded before the first of them is computed and stored
+    // (a row past the strip loads the strip's last row, and is not
+    // stored)
+    for (int i0 = strip * g.rows + rsub; i0 < end; i0 += NARROW_BATCH * step) {
+      float ai[NARROW_BATCH][CD];
+      float ri[NARROW_BATCH];
+#pragma unroll
+      for (int p = 0; p < NARROW_BATCH; ++p) {
+        const int i = min(i0 + p * step, end - 1);
+#pragma unroll
+        for (int c = 0; c < CD; ++c) {
+          if (DIM == 0 && c >= D) break;
+          ai[p][c] = a[(long long)i * D + c];
+        }
+        ri[p] = ROW_MASK ? args.row_mask[(long long)k * MA + i] : 0.0f;
+      }
+#pragma unroll
+      for (int p = 0; p < NARROW_BATCH; ++p) {
+        const int i = i0 + p * step;
+        if (i >= end) break;
+        float v[4];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          float sq = 0.0f;
+#pragma unroll
+          for (int c = 0; c < CD; ++c) {
+            if (DIM == 0 && c >= D) break;
+            const float diff = __fsub_rn(ai[p][c], bc[cc][c]);
+            sq = __fadd_rn(sq, __fmul_rn(diff, diff));
+          }
+          v[cc] = pair_value<MODEL, false, false, ZERO_DIAG>(
+              sq, i == j0 + js * cc, phi, 0.0f, 0.0f, 0.0f);
+          if (ROW_MASK) v[cc] = __fmul_rn(ri[p], v[cc]);
+        }
+        float* row = out + (long long)i * MB;
+        if (g.vec) {
+          // MB % 4 == 0, so a quad is inside the row or wholly past it
+          if (j0 < MB) __stcs(reinterpret_cast<float4*>(row + j0), make_float4(v[0], v[1], v[2], v[3]));
+        } else {
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            if (j0 + js * cc < MB) __stcs(row + j0 + js * cc, v[cc]);
+          }
+        }
+      }
+    }
+  }
+}
+
 int sm_count() {
   static int cached[64] = {};
   int dev = 0;
@@ -506,6 +675,50 @@ cudaError_t launch_sym(const Args& args, cudaStream_t stream) {
   return cudaSuccess;
 }
 
+template <int MODEL, bool ROW_MASK, bool ZERO_DIAG, int DIM>
+cudaError_t launch_narrow(const Args& args, cudaStream_t stream) {
+  NarrowGrid g;
+  const int quads = (args.MB + 3) / 4;
+  g.panels = (quads + NARROW_THREADS - 1) / NARROW_THREADS;
+  g.quads = (quads + g.panels - 1) / g.panels;
+  g.vec = args.MB % 4 == 0 && (reinterpret_cast<uintptr_t>(args.out) & 15) == 0;
+  const int step = NARROW_THREADS / g.quads;
+  static int per_sm = 0;  // resident blocks per SM, asked once
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_corr_narrow_kernel<MODEL, ROW_MASK, ZERO_DIAG, DIM>,
+        NARROW_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  // strips of NARROW_ROWS rows, halved while that leaves SMs without an item
+  const long long matrices = (long long)args.K * args.S * g.panels;
+  int passes = NARROW_ROWS > step ? NARROW_ROWS / step : 1;
+  long long strips = 0;
+  for (;;) {
+    const long long rows = (long long)step * passes;
+    strips = (args.MA + rows - 1) / rows;
+    if (passes == 1 || matrices * strips >= sm_count()) break;
+    passes /= 2;
+  }
+  const long long items = matrices * strips;
+  if (items > INT_MAX / 2) return cudaErrorInvalidValue;  // w + grid stays an int
+  g.rows = step * passes;
+  g.strips = (int)strips;
+  g.items = (int)items;
+  const long long resident = (long long)sm_count() * per_sm;
+  const int grid = (int)(items < resident ? items : resident);
+  fused_corr_narrow_kernel<MODEL, ROW_MASK, ZERO_DIAG, DIM>
+      <<<grid, NARROW_THREADS, 0, stream>>>(args, g);
+  return cudaSuccess;
+}
+
+template <int MODEL, bool ROW_MASK, bool ZERO_DIAG>
+cudaError_t dispatch_narrow(const Args& args, cudaStream_t stream) {
+  if (args.D == 2) return launch_narrow<MODEL, ROW_MASK, ZERO_DIAG, 2>(args, stream);
+  return launch_narrow<MODEL, ROW_MASK, ZERO_DIAG, 0>(args, stream);
+}
+
 template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG>
 cudaError_t launch(const Args& args, cudaStream_t stream) {
   const dim3 grid((args.MB + TILE - 1) / TILE, (args.MA + TILE - 1) / TILE,
@@ -529,7 +742,15 @@ cudaError_t dispatch_layout(const Args& args, int zero_diag, int layout,
 
 template <int MODEL>
 cudaError_t dispatch_flags(const Args& args, int masked, int shifted,
-                           int zero_diag, int layout, cudaStream_t stream) {
+                           int row_masked, int zero_diag, int layout,
+                           cudaStream_t stream) {
+  // the entry point lets layout 2 through only without masked and
+  // shifted, and a row mask only on layout 2 without zero_diag
+  if (layout == 2) {
+    if (row_masked) return dispatch_narrow<MODEL, true, false>(args, stream);
+    if (zero_diag) return dispatch_narrow<MODEL, false, true>(args, stream);
+    return dispatch_narrow<MODEL, false, false>(args, stream);
+  }
   if (masked && shifted) {
     return dispatch_layout<MODEL, true, true>(args, zero_diag, layout, stream);
   } else if (masked) {
@@ -545,31 +766,38 @@ cudaError_t dispatch_flags(const Args& args, int masked, int shifted,
 // Plain C entry point (bound with ctypes). Launches on `stream`, does
 // not synchronise and allocates nothing. `layout` 0 is the tile kernel,
 // 1 the symmetric kernel, which takes only square same-coordinates
-// zero-diagonal builds (cb == ca, MA == MB). Returns cudaGetLastError()
-// (0 on success); the caller raises on anything else.
+// zero-diagonal builds (cb == ca, MA == MB), 2 the narrow kernel, which
+// takes only builds without `masked` and `shifted`. `row_masked`
+// multiplies row i of every (k, s) matrix by row_mask[k, i] (a (K, MA)
+// tensor); it takes layout 2 and no other flag. Returns
+// cudaGetLastError() (0 on success); the caller raises on anything else.
 extern "C" int smk_fused_corr(const float* ca, const float* cb,
                               const float* phis, const float* mask,
-                              const float* shift, float* out, int K, int S,
-                              int MA, int MB, int D, long long a_kstride,
+                              const float* shift, const float* row_mask,
+                              float* out, int K, int S, int MA, int MB,
+                              int D, long long a_kstride,
                               long long b_kstride, int model, int masked,
-                              int shifted, int zero_diag, int layout,
-                              void* stream) {
+                              int shifted, int row_masked, int zero_diag,
+                              int layout, void* stream) {
   if (K < 1 || S < 1 || MA < 1 || MB < 1 || D < 1 || D > MAX_D ||
       (long long)K * S > 65535 || (MA + TILE - 1) / TILE > 65535 ||
       model < 0 || model > 2 || ((masked || shifted) && MA != MB) ||
-      layout < 0 || layout > 1 ||
+      layout < 0 || layout > 2 ||
       (layout == 1 && (ca != cb || a_kstride != b_kstride || MA != MB ||
-                       !zero_diag))) {
+                       !zero_diag)) ||
+      (layout == 2 && (masked || shifted)) ||
+      (row_masked && (masked || shifted || zero_diag || layout != 2 ||
+                      row_mask == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args args{ca, cb, phis, mask, shift, out, K, S,
+  const Args args{ca, cb, phis, mask, shift, row_mask, out, K, S,
                   MA, MB, D, a_kstride, b_kstride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (model) {
-    case 0: err = dispatch_flags<0>(args, masked, shifted, zero_diag, layout, s); break;
-    case 1: err = dispatch_flags<1>(args, masked, shifted, zero_diag, layout, s); break;
-    default: err = dispatch_flags<2>(args, masked, shifted, zero_diag, layout, s); break;
+    case 0: err = dispatch_flags<0>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
+    case 1: err = dispatch_flags<1>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
+    default: err = dispatch_flags<2>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

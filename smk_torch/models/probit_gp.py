@@ -305,8 +305,8 @@ class SpatialGPSampler:
         (K, q, t, t)) for the kriging draw."""
         model = self.config.cov_model
         if self._fused:
-            r_cross = mask[:, None, :, None] * fused_cross_correlation(
-                consts.coords, consts.coords_test, phi, model
+            r_cross = fused_cross_correlation(
+                consts.coords, consts.coords_test, phi, model, row_mask=mask
             )
             r_test = fused_correlation_stack(consts.coords_test, phi, model)
         else:

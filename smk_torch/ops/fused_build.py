@@ -1,15 +1,21 @@
 """Fused correlation build — the port of ``smk_tpu/ops/pallas_build.py``.
 
-Two hand-written CUDA kernels (``smk_torch/csrc/fused_corr.cu``)
+Three hand-written CUDA kernels (``smk_torch/csrc/fused_corr.cu``)
 compute what the TPU kernel ``_corr_kernel`` computes: per pair, the
 direct squared coordinate differences summed over d, the sqrt, an
 optional exact-zero diagonal, ``CORRELATION_FNS[model]``, the optional
 pad-row identity R~ = M R M + (I - M) and an optional + diag(shift) —
 emitted straight into a contiguous fp32 (K, s, ma, mb) tensor, with no
-(m, m) distance matrix in device memory. Square same-coordinates
-builds run the symmetric kernel (layout 1: one half of the tile pairs
-computed, the mirror stored from it); the cross build runs the tile
-kernel (layout 0). :func:`kernel_layout` makes that choice.
+(m, m) distance matrix in device memory. The cross build can also take
+a row mask, multiplied into its rows as they are stored. Every cross
+build and every unmasked square build of at most ``NARROW_MAX_M`` rows
+(the kriging cross build and test stack) runs the narrow kernel
+(layout 2: whole rows, no shared memory); masked builds and wider
+square ones run the symmetric kernel (layout 1: one half of the tile
+pairs computed, the mirror stored from it). :func:`kernel_layout`
+makes that choice. The tile kernel (layout 0), the port's first, is
+launched by no entry point: the other two are held against it bit for
+bit.
 
 Five entry points wrap it, as in the twin: :func:`fused_correlation`,
 :func:`fused_correlation_stack`, :func:`fused_masked_correlation_stack`,
@@ -22,8 +28,9 @@ Dispatch is by the device of the tensors: on a CUDA tensor the wrapper
 launches the kernel or raises (there is no fall-back); on a CPU tensor
 it runs the plain PyTorch version, :func:`plain_build`, which is also
 what ``chip_smoke.py`` holds the kernel against on the card.
-``LAUNCHES`` counts kernel launches per entry point and ``PLAIN_CALLS``
-counts the plain version's calls, so a run can show which path it took.
+``LAUNCHES`` counts kernel launches per entry point, ``LAYOUT_LAUNCHES``
+the same launches per kernel, and ``PLAIN_CALLS`` the plain version's
+calls, so a run can show which path it took.
 """
 
 from __future__ import annotations
@@ -46,11 +53,15 @@ ENTRY_POINTS = (
 LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 
-# output tile edge of the square builds' kernel (csrc/fused_corr.cu
-# STILE); the cross build's tile kernel uses 32
+# output tile edge of the symmetric kernel (csrc/fused_corr.cu STILE);
+# the tile kernel uses 32
 TILE = 64
 # the kernel a build launches (the C entry point's `layout` argument)
-TILED, SYMMETRIC = 0, 1
+TILED, SYMMETRIC, NARROW = 0, 1, 2
+LAYOUT_LAUNCHES: Dict[int, int] = dict.fromkeys((TILED, SYMMETRIC, NARROW), 0)
+# the widest square build the narrow kernel takes: it computes every
+# element, where the symmetric kernel computes one half
+NARROW_MAX_M = 256
 _MAX_D = 8
 _MODEL_IDS = {"exponential": 0, "matern32": 1, "matern52": 2}
 
@@ -60,17 +71,20 @@ def reset_counts() -> None:
     for name in ENTRY_POINTS:
         LAUNCHES[name] = 0
         PLAIN_CALLS[name] = 0
+    for layout in LAYOUT_LAUNCHES:
+        LAYOUT_LAUNCHES[layout] = 0
 
 
 def bind_kernel(lib):
     """The C entry point ``smk_fused_corr`` of a built ``fused_corr``
-    library, with its ctypes signature: six pointers (ca, cb, phis, mask,
-    shift, out), K, S, MA, MB, D, the two K strides, model, masked,
-    shifted, zero_diag, layout and the stream."""
+    library, with its ctypes signature: seven pointers (ca, cb, phis,
+    mask, shift, row_mask, out), K, S, MA, MB, D, the two K strides,
+    model, masked, shifted, row_masked, zero_diag, layout and the
+    stream."""
     fn = lib.smk_fused_corr
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i, i, i, i, p]
+        fn.argtypes = [p] * 7 + [i] * 5 + [ll, ll] + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -88,12 +102,14 @@ def plain_build(
     mask: Optional[torch.Tensor] = None,
     shift: Optional[torch.Tensor] = None,
     zero_diag: bool = False,
+    row_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's function in PyTorch ops, on batched operands:
     coords_a (K, ma, d); coords_b (K or 1, mb, d); phis (K, s);
-    mask/shift (K, ma). Returns (K, s, ma, mb). Same per-pair arithmetic
-    as the kernel and as the TPU kernel (differences summed in d order,
-    no norm trick)."""
+    mask/shift/row_mask (K, ma). Returns (K, s, ma, mb). Same per-pair
+    arithmetic as the kernel and as the TPU kernel (differences summed
+    in d order, no norm trick); the row mask multiplies the finished
+    rows, as the sampler did after the build."""
     ma, d = coords_a.shape[-2:]
     mb = coords_b.shape[-2]
     sq = torch.zeros(
@@ -117,30 +133,39 @@ def plain_build(
         rho = rho + torch.where(
             eye, shift[:, None, :, None], torch.zeros_like(rho)
         )
+    if row_mask is not None:
+        rho = row_mask[:, None, :, None] * rho
     return rho
 
 
-def kernel_layout(coords_a, coords_b, zero_diag: bool) -> int:
-    """SYMMETRIC for a square same-coordinates zero-diagonal build (its
-    output is symmetric, so the kernel computes one half and mirrors
-    it), TILED otherwise."""
-    return SYMMETRIC if coords_a is coords_b and zero_diag else TILED
+def kernel_layout(coords_a, coords_b, zero_diag: bool, masked: bool,
+                  shifted: bool) -> int:
+    """SYMMETRIC for a masked or shifted build (always square and on
+    one coordinate set) and for a square same-coordinates zero-diagonal
+    build of more than NARROW_MAX_M rows (its output is symmetric, so
+    the kernel computes one half and mirrors it); NARROW for the rest:
+    every cross build, at any width, and the small square ones."""
+    square = coords_a is coords_b and zero_diag
+    if masked or shifted or (square and coords_b.shape[-2] > NARROW_MAX_M):
+        return SYMMETRIC
+    return NARROW
 
 
-def _launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout):
+def _launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout, row_mask=None):
     """One kernel launch on the current stream; raises on a launch
     error (the C function returns cudaGetLastError()). ``layout``
-    SYMMETRIC needs ``cb`` to be ``ca``."""
+    SYMMETRIC needs ``cb`` to be ``ca``; ``row_mask`` needs NARROW."""
     k, s, ma, mb = out.shape
     d = ca.shape[-1]
     err = _kernel()(
         ca.data_ptr(), cb.data_ptr(), phis.data_ptr(),
         0 if mask is None else mask.data_ptr(),
         0 if shift is None else shift.data_ptr(),
+        0 if row_mask is None else row_mask.data_ptr(),
         out.data_ptr(), k, s, ma, mb, d,
         ca.stride(0), cb.stride(0),
         _MODEL_IDS[model], int(mask is not None), int(shift is not None),
-        int(zero_diag), layout,
+        int(row_mask is not None), int(zero_diag), layout,
         torch.cuda.current_stream(out.device).cuda_stream,
     )
     if err != 0:
@@ -160,6 +185,7 @@ def _fused_build(
     mask: Optional[torch.Tensor] = None,
     shift=None,
     zero_diag: bool = False,
+    row_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Shared body of the five entry points (twin of
     ``pallas_build._fused_build``)."""
@@ -170,7 +196,7 @@ def _fused_build(
         )
     masked = mask is not None
     shifted = shift is not None
-    layout = kernel_layout(coords_a, coords_b, zero_diag)
+    layout = kernel_layout(coords_a, coords_b, zero_diag, masked, shifted)
     if (masked or shifted) and coords_a is not coords_b:
         # the in-tile row == col test is the "same point" diagonal only
         # when both operands are the same coordinate set
@@ -188,10 +214,13 @@ def _fused_build(
     dev = ca.device
     dtype = ca.dtype
     ph = ph.to(dtype).expand(k, ph.shape[-1])
-    mk = sh = None
+    mk = sh = rm = None
     if masked:
         mk = mask.to(dtype)
         mk = (mk if mk.dim() == 2 else mk[None]).expand(k, ma)
+    if row_mask is not None:
+        rm = row_mask.to(dtype)
+        rm = (rm if rm.dim() == 2 else rm[None]).expand(k, ma)
     if shifted:
         sh = torch.as_tensor(shift, dtype=dtype, device=dev)
         sh = torch.zeros((k, ma), dtype=dtype, device=dev) + sh
@@ -199,7 +228,7 @@ def _fused_build(
         PLAIN_CALLS[entry] += 1
         out = plain_build(
             ca.expand(k, ma, d), cb, ph, model, mask=mk, shift=sh,
-            zero_diag=zero_diag,
+            zero_diag=zero_diag, row_mask=rm,
         )
     else:
         if dev.type != "cuda":
@@ -209,6 +238,8 @@ def _fused_build(
             tensors.append(("mask", mk))
         if shifted:
             tensors.append(("shift", sh))
+        if rm is not None:
+            tensors.append(("row_mask", rm))
         for name, t in tensors:
             if t.device != dev:
                 raise ValueError(f"fused build: {name} is on {t.device}, not {dev}")
@@ -229,10 +260,12 @@ def _fused_build(
         ph = ph.contiguous()
         mk = None if mk is None else mk.contiguous()
         sh = None if sh is None else sh.contiguous()
+        rm = None if rm is None else rm.contiguous()
         out = torch.empty((k, ph.shape[-1], ma, mb), dtype=dtype, device=dev)
         if out.numel():
-            _launch(ca, cb, ph, mk, sh, model, zero_diag, out, layout)
+            _launch(ca, cb, ph, mk, sh, model, zero_diag, out, layout, rm)
             LAUNCHES[entry] += 1
+            LAYOUT_LAUNCHES[layout] += 1
     return out if batched else out[0]
 
 
@@ -266,12 +299,16 @@ def fused_masked_correlation_stack(coords, phis, mask, model: str) -> torch.Tens
     )
 
 
-def fused_cross_correlation(coords_a, coords_b, phis, model: str) -> torch.Tensor:
+def fused_cross_correlation(
+    coords_a, coords_b, phis, model: str, *, row_mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """(s, ma, mb) cross-correlation stack between two coordinate sets
-    (the kriging cross build; no diagonal treatment — mask rows
-    outside)."""
+    (the kriging cross build; no diagonal treatment). ``row_mask``
+    ((ma,) or (K, ma)) multiplies row i by row_mask[..., i] as it is
+    stored: the sampler's zeroing of pad rows, with no second pass."""
     return _fused_build(
-        "fused_cross_correlation", coords_a, coords_b, phis, model
+        "fused_cross_correlation", coords_a, coords_b, phis, model,
+        row_mask=row_mask,
     )
 
 

@@ -4,9 +4,9 @@ run in interpret mode as tests/test_fused_build.py runs it.
 
 On the CPU every entry point runs its plain PyTorch version (the CUDA
 kernels need the card: the gpu-marked tests hold them against the
-plain version there, and the symmetric kernel against the tile kernel
-bit for bit). Inputs are made with numpy from a seed and passed
-to both packages.
+plain version there, and the symmetric and narrow kernels against the
+tile kernel bit for bit). Inputs are made with numpy from a seed and
+passed to both packages.
 
 Tolerance: both sides compute the same per-pair arithmetic (direct
 squared differences summed in d order, sqrt, the model function, mask
@@ -48,8 +48,10 @@ def _inputs(k, m, s, seed, mb=None):
     return coords, other, phis, mask, shift
 
 
-def _jax(entry, model, coords, phis, mask=None, shift=None, other=None):
-    """The Pallas entry point in interpret mode, vmapped over K."""
+def _jax(entry, model, coords, phis, mask=None, shift=None, other=None, row_mask=None):
+    """The Pallas entry point in interpret mode, vmapped over K; a row
+    mask multiplies the cross build afterwards, as the JAX sampler
+    does."""
     fn = getattr(jpb, entry)
     c = jnp.asarray(coords)
     ph = jnp.asarray(phis)
@@ -65,6 +67,8 @@ def _jax(entry, model, coords, phis, mask=None, shift=None, other=None):
         out = jax.vmap(lambda a, o, b: fn(a, o, b, model, interpret=True))(
             c, jnp.asarray(other), ph
         )
+        if row_mask is not None:
+            out = jnp.asarray(row_mask)[:, None, :, None] * out
     elif entry == "fused_correlation":
         out = jax.vmap(lambda a, b: fn(a, b[0], model, interpret=True))(c, ph)[:, None]
     else:
@@ -72,7 +76,7 @@ def _jax(entry, model, coords, phis, mask=None, shift=None, other=None):
     return np.asarray(out)
 
 
-def _torch(entry, model, coords, phis, mask=None, shift=None, other=None):
+def _torch(entry, model, coords, phis, mask=None, shift=None, other=None, row_mask=None):
     fn = getattr(tfb, entry)
     c = torch.as_tensor(coords)
     ph = torch.as_tensor(phis)
@@ -81,7 +85,8 @@ def _torch(entry, model, coords, phis, mask=None, shift=None, other=None):
     if entry == "fused_masked_shifted_build":
         return fn(c, ph, torch.as_tensor(mask), torch.as_tensor(shift), model)
     if entry == "fused_cross_correlation":
-        return fn(c, torch.as_tensor(other), ph, model)
+        rm = None if row_mask is None else torch.as_tensor(row_mask)
+        return fn(c, torch.as_tensor(other), ph, model, row_mask=rm)
     if entry == "fused_correlation":
         return fn(c, ph[:, 0], model)[:, None]
     return fn(c, ph, model)
@@ -142,6 +147,31 @@ class TestPlainAgainstPallas:
         want = _jax("fused_cross_correlation", model, coords, phis, other=other)
         assert tuple(got.shape) == (2, 2, ma, mb)
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+    @pytest.mark.parametrize("model", MODELS)
+    @pytest.mark.parametrize("ma, mb", [(147, 64), (147, 123), (20, 7)])
+    def test_cross_with_row_mask(self, model, ma, mb):
+        # the sampler's kriging cross build: pad rows zeroed in the build
+        coords, other, phis, mask, _ = _inputs(2, ma, 2, seed=ma * mb, mb=mb)
+        want = _jax("fused_cross_correlation", model, coords, phis, other=other,
+                    row_mask=mask)
+        got = _torch("fused_cross_correlation", model, coords, phis, other=other,
+                     row_mask=mask)
+        assert tuple(got.shape) == (2, 2, ma, mb)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+        plain = tfb.plain_build(torch.as_tensor(coords), torch.as_tensor(other),
+                                torch.as_tensor(phis), model, row_mask=torch.as_tensor(mask))
+        assert torch.equal(plain, got)
+        # the product the sampler took after the build, bit for bit
+        bare = _torch("fused_cross_correlation", model, coords, phis, other=other)
+        assert torch.equal(got, torch.as_tensor(mask)[:, None, :, None] * bare)
+        assert (got.numpy()[:, :, mask[0] == 0] == 0).all()
+        # a (ma,) row mask is shared over K
+        shared = tfb.fused_cross_correlation(
+            torch.as_tensor(coords), torch.as_tensor(other), torch.as_tensor(phis), model,
+            row_mask=torch.as_tensor(mask[0]),
+        )
+        assert torch.equal(shared, torch.as_tensor(mask[0])[None, None, :, None] * bare)
 
     def test_no_k_axis_keeps_jax_shapes(self):
         coords, other, phis, mask, shift = _inputs(1, 40, 3, seed=5, mb=9)
@@ -217,26 +247,56 @@ class TestWrapperContract:
         # the kernel's own tile: writes are s m^2 floats either way
         assert tfb.build_bytes_model(m, s, fused=fused)["write_bytes"] == s * m * m * 4
 
+    @pytest.mark.parametrize("m", [20, 300])
     @pytest.mark.parametrize("entry", tfb.ENTRY_POINTS)
-    def test_square_builds_pick_the_symmetric_kernel(self, entry, monkeypatch):
+    def test_each_entry_point_picks_its_layout(self, entry, m, monkeypatch):
+        # narrow for every cross build (row mask and all) and for the
+        # unmasked square builds up to NARROW_MAX_M rows (the test
+        # stack); symmetric for masked and wider square builds; the
+        # tile kernel for none
         seen = []
         real = tfb.kernel_layout
 
-        def spy(a, b, zero_diag):
-            seen.append(real(a, b, zero_diag))
+        def spy(a, b, zero_diag, masked, shifted):
+            seen.append(real(a, b, zero_diag, masked, shifted))
             return seen[-1]
 
         monkeypatch.setattr(tfb, "kernel_layout", spy)
-        coords, other, phis, mask, shift = _inputs(2, 20, 1, seed=4, mb=7)
-        _torch(entry, "exponential", coords, phis, mask=mask, shift=shift, other=other)
-        want = tfb.TILED if entry == "fused_cross_correlation" else tfb.SYMMETRIC
+        coords, other, phis, mask, shift = _inputs(2, m, 1, seed=4, mb=m)
+        _torch(entry, "exponential", coords, phis, mask=mask, shift=shift, other=other,
+               row_mask=mask)
+        want = {
+            "fused_masked_correlation_stack": tfb.SYMMETRIC,
+            "fused_masked_shifted_build": tfb.SYMMETRIC,
+            "fused_cross_correlation": tfb.NARROW,
+        }.get(entry, tfb.NARROW if m <= tfb.NARROW_MAX_M else tfb.SYMMETRIC)
         assert seen == [want]
 
     def test_layout_needs_the_same_coords_and_a_zero_diagonal(self):
+        c = torch.rand(3, tfb.NARROW_MAX_M + 1, 2)
+        assert tfb.kernel_layout(c, c, True, False, False) == tfb.SYMMETRIC
+        assert tfb.kernel_layout(c, c.clone(), True, False, False) == tfb.NARROW
+        assert tfb.kernel_layout(c, c, False, False, False) == tfb.NARROW
+
+    def test_narrow_layout_takes_cross_builds_at_any_width_and_small_squares(self):
         c = torch.rand(3, 8, 2)
-        assert tfb.kernel_layout(c, c, True) == tfb.SYMMETRIC
-        assert tfb.kernel_layout(c, c.clone(), True) == tfb.TILED
-        assert tfb.kernel_layout(c, c, False) == tfb.TILED
+        square = torch.rand(3, tfb.NARROW_MAX_M, 2)
+        wide = torch.rand(4 * 1024 + 1, 2)
+        assert tfb.kernel_layout(c, wide, False, False, False) == tfb.NARROW
+        assert tfb.kernel_layout(c, c, True, False, False) == tfb.NARROW
+        assert tfb.kernel_layout(square, square, True, False, False) == tfb.NARROW
+        # a masked or shifted build needs the symmetric kernel at any width
+        assert tfb.kernel_layout(c, c, True, True, False) == tfb.SYMMETRIC
+        assert tfb.kernel_layout(c, c, True, True, True) == tfb.SYMMETRIC
+        assert tfb.kernel_layout(c, c, True, False, True) == tfb.SYMMETRIC
+
+    def test_cpu_builds_count_no_layout_launch(self):
+        tfb.reset_counts()
+        c = torch.rand(2, 10, 2)
+        tfb.fused_cross_correlation(c, torch.rand(4, 2), torch.ones(2, 1), "exponential",
+                                    row_mask=torch.ones(2, 10))
+        assert tfb.PLAIN_CALLS["fused_cross_correlation"] == 1
+        assert sum(tfb.LAYOUT_LAUNCHES.values()) == 0
 
     def test_build_module_is_lazy_and_digest_named(self, monkeypatch, tmp_path):
         monkeypatch.setenv("SMK_TORCH_BUILD_DIR", str(tmp_path))
@@ -331,3 +391,55 @@ class TestKernelOnCard:
                 _check_invariants(outs[0].cpu(), entry,
                                   None if kw_mask is None else mask.astype(np.float32),
                                   None if kw_shift is None else shift)
+
+    # the narrow kernel's ragged widths: one to five columns, every row
+    # alignment mod 4 around 64 and 128, the sampler's t = 64, the widest
+    # square build it takes and one past it
+    NARROW_MB = (1, 3, 4, 5, 63, 64, 65, 123, 128, 256, 257)
+
+    @pytest.mark.parametrize("ma", [1, 147, 3907])
+    def test_narrow_kernel_equals_tile_kernel_bitwise(self, ma):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        for mb in self.NARROW_MB:
+            coords, other, phis, mask, _ = _inputs(2, ma, 2, seed=ma + mb, mb=mb)
+            c, o, ph = (torch.as_tensor(x).cuda() for x in (coords, other, phis))
+            rm = torch.as_tensor(mask).cuda()
+            shared = o[:1].expand(2, mb, 2)  # K-shared test sites: stride 0 on K
+            for model in MODELS:
+                for cb in (o, shared):
+                    outs = []
+                    for layout, row_mask in ((tfb.NARROW, None), (tfb.NARROW, rm),
+                                             (tfb.TILED, None)):
+                        # NaN-filled: an element the kernel misses fails
+                        out = torch.full((2, 2, ma, mb), float("nan"), device="cuda")
+                        tfb._launch(c, cb, ph, None, None, model, False, out, layout, row_mask)
+                        outs.append(out)
+                    torch.cuda.synchronize()
+                    assert torch.equal(outs[0], outs[2]), (ma, mb, model)
+                    # the row mask in the kernel: the sampler's product
+                    assert torch.equal(outs[1], rm[:, None, :, None] * outs[2]), (ma, mb, model)
+                    want = tfb.plain_build(c, cb, ph, model, row_mask=rm)
+                    np.testing.assert_allclose(outs[1].cpu().numpy(), want.cpu().numpy(),
+                                               atol=4e-6, rtol=1e-6)
+
+    @pytest.mark.parametrize("m, d", [(m, 2) for m in NARROW_MB] + [(123, 1), (123, 3), (64, 8)])
+    def test_narrow_kernel_equals_symmetric_kernel_bitwise(self, m, d):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        rng = np.random.default_rng(m * d)
+        test = torch.as_tensor(rng.uniform(0.0, 2.0, size=(m, d)).astype(np.float32)).cuda()
+        ph = torch.as_tensor(rng.uniform(4.0, 12.0, size=(2, 2)).astype(np.float32)).cuda()
+        c = test[None].expand(2, m, d)  # the test stack's shared coordinates
+        for model in MODELS:
+            outs = []
+            for layout in (tfb.NARROW, tfb.SYMMETRIC):
+                out = torch.full((2, 2, m, m), float("nan"), device="cuda")
+                tfb._launch(c, c, ph, None, None, model, True, out, layout)
+                outs.append(out)
+            torch.cuda.synchronize()
+            assert torch.equal(outs[0], outs[1])
+            want = tfb.plain_build(c, c[:1], ph, model, zero_diag=True)
+            np.testing.assert_allclose(outs[0].cpu().numpy(), want.cpu().numpy(),
+                                       atol=4e-6, rtol=1e-6)
+            _check_invariants(outs[0].cpu(), "fused_correlation_stack", None, None)
