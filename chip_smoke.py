@@ -49,7 +49,32 @@ printed as one JSON line:
               30 burn-in, 10 kept), with its kernel launch counts.
 6. fit_q2   — the bivariate case (q = 2, K = 8, m = 3906, 20 sweeps).
 
-Then the kernel summary line {"kernels": [...]}, the card's
+Phases 5 and 6 run the default SMKConfig sampler. Phases 7-11 run the
+production sampler that bench.py:rung_config builds (collapsed phi on
+a sparse schedule, Nystrom CG with a bf16 operator, blocked triangular
+solves; production_config below):
+
+7. kernels_config4 — the symmetric and narrow kernels at config4's
+              shapes, (64, 2, 1024, 1024) and (64, 1, 1024, 64), on
+              eBird-proxy coordinates, against their plain versions.
+8. production_ops — at config5's shape: the bf16 operator's product
+              against its plain upcast form, an 8-step Nystrom CG solve
+              against a dense solve (error <= 5e-2), the blocked
+              triangular solve against the native one; device times.
+9. fit_production_small_parity — the production fit, probit and
+              logit, on the card against the CPU, same random numbers.
+10. fit_production_config5 — fit_meta_kriging with the production
+              sampler at config5's shape, 64 sweeps (48 burn-in), phi
+              every 16th; launches against probit_gp.build_calls; then
+              the same schedule sweep by sweep: update and non-update
+              sweep times (CUDA events), factorizations per sweep, the
+              finite-factor guard's count, profiler windows.
+11. fit_production_config4 — the same at config4's shape (eBird proxy,
+              n = 65,536 + 64 test sites, K = 64, m = 1024, q = 2,
+              p = 3, logit, phi every 8th).
+
+Then each phase's wall time, the kernel summary line {"kernels": [...]}
+(launches from fit_config5, and per path), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. A failing phase
 raises: the script exits non-zero and prints no ok line. It exits
 non-zero at once where no CUDA card is visible, or where the port
@@ -719,6 +744,446 @@ def fit_small_parity(device):
     emit({"phase": "fit_small_parity", "max_abs_err": errs, "tolerance": 2e-3})
 
 
+# ----------------------------------------------------------------------
+# phases 7-11: the production sampler (bench.py:rung_config)
+# ----------------------------------------------------------------------
+# config4's shape: K subsets of m eBird-proxy checklists, q = 2 species,
+# p = 3 covariates, t test sites
+C4_K, C4_M, C4_Q, C4_P, C4_T = 64, 1024, 2, 3, 64
+# the production CG: Nystrom rank, iterations, blocked-solve panel
+PROD_RANK, PROD_CG_ITERS, PROD_BLOCK = 256, 8, 512
+# the CG solve's error floor against a dense solve: the bf16 operator's
+# rounding (the twin's docstring, smk_tpu/ops/cg.py:143-147, puts it
+# near 2e-2 at m = 3906)
+CG_ERR_MAX = 5e-2
+
+
+def production_config(*, k, n_samples, link="probit", phi_every=16, rank=PROD_RANK,
+                      block=PROD_BLOCK):
+    """The sampler bench.py:rung_config builds for every rung of the JAX
+    benchmark: collapsed phi every `phi_every` sweeps, single-try
+    Gaussian; Nystrom-preconditioned CG (8 steps) with a bf16 operator;
+    blocked triangular solves; the inverse-Wishart A prior; one chain.
+    Its live diagnostics (observability; the draws are the same without
+    them, bench.py:592-596) are not ported."""
+    from smk_torch import PriorConfig, SMKConfig
+
+    return SMKConfig(
+        n_subsets=k, n_samples=n_samples, link=link, cov_model="exponential",
+        fused_build="pallas", phi_sampler="collapsed", phi_update_every=phi_every,
+        phi_proposals=1, phi_proposal_family="gaussian", u_solver="cg",
+        cg_precond="nystrom", cg_precond_rank=rank, cg_iters=PROD_CG_ITERS,
+        cg_matvec_dtype="bfloat16", trisolve_block_size=block,
+        priors=PriorConfig(a_prior="invwishart", temper="none"),
+    )
+
+
+def ebird_data(n, t):
+    """config4's data (bench.py:_ebird_triplet): the eBird proxy at n + t
+    checklists, the last t the test sites."""
+    from smk_torch.data.ebird import make_ebird_proxy
+
+    d = make_ebird_proxy(n=n + t)
+    return d.y[:n], d.x[:n], d.coords[:n], d.coords[n:], d.x[n:]
+
+
+def kernels_config4(device):
+    """The symmetric kernel at config4's (64, 2, 1024, 1024) builds, masked
+    and masked + shifted, and the narrow kernel at its (64, 1, 1024, 64)
+    cross build with the row mask, on eBird-proxy coordinates (Thomas
+    clusters: near-duplicate points), each against its plain version with
+    the exact invariants; with and without pad rows. Device times beside
+    the plain version's."""
+    import numpy as np
+    import torch
+    from smk_torch.ops import fused_build as fb
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    k, m, t = C4_K, C4_M, C4_T
+    _, _, coords_np, test_np, _ = ebird_data(k * m, t)
+    perm = np.random.default_rng(SEED).permutation(k * m)
+    coords = torch.as_tensor(coords_np[perm].reshape(k, m, 2), device=device)
+    test = torch.as_tensor(test_np, device=device)
+    d2 = torch.cdist(coords.double(), coords.double())
+    d2.diagonal(dim1=-2, dim2=-1).fill_(float("inf"))
+    nearest = d2.amin(dim=(-2, -1))  # closest pair in each subset
+    del d2
+    phis = 4.0 + 8.0 * torch.rand((k, C4_Q), generator=gen, device=device)
+    ones = torch.ones(k, m, device=device)
+    pad = ones.clone()
+    pad[:, -13:] = 0.0
+    model = "exponential"
+    out, worst = [], 0.0
+    for label, mask in (("no_pad", ones), ("pad", pad)):
+        shift = torch.where(
+            mask > 0, 0.5 + 1.5 * torch.rand((k, m), generator=gen, device=device),
+            torch.full_like(mask, 1e8)) + 2.56e-4
+        cases = {
+            "fused_masked_correlation_stack": (
+                lambda: fb.fused_masked_correlation_stack(coords, phis, mask, model),
+                dict(mask=mask, zero_diag=True), phis, None),
+            "fused_masked_shifted_build": (
+                lambda: fb.fused_masked_shifted_build(coords, phis, mask, shift, model),
+                dict(mask=mask, shift=shift, zero_diag=True), phis, shift),
+            "fused_cross_correlation": (
+                lambda: fb.fused_cross_correlation(coords, test, phis[:, :1], model,
+                                                   row_mask=mask),
+                dict(row_mask=mask), phis[:, :1], None),
+        }
+        for name, (run, spec, ph, sh) in cases.items():
+            got = run()
+            cb = coords if spec.get("zero_diag") else test[None]
+            want = fb.plain_build(coords, cb, ph, model, **spec)
+            err = compare(got, want, f"config4 {name}/{label}")
+            worst = max(worst, err)
+            if spec.get("zero_diag"):
+                square_invariants(got, mask, sh, f"config4 {name}/{label}")
+            row = {"entry": name, "mask": label, "shape": list(got.shape), "max_abs_err": err}
+            if label == "no_pad":
+                row["device_ms"] = ms_median(run, device_only=True)
+                row["plain_ms"] = ms_median(lambda: fb.plain_build(coords, cb, ph, model, **spec))
+            out.append(row)
+            del got, want
+    emit({"phase": "kernels_config4", "tolerance": {"atol": ATOL, "rtol": RTOL},
+          "closest_pair_min": float(nearest.min()), "closest_pair_median":
+          float(nearest.median()), "checks": out, "max_abs_err": worst})
+
+
+def production_ops(device):
+    """The production solver's pieces at config5's shape (K = 32,
+    m = 3906), on a masked R~ from the kernel (11 pad rows a subset):
+    the bf16 operator's product against its plain upcast form; an 8-step
+    Nystrom CG solve (rank 256) of (R~ + diag(jit + d)) s = b against an
+    fp32 Cholesky solve; the blocked triangular solve (panel 512, carried
+    panel inverses) against torch.linalg.solve_triangular with 1 and 64
+    right-hand sides. Device times throughout."""
+    import torch
+    from smk_torch.ops import cg
+    from smk_torch.ops import chol
+    from smk_torch.ops import fused_build as fb
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 5)
+    k, m = MAIN_K, MAIN_M
+    coords = torch.rand((k, m, 2), generator=gen, device=device)
+    phis = 4.0 + 8.0 * torch.rand((k, 1), generator=gen, device=device)
+    mask = torch.ones(k, m, device=device)
+    mask[:, -11:] = 0.0
+    jit = max(1e-5, 2.5e-7 * m)
+    r = fb.fused_masked_correlation_stack(coords, phis, mask, "exponential")[:, 0]
+    x = torch.randn((k, m), generator=gen, device=device)
+    res = {"phase": "production_ops", "K": k, "m": m}
+
+    # the bf16 operator's product: exact products, fp32 sums
+    r_mv = r.to(torch.bfloat16)
+    got = cg.bf16_matvec(r_mv, x)
+    check(got.dtype == torch.float32, "bf16 product: the output is not fp32")
+    xb = x.to(torch.bfloat16).float()
+    want = (r_mv.float() @ xb[..., None])[..., 0]
+    scale = (r_mv.float().abs() @ xb.abs()[..., None])[..., 0]
+    rel = float(((got - want).abs() / scale).max())
+    # two fp32 sums of the same m exact products: at most ~m * 2^-24 apart
+    check(rel <= m * 2.0 ** -24, f"bf16 product: relative error {rel:.3e}")
+    rounded = float(((got.to(torch.bfloat16).float() - got).abs() / scale).max())
+    check(rounded > 0, "bf16 product: the output is bf16-representable (rounded)")
+    r_f32 = r.clone()
+    res["bf16_product"] = {
+        "route": "torch.bmm(bf16, bf16, out_dtype=torch.float32)",
+        "max_rel_err_vs_upcast": rel, "bound": m * 2.0 ** -24,
+        "device_ms": ms_median(lambda: cg.bf16_matvec(r_mv, x), device_only=True),
+        "upcast_device_ms": ms_median(lambda: (r_mv.float() @ xb[..., None]), device_only=True),
+        "fp32_device_ms": ms_median(lambda: r_f32 @ x[..., None], device_only=True),
+        "bound_ms": (r_mv.numel() * 2 + x.numel() * 4 * 2) / HBM_BYTES_PER_S * 1e3,
+    }
+    del want, scale, r_f32
+
+    # the 8-step Nystrom CG solve against a dense fp32 solve
+    d = torch.where(mask > 0, 0.5 + 1.5 * torch.rand((k, m), generator=gen, device=device),
+                    torch.full_like(mask, 1e8))
+    shift = jit + d
+    b = torch.randn((k, m), generator=gen, device=device)
+
+    z = cg.nystrom_factor(r[..., :PROD_RANK])
+    pre = cg.nystrom_apply(z, shift)
+    mv_bf16 = cg.shifted_correlation_operator(r, shift, torch.bfloat16, torch.float32)[0]
+    mv_f32 = cg.shifted_correlation_operator(r, shift, torch.float32, torch.float32)[0]
+    s_bf16 = cg.cg_solve(mv_bf16, b, PROD_CG_ITERS, precond=pre)
+    s_f32 = cg.cg_solve(mv_f32, b, PROD_CG_ITERS, precond=pre)
+    a_mat = r.clone()
+    a_mat.diagonal(dim1=-2, dim2=-1).add_(shift)
+    l_s = chol.cholesky(a_mat)
+    s_ref = chol.chol_solve(l_s, b)
+    check(bool(torch.isfinite(s_ref).all()), "CG reference: non-finite dense solve")
+
+    def rel_norm(v, ref):
+        return float((torch.linalg.vector_norm(v - ref, dim=-1)
+                      / torch.linalg.vector_norm(ref, dim=-1)).max())
+
+    resid = (a_mat @ s_bf16[..., None])[..., 0] - b
+    err_bf16 = rel_norm(s_bf16, s_ref)
+    check(err_bf16 <= CG_ERR_MAX, f"CG: relative error {err_bf16:.3e} > {CG_ERR_MAX}")
+    res["cg"] = {
+        "iters": PROD_CG_ITERS, "rank": PROD_RANK, "precond": "nystrom",
+        "rel_err_bf16": err_bf16, "rel_err_fp32": rel_norm(s_f32, s_ref),
+        "rel_residual_bf16": float((torch.linalg.vector_norm(resid, dim=-1)
+                                    / torch.linalg.vector_norm(b, dim=-1)).max()),
+        "err_max": CG_ERR_MAX,
+        # the 8 steps alone (operator and Nystrom factor built): what a
+        # non-update sweep's u-draw costs per component
+        "solve_device_ms": ms_median(
+            lambda: cg.cg_solve(mv_bf16, b, PROD_CG_ITERS, precond=pre), reps=10,
+            device_only=True),
+        "nystrom_factor_device_ms": ms_median(
+            lambda: cg.nystrom_factor(r[..., :PROD_RANK]), reps=10, device_only=True),
+        "cholesky_solve_device_ms": ms_median(
+            lambda: chol.chol_solve(chol.cholesky(a_mat), b), reps=5, device_only=True),
+    }
+    del a_mat, l_s, resid, mv_bf16, mv_f32, pre, z
+
+    # blocked triangular solves against the native solve
+    r.diagonal(dim1=-2, dim2=-1).add_(jit)
+    l_r = chol.cholesky(r)[:, None]  # (K, 1, m, m)
+    del r
+    inv = chol.panel_inverses(l_r, PROD_BLOCK)
+    tri = {"block": PROD_BLOCK,
+           "panel_inverses_device_ms": ms_median(
+               lambda: chol.panel_inverses(l_r, PROD_BLOCK), reps=10, device_only=True)}
+    for n_rhs in (1, 64):
+        rhs = torch.randn((k, 1, m, n_rhs), generator=gen, device=device)
+        for trans in (False, True):
+            got = chol.blocked_tri_solve(l_r, rhs, PROD_BLOCK, inv, trans=trans)
+            want = chol.tri_solve(l_r, rhs, trans=trans)
+            err = float((got - want).abs().max() / want.abs().max())
+            check(err <= 1e-4, f"blocked solve rhs={n_rhs} trans={trans}: error {err:.3e}")
+            tri[f"rhs{n_rhs}_{'trans' if trans else 'fwd'}"] = {
+                "rel_err": err,
+                "blocked_device_ms": ms_median(
+                    lambda: chol.blocked_tri_solve(l_r, rhs, PROD_BLOCK, inv, trans=trans),
+                    reps=10, device_only=True),
+                "native_device_ms": ms_median(
+                    lambda: chol.tri_solve(l_r, rhs, trans=trans), reps=10, device_only=True),
+                "bound_ms": (l_r.numel() * 4 / 2 + 2 * rhs.numel() * 4) / HBM_BYTES_PER_S * 1e3,
+            }
+    res["tri_solve"] = tri
+    emit(res)
+
+
+def fit_production_small_parity(device):
+    """The production sampler at a small size (rank 32 and panel 64 below
+    m = 100, so both engage; phi every 2nd sweep) through the kernel on
+    the card against the plain version on the CPU, with the same random
+    numbers, probit and logit. The bf16 operator rounds each CG vector to
+    bf16, and where the two devices' fp32 sums differ by an ulp an entry
+    can land on the neighbouring bf16 value: ~2^-9 of a latent's scale
+    (between the JAX and the port on the CPU: up to 6.2e-3 relative in
+    three sweeps). Over 12 sweeps and the quantile compression the grids
+    must agree to 3e-2 (1 + |x|)."""
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.ops import fused_build as fb
+
+    out = {"phase": "fit_production_small_parity", "tolerance": "3e-2 * (1 + |cpu|)"}
+    for link in ("probit", "logit"):
+        cfg = production_config(k=4, n_samples=12, link=link, phi_every=2, rank=32, block=64)
+        if link == "logit":
+            y, x, coords, ct, xt = ebird_data(400, 8)
+        else:
+            y, x, coords, ct, xt = binary_field(400, 2, 2, 8, SEED)
+        fb.reset_counts()
+        gpu = fit_meta_kriging(y, x, coords, ct, xt, config=cfg,
+                               randomness=NoiseOnDevice(SEED, device), device=device)
+        check(sum(fb.LAUNCHES.values()) > 0 and sum(fb.PLAIN_CALLS.values()) == 0,
+              f"production small parity ({link}): the card fit did not run the kernel")
+        cpu = fit_meta_kriging(y, x, coords, ct, xt, config=cfg,
+                               randomness=NoiseOnDevice(SEED, "cpu"), device="cpu")
+        errs = {}
+        for f in ("param_grid", "w_grid", "p_quant", "param_quant"):
+            g, c = getattr(gpu, f).cpu(), getattr(cpu, f)
+            err = float(((g - c).abs() / (1.0 + c.abs())).max())
+            errs[f] = err
+            check(err <= 3e-2, f"production small parity ({link}): {f} differs by {err:.3e}")
+        out[link] = {"max_rel_err": errs, "accept_equal": bool(torch.equal(
+            gpu.phi_accept_rate.cpu(), cpu.phi_accept_rate))}
+    emit(out)
+
+
+def _us(evt, *names) -> float:
+    """The first of the timing attributes ``names`` a profiler event
+    carries (their names changed across PyTorch versions), in us."""
+    for name in names:
+        v = getattr(evt, name, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def profile_sweeps(run_sweeps, top=10):
+    """Device busy time (the sum of kernel times on the card) and idle
+    share of a torch.profiler window over ``run_sweeps()``, with the
+    largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        run_sweeps()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - start) * 1e3
+    per_kernel = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + _us(
+                e, "device_time_total", "cuda_time_total")
+    busy_ms = sum(per_kernel.values()) / 1e3
+    return {"window_ms": window_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / window_ms),
+            "top_device_ms": [[n[:80], us / 1e3] for n, us in
+                              sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]]}
+
+
+def direct_sweeps(cfg, data_np, device, *, weight=1):
+    """The fit's sampler schedule driven sweep by sweep, on the fit's own
+    inputs (TorchRandomness(SEED): the same partition, warm start and
+    noise as fit_meta_kriging's): each sweep's span on the device
+    timeline (CUDA events), its factorization counts, and the subsets
+    whose finite-factor guard turned an accepted move down; then
+    torch.profiler windows over one update sweep and four non-update
+    sweeps past the schedule."""
+    import statistics as st
+
+    import torch
+    from smk_torch.api import TorchRandomness, stacked_design
+    from smk_torch.models import probit_gp as tp
+    from smk_torch.ops.glm import glm_warm_start
+    from smk_torch.parallel.partition import random_partition
+
+    y, x, coords, ct, xt = (torch.as_tensor(a, device=device) for a in data_np)
+    n, q = y.shape
+    p = x.shape[-1]
+    rng = TorchRandomness(SEED, device)
+    part = random_partition(rng.permutation(n).to(device), y, x, coords, cfg.n_subsets)
+    y_long, x_long = stacked_design(y, x)
+    beta0 = glm_warm_start(y_long, x_long, weight=weight, link=cfg.link).coef.reshape(q, p)
+    model = tp.SpatialGPSampler(cfg, weight=weight)
+    shapes = tp.SweepShapes(part.n_subsets, part.subset_size, q, p, ct.shape[0], weight,
+                            cfg.link, cfg.pg_n_terms)
+    noise = rng.sweep_noise(shapes)
+    data = tp.SubsetData(part.coords, part.x, part.y, part.mask, ct, xt)
+    state = model.init_state(data, beta0)
+    consts = model._consts(data)
+    e = cfg.phi_update_every
+    spans, counts = {"update": [], "other": []}, {"update": set(), "other": set()}
+    cache = None
+
+    def sweep(it, collect, record=True):
+        nonlocal state, cache
+        n0 = (cache.n_chol, cache.n_chol_calls)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, cache, _ = model._gibbs_step(data, consts, state, cache, it, noise(it, collect),
+                                            collect=collect)
+        end.record()
+        if record:
+            kind = "update" if it % e == 0 else "other"
+            spans[kind].append((start, end))
+            counts[kind].add((cache.n_chol - n0[0], cache.n_chol_calls - n0[1]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model._solve_cache(consts, data.mask, state)
+    for it in range(cfg.n_burn_in):
+        sweep(it, False)
+    cache = model._solve_cache(consts, data.mask, state, predict=True)
+    for it in range(cfg.n_burn_in, cfg.n_samples):
+        sweep(it, True)
+    torch.cuda.synchronize()
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
+    guard = model.guard_rejects
+    out = {
+        "update_sweep_ms_median": st.median(ms["update"]),
+        "other_sweep_ms_median": st.median(ms["other"]),
+        "update_sweep_ms": ms["update"],
+        "n_update_sweeps": len(ms["update"]), "n_other_sweeps": len(ms["other"]),
+        "n_chol_n_chol_calls_per_sweep": {k: sorted(v) for k, v in counts.items()},
+        "guard_rejected_subsets": 0 if guard is None else int((guard > 0).sum()),
+        "guard_rejected_moves": 0 if guard is None else int(guard.sum()),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "finite_state": bool(torch.isfinite(state.chol_r).all() and torch.isfinite(state.u).all()),
+    }
+    check(out["finite_state"], "direct sweeps: non-finite chain state")
+    nxt = cfg.n_samples + (-cfg.n_samples) % e  # the next update sweep
+    out["profile_update_sweep"] = profile_sweeps(lambda: sweep(nxt, True, False))
+    out["profile_other_sweeps"] = profile_sweeps(
+        lambda: [sweep(nxt + i, True, False) for i in range(1, 5)])
+    return out
+
+
+def fit_production(name, *, cfg, data_np, device, weight=1):
+    """fit_meta_kriging with the production sampler: launches per entry
+    point against the sampler's formula (probit_gp.build_calls) and per
+    kernel, no plain call, finite outputs of the expected shapes, p and
+    acceptance rates in [0, 1]; then the same schedule sweep by sweep
+    (direct_sweeps)."""
+    import numpy as np
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls, n_params
+    from smk_torch.ops import fused_build as fb
+
+    y, x, coords, ct, xt = data_np
+    q, p, t = y.shape[1], x.shape[2], ct.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_counts()
+    start = time.perf_counter()
+    res = fit_meta_kriging(y, x, coords, ct, xt, config=cfg, weight=weight, seed=SEED,
+                           device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(fb.LAUNCHES)
+    want = build_calls(cfg, q, cfg.n_samples, cfg.n_burn_in)
+    check(launches == want, f"{name}: launches {launches} != expected {want}")
+    layouts = {"tile": fb.LAYOUT_LAUNCHES[fb.TILED],
+               "symmetric": fb.LAYOUT_LAUNCHES[fb.SYMMETRIC],
+               "narrow": fb.LAYOUT_LAUNCHES[fb.NARROW]}
+    want_layouts = {
+        "tile": 0,
+        "symmetric": want["fused_masked_correlation_stack"] + want["fused_masked_shifted_build"],
+        "narrow": want["fused_cross_correlation"] + want["fused_correlation_stack"],
+    }
+    check(layouts == want_layouts, f"{name}: launches by kernel {layouts} != {want_layouts}")
+    check(all(launches[e] > 0 for e in MAIN_PATH), f"{name}: a main-path kernel never launched")
+    check(sum(fb.PLAIN_CALLS.values()) == 0, f"{name}: a plain build ran on the card path")
+    check(tuple(res.p_quant.shape) == (3, t * q), f"{name}: p_quant shape {tuple(res.p_quant.shape)}")
+    check(tuple(res.param_quant.shape) == (3, n_params(q, p)), f"{name}: param_quant shape")
+    for f in ("p_quant", "param_quant", "param_grid", "w_grid"):
+        check(bool(torch.isfinite(getattr(res, f)).all()), f"{name}: non-finite {f}")
+    acc = res.phi_accept_rate
+    check(bool(((acc >= 0) & (acc <= 1)).all()), f"{name}: phi_accept_rate outside [0, 1]")
+    p_q = res.p_quant.cpu().numpy()
+    check(bool(((p_q >= 0) & (p_q <= 1)).all()), f"{name}: p outside [0, 1]")
+    secs = res.phase_seconds
+    out = {
+        "phase": name, "n": y.shape[0], "K": cfg.n_subsets, "m": -(-y.shape[0] // cfg.n_subsets),
+        "q": q, "p": p, "t": t, "link": cfg.link, "phi_update_every": cfg.phi_update_every,
+        "n_samples": cfg.n_samples, "n_burn_in": cfg.n_burn_in, "n_kept": cfg.n_kept,
+        "wall_s": wall, "phase_seconds": secs,
+        "ms_per_sweep": secs["subset_fits"] / cfg.n_samples * 1e3,
+        "latent_ess_per_sec": res.latent_ess_per_sec, "peak_memory_bytes": peak,
+        "launches": launches, "launches_expected": want, "launches_by_kernel": layouts,
+        "phi_accept_rate_mean": float(acc.mean()),
+        "param_quant_median": np.round(res.param_quant[0].cpu().numpy(), 4).tolist(),
+    }
+    del res
+    torch.cuda.empty_cache()
+    out["direct"] = direct_sweeps(cfg, data_np, device, weight=weight)
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -755,19 +1220,42 @@ def main() -> int:
           "libraries": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"][-2000:]}
                         for k, v in report.items()}})
 
-    timings = kernels_phase(device)
-    torch.cuda.empty_cache()
-    fit_small_parity(device)
-    torch.cuda.empty_cache()
-    c5 = run_fit("fit_config5", n=MAIN_K * MAIN_M, k=MAIN_K, q=1, p=2, t=MAIN_T,
-                 n_samples=40, device=device)
-    torch.cuda.empty_cache()
-    run_fit("fit_q2", n=8 * MAIN_M, k=8, q=2, p=2, t=MAIN_T, n_samples=20,
-            device=device)
+    walls = {}
+
+    def phase(name, fn, *args, **kwargs):
+        """Run one phase, record its wall time, free the cached blocks."""
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        walls[name] = time.perf_counter() - start
+        torch.cuda.empty_cache()
+        return out
+
+    timings = phase("kernels", kernels_phase, device)
+    phase("fit_small_parity", fit_small_parity, device)
+    c5 = phase("fit_config5", run_fit, "fit_config5", n=MAIN_K * MAIN_M, k=MAIN_K, q=1,
+               p=2, t=MAIN_T, n_samples=40, device=device)
+    q2 = phase("fit_q2", run_fit, "fit_q2", n=8 * MAIN_M, k=8, q=2, p=2, t=MAIN_T,
+               n_samples=20, device=device)
+    phase("kernels_config4", kernels_config4, device)
+    phase("production_ops", production_ops, device)
+    phase("fit_production_small_parity", fit_production_small_parity, device)
+    p5 = phase(
+        "fit_production_config5", fit_production, "fit_production_config5",
+        cfg=production_config(k=MAIN_K, n_samples=64, phi_every=16),
+        data_np=binary_field(MAIN_K * MAIN_M, 1, 2, MAIN_T, SEED + MAIN_K * MAIN_M),
+        device=device)
+    p4 = phase(
+        "fit_production_config4", fit_production, "fit_production_config4",
+        cfg=production_config(k=C4_K, n_samples=64, link="logit", phi_every=8),
+        data_np=ebird_data(C4_K * C4_M, C4_T), device=device)
+    emit({"phase": "wall_s_by_phase", **walls})
+    paths = {"fit_config5": c5, "fit_q2": q2, "fit_production_config5": p5,
+             "fit_production_config4": p4}
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": c5["launches"][name],
+         "launches_by_path": {path: r["launches"][name] for path, r in paths.items()},
          "max_abs_err": timings[name]["max_abs_err"], "ms": timings[name]["ms"],
          "device_ms": timings[name]["device_ms"], "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
          "bound_by": timings[name]["bound_by"],

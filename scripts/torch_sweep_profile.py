@@ -30,20 +30,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 
-def _us(evt, *names) -> float:
-    """The first of the timing attributes ``names`` the profiler event
-    carries (their names changed across PyTorch versions), in us."""
-    for name in names:
-        v = getattr(evt, name, None)
-        if v:
-            return float(v)
-    return 0.0
-
-
 def run_turn(fused, data, args, device):
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import profile_sweeps
     from smk_torch.config import SMKConfig
     from smk_torch.models import probit_gp as tp
 
@@ -71,31 +61,16 @@ def run_turn(fused, data, args, device):
     burn = [sweep(it, False) for it in range(args.burn)]
     cache = model._solve_cache(consts, data.mask, state, predict=True)
     collect = [sweep(args.burn + i, True) for i in range(args.collect)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        for i in range(2):
-            sweep(args.burn + args.collect + i, True)
-        window_ms = (time.perf_counter() - start) * 1e3
-    # device-side events only (kernels, copies): each launch counts
-    # once, and not again through the operator that issued it
-    per_kernel = {}
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = _us(e, "device_time_total", "cuda_time_total")
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + us
-    busy_us = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[: args.top]
+    window = profile_sweeps(
+        lambda: [sweep(args.burn + args.collect + i, True) for i in range(2)], top=args.top
+    )
     return {
         "fused_build": fused, "K": k, "m": m, "q": q,
         "burn_ms_median": statistics.median(burn[1:] or burn),
         "collect_ms_median": statistics.median(collect),
         "burn_ms": burn, "collect_ms": collect,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "profile_window_ms": window_ms,
-        "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / window_ms),
-        "top_device_ms": [[name[:90], us / 1e3] for name, us in top],
+        "profile": window,
     }
 
 

@@ -1,8 +1,9 @@
 """Top-level API — twin of the default path of ``smk_tpu/api.py``:
 
-    partition -> IRLS warm start -> K batched probit-GP Gibbs chains ->
-    200-quantile compression -> Wasserstein-mean combine ->
-    inverse-CDF resample -> probit p(y=1) with credible summaries.
+    partition -> IRLS warm start -> K batched binary-GP Gibbs chains
+    (probit or logit link) -> 200-quantile compression ->
+    Wasserstein-mean combine -> inverse-CDF resample -> p(y=1) through
+    the link's inverse, with credible summaries.
 
 Runs on the CUDA device unless ``device="cpu"`` is passed; with no
 device given and no card present it raises. All randomness of a fit
@@ -136,17 +137,18 @@ def predict_probability(
     sample_par: torch.Tensor, sample_w: torch.Tensor, x_test: torch.Tensor,
     *, link: str = "probit",
 ) -> torch.Tensor:
-    """p(y=1 | data) per combined posterior draw (R:153-161); the first
-    q*p parameter columns are the betas, sample_w is response-fastest
-    over test sites."""
-    if link != "probit":
-        raise NotImplementedError(
-            f"link {link!r} is not ported to smk_torch yet (ROADMAP A6)"
-        )
+    """p(y=1 | data) per combined posterior draw (R:153-161), through
+    the inverse of ``link``; the first q*p parameter columns are the
+    betas, sample_w is response-fastest over test sites."""
     t, q, p = x_test.shape
     betas = sample_par[:, : q * p].reshape(-1, q, p)
     eta_fixed = torch.einsum("tqp,sqp->stq", x_test, betas)
-    return ndtr(eta_fixed.reshape(sample_par.shape[0], -1) + sample_w)
+    eta = eta_fixed.reshape(sample_par.shape[0], -1) + sample_w
+    if link == "probit":
+        return ndtr(eta)
+    if link == "logit":
+        return 1.0 / (1.0 + torch.exp(-eta))
+    raise ValueError(f"unknown link {link!r}")
 
 
 def combine(grids_par: torch.Tensor, grids_w: torch.Tensor, config: SMKConfig):
@@ -254,7 +256,8 @@ def fit_meta_kriging(
 
     model = SpatialGPSampler(cfg, weight=weight)
     shapes = SweepShapes(
-        part.n_subsets, part.subset_size, q, p, coords_test.shape[0], weight
+        part.n_subsets, part.subset_size, q, p, coords_test.shape[0], weight,
+        cfg.link, cfg.pg_n_terms,
     )
     with phase_timer(times, "subset_fits", dev):
         results = fit_subsets_vmap(

@@ -385,13 +385,11 @@ _UNPORTED = (
     ("partition_method='coherent'",
      lambda c: c.partition_method != "random", "A7"),
     ("bucket_ladder", lambda c: c.bucket_ladder is not None, "A7"),
-    ("phi_sampler='collapsed'", lambda c: c.phi_sampler != "conditional", "A6"),
     ("phi_proposals>1", lambda c: c.phi_proposals != 1, "A6"),
-    ("u_solver='cg'", lambda c: c.u_solver != "chol", "A6"),
-    ("link='logit'", lambda c: c.link != "probit", "A6"),
+    ("phi_proposal_family other than 'gaussian'",
+     lambda c: c.phi_proposal_family != "gaussian", "A6"),
     ("n_chains>1", lambda c: c.n_chains != 1, "A6"),
     ("chol_block_size>0", lambda c: c.chol_block_size > 0, "A6"),
-    ("trisolve_block_size>0", lambda c: c.trisolve_block_size > 0, "A6"),
     ("build_dtype='bfloat16'", lambda c: c.build_dtype != "float32", "A6"),
     ("dtype='float64'", lambda c: c.dtype != "float32", "A6"),
     ("matmul_precision other than 'highest'",

@@ -1,9 +1,9 @@
 """State carried across from the JAX package: its arrays (as numpy, or
 anything ``np.asarray`` takes) into the port's objects.
 
-A JAX fit's sampler state, partition and subset grids can be picked up
-by the port — to continue a chain on the card, or to combine and
-predict from a JAX fit (api.combine / api.resample_predict). The JAX
+A JAX fit's sampler state, factor cache, partition and subset grids can
+be picked up by the port — to continue a chain on the card, or to
+combine and predict from a JAX fit (api.combine / api.resample_predict). The JAX
 PRNG key has no counterpart: the port's randomness comes from its own
 generators, seeded anew.
 """
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from smk_torch.models.probit_gp import SamplerState, subset_generators
+from smk_torch.ops.factor_cache import FactorCache, empty_counter
 from smk_torch.parallel.partition import Partition
 
 _STATE_FIELDS = (
@@ -47,6 +48,29 @@ def sampler_state_from_numpy(
             f"{tuple(out.beta.shape)}, expected (K, q, p)"
         )
     return out, subset_generators(seed, out.beta.shape[0], device)
+
+
+def factor_cache_from_numpy(cache, *, device="cpu") -> FactorCache:
+    """A K-stacked JAX ``FactorCache`` (or a dict of its arrays; None
+    fields stay None) as the port's. A bf16 ``r_mv`` comes out of JAX
+    as an ml_dtypes bfloat16 array, which ``torch.as_tensor`` does not
+    take: it goes through float32, exact both ways. The counters start
+    at zero, as at a scan entry."""
+
+    def arr(name):
+        a = _field(cache, name)
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return _tensor(a.astype(np.float32), device).to(torch.bfloat16)
+        return _tensor(a, device)
+
+    return FactorCache(
+        r_mv=arr("r_mv"), nys_z=arr("nys_z"), chol_inv=arr("chol_inv"),
+        krige_w=arr("krige_w"), krige_chol=arr("krige_chol"),
+        n_chol=empty_counter(), n_chol_calls=empty_counter(),
+    )
 
 
 def partition_from_numpy(part, *, device="cpu") -> Partition:

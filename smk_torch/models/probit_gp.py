@@ -1,6 +1,9 @@
 """Multivariate binary spatial GP regression — the per-subset model,
-twin of ``smk_tpu/models/probit_gp.py`` (dense engine, probit link,
-conditional phi sampler, Cholesky u-draw, factor reuse, kriging cache).
+twin of ``smk_tpu/models/probit_gp.py`` (dense engine; probit and logit
+links; conditional or collapsed single-try phi sampler; Cholesky or CG
+u-draw, the CG operator in fp32 or bf16, Jacobi- or Nystrom-
+preconditioned; native or blocked triangular solves; factor reuse and
+the kriging cache).
 
 The JAX sampler is written for one subset and vmapped over K; here the K
 subsets are a leading axis written out in every tensor, and the
@@ -14,7 +17,9 @@ numbers, which is how the tests hold the two draw for draw.
 The correlation builds go through the dispatch seam below: with
 ``fused_build="pallas"`` every build is the fused kernel
 (ops/fused_build.py), with ``"off"`` it is the distance-matrix build.
-No sweep reads a device value on the host.
+No sweep reads a device value on the host: where the JAX sampler
+branches per subset with a ``lax.cond`` (an accept side), its vmapped K
+axis lowers the branch to a select, and the select is what runs here.
 """
 
 from __future__ import annotations
@@ -26,11 +31,20 @@ import numpy as np
 import torch
 
 from smk_torch.config import SMKConfig, check_ported
+from smk_torch.ops.cg import (
+    cg_solve,
+    nystrom_apply,
+    nystrom_factor,
+    shifted_correlation_operator,
+)
 from smk_torch.ops.chol import (
+    blocked_tri_solve,
     chol_logdet,
     chol_solve,
     cholesky,
+    finite_factor,
     jittered_cholesky,
+    panel_inverses,
     shifted_cholesky,
     tri_solve,
 )
@@ -38,7 +52,9 @@ from smk_torch.ops.distance import cross_distance, pairwise_distance
 from smk_torch.ops.factor_cache import (
     FactorCache,
     empty_counter,
+    scatter_component,
     select_accept,
+    set_component,
     tick,
 )
 from smk_torch.ops.fused_build import (
@@ -48,6 +64,7 @@ from smk_torch.ops.fused_build import (
     fused_masked_shifted_build,
 )
 from smk_torch.ops.kernels import correlation
+from smk_torch.ops.polya_gamma import gamma_draws, sample_pg
 from smk_torch.ops.quantiles import quantile_grid
 from smk_torch.ops.truncnorm import _TINY, sample_albert_chib_latent
 from smk_torch.utils.diagnostics import effective_sample_size, rhat
@@ -114,17 +131,24 @@ class SweepShapes(NamedTuple):
     p: int
     t: int
     weight: int = 1
+    link: str = "probit"
+    pg_n_terms: int = 64
 
 
 class SweepNoise(NamedTuple):
     """The random numbers of one Gibbs sweep, K stacked — one field per
     subkey of the JAX sweep (probit_gp.py:700-702).
 
-    kz: uniforms on [_TINY, 1), (K, m, q) (a leading (weight,) trial
+    kz: probit: uniforms on [_TINY, 1), (K, m, q) (a (weight,) trial
         axis after K when weight > 1) — the Albert–Chib latents;
+        logit: Gamma(weight, 1) draws, (K, pg_n_terms, m, q) — the
+        Pólya-Gamma series;
     kb: normals (K, q, p) — the beta draw;
-    kprop: normals (K, q) — the phi proposal;
-    kphi: uniforms on [1e-12, 1), (K, q) — the phi accept test;
+    kprop: normals (K, q) — the phi proposal. Under the collapsed
+        sampler the twin draws component j's proposal as a scalar from
+        fold_in(kprop, j): column j holds that scalar;
+    kphi: uniforms on [1e-12, 1), (K, q) — the phi accept test (column
+        j: component j's scalar from fold_in(kphi, j) when collapsed);
     ku_prior, ku_noise: normals (K, q, m) — the Matheron u-draw;
     ka: normals (K, q, q), row l using its first l+1 entries — the A rows;
     ka_u: uniforms on [1e-12, 1), (K,) — the inverse-Wishart accept test;
@@ -160,10 +184,12 @@ def draw_sweep_noise(
     device=None,
 ) -> SweepNoise:
     """One subset's sweep noise (no K axis) from ``generator``: one
-    uniform and one normal draw, sliced into the fields."""
+    uniform and one normal draw, sliced into the fields, and under logit
+    one exponential draw for the Gamma(weight, 1) series terms."""
     m, q, p, t, w = shapes.m, shapes.q, shapes.p, shapes.t, shapes.weight
+    logit = shapes.link == "logit"
     z_shape = (m, q) if w == 1 else (w, m, q)
-    n_z = math.prod(z_shape)
+    n_z = 0 if logit else math.prod(z_shape)
     uni = torch.rand(
         (n_z + q + 1,), generator=generator, dtype=dtype, device=device
     )
@@ -172,8 +198,13 @@ def draw_sweep_noise(
         (sum(sizes),), generator=generator, dtype=dtype, device=device
     )
     kb, kprop, ku_p, ku_n, ka, *kpred = torch.split(nor, sizes)
+    if logit:
+        kz = gamma_draws(generator, w, (shapes.pg_n_terms, m, q), dtype=dtype,
+                         device=device)
+    else:
+        kz = _uniform(uni[:n_z], _TINY).reshape(z_shape)
     return SweepNoise(
-        kz=_uniform(uni[:n_z], _TINY).reshape(z_shape),
+        kz=kz,
         kb=kb.reshape(q, p),
         kprop=kprop,
         kphi=_uniform(uni[n_z : n_z + q], 1e-12),
@@ -229,6 +260,48 @@ def n_params(q: int, p: int) -> int:
     return q * p + q * (q + 1) // 2 + q
 
 
+def build_calls(cfg: SMKConfig, q: int, n_sweeps: int, n_burn: int) -> dict:
+    """Calls per fused-build entry point of a fused run of the sampler:
+    init, a burn-in scan of sweeps [0, n_burn) and a collecting scan of
+    [n_burn, n_sweeps), each scan entered with _solve_cache.
+
+    - masked stack: R~ at init; the CG operator at each scan entry
+      (u_solver="cg"); per update sweep the conditional proposal stack
+      (one call) or the collapsed accept side (one per component: a
+      select over K, so built whether or not a subset accepts); R~ for
+      the back-multiply of a threaded S-factor (thread_s), every sweep;
+    - shifted build: S_cur and S_prop per component per collapsed
+      update; the Cholesky u-draw's S per component per sweep, except
+      where the collapsed block hands it over (thread_s on update
+      sweeps);
+    - kriging cross and test builds: the cache at the collecting entry
+      and the proposal's operators per collecting update sweep (one
+      call, or one per component when collapsed); without the cache,
+      one per collecting sweep.
+    """
+    collapsed = cfg.phi_sampler == "collapsed"
+    cg = cfg.u_solver == "cg"
+    thread_s = cfg.factor_reuse and collapsed and not cg
+    n_upd = sum(1 for it in range(n_sweeps) if it % cfg.phi_update_every == 0)
+    n_kept = n_sweeps - n_burn
+    kept_upd = sum(1 for it in range(n_burn, n_sweeps) if it % cfg.phi_update_every == 0)
+    entries = (n_burn > 0) + (n_kept > 0)
+    per_update = q if collapsed else 1
+    stack = 1 + (entries if cg else 0) + per_update * n_upd
+    stack += q * n_sweeps if thread_s else 0
+    shifted = 2 * q * n_upd if collapsed else 0
+    if not cg:
+        shifted += q * (n_sweeps - (n_upd if thread_s else 0))
+    krige = (1 + per_update * kept_upd) if cfg.krige_cache and n_kept else n_kept
+    return {
+        "fused_correlation": 0,
+        "fused_masked_correlation_stack": stack,
+        "fused_masked_shifted_build": shifted,
+        "fused_cross_correlation": krige,
+        "fused_correlation_stack": krige,
+    }
+
+
 def _pad_identity(r: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """R~ = M R M + (I - M) per subset: r is (K, ..., m, m), mask (K, m)."""
     mm = mask[:, :, None] * mask[:, None, :]
@@ -243,14 +316,20 @@ def _f32(x) -> float:
 
 
 class SpatialGPSampler:
-    """The K-batched subset sampler (probit link, dense engine,
-    conditional phi MH)."""
+    """The K-batched subset sampler (dense engine).
+
+    ``guard_rejects``: (K,) int32 on the device, the collapsed moves the
+    Metropolis test accepted and the finite-factor guard turned down,
+    summed over components and update sweeps since the sampler was made
+    (None before the first collapsed update). Instrumentation only: the
+    chain never reads it, and no sweep reads it on the host."""
 
     def __init__(self, config: SMKConfig, *, weight: int = 1):
         check_ported(config)
         self.config = config
         self.weight = int(weight)
         self._fused = config.fused_build == "pallas"
+        self.guard_rejects = None
 
     # ------------------------------------------------------------------
     # Correlation builds — the one dispatch seam between the sampler and
@@ -294,11 +373,48 @@ class SpatialGPSampler:
 
     def _chol_r(self, r):
         """Factor the (stacked) correlation under the scale-aware jitter.
-        ``r`` is always a fresh build that nothing else reads, so the
+        ``r`` is always a fresh build that nothing reads afterwards (its
+        CG operators are taken from it first, _r_operators), so the
         jitter goes onto its diagonal in place rather than into a copy
         (the same values as the twin's jittered_cholesky)."""
         r.diagonal(dim1=-2, dim2=-1).add_(self.config.effective_jitter(r.shape[-1]))
         return cholesky(r)
+
+    def _mv_dtype(self, dtype):
+        return torch.bfloat16 if self.config.cg_matvec_dtype == "bfloat16" else dtype
+
+    def _r_operators(self, r_full):
+        """(r_mv, nys_z), the carried CG operators, from a fresh
+        (K, s, m, m) masked correlation: R~ in the matvec dtype (a copy,
+        since the caller then factors ``r_full`` in place) and the
+        Nystrom factor of its first ``cg_precond_rank`` columns."""
+        cfg = self.config
+        r_mv = r_full.to(self._mv_dtype(r_full.dtype), copy=True)
+        nys_z = None
+        if cfg.cg_precond == "nystrom":
+            rank = min(cfg.cg_precond_rank, r_full.shape[-1])
+            nys_z = nystrom_factor(r_full[..., :rank])
+        return r_mv, nys_z
+
+    def _use_blocked_tri(self, m: int) -> bool:
+        """Whether the blocked triangular solve engages at size m (at
+        m <= block size it is the native solve, and no panel inverses
+        are built or carried)."""
+        bs = self.config.trisolve_block_size
+        return bs > 0 and m > bs
+
+    def _chol_inv(self, chol_r):
+        """(..., nb, p, p) diagonal-panel inverses of a stacked factor."""
+        return panel_inverses(chol_r, self.config.trisolve_block_size)
+
+    def _tri(self, l, b, inv=None, *, trans: bool = False):
+        """m-sized solve against a factor: the blocked form (with
+        optional carried panel inverses) when trisolve_block_size > 0,
+        the native solve otherwise."""
+        bs = self.config.trisolve_block_size
+        if bs > 0:
+            return blocked_tri_solve(l, b, bs, inv, trans=trans)
+        return tri_solve(l, b, trans=trans)
 
     def _cross_test_corr(self, consts, phi, mask):
         """(r_cross (K, q, m, t) with pad rows zeroed, r_test
@@ -316,40 +432,133 @@ class SpatialGPSampler:
             r_test = self._corr(consts.dist_test, phi[..., None, None])
         return r_cross, r_test
 
-    def _krige_ops(self, chol_r, phi, mask, consts):
+    def _krige_ops(self, chol_r, phi, mask, consts, inv):
         """(krige_w, krige_chol): W = R~^{-1} R_c and
-        chol(R_t - R_c^T W + jitter) for the carried factor."""
+        chol(R_t - R_c^T W + jitter) for the carried factor (``inv``: its
+        panel inverses, or None)."""
         r_cross, r_test = self._cross_test_corr(consts, phi, mask)
         jit_eff = self.config.effective_jitter(chol_r.shape[-1])
-        v = tri_solve(chol_r, r_cross)
-        w = tri_solve(chol_r, v, trans=True)
+        v = self._tri(chol_r, r_cross, inv)
+        w = self._tri(chol_r, v, inv, trans=True)
         cond_cov = r_test - r_cross.mT @ w
         return w, jittered_cholesky(cond_cov, jit_eff)
 
-    def _proposal_operators(self, chol_prop, phi_prop, mask, consts, cache):
-        """Proposal-side values of every populated FactorCache field."""
-        kw_p = kc_p = None
+    def _proposal_operators(self, r_ops, chol_prop, inv_prop, phi_prop, mask,
+                            consts, cache):
+        """Proposal-side values of every populated FactorCache field —
+        the one inventory both refresh sites (the conditional step and
+        the collapsed block) draw from. Inputs carry (K, s) leading axes
+        (s = q, or 1 for one component). ``r_ops``: the proposal's
+        (r_mv, nys_z) from _r_operators, taken before its correlation
+        was factored in place (the twin passes the correlation itself)."""
+        r_mv_p = nys_p = kw_p = kc_p = None
+        if cache.r_mv is not None:
+            r_mv_p, nys_p = r_ops
         if cache.krige_w is not None:
-            kw_p, kc_p = self._krige_ops(chol_prop, phi_prop, mask, consts)
+            kw_p, kc_p = self._krige_ops(chol_prop, phi_prop, mask, consts, inv_prop)
         return FactorCache(
-            r_mv=None, nys_z=None, chol_inv=None, krige_w=kw_p,
+            r_mv=r_mv_p, nys_z=nys_p, chol_inv=inv_prop, krige_w=kw_p,
             krige_chol=kc_p, n_chol=cache.n_chol,
             n_chol_calls=cache.n_chol_calls,
         )
 
     def _solve_cache(self, consts, mask, state, *, predict: bool = False) -> FactorCache:
-        """The cache for the current (phi, chol_r); ``predict`` adds the
-        kriging operators (collecting sweeps only)."""
-        krige_w = krige_chol = None
-        if predict and self.config.krige_cache:
+        """The cache for the current (phi, chol_r), rebuilt at each scan
+        entry: the CG operators (u_solver="cg"), the panel inverses
+        (when the blocked solve engages) and, with ``predict``
+        (collecting sweeps only), the kriging operators."""
+        cfg = self.config
+        r_mv = nys_z = chol_inv = krige_w = krige_chol = None
+        if cfg.u_solver == "cg":
+            r_mv, nys_z = self._r_operators(
+                self._masked_corr_stack(consts, state.phi, mask)
+            )
+        if self._use_blocked_tri(state.chol_r.shape[-1]):
+            chol_inv = self._chol_inv(state.chol_r)
+        if predict and cfg.krige_cache:
             krige_w, krige_chol = self._krige_ops(
-                state.chol_r, state.phi, mask, consts
+                state.chol_r, state.phi, mask, consts, chol_inv
             )
         return FactorCache(
-            r_mv=None, nys_z=None, chol_inv=None, krige_w=krige_w,
+            r_mv=r_mv, nys_z=nys_z, chol_inv=chol_inv, krige_w=krige_w,
             krige_chol=krige_chol, n_chol=empty_counter(),
             n_chol_calls=empty_counter(),
         )
+
+    def _collapsed_update(self, consts, mask, state, phi, chol_r, cache, j,
+                          ytilde, d_vec, noise, *, thread_s: bool):
+        """Component j's partially-collapsed phi move on an update sweep
+        (twin of collapsed_phi_block's single-try ``upd``): MH on the
+        marginal ytilde ~ N(0, R~(phi) + jit I + D), u_j integrated out.
+        Returns (phi, chol_r, cache, accepted (K,), chol_s): chol_s is the
+        S-factor at the selected phi when ``thread_s``, else None.
+
+        The twin's accept branch is a lax.cond, a select over its
+        vmapped K axis: the accept side (R~(phi'), its factor, the
+        refreshed operators) is built for every subset and selected
+        where the move is accepted and the factor is finite. Each m x m
+        workspace is released before the next is built (the twin orders
+        them with optimization barriers)."""
+        cfg = self.config
+        lo, hi = cfg.priors.phi_min, cfg.priors.phi_max
+        m = mask.shape[-1]
+        shift = cfg.effective_jitter(m) + d_vec
+        phi_j = phi[:, j]
+        step = torch.exp(state.phi_log_step[:, j])
+        t_cur = torch.log((phi_j - lo) / (hi - phi_j))
+
+        def marg_ll(phi_v):
+            chol_s, _, r = self._shifted_chol_one(consts, phi_v, mask, shift)
+            alpha = self._tri(chol_s, ytilde)
+            ll = -0.5 * torch.sum(alpha * alpha, dim=-1) - 0.5 * chol_logdet(chol_s)
+            return ll, r, chol_s
+
+        t_prop = t_cur + step * noise.kprop[:, j]
+        sig_cur = torch.sigmoid(t_cur)
+        sig_prop = torch.sigmoid(t_prop)
+        phi_prop = lo + (hi - lo) * sig_prop
+        cache = tick(cache, 2)  # S_cur and S_prop
+        ll_cur, _, chol_s_cur = marg_ll(phi_j)
+        if not thread_s:
+            chol_s_cur = None
+        ll_prop, r_prop, chol_s_prop = marg_ll(phi_prop)
+        if not thread_s:
+            chol_s_prop = None
+        log_ratio = (
+            ll_prop + torch.log(sig_prop * (1.0 - sig_prop))
+            - ll_cur - torch.log(sig_cur * (1.0 - sig_cur))
+        )
+        accept_mh = torch.log(noise.kphi[:, j]) < log_ratio
+
+        # the accept side: the carried prior factor at phi' (fused: R~(phi')
+        # was never built by the marginal, only S was) and the operators
+        r_acc = self._masked_corr_one(consts, phi_prop, mask) if r_prop is None else r_prop
+        del r_prop
+        r_ops = self._r_operators(r_acc[:, None]) if cache.r_mv is not None else None
+        chol_prop = self._chol_r(r_acc)
+        del r_acc
+        cache = tick(cache, 1)
+        # fp32 guard: the marginal factors the well-conditioned S, so it
+        # can accept a phi whose bare R~ + jit I factor fails
+        # (near-duplicate locations); such an accept is rejected
+        ok = finite_factor(chol_prop)
+        acc = accept_mh & ok
+        turned_down = (accept_mh & ~ok).to(torch.int32)
+        self.guard_rejects = (
+            turned_down if self.guard_rejects is None else self.guard_rejects + turned_down
+        )
+        inv_prop = None if cache.chol_inv is None else self._chol_inv(chol_prop)[:, None]
+        prop_ops = self._proposal_operators(
+            r_ops, chol_prop[:, None], inv_prop, phi_prop[:, None], mask, consts, cache
+        )
+        cache = scatter_component(prop_ops, cache, j, acc)
+        del prop_ops, r_ops, inv_prop
+        acc3 = acc[:, None, None]
+        phi = set_component(phi, j, torch.where(acc, phi_prop, phi_j))
+        chol_r = set_component(chol_r, j, torch.where(acc3, chol_prop, chol_r[:, j]))
+        del chol_prop
+        chol_s = torch.where(acc3, chol_s_prop, chol_s_cur) if thread_s else None
+        return phi, chol_r, cache, acc, chol_s
 
     # ------------------------------------------------------------------
     def init_state(
@@ -405,14 +614,19 @@ class SpatialGPSampler:
         jit_eff = cfg.effective_jitter(m)
         beta, u, a, phi = state.beta, state.u, state.a, state.phi
 
-        # --- 1. Albert–Chib augmentation: z ~ N(eta + w, 1/omega) -----
+        # --- 1. link augmentation: z ~ N(eta + w, 1/omega) ------------
         eta_fixed = torch.einsum("kmqp,kqp->kmq", data.x, beta)
         w = torch.einsum("kmj,klj->kml", u, a)  # u @ a^T
         mu = eta_fixed + w
-        # binomial trials: the noise carries its trial axis after K
-        kz = noise.kz if self.weight == 1 else noise.kz.movedim(1, 0)
-        zbar = sample_albert_chib_latent(kz, mu, data.y, self.weight)
-        womega = float(self.weight) * mask[..., None].expand(k, m, q)
+        if cfg.link == "probit":  # Albert–Chib
+            # binomial trials: the noise carries its trial axis after K
+            kz = noise.kz if self.weight == 1 else noise.kz.movedim(1, 0)
+            zbar = sample_albert_chib_latent(kz, mu, data.y, self.weight)
+            womega = float(self.weight) * mask[..., None].expand(k, m, q)
+        else:  # logit: Pólya-Gamma, the series terms after K
+            omega = sample_pg(noise.kz.movedim(1, 0), self.weight, mu, cfg.pg_n_terms)
+            zbar = (data.y - 0.5 * self.weight) / omega
+            womega = omega * mask[..., None]
         ts = 1.0 / cfg.n_subsets if cfg.priors.temper == "power" else 1.0
 
         # --- 2. beta | z, w (conjugate, near-flat normal prior) ------
@@ -423,15 +637,20 @@ class SpatialGPSampler:
         beta = chol_solve(chol_pb, rhs) + tri_solve(chol_pb, noise.kb, trans=True)
         eta_fixed = torch.einsum("kmqp,kqp->kmq", data.x, beta)
 
-        # --- 3. phi: batched random-walk MH on p(phi_j | u_j) ---------
+        # --- 3. phi MH ---------------------------------------------------
+        # "conditional" (here): batched random-walk MH on p(phi_j | u_j);
+        # "collapsed": per component inside the u loop below
         lo, hi = cfg.priors.phi_min, cfg.priors.phi_max
+        collapsed = cfg.phi_sampler == "collapsed"
 
-        def u_loglik(chol):
-            alpha = tri_solve(chol, u.transpose(1, 2))  # (K, q, m)
+        def u_loglik(chol, inv):
+            alpha = self._tri(chol, u.transpose(1, 2), inv)  # (K, q, m)
             return -0.5 * torch.sum(alpha * alpha, dim=-1) - 0.5 * chol_logdet(chol)
 
         is_update = it % cfg.phi_update_every == 0
-        if is_update:
+        chol_r = state.chol_r
+        accepted = torch.zeros((k, q), dtype=dtype, device=dev)
+        if is_update and not collapsed:
             step = torch.exp(state.phi_log_step)
             t_cur = torch.log((phi - lo) / (hi - phi))
             t_prop = t_cur + step * noise.kprop
@@ -440,45 +659,50 @@ class SpatialGPSampler:
             phi_prop = lo + (hi - lo) * sig_prop
             log_jac_cur = torch.log(sig_cur * (1.0 - sig_cur))
             log_jac_prop = torch.log(sig_prop * (1.0 - sig_prop))
-            chol_prop = self._chol_r(self._masked_corr_stack(consts, phi_prop, mask))
+            r_prop = self._masked_corr_stack(consts, phi_prop, mask)
+            r_ops = self._r_operators(r_prop) if cache.r_mv is not None else None
+            chol_prop = self._chol_r(r_prop)
+            del r_prop
             cache = tick(cache, q, n_calls=1)
+            inv_prop = self._chol_inv(chol_prop) if self._use_blocked_tri(m) else None
             log_ratio = (
-                u_loglik(chol_prop) + log_jac_prop
-                - u_loglik(state.chol_r) - log_jac_cur
+                u_loglik(chol_prop, inv_prop) + log_jac_prop
+                - u_loglik(state.chol_r, cache.chol_inv) - log_jac_cur
             )
             accept = torch.log(noise.kphi) < log_ratio
             # the JAX sampler gates this refresh on any(accept) with a
             # lax.cond, which its vmapped K axis lowers to a select: the
             # select is what runs here, with no host sync
-            if cache.krige_w is not None:
-                prop_ops = self._proposal_operators(
-                    chol_prop, phi_prop, mask, consts, cache
-                )
-                cache = select_accept(prop_ops, cache, accept)
+            prop_ops = self._proposal_operators(
+                r_ops, chol_prop, inv_prop, phi_prop, mask, consts, cache
+            )
+            cache = select_accept(prop_ops, cache, accept)
+            del prop_ops, r_ops, inv_prop
             phi = torch.where(accept, phi_prop, phi)
             chol_r = torch.where(accept[..., None, None], chol_prop, state.chol_r)
             del chol_prop
             accepted = accept.to(dtype)
-        else:
-            chol_r = state.chol_r
-            accepted = torch.zeros((k, q), dtype=dtype, device=dev)
 
-        phi_accept = state.phi_accept + accepted
-        phi_log_step = state.phi_log_step
-        if cfg.phi_adapt and not collect:
+        def rm_adapt(accepted):
             # Robbins–Monro toward the target acceptance, burn-in only;
             # the gain clock counts phi updates (float32, as the twin)
+            if not (cfg.phi_adapt and not collect):
+                return state.phi_log_step
             f32 = np.float32
             gain = f32(cfg.phi_adapt_rate) * (
                 f32(1.0) + f32(it) / f32(cfg.phi_update_every)
             ) ** f32(-0.6)
             scale = _f32(gain * f32(1.0 if is_update else 0.0))
-            phi_log_step = torch.clamp(
-                phi_log_step + scale * (accepted - cfg.phi_target_accept),
+            return torch.clamp(
+                state.phi_log_step + scale * (accepted - cfg.phi_target_accept),
                 _f32(np.log(f32(1e-3))), _f32(np.log(f32(50.0))),
             )
 
         # --- 4. U | z, beta, A, phi — per-component Matheron draw -----
+        # (collapsed: each component's phi move first, then its u_j draw)
+        # with thread_s the collapsed block hands its S-factor at the
+        # selected phi to the Cholesky u-draw, which then factors nothing
+        thread_s = cfg.factor_reuse and collapsed and cfg.u_solver == "chol"
         e0 = zbar - eta_fixed
         big = cfg.mask_noise_var
         u = u.clone()
@@ -491,10 +715,42 @@ class SpatialGPSampler:
             c_safe = torch.clamp(c_vec, min=_f32(1.0 / np.float32(big)))
             ytilde = b_vec / c_safe
             d_vec = torch.clamp(1.0 / c_safe, max=big)
+            chol_s = None
+            if collapsed and is_update:
+                phi, chol_r, cache, acc_j, chol_s = self._collapsed_update(
+                    consts, mask, state, phi, chol_r, cache, j, ytilde, d_vec,
+                    noise, thread_s=thread_s,
+                )
+                accepted[:, j] = acc_j.to(dtype)
+            elif thread_s:
+                # non-update sweep: the u-draw's S-factor at the current
+                # phi, built here so the draw itself never factors
+                chol_s, _, _ = self._shifted_chol_one(
+                    consts, phi[:, j], mask, jit_eff + d_vec
+                )
+                cache = tick(cache, 1)
             u_star = (chol_r[:, j] @ noise.ku_prior[:, j, :, None])[..., 0]
             eta_star = torch.sqrt(d_vec) * noise.ku_noise[:, j]
             rhs_vec = ytilde - u_star - eta_star
-            if self._fused:
+            if cfg.u_solver == "cg":
+                # (R~ + D) s = rhs by fixed-iteration PCG, R~ applied from
+                # the carried matvec matrix (bf16 or fp32, fp32 sums)
+                shift = jit_eff + d_vec
+                mv, diag, apply_r = shifted_correlation_operator(
+                    cache.r_mv[:, j], shift, self._mv_dtype(dtype), dtype
+                )
+                if cfg.cg_precond == "nystrom":
+                    pre = nystrom_apply(cache.nys_z[:, j], shift)
+                    s = cg_solve(mv, rhs_vec, cfg.cg_iters, precond=pre)
+                else:
+                    s = cg_solve(mv, rhs_vec, cfg.cg_iters, diag=diag)
+                u[:, :, j] = u_star + apply_r(s) + jit_eff * s
+            elif self._fused and chol_s is not None:
+                # thread_s handed the factor over; only R~ is rebuilt
+                r0 = self._masked_corr_one(consts, phi[:, j], mask)
+                s = chol_solve(chol_s, rhs_vec)
+                u[:, :, j] = u_star + (r0 @ s[..., None])[..., 0] + jit_eff * s
+            elif self._fused:
                 # one fused shifted build serves the factor and the
                 # back-multiply: R~ s + jit s = (S - diag(d)) s
                 chol_s, s_mat, _ = self._shifted_chol_one(
@@ -505,11 +761,15 @@ class SpatialGPSampler:
                 u[:, :, j] = u_star + (s_mat @ s[..., None])[..., 0] - d_vec * s
             else:
                 r0 = self._masked_corr_one(consts, phi[:, j], mask)
-                chol_s = shifted_cholesky(r0, jit_eff + d_vec)
-                cache = tick(cache, 1)
+                if chol_s is None:
+                    chol_s = shifted_cholesky(r0, jit_eff + d_vec)
+                    cache = tick(cache, 1)
                 s = chol_solve(chol_s, rhs_vec)
                 u[:, :, j] = u_star + (r0 @ s[..., None])[..., 0] + jit_eff * s
             del chol_s
+
+        phi_accept = state.phi_accept + accepted
+        phi_log_step = rm_adapt(accepted)
 
         # --- 5. A | z, beta, U (lower-triangular rows) ----------------
         prior_prec = ts / _f32(cfg.priors.a_scale) ** 2
@@ -568,8 +828,8 @@ class SpatialGPSampler:
             )
         else:
             r_cross, r_test = self._cross_test_corr(consts, phi, mask)
-            v = tri_solve(chol_r, r_cross)  # (K, q, m, t)
-            alpha = tri_solve(chol_r, u.transpose(1, 2))  # (K, q, m)
+            v = self._tri(chol_r, r_cross, cache.chol_inv)  # (K, q, m, t)
+            alpha = self._tri(chol_r, u.transpose(1, 2), cache.chol_inv)  # (K, q, m)
             cond_mean = torch.einsum("kqmt,kqm->kqt", v, alpha)
             chol_c = jittered_cholesky(r_test - v.mT @ v, jit_eff)
             u_star_test = cond_mean + (chol_c @ noise.kpred[..., None])[..., 0]
@@ -606,14 +866,15 @@ class SpatialGPSampler:
     ) -> SubsetResult:
         """Burn-in sweeps, collecting sweeps, compression. ``noise``
         defaults to per-subset generators seeded from ``seed``."""
+        cfg = self.config
         if noise is None:
             k, m, q, p = data.x.shape
-            shapes = SweepShapes(k, m, q, p, data.coords_test.shape[0], self.weight)
+            shapes = SweepShapes(k, m, q, p, data.coords_test.shape[0], self.weight,
+                                 cfg.link, cfg.pg_n_terms)
             noise = GeneratorNoise(
                 subset_generators(seed, k, data.x.device), shapes,
                 dtype=data.x.dtype, device=data.x.device,
             )
-        cfg = self.config
         state = self._burn_in(data, init_state, noise)
         state, (param_draws, w_draws) = self._sample_chunk(
             data, state, cfg.n_burn_in, cfg.n_kept, noise

@@ -13,6 +13,8 @@ with no host sync.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -72,6 +74,72 @@ def tri_solve(chol_l: torch.Tensor, b: torch.Tensor, *, trans: bool = False) -> 
     else:
         x = torch.linalg.solve_triangular(chol_l, b, upper=False)
     return x[..., 0] if vec else x
+
+
+def blocked_tri_solve(
+    l: torch.Tensor,
+    b: torch.Tensor,
+    block_size: int = 512,
+    inv_diag: Optional[torch.Tensor] = None,
+    *,
+    trans: bool = False,
+) -> torch.Tensor:
+    """Solve L X = B (or L^T X = B when ``trans``) by substitution over
+    (p, p) diagonal panels with their explicit inverses, so the work is
+    GEMMs — the twin's form (its docstring gives the TPU reason; on the
+    card it is timed against the native solve in chip_smoke.py).
+
+    l: (..., m, m); b: (..., m) or (..., m, t) with l's batch shape.
+    ``inv_diag``: optionally :func:`panel_inverses` of ``l``. At
+    m <= block_size this is the native solve. The twin pads L to a
+    block multiple with an identity tail; here the ragged last panel
+    takes the real corner of its identity-padded inverse instead, which
+    is the same arithmetic without a padded copy of L (the padded
+    inverse is block-diagonal, so the dropped terms are exact zeros)."""
+    m = l.shape[-1]
+    vec = b.dim() == l.dim() - 1
+    if vec:
+        b = b[..., None]
+    if m <= block_size:
+        x = tri_solve(l, b, trans=trans)
+        return x[..., 0] if vec else x
+    p = block_size
+    nb = -(-m // p)
+    if inv_diag is None:
+        inv_diag = panel_inverses(l, block_size)
+    x = torch.empty_like(b)
+    order = range(nb - 1, -1, -1) if trans else range(nb)
+    for i in order:
+        lo, hi = i * p, min((i + 1) * p, m)
+        inv = inv_diag[..., i, : hi - lo, : hi - lo]
+        rhs = b[..., lo:hi, :]
+        if trans:
+            # x_i = inv_ii^T (b_i - sum_{j>i} L[j, i]^T x_j)
+            if hi < m:
+                rhs = rhs - l[..., hi:, lo:hi].mT @ x[..., hi:, :]
+            x[..., lo:hi, :] = inv.mT @ rhs
+        else:
+            if lo:
+                rhs = rhs - l[..., lo:hi, :lo] @ x[..., :lo, :]
+            x[..., lo:hi, :] = inv @ rhs
+    return x[..., 0] if vec else x
+
+
+def panel_inverses(l: torch.Tensor, block_size: int) -> torch.Tensor:
+    """(..., nb, p, p) explicit inverses of L's diagonal panels, the
+    ragged last panel padded with an identity (twin of
+    ``chol.panel_inverses``)."""
+    m = l.shape[-1]
+    p = block_size
+    nb = -(-m // p)
+    diag = torch.zeros(l.shape[:-2] + (nb, p, p), dtype=l.dtype, device=l.device)
+    for i in range(nb):
+        lo, hi = i * p, min((i + 1) * p, m)
+        diag[..., i, : hi - lo, : hi - lo] = l[..., lo:hi, lo:hi]
+        if hi - lo < p:
+            diag[..., i, hi - lo :, hi - lo :].diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    eye = torch.eye(p, dtype=l.dtype, device=l.device).expand(diag.shape)
+    return torch.linalg.solve_triangular(diag, eye, upper=False)
 
 
 def chol_solve(chol_l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

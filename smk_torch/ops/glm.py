@@ -1,6 +1,6 @@
 """Non-spatial binomial GLM by IRLS — the warm start, twin of
-``smk_tpu/ops/glm.py`` (probit arm; the logit arm is ROADMAP A6). A
-fixed number of Newton/IRLS steps, as the twin's fori_loop."""
+``smk_tpu/ops/glm.py`` (probit and logit links). A fixed number of
+Newton/IRLS steps, as the twin's fori_loop."""
 
 from __future__ import annotations
 
@@ -21,12 +21,14 @@ class GLMFit(NamedTuple):
 
 def _link_quantities(eta: torch.Tensor, link: str):
     """(p, dp/deta) for the link, clipped for stability."""
-    if link != "probit":
-        raise NotImplementedError(
-            f"link {link!r} is not ported to smk_torch yet (ROADMAP A6)"
-        )
-    p = ndtr(eta)
-    dmu = torch.exp(-0.5 * eta * eta) / math.sqrt(2.0 * math.pi)
+    if link == "logit":
+        p = 1.0 / (1.0 + torch.exp(-eta))
+        dmu = p * (1.0 - p)
+    elif link == "probit":
+        p = ndtr(eta)
+        dmu = torch.exp(-0.5 * eta * eta) / math.sqrt(2.0 * math.pi)
+    else:
+        raise ValueError(f"unknown link {link!r}")
     return torch.clamp(p, 1e-6, 1.0 - 1e-6), torch.clamp(dmu, min=1e-8)
 
 

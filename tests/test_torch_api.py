@@ -7,14 +7,17 @@ The whole-fit comparison replays the JAX fit's randomness into the
 port (FitRandomness below): the partition permutation of the fit key's
 first split, each subset's sweep keys, and the resample indices. n =
 200, K = 2, q = 2, p = 2, t = 6, 8 sweeps (6 burn-in, 2 kept), for
-fused_build "off" and "pallas" (interpret-mode Pallas in the JAX fit).
+fused_build "off" and "pallas" (interpret-mode Pallas in the JAX fit),
+and for the production sampler (collapsed phi every 2nd sweep, Nystrom
+CG with a bf16 operator, blocked solves) with the logit link.
 
-Tolerance: the two fits agree to fp32 roundoff through 8 sweeps,
-quantile compression, combine and resample (observed <= 7e-6); asserted
-at 5e-5 absolute + 5e-5 relative.
+Tolerance: the fits agree to fp32 roundoff through 8 sweeps, quantile
+compression, combine and resample (observed <= 7e-6; the production
+logit fit <= 1.9e-6, accept rates equal); asserted at 5e-5 absolute +
+5e-5 relative.
 """
 
-# smklint: test-budget=the two JAX reference fits (6-20 s each on this CPU) run once each in a module fixture; every test compares stored arrays or runs the port at n <= 200
+# smklint: test-budget=the three JAX reference fits (6-35 s each on this CPU) run once each in a module fixture; every test compares stored arrays or runs the port at n <= 200
 import ast
 import pathlib
 
@@ -42,14 +45,16 @@ class JaxRandomness:
     the key splits as api.py:671, the subset keys as
     executor.subset_chain_keys, the sweeps as JaxSweepReplay."""
 
-    def __init__(self, key):
+    def __init__(self, key, *, collapsed=False):
         self.k_part, self.k_fit, self.k_resample = jax.random.split(key, 3)
+        self.collapsed = collapsed
 
     def permutation(self, n):
         return torch.as_tensor(np.array(jax.random.permutation(self.k_part, n)))
 
     def sweep_noise(self, shapes):
-        return JaxSweepReplay(jax.random.split(self.k_fit, shapes.k), shapes)
+        return JaxSweepReplay(jax.random.split(self.k_fit, shapes.k), shapes,
+                              collapsed=self.collapsed)
 
     def resample_index(self, n_draws, n_grid):
         idx = jax.random.randint(self.k_resample, (n_draws,), 0, n_grid)
@@ -68,15 +73,28 @@ def _problem():
     return y, x, coords, coords_test, x_test
 
 
-@pytest.fixture(scope="module", params=["off", "pallas"])
+# the production sampler (bench.py:rung_config) with the logit link at
+# this size: rank and block below m = 100 so both engage
+PRODUCTION_LOGIT = dict(
+    fused_build="pallas", link="logit", phi_sampler="collapsed", phi_update_every=2,
+    phi_step=4.0, u_solver="cg", cg_precond="nystrom", cg_precond_rank=16, cg_iters=8,
+    cg_matvec_dtype="bfloat16", trisolve_block_size=32,
+)
+FIT_CONFIGS = {
+    "off": dict(fused_build="off"),
+    "pallas": dict(fused_build="pallas"),
+    "production-logit": PRODUCTION_LOGIT,
+}
+
+
+@pytest.fixture(scope="module", params=sorted(FIT_CONFIGS))
 def fits(request):
     data = _problem()
-    kw = dict(n_subsets=KSUB, n_samples=NS, fused_build=request.param)
+    kw = dict(n_subsets=KSUB, n_samples=NS, **FIT_CONFIGS[request.param])
     key = jax.random.key(7)
     ref = jax_fit(key, *data, config=JaxConfig(**kw))
-    port = fit_meta_kriging(
-        *data, config=SMKConfig(**kw), randomness=JaxRandomness(key), device="cpu"
-    )
+    rng = JaxRandomness(key, collapsed=kw.get("phi_sampler") == "collapsed")
+    port = fit_meta_kriging(*data, config=SMKConfig(**kw), randomness=rng, device="cpu")
     return {"ref": ref, "port": port, "key": key, "data": data, "kw": kw}
 
 
@@ -183,13 +201,13 @@ def test_default_randomness_fit_is_finite_and_seeded():
     [
         (dict(subset_engine="vecchia"), "A7"),
         (dict(partition_method="coherent"), "A7"),
-        (dict(phi_sampler="collapsed"), "A6"),
-        (dict(u_solver="cg"), "A6"),
-        (dict(link="logit"), "A6"),
+        (dict(phi_sampler="collapsed", phi_proposals=2), "A6"),
+        (dict(phi_sampler="collapsed", phi_proposal_family="student_t"), "A6"),
         (dict(n_chains=2), "A6"),
         (dict(chol_block_size=512), "A6"),
-        (dict(trisolve_block_size=512), "A6"),
         (dict(build_dtype="bfloat16"), "A6"),
+        (dict(dtype="float64"), "A6"),
+        (dict(matmul_precision="default"), "A6"),
         (dict(fault_policy="quarantine"), "A8"),
         (dict(live_diagnostics=True), "A8"),
         (dict(run_log_dir="logs"), "A8"),

@@ -15,20 +15,24 @@ import numpy as np
 import pytest
 import torch
 
+from smk_tpu.data import ebird as jebird
 from smk_tpu.ops import chol as jchol
 from smk_tpu.ops import distance as jdist
 from smk_tpu.ops import glm as jglm
 from smk_tpu.ops import kernels as jkern
+from smk_tpu.ops import polya_gamma as jpg
 from smk_tpu.ops import quantiles as jq
 from smk_tpu.ops import truncnorm as jtn
 from smk_tpu.parallel import combine as jcomb
 from smk_tpu.parallel import partition as jpart
 from smk_tpu.utils import diagnostics as jdiag
+from smk_torch.data import ebird as tebird
 from smk_torch.ops import chol as tchol
 from smk_torch.ops import distance as tdist
 from smk_torch.ops import factor_cache as tfc
 from smk_torch.ops import glm as tglm
 from smk_torch.ops import kernels as tkern
+from smk_torch.ops import polya_gamma as tpg
 from smk_torch.ops import quantiles as tq
 from smk_torch.ops import truncnorm as ttn
 from smk_torch.parallel import combine as tcomb
@@ -153,6 +157,95 @@ class TestCholesky:
         )
         assert tchol.finite_factor(torch.as_tensor(got)).tolist() == [True, False]
 
+    @pytest.mark.parametrize("m, block", [(40, 16), (12, 16)])
+    @pytest.mark.parametrize("trans", [False, True])
+    @pytest.mark.parametrize("carried", [False, True])
+    @pytest.mark.parametrize("vec", [False, True])
+    def test_blocked_tri_solve_matches_twin(self, m, block, trans, carried, vec):
+        """Panel substitution with explicit panel inverses, forward and
+        transposed, with the inverses carried or built in the call, at
+        m = 40 (a ragged 8-row tail panel) and at m <= block (the native
+        solve). Both packages run the same panel products; the port skips
+        the exact-zero terms of the padded tail (observed <= 3e-6 relative
+        of O(1) solutions); asserted 2e-5."""
+        rng = _rng(15)
+        l_np = np.linalg.cholesky(_spd(rng, 3, m).astype(np.float64)).astype(np.float32)
+        b = rng.normal(size=(3, m) if vec else (3, m, 5)).astype(np.float32)
+        inv_j = jchol.panel_inverses(jnp.asarray(l_np), block) if carried else None
+        inv_t = _t(inv_j) if carried else None
+        want = np.asarray(jchol.blocked_tri_solve(
+            jnp.asarray(l_np), jnp.asarray(b), block, inv_j, trans=trans))
+        got = tchol.blocked_tri_solve(_t(l_np), _t(b), block, inv_t, trans=trans)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+        native = tchol.tri_solve(_t(l_np), _t(b), trans=trans)
+        np.testing.assert_allclose(got.numpy(), native.numpy(), rtol=2e-5, atol=2e-5)
+
+    def test_panel_inverses_match_twin(self):
+        """(K, nb, p, p) inverses of the diagonal panels, the ragged last
+        one identity-padded: same triangular solve of the same panels
+        (observed <= 1e-6 relative); asserted 1e-5."""
+        rng = _rng(16)
+        l_np = np.linalg.cholesky(_spd(rng, 2, 40).astype(np.float64)).astype(np.float32)
+        want = np.asarray(jchol.panel_inverses(jnp.asarray(l_np), 16))
+        got = tchol.panel_inverses(_t(l_np), 16)
+        assert tuple(got.shape) == want.shape == (2, 3, 16, 16)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        # the padded tail panel's identity block is exact
+        np.testing.assert_array_equal(got[:, 2, 8:, 8:].numpy(), np.broadcast_to(np.eye(8), (2, 8, 8)))
+
+
+class TestPolyaGamma:
+    @pytest.mark.parametrize("b", [1, 2])
+    def test_sample_pg_from_the_twins_draws(self, b):
+        """sample_pg with the twin's own draws injected: its exponentials
+        (b = 1) or its gammas (b = 2). The 64-term series sums in another
+        order (observed <= 2.4e-7 relative); asserted 2e-6."""
+        rng = _rng(17)
+        c = rng.normal(0.0, 3.0, size=(30, 2)).astype(np.float32)
+        c[0, 0] = 0.0  # the a -> 0 tail limit
+        key = jax.random.key(21)
+        shape = (64,) + c.shape
+        g = (jax.random.exponential(key, shape, jnp.float32) if b == 1
+             else jax.random.gamma(key, float(b), shape, jnp.float32))
+        want = np.asarray(jpg.sample_pg(key, b, jnp.asarray(c), 64))
+        got = tpg.sample_pg(_t(g), b, _t(c), 64)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=0)
+        assert (got > 0).all()
+
+    def test_pg_mean_matches_twin(self):
+        c = np.concatenate([np.linspace(-8, 8, 41), [1e-6, -5e-5]]).astype(np.float32)
+        for b in (1.0, 3.0):
+            np.testing.assert_allclose(
+                tpg.pg_mean(b, _t(c)).numpy(), np.asarray(jpg.pg_mean(b, jnp.asarray(c))),
+                rtol=1e-6, atol=0,
+            )
+
+    def test_gamma_draws_have_the_gamma_moments(self):
+        """The default noise's Gamma(b, 1) draws (sums of b exponentials):
+        mean b and variance b, each within 5 standard errors at 2e5
+        draws (the sample variance's is sqrt((2 b^2 + 6 b) / n))."""
+        g = torch.Generator().manual_seed(3)
+        n = 200_000
+        for b in (1, 2, 5):
+            x = tpg.gamma_draws(g, b, (n,)).double()
+            assert x.shape == (n,) and (x > 0).all()
+            assert abs(float(x.mean()) - b) < 5 * (b / n) ** 0.5
+            assert abs(float(x.var()) - b) < 5 * ((2 * b * b + 6 * b) / n) ** 0.5
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_make_ebird_proxy_is_the_twins_bit_for_bit(seed):
+    """The port's copy of the numpy generator gives the same arrays."""
+    got = tebird.make_ebird_proxy(3000, seed=seed)
+    want = jebird.make_ebird_proxy(3000, seed=seed)
+    for f in ("y", "x", "coords"):
+        a, w = getattr(got, f), getattr(want, f)
+        assert a.dtype == w.dtype and a.shape == w.shape
+        np.testing.assert_array_equal(a, w, err_msg=f)
+    assert got.covariate_names == want.covariate_names
+    assert got.species_names == want.species_names
+
 
 class TestTruncnorm:
     def test_ndtri_from_log_matches_twin_into_the_deep_tail(self):
@@ -192,9 +285,20 @@ class TestWarmStart:
         np.testing.assert_allclose(got.coef.numpy(), np.asarray(want.coef), atol=1e-5)
         np.testing.assert_allclose(got.vcov.numpy(), np.asarray(want.vcov), rtol=1e-4, atol=1e-7)
 
-    def test_logit_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="A6"):
-            tglm.irls_glm(torch.zeros(4), torch.ones(4, 1), link="logit")
+    @pytest.mark.parametrize("weight", [1, 3])
+    def test_irls_logit_matches_twin(self, weight):
+        rng = _rng(13)
+        x = np.concatenate([np.ones((300, 1)), rng.normal(size=(300, 2))], 1).astype(np.float32)
+        y = rng.binomial(weight, 0.3, size=300).astype(np.float32)
+        mask = (rng.uniform(size=300) > 0.1).astype(np.float32)
+        got = tglm.irls_glm(_t(y), _t(x), weight=weight, link="logit", obs_mask=_t(mask))
+        want = jglm.irls_glm(jnp.asarray(y), jnp.asarray(x), weight=weight, link="logit",
+                             obs_mask=jnp.asarray(mask))
+        # converged fp32 Newton iterations: the fixed point to solve accuracy
+        np.testing.assert_allclose(got.coef.numpy(), np.asarray(want.coef), atol=1e-5)
+        np.testing.assert_allclose(got.vcov.numpy(), np.asarray(want.vcov), rtol=1e-4, atol=1e-7)
+        with pytest.raises(ValueError, match="unknown link"):
+            tglm.irls_glm(_t(y), _t(x), link="cloglog")
 
 
 class TestFactorCache:
@@ -208,6 +312,46 @@ class TestFactorCache:
         assert out.r_mv is None and out.n_chol == 3
         assert torch.equal(out.krige_w[:, :, 0, 0], accept.float())
         assert torch.equal(out.krige_chol[:, :, 1, 1], accept.float())
+
+    @pytest.mark.parametrize("q", [1, 3])
+    def test_scatter_component_matches_twin(self, q):
+        """Component j of a one-component proposal cache written where the
+        (K,) accept mask holds — per subset, the twin's scatter_component
+        (bf16 r_mv included); the inputs are left as they were."""
+        from smk_tpu.ops import factor_cache as jfc
+
+        rng = _rng(14)
+        shapes = dict(r_mv=(5, 5), nys_z=(5, 2), chol_inv=(2, 3, 3), krige_w=(5, 4),
+                      krige_chol=(4, 4))
+        k, j = 3, q - 1
+        cur = {f: rng.normal(size=(k, q) + sh).astype(np.float32) for f, sh in shapes.items()}
+        prop = {f: rng.normal(size=(k, 1) + sh).astype(np.float32) for f, sh in shapes.items()}
+        accept = np.array([True, False, True])
+
+        def port(d, n):
+            out = {f: _t(v) for f, v in d.items()}
+            out["r_mv"] = out["r_mv"].to(torch.bfloat16)
+            return tfc.FactorCache(**out, n_chol=n, n_chol_calls=n)
+
+        t_cur, t_prop = port(cur, 0), port(prop, 5)
+        before = t_cur.r_mv.clone()
+        got = tfc.scatter_component(t_prop, t_cur, j, torch.as_tensor(accept))
+        assert got.n_chol == 5 and torch.equal(t_cur.r_mv, before)
+        for kk in range(k):
+            jc = jfc.FactorCache(**{f: jnp.asarray(v[kk]) for f, v in cur.items()},
+                                 n_chol=jnp.int32(0), n_chol_calls=jnp.int32(0))
+            jp = jfc.FactorCache(**{f: jnp.asarray(v[kk]) for f, v in prop.items()},
+                                 n_chol=jnp.int32(5), n_chol_calls=jnp.int32(5))
+            want = jfc.scatter_component(jp, jc, j, jnp.asarray(accept[kk]))
+            for f in shapes:
+                g = getattr(got, f)[kk]
+                w = np.asarray(getattr(want, f))
+                if f == "r_mv":
+                    assert g.dtype == torch.bfloat16
+                    w = torch.as_tensor(np.array(w)).to(torch.bfloat16)
+                    assert torch.equal(g, w)
+                else:
+                    np.testing.assert_array_equal(g.numpy(), w, err_msg=f)
 
 
 class TestQuantiles:
