@@ -73,6 +73,35 @@ solves; production_config below):
               n = 65,536 + 64 test sites, K = 64, m = 1024, q = 2,
               p = 3, logit, phi every 8th).
 
+Phases 12-16 run the rest of the sampler's knobs:
+
+12. kernels_float64 — the tile kernel instantiated for double (every
+              float64 build) against its plain version at float64, three
+              models, masked / masked + shifted / cross with a row mask /
+              square, over a ragged m sweep (1, 2, 31, 32, 33, 147, 3906)
+              into NaN-filled outputs, with the exact invariants; its
+              times and bound at (32, 1, 3906, 3906); a small float64 fit
+              on the card against the same fit on the CPU, with the double
+              kernel's launches.
+13. fit_variants_small_parity — small fits on the card against the CPU
+              with the same random numbers: multiple-try phi (J = 3) in
+              each proposal family, two chains, the blocked Cholesky
+              (block 16 at m = 40), bf16 correlation builds; and
+              matmul_precision="highest" bit for bit the default run.
+14. chol_blocked — ops/chol.blocked_cholesky at (32, 3906, 3906) fp32,
+              blocks 256, 512 and 1024, against cuSOLVER (cholesky_ex):
+              device times and the factors' difference and residuals;
+              then one production update sweep at config5 with
+              chol_block_size 512 against 0, in turns.
+15. fit_production_config5_mtm — the production sampler at config5 with
+              phi_proposals = 4, student-t proposals, 32 sweeps (24
+              burn-in), phi every 16th: launches against build_calls, and
+              9 factorizations in 3 batched calls per component on every
+              update sweep.
+16. fit_production_config4_chains — fit_production_config4 with two
+              chains (the bench's full ladder): launches equal to the
+              one-chain run's, a finite cross-chain R-hat on every subset.
+
 Then each phase's wall time, the kernel summary line {"kernels": [...]}
 (launches from fit_config5, and per path), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. A failing phase
@@ -211,10 +240,10 @@ def bound(inputs, out, model, masked, shifted, row_masked=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(got, want, what):
-    """max |got - want|, checked against ATOL + RTOL |want|."""
+def compare(got, want, what, atol=ATOL, rtol=RTOL):
+    """max |got - want|, checked against atol + rtol |want|."""
     err = (got - want).abs()
-    check(bool((err <= ATOL + RTOL * want.abs()).all()),
+    check(bool((err <= atol + rtol * want.abs()).all()),
           f"{what}: kernel disagrees with plain version (max err {err.max().item():.3e})")
     return float(err.max())
 
@@ -252,7 +281,7 @@ def launch_nan(ca, cb, phis, model, layout, *, mask=None, shift=None, zero_diag=
     from smk_torch.ops import fused_build as fb
 
     out = torch.full((ca.shape[0], phis.shape[1], ca.shape[1], cb.shape[1]), float("nan"),
-                     device=ca.device)
+                     device=ca.device, dtype=ca.dtype)
     fb._launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout, row_mask)
     return out
 
@@ -622,10 +651,11 @@ class NoiseOnDevice:
     """A FitRandomness whose numbers are drawn on the CPU and moved to
     the card, so a card fit and a CPU fit consume the same numbers."""
 
-    def __init__(self, seed, device):
+    def __init__(self, seed, device, dtype=None):
+        import torch
         from smk_torch.api import TorchRandomness
 
-        self.rng = TorchRandomness(seed, "cpu")
+        self.rng = TorchRandomness(seed, "cpu", dtype or torch.float32)
         self.device = device
 
     def permutation(self, n):
@@ -684,11 +714,13 @@ def run_fit(name, *, n, k, q, p, t, n_samples, device):
     # symmetric kernel, none on the tile kernel
     layouts = {"tile": fb.LAYOUT_LAUNCHES[fb.TILED],
                "symmetric": fb.LAYOUT_LAUNCHES[fb.SYMMETRIC],
-               "narrow": fb.LAYOUT_LAUNCHES[fb.NARROW]}
+               "narrow": fb.LAYOUT_LAUNCHES[fb.NARROW],
+               "tile_f64": fb.LAYOUT_LAUNCHES[fb.TILED_F64]}
     want_layouts = {
         "tile": 0,
         "symmetric": want["fused_masked_correlation_stack"] + want["fused_masked_shifted_build"],
         "narrow": want["fused_cross_correlation"] + want["fused_correlation_stack"],
+        "tile_f64": 0,
     }
     check(layouts == want_layouts, f"{name}: launches by kernel {layouts} != {want_layouts}")
     check(all(launches[e] > 0 for e in MAIN_PATH), f"{name}: a main-path kernel never launched")
@@ -759,16 +791,17 @@ CG_ERR_MAX = 5e-2
 
 
 def production_config(*, k, n_samples, link="probit", phi_every=16, rank=PROD_RANK,
-                      block=PROD_BLOCK):
+                      block=PROD_BLOCK, **overrides):
     """The sampler bench.py:rung_config builds for every rung of the JAX
     benchmark: collapsed phi every `phi_every` sweeps, single-try
     Gaussian; Nystrom-preconditioned CG (8 steps) with a bf16 operator;
-    blocked triangular solves; the inverse-Wishart A prior; one chain.
-    Its live diagnostics (observability; the draws are the same without
-    them, bench.py:592-596) are not ported."""
+    blocked triangular solves; the inverse-Wishart A prior; one chain
+    (the bench's full ladder runs two: n_chains in `overrides`, as any
+    other field). Its live diagnostics (observability; the draws are the
+    same without them, bench.py:592-596) are not ported."""
     from smk_torch import PriorConfig, SMKConfig
 
-    return SMKConfig(
+    fields = dict(
         n_subsets=k, n_samples=n_samples, link=link, cov_model="exponential",
         fused_build="pallas", phi_sampler="collapsed", phi_update_every=phi_every,
         phi_proposals=1, phi_proposal_family="gaussian", u_solver="cg",
@@ -776,6 +809,8 @@ def production_config(*, k, n_samples, link="probit", phi_every=16, rank=PROD_RA
         cg_matvec_dtype="bfloat16", trisolve_block_size=block,
         priors=PriorConfig(a_prior="invwishart", temper="none"),
     )
+    fields.update(overrides)
+    return SMKConfig(**fields)
 
 
 def ebird_data(n, t):
@@ -1043,16 +1078,10 @@ def profile_sweeps(run_sweeps, top=10):
                               sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]]}
 
 
-def direct_sweeps(cfg, data_np, device, *, weight=1):
-    """The fit's sampler schedule driven sweep by sweep, on the fit's own
-    inputs (TorchRandomness(SEED): the same partition, warm start and
-    noise as fit_meta_kriging's): each sweep's span on the device
-    timeline (CUDA events), its factorization counts, and the subsets
-    whose finite-factor guard turned an accepted move down; then
-    torch.profiler windows over one update sweep and four non-update
-    sweeps past the schedule."""
-    import statistics as st
-
+def sampler_setup(cfg, data_np, device, *, weight=1):
+    """The fit's sampler on the fit's own inputs (TorchRandomness(SEED):
+    the same partition, warm start and noise as fit_meta_kriging's):
+    (model, data, state, consts, noise), data and state K*C rows wide."""
     import torch
     from smk_torch.api import TorchRandomness, stacked_design
     from smk_torch.models import probit_gp as tp
@@ -1067,12 +1096,25 @@ def direct_sweeps(cfg, data_np, device, *, weight=1):
     y_long, x_long = stacked_design(y, x)
     beta0 = glm_warm_start(y_long, x_long, weight=weight, link=cfg.link).coef.reshape(q, p)
     model = tp.SpatialGPSampler(cfg, weight=weight)
-    shapes = tp.SweepShapes(part.n_subsets, part.subset_size, q, p, ct.shape[0], weight,
-                            cfg.link, cfg.pg_n_terms)
+    shapes = tp.sweep_shapes(cfg, part.n_subsets, part.subset_size, q, p, ct.shape[0], weight)
     noise = rng.sweep_noise(shapes)
-    data = tp.SubsetData(part.coords, part.x, part.y, part.mask, ct, xt)
+    data = model.chain_data(tp.SubsetData(part.coords, part.x, part.y, part.mask, ct, xt))
     state = model.init_state(data, beta0)
-    consts = model._consts(data)
+    return model, data, state, model._consts(data), noise
+
+
+def direct_sweeps(cfg, data_np, device, *, weight=1):
+    """The fit's sampler schedule driven sweep by sweep, on the fit's own
+    inputs (sampler_setup): each sweep's span on the device timeline
+    (CUDA events), its factorization counts, and the subsets whose
+    finite-factor guard turned an accepted move down; then
+    torch.profiler windows over one update sweep and four non-update
+    sweeps past the schedule."""
+    import statistics as st
+
+    import torch
+
+    model, data, state, consts, noise = sampler_setup(cfg, data_np, device, weight=weight)
     e = cfg.phi_update_every
     spans, counts = {"update": [], "other": []}, {"update": set(), "other": set()}
     cache = None
@@ -1120,12 +1162,14 @@ def direct_sweeps(cfg, data_np, device, *, weight=1):
     return out
 
 
-def fit_production(name, *, cfg, data_np, device, weight=1):
+def fit_production(name, *, cfg, data_np, device, weight=1, update_chol=None):
     """fit_meta_kriging with the production sampler: launches per entry
     point against the sampler's formula (probit_gp.build_calls) and per
     kernel, no plain call, finite outputs of the expected shapes, p and
-    acceptance rates in [0, 1]; then the same schedule sweep by sweep
-    (direct_sweeps)."""
+    acceptance rates in [0, 1], with several chains the pooled draws and
+    a finite cross-chain R-hat on every subset; then the same schedule
+    sweep by sweep (direct_sweeps), where every update sweep must count
+    `update_chol` (logical factorizations, batched calls) if given."""
     import numpy as np
     import torch
     from smk_torch import fit_meta_kriging
@@ -1148,17 +1192,25 @@ def fit_production(name, *, cfg, data_np, device, weight=1):
     check(launches == want, f"{name}: launches {launches} != expected {want}")
     layouts = {"tile": fb.LAYOUT_LAUNCHES[fb.TILED],
                "symmetric": fb.LAYOUT_LAUNCHES[fb.SYMMETRIC],
-               "narrow": fb.LAYOUT_LAUNCHES[fb.NARROW]}
+               "narrow": fb.LAYOUT_LAUNCHES[fb.NARROW],
+               "tile_f64": fb.LAYOUT_LAUNCHES[fb.TILED_F64]}
     want_layouts = {
         "tile": 0,
         "symmetric": want["fused_masked_correlation_stack"] + want["fused_masked_shifted_build"],
         "narrow": want["fused_cross_correlation"] + want["fused_correlation_stack"],
+        "tile_f64": 0,
     }
     check(layouts == want_layouts, f"{name}: launches by kernel {layouts} != {want_layouts}")
     check(all(launches[e] > 0 for e in MAIN_PATH), f"{name}: a main-path kernel never launched")
     check(sum(fb.PLAIN_CALLS.values()) == 0, f"{name}: a plain build ran on the card path")
     check(tuple(res.p_quant.shape) == (3, t * q), f"{name}: p_quant shape {tuple(res.p_quant.shape)}")
     check(tuple(res.param_quant.shape) == (3, n_params(q, p)), f"{name}: param_quant shape")
+    check(tuple(res.subset_results.param_samples.shape[:2]) == (cfg.n_subsets,
+                                                                cfg.n_chains * cfg.n_kept),
+          f"{name}: pooled draws {tuple(res.subset_results.param_samples.shape)}")
+    if cfg.n_chains > 1:
+        check(bool(torch.isfinite(res.param_rhat).all()),
+              f"{name}: a non-finite cross-chain R-hat")
     for f in ("p_quant", "param_quant", "param_grid", "w_grid"):
         check(bool(torch.isfinite(getattr(res, f)).all()), f"{name}: non-finite {f}")
     acc = res.phi_accept_rate
@@ -1176,12 +1228,283 @@ def fit_production(name, *, cfg, data_np, device, weight=1):
         "launches": launches, "launches_expected": want, "launches_by_kernel": layouts,
         "phi_accept_rate_mean": float(acc.mean()),
         "param_quant_median": np.round(res.param_quant[0].cpu().numpy(), 4).tolist(),
+        "n_chains": cfg.n_chains, "phi_proposals": cfg.phi_proposals,
+        "phi_proposal_family": cfg.phi_proposal_family,
+        "param_rhat_max": float(res.param_rhat.max()),
+        "param_rhat_median": float(res.param_rhat.median()),
+        "mtm_workspace_bytes_per_subset": cfg.mtm_workspace_bytes(-(-y.shape[0] // cfg.n_subsets)),
     }
     del res
     torch.cuda.empty_cache()
     out["direct"] = direct_sweeps(cfg, data_np, device, weight=weight)
+    if update_chol is not None:
+        got = out["direct"]["n_chol_n_chol_calls_per_sweep"]["update"]
+        check(got == [tuple(update_chol)],
+              f"{name}: factorizations per update sweep {got} != {update_chol}")
     emit(out)
     return out
+
+
+# ----------------------------------------------------------------------
+# phases 12-16: the rest of the sampler's knobs
+# ----------------------------------------------------------------------
+# FP64 rate outside the tensor cores (H100 SXM data sheet): the double
+# tile kernel's bound is its bytes over HBM_BYTES_PER_S or its
+# operations over this, whichever is larger
+FP64_OPS_PER_S = 34e12
+# the double tile kernel's ragged sweep: one row, two, a tile less one,
+# a tile, a tile and one, a ragged m and config5's m
+F64_M = (1, 2, 31, 32, 33, 147, 3906)
+# kernel vs plain version at float64: the same operation order, so they
+# differ only where the card's exp and torch.exp round differently (an
+# ulp or two of values <= 1); the relative term covers the 1e8 shifts
+ATOL64, RTOL64 = 1e-14, 1e-14
+# card vs CPU, the same float64 fit: cuSOLVER vs LAPACK factorizations,
+# ~1e-15 per sweep, grown over 12 sweeps
+FIT64_TOL = 1e-8
+
+
+def kernels_float64(device):
+    """The tile kernel instantiated for double against its plain version
+    at float64 (K = 2, s = 2, d = 2, three models) at every m of F64_M:
+    masked, masked + shifted, the cross build with a row mask against 33
+    test sites, and the square zero-diagonal build, into NaN-filled
+    outputs, with the exact invariants; every entry point on float64
+    coordinates launches it. Then its times and bound at the masked
+    (32, 1, 3906, 3906) build, and a small float64 fit through it on the
+    card against the same fit on the CPU (its launches there are this
+    kernel's path)."""
+    import torch
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.ops import fused_build as fb
+
+    f64 = torch.float64
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 64)
+
+    def uni(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device, dtype=f64)
+
+    k, s = 2, 2
+    worst, cases = 0.0, 0
+    for m in F64_M:
+        coords = uni(k, m, 2, hi=2.0)
+        test = uni(k, 33, 2, hi=2.0) + 0.3
+        phis = uni(k, s, lo=4.0, hi=12.0)
+        mask = (uni(k, m) > 0.1).to(f64)
+        shift = torch.where(mask > 0, uni(k, m, lo=0.5, hi=2.0), torch.full_like(mask, 1e8))
+        for model in MODELS:
+            variants = [
+                ("masked", coords, dict(mask=mask, zero_diag=True)),
+                ("masked+shifted", coords, dict(mask=mask, shift=shift, zero_diag=True)),
+                ("cross+row_mask", test, dict(row_mask=mask)),
+                ("square", coords, dict(zero_diag=True)),
+            ]
+            for label, cb, kw in variants:
+                what = f"float64 m={m}/{model}/{label}"
+                got = launch_nan(coords, cb, phis, model, fb.TILED, **kw)
+                want = fb.plain_build(coords, cb, phis, model, **kw)
+                worst = max(worst, compare(got, want, what, ATOL64, RTOL64))
+                if kw.get("zero_diag"):
+                    square_invariants(got, kw.get("mask"), kw.get("shift"), what)
+                cases += 1
+    # every entry point routes float64 to the double tile kernel
+    before = fb.LAYOUT_LAUNCHES[fb.TILED_F64]
+    got = fb.fused_masked_shifted_build(coords, phis, mask, shift, "matern32")
+    check(got.dtype == f64 and torch.equal(got, launch_nan(
+        coords, coords, phis, "matern32", fb.TILED, mask=mask, shift=shift, zero_diag=True)),
+        "float64 entry point != the double tile kernel")
+    fb.fused_masked_correlation_stack(coords, phis, mask, "exponential")
+    fb.fused_cross_correlation(coords, test, phis, "exponential", row_mask=mask)
+    fb.fused_correlation_stack(test[0], phis, "exponential")
+    fb.fused_correlation(coords, phis[:, 0], "exponential")
+    check(fb.LAYOUT_LAUNCHES[fb.TILED_F64] == before + 5,
+          "float64 builds did not all launch the double tile kernel")
+    del got
+    torch.cuda.empty_cache()
+
+    # times at the main path's masked build, float64
+    k, m = MAIN_K, MAIN_M
+    coords = uni(k, m, 2)
+    phis = uni(k, 1, lo=4.0, hi=12.0)
+    mask = torch.ones(k, m, device=device, dtype=f64)
+    model = "exponential"
+    run = lambda: fb.fused_masked_correlation_stack(coords, phis, mask, model)  # noqa: E731
+    got = run()
+    want = fb.plain_build(coords, coords, phis, model, mask=mask, zero_diag=True)
+    err = compare(got, want, "float64 main-path build", ATOL64, RTOL64)
+    square_invariants(got, mask, None, "float64 main-path build")
+    del want
+    plain = lambda: fb.plain_build(coords, coords, phis, model, mask=mask, zero_diag=True)  # noqa: E731
+    library = lambda: torch.exp(-phis[:, :, None, None] * torch.cdist(coords, coords)[:, None])  # noqa: E731
+    ops = got.numel() * (3 * 2 + 2 + MODEL_OPS[model] + 4)
+    t_bytes = min_bytes([coords, phis, mask], got) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_OPS_PER_S * 1e3
+    timing = {
+        "shape": list(got.shape), "max_abs_err": err,
+        "ms": ms_median(run, reps=10), "device_ms": ms_median(run, reps=10, device_only=True),
+        "plain_ms": ms_median(plain, reps=5), "library_ms": ms_median(library, reps=5),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "write_bytes": got.numel() * 8,
+    }
+    timing["device_bound_fraction"] = timing["bound_ms"] / timing["device_ms"]
+    del got
+    torch.cuda.empty_cache()
+
+    # a small float64 fit through the kernel, card against CPU
+    cfg = SMKConfig(n_subsets=4, n_samples=12, fused_build="pallas", dtype="float64")
+    data = binary_field(400, 2, 2, 8, SEED)
+    fb.reset_counts()
+    gpu = fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, device, f64),
+                           device=device)
+    launches = dict(fb.LAUNCHES)
+    f64_launches = fb.LAYOUT_LAUNCHES[fb.TILED_F64]
+    check(f64_launches == sum(launches.values()) > 0 and sum(fb.PLAIN_CALLS.values()) == 0,
+          f"float64 fit: launches {launches}, double tile kernel {f64_launches}")
+    cpu = fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, "cpu", f64),
+                           device="cpu")
+    errs = {}
+    for f in ("param_grid", "w_grid", "p_quant", "param_quant"):
+        g = getattr(gpu, f)
+        check(g.dtype == f64, f"float64 fit: {f} is {g.dtype}")
+        errs[f] = float((g.cpu() - getattr(cpu, f)).abs().max())
+        check(errs[f] <= FIT64_TOL, f"float64 fit: {f} differs by {errs[f]:.3e}")
+    out = {"phase": "kernels_float64", "tolerance": {"atol": ATOL64, "rtol": RTOL64},
+           "ragged_sweep": {"m": list(F64_M), "cases": cases, "max_abs_err": worst},
+           "main_path": timing, "fit_small": {"max_abs_err": errs, "tolerance": FIT64_TOL,
+                                              "launches": launches,
+                                              "double_tile_launches": f64_launches}}
+    emit(out)
+    return out
+
+
+def fit_variants_small_parity(device):
+    """The sampler's knobs on the card against the CPU, same random
+    numbers, at n = 160, K = 4 (m = 40), 16 sweeps: multiple-try phi
+    (J = 3, every 2nd sweep) in each proposal family, two chains, the
+    blocked Cholesky at block 16, bf16 correlation builds (unfused).
+    fp32 with cuSOLVER vs LAPACK, as fit_small_parity: 2e-3 (1 + |x|);
+    the bf16 builds 3e-2 (1 + |x|), where the two devices' fp32 exp can
+    round to neighbouring bf16 values. Then matmul_precision="highest"
+    on the card, bit for bit the default config's run."""
+    import torch
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.ops import fused_build as fb
+
+    data = binary_field(160, 2, 2, 8, SEED + 160)
+    # 16 sweeps keep 4 draws a chain, the fewest R-hat takes
+    base = dict(n_subsets=4, n_samples=16, fused_build="pallas")
+    mtm = dict(phi_sampler="collapsed", phi_proposals=3, phi_update_every=2)
+    variants = {
+        "mtm_gaussian": (dict(mtm), 2e-3),
+        "mtm_student_t": (dict(mtm, phi_proposal_family="student_t"), 2e-3),
+        "mtm_mixture": (dict(mtm, phi_proposal_family="mixture"), 2e-3),
+        "chains2": (dict(n_chains=2, phi_sampler="collapsed"), 2e-3),
+        "chol_block16": (dict(chol_block_size=16), 2e-3),
+        "build_bf16": (dict(build_dtype="bfloat16", fused_build="off"), 3e-2),
+    }
+    out = {"phase": "fit_variants_small_parity"}
+    for name, (kw, tol) in variants.items():
+        cfg = SMKConfig(**{**base, **kw})
+        fb.reset_counts()
+        gpu = fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, device),
+                               device=device)
+        if cfg.fused_build == "pallas":
+            check(sum(fb.LAUNCHES.values()) > 0, f"{name}: the card fit did not run the kernel")
+        check(sum(fb.PLAIN_CALLS.values()) == 0, f"{name}: a plain build ran on the card")
+        cpu = fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, "cpu"),
+                               device="cpu")
+        errs = {}
+        for f in ("param_grid", "w_grid", "p_quant", "param_quant", "param_rhat"):
+            g, c = getattr(gpu, f).cpu(), getattr(cpu, f)
+            errs[f] = float(((g - c).abs() / (1.0 + c.abs())).max())
+            check(errs[f] <= tol, f"{name}: {f} differs by {errs[f]:.3e} (tolerance {tol})")
+        out[name] = {"max_rel_err": errs, "tolerance": tol,
+                     "accept_equal": bool(torch.equal(gpu.phi_accept_rate.cpu(),
+                                                      cpu.phi_accept_rate)),
+                     "pooled_draws": list(gpu.subset_results.param_samples.shape)}
+    settings = lambda: (torch.get_float32_matmul_precision(),  # noqa: E731
+                        torch.backends.cudnn.allow_tf32)
+    before = settings()
+    fits = [fit_meta_kriging(*data, config=SMKConfig(**base, **kw), seed=SEED, device=device)
+            for kw in ({}, dict(matmul_precision="highest"))]
+    for f in ("param_grid", "w_grid", "p_quant", "sample_par"):
+        check(torch.equal(getattr(fits[0], f), getattr(fits[1], f)),
+              f"matmul_precision='highest': {f} differs from the default run")
+    check(settings() == before, "a fit left the matmul settings changed")
+    out["matmul_precision_highest_bitwise_default"] = True
+    emit(out)
+
+
+def chol_blocked(device, c5_data):
+    """ops/chol.blocked_cholesky against cuSOLVER (torch.linalg.cholesky_ex
+    through chol.cholesky) on R~ + jit I at config5's (32, 3906, 3906)
+    fp32 (a masked build from the kernel, 11 pad rows a subset): device
+    ms (CUDA events), the largest factor difference relative to the
+    largest entry, and each factor's residual max |L L^T - A| / max |A|.
+    Then one production update sweep at config5 (sweep 0, the same
+    state's noise) with chol_block_size 512 against 0, in turns."""
+    import torch
+    from smk_torch.ops import chol
+    from smk_torch.ops import fused_build as fb
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 14)
+    k, m = MAIN_K, MAIN_M
+    coords = torch.rand((k, m, 2), generator=gen, device=device)
+    phis = 4.0 + 8.0 * torch.rand((k, 1), generator=gen, device=device)
+    mask = torch.ones(k, m, device=device)
+    mask[:, -11:] = 0.0
+    a = fb.fused_masked_correlation_stack(coords, phis, mask, "exponential")[:, 0]
+    a.diagonal(dim1=-2, dim2=-1).add_(max(1e-5, 2.5e-7 * m))
+    a_max = a.abs().amax()
+
+    def residual(l):
+        return float(((l @ l.mT - a).abs().amax() / a_max))
+
+    native = lambda: chol.cholesky(a)  # noqa: E731
+    l_nat = native()
+    check(bool(torch.isfinite(l_nat).all()), "cuSOLVER factor not finite")
+    flops = k * m ** 3 / 3
+    res = {"phase": "chol_blocked", "shape": [k, m, m],
+           "cusolver": {"device_ms": ms_median(native, reps=5, warmup=1, device_only=True),
+                        "residual": residual(l_nat)}}
+    res["cusolver"]["tflops"] = flops / (res["cusolver"]["device_ms"] * 1e-3) / 1e12
+    for bs in (256, 512, 1024):
+        run = lambda bs=bs: chol.blocked_cholesky(a, 0.0, bs)  # noqa: E731
+        l_b = run()
+        check(bool(torch.isfinite(l_b).all()), f"blocked factor (block {bs}) not finite")
+        row = {"device_ms": ms_median(run, reps=5, warmup=1, device_only=True),
+               "max_rel_diff_vs_cusolver": float((l_b - l_nat).abs().amax() / l_nat.abs().amax()),
+               "residual": residual(l_b)}
+        row["tflops"] = flops / (row["device_ms"] * 1e-3) / 1e12
+        check(row["residual"] <= max(10 * res["cusolver"]["residual"], 1e-5),
+              f"blocked factor (block {bs}): residual {row['residual']:.3e}")
+        res[f"block_{bs}"] = row
+        del l_b
+    del a, l_nat
+    torch.cuda.empty_cache()
+
+    # one production update sweep, chol_block_size 512 against 0
+    sweeps = {0: [], 512: []}
+    for bs in (0, 512, 512, 0):
+        cfg = production_config(k=MAIN_K, n_samples=64, phi_every=16, chol_block_size=bs)
+        model, data, state, consts, noise = sampler_setup(cfg, c5_data, device)
+        cache = model._solve_cache(consts, data.mask, state)
+        nz = noise(0, False)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, cache, _ = model._gibbs_step(data, consts, state, cache, 0, nz, collect=False)
+        end.record()
+        end.synchronize()
+        check(bool(torch.isfinite(state.chol_r).all()), f"update sweep (block {bs}): non-finite")
+        sweeps[bs].append(start.elapsed_time(end))
+        del model, data, state, consts, cache, nz
+        torch.cuda.empty_cache()
+    res["update_sweep_ms"] = {"chol_block_size_0": sweeps[0], "chol_block_size_512": sweeps[512]}
+    emit(res)
+    return res
 
 
 def main() -> int:
@@ -1239,19 +1562,39 @@ def main() -> int:
     phase("kernels_config4", kernels_config4, device)
     phase("production_ops", production_ops, device)
     phase("fit_production_small_parity", fit_production_small_parity, device)
+    c5_data = binary_field(MAIN_K * MAIN_M, 1, 2, MAIN_T, SEED + MAIN_K * MAIN_M)
+    c4_data = ebird_data(C4_K * C4_M, C4_T)
     p5 = phase(
         "fit_production_config5", fit_production, "fit_production_config5",
         cfg=production_config(k=MAIN_K, n_samples=64, phi_every=16),
-        data_np=binary_field(MAIN_K * MAIN_M, 1, 2, MAIN_T, SEED + MAIN_K * MAIN_M),
-        device=device)
+        data_np=c5_data, device=device)
     p4 = phase(
         "fit_production_config4", fit_production, "fit_production_config4",
         cfg=production_config(k=C4_K, n_samples=64, link="logit", phi_every=8),
-        data_np=ebird_data(C4_K * C4_M, C4_T), device=device)
+        data_np=c4_data, device=device)
+    f64 = phase("kernels_float64", kernels_float64, device)
+    phase("fit_variants_small_parity", fit_variants_small_parity, device)
+    phase("chol_blocked", chol_blocked, device, c5_data)
+    # multiple-try at config5: per component, the (J+1)- and (J-1)-deep
+    # stacks and the accept side, 2J+1 factorizations in 3 calls
+    j_try = 4
+    p5m = phase(
+        "fit_production_config5_mtm", fit_production, "fit_production_config5_mtm",
+        cfg=production_config(k=MAIN_K, n_samples=32, phi_every=16, phi_proposals=j_try,
+                              phi_proposal_family="student_t"),
+        data_np=c5_data, device=device, update_chol=(2 * j_try + 1, 3))
+    p4c = phase(
+        "fit_production_config4_chains", fit_production, "fit_production_config4_chains",
+        cfg=production_config(k=C4_K, n_samples=64, link="logit", phi_every=8, n_chains=2),
+        data_np=c4_data, device=device)
+    check(p4c["launches"] == p4["launches"],
+          "two chains: launches differ from the one-chain run's")
     emit({"phase": "wall_s_by_phase", **walls})
     paths = {"fit_config5": c5, "fit_q2": q2, "fit_production_config5": p5,
-             "fit_production_config4": p4}
+             "fit_production_config4": p4, "fit_production_config5_mtm": p5m,
+             "fit_production_config4_chains": p4c}
 
+    f64_time = f64["main_path"]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": c5["launches"][name],
@@ -1264,6 +1607,20 @@ def main() -> int:
          "bound_fraction": timings[name]["bound_fraction"],
          "device_bound_fraction": timings[name]["device_bound_fraction"]}
         for name in KERNELS
+    ] + [
+        # the tile kernel instantiated for double: every float64 build,
+        # on the float64 fit's path (no float32 path launches it)
+        {"name": "tile kernel, float64", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "smk_tpu/ops/pallas_build.py:179",
+         "launches": f64["fit_small"]["double_tile_launches"],
+         "launches_by_path": {"fit_float64_small": f64["fit_small"]["double_tile_launches"],
+                              **{path: r["launches_by_kernel"]["tile_f64"]
+                                 for path, r in paths.items()}},
+         "max_abs_err": f64_time["max_abs_err"], "ms": f64_time["ms"],
+         "device_ms": f64_time["device_ms"], "plain_ms": f64_time["plain_ms"],
+         "bound_ms": f64_time["bound_ms"], "bound_by": f64_time["bound_by"],
+         "library_ms": f64_time["library_ms"],
+         "device_bound_fraction": f64_time["device_bound_fraction"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

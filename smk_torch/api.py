@@ -14,6 +14,7 @@ replays the JAX package's key schedule instead.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Protocol
 
 import numpy as np
@@ -29,6 +30,7 @@ from smk_torch.models.probit_gp import (
     SubsetResult,
     SweepShapes,
     subset_generators,
+    sweep_shapes,
 )
 from smk_torch.ops.glm import glm_warm_start
 from smk_torch.ops.quantiles import (
@@ -105,6 +107,8 @@ class TorchRandomness:
         return random_permutation(self._part, n, self.device)
 
     def sweep_noise(self, shapes: SweepShapes) -> NoiseSource:
+        """One generator per row of ``shapes.k`` (subsets times chains,
+        subset-major)."""
         gens = subset_generators(self._fit_seed, shapes.k, self.device)
         return GeneratorNoise(gens, shapes, dtype=self.dtype, device=self.device)
 
@@ -181,6 +185,37 @@ def resample_predict(
     )
 
 
+# SMKConfig.matmul_precision (the jax.lax.Precision names) -> PyTorch's
+# float32 matmul precision and whether cuDNN may use TF32
+_MATMUL_PRECISION = {
+    "highest": ("highest", False), "float32": ("highest", False),
+    "high": ("high", True), "tensorfloat32": ("high", True),
+    "default": ("medium", True), "bfloat16": ("medium", True),
+}
+
+
+@contextlib.contextmanager
+def matmul_precision(name: str, device):
+    """Run the block under ``SMKConfig.matmul_precision`` ``name`` (see the
+    config's field comment) on ``device`` and restore the caller's
+    settings after it, as the twin scopes ``jax.default_matmul_precision``
+    around a fit. On the CPU nothing is set: the twin's CPU backend
+    computes fp32 products in full fp32 whatever the precision, where
+    PyTorch's "medium" would take bf16 passes on a CPU that has them."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    precision, cudnn_tf32 = _MATMUL_PRECISION[name]
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
 def _as_tensor(a, dtype, device) -> torch.Tensor:
     if torch.is_tensor(a):
         return a.to(dtype=dtype, device=device)
@@ -207,15 +242,19 @@ def fit_meta_kriging(
     (n, d); coords_test: (t, d); x_test: (t, q, p); weight: binomial
     trials. Arrays may be numpy or tensors. ``device`` defaults to the
     CUDA device; ``randomness`` to :class:`TorchRandomness` (``seed``).
+    Everything computes in ``config.dtype``, under
+    ``config.matmul_precision`` (the caller's settings are restored on
+    return).
     """
     cfg = config or SMKConfig()
     check_ported(cfg)
     dev = resolve_device(device)
-    # the reference runs under matmul_precision="highest": keep every
-    # fp32 product in full fp32 (cuBLAS and cuDNN)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dt = torch.float32
+    with matmul_precision(cfg.matmul_precision, dev):
+        return _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev)
+
+
+def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev):
+    dt = torch.float64 if cfg.dtype == "float64" else torch.float32
     y, x, coords, coords_test, x_test = (
         _as_tensor(a, dt, dev) for a in (y, x, coords, coords_test, x_test)
     )
@@ -225,6 +264,8 @@ def fit_meta_kriging(
             "a single response is y[:, None]"
         )
     n, q = y.shape
+    # the multiple-try workspace at the subset size the partition makes
+    cfg.warn_if_mtm_workspace_large(-(-n // cfg.n_subsets))
     if x.dim() != 3 or tuple(x.shape[:2]) != (n, q):
         raise ValueError(f"x must be (n={n}, q={q}, p) designs, got shape {tuple(x.shape)}")
     if coords.dim() != 2 or coords.shape[0] != n:
@@ -255,10 +296,8 @@ def fit_meta_kriging(
         ).coef.reshape(q, p)
 
     model = SpatialGPSampler(cfg, weight=weight)
-    shapes = SweepShapes(
-        part.n_subsets, part.subset_size, q, p, coords_test.shape[0], weight,
-        cfg.link, cfg.pg_n_terms,
-    )
+    shapes = sweep_shapes(cfg, part.n_subsets, part.subset_size, q, p,
+                          coords_test.shape[0], weight)
     with phase_timer(times, "subset_fits", dev):
         results = fit_subsets_vmap(
             model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init

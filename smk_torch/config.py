@@ -164,9 +164,15 @@ class SMKConfig:
     jitter_per_m: float = 2.5e-7
     mask_noise_var: float = 1e8
     dtype: str = "float32"
-    # "highest" (and its alias "float32") keeps fp32 matmuls in full
-    # fp32: the port turns TF32 off for both cuBLAS and cuDNN at fit
-    # entry (api.fit_meta_kriging).
+    # The jax.lax.Precision aliases map onto PyTorch's float32 matmul
+    # settings, set for the duration of a fit (api.fit_meta_kriging) and
+    # restored afterwards: "highest" and "float32" keep fp32 products in
+    # full fp32 (TF32 off for cuBLAS and cuDNN, precision "highest");
+    # "high" and "tensorfloat32" allow TF32 (precision "high", both TF32
+    # flags on); "default" and "bfloat16" set precision "medium" (bf16
+    # passes where the backend has them). On the CPU nothing is set: the
+    # twin's CPU backend keeps fp32 products in full fp32 whatever the
+    # precision.
     matmul_precision: str = "highest"
     mesh_axis: str = "subsets"
     priors: PriorConfig = dataclasses.field(default_factory=PriorConfig)
@@ -365,6 +371,46 @@ class SMKConfig:
                 f"unknown matmul_precision {self.matmul_precision!r}"
             )
 
+    def mtm_workspace_bytes(self, m: int) -> int:
+        """Peak extra fp32 workspace of one multi-try phi update at
+        subset size ``m``: the forward (J+1, m, m) correlation stack
+        and its factor are live together (the reverse (J-1, m, m)
+        batch allocates only after a barrier kills them, so the
+        forward pair is the peak). Zero when phi_proposals == 1 —
+        the sequential path's barrier-sequenced ~2 m^2 buffers are
+        the pre-MTM status quo, not an MTM cost."""
+        j = self.phi_proposals
+        if j <= 1:
+            return 0
+        return 2 * (j + 1) * m * m * 4
+
+    def warn_if_mtm_workspace_large(
+        self, m: int, *, budget_bytes: int = 2 * 1024**3
+    ) -> None:
+        """Warn when the MTM proposal fan-out's batched workspace at
+        subset size ``m`` exceeds ``budget_bytes`` (default 2 GiB —
+        a conservative share of a 16 GB v5e once the carried
+        (q, m, m) state and the K-vmap axis are accounted). Called by
+        api.fit_meta_kriging once m is known; purely advisory (the
+        fit proceeds — lower J, raise n_subsets, or chunk K)."""
+        ws = self.mtm_workspace_bytes(m)
+        if ws > budget_bytes:
+            import warnings
+
+            warnings.warn(
+                f"phi_proposals={self.phi_proposals} at subset size "
+                f"m={m} holds a ~{ws / 1e9:.1f} GB batched proposal "
+                "workspace per component during each collapsed phi "
+                "update (2(J+1) m^2 fp32 buffers live at once; see "
+                "SMKConfig.mtm_workspace_bytes). With the K-vmapped "
+                "executor this multiplies across concurrently "
+                "updating subsets — consider a smaller "
+                "phi_proposals, more/smaller subsets, or chunk_size "
+                "to bound resident K.",
+                UserWarning,
+                stacklevel=3,
+            )
+
     def effective_jitter(self, m: int) -> float:
         """Diagonal jitter for an m x m correlation factorization."""
         return max(self.jitter, self.jitter_per_m * m)
@@ -385,15 +431,6 @@ _UNPORTED = (
     ("partition_method='coherent'",
      lambda c: c.partition_method != "random", "A7"),
     ("bucket_ladder", lambda c: c.bucket_ladder is not None, "A7"),
-    ("phi_proposals>1", lambda c: c.phi_proposals != 1, "A6"),
-    ("phi_proposal_family other than 'gaussian'",
-     lambda c: c.phi_proposal_family != "gaussian", "A6"),
-    ("n_chains>1", lambda c: c.n_chains != 1, "A6"),
-    ("chol_block_size>0", lambda c: c.chol_block_size > 0, "A6"),
-    ("build_dtype='bfloat16'", lambda c: c.build_dtype != "float32", "A6"),
-    ("dtype='float64'", lambda c: c.dtype != "float32", "A6"),
-    ("matmul_precision other than 'highest'",
-     lambda c: c.matmul_precision not in ("highest", "float32"), "A6"),
     ("fault_policy='quarantine'", lambda c: c.fault_policy != "abort", "A8"),
     ("chunk_pipeline='overlap'", lambda c: c.chunk_pipeline != "sync", "A8"),
     ("adaptive_schedule='on'", lambda c: c.adaptive_schedule != "off", "A8"),

@@ -28,24 +28,32 @@ def _field(src, name):
     return src[name] if isinstance(src, dict) else getattr(src, name)
 
 
-def _tensor(a, device, dtype=torch.float32) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, copy=True), dtype=dtype, device=device)
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    """``a`` as a tensor on ``device``: float64 arrays stay float64 (a
+    JAX fit under jax_enable_x64), other floats become float32."""
+    a = np.array(a, copy=True)
+    if dtype is None:
+        dtype = torch.float64 if a.dtype == np.float64 else torch.float32
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def sampler_state_from_numpy(
     state, *, seed: int = 0, device="cpu"
 ) -> Tuple[SamplerState, List[torch.Generator]]:
     """A K-stacked JAX ``SamplerState`` (a NamedTuple or a dict of its
-    arrays, leading K axis on every field) as the port's SamplerState,
-    plus one generator per subset seeded from ``seed`` in place of the
-    JAX key."""
+    arrays, leading K axis on every field; a multi-chain state has a
+    leading (K, C)) as the port's SamplerState, K*C rows subset-major
+    (row k*C + c), plus one generator per row seeded from ``seed`` in
+    place of the JAX key."""
     out = SamplerState(
         **{f: _tensor(_field(state, f), device) for f in _STATE_FIELDS}
     )
+    if out.beta.dim() == 4:  # (K, C, q, p): chains -> K*C rows
+        out = SamplerState(*(t.reshape((-1,) + t.shape[2:]) for t in out))
     if out.beta.dim() != 3:
         raise ValueError(
             "sampler state must carry a leading K (subset) axis: beta is "
-            f"{tuple(out.beta.shape)}, expected (K, q, p)"
+            f"{tuple(out.beta.shape)}, expected (K, q, p) or (K, C, q, p)"
         )
     return out, subset_generators(seed, out.beta.shape[0], device)
 

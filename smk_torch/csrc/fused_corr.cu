@@ -12,7 +12,7 @@
 //   SHIFTED:   rho += shift[k, i] on the diagonal
 //   ROW_MASK:  rho = r_i rho              (the kriging cross build's pad rows)
 //
-// into a contiguous fp32 (K, S, MA, MB) tensor. The diagonal is tested
+// into a contiguous fp32 (or fp64) (K, S, MA, MB) tensor. The diagonal is tested
 // on global indices, as the TPU kernel does.
 //
 //   fused_corr_kernel        (layout 0): one block per 32 x 32 output
@@ -29,6 +29,17 @@
 //                            :387, and square builds of at most 256
 //                            columns, such as the kriging test stack
 //                            (t, t), :349): whole rows, no shared memory.
+//   fused_corr_kernel<double> (entry point smk_fused_corr_f64, every
+//                            float64 build; the TPU kernel takes its dtype
+//                            from the coordinates, pallas_build.py:285,
+//                            :325): the tile kernel instantiated for
+//                            double, with __dmul_rn / __dadd_rn and exp,
+//                            and a row mask folded into the store for the
+//                            cross build. Simple and untuned: a float64
+//                            build writes 8 bytes an element, at least
+//                            1.17 ms for (32, 1, 3906, 3906) at
+//                            3.35 TB/s, and its ~15 operations an element
+//                            count 0.22 ms at the 34 TFLOP/s FP64 rate.
 //
 // Bound on the H100: a build writes S*MA*MB*4 bytes per k and reads
 // only O((MA + MB) d) coordinates, so it is write-bound: the
@@ -149,60 +160,95 @@ constexpr int MAX_D = 8;
 constexpr int STILE = 64;
 constexpr int SYM_THREADS = 256;
 
-constexpr float SQRT3 = 1.7320508075688772f;
-constexpr float SQRT5 = 2.23606797749979f;
+// The rounded operations of the per-pair arithmetic, by scalar type:
+// float (every kernel) and double (the tile kernel's float64
+// instantiation, entry point smk_fused_corr_f64). Each is rounded on
+// its own (no FMA contraction), in the plain version's order.
+template <typename T>
+struct Num;
 
-template <int MODEL>
-__device__ __forceinline__ float corr(float dist, float phi) {
+template <>
+struct Num<float> {
+  static constexpr float SQRT3 = 1.7320508075688772f;
+  static constexpr float SQRT5 = 2.23606797749979f;
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float exp(float a) { return expf(a); }
+  static __device__ __forceinline__ float sqrt(float a) { return sqrtf(a); }
+  static __device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
+};
+
+template <>
+struct Num<double> {
+  static constexpr double SQRT3 = 1.7320508075688772;
+  static constexpr double SQRT5 = 2.23606797749979;
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double exp(double a) { return ::exp(a); }
+  static __device__ __forceinline__ double sqrt(double a) { return ::sqrt(a); }
+  static __device__ __forceinline__ double max(double a, double b) { return fmax(a, b); }
+};
+
+template <int MODEL, typename T>
+__device__ __forceinline__ T corr(T dist, T phi) {
+  using N = Num<T>;
   if (MODEL == 0) {  // exponential
-    return expf(__fmul_rn(-phi, dist));
+    return N::exp(N::mul(-phi, dist));
   } else if (MODEL == 1) {  // matern32
-    const float t = __fmul_rn(__fmul_rn(SQRT3, phi), dist);
-    return __fmul_rn(__fadd_rn(1.0f, t), expf(-t));
+    const T t = N::mul(N::mul(N::SQRT3, phi), dist);
+    return N::mul(N::add(T(1), t), N::exp(-t));
   } else {  // matern52
-    const float t = __fmul_rn(__fmul_rn(SQRT5, phi), dist);
-    const float poly = __fadd_rn(__fadd_rn(1.0f, t), __fmul_rn(t, t) / 3.0f);
-    return __fmul_rn(poly, expf(-t));
+    const T t = N::mul(N::mul(N::SQRT5, phi), dist);
+    const T poly = N::add(N::add(T(1), t), N::mul(t, t) / T(3));
+    return N::mul(poly, N::exp(-t));
   }
 }
 
-struct Args {
-  const float* ca;
-  const float* cb;
-  const float* phis;
-  const float* mask;
-  const float* shift;
-  const float* row_mask;
-  float* out;
+template <typename T>
+struct ArgsT {
+  const T* ca;
+  const T* cb;
+  const T* phis;
+  const T* mask;
+  const T* shift;
+  const T* row_mask;
+  T* out;
   int K, S, MA, MB, D;
   long long a_kstride, b_kstride;
 };
+using Args = ArgsT<float>;
 
 // The per-pair arithmetic after the distance sum, shared by all three
-// kernels so that they agree bit for bit.
-template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG>
-__device__ __forceinline__ float pair_value(float sq, bool diag, float phi,
-                                            float mi, float mj, float sh) {
-  float dist = sqrtf(fmaxf(sq, 0.0f));
-  if (ZERO_DIAG && diag) dist = 0.0f;
-  float rho = corr<MODEL>(dist, phi);
+// kernels so that they agree bit for bit (T is deduced: float in all
+// three, double in the tile kernel's float64 instantiation).
+template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG, typename T>
+__device__ __forceinline__ T pair_value(T sq, bool diag, T phi, T mi, T mj, T sh) {
+  using N = Num<T>;
+  T dist = N::sqrt(N::max(sq, T(0)));
+  if (ZERO_DIAG && diag) dist = T(0);
+  T rho = corr<MODEL>(dist, phi);
   if (MASKED) {
-    const float mm = __fmul_rn(mi, mj);
-    rho = __fadd_rn(__fmul_rn(mm, rho),
-                    __fmul_rn(__fsub_rn(1.0f, mm), diag ? 1.0f : 0.0f));
+    const T mm = N::mul(mi, mj);
+    rho = N::add(N::mul(mm, rho), N::mul(N::sub(T(1), mm), diag ? T(1) : T(0)));
   }
-  if (SHIFTED && diag) rho = __fadd_rn(rho, sh);
+  if (SHIFTED && diag) rho = N::add(rho, sh);
   return rho;
 }
 
-template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG>
+// The tile kernel, on its scalar type T: float (layout 0) or double
+// (every float64 build). ROW_MASK multiplies row i by row_mask[k, i] as
+// it is stored, as the narrow kernel does (float64 cross builds only).
+template <typename T, int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG, bool ROW_MASK>
 __global__ void __launch_bounds__(TILE * BLOCK_Y)
-fused_corr_kernel(const Args args) {
-  __shared__ float sa[TILE][MAX_D + 1];
-  __shared__ float sb[MAX_D][TILE];
-  __shared__ float mrow[TILE];
-  __shared__ float mcol[TILE];
-  __shared__ float srow[TILE];
+fused_corr_kernel(const ArgsT<T> args) {
+  using N = Num<T>;
+  __shared__ T sa[TILE][MAX_D + 1];
+  __shared__ T sb[MAX_D][TILE];
+  __shared__ T mrow[TILE];
+  __shared__ T mcol[TILE];
+  __shared__ T srow[TILE];  // the rows' shift, or (ROW_MASK) their row mask
 
   const int D = args.D;
   const int MA = args.MA;
@@ -217,47 +263,50 @@ fused_corr_kernel(const Args args) {
 
   // stage the tile's 32 row and 32 column coordinates; consecutive
   // threads read consecutive floats of the (m, d) row-major blocks
-  const float* a = args.ca + k * args.a_kstride;
-  const float* b = args.cb + k * args.b_kstride;
+  const T* a = args.ca + k * args.a_kstride;
+  const T* b = args.cb + k * args.b_kstride;
   for (int e = tid; e < TILE * D; e += TILE * BLOCK_Y) {
     const int r = e / D;
     const int c = e - r * D;
     const int gi = i0 + r;
     const int gj = j0 + r;
-    sa[r][c] = gi < MA ? a[(long long)gi * D + c] : 0.0f;
-    sb[c][r] = gj < MB ? b[(long long)gj * D + c] : 0.0f;
+    sa[r][c] = gi < MA ? a[(long long)gi * D + c] : T(0);
+    sb[c][r] = gj < MB ? b[(long long)gj * D + c] : T(0);
   }
-  if (MASKED || SHIFTED) {
+  if (MASKED || SHIFTED || ROW_MASK) {
     if (tid < TILE) {
       const int gi = i0 + tid;
       const int gj = j0 + tid;
       const long long base = (long long)k * MA;  // square builds: MA == MB
       if (MASKED) {
-        mrow[tid] = gi < MA ? args.mask[base + gi] : 0.0f;
-        mcol[tid] = gj < MB ? args.mask[base + gj] : 0.0f;
+        mrow[tid] = gi < MA ? args.mask[base + gi] : T(0);
+        mcol[tid] = gj < MB ? args.mask[base + gj] : T(0);
       }
-      if (SHIFTED) srow[tid] = gi < MA ? args.shift[base + gi] : 0.0f;
+      if (SHIFTED) srow[tid] = gi < MA ? args.shift[base + gi] : T(0);
+      if (ROW_MASK) srow[tid] = gi < MA ? args.row_mask[base + gi] : T(0);
     }
   }
   __syncthreads();
 
   const int j = j0 + tx;
   if (j >= MB) return;
-  const float phi = args.phis[ks];
-  float* out = args.out + (long long)ks * MA * MB;
+  const T phi = args.phis[ks];
+  T* out = args.out + (long long)ks * MA * MB;
 #pragma unroll
   for (int rr = 0; rr < ROWS_PER_THREAD; ++rr) {
     const int r = ty + rr * BLOCK_Y;
     const int i = i0 + r;
     if (i >= MA) break;
-    float sq = 0.0f;
+    T sq = T(0);
     for (int c = 0; c < D; ++c) {
-      const float diff = __fsub_rn(sa[r][c], sb[c][tx]);
-      sq = __fadd_rn(sq, __fmul_rn(diff, diff));
+      const T diff = N::sub(sa[r][c], sb[c][tx]);
+      sq = N::add(sq, N::mul(diff, diff));
     }
-    out[(long long)i * MB + j] = pair_value<MODEL, MASKED, SHIFTED, ZERO_DIAG>(
-        sq, i == j, phi, MASKED ? mrow[r] : 0.0f, MASKED ? mcol[tx] : 0.0f,
-        SHIFTED ? srow[r] : 0.0f);
+    T v = pair_value<MODEL, MASKED, SHIFTED, ZERO_DIAG>(
+        sq, i == j, phi, MASKED ? mrow[r] : T(0), MASKED ? mcol[tx] : T(0),
+        SHIFTED ? srow[r] : T(0));
+    if (ROW_MASK) v = N::mul(srow[r], v);
+    out[(long long)i * MB + j] = v;
   }
 }
 
@@ -719,12 +768,12 @@ cudaError_t dispatch_narrow(const Args& args, cudaStream_t stream) {
   return launch_narrow<MODEL, ROW_MASK, ZERO_DIAG, 0>(args, stream);
 }
 
-template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG>
-cudaError_t launch(const Args& args, cudaStream_t stream) {
+template <typename T, int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG, bool ROW_MASK = false>
+cudaError_t launch(const ArgsT<T>& args, cudaStream_t stream) {
   const dim3 grid((args.MB + TILE - 1) / TILE, (args.MA + TILE - 1) / TILE,
                   args.K * args.S);
   const dim3 block(TILE, BLOCK_Y);
-  fused_corr_kernel<MODEL, MASKED, SHIFTED, ZERO_DIAG>
+  fused_corr_kernel<T, MODEL, MASKED, SHIFTED, ZERO_DIAG, ROW_MASK>
       <<<grid, block, 0, stream>>>(args);
   return cudaSuccess;
 }
@@ -736,8 +785,21 @@ cudaError_t dispatch_layout(const Args& args, int zero_diag, int layout,
     if (args.D == 2) return launch_sym<MODEL, MASKED, SHIFTED, 2>(args, stream);
     return launch_sym<MODEL, MASKED, SHIFTED, 0>(args, stream);
   }
-  if (zero_diag) return launch<MODEL, MASKED, SHIFTED, true>(args, stream);
-  return launch<MODEL, MASKED, SHIFTED, false>(args, stream);
+  if (zero_diag) return launch<float, MODEL, MASKED, SHIFTED, true>(args, stream);
+  return launch<float, MODEL, MASKED, SHIFTED, false>(args, stream);
+}
+
+// float64: the tile kernel, for every flag combination the entry
+// points use (a row mask only on a cross build without zero_diag)
+template <int MODEL>
+cudaError_t dispatch_f64(const ArgsT<double>& args, int masked, int shifted,
+                         int row_masked, int zero_diag, cudaStream_t stream) {
+  if (row_masked) return launch<double, MODEL, false, false, false, true>(args, stream);
+  if (masked && shifted) return launch<double, MODEL, true, true, true>(args, stream);
+  if (masked) return launch<double, MODEL, true, false, true>(args, stream);
+  if (shifted) return launch<double, MODEL, false, true, true>(args, stream);
+  if (zero_diag) return launch<double, MODEL, false, false, true>(args, stream);
+  return launch<double, MODEL, false, false, false>(args, stream);
 }
 
 template <int MODEL>
@@ -798,6 +860,40 @@ extern "C" int smk_fused_corr(const float* ca, const float* cb,
     case 0: err = dispatch_flags<0>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
     case 1: err = dispatch_flags<1>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
     default: err = dispatch_flags<2>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The float64 entry point: the tile kernel instantiated for double, for
+// every float64 build (the symmetric and narrow kernels are float32
+// only). The arguments are smk_fused_corr's without `layout`; `masked`
+// and `shifted` take only zero-diagonal square builds on one coordinate
+// set (MA == MB), and `row_masked` only a cross build with no other
+// flag. Returns cudaGetLastError() (0 on success).
+extern "C" int smk_fused_corr_f64(const double* ca, const double* cb,
+                                  const double* phis, const double* mask,
+                                  const double* shift, const double* row_mask,
+                                  double* out, int K, int S, int MA, int MB,
+                                  int D, long long a_kstride,
+                                  long long b_kstride, int model, int masked,
+                                  int shifted, int row_masked, int zero_diag,
+                                  void* stream) {
+  if (K < 1 || S < 1 || MA < 1 || MB < 1 || D < 1 || D > MAX_D ||
+      (long long)K * S > 65535 || (MA + TILE - 1) / TILE > 65535 ||
+      model < 0 || model > 2 ||
+      ((masked || shifted) && (MA != MB || !zero_diag)) ||
+      (row_masked && (masked || shifted || zero_diag || row_mask == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ArgsT<double> args{ca, cb, phis, mask, shift, row_mask, out, K, S,
+                           MA, MB, D, a_kstride, b_kstride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (model) {
+    case 0: err = dispatch_f64<0>(args, masked, shifted, row_masked, zero_diag, s); break;
+    case 1: err = dispatch_f64<1>(args, masked, shifted, row_masked, zero_diag, s); break;
+    default: err = dispatch_f64<2>(args, masked, shifted, row_masked, zero_diag, s); break;
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -1,9 +1,11 @@
 """Multivariate binary spatial GP regression — the per-subset model,
 twin of ``smk_tpu/models/probit_gp.py`` (dense engine; probit and logit
-links; conditional or collapsed single-try phi sampler; Cholesky or CG
-u-draw, the CG operator in fp32 or bf16, Jacobi- or Nystrom-
-preconditioned; native or blocked triangular solves; factor reuse and
-the kriging cache).
+links; conditional phi, or collapsed phi single-try or multiple-try
+with a gaussian, student-t or mixture proposal; Cholesky or CG u-draw,
+the CG operator in fp32 or bf16, Jacobi- or Nystrom-preconditioned;
+native or blocked Cholesky and triangular solves; correlation builds in
+fp32 or bf16; float32 or float64; several chains; factor reuse and the
+kriging cache).
 
 The JAX sampler is written for one subset and vmapped over K; here the K
 subsets are a leading axis written out in every tensor, and the
@@ -13,6 +15,11 @@ for the nine JAX subkeys of a sweep, from a noise source (per-subset
 ``torch.Generator`` streams by default). A source that replays the JAX
 key schedule makes this sampler and the JAX one consume the same
 numbers, which is how the tests hold the two draw for draw.
+
+Chains (``n_chains`` = C > 1) are more batch: the state, the noise and
+the per-subset data are K*C wide, subset-major (row k*C + c is chain c
+of subset k, the order of the twin's per-(subset, chain) keys), and
+:meth:`SpatialGPSampler.finalize` pools each subset's chains.
 
 The correlation builds go through the dispatch seam below: with
 ``fused_build="pallas"`` every build is the fused kernel
@@ -38,6 +45,8 @@ from smk_torch.ops.cg import (
     shifted_correlation_operator,
 )
 from smk_torch.ops.chol import (
+    batched_shifted_cholesky,
+    blocked_cholesky,
     blocked_tri_solve,
     chol_logdet,
     chol_solve,
@@ -125,6 +134,11 @@ class SubsetResult(NamedTuple):
 
 
 class SweepShapes(NamedTuple):
+    """What one sweep's noise draws: k rows of the batch (subsets times
+    chains), their shapes, and the collapsed phi move's proposal count
+    and family (1 and "gaussian" for the conditional sampler, whose
+    proposal is always gaussian)."""
+
     k: int
     m: int
     q: int
@@ -133,6 +147,20 @@ class SweepShapes(NamedTuple):
     weight: int = 1
     link: str = "probit"
     pg_n_terms: int = 64
+    proposals: int = 1
+    family: str = "gaussian"
+
+
+def sweep_shapes(cfg: SMKConfig, k: int, m: int, q: int, p: int, t: int,
+                 weight: int = 1) -> SweepShapes:
+    """The SweepShapes of a fit of ``k`` subsets under ``cfg``: k * n_chains
+    rows, and the collapsed sampler's proposal count and family."""
+    collapsed = cfg.phi_sampler == "collapsed"
+    return SweepShapes(
+        k * cfg.n_chains, m, q, p, t, weight, cfg.link, cfg.pg_n_terms,
+        cfg.phi_proposals if collapsed else 1,
+        cfg.phi_proposal_family if collapsed else "gaussian",
+    )
 
 
 class SweepNoise(NamedTuple):
@@ -146,14 +174,23 @@ class SweepNoise(NamedTuple):
     kb: normals (K, q, p) — the beta draw;
     kprop: normals (K, q) — the phi proposal. Under the collapsed
         sampler the twin draws component j's proposal as a scalar from
-        fold_in(kprop, j): column j holds that scalar;
+        fold_in(kprop, j): column j holds that scalar, an increment of
+        the proposal family (mtm_proposal_eps). With J = phi_proposals
+        > 1 it is (K, q, J): component j's J forward increments;
     kphi: uniforms on [1e-12, 1), (K, q) — the phi accept test (column
         j: component j's scalar from fold_in(kphi, j) when collapsed);
     ku_prior, ku_noise: normals (K, q, m) — the Matheron u-draw;
     ka: normals (K, q, q), row l using its first l+1 entries — the A rows;
     ka_u: uniforms on [1e-12, 1), (K,) — the inverse-Wishart accept test;
     kpred: normals (K, q, t) — the kriging draw (collecting sweeps only,
-        else None)."""
+        else None);
+    ksel: Gumbel draws (K, q, J) — the multiple-try candidate selection
+        (jax.random.categorical(k, lw) is argmax(lw + gumbel(k))), None
+        at J = 1;
+    krev: (K, q, J - 1) increments of the proposal family — the
+        reverse set drawn around the selected candidate, None at J = 1.
+        (The twin draws component j's three from split(fold_in(kprop,
+        j), 3).)"""
 
     kz: torch.Tensor
     kb: torch.Tensor
@@ -164,6 +201,8 @@ class SweepNoise(NamedTuple):
     ka: torch.Tensor
     ka_u: torch.Tensor
     kpred: Optional[torch.Tensor]
+    ksel: Optional[torch.Tensor] = None
+    krev: Optional[torch.Tensor] = None
 
 
 # a noise source: (sweep index, collecting?) -> that sweep's SweepNoise
@@ -175,6 +214,44 @@ def _uniform(u01: torch.Tensor, minval: float) -> torch.Tensor:
     return torch.clamp(u01 * (1.0 - minval) + minval, min=minval)
 
 
+# Multi-try proposal families (SMKConfig.phi_proposal_family): the
+# shared increment distribution on the logit-transformed scale, as the
+# twin's (probit_gp.py:291-319). Symmetry around zero is load-bearing:
+# the MTM-II weights drop the proposal density because q(a | b) =
+# q(b | a) for every family here.
+_MTM_T_DF = 3  # student_t: heavy tails, finite variance at df = 3
+_MTM_MIX_WIDE = 8.0  # mixture: the wide component's scale multiplier
+
+
+def mtm_proposal_eps(generator: torch.Generator, shape, family: str, *,
+                     dtype=torch.float32, device=None) -> torch.Tensor:
+    """Symmetric proposal increments of ``family`` from ``generator``:
+    "gaussian" normals; "student_t" with 3 degrees of freedom, as
+    z / sqrt((z_1^2 + z_2^2 + z_3^2) / 3) from four normals (exact for
+    an integer df, and no gamma sampler is needed); "mixture" a 50/50
+    scale mixture z * (8 if u < 0.5 else 1)."""
+    opts = dict(generator=generator, dtype=dtype, device=device)
+    if family == "gaussian":
+        return torch.randn(shape, **opts)
+    if family == "student_t":
+        z = torch.randn((_MTM_T_DF + 1,) + tuple(shape), **opts)
+        return z[0] / torch.sqrt(torch.sum(z[1:] * z[1:], dim=0) / _MTM_T_DF)
+    if family == "mixture":
+        z = torch.randn(shape, **opts)
+        wide = torch.rand(shape, **opts) < 0.5
+        return z * torch.where(wide, _MTM_MIX_WIDE, 1.0).to(dtype)
+    raise ValueError(f"unknown phi_proposal_family {family!r}")
+
+
+def gumbel_draws(generator: torch.Generator, shape, *, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """Standard Gumbel draws -log(-log u), u uniform on [tiny, 1) (as
+    jax.random.gumbel)."""
+    tiny = torch.finfo(dtype).tiny
+    u = _uniform(torch.rand(shape, generator=generator, dtype=dtype, device=device), tiny)
+    return -torch.log(-torch.log(u))
+
+
 def draw_sweep_noise(
     generator: torch.Generator,
     shapes: SweepShapes,
@@ -184,8 +261,10 @@ def draw_sweep_noise(
     device=None,
 ) -> SweepNoise:
     """One subset's sweep noise (no K axis) from ``generator``: one
-    uniform and one normal draw, sliced into the fields, and under logit
-    one exponential draw for the Gamma(weight, 1) series terms."""
+    uniform and one normal draw, sliced into the fields, under logit one
+    exponential draw for the Gamma(weight, 1) series terms, and last the
+    collapsed move's family increments and, at J > 1, its Gumbel and
+    reverse draws (so the single-try gaussian stream is unchanged)."""
     m, q, p, t, w = shapes.m, shapes.q, shapes.p, shapes.t, shapes.weight
     logit = shapes.link == "logit"
     z_shape = (m, q) if w == 1 else (w, m, q)
@@ -203,6 +282,15 @@ def draw_sweep_noise(
                          device=device)
     else:
         kz = _uniform(uni[:n_z], _TINY).reshape(z_shape)
+    ksel = krev = None
+    j_try, family = shapes.proposals, shapes.family
+    opts = dict(dtype=dtype, device=device)
+    if j_try > 1:
+        kprop = mtm_proposal_eps(generator, (q, j_try), family, **opts)
+        ksel = gumbel_draws(generator, (q, j_try), **opts)
+        krev = mtm_proposal_eps(generator, (q, j_try - 1), family, **opts)
+    elif family != "gaussian":
+        kprop = mtm_proposal_eps(generator, (q,), family, **opts)
     return SweepNoise(
         kz=kz,
         kb=kb.reshape(q, p),
@@ -213,6 +301,8 @@ def draw_sweep_noise(
         ka=ka.reshape(q, q),
         ka_u=_uniform(uni[n_z + q], 1e-12),
         kpred=kpred[0].reshape(q, t) if collect else None,
+        ksel=ksel,
+        krev=krev,
     )
 
 
@@ -225,9 +315,9 @@ def stack_noise(per_subset: Sequence[SweepNoise]) -> SweepNoise:
 
 
 def subset_generators(seed: int, k: int, device) -> List[torch.Generator]:
-    """One generator per subset, seeded from ``seed`` by numpy's
-    SeedSequence (independent streams; twin of the per-subset key split
-    of parallel/executor.subset_chain_keys)."""
+    """One generator per batch row (subset, or (subset, chain)), seeded
+    from ``seed`` by numpy's SeedSequence (independent streams; twin of
+    the per-subset key split of parallel/executor.subset_chain_keys)."""
     gens = []
     for child in np.random.SeedSequence(seed).spawn(k):
         g = torch.Generator(device=device)
@@ -237,8 +327,8 @@ def subset_generators(seed: int, k: int, device) -> List[torch.Generator]:
 
 
 class GeneratorNoise:
-    """The default noise source: each subset draws its sweep noise from
-    its own generator."""
+    """The default noise source: each batch row (subset, or (subset,
+    chain)) draws its sweep noise from its own generator."""
 
     def __init__(self, generators: Sequence[torch.Generator], shapes: SweepShapes,
                  *, dtype=torch.float32, device=None):
@@ -253,6 +343,12 @@ class GeneratorNoise:
                              dtype=self.dtype, device=self.device)
             for g in self.generators
         ])
+
+    def subset(self, lo: int, hi: int) -> "GeneratorNoise":
+        """The source of batch rows [lo, hi) alone: their own generators,
+        so a K-chunked run draws what the whole run draws."""
+        return GeneratorNoise(self.generators[lo:hi], self.shapes._replace(k=hi - lo),
+                              dtype=self.dtype, device=self.device)
 
 
 def n_params(q: int, p: int) -> int:
@@ -271,13 +367,17 @@ def build_calls(cfg: SMKConfig, q: int, n_sweeps: int, n_burn: int) -> dict:
       select over K, so built whether or not a subset accepts); R~ for
       the back-multiply of a threaded S-factor (thread_s), every sweep;
     - shifted build: S_cur and S_prop per component per collapsed
-      update; the Cholesky u-draw's S per component per sweep, except
+      update (multiple-try: the (J+1)-deep forward stack and the
+      (J-1)-deep reverse stack, one call each, so the count is the
+      same); the Cholesky u-draw's S per component per sweep, except
       where the collapsed block hands it over (thread_s on update
       sweeps);
     - kriging cross and test builds: the cache at the collecting entry
       and the proposal's operators per collecting update sweep (one
       call, or one per component when collapsed); without the cache,
       one per collecting sweep.
+
+    Chains change nothing here: they widen every call's batch.
     """
     collapsed = cfg.phi_sampler == "collapsed"
     cg = cfg.u_solver == "cg"
@@ -310,15 +410,17 @@ def _pad_identity(r: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return mm * r + (1.0 - mm) * eye
 
 
-def _f32(x) -> float:
-    """A Python float holding the float32 rounding of ``x``."""
-    return float(np.float32(x))
+def _np_float(dtype):
+    """The numpy scalar type of the sampler's dtype: the twin computes its
+    scalar constants in the working dtype (float32, or float64 under
+    jax_enable_x64)."""
+    return np.float64 if dtype == torch.float64 else np.float32
 
 
 class SpatialGPSampler:
     """The K-batched subset sampler (dense engine).
 
-    ``guard_rejects``: (K,) int32 on the device, the collapsed moves the
+    ``guard_rejects``: (K*C,) int32 on the device, the collapsed moves the
     Metropolis test accepted and the finite-factor guard turned down,
     summed over components and update sweeps since the sampler was made
     (None before the first collapsed update). Instrumentation only: the
@@ -331,13 +433,33 @@ class SpatialGPSampler:
         self._fused = config.fused_build == "pallas"
         self.guard_rejects = None
 
+    def chain_data(self, data: SubsetData) -> SubsetData:
+        """The K subsets' data for the K*C-wide chain batch, subset-major:
+        each subset's coords, x, y and mask repeated for its C chains
+        (O(m) per row; the test sites stay shared). The data itself when
+        C = 1."""
+        c = self.config.n_chains
+        if c == 1:
+            return data
+        rep = lambda a: torch.repeat_interleave(a, c, dim=0)  # noqa: E731
+        return data._replace(coords=rep(data.coords), x=rep(data.x), y=rep(data.y),
+                             mask=rep(data.mask))
+
     # ------------------------------------------------------------------
     # Correlation builds — the one dispatch seam between the sampler and
     # its (m, m) builds (twin of probit_gp.py:367-549). phis carry a
     # leading K axis.
     # ------------------------------------------------------------------
     def _corr(self, dist, phi):
-        return correlation(dist, phi, self.config.cov_model)
+        """The correlation on the unfused path. build_dtype="bfloat16"
+        evaluates it in bf16 on bf16 distances and phi, then upcasts
+        (the twin's build-dtype gate, probit_gp.py:373-389)."""
+        cfg = self.config
+        if cfg.build_dtype == "bfloat16":
+            return correlation(
+                dist.to(torch.bfloat16), phi.to(torch.bfloat16), cfg.cov_model
+            ).to(dist.dtype)
+        return correlation(dist, phi, cfg.cov_model)
 
     def _masked_corr_stack(self, consts, phis, mask):
         """(K, s, m, m) masked correlation stack for (K, s) phis."""
@@ -357,6 +479,20 @@ class SpatialGPSampler:
             )[:, 0]
         return _pad_identity(self._corr(consts.dist, phi[:, None, None]), mask)
 
+    def _shifted_chol_stack(self, consts, phis, mask, shift):
+        """(chol_stack, r_stack) for S = R~(phi_s) + diag(shift) over
+        (K, s) phis: the multiple-try candidates' build and factor, one
+        call each. Fused: the shifted stack comes from the kernel and
+        r_stack is None (the accept side rebuilds R~ at the selected
+        phi); off: r_stack is the masked correlation stack."""
+        if self._fused:
+            s_stk = fused_masked_shifted_build(
+                consts.coords, phis, mask, shift, self.config.cov_model
+            )
+            return cholesky(s_stk), None
+        r_stk = self._masked_corr_stack(consts, phis, mask)
+        return batched_shifted_cholesky(r_stk, shift), r_stk
+
     def _shifted_chol_one(self, consts, phi, mask, shift):
         """(chol_s, s_mat, r) for S = R~(phi) + diag(shift), one phi per
         subset. Fused: s_mat is the kernel's shifted build (handed back
@@ -372,12 +508,18 @@ class SpatialGPSampler:
         return shifted_cholesky(r, shift), None, r
 
     def _chol_r(self, r):
-        """Factor the (stacked) correlation under the scale-aware jitter.
-        ``r`` is always a fresh build that nothing reads afterwards (its
-        CG operators are taken from it first, _r_operators), so the
-        jitter goes onto its diagonal in place rather than into a copy
-        (the same values as the twin's jittered_cholesky)."""
-        r.diagonal(dim1=-2, dim2=-1).add_(self.config.effective_jitter(r.shape[-1]))
+        """Factor the (stacked) correlation under the scale-aware jitter:
+        blocked (ops/chol.blocked_cholesky) when chol_block_size > 0,
+        else natively. On the native route ``r`` is a fresh build that
+        nothing reads afterwards (its CG operators are taken from it
+        first, _r_operators), so the jitter goes onto its diagonal in
+        place rather than into a copy (the same values as the twin's
+        jittered_cholesky); the blocked route factors a padded copy."""
+        cfg = self.config
+        jit_eff = cfg.effective_jitter(r.shape[-1])
+        if cfg.chol_block_size > 0:
+            return blocked_cholesky(r, jit_eff, cfg.chol_block_size)
+        r.diagonal(dim1=-2, dim2=-1).add_(jit_eff)
         return cholesky(r)
 
     def _mv_dtype(self, dtype):
@@ -485,11 +627,67 @@ class SpatialGPSampler:
             n_chol_calls=empty_counter(),
         )
 
+    def _mtm_ratio(self, consts, mask, cache, j, ytilde, shift, phi_j, t_cur, step,
+                   noise, *, thread_s: bool):
+        """The multiple-try (MTM II, Liu, Liang & Wong 2000) proposal and
+        log acceptance ratio of component j, J = phi_proposals (twin:
+        probit_gp.py:1058-1175): the current point and J candidates are
+        built and factored in one (J+1)-deep call; a candidate is chosen
+        by its importance weight; J - 1 reverse points drawn around it
+        are built and factored in one (J-1)-deep call. Weights are the
+        collapsed marginal plus the transform's Jacobian (the symmetric
+        proposal densities cancel); a non-finite weight (a failed
+        factor) is -inf, so an all -inf forward set selects index 0 and
+        its -inf weight sum rejects. Returns (cache, log_ratio (K,),
+        phi_prop, r_prop (the selected candidate's R~, or None when
+        fused), chol_s_cur, chol_s_prop (the S-factors, with thread_s))."""
+        cfg = self.config
+        lo, hi = cfg.priors.phi_min, cfg.priors.phi_max
+        j_try = cfg.phi_proposals
+        rows = torch.arange(phi_j.shape[0], device=phi_j.device)
+
+        def stack_logw(t_vec, phi_vec):
+            chol_stk, r_stk = self._shifted_chol_stack(consts, phi_vec, mask, shift)
+            yt = ytilde[:, None].expand(-1, phi_vec.shape[1], -1)
+            alpha = self._tri(chol_stk, yt)
+            ll = -0.5 * torch.sum(alpha * alpha, dim=-1) - 0.5 * chol_logdet(chol_stk)
+            sig = torch.sigmoid(t_vec)
+            lw = ll + torch.log(sig * (1.0 - sig))
+            return torch.where(torch.isfinite(lw), lw, -math.inf), r_stk, chol_stk
+
+        t_props = t_cur[:, None] + step[:, None] * noise.kprop[:, j]
+        t_stack = torch.cat([t_cur[:, None], t_props], dim=1)  # (K, J+1)
+        phi_stack = torch.cat([phi_j[:, None], lo + (hi - lo) * torch.sigmoid(t_props)], dim=1)
+        lw_stack, r_stack, chol_stack = stack_logw(t_stack, phi_stack)
+        cache = tick(cache, j_try + 1, n_calls=1)
+        lw_cur, lw_fwd = lw_stack[:, 0], lw_stack[:, 1:]
+        # jax.random.categorical: argmax of the weights plus Gumbel noise
+        sel = torch.argmax(lw_fwd + noise.ksel[:, j], dim=1) + 1
+        phi_prop = phi_stack[rows, sel]
+        t_sel = t_stack[rows, sel]
+        # only the selected slices survive: the forward stacks are freed
+        # before the reverse set is built
+        r_prop = None if r_stack is None else r_stack[rows, sel]
+        chol_s_cur = chol_s_prop = None
+        if thread_s:
+            chol_s_cur = chol_stack[:, 0].clone()
+            chol_s_prop = chol_stack[rows, sel]
+        del r_stack, chol_stack
+        t_rev = t_sel[:, None] + step[:, None] * noise.krev[:, j]
+        phi_rev = lo + (hi - lo) * torch.sigmoid(t_rev)
+        lw_rev, _, _ = stack_logw(t_rev, phi_rev)
+        cache = tick(cache, j_try - 1, n_calls=1)
+        log_ratio = torch.logsumexp(lw_fwd, dim=1) - torch.logsumexp(
+            torch.cat([lw_rev, lw_cur[:, None]], dim=1), dim=1
+        )
+        return cache, log_ratio, phi_prop, r_prop, chol_s_cur, chol_s_prop
+
     def _collapsed_update(self, consts, mask, state, phi, chol_r, cache, j,
                           ytilde, d_vec, noise, *, thread_s: bool):
         """Component j's partially-collapsed phi move on an update sweep
-        (twin of collapsed_phi_block's single-try ``upd``): MH on the
-        marginal ytilde ~ N(0, R~(phi) + jit I + D), u_j integrated out.
+        (twin of collapsed_phi_block's ``upd``): MH on the marginal
+        ytilde ~ N(0, R~(phi) + jit I + D), u_j integrated out, single-try
+        or, with phi_proposals = J > 1, multiple-try (_mtm_ratio).
         Returns (phi, chol_r, cache, accepted (K,), chol_s): chol_s is the
         S-factor at the selected phi when ``thread_s``, else None.
 
@@ -507,27 +705,33 @@ class SpatialGPSampler:
         step = torch.exp(state.phi_log_step[:, j])
         t_cur = torch.log((phi_j - lo) / (hi - phi_j))
 
-        def marg_ll(phi_v):
-            chol_s, _, r = self._shifted_chol_one(consts, phi_v, mask, shift)
-            alpha = self._tri(chol_s, ytilde)
-            ll = -0.5 * torch.sum(alpha * alpha, dim=-1) - 0.5 * chol_logdet(chol_s)
-            return ll, r, chol_s
+        if cfg.phi_proposals > 1:
+            cache, log_ratio, phi_prop, r_prop, chol_s_cur, chol_s_prop = self._mtm_ratio(
+                consts, mask, cache, j, ytilde, shift, phi_j, t_cur, step, noise,
+                thread_s=thread_s,
+            )
+        else:
+            def marg_ll(phi_v):
+                chol_s, _, r = self._shifted_chol_one(consts, phi_v, mask, shift)
+                alpha = self._tri(chol_s, ytilde)
+                ll = -0.5 * torch.sum(alpha * alpha, dim=-1) - 0.5 * chol_logdet(chol_s)
+                return ll, r, chol_s
 
-        t_prop = t_cur + step * noise.kprop[:, j]
-        sig_cur = torch.sigmoid(t_cur)
-        sig_prop = torch.sigmoid(t_prop)
-        phi_prop = lo + (hi - lo) * sig_prop
-        cache = tick(cache, 2)  # S_cur and S_prop
-        ll_cur, _, chol_s_cur = marg_ll(phi_j)
-        if not thread_s:
-            chol_s_cur = None
-        ll_prop, r_prop, chol_s_prop = marg_ll(phi_prop)
-        if not thread_s:
-            chol_s_prop = None
-        log_ratio = (
-            ll_prop + torch.log(sig_prop * (1.0 - sig_prop))
-            - ll_cur - torch.log(sig_cur * (1.0 - sig_cur))
-        )
+            t_prop = t_cur + step * noise.kprop[:, j]
+            sig_cur = torch.sigmoid(t_cur)
+            sig_prop = torch.sigmoid(t_prop)
+            phi_prop = lo + (hi - lo) * sig_prop
+            cache = tick(cache, 2)  # S_cur and S_prop
+            ll_cur, _, chol_s_cur = marg_ll(phi_j)
+            if not thread_s:
+                chol_s_cur = None
+            ll_prop, r_prop, chol_s_prop = marg_ll(phi_prop)
+            if not thread_s:
+                chol_s_prop = None
+            log_ratio = (
+                ll_prop + torch.log(sig_prop * (1.0 - sig_prop))
+                - ll_cur - torch.log(sig_cur * (1.0 - sig_cur))
+            )
         accept_mh = torch.log(noise.kphi[:, j]) < log_ratio
 
         # the accept side: the carried prior factor at phi' (fused: R~(phi')
@@ -582,7 +786,7 @@ class SpatialGPSampler:
             r0 = _pad_identity(
                 self._corr(dist[:, None], phi0[..., None, None]), data.mask
             )
-        log_step = _f32(np.log(np.float32(self.config.phi_step)))
+        log_step = float(np.log(_np_float(dtype)(self.config.phi_step)))
         return SamplerState(
             beta=beta_init.to(dtype).expand(k, q, p).clone(),
             u=torch.zeros((k, m, q), dtype=dtype, device=dev),
@@ -612,6 +816,7 @@ class SpatialGPSampler:
         dtype, dev = data.x.dtype, data.x.device
         mask = data.mask
         jit_eff = cfg.effective_jitter(m)
+        f = _np_float(dtype)  # scalar constants in the working dtype
         beta, u, a, phi = state.beta, state.u, state.a, state.phi
 
         # --- 1. link augmentation: z ~ N(eta + w, 1/omega) ------------
@@ -688,14 +893,13 @@ class SpatialGPSampler:
             # the gain clock counts phi updates (float32, as the twin)
             if not (cfg.phi_adapt and not collect):
                 return state.phi_log_step
-            f32 = np.float32
-            gain = f32(cfg.phi_adapt_rate) * (
-                f32(1.0) + f32(it) / f32(cfg.phi_update_every)
-            ) ** f32(-0.6)
-            scale = _f32(gain * f32(1.0 if is_update else 0.0))
+            gain = f(cfg.phi_adapt_rate) * (
+                f(1.0) + f(it) / f(cfg.phi_update_every)
+            ) ** f(-0.6)
+            scale = float(gain * f(1.0 if is_update else 0.0))
             return torch.clamp(
                 state.phi_log_step + scale * (accepted - cfg.phi_target_accept),
-                _f32(np.log(f32(1e-3))), _f32(np.log(f32(50.0))),
+                float(np.log(f(1e-3))), float(np.log(f(50.0))),
             )
 
         # --- 4. U | z, beta, A, phi — per-component Matheron draw -----
@@ -712,7 +916,7 @@ class SpatialGPSampler:
             partial_resid = e0 - w_full + u[:, :, j, None] * a_j[:, None, :]
             c_vec = torch.einsum("kml,kl->km", womega, a_j * a_j)
             b_vec = torch.einsum("kml,kl->km", womega * partial_resid, a_j)
-            c_safe = torch.clamp(c_vec, min=_f32(1.0 / np.float32(big)))
+            c_safe = torch.clamp(c_vec, min=float(f(1.0) / f(big)))
             ytilde = b_vec / c_safe
             d_vec = torch.clamp(1.0 / c_safe, max=big)
             chol_s = None
@@ -772,7 +976,7 @@ class SpatialGPSampler:
         phi_log_step = rm_adapt(accepted)
 
         # --- 5. A | z, beta, U (lower-triangular rows) ----------------
-        prior_prec = ts / _f32(cfg.priors.a_scale) ** 2
+        prior_prec = ts / float(f(cfg.priors.a_scale)) ** 2
         a_new = torch.zeros_like(a)
         for l in range(q):
             u_sub = u[:, :, : l + 1]
@@ -864,22 +1068,34 @@ class SpatialGPSampler:
         *,
         seed: int = 0,
     ) -> SubsetResult:
-        """Burn-in sweeps, collecting sweeps, compression. ``noise``
-        defaults to per-subset generators seeded from ``seed``."""
+        """Burn-in sweeps, collecting sweeps, compression. ``data`` holds
+        the K subsets; ``init_state`` and ``noise`` are K*C wide
+        (n_chains = C; twin of ``run`` at C = 1 and of ``run_chains``
+        above it), subset-major. ``noise`` defaults to per-row generators
+        seeded from ``seed``."""
         cfg = self.config
-        if noise is None:
-            k, m, q, p = data.x.shape
-            shapes = SweepShapes(k, m, q, p, data.coords_test.shape[0], self.weight,
-                                 cfg.link, cfg.pg_n_terms)
-            noise = GeneratorNoise(
-                subset_generators(seed, k, data.x.device), shapes,
-                dtype=data.x.dtype, device=data.x.device,
+        rows = data.x.shape[0] * cfg.n_chains
+        if init_state.beta.shape[0] != rows:
+            raise ValueError(
+                f"init_state has {init_state.beta.shape[0]} rows; {data.x.shape[0]} "
+                f"subsets of {cfg.n_chains} chains need {rows}"
             )
+        if noise is None:
+            noise = self.default_noise(data, seed)
+        data = self.chain_data(data)
         state = self._burn_in(data, init_state, noise)
         state, (param_draws, w_draws) = self._sample_chunk(
             data, state, cfg.n_burn_in, cfg.n_kept, noise
         )
         return self.finalize(state, param_draws, w_draws)
+
+    def default_noise(self, data: SubsetData, seed: int = 0) -> GeneratorNoise:
+        """One generator per (subset, chain) row of ``data``'s K subsets,
+        seeded from ``seed``."""
+        k, m, q, p = data.x.shape
+        shapes = sweep_shapes(self.config, k, m, q, p, data.coords_test.shape[0], self.weight)
+        return GeneratorNoise(subset_generators(seed, shapes.k, data.x.device), shapes,
+                              dtype=data.x.dtype, device=data.x.device)
 
     def _burn_in(self, data, state, noise: NoiseSource) -> SamplerState:
         consts = self._consts(data)
@@ -911,20 +1127,30 @@ class SpatialGPSampler:
         return state, (param_draws, w_draws)
 
     def finalize(self, state, param_draws, w_draws) -> SubsetResult:
-        """Quantile compression and diagnostics over the kept draws."""
+        """Quantile compression and diagnostics over the kept draws of the
+        K*C rows (twin of ``finalize``): each subset's C chains are pooled
+        chain-major for the grids and samples, ESS is summed over chains,
+        R-hat spans them and the accept rate is their mean."""
         cfg = self.config
+        c = cfg.n_chains
         n_phi_updates = sum(
             1 for i in range(cfg.n_burn_in, cfg.n_samples)
             if i % cfg.phi_update_every == 0
         )
+        kc, n = param_draws.shape[:2]
+        chains_p = param_draws.reshape(kc // c, c, n, -1)
+        chains_w = w_draws.reshape(kc // c, c, n, -1)
+        pooled_p = chains_p.reshape(kc // c, c * n, -1)
+        pooled_w = chains_w.reshape(kc // c, c * n, -1)
+        accept = state.phi_accept / float(max(n_phi_updates, 1))
         return SubsetResult(
-            param_grid=quantile_grid(param_draws, cfg.n_quantiles, dim=1),
-            w_grid=quantile_grid(w_draws, cfg.n_quantiles, dim=1),
-            phi_accept_rate=state.phi_accept / float(max(n_phi_updates, 1)),
-            param_samples=param_draws,
-            w_samples=w_draws,
-            param_ess=effective_sample_size(param_draws, dim=1),
-            param_rhat=rhat(param_draws[:, None]),
-            w_ess=effective_sample_size(w_draws, dim=1),
-            w_rhat=rhat(w_draws[:, None]),
+            param_grid=quantile_grid(pooled_p, cfg.n_quantiles, dim=1),
+            w_grid=quantile_grid(pooled_w, cfg.n_quantiles, dim=1),
+            phi_accept_rate=torch.mean(accept.reshape(kc // c, c, -1), dim=1),
+            param_samples=pooled_p,
+            w_samples=pooled_w,
+            param_ess=torch.sum(effective_sample_size(chains_p, dim=2), dim=1),
+            param_rhat=rhat(chains_p),
+            w_ess=torch.sum(effective_sample_size(chains_w, dim=2), dim=1),
+            w_rhat=rhat(chains_w),
         )

@@ -26,18 +26,19 @@ import torch
 from smk_torch.ops.chol import chol_solve, jittered_cholesky, tri_solve
 
 
-def bf16_matvec(r_mv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """fp32 R x for a bf16 matrix (..., m, m) and an fp32 vector
-    (..., m) rounded to bf16: exact products, fp32 sums and result."""
+def bf16_matvec(r_mv: torch.Tensor, x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """R x for a bf16 matrix (..., m, m) and a vector (..., m) rounded to
+    bf16: exact products, sums and result in ``out_dtype`` (fp32, or
+    fp64 in a float64 fit, as the twin's preferred_element_type)."""
     xb = x.to(torch.bfloat16)
-    if r_mv.is_cuda:
+    if r_mv.is_cuda and out_dtype == torch.float32:
         batch = r_mv.shape[:-2]
         m = r_mv.shape[-1]
         out = torch.bmm(
             r_mv.reshape(-1, m, m), xb.reshape(-1, m, 1), out_dtype=torch.float32
         )
         return out.reshape(batch + (m,))
-    return (r_mv.float() @ xb.float()[..., None])[..., 0]
+    return (r_mv.to(out_dtype) @ xb.to(out_dtype)[..., None])[..., 0]
 
 
 def shifted_correlation_operator(r, shift, matvec_dtype, acc_dtype):
@@ -51,7 +52,7 @@ def shifted_correlation_operator(r, shift, matvec_dtype, acc_dtype):
     if matvec_dtype == torch.bfloat16:
 
         def apply_r(x):
-            return bf16_matvec(r_mv, x).to(acc_dtype)
+            return bf16_matvec(r_mv, x, acc_dtype)
 
     else:
 

@@ -42,6 +42,52 @@ def jittered_cholesky(mat: torch.Tensor, jitter: float = 1e-5) -> torch.Tensor:
     return cholesky(_add_diag(mat, jitter))
 
 
+def blocked_cholesky(
+    mat: torch.Tensor, jitter: float = 0.0, block_size: int = 512
+) -> torch.Tensor:
+    """Lower factor of ``mat + jitter * I`` by the twin's left-looking
+    blocked algorithm (``chol.blocked_cholesky``): per block column of
+    width b, the Schur-complement update and the panel scaling (by the
+    explicit inverse of the b x b diagonal factor) are two GEMMs, and
+    only the b x b diagonal blocks go through :func:`cholesky`. The
+    same factorization as :func:`cholesky`, up to the GEMMs' summation
+    order.
+
+    mat: (..., m, m). At m <= block_size it is :func:`jittered_cholesky`.
+    Otherwise m is padded to a multiple of b with an identity tail, as
+    in the twin, and the factor is built in place in that padded copy
+    (left-looking: block column k reads only the columns already
+    factored and its own, untouched, input; ``mat`` itself is not
+    written). A diagonal block that is not positive definite factors
+    to NaN (:func:`cholesky`), and the GEMMs carry the NaN into every
+    later block column, where the twin's XLA GEMMs carry it."""
+    m = mat.shape[-1]
+    if m <= block_size:
+        return jittered_cholesky(mat, jitter)
+    b = block_size
+    nb = -(-m // b)
+    mp = nb * b
+    buf = torch.zeros(mat.shape[:-2] + (mp, mp), dtype=mat.dtype, device=mat.device)
+    buf[..., :m, :m] = mat
+    diag = buf.diagonal(dim1=-2, dim2=-1)
+    if jitter:
+        diag[..., :m].add_(jitter)
+    diag[..., m:].fill_(1.0)
+    eye_b = torch.eye(b, dtype=mat.dtype, device=mat.device)
+    for k in range(nb):
+        lo, hi = k * b, (k + 1) * b
+        s = buf[..., lo:, lo:hi]
+        if k > 0:
+            s = s - buf[..., lo:, :lo] @ buf[..., lo:hi, :lo].mT
+        l_kk = cholesky(s[..., :b, :])
+        buf[..., lo:hi, lo:hi] = l_kk
+        if hi < mp:
+            inv_kk = torch.linalg.solve_triangular(l_kk, eye_b.expand(l_kk.shape), upper=False)
+            buf[..., hi:, lo:hi] = s[..., b:, :] @ inv_kk.mT
+        del s
+    return torch.tril(buf[..., :m, :m]) if mp != m else buf.tril_()
+
+
 def shifted_cholesky(r: torch.Tensor, shift) -> torch.Tensor:
     """Lower Cholesky factor of ``r + diag(shift)``; shift is a scalar or
     a (..., m) diagonal."""

@@ -14,8 +14,12 @@ build and every unmasked square build of at most ``NARROW_MAX_M`` rows
 square ones run the symmetric kernel (layout 1: one half of the tile
 pairs computed, the mirror stored from it). :func:`kernel_layout`
 makes that choice. The tile kernel (layout 0), the port's first, is
-launched by no entry point: the other two are held against it bit for
-bit.
+launched by no float32 entry point: the other two are held against it
+bit for bit. A float64 build (``SMKConfig.dtype="float64"``; the TPU
+kernel takes its dtype from the coordinates) runs the tile kernel
+instantiated for double (``smk_fused_corr_f64``), whatever the build:
+the symmetric and narrow kernels are float32 only. Any other dtype
+raises.
 
 Five entry points wrap it, as in the twin: :func:`fused_correlation`,
 :func:`fused_correlation_stack`, :func:`fused_masked_correlation_stack`,
@@ -58,7 +62,10 @@ PLAIN_CALLS: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 TILE = 64
 # the kernel a build launches (the C entry point's `layout` argument)
 TILED, SYMMETRIC, NARROW = 0, 1, 2
-LAYOUT_LAUNCHES: Dict[int, int] = dict.fromkeys((TILED, SYMMETRIC, NARROW), 0)
+# the tile kernel instantiated for double (its own C entry point); a key
+# of LAYOUT_LAUNCHES, never a `layout` argument
+TILED_F64 = 3
+LAYOUT_LAUNCHES: Dict[int, int] = dict.fromkeys((TILED, SYMMETRIC, NARROW, TILED_F64), 0)
 # the widest square build the narrow kernel takes: it computes every
 # element, where the symmetric kernel computes one half
 NARROW_MAX_M = 256
@@ -89,8 +96,20 @@ def bind_kernel(lib):
     return fn
 
 
-def _kernel():
-    return bind_kernel(cuda_build.load("fused_corr"))
+def bind_kernel_f64(lib):
+    """The float64 C entry point ``smk_fused_corr_f64``: the arguments of
+    :func:`bind_kernel` without ``layout``."""
+    fn = lib.smk_fused_corr_f64
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 7 + [i] * 5 + [ll, ll] + [i] * 5 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel(dtype=torch.float32):
+    lib = cuda_build.load("fused_corr")
+    return bind_kernel_f64(lib) if dtype == torch.float64 else bind_kernel(lib)
 
 
 def plain_build(
@@ -154,10 +173,15 @@ def kernel_layout(coords_a, coords_b, zero_diag: bool, masked: bool,
 def _launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout, row_mask=None):
     """One kernel launch on the current stream; raises on a launch
     error (the C function returns cudaGetLastError()). ``layout``
-    SYMMETRIC needs ``cb`` to be ``ca``; ``row_mask`` needs NARROW."""
+    SYMMETRIC needs ``cb`` to be ``ca``; ``row_mask`` needs NARROW. A
+    float64 ``out`` launches the double tile kernel (``layout`` must be
+    TILED)."""
     k, s, ma, mb = out.shape
     d = ca.shape[-1]
-    err = _kernel()(
+    f64 = out.dtype == torch.float64
+    if f64 and layout != TILED:
+        raise ValueError(f"fused build: float64 runs the tile kernel only, not layout {layout}")
+    args = [
         ca.data_ptr(), cb.data_ptr(), phis.data_ptr(),
         0 if mask is None else mask.data_ptr(),
         0 if shift is None else shift.data_ptr(),
@@ -165,9 +189,11 @@ def _launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout, row_mask=N
         out.data_ptr(), k, s, ma, mb, d,
         ca.stride(0), cb.stride(0),
         _MODEL_IDS[model], int(mask is not None), int(shift is not None),
-        int(row_mask is not None), int(zero_diag), layout,
-        torch.cuda.current_stream(out.device).cuda_stream,
-    )
+        int(row_mask is not None), int(zero_diag),
+    ]
+    if not f64:
+        args.append(layout)
+    err = _kernel(out.dtype)(*args, torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"fused_corr kernel launch failed: CUDA error {err} "
@@ -240,11 +266,15 @@ def _fused_build(
             tensors.append(("shift", sh))
         if rm is not None:
             tensors.append(("row_mask", rm))
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"fused build: coordinates must be float32 or float64, got {dtype}")
+        if dtype == torch.float64:
+            layout = TILED  # the double tile kernel takes every float64 build
         for name, t in tensors:
             if t.device != dev:
                 raise ValueError(f"fused build: {name} is on {t.device}, not {dev}")
-            if t.dtype != torch.float32:
-                raise TypeError(f"fused build: {name} must be float32, got {t.dtype}")
+            if t.dtype != dtype:
+                raise TypeError(f"fused build: {name} must be {dtype}, got {t.dtype}")
         if not 1 <= d <= _MAX_D or cb.shape[-1] != d:
             raise ValueError(
                 f"fused build: coordinate dimension must be 1..{_MAX_D} "
@@ -265,7 +295,7 @@ def _fused_build(
         if out.numel():
             _launch(ca, cb, ph, mk, sh, model, zero_diag, out, layout, rm)
             LAUNCHES[entry] += 1
-            LAYOUT_LAUNCHES[layout] += 1
+            LAYOUT_LAUNCHES[TILED_F64 if dtype == torch.float64 else layout] += 1
     return out if batched else out[0]
 
 

@@ -50,3 +50,11 @@ def rhat(chains: torch.Tensor) -> torch.Tensor:
     between = n * _var1(means, -2)
     var_est = (n - 1) / n * within + between / n
     return torch.sqrt(var_est / torch.clamp(within, min=1e-30))
+
+
+def split_rhat(chain: torch.Tensor) -> torch.Tensor:
+    """Split-R-hat per column of one chain, (..., n, d) -> (..., d) (a 1-D
+    chain is one column): :func:`rhat` of a single chain."""
+    if chain.dim() == 1:
+        chain = chain[:, None]
+    return rhat(chain.unsqueeze(-3))

@@ -39,6 +39,7 @@ from smk_tpu.config import PriorConfig as JaxPriors
 from smk_tpu.config import SMKConfig as JaxConfig
 from smk_tpu.models.probit_gp import SpatialGPSampler as JaxSampler
 from smk_tpu.models.probit_gp import SubsetData as JaxData
+from smk_tpu.models.probit_gp import mtm_proposal_eps
 from smk_torch import convert
 from smk_torch.config import PriorConfig, SMKConfig
 from smk_torch.models import probit_gp as tp
@@ -57,15 +58,21 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
 def jax_sweep_noise(key, m, q, p, t, weight=1, *, collapsed=False, link="probit",
-                    n_terms=64):
+                    n_terms=64, proposals=1, family="gaussian", dtype=jnp.float32):
     """The numbers one JAX sweep draws from ``key``
     (probit_gp.py:700-702 and the draw sites it feeds), and the key the
     sweep carries on. Collapsed: component j's proposal and accept
     numbers are scalars from fold_in(kprop, j) and fold_in(kphi, j)
-    (probit_gp.py:1015-1018, :1176-1184). Logit: kz feeds sample_pg's
-    exponential (weight 1) or gamma draws (polya_gamma.py:61-63)."""
+    (probit_gp.py:1015-1018, :1176-1184), the proposal an increment of
+    ``family``; with ``proposals`` = J > 1 the multiple-try draws from
+    split(fold_in(kprop, j), 3) (probit_gp.py:1073-1079, :1130,
+    :1161-1164): J forward increments, the Gumbel draws of the
+    candidate selection (jax.random.categorical is argmax(logits +
+    gumbel(key))) and J - 1 reverse increments, the last two else None.
+    Logit: kz feeds sample_pg's exponential (weight 1) or gamma draws
+    (polya_gamma.py:61-63). ``dtype``: the sweep's working dtype."""
     key, kz, kb, kphi, kprop, ku_prior, ku_noise, ka, kpred = jax.random.split(key, 9)
-    f32 = jnp.float32
+    f32 = dtype
     rows = jax.random.split(ka, q + 1)
     ka_ = jnp.zeros((q, q), f32)
     for l in range(q):
@@ -82,9 +89,16 @@ def jax_sweep_noise(key, m, q, p, t, weight=1, *, collapsed=False, link="probit"
         z = jax.random.uniform(
             kz, (m, q) if weight == 1 else (weight, m, q), f32, minval=1e-7, maxval=1.0
         )
-    if collapsed:
-        prop = jnp.stack([jax.random.normal(jax.random.fold_in(kprop, j), (), f32)
+    sel = rev = None
+    if collapsed and proposals > 1:
+        keys = [jax.random.split(jax.random.fold_in(kprop, j), 3) for j in range(q)]
+        prop = jnp.stack([mtm_proposal_eps(ks[0], (proposals,), f32, family) for ks in keys])
+        sel = jnp.stack([jax.random.gumbel(ks[1], (proposals,), f32) for ks in keys])
+        rev = jnp.stack([mtm_proposal_eps(ks[2], (proposals - 1,), f32, family) for ks in keys])
+    elif collapsed:
+        prop = jnp.stack([mtm_proposal_eps(jax.random.fold_in(kprop, j), (), f32, family)
                           for j in range(q)])
+    if collapsed:
         acc = jnp.stack([jax.random.uniform(jax.random.fold_in(kphi, j), (), f32, minval=1e-12)
                          for j in range(q)])
     else:
@@ -100,24 +114,28 @@ def jax_sweep_noise(key, m, q, p, t, weight=1, *, collapsed=False, link="probit"
         ka_,
         jax.random.uniform(rows[q], (), f32, minval=1e-12),
         per_component(kpred, t),
+        sel,
+        rev,
     )
 
 
 def to_sweep_noise(arrays, collect):
-    nz = tp.SweepNoise(*(torch.as_tensor(np.array(a)) for a in arrays))
+    nz = tp.SweepNoise(*(None if a is None else torch.as_tensor(np.array(a)) for a in arrays))
     return nz if collect else nz._replace(kpred=None)
 
 
 class JaxSweepReplay:
-    """A noise source replaying the JAX key schedule of K subsets from
-    their chain keys (one sweep per call, in order)."""
+    """A noise source replaying the JAX key schedule of K subsets (or K*C
+    (subset, chain) rows) from their chain keys (one sweep per call, in
+    order)."""
 
-    def __init__(self, keys, shapes: tp.SweepShapes, *, collapsed=False):
+    def __init__(self, keys, shapes: tp.SweepShapes, *, collapsed=False, dtype=jnp.float32):
         self.keys = keys
         self._draw = jax.jit(jax.vmap(
             lambda kk: jax_sweep_noise(
                 kk, shapes.m, shapes.q, shapes.p, shapes.t, shapes.weight,
                 collapsed=collapsed, link=shapes.link, n_terms=shapes.pg_n_terms,
+                proposals=shapes.proposals, family=shapes.family, dtype=dtype,
             )
         ))
         self.next_it = 0
