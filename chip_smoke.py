@@ -75,14 +75,19 @@ solves; production_config below):
 
 Phases 12-16 run the rest of the sampler's knobs:
 
-12. kernels_float64 — the tile kernel instantiated for double (every
-              float64 build) against its plain version at float64, three
-              models, masked / masked + shifted / cross with a row mask /
-              square, over a ragged m sweep (1, 2, 31, 32, 33, 147, 3906)
-              into NaN-filled outputs, with the exact invariants; its
-              times and bound at (32, 1, 3906, 3906); a small float64 fit
-              on the card against the same fit on the CPU, with the double
-              kernel's launches.
+12. kernels_float64 — the double symmetric and narrow kernels (every
+              float64 build) against their plain version at float64 and
+              bitwise against the double tile kernel, three models:
+              masked / masked + shifted / scalar shift / square over a
+              ragged m sweep (1 to 3907, every row alignment mod 4
+              doubles), cross builds with and without the row mask at
+              widths 1 to 257, into NaN-filled outputs, with the exact
+              invariants; every float64 entry point and the kernel it is
+              counted under; device times of each new kernel and the tile
+              kernel in turns at the masked (32, 1, 3906, 3906) and cross
+              (32, 1, 3906, 64) builds, beside the byte bound and the FP64
+              bound from the SASS (cuobjdump); a small float64 fit on the
+              card against the same fit on the CPU.
 13. fit_variants_small_parity — small fits on the card against the CPU
               with the same random numbers: multiple-try phi (J = 3) in
               each proposal family, two chains, the blocked Cholesky
@@ -101,9 +106,16 @@ Phases 12-16 run the rest of the sampler's knobs:
 16. fit_production_config4_chains — fit_production_config4 with two
               chains (the bench's full ladder): launches equal to the
               one-chain run's, a finite cross-chain R-hat on every subset.
+17. fit_config5_float64 — fit_meta_kriging at config5's full width in
+              float64 (SMKConfig(dtype="float64"), the default sampler,
+              16 sweeps: 12 burn-in): launches per entry point and per
+              kernel (the double symmetric and narrow kernels only),
+              ms/sweep, peak memory, and one profiler window over two
+              sweeps: device busy and idle, the factorizations' share.
 
-Then each phase's wall time, the kernel summary line {"kernels": [...]}
-(launches from fit_config5, and per path), the card's
+Then each phase's wall time and the script's, the kernel summary line
+{"kernels": [...]} (launches from fit_config5, the double kernels' from
+fit_config5_float64, and per path), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. A failing phase
 raises: the script exits non-zero and prints no ok line. It exits
 non-zero at once where no CUDA card is visible, or where the port
@@ -286,11 +298,12 @@ def launch_nan(ca, cb, phis, model, layout, *, mask=None, shift=None, zero_diag=
     return out
 
 
-def ragged_sweep(uni):
-    """The symmetric kernel at every m of RAGGED_M (K = 2, s = 2, d = 2;
+def ragged_sweep(uni, ms=RAGGED_M, tol=(ATOL, RTOL)):
+    """The symmetric kernel at every m of `ms` (K = 2, s = 2, d = 2;
     three models; masked, masked + shifted, scalar shift, unmasked), and
-    at d = 1, 3, 8: equal to the plain version within tolerance, bitwise
-    equal to the tile kernel, with the exact invariants."""
+    at d = 1, 3, 8: equal to the plain version within `tol`, bitwise
+    equal to the tile kernel, with the exact invariants. On the type
+    `uni` draws (float32, or float64 for the double kernels)."""
     import torch
     from smk_torch.ops import fused_build as fb
 
@@ -298,12 +311,12 @@ def ragged_sweep(uni):
     worst, cases = 0.0, 0
     # d = 2 (the fit's) at every m and all models; the other dimensions,
     # which take the kernel's generic instantiation, at two m
-    sizes = [(m, 2, MODELS) for m in RAGGED_M]
+    sizes = [(m, 2, MODELS) for m in ms]
     sizes += [(m, d, ("matern32",)) for d in (1, 3, 8) for m in (129, 3907)]
     for m, d, models in sizes:
         coords = uni(k, m, d, hi=2.0)
         phis = uni(k, s, lo=4.0, hi=12.0)
-        mask = (uni(k, m) > 0.1).float()
+        mask = (uni(k, m) > 0.1).to(coords.dtype)
         shift = torch.where(mask > 0, uni(k, m, lo=0.5, hi=2.0), torch.full_like(mask, 1e8))
         scalar = torch.full_like(mask, 0.25)
         for model in models:
@@ -315,23 +328,24 @@ def ragged_sweep(uni):
                                   zero_diag=True)
                 want = fb.plain_build(coords, coords, phis, model, mask=mk, shift=sh,
                                       zero_diag=True)
-                worst = max(worst, compare(got, want, what))
+                worst = max(worst, compare(got, want, what, *tol))
                 check(torch.equal(got, tile), f"{what}: symmetric kernel != tile kernel")
                 square_invariants(got, mk, sh, what)
                 cases += 1
-    return {"m": list(RAGGED_M), "d": [1, 2, 3, 8], "K": k, "s": s, "cases": cases,
+    return {"m": list(ms), "d": [1, 2, 3, 8], "K": k, "s": s, "cases": cases,
             "max_abs_err": worst}
 
 
-def narrow_sweep(uni):
+def narrow_sweep(uni, tol=(ATOL, RTOL)):
     """The narrow kernel at every (ma, mb) of NARROW_MA x NARROW_MB
     (K = 2, s = 2, d = 2, three models): the cross build with and
     without the row mask, its columns per k and shared over K (stride
-    0), equal to the plain version within tolerance and bitwise equal
-    to the tile kernel (with the row mask: to the tile kernel's output
+    0), equal to the plain version within `tol` and bitwise equal to
+    the tile kernel (with the row mask: to the tile kernel's output
     masked afterwards); then the square zero-diagonal build on shared
     coordinates (the test stack) at every mb and at d = 1, 3, 8, bitwise
-    equal to the symmetric kernel, with the exact invariants."""
+    equal to the symmetric kernel, with the exact invariants. On the
+    type `uni` draws."""
     import torch
     from smk_torch.ops import fused_build as fb
 
@@ -339,7 +353,7 @@ def narrow_sweep(uni):
     worst, cases = 0.0, 0
     for ma in NARROW_MA:
         coords = uni(k, ma, 2, hi=2.0)
-        rmask = (uni(k, ma) > 0.2).float()
+        rmask = (uni(k, ma) > 0.2).to(coords.dtype)
         for mb in NARROW_MB:
             other = uni(k, mb, 2, hi=2.0) + 0.3
             phis = uni(k, s, lo=4.0, hi=12.0)
@@ -351,7 +365,7 @@ def narrow_sweep(uni):
                                 f"/row_mask={rm is not None}")
                         got = launch_nan(coords, cb, phis, model, fb.NARROW, row_mask=rm)
                         want = fb.plain_build(coords, cb, phis, model, row_mask=rm)
-                        worst = max(worst, compare(got, want, what))
+                        worst = max(worst, compare(got, want, what, *tol))
                         ref = tile if rm is None else rm[:, None, :, None] * tile
                         check(torch.equal(got, ref), f"{what}: narrow kernel != tile kernel")
                         cases += 1
@@ -363,7 +377,7 @@ def narrow_sweep(uni):
             got = launch_nan(sites, sites, phis, model, fb.NARROW, zero_diag=True)
             sym = launch_nan(sites, sites, phis, model, fb.SYMMETRIC, zero_diag=True)
             want = fb.plain_build(sites, sites[:1], phis, model, zero_diag=True)
-            worst = max(worst, compare(got, want, what))
+            worst = max(worst, compare(got, want, what, *tol))
             check(torch.equal(got, sym), f"{what}: narrow kernel != symmetric kernel")
             square_invariants(got, None, None, what)
             cases += 1
@@ -691,14 +705,47 @@ def expected_launches(cfg, q):
     }
 
 
-def run_fit(name, *, n, k, q, p, t, n_samples, device):
+def launches_by_kernel():
+    """fused_build.LAYOUT_LAUNCHES by kernel name."""
+    from smk_torch.ops import fused_build as fb
+
+    names = {fb.TILED: "tile", fb.SYMMETRIC: "symmetric", fb.NARROW: "narrow",
+             fb.TILED_F64: "tile_f64", fb.SYMMETRIC_F64: "symmetric_f64",
+             fb.NARROW_F64: "narrow_f64"}
+    return {name: fb.LAYOUT_LAUNCHES[key] for key, name in names.items()}
+
+
+def expected_by_kernel(launches, float64=False):
+    """Launches by kernel that launches per entry point imply at config
+    scale: the masked and shifted builds (and fused_correlation, 0 on
+    every path) on the symmetric kernel, the kriging builds on the
+    narrow kernel, both of the fit's type; none on either tile kernel."""
+    sfx = "_f64" if float64 else ""
+    out = dict.fromkeys(("tile", "symmetric", "narrow", "tile_f64", "symmetric_f64",
+                         "narrow_f64"), 0)
+    out["symmetric" + sfx] = (launches["fused_masked_correlation_stack"]
+                              + launches["fused_masked_shifted_build"]
+                              + launches["fused_correlation"])
+    out["narrow" + sfx] = (launches["fused_cross_correlation"]
+                           + launches["fused_correlation_stack"])
+    return out
+
+
+def run_fit(name, *, n, k, q, p, t, n_samples, device, dtype="float32", profile=False):
+    """fit_meta_kriging with the default sampler at (n, K, q, p, t) in
+    `dtype`: launches per entry point and per kernel against the
+    sampler's formula, no plain call, finite outputs of the expected
+    shapes, p and acceptance rates in [0, 1]; with `profile`, one
+    profiler window over two sweeps of the same sampler on the fit's
+    inputs (profile_sweeps: device busy and idle, the factorizations'
+    share)."""
     import numpy as np
     import torch
     from smk_torch import SMKConfig, fit_meta_kriging
     from smk_torch.models.probit_gp import n_params
     from smk_torch.ops import fused_build as fb
 
-    cfg = SMKConfig(n_subsets=k, n_samples=n_samples, fused_build="pallas")
+    cfg = SMKConfig(n_subsets=k, n_samples=n_samples, fused_build="pallas", dtype=dtype)
     data = binary_field(n, q, p, t, SEED + n)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -711,17 +758,9 @@ def run_fit(name, *, n, k, q, p, t, n_samples, device):
     want = expected_launches(cfg, q)
     check(launches == want, f"{name}: launches {launches} != expected {want}")
     # the kriging builds on the narrow kernel, the masked ones on the
-    # symmetric kernel, none on the tile kernel
-    layouts = {"tile": fb.LAYOUT_LAUNCHES[fb.TILED],
-               "symmetric": fb.LAYOUT_LAUNCHES[fb.SYMMETRIC],
-               "narrow": fb.LAYOUT_LAUNCHES[fb.NARROW],
-               "tile_f64": fb.LAYOUT_LAUNCHES[fb.TILED_F64]}
-    want_layouts = {
-        "tile": 0,
-        "symmetric": want["fused_masked_correlation_stack"] + want["fused_masked_shifted_build"],
-        "narrow": want["fused_cross_correlation"] + want["fused_correlation_stack"],
-        "tile_f64": 0,
-    }
+    # symmetric kernel, of the fit's type; none on a tile kernel
+    layouts = launches_by_kernel()
+    want_layouts = expected_by_kernel(want, float64=dtype == "float64")
     check(layouts == want_layouts, f"{name}: launches by kernel {layouts} != {want_layouts}")
     check(all(launches[e] > 0 for e in MAIN_PATH), f"{name}: a main-path kernel never launched")
     check(sum(fb.PLAIN_CALLS.values()) == 0, f"{name}: a plain build ran on the card path")
@@ -736,15 +775,35 @@ def run_fit(name, *, n, k, q, p, t, n_samples, device):
     secs = res.phase_seconds
     out = {
         "phase": name, "n": n, "K": k, "m": -(-n // k), "q": q, "p": p, "t": t,
-        "n_samples": cfg.n_samples, "n_burn_in": cfg.n_burn_in, "n_kept": cfg.n_kept,
-        "fused_build": cfg.fused_build, "wall_s": wall, "phase_seconds": secs,
-        "ms_per_sweep": secs["subset_fits"] / cfg.n_samples * 1e3,
+        "dtype": dtype, "n_samples": cfg.n_samples, "n_burn_in": cfg.n_burn_in,
+        "n_kept": cfg.n_kept, "fused_build": cfg.fused_build, "wall_s": wall,
+        "phase_seconds": secs, "ms_per_sweep": secs["subset_fits"] / cfg.n_samples * 1e3,
         "latent_ess_per_sec": res.latent_ess_per_sec,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches, "launches_expected": want, "launches_by_kernel": layouts,
         "phi_accept_rate_mean": float(acc.mean()),
         "param_quant_median": np.round(res.param_quant[0].cpu().numpy(), 4).tolist(),
     }
+    if profile:
+        check(res.param_quant.dtype == getattr(torch, dtype), f"{name}: outputs not {dtype}")
+        del res
+        torch.cuda.empty_cache()
+        model, sdata, state, consts, noise = sampler_setup(cfg, data, device)
+        cache = model._solve_cache(consts, sdata.mask, state)
+
+        def sweeps(its):
+            nonlocal state, cache
+            for it in its:
+                state, cache, _ = model._gibbs_step(sdata, consts, state, cache, it,
+                                                    noise(it, False), collect=False)
+
+        sweeps([0])  # warm
+        prof = profile_sweeps(lambda: sweeps([1, 2]))
+        busy = prof["device_busy_ms"]
+        prof["factor_share_of_busy"] = prof["potrf_device_ms"] / busy if busy else None
+        prof["factor_share_of_window"] = prof["potrf_device_ms"] / prof["window_ms"]
+        out["profile_two_sweeps"] = prof
+        check(bool(torch.isfinite(state.chol_r).all()), f"{name}: non-finite state after profiling")
     emit(out)
     return out
 
@@ -1056,7 +1115,8 @@ def _us(evt, *names) -> float:
 def profile_sweeps(run_sweeps, top=10):
     """Device busy time (the sum of kernel times on the card) and idle
     share of a torch.profiler window over ``run_sweeps()``, with the
-    largest kernels."""
+    largest kernels, and the time of the factorizations: the kernels
+    cuSOLVER's batched potrf launches, all named potrf*."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1072,8 +1132,10 @@ def profile_sweeps(run_sweeps, top=10):
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + _us(
                 e, "device_time_total", "cuda_time_total")
     busy_ms = sum(per_kernel.values()) / 1e3
+    potrf_us = sum(us for name, us in per_kernel.items() if "potrf" in name.lower())
     return {"window_ms": window_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / window_ms),
+            "potrf_device_ms": potrf_us / 1e3,
             "top_device_ms": [[n[:80], us / 1e3] for n, us in
                               sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]]}
 
@@ -1088,10 +1150,11 @@ def sampler_setup(cfg, data_np, device, *, weight=1):
     from smk_torch.ops.glm import glm_warm_start
     from smk_torch.parallel.partition import random_partition
 
-    y, x, coords, ct, xt = (torch.as_tensor(a, device=device) for a in data_np)
+    dt = torch.float64 if cfg.dtype == "float64" else torch.float32
+    y, x, coords, ct, xt = (torch.as_tensor(a, device=device, dtype=dt) for a in data_np)
     n, q = y.shape
     p = x.shape[-1]
-    rng = TorchRandomness(SEED, device)
+    rng = TorchRandomness(SEED, device, dt)
     part = random_partition(rng.permutation(n).to(device), y, x, coords, cfg.n_subsets)
     y_long, x_long = stacked_design(y, x)
     beta0 = glm_warm_start(y_long, x_long, weight=weight, link=cfg.link).coef.reshape(q, p)
@@ -1190,16 +1253,8 @@ def fit_production(name, *, cfg, data_np, device, weight=1, update_chol=None):
     launches = dict(fb.LAUNCHES)
     want = build_calls(cfg, q, cfg.n_samples, cfg.n_burn_in)
     check(launches == want, f"{name}: launches {launches} != expected {want}")
-    layouts = {"tile": fb.LAYOUT_LAUNCHES[fb.TILED],
-               "symmetric": fb.LAYOUT_LAUNCHES[fb.SYMMETRIC],
-               "narrow": fb.LAYOUT_LAUNCHES[fb.NARROW],
-               "tile_f64": fb.LAYOUT_LAUNCHES[fb.TILED_F64]}
-    want_layouts = {
-        "tile": 0,
-        "symmetric": want["fused_masked_correlation_stack"] + want["fused_masked_shifted_build"],
-        "narrow": want["fused_cross_correlation"] + want["fused_correlation_stack"],
-        "tile_f64": 0,
-    }
+    layouts = launches_by_kernel()
+    want_layouts = expected_by_kernel(want)
     check(layouts == want_layouts, f"{name}: launches by kernel {layouts} != {want_layouts}")
     check(all(launches[e] > 0 for e in MAIN_PATH), f"{name}: a main-path kernel never launched")
     check(sum(fb.PLAIN_CALLS.values()) == 0, f"{name}: a plain build ran on the card path")
@@ -1248,13 +1303,16 @@ def fit_production(name, *, cfg, data_np, device, weight=1, update_chol=None):
 # ----------------------------------------------------------------------
 # phases 12-16: the rest of the sampler's knobs
 # ----------------------------------------------------------------------
-# FP64 rate outside the tensor cores (H100 SXM data sheet): the double
-# tile kernel's bound is its bytes over HBM_BYTES_PER_S or its
-# operations over this, whichever is larger
-FP64_OPS_PER_S = 34e12
-# the double tile kernel's ragged sweep: one row, two, a tile less one,
-# a tile, a tile and one, a ragged m and config5's m
-F64_M = (1, 2, 31, 32, 33, 147, 3906)
+# FP64 rate outside the tensor cores (H100 SXM data sheet: 34 TFLOP/s,
+# counting a DFMA as two operations): its FP64 units issue half as many
+# instructions. The double kernels' operation bound is their FP64
+# instructions (sass_fp64_per_element) over this
+FP64_INSTR_PER_S = 34e12 / 2
+# the double symmetric kernel's ragged sweep (32 x 32 tiles, a 4-double
+# halo): one row to five, one tile pair (m + 3 <= 32) and one past it,
+# two and one past them, a ragged m and config5's m - 1, m, m + 1: every
+# row alignment mod 4 doubles at tile edges and at the main shape
+F64_M = (1, 2, 3, 4, 5, 29, 30, 31, 32, 33, 61, 62, 63, 64, 65, 147, 3905, 3906, 3907)
 # kernel vs plain version at float64: the same operation order, so they
 # differ only where the card's exp and torch.exp round differently (an
 # ulp or two of values <= 1); the relative term covers the 1e8 shifts
@@ -1262,18 +1320,87 @@ ATOL64, RTOL64 = 1e-14, 1e-14
 # card vs CPU, the same float64 fit: cuSOLVER vs LAPACK factorizations,
 # ~1e-15 per sweep, grown over 12 sweeps
 FIT64_TOL = 1e-8
+# the double kernels of the exponential main-path builds at d = 2, by
+# their mangled names (template arguments: type, model, flags, d)
+SASS_F64 = {
+    "symmetric": "fused_corr_sym_kernelIdLi0ELb1ELb0ELi2E",
+    "narrow": "fused_corr_narrow_kernelIdLi0ELb1ELb0ELi2E",
+}
+# FP64-unit instructions, and the special-function steps of sqrt and exp
+FP64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+
+
+def sass_fp64_per_element(lib_path, kernel: str):
+    """Instructions per element of `kernel` in the SASS of the built
+    library at `lib_path` (cuobjdump): each FP64-unit opcode of FP64_OPCODES and MUFU, counted
+    over the kernel's code and divided by its count of MUFU.RSQ64H, the
+    first step of an element's double sqrt (one an element, so loops the
+    compiler unrolled count once per element they compute). A static
+    count: the out-of-line slow paths (sqrt of a denormal, exp beyond
+    its range) count as if taken. None where cuobjdump or the kernel is
+    missing."""
+    import re
+    from pathlib import Path
+
+    from smk_torch.ops import cuda_build
+
+    tool = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300).stdout
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = part.split("\n", 1)
+        if kernel not in name:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", body)
+        counts = {}
+        for op in ops:
+            base = op.split(".")[0]
+            if base in FP64_OPCODES or base == "MUFU":
+                key = op if base == "MUFU" else base
+                counts[key] = counts.get(key, 0) + 1
+        per = counts.get("MUFU.RSQ64H", 0)
+        if per == 0:
+            return None
+        fp64 = sum(v for key, v in counts.items() if key in FP64_OPCODES)
+        return {"kernel": kernel, "sass_instructions": len(ops), "sqrt_sites": per,
+                "counts": counts, "fp64_per_element": fp64 / per,
+                "mufu_per_element": sum(v for key, v in counts.items()
+                                        if key.startswith("MUFU")) / per}
+    return None
+
+
+def f64_bound(inputs, out, elements, sass):
+    """(bound_ms, bound_by, bytes_ms, fp64_ms) of a float64 build: its
+    bytes (min_bytes) over the HBM rate, or `elements` (what the function
+    needs computed: one half and the diagonal of a symmetric build) times
+    the FP64 instructions an element from the SASS over the FP64 rate,
+    whichever is larger (the bytes where the SASS count is missing)."""
+    t_bytes = min_bytes(inputs, out) / HBM_BYTES_PER_S * 1e3
+    t_ops = None if sass is None else elements * sass["fp64_per_element"] / FP64_INSTR_PER_S * 1e3
+    if t_ops is None or t_bytes >= t_ops:
+        return t_bytes, "bytes", t_bytes, t_ops
+    return t_ops, "operations", t_bytes, t_ops
 
 
 def kernels_float64(device):
-    """The tile kernel instantiated for double against its plain version
-    at float64 (K = 2, s = 2, d = 2, three models) at every m of F64_M:
-    masked, masked + shifted, the cross build with a row mask against 33
-    test sites, and the square zero-diagonal build, into NaN-filled
-    outputs, with the exact invariants; every entry point on float64
-    coordinates launches it. Then its times and bound at the masked
-    (32, 1, 3906, 3906) build, and a small float64 fit through it on the
-    card against the same fit on the CPU (its launches there are this
-    kernel's path)."""
+    """The double kernels (every float64 build) on the card, three
+    models: the symmetric kernel over F64_M (masked, masked + shifted,
+    scalar shift, unmasked; d = 1, 3, 8 at two m) and the narrow kernel
+    over NARROW_MA x NARROW_MB (cross builds with and without the row
+    mask, per-k and shared columns; square stacks), into NaN-filled
+    outputs, against their plain version at float64 and bitwise against
+    the double tile kernel (the narrow square builds against the double
+    symmetric kernel), with the exact invariants; every float64 entry
+    point against its plain version, bitwise against the tile kernel,
+    counted under its double kernel. Then, at the masked (32, 1, 3906,
+    3906) build and the cross (32, 1, 3906, 64) build with its row mask,
+    each new kernel's device time and the tile kernel's in turns (tile,
+    new, new, tile), the entry point's, the plain version's and the
+    library call's, beside the byte bound and the FP64 bound from the
+    SASS. Last a small float64 fit through the kernels on the card
+    against the same fit on the CPU."""
     import torch
     from smk_torch import SMKConfig, fit_meta_kriging
     from smk_torch.ops import fused_build as fb
@@ -1285,82 +1412,142 @@ def kernels_float64(device):
     def uni(*shape, lo=0.0, hi=1.0):
         return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device, dtype=f64)
 
-    k, s = 2, 2
-    worst, cases = 0.0, 0
-    for m in F64_M:
-        coords = uni(k, m, 2, hi=2.0)
-        test = uni(k, 33, 2, hi=2.0) + 0.3
-        phis = uni(k, s, lo=4.0, hi=12.0)
-        mask = (uni(k, m) > 0.1).to(f64)
-        shift = torch.where(mask > 0, uni(k, m, lo=0.5, hi=2.0), torch.full_like(mask, 1e8))
-        for model in MODELS:
-            variants = [
-                ("masked", coords, dict(mask=mask, zero_diag=True)),
-                ("masked+shifted", coords, dict(mask=mask, shift=shift, zero_diag=True)),
-                ("cross+row_mask", test, dict(row_mask=mask)),
-                ("square", coords, dict(zero_diag=True)),
-            ]
-            for label, cb, kw in variants:
-                what = f"float64 m={m}/{model}/{label}"
-                got = launch_nan(coords, cb, phis, model, fb.TILED, **kw)
-                want = fb.plain_build(coords, cb, phis, model, **kw)
-                worst = max(worst, compare(got, want, what, ATOL64, RTOL64))
-                if kw.get("zero_diag"):
-                    square_invariants(got, kw.get("mask"), kw.get("shift"), what)
-                cases += 1
-    # every entry point routes float64 to the double tile kernel
-    before = fb.LAYOUT_LAUNCHES[fb.TILED_F64]
-    got = fb.fused_masked_shifted_build(coords, phis, mask, shift, "matern32")
-    check(got.dtype == f64 and torch.equal(got, launch_nan(
-        coords, coords, phis, "matern32", fb.TILED, mask=mask, shift=shift, zero_diag=True)),
-        "float64 entry point != the double tile kernel")
-    fb.fused_masked_correlation_stack(coords, phis, mask, "exponential")
-    fb.fused_cross_correlation(coords, test, phis, "exponential", row_mask=mask)
-    fb.fused_correlation_stack(test[0], phis, "exponential")
-    fb.fused_correlation(coords, phis[:, 0], "exponential")
-    check(fb.LAYOUT_LAUNCHES[fb.TILED_F64] == before + 5,
-          "float64 builds did not all launch the double tile kernel")
-    del got
+    tol = (ATOL64, RTOL64)
+    sym_sweep = ragged_sweep(uni, F64_M, tol)
+    narrow = narrow_sweep(uni, tol)
     torch.cuda.empty_cache()
 
-    # times at the main path's masked build, float64
-    k, m = MAIN_K, MAIN_M
+    # every entry point at float64: plain version, the tile kernel bit
+    # for bit, and the kernel it is counted under
+    k, s, m, t = 2, 2, 147, 33
+    coords = uni(k, m, 2, hi=2.0)
+    test = uni(t, 2, hi=2.0) + 0.3
+    test_k = test[None].expand(k, t, 2)
+    phis = uni(k, s, lo=4.0, hi=12.0)
+    mask = (uni(k, m) > 0.1).to(f64)
+    shift = torch.where(mask > 0, uni(k, m, lo=0.5, hi=2.0), torch.full_like(mask, 1e8))
+    model = "matern32"
+    entries = {
+        "fused_masked_shifted_build": (
+            lambda: fb.fused_masked_shifted_build(coords, phis, mask, shift, model),
+            (coords, coords), dict(mask=mask, shift=shift, zero_diag=True), fb.SYMMETRIC_F64),
+        "fused_masked_correlation_stack": (
+            lambda: fb.fused_masked_correlation_stack(coords, phis, mask, model),
+            (coords, coords), dict(mask=mask, zero_diag=True), fb.SYMMETRIC_F64),
+        "fused_cross_correlation": (
+            lambda: fb.fused_cross_correlation(coords, test, phis, model, row_mask=mask),
+            (coords, test_k), dict(row_mask=mask), fb.NARROW_F64),
+        "fused_correlation_stack": (
+            lambda: fb.fused_correlation_stack(test, phis, model),
+            (test_k, test_k), dict(zero_diag=True), fb.NARROW_F64),
+        "fused_correlation": (
+            lambda: fb.fused_correlation(coords, phis[:, 0], model)[:, None],
+            (coords, coords), dict(zero_diag=True), fb.NARROW_F64),
+    }
+    entry_checks = {}
+    for name, (run, (ca, cb), kw, key) in entries.items():
+        before = dict(fb.LAYOUT_LAUNCHES)
+        got = run()
+        torch.cuda.synchronize()
+        # the reference launch reads phis by raw pointer: contiguous
+        ph = phis[:, :1].contiguous() if name == "fused_correlation" else phis
+        delta = {x: fb.LAYOUT_LAUNCHES[x] - before[x] for x in before}
+        check(delta == {x: int(x == key) for x in before},
+              f"float64 {name}: launches by kernel {delta}, expected one of kernel {key}")
+        check(got.dtype == f64, f"float64 {name}: output is {got.dtype}")
+        tile = launch_nan(ca, cb, ph, model, fb.TILED, **kw)
+        check(torch.equal(got, tile), f"float64 {name}: entry point != the double tile kernel")
+        entry_checks[name] = compare(got, fb.plain_build(ca, cb, ph, model, **kw),
+                                     f"float64 {name}", *tol)
+        if kw.get("zero_diag"):
+            square_invariants(got, kw.get("mask"), kw.get("shift"), f"float64 {name}")
+    torch.cuda.empty_cache()
+
+    # the two main-path builds: the new kernels against the tile kernel,
+    # bitwise and in turns
+    k, m, t = MAIN_K, MAIN_M, MAIN_T
     coords = uni(k, m, 2)
+    test = uni(t, 2)
+    test_k = test[None].expand(k, t, 2)
     phis = uni(k, 1, lo=4.0, hi=12.0)
     mask = torch.ones(k, m, device=device, dtype=f64)
+    pad = mask.clone()
+    pad[:, -11:] = 0.0
     model = "exponential"
-    run = lambda: fb.fused_masked_correlation_stack(coords, phis, mask, model)  # noqa: E731
-    got = run()
-    want = fb.plain_build(coords, coords, phis, model, mask=mask, zero_diag=True)
-    err = compare(got, want, "float64 main-path build", ATOL64, RTOL64)
-    square_invariants(got, mask, None, "float64 main-path build")
-    del want
-    plain = lambda: fb.plain_build(coords, coords, phis, model, mask=mask, zero_diag=True)  # noqa: E731
-    library = lambda: torch.exp(-phis[:, :, None, None] * torch.cdist(coords, coords)[:, None])  # noqa: E731
-    ops = got.numel() * (3 * 2 + 2 + MODEL_OPS[model] + 4)
-    t_bytes = min_bytes([coords, phis, mask], got) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP64_OPS_PER_S * 1e3
-    timing = {
-        "shape": list(got.shape), "max_abs_err": err,
-        "ms": ms_median(run, reps=10), "device_ms": ms_median(run, reps=10, device_only=True),
-        "plain_ms": ms_median(plain, reps=5), "library_ms": ms_median(library, reps=5),
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "write_bytes": got.numel() * 8,
+    builds = {
+        # name: (entry point, layout, (ca, cb), kernel kwargs, inputs,
+        #        elements the function computes, library call)
+        "fused_masked_correlation_stack": (
+            lambda: fb.fused_masked_correlation_stack(coords, phis, mask, model), fb.SYMMETRIC,
+            (coords, coords), dict(mask=mask, zero_diag=True), [coords, phis, mask],
+            k * m * (m + 1) // 2,
+            lambda: torch.exp(-phis[:, :, None, None] * torch.cdist(coords, coords)[:, None])),
+        "fused_cross_correlation": (  # as the sampler calls it
+            lambda: fb.fused_cross_correlation(coords, test, phis, model, row_mask=mask),
+            fb.NARROW, (coords, test_k), dict(row_mask=mask), [coords, test, phis, mask],
+            k * m * t,
+            lambda: mask[:, None, :, None] * torch.exp(
+                -phis[:, :, None, None] * torch.cdist(coords, test_k)[:, None])),
     }
-    timing["device_bound_fraction"] = timing["bound_ms"] / timing["device_ms"]
-    del got
-    torch.cuda.empty_cache()
+    from smk_torch.ops import cuda_build
 
-    # a small float64 fit through the kernel, card against CPU
+    lib = cuda_build.library_path("fused_corr_f64")
+    sass = {label: sass_fp64_per_element(lib, name) for label, name in SASS_F64.items()}
+    timing = {}
+    for name, (run, layout, (ca, cb), kw, inputs, elements, library) in builds.items():
+        got = run()
+        want = fb.plain_build(ca, cb, phis, model, **kw)
+        err = compare(got, want, f"float64 {name} at the main-path shape", *tol)
+        del want
+        if kw.get("zero_diag"):
+            square_invariants(got, kw.get("mask"), None, f"float64 {name}")
+        # bitwise against the tile kernel, on pad rows too (the mask's
+        # zeros), and the entry point against its kernel
+        padded = {key: (pad if key in ("mask", "row_mask") else v) for key, v in kw.items()}
+        new = launch_nan(ca, cb, phis, model, layout, **padded)
+        tile = launch_nan(ca, cb, phis, model, fb.TILED, **padded)
+        check(torch.equal(new, tile), f"float64 {name}: new kernel != tile kernel at the main shape")
+        if kw.get("zero_diag"):
+            square_invariants(new, pad, None, f"float64 {name} with pad rows")
+        new = launch_nan(ca, cb, phis, model, layout, **kw)
+        check(torch.equal(new, got), f"float64 {name}: entry point != its kernel")
+        mk, rm = kw.get("mask"), kw.get("row_mask")
+        runs = {label: (lambda out=out, lay=lay: fb._launch(
+                    ca, cb, phis, mk, None, model, kw.get("zero_diag", False), out, lay, rm))
+                for label, out, lay in (("tile", tile, fb.TILED), ("new", new, layout))}
+        turns = {"tile": [], "new": []}
+        for label in ("tile", "new", "new", "tile"):
+            turns[label].append(ms_median(runs[label], device_only=True))
+        label = "symmetric" if layout == fb.SYMMETRIC else "narrow"
+        b_ms, b_by, bytes_ms, fp64_ms = f64_bound(inputs, got, elements, sass[label])
+        device_ms = statistics.mean(turns["new"])
+        timing[name] = {
+            "kernel": label, "shape": list(got.shape), "max_abs_err": err,
+            "device_ms_turns": turns["new"], "tile_kernel_device_ms_turns": turns["tile"],
+            "device_ms": device_ms, "tile_kernel_device_ms": statistics.mean(turns["tile"]),
+            "ms": ms_median(run), "entry_device_ms": ms_median(run, device_only=True),
+            "plain_ms": ms_median(lambda: fb.plain_build(ca, cb, phis, model, **kw), reps=5),
+            "library_ms": ms_median(library, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bytes_ms,
+            "fp64_bound_ms": fp64_ms, "fp64_bound_ms_full": None if sass[label] is None else
+            got.numel() * sass[label]["fp64_per_element"] / FP64_INSTR_PER_S * 1e3,
+            "elements": elements, "sass": sass[label],
+            "device_bound_fraction": b_ms / device_ms, "write_bytes": got.numel() * 8,
+        }
+        del got, new, tile
+        torch.cuda.empty_cache()
+
+    # a small float64 fit through the kernels, card against CPU
     cfg = SMKConfig(n_subsets=4, n_samples=12, fused_build="pallas", dtype="float64")
     data = binary_field(400, 2, 2, 8, SEED)
     fb.reset_counts()
     gpu = fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, device, f64),
                            device=device)
     launches = dict(fb.LAUNCHES)
-    f64_launches = fb.LAYOUT_LAUNCHES[fb.TILED_F64]
-    check(f64_launches == sum(launches.values()) > 0 and sum(fb.PLAIN_CALLS.values()) == 0,
-          f"float64 fit: launches {launches}, double tile kernel {f64_launches}")
+    by_kernel = launches_by_kernel()
+    want = expected_by_kernel(launches, float64=True)
+    check(by_kernel == want and sum(launches.values()) > 0 and sum(fb.PLAIN_CALLS.values()) == 0,
+          f"float64 fit: launches {launches}, by kernel {by_kernel} != {want}")
     cpu = fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, "cpu", f64),
                            device="cpu")
     errs = {}
@@ -1370,10 +1557,10 @@ def kernels_float64(device):
         errs[f] = float((g.cpu() - getattr(cpu, f)).abs().max())
         check(errs[f] <= FIT64_TOL, f"float64 fit: {f} differs by {errs[f]:.3e}")
     out = {"phase": "kernels_float64", "tolerance": {"atol": ATOL64, "rtol": RTOL64},
-           "ragged_sweep": {"m": list(F64_M), "cases": cases, "max_abs_err": worst},
+           "symmetric_sweep": sym_sweep, "narrow_sweep": narrow, "entry_points": entry_checks,
            "main_path": timing, "fit_small": {"max_abs_err": errs, "tolerance": FIT64_TOL,
                                               "launches": launches,
-                                              "double_tile_launches": f64_launches}}
+                                              "launches_by_kernel": by_kernel}}
     emit(out)
     return out
 
@@ -1524,6 +1711,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    script_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1589,12 +1777,17 @@ def main() -> int:
         data_np=c4_data, device=device)
     check(p4c["launches"] == p4["launches"],
           "two chains: launches differ from the one-chain run's")
-    emit({"phase": "wall_s_by_phase", **walls})
+    c5f64 = phase("fit_config5_float64", run_fit, "fit_config5_float64", n=MAIN_K * MAIN_M,
+                  k=MAIN_K, q=1, p=2, t=MAIN_T, n_samples=16, device=device, dtype="float64",
+                  profile=True)
+    emit({"phase": "wall_s_by_phase", **walls, "total_s": time.perf_counter() - script_start})
     paths = {"fit_config5": c5, "fit_q2": q2, "fit_production_config5": p5,
              "fit_production_config4": p4, "fit_production_config5_mtm": p5m,
-             "fit_production_config4_chains": p4c}
+             "fit_production_config4_chains": p4c, "fit_config5_float64": c5f64}
 
     f64_time = f64["main_path"]
+    f64_kernels = (("symmetric kernel, float64", "symmetric_f64", "fused_masked_correlation_stack"),
+                   ("narrow kernel, float64", "narrow_f64", "fused_cross_correlation"))
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": c5["launches"][name],
@@ -1608,19 +1801,24 @@ def main() -> int:
          "device_bound_fraction": timings[name]["device_bound_fraction"]}
         for name in KERNELS
     ] + [
-        # the tile kernel instantiated for double: every float64 build,
-        # on the float64 fit's path (no float32 path launches it)
-        {"name": "tile kernel, float64", "route": "cuda", "source": KERNEL_SOURCE,
+        # the double kernels: every float64 build (the float64 fit's
+        # path; no float32 path launches them), timed at the main
+        # path's masked build and cross build beside the double tile
+        # kernel they replace
+        {"name": label, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "smk_tpu/ops/pallas_build.py:179",
-         "launches": f64["fit_small"]["double_tile_launches"],
-         "launches_by_path": {"fit_float64_small": f64["fit_small"]["double_tile_launches"],
-                              **{path: r["launches_by_kernel"]["tile_f64"]
+         "launches": c5f64["launches_by_kernel"][key],
+         "launches_by_path": {"fit_float64_small": f64["fit_small"]["launches_by_kernel"][key],
+                              **{path: r["launches_by_kernel"][key]
                                  for path, r in paths.items()}},
-         "max_abs_err": f64_time["max_abs_err"], "ms": f64_time["ms"],
-         "device_ms": f64_time["device_ms"], "plain_ms": f64_time["plain_ms"],
-         "bound_ms": f64_time["bound_ms"], "bound_by": f64_time["bound_by"],
-         "library_ms": f64_time["library_ms"],
-         "device_bound_fraction": f64_time["device_bound_fraction"]},
+         "timed_at": build, "max_abs_err": f64_time[build]["max_abs_err"],
+         "ms": f64_time[build]["ms"], "device_ms": f64_time[build]["device_ms"],
+         "plain_ms": f64_time[build]["plain_ms"], "bound_ms": f64_time[build]["bound_ms"],
+         "bound_by": f64_time[build]["bound_by"], "library_ms": f64_time[build]["library_ms"],
+         "fp64_bound_ms": f64_time[build]["fp64_bound_ms"],
+         "tile_kernel_device_ms": f64_time[build]["tile_kernel_device_ms"],
+         "device_bound_fraction": f64_time[build]["device_bound_fraction"]}
+        for label, key, build in f64_kernels
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
     python3 scripts/torch_build_probe.py [--k 32] [--m 3904,3906]
     python3 scripts/torch_build_probe.py --narrow [--k 32] [--m 3906]
+    python3 scripts/torch_build_probe.py --f64 [--k 32] [--m 3904,3906]
 
-Builds variants of smk_torch/csrc/fused_corr.cu, each the shipped
-source with one text substitution, and times the square masked build
+Builds variants of smk_torch/csrc/fused_corr.cu (its float32 library),
+each the shipped source with one text substitution, and times the square masked build
 (K x 1 x m x m, d = 2, exponential) through each at every m, next to a
 plain fill of the same output and the tile kernel (layout 0). Variants:
 
@@ -49,6 +50,13 @@ Variants:
 Every variant that computes the shipped function must equal the tile
 kernel bit for bit. Its build lines report the row-masked d = 2 cross
 kernel.
+
+With --f64 it probes the double symmetric kernel (the float64 library,
+built with -DSMK_FUSED_CORR_F64) on the float64 masked build, beside the
+double tile kernel. Variants: shipped; blocks3, blocks6, blocks8
+(resident blocks asked of the compiler: 4 shipped); tile_aligned;
+no_store; no_correlation. Its build lines also count the FP64
+instructions an element in the SASS (chip_smoke.sass_fp64_per_element).
 """
 
 from __future__ import annotations
@@ -64,33 +72,44 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-LAUNCH_BOUNDS = "__launch_bounds__(SYM_THREADS, 3)"
-STORE_IF = "  if (j >= 0 && j + 4 <= M) {\n"
+SYM_TILES = "STILE = 64, THREADS = 256, MIN_BLOCKS = 3;"
+STORE_IF = "  if (j >= 0 && j + V <= M) {\n"
 VARIANTS = {
     "shipped": [],
     "tile_aligned": [
         ("HALO - sector_offset(row)", "HALO"),
-        (STORE_IF, "  if (j >= 0 && j + 4 <= M &&\n"
+        (STORE_IF, "  if (j >= 0 && j + V <= M &&\n"
                    "      (reinterpret_cast<unsigned long long>(row + j) & 15) == 0) {\n"),
     ],
     "no_store": [
-        ("    __stcs(reinterpret_cast<float4*>(row + j), v);\n",
-         "    if (v.x == 1234.5f) __stcs(reinterpret_cast<float4*>(row + j), v);\n"),
+        ("    __stcs(reinterpret_cast<typename Num<T>::vec*>(row + j), v);\n",
+         "    if (v.x == 1234.5f) __stcs(reinterpret_cast<typename Num<T>::vec*>(row + j), v);\n"),
     ],
     "no_correlation": [
         ("sm.val[a][b + cc] = pair_value<MODEL, MASKED, SHIFTED, true>(",
          "sm.val[a][b + cc] = sq[cc]; if (false) pair_value<MODEL, MASKED, SHIFTED, true>("),
     ],
-    "blocks2": [(LAUNCH_BOUNDS, "__launch_bounds__(SYM_THREADS, 2)")],
-    "blocks4": [(LAUNCH_BOUNDS, "__launch_bounds__(SYM_THREADS, 4)")],
+    "blocks2": [(SYM_TILES, "STILE = 64, THREADS = 256, MIN_BLOCKS = 2;")],
+    "blocks4": [(SYM_TILES, "STILE = 64, THREADS = 256, MIN_BLOCKS = 4;")],
     "generic_d2": [
-        ("    if (args.D == 2) return launch_sym<MODEL, MASKED, SHIFTED, 2>(args, stream);\n", ""),
+        ("    if (args.D == 2) return launch_sym<T, MODEL, MASKED, SHIFTED, 2>(args, stream);\n", ""),
     ],
 }
 # variants whose output is the shipped kernel's
 SAME_FUNCTION = ("shipped", "tile_aligned", "blocks2", "blocks4", "generic_d2")
+F64_TILES = "STILE = 32, THREADS = 128, MIN_BLOCKS = 4;"
+F64_VARIANTS = {
+    "shipped": [],
+    "blocks3": [(F64_TILES, "STILE = 32, THREADS = 128, MIN_BLOCKS = 3;")],
+    "blocks6": [(F64_TILES, "STILE = 32, THREADS = 128, MIN_BLOCKS = 6;")],
+    "blocks8": [(F64_TILES, "STILE = 32, THREADS = 128, MIN_BLOCKS = 8;")],
+    "tile_aligned": VARIANTS["tile_aligned"],
+    "no_store": VARIANTS["no_store"],
+    "no_correlation": VARIANTS["no_correlation"],
+}
+F64_SAME_FUNCTION = ("shipped", "blocks3", "blocks6", "blocks8", "tile_aligned")
 NARROW_ROWS_LINE = re.compile(r"constexpr int NARROW_ROWS = \d+;")
-NARROW_STORE4 = "__stcs(reinterpret_cast<float4*>(row + j0), make_float4(v[0], v[1], v[2], v[3]));"
+NARROW_STORE4 = "__stcs(reinterpret_cast<typename N::vec*>(row + j0), N::pack(v));"
 NARROW_STORE1 = "__stcs(row + j0 + js * cc, v[cc]);"
 NARROW_VARIANTS = {
     "shipped": [],
@@ -103,7 +122,7 @@ NARROW_VARIANTS = {
     "batch1": [("constexpr int NARROW_BATCH = 4;", "constexpr int NARROW_BATCH = 1;")],
 
     "plain_stores": [
-        (NARROW_STORE4, "*reinterpret_cast<float4*>(row + j0) = make_float4(v[0], v[1], v[2], v[3]);"),
+        (NARROW_STORE4, "*reinterpret_cast<typename N::vec*>(row + j0) = N::pack(v);"),
         (NARROW_STORE1, "row[j0 + js * cc] = v[cc];"),
     ],
     "no_store": [
@@ -112,8 +131,8 @@ NARROW_VARIANTS = {
     ],
     "no_correlation": [
         ("          v[cc] = pair_value<MODEL, false, false, ZERO_DIAG>(\n"
-         "              sq, i == j0 + js * cc, phi, 0.0f, 0.0f, 0.0f);\n"
-         "          if (ROW_MASK) v[cc] = __fmul_rn(ri[p], v[cc]);\n",
+         "              sq, i == j0 + js * cc, phi, T(0), T(0), T(0));\n"
+         "          if (ROW_MASK) v[cc] = N::mul(ri[p], v[cc]);\n",
          "          v[cc] = sq;\n"),
     ],
 }
@@ -121,21 +140,25 @@ NARROW_SAME_FUNCTION = ("shipped", "rows32", "rows64", "rows128", "item_per_bloc
                         "batch1", "plain_stores")
 # the exponential masked kernel that d = 2 runs (its last template
 # argument is the compiled dimension, 0 for the generic one)
-SASS_KERNEL = "fused_corr_sym_kernelILi0ELb1ELb0ELi2E"
-SASS_KERNEL_GENERIC = "fused_corr_sym_kernelILi0ELb1ELb0ELi0E"
+SASS_KERNEL = "fused_corr_sym_kernelIfLi0ELb1ELb0ELi2E"
+SASS_KERNEL_GENERIC = "fused_corr_sym_kernelIfLi0ELb1ELb0ELi0E"
 # the row-masked exponential cross kernel at d = 2 (layout 2)
-SASS_KERNEL_NARROW = "fused_corr_narrow_kernelILi0ELb1ELb0ELi2E"
+SASS_KERNEL_NARROW = "fused_corr_narrow_kernelIfLi0ELb1ELb0ELi2E"
+# the double masked exponential kernel at d = 2
+SASS_KERNEL_F64 = "fused_corr_sym_kernelIdLi0ELb1ELb0ELi2E"
 
 
-def build_variants(out_dir: Path, narrow: bool = False) -> dict:
-    """One nvcc per variant (VARIANTS, or NARROW_VARIANTS), all started
-    together; returns name -> (library path, build report)."""
+def build_variants(out_dir: Path, narrow: bool = False, f64: bool = False) -> dict:
+    """One nvcc per variant (VARIANTS, NARROW_VARIANTS or, into the
+    float64 library, F64_VARIANTS), all started together; returns name
+    -> (library path, build report)."""
     from smk_torch.ops import cuda_build
 
     src = (cuda_build.csrc_dir() / "fused_corr.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    variants = VARIANTS
+    variants = F64_VARIANTS if f64 else VARIANTS
+    flags = cuda_build.SOURCES["fused_corr_f64" if f64 else "fused_corr"][1]
     if narrow:  # None stands for the source's NARROW_ROWS line
         rows_line = NARROW_ROWS_LINE.search(src).group(0)
         variants = {name: [(rows_line if old is None else old, new) for old, new in subs]
@@ -146,11 +169,12 @@ def build_variants(out_dir: Path, narrow: bool = False) -> dict:
             if old not in text:
                 raise RuntimeError(f"variant {name}: {old!r} is not in the source")
             text = text.replace(old, new)
-        cu = out_dir / f"{name}.cu"
+        stem = f"{name}_f64" if f64 else name
+        cu = out_dir / f"{stem}.cu"
         cu.write_text(text)
-        lib = out_dir / f"lib{name}.so"
+        lib = out_dir / f"lib{stem}.so"
         procs[name] = (lib, subprocess.Popen(
-            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, *flags, "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     built = {}
     for name, (lib, proc) in procs.items():
@@ -245,6 +269,7 @@ def main() -> int:
     ap.add_argument("--k", type=int, default=32)
     ap.add_argument("--m", default=None, help="rows (default 3904,3906; --narrow 3906)")
     ap.add_argument("--narrow", action="store_true", help="probe the narrow kernel")
+    ap.add_argument("--f64", action="store_true", help="probe the double symmetric kernel")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
     args.m = args.m or ("3906" if args.narrow else "3904,3906")
@@ -254,19 +279,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_build_probe: needs a CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import ms_median, nvidia_smi_line
+    from chip_smoke import ms_median, nvidia_smi_line, sass_fp64_per_element
     from smk_torch.ops import cuda_build
-    from smk_torch.ops.fused_build import bind_kernel
+    from smk_torch.ops.fused_build import bind_kernel, bind_kernel_f64
 
     print(nvidia_smi_line(), flush=True)
-    built = build_variants(cuda_build.build_dir() / "probe", narrow=args.narrow)
+    built = build_variants(cuda_build.build_dir() / "probe", narrow=args.narrow, f64=args.f64)
     fns = {}
     for name, (lib, err) in built.items():
-        fns[name] = bind_kernel(ctypes.CDLL(str(lib)))
-        kernel = (SASS_KERNEL_NARROW if args.narrow else
+        fns[name] = (bind_kernel_f64 if args.f64 else bind_kernel)(ctypes.CDLL(str(lib)))
+        kernel = (SASS_KERNEL_F64 if args.f64 else SASS_KERNEL_NARROW if args.narrow else
                   SASS_KERNEL_GENERIC if name == "generic_d2" else SASS_KERNEL)
-        print(json.dumps({"variant": name, "kernel": kernel, **ptxas_report(err, kernel),
-                          "sass_instructions": sass_count(lib, kernel)}), flush=True)
+        row = {"variant": name, "kernel": kernel, **ptxas_report(err, kernel),
+               "sass_instructions": sass_count(lib, kernel)}
+        if args.f64:
+            row["sass_fp64"] = sass_fp64_per_element(lib, kernel)
+        print(json.dumps(row), flush=True)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -277,11 +305,13 @@ def main() -> int:
             for row in probe_narrow(fns, k, m, gen):
                 print(json.dumps(row), flush=True)
         return 0
+    dtype = torch.float64 if args.f64 else torch.float32
+    same = F64_SAME_FUNCTION if args.f64 else SAME_FUNCTION
     for m in (int(v) for v in args.m.split(",")):
-        coords = torch.rand(k, m, 2, device=dev, generator=gen)
-        phis = 4.0 + 8.0 * torch.rand(k, 1, device=dev, generator=gen)
-        mask = torch.ones(k, m, device=dev)
-        out = torch.empty(k, 1, m, m, device=dev)
+        coords = torch.rand(k, m, 2, device=dev, generator=gen, dtype=dtype)
+        phis = 4.0 + 8.0 * torch.rand(k, 1, device=dev, generator=gen, dtype=dtype)
+        mask = torch.ones(k, m, device=dev, dtype=dtype)
+        out = torch.empty(k, 1, m, m, device=dev, dtype=dtype)
 
         def launch(fn, layout):
             err = fn(coords.data_ptr(), coords.data_ptr(), phis.data_ptr(), mask.data_ptr(),
@@ -293,13 +323,13 @@ def main() -> int:
         launch(fns["shipped"], 0)
         torch.cuda.synchronize()
         want = out.clone()
-        row = {"m": m, "K": k, "write_GB": out.numel() * 4 / 1e9,
+        row = {"m": m, "K": k, "dtype": str(dtype), "write_GB": out.numel() * out.element_size() / 1e9,
                "fill_ms": ms_median(lambda: out.fill_(1.0), device_only=True)}
         order = list(fns)
         for name in order + order[::-1]:
             row.setdefault(name + "_ms", []).append(
                 ms_median(lambda: launch(fns[name], 1), device_only=True))
-            if name in SAME_FUNCTION:
+            if name in same:
                 torch.cuda.synchronize()
                 if not torch.equal(out, want):
                     raise AssertionError(f"m={m}: variant {name} != the tile kernel")

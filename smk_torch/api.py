@@ -234,15 +234,17 @@ def fit_meta_kriging(
     seed: int = 0,
     randomness: Optional[FitRandomness] = None,
     device=None,
+    chunk_size: Optional[int] = None,
 ) -> MetaKrigingResult:
-    """Full spatial meta-kriging pipeline (the twin's default path:
-    unmeshed, unchunked).
+    """Full spatial meta-kriging pipeline (the twin's unmeshed path).
 
     y: (n, q) binary/binomial counts; x: (n, q, p) designs; coords:
     (n, d); coords_test: (t, d); x_test: (t, q, p); weight: binomial
     trials. Arrays may be numpy or tensors. ``device`` defaults to the
     CUDA device; ``randomness`` to :class:`TorchRandomness` (``seed``).
-    Everything computes in ``config.dtype``, under
+    ``chunk_size`` runs the K subsets that many at a time, to bound how
+    many are resident at once (it must divide K; the draws are the
+    unchunked run's). Everything computes in ``config.dtype``, under
     ``config.matmul_precision`` (the caller's settings are restored on
     return).
     """
@@ -250,10 +252,11 @@ def fit_meta_kriging(
     check_ported(cfg)
     dev = resolve_device(device)
     with matmul_precision(cfg.matmul_precision, dev):
-        return _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev)
+        return _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev,
+                    chunk_size)
 
 
-def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev):
+def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, chunk_size):
     dt = torch.float64 if cfg.dtype == "float64" else torch.float32
     y, x, coords, coords_test, x_test = (
         _as_tensor(a, dt, dev) for a in (y, x, coords, coords_test, x_test)
@@ -264,6 +267,8 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev):
             "a single response is y[:, None]"
         )
     n, q = y.shape
+    # tempering is validated at q = 1 only: warn where q is first known
+    cfg.warn_if_tempered_multivariate(q)
     # the multiple-try workspace at the subset size the partition makes
     cfg.warn_if_mtm_workspace_large(-(-n // cfg.n_subsets))
     if x.dim() != 3 or tuple(x.shape[:2]) != (n, q):
@@ -300,7 +305,8 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev):
                           coords_test.shape[0], weight)
     with phase_timer(times, "subset_fits", dev):
         results = fit_subsets_vmap(
-            model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init
+            model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init,
+            chunk_size=chunk_size,
         )
 
     with phase_timer(times, "combine", dev):

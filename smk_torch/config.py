@@ -371,6 +371,34 @@ class SMKConfig:
                 f"unknown matmul_precision {self.matmul_precision!r}"
             )
 
+    def warn_if_tempered_multivariate(self, q: int) -> None:
+        """Warn when ``priors.temper='power'`` meets a multivariate
+        (q >= 2) fit — the config itself never sees q, so the entry
+        points that do (api.fit_meta_kriging, and through it the R
+        front-end) call this once the response count is known.
+
+        Evidence: SMK_QUALITY_r05.jsonl — all four q=2 cells fail the
+        tempered-prior quality gate (meta-vs-full K gaps of 2-4
+        full-posterior sd). With two responses the IW prior is
+        load-bearing for identifying the coregionalization scale, and
+        the 1/K-powered prior lets K drift high. Tempering is
+        validated at q=1 only (SMK_QUALITY_r04.jsonl: K[0,0] gap
+        1.9 -> 0.9 sd)."""
+        if self.priors.temper == "power" and q >= 2:
+            import warnings
+
+            warnings.warn(
+                "priors.temper='power' with q>=2 responses is known to "
+                "over-correct: the 1/K-tempered IW prior "
+                "under-identifies the coregionalization scale K "
+                "(meta-vs-full gaps of 2-4 posterior sd, "
+                "SMK_QUALITY_r05.jsonl). Tempering is validated for "
+                "q=1 only — prefer priors.temper='none' for "
+                "multivariate fits.",
+                UserWarning,
+                stacklevel=3,
+            )
+
     def mtm_workspace_bytes(self, m: int) -> int:
         """Peak extra fp32 workspace of one multi-try phi update at
         subset size ``m``: the forward (J+1, m, m) correlation stack

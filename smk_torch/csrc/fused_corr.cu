@@ -12,38 +12,34 @@
 //   SHIFTED:   rho += shift[k, i] on the diagonal
 //   ROW_MASK:  rho = r_i rho              (the kriging cross build's pad rows)
 //
-// into a contiguous fp32 (or fp64) (K, S, MA, MB) tensor. The diagonal is tested
-// on global indices, as the TPU kernel does.
+// into a contiguous (K, S, MA, MB) tensor of the coordinates' scalar
+// type (the TPU kernel takes its dtype from the coordinates,
+// pallas_build.py:285, :325). The diagonal is tested on global indices,
+// as the TPU kernel does. Each kernel is a template on the scalar type;
+// this one source is built twice, into a float32 library (entry point
+// smk_fused_corr) and, with -DSMK_FUSED_CORR_F64, a float64 one
+// (smk_fused_corr_f64), so that the two builds run in parallel.
 //
 //   fused_corr_kernel        (layout 0): one block per 32 x 32 output
 //                            tile, 256 threads, each thread 4 rows of
 //                            one column. The first port's kernel; no
 //                            entry point runs it any more, and the other
-//                            two are held against it bit for bit.
+//                            two are held against it bit for bit, at
+//                            both types.
 //   fused_corr_sym_kernel    (layout 1, every masked build and square
 //                            same-coordinates builds wider than 256):
-//                            computes only the tile pairs I <= J of
-//                            64 x 64 tiles and stores each off-diagonal
-//                            pair twice, at (I, J) and mirrored at (J, I).
+//                            computes only the tile pairs I <= J and
+//                            stores each off-diagonal pair twice, at
+//                            (I, J) and mirrored at (J, I). 64 x 64 tiles
+//                            at float, 32 x 32 at double (below).
 //   fused_corr_narrow_kernel (layout 2, every cross build, pallas_build.py
 //                            :387, and square builds of at most 256
 //                            columns, such as the kriging test stack
 //                            (t, t), :349): whole rows, no shared memory.
-//   fused_corr_kernel<double> (entry point smk_fused_corr_f64, every
-//                            float64 build; the TPU kernel takes its dtype
-//                            from the coordinates, pallas_build.py:285,
-//                            :325): the tile kernel instantiated for
-//                            double, with __dmul_rn / __dadd_rn and exp,
-//                            and a row mask folded into the store for the
-//                            cross build. Simple and untuned: a float64
-//                            build writes 8 bytes an element, at least
-//                            1.17 ms for (32, 1, 3906, 3906) at
-//                            3.35 TB/s, and its ~15 operations an element
-//                            count 0.22 ms at the 34 TFLOP/s FP64 rate.
 //
-// Bound on the H100: a build writes S*MA*MB*4 bytes per k and reads
-// only O((MA + MB) d) coordinates, so it is write-bound: the
-// (32, 1, 3906, 3906) build writes 1.95 GB, at least 0.58 ms at
+// Bound on the H100: a build writes S*MA*MB*sizeof(T) bytes per k and
+// reads only O((MA + MB) d) coordinates, so it is write-bound: the
+// (32, 1, 3906, 3906) build writes 1.95 GB at float, at least 0.58 ms at
 // 3.35 TB/s. Its ~15 fp32 operations per element count 0.1 ms at
 // 67 TFLOP/s, but IEEE sqrtf, accurate expf, the rounded blend, the
 // diagonal and bounds tests and the address arithmetic make issue time
@@ -61,19 +57,19 @@
 // instead of to sectors, the symmetric kernel takes 0.80 ms at
 // m = 3904 (every row starts on a sector) but 1.82 ms at m = 3906
 // (rows start 8 bytes apart mod 32; torch_build_probe.py). The tile
-// kernel's 32-float rows share sectors the same way. So the symmetric
+// kernel's 32-element rows share sectors the same way. So the symmetric
 // kernel:
 //   - writes whole sectors only: each row's column segments start on a
 //     sector boundary (shifted left by the row's offset into its
-//     sector, below), so a segment is 16 aligned 16-byte stores; only
-//     the sector where one row ends and the next begins is shared;
+//     sector, below), so a segment is aligned 16-byte stores; only the
+//     sector where one row ends and the next begins is shared;
 //   - computes one half: an off-diagonal tile pair is computed once,
-//     with an 8-wide halo, into a 72 x 73 shared-memory region, and
-//     both its stores, at (I, J) and mirrored at (J, I), read that
-//     region, so both are coalesced rows. The output bytes stay the
-//     same (cuSOLVER's potrf reads the lower triangle, but the u-draw
-//     multiplies by the full matrix). Stores are evict-first
-//     (__stcs): the output is ~40 times the 50 MB L2;
+//     with a one-sector halo, into a shared-memory region, and both its
+//     stores, at (I, J) and mirrored at (J, I), read that region, so
+//     both are coalesced rows. The output bytes stay the same
+//     (cuSOLVER's potrf reads the lower triangle, but the u-draw
+//     multiplies by the full matrix). Stores are evict-first (__stcs):
+//     the output is ~40 times the 50 MB L2;
 //   - compiles d = 2, the fit's only dimension, as a constant, holding
 //     a thread's column coordinates and mask in registers (any other d
 //     runs a generic instantiation, which at d = 2 takes 0.95 ms at
@@ -85,25 +81,43 @@
 //     item is computed and stored, and land in the other half of a
 //     double buffer in shared memory after it.
 //
+// At double (every float64 build, SMKConfig.dtype="float64") the
+// output is twice the bytes, 3.9 GB for (32, 1, 3906, 3906), at least
+// 1.17 ms at 3.35 TB/s, and the arithmetic is no longer cheap: exp and
+// sqrt of a double are sequences of DFMA and DMUL on the FP64 units
+// (17e12 instructions a second on the H100, half the fp32 rate), not
+// single instructions, so computing both halves costs about as much
+// issue time as the bound itself. The same design applies at 8-byte
+// elements: a sector is 4 doubles (the halo), a 16-byte store is a
+// double2. Tiles are 32 x 32, not 64 x 64: the 36 x 37 region and the
+// double-buffered panels take 21.6 KB of static shared memory (a 64-tile
+// region alone would take 37.5 KB and need the dynamic opt-in), and 128
+// threads (16 a row segment, 8 rows a pass) then split the region's
+// 640 two-element groups evenly, 5 each, as 256 threads split the float
+// kernel's 1280 four-element groups; the cost is a halo of 25 % of a
+// tile's elements recomputed, against 12.5 % at 64.
+//
 // The narrow kernel (kriging builds). Its output is MA rows of MB = 64
-// floats at the main path's shapes: the cross build (32, 1, 3906, 64)
-// writes 32 MB, at least 9.5 us at 3.35 TB/s; the test stack
+// elements at the main path's shapes: the cross build (32, 1, 3906, 64)
+// writes 32 MB at float, at least 9.5 us at 3.35 TB/s; the test stack
 // (32, 1, 64, 64) writes 0.5 MB, 0.16 us, so one kernel launch is its
 // floor. Neither suits a square tile: the tile kernel spends a 256-thread
 // block, a shared-memory stage and a barrier on every 4 KB it writes, and
 // the symmetric kernel's 72 x 72 halo regions cost more than the 64 x 64
 // stack itself (0.0078 ms against 0.0063 for the narrow kernel and
 // 0.0049 for an empty launch). So the narrow kernel:
-//   - gives every row of the output to ceil(MB / 4) threads, each of
-//     which owns 4 columns and keeps their coordinates in registers for
-//     as long as its items share them (the whole run when the columns'
-//     coordinates are shared over K, as the test sites are); a row's
-//     own coordinates, row mask and phi are broadcast loads;
-//   - stores each thread's 4 values of a row as one 16-byte evict-first
-//     store where rows start on 16 bytes (MB % 4 == 0: at MB = 64 a warp
-//     writes two whole 256-byte rows), else as 4 scalar stores whose
-//     columns are strided so that each store instruction of a warp
-//     covers consecutive columns (MB = 123 and other ragged widths);
+//   - gives every row of the output to ceil(MB / V) threads, each of
+//     which owns V = 16 / sizeof(T) columns (4 floats, 2 doubles) and
+//     keeps their coordinates in registers for as long as its items
+//     share them (the whole run when the columns' coordinates are
+//     shared over K, as the test sites are); a row's own coordinates,
+//     row mask and phi are broadcast loads;
+//   - stores each thread's V values of a row as one 16-byte evict-first
+//     store where rows start on 16 bytes (MB % V == 0: at MB = 64 a warp
+//     writes two whole 256-byte rows at float, one 512-byte row at
+//     double), else as V scalar stores whose columns are strided so that
+//     each store instruction of a warp covers consecutive columns
+//     (MB = 123 and other ragged widths);
 //   - needs no shared memory and no barrier: a work item is (ks, a strip
 //     of rows); strips are 96 rows, fewer where that would leave SMs
 //     idle (the 64 x 64 stack runs 128 items of 16 rows), and the grid
@@ -114,8 +128,8 @@
 //   - folds the sampler's row mask into the store (ROW_MASK: the product
 //     r_i rho the sampler took as a separate pass over the output);
 //   - compiles d = 2 as a constant beside one generic instantiation, as
-//     the symmetric kernel does. Rows wider than 1024 columns are cut
-//     into column panels of at most 256 threads' worth.
+//     the symmetric kernel does. Rows wider than 256 threads' worth
+//     (1024 floats, 512 doubles) are cut into column panels.
 // What holds it at the cross build (32, 1, 3906, 64), device time on an
 // H100 80GB HBM3 at 700 W (scripts/torch_build_probe.py --narrow):
 // with 64-row strips 0.021-0.022 ms, the same without its stores,
@@ -135,14 +149,15 @@
 // Shared memory stays under 48 KB (no opt-in needed); nothing is
 // allocated; the entry point returns cudaGetLastError().
 //
-// Numerics: expf (not __expf), IEEE sqrt and division (no fast math),
-// and the distance sum and the mask blend are rounded operation by
-// operation (__fmul_rn / __fadd_rn: no contraction into FMA), so the
-// result follows the plain version's arithmetic. All three kernels run
-// the same per-pair code, and (x - y)^2 == (y - x)^2 and m_i m_j ==
-// m_j m_i in IEEE, so the symmetric and narrow kernels' outputs are
-// bitwise equal to the tile kernel's, and square builds are symmetric
-// bit for bit by construction.
+// Numerics: expf / exp (not __expf), IEEE sqrt and division (no fast
+// math), and the distance sum and the mask blend are rounded operation
+// by operation (__fmul_rn / __fadd_rn, __dmul_rn / __dadd_rn: no
+// contraction into FMA), so the result follows the plain version's
+// arithmetic. All three kernels run the same per-pair code, and
+// (x - y)^2 == (y - x)^2 and m_i m_j == m_j m_i in IEEE, so the
+// symmetric and narrow kernels' outputs are bitwise equal to the tile
+// kernel's at either type, and square builds are symmetric bit for bit
+// by construction.
 
 #include <climits>
 #include <cstdint>
@@ -156,19 +171,17 @@ constexpr int ROWS_PER_THREAD = 4;
 constexpr int BLOCK_Y = TILE / ROWS_PER_THREAD;  // 8: 256 threads
 constexpr int MAX_D = 8;
 
-// symmetric kernel: 64 x 64 output tiles, 256 threads
-constexpr int STILE = 64;
-constexpr int SYM_THREADS = 256;
-
-// The rounded operations of the per-pair arithmetic, by scalar type:
-// float (every kernel) and double (the tile kernel's float64
-// instantiation, entry point smk_fused_corr_f64). Each is rounded on
-// its own (no FMA contraction), in the plain version's order.
+// The rounded operations of the per-pair arithmetic, by scalar type,
+// each rounded on its own (no FMA contraction), in the plain version's
+// order; and the 16-byte vector of the type (VEC elements), the widest
+// store.
 template <typename T>
 struct Num;
 
 template <>
 struct Num<float> {
+  using vec = float4;
+  static constexpr int VEC = 4;
   static constexpr float SQRT3 = 1.7320508075688772f;
   static constexpr float SQRT5 = 2.23606797749979f;
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -177,10 +190,19 @@ struct Num<float> {
   static __device__ __forceinline__ float exp(float a) { return expf(a); }
   static __device__ __forceinline__ float sqrt(float a) { return sqrtf(a); }
   static __device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
+  static __device__ __forceinline__ float4 pack(const float* e) {
+    return make_float4(e[0], e[1], e[2], e[3]);
+  }
+  static __device__ __forceinline__ void unpack(float4 v, float* e) {
+    e[0] = v.x; e[1] = v.y; e[2] = v.z; e[3] = v.w;
+  }
+  static __device__ __forceinline__ float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 };
 
 template <>
 struct Num<double> {
+  using vec = double2;
+  static constexpr int VEC = 2;
   static constexpr double SQRT3 = 1.7320508075688772;
   static constexpr double SQRT5 = 2.23606797749979;
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
@@ -189,6 +211,9 @@ struct Num<double> {
   static __device__ __forceinline__ double exp(double a) { return ::exp(a); }
   static __device__ __forceinline__ double sqrt(double a) { return ::sqrt(a); }
   static __device__ __forceinline__ double max(double a, double b) { return fmax(a, b); }
+  static __device__ __forceinline__ double2 pack(const double* e) { return make_double2(e[0], e[1]); }
+  static __device__ __forceinline__ void unpack(double2 v, double* e) { e[0] = v.x; e[1] = v.y; }
+  static __device__ __forceinline__ double2 zero() { return make_double2(0.0, 0.0); }
 };
 
 template <int MODEL, typename T>
@@ -218,11 +243,9 @@ struct ArgsT {
   int K, S, MA, MB, D;
   long long a_kstride, b_kstride;
 };
-using Args = ArgsT<float>;
 
 // The per-pair arithmetic after the distance sum, shared by all three
-// kernels so that they agree bit for bit (T is deduced: float in all
-// three, double in the tile kernel's float64 instantiation).
+// kernels so that they agree bit for bit (T is deduced).
 template <int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG, typename T>
 __device__ __forceinline__ T pair_value(T sq, bool diag, T phi, T mi, T mj, T sh) {
   using N = Num<T>;
@@ -237,9 +260,8 @@ __device__ __forceinline__ T pair_value(T sq, bool diag, T phi, T mi, T mj, T sh
   return rho;
 }
 
-// The tile kernel, on its scalar type T: float (layout 0) or double
-// (every float64 build). ROW_MASK multiplies row i by row_mask[k, i] as
-// it is stored, as the narrow kernel does (float64 cross builds only).
+// The tile kernel. ROW_MASK multiplies row i by row_mask[k, i] as it is
+// stored, as the narrow kernel does.
 template <typename T, int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG, bool ROW_MASK>
 __global__ void __launch_bounds__(TILE * BLOCK_Y)
 fused_corr_kernel(const ArgsT<T> args) {
@@ -262,7 +284,7 @@ fused_corr_kernel(const ArgsT<T> args) {
   const int tid = ty * TILE + tx;
 
   // stage the tile's 32 row and 32 column coordinates; consecutive
-  // threads read consecutive floats of the (m, d) row-major blocks
+  // threads read consecutive elements of the (m, d) row-major blocks
   const T* a = args.ca + k * args.a_kstride;
   const T* b = args.cb + k * args.b_kstride;
   for (int e = tid; e < TILE * D; e += TILE * BLOCK_Y) {
@@ -313,22 +335,52 @@ fused_corr_kernel(const ArgsT<T> args) {
 // ---- the symmetric kernel ------------------------------------------
 //
 // Whole sectors: a 32-byte sector of the output is written by one block
-// only. Output row i starts `off_i` floats into a sector (its address
-// mod 32, over 4), and its column segment J is [J*64 - off_i,
-// (J+1)*64 - off_i), clipped to [0, MB): sector-aligned, so every
-// 4-column group of it is one aligned 16-byte store. Segment J reaches
+// only. Output row i starts `off_i` elements into a sector (its address
+// mod 32, over sizeof(T)), and its column segment J is [J*STILE - off_i,
+// (J+1)*STILE - off_i), clipped to [0, MB): sector-aligned, so every
+// VEC-column group of it is one aligned 16-byte store. Segment J reaches
 // up to HALO - 1 columns into tile J - 1, so a pair (I, J) computes the
-// region of rows [I*64 - HALO, I*64 + 64) x columns [J*64 - HALO,
-// J*64 + 64) of its matrix (all but the HALO x HALO corner, which no
-// store reads) into shared memory, once, and stores from it both the
-// rows of tile I over segment J and, mirrored, the rows of tile J over
-// segment I. There are ceil((MB + HALO - 1) / 64) tiles and segments a
-// side, so the last segment of every row reaches MB.
+// region of rows [I*STILE - HALO, I*STILE + STILE) x columns [J*STILE -
+// HALO, J*STILE + STILE) of its matrix (all but the HALO x HALO corner,
+// which no store reads) into shared memory, once, and stores from it
+// both the rows of tile I over segment J and, mirrored, the rows of tile
+// J over segment I. There are ceil((MB + HALO - 1) / STILE) tiles and
+// segments a side, so the last segment of every row reaches MB.
 
-constexpr int HALO = 8;               // one sector of floats
-constexpr int SPAN = STILE + HALO;    // 72: a panel's rows, the region's edge
-constexpr int QUADS = STILE / 4;      // 16 four-column groups in a segment
-constexpr int STAGE_COORDS = (2 * SPAN * MAX_D + SYM_THREADS - 1) / SYM_THREADS;  // 5
+// Tile edge, threads and resident blocks asked of the compiler, by type.
+template <typename T>
+struct SymTiles;
+template <>
+struct SymTiles<float> {
+  static constexpr int STILE = 64, THREADS = 256, MIN_BLOCKS = 3;
+};
+template <>
+struct SymTiles<double> {
+  static constexpr int STILE = 32, THREADS = 128, MIN_BLOCKS = 4;
+};
+
+// What follows from them. A thread serves one VEC-column group of a
+// segment (QUADS groups a segment) in RPP rows of every PASSES; the
+// region's groups split evenly when RPP == 2 HALO: PASSES groups a thread
+// in the rows of tile I, then the HALO rows above them by the first
+// HALO * QUADS threads and the HALO-column strip left of them by the
+// others, LEFT groups a row.
+template <typename T>
+struct SymGeom {
+  static constexpr int VEC = Num<T>::VEC;
+  static constexpr int HALO = 32 / (int)sizeof(T);  // one sector of elements
+  static constexpr int STILE = SymTiles<T>::STILE;
+  static constexpr int SPAN = STILE + HALO;  // a panel's rows, the region's edge
+  static constexpr int THREADS = SymTiles<T>::THREADS;
+  static constexpr int QUADS = STILE / VEC;
+  static constexpr int RPP = THREADS / QUADS;
+  static constexpr int PASSES = STILE / RPP;
+  static constexpr int LEFT = HALO / VEC;
+  // coordinates a thread stages of the two panels
+  static constexpr int STAGE = (2 * SPAN * MAX_D + THREADS - 1) / THREADS;
+  static_assert(RPP == 2 * HALO, "the region's groups must split evenly");
+  static_assert(3 * SPAN < THREADS, "mask, shift and phi need 3 SPAN + 1 threads");
+};
 
 // Work item w -> (ks, I, J) with I <= J: the tile pairs of one (k, s)
 // matrix are numbered p = J (J + 1) / 2 + I, so J is the triangular
@@ -345,71 +397,76 @@ __device__ __forceinline__ void decode_item(int w, int pairs, int& ks, int& I,
   I = (int)(p - a * (a + 1) / 2);
 }
 
+template <typename T>
 struct __align__(16) SymShared {
-  // coordinates of rows [I*64 - HALO, I*64 + 64) and [J*64 - HALO,
-  // J*64 + 64), c-major, double buffered
-  float pa[2][MAX_D][SPAN];
-  float pb[2][MAX_D][SPAN];
-  float ma[2][SPAN];  // mask of the pa rows
-  float mb[2][SPAN];  // mask of the pb rows
-  float sh[2][SPAN];  // shift of the pa rows
-  float phi[2];
+  using G = SymGeom<T>;
+  // coordinates of rows [I*STILE - HALO, I*STILE + STILE) and [J*STILE -
+  // HALO, J*STILE + STILE), c-major, double buffered
+  T pa[2][MAX_D][G::SPAN];
+  T pb[2][MAX_D][G::SPAN];
+  T ma[2][G::SPAN];  // mask of the pa rows
+  T mb[2][G::SPAN];  // mask of the pb rows
+  T sh[2][G::SPAN];  // shift of the pa rows
+  T phi[2];
   // the region: val[a][b] = rho(pa row a, pb row b); the odd pitch
   // spreads a column's reads over the banks
-  float val[SPAN][SPAN + 1];
+  T val[G::SPAN][G::SPAN + 1];
 };
 
 // One work item as one thread holds it: its (ks, I, J), and what the
-// thread fetches of its inputs: up to 5 coordinate floats of the two
-// panels, one mask or shift value, and (thread 216) phi.
+// thread fetches of its inputs: up to STAGE coordinates of the two
+// panels, one mask or shift value, and (thread 3 SPAN) phi.
+template <typename T>
 struct Stage {
   int ks, I, J;
-  float c[STAGE_COORDS];
-  float ms;
-  float phi;
+  T c[SymGeom<T>::STAGE];
+  T ms;
+  T phi;
 };
 
-template <bool MASKED, bool SHIFTED>
-__device__ __forceinline__ void stage_load(const Args& args, int D, int w,
-                                           int pairs, int tid, Stage& st) {
+template <typename T, bool MASKED, bool SHIFTED>
+__device__ __forceinline__ void stage_load(const ArgsT<T>& args, int D, int w,
+                                           int pairs, int tid, Stage<T>& st) {
+  using G = SymGeom<T>;
   decode_item(w, pairs, st.ks, st.I, st.J);
   const int M = args.MA;
   const int k = st.ks / args.S;
-  const float* c = args.ca + k * args.a_kstride;
-  const int nd = SPAN * D;
+  const T* c = args.ca + k * args.a_kstride;
+  const int nd = G::SPAN * D;
 #pragma unroll
-  for (int q = 0; q < STAGE_COORDS; ++q) {
-    const int e = tid + q * SYM_THREADS;
-    float v = 0.0f;
+  for (int q = 0; q < G::STAGE; ++q) {
+    const int e = tid + q * G::THREADS;
+    T v = T(0);
     if (e < 2 * nd) {
       const int panel = e >= nd;
       const int el = e - panel * nd;
-      const int first = (panel ? st.J : st.I) * STILE - HALO;
+      const int first = (panel ? st.J : st.I) * G::STILE - G::HALO;
       const int row = first + el / D;
       if (row >= 0 && row < M) v = c[(long long)first * D + el];
     }
     st.c[q] = v;
   }
   const long long base = (long long)k * M;
-  st.ms = 0.0f;
-  if (MASKED && tid < 2 * SPAN) {
-    const int row = (tid < SPAN ? st.I : st.J) * STILE - HALO + tid % SPAN;
+  st.ms = T(0);
+  if (MASKED && tid < 2 * G::SPAN) {
+    const int row = (tid < G::SPAN ? st.I : st.J) * G::STILE - G::HALO + tid % G::SPAN;
     if (row >= 0 && row < M) st.ms = args.mask[base + row];
   }
-  if (SHIFTED && tid >= 2 * SPAN && tid < 3 * SPAN) {
-    const int row = st.I * STILE - HALO + (tid - 2 * SPAN);
+  if (SHIFTED && tid >= 2 * G::SPAN && tid < 3 * G::SPAN) {
+    const int row = st.I * G::STILE - G::HALO + (tid - 2 * G::SPAN);
     if (row >= 0 && row < M) st.ms = args.shift[base + row];
   }
-  if (tid == 3 * SPAN) st.phi = args.phis[st.ks];
+  if (tid == 3 * G::SPAN) st.phi = args.phis[st.ks];
 }
 
-template <bool MASKED, bool SHIFTED>
-__device__ __forceinline__ void stage_store(SymShared& sm, int buf, int D,
-                                            int tid, const Stage& st) {
-  const int nd = SPAN * D;
+template <typename T, bool MASKED, bool SHIFTED>
+__device__ __forceinline__ void stage_store(SymShared<T>& sm, int buf, int D,
+                                            int tid, const Stage<T>& st) {
+  using G = SymGeom<T>;
+  const int nd = G::SPAN * D;
 #pragma unroll
-  for (int q = 0; q < STAGE_COORDS; ++q) {
-    const int e = tid + q * SYM_THREADS;
+  for (int q = 0; q < G::STAGE; ++q) {
+    const int e = tid + q * G::THREADS;
     if (e < 2 * nd) {
       const int panel = e >= nd;
       const int el = e - panel * nd;
@@ -418,92 +475,108 @@ __device__ __forceinline__ void stage_store(SymShared& sm, int buf, int D,
       (panel ? sm.pb : sm.pa)[buf][c][r] = st.c[q];
     }
   }
-  if (MASKED && tid < 2 * SPAN) {
-    (tid < SPAN ? sm.ma : sm.mb)[buf][tid % SPAN] = st.ms;
+  if (MASKED && tid < 2 * G::SPAN) {
+    (tid < G::SPAN ? sm.ma : sm.mb)[buf][tid % G::SPAN] = st.ms;
   }
-  if (SHIFTED && tid >= 2 * SPAN && tid < 3 * SPAN) {
-    sm.sh[buf][tid - 2 * SPAN] = st.ms;
+  if (SHIFTED && tid >= 2 * G::SPAN && tid < 3 * G::SPAN) {
+    sm.sh[buf][tid - 2 * G::SPAN] = st.ms;
   }
-  if (tid == 3 * SPAN) sm.phi[buf] = st.phi;
+  if (tid == 3 * G::SPAN) sm.phi[buf] = st.phi;
 }
 
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// VEC elements from shared memory at `p` (16-byte aligned), one load
+template <typename T>
+__device__ __forceinline__ typename Num<T>::vec ldsv(const T* p) {
+  return *reinterpret_cast<const typename Num<T>::vec*>(p);
 }
 
-// Region columns [b, b + 4) of row a: the distance sums (pb
+// Region columns [b, b + VEC) of row a: the distance sums (pb
 // coordinates from `bq` where the caller holds them, else from shared
 // memory), then the per-pair tail, into val.
-template <int MODEL, bool MASKED, bool SHIFTED, int DIM>
-__device__ __forceinline__ void region_group(SymShared& sm, int buf, int D,
-                                             int a, int b, const float4* bq,
-                                             float4 mbq, int ia, int jb,
-                                             float phi) {
-  float sq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+template <typename T, int MODEL, bool MASKED, bool SHIFTED, int DIM>
+__device__ __forceinline__ void region_group(SymShared<T>& sm, int buf, int D,
+                                             int a, int b,
+                                             const typename Num<T>::vec* bq,
+                                             typename Num<T>::vec mbq, int ia,
+                                             int jb, T phi) {
+  using N = Num<T>;
+  constexpr int V = N::VEC;
+  T sq[V];
+#pragma unroll
+  for (int cc = 0; cc < V; ++cc) sq[cc] = T(0);
 #pragma unroll
   for (int c = 0; c < (DIM > 0 ? DIM : MAX_D); ++c) {
     if (DIM == 0 && c >= D) break;
-    const float ai = sm.pa[buf][c][a];
-    const float4 bj = bq != nullptr ? bq[c] : lds4(&sm.pb[buf][c][b]);
-    const float b4[4] = {bj.x, bj.y, bj.z, bj.w};
+    const T ai = sm.pa[buf][c][a];
+    T bv[V];
+    N::unpack(bq != nullptr ? bq[c] : ldsv(&sm.pb[buf][c][b]), bv);
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const float diff = __fsub_rn(ai, b4[cc]);
-      sq[cc] = __fadd_rn(sq[cc], __fmul_rn(diff, diff));
+    for (int cc = 0; cc < V; ++cc) {
+      const T diff = N::sub(ai, bv[cc]);
+      sq[cc] = N::add(sq[cc], N::mul(diff, diff));
     }
   }
-  const float mi = MASKED ? sm.ma[buf][a] : 0.0f;
-  const float si = SHIFTED ? sm.sh[buf][a] : 0.0f;
-  const float m4[4] = {mbq.x, mbq.y, mbq.z, mbq.w};
+  const T mi = MASKED ? sm.ma[buf][a] : T(0);
+  const T si = SHIFTED ? sm.sh[buf][a] : T(0);
+  T mv[V];
+  N::unpack(mbq, mv);
 #pragma unroll
-  for (int cc = 0; cc < 4; ++cc) {
+  for (int cc = 0; cc < V; ++cc) {
     sm.val[a][b + cc] = pair_value<MODEL, MASKED, SHIFTED, true>(
-        sq[cc], ia + a == jb + b + cc, phi, mi, m4[cc], si);
+        sq[cc], ia + a == jb + b + cc, phi, mi, mv[cc], si);
   }
 }
 
-// Floats from the start of its 32-byte sector to `p`.
-__device__ __forceinline__ int sector_offset(const float* p) {
-  return (int)((reinterpret_cast<unsigned long long>(p) >> 2) & 7);
+// Elements from the start of its 32-byte sector to `p`.
+template <typename T>
+__device__ __forceinline__ int sector_offset(const T* p) {
+  return (int)((reinterpret_cast<unsigned long long>(p) / sizeof(T)) &
+               (SymGeom<T>::HALO - 1));
 }
 
-// Columns [j, j + 4) of the output row at `row`, those in [0, M) only:
-// one 16-byte store where all four are in (the address is aligned
-// inside a segment), else scalars. Evict-first: the output is ~40
-// times the L2 and read back long after.
-__device__ __forceinline__ void store4(float* row, int j, int M, float4 v) {
-  if (j >= 0 && j + 4 <= M) {
-    __stcs(reinterpret_cast<float4*>(row + j), v);
+// Columns [j, j + VEC) of the output row at `row`, those in [0, M) only:
+// one 16-byte store where all are in (the address is aligned inside a
+// segment), else scalars. Evict-first: the output is ~40 times the L2
+// and read back long after.
+template <typename T>
+__device__ __forceinline__ void storev(T* row, int j, int M, typename Num<T>::vec v) {
+  constexpr int V = Num<T>::VEC;
+  if (j >= 0 && j + V <= M) {
+    __stcs(reinterpret_cast<typename Num<T>::vec*>(row + j), v);
     return;
   }
-  const float e[4] = {v.x, v.y, v.z, v.w};
+  T e[V];
+  Num<T>::unpack(v, e);
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < V; ++q) {
     if (j + q >= 0 && j + q < M) __stcs(row + j + q, e[q]);
   }
 }
 
 // DIM: the coordinate dimension where it is known when compiling (2,
 // the only one the fit uses), 0 for any other (read from args.D).
-template <int MODEL, bool MASKED, bool SHIFTED, int DIM>
-__global__ void __launch_bounds__(SYM_THREADS, 3)
-fused_corr_sym_kernel(const Args args, int pairs, int items) {
-  __shared__ SymShared sm;
+template <typename T, int MODEL, bool MASKED, bool SHIFTED, int DIM>
+__global__ void __launch_bounds__(SymTiles<T>::THREADS, SymTiles<T>::MIN_BLOCKS)
+fused_corr_sym_kernel(const ArgsT<T> args, int pairs, int items) {
+  using G = SymGeom<T>;
+  using N = Num<T>;
+  using vec = typename N::vec;
+  __shared__ SymShared<T> sm;
 
   const int M = args.MA;
   const int D = DIM > 0 ? DIM : args.D;
   const int tid = threadIdx.x;
-  // region phase: the thread's four columns b = HALO + 4 * quad of rows
-  // rsub + 16 k (k < 4), then one more group (below); store phase: its
-  // four columns 4 * quad of a segment, of rows rsub + 16 k
-  const int quad = tid % QUADS;
-  const int rsub = tid / QUADS;
+  // region phase: the thread's VEC columns b = HALO + VEC * quad of rows
+  // rsub + RPP k (k < PASSES), then one more group (below); store phase:
+  // its VEC columns VEC * quad of a segment, of rows rsub + RPP k
+  const int quad = tid % G::QUADS;
+  const int rsub = tid / G::QUADS;
 
   int w = blockIdx.x;
   if (w >= items) return;
-  Stage st;
-  stage_load<MASKED, SHIFTED>(args, D, w, pairs, tid, st);
-  stage_store<MASKED, SHIFTED>(sm, 0, D, tid, st);
+  Stage<T> st;
+  stage_load<T, MASKED, SHIFTED>(args, D, w, pairs, tid, st);
+  stage_store<T, MASKED, SHIFTED>(sm, 0, D, tid, st);
   __syncthreads();
 
   int buf = 0;
@@ -513,67 +586,67 @@ fused_corr_sym_kernel(const Args args, int pairs, int items) {
     const int J = st.J;
     // the next item's inputs are in flight while this one is computed
     const bool more = w + (int)gridDim.x < items;  // no overflow: items + grid < 2^31
-    if (more) stage_load<MASKED, SHIFTED>(args, D, w + gridDim.x, pairs, tid, st);
+    if (more) stage_load<T, MASKED, SHIFTED>(args, D, w + gridDim.x, pairs, tid, st);
 
     // The region: all but its HALO x HALO corner. Columns [HALO, SPAN)
-    // of rows [0, SPAN) are 16 x 72 groups of four; threads hold their
+    // of rows [0, SPAN) are QUADS x SPAN groups; threads hold their
     // column group's coordinates and mask. Columns [0, HALO) of rows
-    // [HALO, SPAN) are the other 128 groups.
-    const int ia = I * STILE - HALO;  // global row of pa row 0
-    const int jb = J * STILE - HALO;  // global row of pb row 0
-    const float phi = sm.phi[buf];
-    const int b1 = HALO + 4 * quad;
-    float4 bq[DIM > 0 ? DIM : 1];
+    // [HALO, SPAN) are the other LEFT x STILE groups.
+    const int ia = I * G::STILE - G::HALO;  // global row of pa row 0
+    const int jb = J * G::STILE - G::HALO;  // global row of pb row 0
+    const T phi = sm.phi[buf];
+    const int b1 = G::HALO + G::VEC * quad;
+    vec bq[DIM > 0 ? DIM : 1];
 #pragma unroll
-    for (int c = 0; c < DIM; ++c) bq[c] = lds4(&sm.pb[buf][c][b1]);
-    const float4 m1 = MASKED ? lds4(&sm.mb[buf][b1]) : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < DIM; ++c) bq[c] = ldsv(&sm.pb[buf][c][b1]);
+    const vec m1 = MASKED ? ldsv(&sm.mb[buf][b1]) : N::zero();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      region_group<MODEL, MASKED, SHIFTED, DIM>(
-          sm, buf, D, rsub + 16 * k, b1, DIM > 0 ? bq : nullptr, m1, ia, jb, phi);
+    for (int k = 0; k < G::PASSES; ++k) {
+      region_group<T, MODEL, MASKED, SHIFTED, DIM>(
+          sm, buf, D, rsub + G::RPP * k, b1, DIM > 0 ? bq : nullptr, m1, ia, jb, phi);
     }
-    if (rsub < HALO) {
-      region_group<MODEL, MASKED, SHIFTED, DIM>(
-          sm, buf, D, STILE + rsub, b1, DIM > 0 ? bq : nullptr, m1, ia, jb, phi);
+    if (rsub < G::HALO) {
+      region_group<T, MODEL, MASKED, SHIFTED, DIM>(
+          sm, buf, D, G::STILE + rsub, b1, DIM > 0 ? bq : nullptr, m1, ia, jb, phi);
     } else {
-      const int h = tid - HALO * QUADS;  // 0..127
-      const int a = HALO + h / 2;
-      const int b = 4 * (h % 2);
-      const float4 m0 = MASKED ? lds4(&sm.mb[buf][b]) : make_float4(0.f, 0.f, 0.f, 0.f);
-      region_group<MODEL, MASKED, SHIFTED, DIM>(sm, buf, D, a, b, nullptr, m0,
-                                                ia, jb, phi);
+      const int h = tid - G::HALO * G::QUADS;
+      const int a = G::HALO + h / G::LEFT;
+      const int b = G::VEC * (h % G::LEFT);
+      const vec m0 = MASKED ? ldsv(&sm.mb[buf][b]) : N::zero();
+      region_group<T, MODEL, MASKED, SHIFTED, DIM>(sm, buf, D, a, b, nullptr, m0,
+                                                   ia, jb, phi);
     }
     __syncthreads();
 
-    float* out = args.out + (long long)ks * M * M;
-    // rows of tile I over segment J: 4 columns a thread, 16 a row
+    T* out = args.out + (long long)ks * M * M;
+    // rows of tile I over segment J: VEC columns a thread, QUADS a row
 #pragma unroll
-    for (int r = 0; r < STILE / 16; ++r) {
-      const int li = rsub + 16 * r;
-      const int i = I * STILE + li;
+    for (int r = 0; r < G::PASSES; ++r) {
+      const int li = rsub + G::RPP * r;
+      const int i = I * G::STILE + li;
       if (i < M) {
-        float* row = out + (long long)i * M;
-        const int b = HALO - sector_offset(row) + 4 * quad;
-        const float* v = &sm.val[HALO + li][b];
-        store4(row, jb + b, M, make_float4(v[0], v[1], v[2], v[3]));
+        T* row = out + (long long)i * M;
+        const int b = G::HALO - sector_offset(row) + G::VEC * quad;
+        storev(row, jb + b, M, N::pack(&sm.val[G::HALO + li][b]));
       }
     }
     // rows of tile J over segment I, from the same region (block-uniform)
     if (I != J) {
 #pragma unroll
-      for (int r = 0; r < STILE / 16; ++r) {
-        const int lj = rsub + 16 * r;
-        const int j = J * STILE + lj;
+      for (int r = 0; r < G::PASSES; ++r) {
+        const int lj = rsub + G::RPP * r;
+        const int j = J * G::STILE + lj;
         if (j < M) {
-          float* row = out + (long long)j * M;
-          const int a = HALO - sector_offset(row) + 4 * quad;
-          store4(row, ia + a, M,
-                 make_float4(sm.val[a][HALO + lj], sm.val[a + 1][HALO + lj],
-                             sm.val[a + 2][HALO + lj], sm.val[a + 3][HALO + lj]));
+          T* row = out + (long long)j * M;
+          const int a = G::HALO - sector_offset(row) + G::VEC * quad;
+          T e[G::VEC];
+#pragma unroll
+          for (int cc = 0; cc < G::VEC; ++cc) e[cc] = sm.val[a + cc][G::HALO + lj];
+          storev(row, ia + a, M, N::pack(e));
         }
       }
     }
-    if (more) stage_store<MASKED, SHIFTED>(sm, buf ^ 1, D, tid, st);
+    if (more) stage_store<T, MASKED, SHIFTED>(sm, buf ^ 1, D, tid, st);
     __syncthreads();
     buf ^= 1;
   }
@@ -581,12 +654,12 @@ fused_corr_sym_kernel(const Args args, int pairs, int items) {
 
 // ---- the narrow kernel ---------------------------------------------
 //
-// A row of the output is cut into panels of 4 * quads columns (one
-// panel where MB <= 4 * NARROW_THREADS); a work item is (ks, a strip of
-// `rows` rows, a panel). Thread t of the block serves row t / quads of
-// every pass over the strip and 4 columns of the panel: 4 * (t % quads)
-// and the next three where rows start on 16 bytes (`vec`), else
-// t % quads + quads * c, c < 4.
+// A row of the output is cut into panels of VEC * quads columns (one
+// panel where MB <= VEC * NARROW_THREADS); a work item is (ks, a strip
+// of `rows` rows, a panel). Thread t of the block serves row t / quads
+// of every pass over the strip and VEC columns of the panel: VEC *
+// (t % quads) and the next VEC - 1 where rows start on 16 bytes (`vec`),
+// else t % quads + quads * c, c < VEC.
 
 constexpr int NARROW_THREADS = 256;
 constexpr int NARROW_ROWS = 96;  // rows of a work item, at most
@@ -598,12 +671,14 @@ struct NarrowGrid {
   int strips;  // ceil(MA / rows)
   int panels;  // column panels a row
   int items;   // K * S * strips * panels
-  int vec;     // MB % 4 == 0 and the output on 16 bytes: 16-byte stores
+  int vec;     // MB % VEC == 0 and the output on 16 bytes: 16-byte stores
 };
 
-template <int MODEL, bool ROW_MASK, bool ZERO_DIAG, int DIM>
+template <typename T, int MODEL, bool ROW_MASK, bool ZERO_DIAG, int DIM>
 __global__ void __launch_bounds__(NARROW_THREADS)
-fused_corr_narrow_kernel(const Args args, const NarrowGrid g) {
+fused_corr_narrow_kernel(const ArgsT<T> args, const NarrowGrid g) {
+  using N = Num<T>;
+  constexpr int V = N::VEC;
   constexpr int CD = DIM > 0 ? DIM : MAX_D;  // coordinate registers a column
   const int D = DIM > 0 ? DIM : args.D;
   const int MA = args.MA;
@@ -612,43 +687,43 @@ fused_corr_narrow_kernel(const Args args, const NarrowGrid g) {
   const int rsub = threadIdx.x / g.quads;
   const int quad = threadIdx.x - rsub * g.quads;
   if (rsub >= step) return;  // the block has no barrier
-  const int jq = g.vec ? 4 * quad : quad;  // the thread's first column in a panel
-  const int js = g.vec ? 1 : g.quads;      // and the stride of its four
+  const int jq = g.vec ? V * quad : quad;  // the thread's first column in a panel
+  const int js = g.vec ? 1 : g.quads;      // and the stride of its V
 
-  float bc[4][CD];  // the four columns' coordinates
-  int held = -1;    // (k of the columns, panel) that bc holds
+  T bc[V][CD];    // the V columns' coordinates
+  int held = -1;  // (k of the columns, panel) that bc holds
   for (int w = blockIdx.x; w < g.items; w += gridDim.x) {
     const int panel = w % g.panels;
     const int rest = w / g.panels;
     const int strip = rest % g.strips;
     const int ks = rest / g.strips;
     const int k = ks / args.S;
-    const int j0 = panel * 4 * g.quads + jq;
+    const int j0 = panel * V * g.quads + jq;
     const int key = (args.b_kstride == 0 ? 0 : k) * g.panels + panel;
     if (key != held) {
-      const float* b = args.cb + k * args.b_kstride;
+      const T* b = args.cb + k * args.b_kstride;
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
+      for (int cc = 0; cc < V; ++cc) {
         const int j = j0 + js * cc;
 #pragma unroll
         for (int c = 0; c < CD; ++c) {
           if (DIM == 0 && c >= D) break;
-          bc[cc][c] = j < MB ? b[(long long)j * D + c] : 0.0f;
+          bc[cc][c] = j < MB ? b[(long long)j * D + c] : T(0);
         }
       }
       held = key;
     }
-    const float phi = args.phis[ks];
-    const float* a = args.ca + k * args.a_kstride;
-    float* out = args.out + (long long)ks * MA * MB;
+    const T phi = args.phis[ks];
+    const T* a = args.ca + k * args.a_kstride;
+    T* out = args.out + (long long)ks * MA * MB;
     const int end = min(MA, (strip + 1) * g.rows);
     // NARROW_BATCH passes at a time: their rows' coordinates and masks
     // are all loaded before the first of them is computed and stored
     // (a row past the strip loads the strip's last row, and is not
     // stored)
     for (int i0 = strip * g.rows + rsub; i0 < end; i0 += NARROW_BATCH * step) {
-      float ai[NARROW_BATCH][CD];
-      float ri[NARROW_BATCH];
+      T ai[NARROW_BATCH][CD];
+      T ri[NARROW_BATCH];
 #pragma unroll
       for (int p = 0; p < NARROW_BATCH; ++p) {
         const int i = min(i0 + p * step, end - 1);
@@ -657,33 +732,33 @@ fused_corr_narrow_kernel(const Args args, const NarrowGrid g) {
           if (DIM == 0 && c >= D) break;
           ai[p][c] = a[(long long)i * D + c];
         }
-        ri[p] = ROW_MASK ? args.row_mask[(long long)k * MA + i] : 0.0f;
+        ri[p] = ROW_MASK ? args.row_mask[(long long)k * MA + i] : T(0);
       }
 #pragma unroll
       for (int p = 0; p < NARROW_BATCH; ++p) {
         const int i = i0 + p * step;
         if (i >= end) break;
-        float v[4];
+        T v[V];
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          float sq = 0.0f;
+        for (int cc = 0; cc < V; ++cc) {
+          T sq = T(0);
 #pragma unroll
           for (int c = 0; c < CD; ++c) {
             if (DIM == 0 && c >= D) break;
-            const float diff = __fsub_rn(ai[p][c], bc[cc][c]);
-            sq = __fadd_rn(sq, __fmul_rn(diff, diff));
+            const T diff = N::sub(ai[p][c], bc[cc][c]);
+            sq = N::add(sq, N::mul(diff, diff));
           }
           v[cc] = pair_value<MODEL, false, false, ZERO_DIAG>(
-              sq, i == j0 + js * cc, phi, 0.0f, 0.0f, 0.0f);
-          if (ROW_MASK) v[cc] = __fmul_rn(ri[p], v[cc]);
+              sq, i == j0 + js * cc, phi, T(0), T(0), T(0));
+          if (ROW_MASK) v[cc] = N::mul(ri[p], v[cc]);
         }
-        float* row = out + (long long)i * MB;
+        T* row = out + (long long)i * MB;
         if (g.vec) {
-          // MB % 4 == 0, so a quad is inside the row or wholly past it
-          if (j0 < MB) __stcs(reinterpret_cast<float4*>(row + j0), make_float4(v[0], v[1], v[2], v[3]));
+          // MB % V == 0, so a group is inside the row or wholly past it
+          if (j0 < MB) __stcs(reinterpret_cast<typename N::vec*>(row + j0), N::pack(v));
         } else {
 #pragma unroll
-          for (int cc = 0; cc < 4; ++cc) {
+          for (int cc = 0; cc < V; ++cc) {
             if (j0 + js * cc < MB) __stcs(row + j0 + js * cc, v[cc]);
           }
         }
@@ -704,38 +779,40 @@ int sm_count() {
   return n;
 }
 
-template <int MODEL, bool MASKED, bool SHIFTED, int DIM>
-cudaError_t launch_sym(const Args& args, cudaStream_t stream) {
-  const long long nt = (args.MA + HALO - 1 + STILE - 1) / STILE;
+template <typename T, int MODEL, bool MASKED, bool SHIFTED, int DIM>
+cudaError_t launch_sym(const ArgsT<T>& args, cudaStream_t stream) {
+  using G = SymGeom<T>;
+  const long long nt = (args.MA + G::HALO - 1 + G::STILE - 1) / G::STILE;
   const long long pairs = nt * (nt + 1) / 2;
   const long long items = (long long)args.K * args.S * pairs;
   if (items > INT_MAX / 2) return cudaErrorInvalidValue;  // w + grid stays an int
   static int per_sm = 0;  // resident blocks per SM, asked once
   if (per_sm == 0) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_corr_sym_kernel<MODEL, MASKED, SHIFTED, DIM>, SYM_THREADS, 0);
+        &per_sm, fused_corr_sym_kernel<T, MODEL, MASKED, SHIFTED, DIM>, G::THREADS, 0);
     if (err != cudaSuccess) return err;
     per_sm = per_sm > 0 ? per_sm : 1;
   }
   const long long resident = (long long)sm_count() * per_sm;
   const int grid = (int)(items < resident ? items : resident);
-  fused_corr_sym_kernel<MODEL, MASKED, SHIFTED, DIM>
-      <<<grid, SYM_THREADS, 0, stream>>>(args, (int)pairs, (int)items);
+  fused_corr_sym_kernel<T, MODEL, MASKED, SHIFTED, DIM>
+      <<<grid, G::THREADS, 0, stream>>>(args, (int)pairs, (int)items);
   return cudaSuccess;
 }
 
-template <int MODEL, bool ROW_MASK, bool ZERO_DIAG, int DIM>
-cudaError_t launch_narrow(const Args& args, cudaStream_t stream) {
+template <typename T, int MODEL, bool ROW_MASK, bool ZERO_DIAG, int DIM>
+cudaError_t launch_narrow(const ArgsT<T>& args, cudaStream_t stream) {
+  constexpr int V = Num<T>::VEC;
   NarrowGrid g;
-  const int quads = (args.MB + 3) / 4;
+  const int quads = (args.MB + V - 1) / V;
   g.panels = (quads + NARROW_THREADS - 1) / NARROW_THREADS;
   g.quads = (quads + g.panels - 1) / g.panels;
-  g.vec = args.MB % 4 == 0 && (reinterpret_cast<uintptr_t>(args.out) & 15) == 0;
+  g.vec = args.MB % V == 0 && (reinterpret_cast<uintptr_t>(args.out) & 15) == 0;
   const int step = NARROW_THREADS / g.quads;
   static int per_sm = 0;  // resident blocks per SM, asked once
   if (per_sm == 0) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_corr_narrow_kernel<MODEL, ROW_MASK, ZERO_DIAG, DIM>,
+        &per_sm, fused_corr_narrow_kernel<T, MODEL, ROW_MASK, ZERO_DIAG, DIM>,
         NARROW_THREADS, 0);
     if (err != cudaSuccess) return err;
     per_sm = per_sm > 0 ? per_sm : 1;
@@ -757,15 +834,15 @@ cudaError_t launch_narrow(const Args& args, cudaStream_t stream) {
   g.items = (int)items;
   const long long resident = (long long)sm_count() * per_sm;
   const int grid = (int)(items < resident ? items : resident);
-  fused_corr_narrow_kernel<MODEL, ROW_MASK, ZERO_DIAG, DIM>
+  fused_corr_narrow_kernel<T, MODEL, ROW_MASK, ZERO_DIAG, DIM>
       <<<grid, NARROW_THREADS, 0, stream>>>(args, g);
   return cudaSuccess;
 }
 
-template <int MODEL, bool ROW_MASK, bool ZERO_DIAG>
-cudaError_t dispatch_narrow(const Args& args, cudaStream_t stream) {
-  if (args.D == 2) return launch_narrow<MODEL, ROW_MASK, ZERO_DIAG, 2>(args, stream);
-  return launch_narrow<MODEL, ROW_MASK, ZERO_DIAG, 0>(args, stream);
+template <typename T, int MODEL, bool ROW_MASK, bool ZERO_DIAG>
+cudaError_t dispatch_narrow(const ArgsT<T>& args, cudaStream_t stream) {
+  if (args.D == 2) return launch_narrow<T, MODEL, ROW_MASK, ZERO_DIAG, 2>(args, stream);
+  return launch_narrow<T, MODEL, ROW_MASK, ZERO_DIAG, 0>(args, stream);
 }
 
 template <typename T, int MODEL, bool MASKED, bool SHIFTED, bool ZERO_DIAG, bool ROW_MASK = false>
@@ -778,61 +855,77 @@ cudaError_t launch(const ArgsT<T>& args, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-template <int MODEL, bool MASKED, bool SHIFTED>
-cudaError_t dispatch_layout(const Args& args, int zero_diag, int layout,
-                            cudaStream_t stream) {
+// a zero-diagonal square build on layout 1 (symmetric) or 0 (tile)
+template <typename T, int MODEL, bool MASKED, bool SHIFTED>
+cudaError_t dispatch_square(const ArgsT<T>& args, int layout, cudaStream_t stream) {
   if (layout == 1) {
-    if (args.D == 2) return launch_sym<MODEL, MASKED, SHIFTED, 2>(args, stream);
-    return launch_sym<MODEL, MASKED, SHIFTED, 0>(args, stream);
+    if (args.D == 2) return launch_sym<T, MODEL, MASKED, SHIFTED, 2>(args, stream);
+    return launch_sym<T, MODEL, MASKED, SHIFTED, 0>(args, stream);
   }
-  if (zero_diag) return launch<float, MODEL, MASKED, SHIFTED, true>(args, stream);
-  return launch<float, MODEL, MASKED, SHIFTED, false>(args, stream);
+  return launch<T, MODEL, MASKED, SHIFTED, true>(args, stream);
 }
 
-// float64: the tile kernel, for every flag combination the entry
-// points use (a row mask only on a cross build without zero_diag)
-template <int MODEL>
-cudaError_t dispatch_f64(const ArgsT<double>& args, int masked, int shifted,
-                         int row_masked, int zero_diag, cudaStream_t stream) {
-  if (row_masked) return launch<double, MODEL, false, false, false, true>(args, stream);
-  if (masked && shifted) return launch<double, MODEL, true, true, true>(args, stream);
-  if (masked) return launch<double, MODEL, true, false, true>(args, stream);
-  if (shifted) return launch<double, MODEL, false, true, true>(args, stream);
-  if (zero_diag) return launch<double, MODEL, false, false, true>(args, stream);
-  return launch<double, MODEL, false, false, false>(args, stream);
-}
-
-template <int MODEL>
-cudaError_t dispatch_flags(const Args& args, int masked, int shifted,
+// every flag combination the entry point lets through: layout 2 without
+// masked and shifted, layout 1 with zero_diag, a row mask on layout 0
+// or 2 with no other flag
+template <typename T, int MODEL>
+cudaError_t dispatch_flags(const ArgsT<T>& args, int masked, int shifted,
                            int row_masked, int zero_diag, int layout,
                            cudaStream_t stream) {
-  // the entry point lets layout 2 through only without masked and
-  // shifted, and a row mask only on layout 2 without zero_diag
   if (layout == 2) {
-    if (row_masked) return dispatch_narrow<MODEL, true, false>(args, stream);
-    if (zero_diag) return dispatch_narrow<MODEL, false, true>(args, stream);
-    return dispatch_narrow<MODEL, false, false>(args, stream);
+    if (row_masked) return dispatch_narrow<T, MODEL, true, false>(args, stream);
+    if (zero_diag) return dispatch_narrow<T, MODEL, false, true>(args, stream);
+    return dispatch_narrow<T, MODEL, false, false>(args, stream);
   }
-  if (masked && shifted) {
-    return dispatch_layout<MODEL, true, true>(args, zero_diag, layout, stream);
-  } else if (masked) {
-    return dispatch_layout<MODEL, true, false>(args, zero_diag, layout, stream);
-  } else if (shifted) {
-    return dispatch_layout<MODEL, false, true>(args, zero_diag, layout, stream);
+  if (row_masked) return launch<T, MODEL, false, false, false, true>(args, stream);
+  if (masked && shifted) return dispatch_square<T, MODEL, true, true>(args, layout, stream);
+  if (masked) return dispatch_square<T, MODEL, true, false>(args, layout, stream);
+  if (shifted) return dispatch_square<T, MODEL, false, true>(args, layout, stream);
+  if (zero_diag) return dispatch_square<T, MODEL, false, false>(args, layout, stream);
+  return launch<T, MODEL, false, false, false>(args, stream);
+}
+
+// The body of both C entry points (below).
+template <typename T>
+int fused_corr_entry(const ArgsT<T>& args, int model, int masked, int shifted,
+                     int row_masked, int zero_diag, int layout, void* stream) {
+  if (args.K < 1 || args.S < 1 || args.MA < 1 || args.MB < 1 || args.D < 1 ||
+      args.D > MAX_D || (long long)args.K * args.S > 65535 ||
+      (args.MA + TILE - 1) / TILE > 65535 || model < 0 || model > 2 ||
+      ((masked || shifted) && (args.MA != args.MB || !zero_diag)) ||
+      layout < 0 || layout > 2 ||
+      (layout == 1 && (args.ca != args.cb || args.a_kstride != args.b_kstride ||
+                       args.MA != args.MB || !zero_diag)) ||
+      (layout == 2 && (masked || shifted)) ||
+      (row_masked && (masked || shifted || zero_diag || layout == 1 ||
+                      args.row_mask == nullptr))) {
+    return (int)cudaErrorInvalidValue;
   }
-  return dispatch_layout<MODEL, false, false>(args, zero_diag, layout, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (model) {
+    case 0: err = dispatch_flags<T, 0>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
+    case 1: err = dispatch_flags<T, 1>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
+    default: err = dispatch_flags<T, 2>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches on `stream`, does
-// not synchronise and allocates nothing. `layout` 0 is the tile kernel,
-// 1 the symmetric kernel, which takes only square same-coordinates
-// zero-diagonal builds (cb == ca, MA == MB), 2 the narrow kernel, which
-// takes only builds without `masked` and `shifted`. `row_masked`
-// multiplies row i of every (k, s) matrix by row_mask[k, i] (a (K, MA)
-// tensor); it takes layout 2 and no other flag. Returns
-// cudaGetLastError() (0 on success); the caller raises on anything else.
+// Plain C entry points (bound with ctypes), one a library: float32, or
+// float64 where built with -DSMK_FUSED_CORR_F64. Each launches on
+// `stream`, does not synchronise and allocates nothing. `layout` 0 is
+// the tile kernel, 1 the symmetric kernel, which takes only square
+// same-coordinates zero-diagonal builds (cb == ca, MA == MB), 2 the
+// narrow kernel, which takes only builds without `masked` and
+// `shifted`; `masked` and `shifted` take only zero-diagonal square
+// builds. `row_masked` multiplies row i of every (k, s) matrix by
+// row_mask[k, i] (a (K, MA) tensor); it takes layout 0 or 2 and no
+// other flag. Returns cudaGetLastError() (0 on success); the caller
+// raises on anything else.
+#ifndef SMK_FUSED_CORR_F64
 extern "C" int smk_fused_corr(const float* ca, const float* cb,
                               const float* phis, const float* mask,
                               const float* shift, const float* row_mask,
@@ -841,36 +934,12 @@ extern "C" int smk_fused_corr(const float* ca, const float* cb,
                               long long b_kstride, int model, int masked,
                               int shifted, int row_masked, int zero_diag,
                               int layout, void* stream) {
-  if (K < 1 || S < 1 || MA < 1 || MB < 1 || D < 1 || D > MAX_D ||
-      (long long)K * S > 65535 || (MA + TILE - 1) / TILE > 65535 ||
-      model < 0 || model > 2 || ((masked || shifted) && MA != MB) ||
-      layout < 0 || layout > 2 ||
-      (layout == 1 && (ca != cb || a_kstride != b_kstride || MA != MB ||
-                       !zero_diag)) ||
-      (layout == 2 && (masked || shifted)) ||
-      (row_masked && (masked || shifted || zero_diag || layout != 2 ||
-                      row_mask == nullptr))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Args args{ca, cb, phis, mask, shift, row_mask, out, K, S,
-                  MA, MB, D, a_kstride, b_kstride};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (model) {
-    case 0: err = dispatch_flags<0>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
-    case 1: err = dispatch_flags<1>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
-    default: err = dispatch_flags<2>(args, masked, shifted, row_masked, zero_diag, layout, s); break;
-  }
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const ArgsT<float> args{ca, cb, phis, mask, shift, row_mask, out, K, S,
+                          MA, MB, D, a_kstride, b_kstride};
+  return fused_corr_entry(args, model, masked, shifted, row_masked, zero_diag,
+                          layout, stream);
 }
-
-// The float64 entry point: the tile kernel instantiated for double, for
-// every float64 build (the symmetric and narrow kernels are float32
-// only). The arguments are smk_fused_corr's without `layout`; `masked`
-// and `shifted` take only zero-diagonal square builds on one coordinate
-// set (MA == MB), and `row_masked` only a cross build with no other
-// flag. Returns cudaGetLastError() (0 on success).
+#else
 extern "C" int smk_fused_corr_f64(const double* ca, const double* cb,
                                   const double* phis, const double* mask,
                                   const double* shift, const double* row_mask,
@@ -878,23 +947,10 @@ extern "C" int smk_fused_corr_f64(const double* ca, const double* cb,
                                   int D, long long a_kstride,
                                   long long b_kstride, int model, int masked,
                                   int shifted, int row_masked, int zero_diag,
-                                  void* stream) {
-  if (K < 1 || S < 1 || MA < 1 || MB < 1 || D < 1 || D > MAX_D ||
-      (long long)K * S > 65535 || (MA + TILE - 1) / TILE > 65535 ||
-      model < 0 || model > 2 ||
-      ((masked || shifted) && (MA != MB || !zero_diag)) ||
-      (row_masked && (masked || shifted || zero_diag || row_mask == nullptr))) {
-    return (int)cudaErrorInvalidValue;
-  }
+                                  int layout, void* stream) {
   const ArgsT<double> args{ca, cb, phis, mask, shift, row_mask, out, K, S,
                            MA, MB, D, a_kstride, b_kstride};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (model) {
-    case 0: err = dispatch_f64<0>(args, masked, shifted, row_masked, zero_diag, s); break;
-    case 1: err = dispatch_f64<1>(args, masked, shifted, row_masked, zero_diag, s); break;
-    default: err = dispatch_f64<2>(args, masked, shifted, row_masked, zero_diag, s); break;
-  }
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return fused_corr_entry(args, model, masked, shifted, row_masked, zero_diag,
+                          layout, stream);
 }
+#endif

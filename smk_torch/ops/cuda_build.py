@@ -1,14 +1,15 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``smk_torch/csrc/*.cu`` source compiles with ``nvcc`` into a shared
-library with a plain C entry point, loaded with ``ctypes`` (no PyTorch
-headers: a build takes seconds, not minutes). Libraries are built at
-first use, from the sources in the package, into ``build/smk_torch/``
-beside the package (a directory ``.gitignore`` lists; override with
-``SMK_TORCH_BUILD_DIR``), under a name that carries a digest of the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. :func:`build` starts one ``nvcc`` per source,
-all at once.
+Each library compiles one ``smk_torch/csrc/*.cu`` source with ``nvcc``
+into a shared library with a plain C entry point, loaded with ``ctypes``
+(no PyTorch headers: a build takes seconds, not minutes); a source may
+be built into several libraries under different macros (the float32 and
+float64 correlation builds). Libraries are built at first use, from the
+sources in the package, into ``build/smk_torch/`` beside the package (a
+directory ``.gitignore`` lists; override with ``SMK_TORCH_BUILD_DIR``),
+under a name that carries a digest of the source and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
+:func:`build` starts one ``nvcc`` per library, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc`` and no card.
@@ -25,8 +26,13 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-# library name -> source file under smk_torch/csrc
-SOURCES = {"fused_corr": "fused_corr.cu"}
+# library name -> (source file under smk_torch/csrc, its own nvcc flags):
+# the correlation build's float32 and float64 entry points are one
+# source built twice, so that the two builds run side by side
+SOURCES = {
+    "fused_corr": ("fused_corr.cu", ()),
+    "fused_corr_f64": ("fused_corr.cu", ("-DSMK_FUSED_CORR_F64",)),
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -71,16 +77,16 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = csrc_dir() / SOURCES[name]
+    source, flags = SOURCES[name]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (csrc_dir() / source).read_bytes() + " ".join(NVCC_FLAGS + flags).encode()
     ).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every named library that is not built yet, one ``nvcc``
-    per source, all started together. Returns, per library, the wall
+    per library, all started together. Returns, per library, the wall
     seconds of its build (0.0 when it was already built) and the
     assembler's report (``-Xptxas -v``: registers, shared memory,
     spills). Raises with the compiler's output when a build fails."""
@@ -95,8 +101,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             report[name] = {"seconds": 0.0, "ptxas": ""}
             continue
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(csrc_dir() / SOURCES[name])]
+        source, flags = SOURCES[name]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(csrc_dir() / source)]
         procs[name] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,

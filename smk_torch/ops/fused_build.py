@@ -13,13 +13,13 @@ build and every unmasked square build of at most ``NARROW_MAX_M`` rows
 (layout 2: whole rows, no shared memory); masked builds and wider
 square ones run the symmetric kernel (layout 1: one half of the tile
 pairs computed, the mirror stored from it). :func:`kernel_layout`
-makes that choice. The tile kernel (layout 0), the port's first, is
-launched by no float32 entry point: the other two are held against it
-bit for bit. A float64 build (``SMKConfig.dtype="float64"``; the TPU
-kernel takes its dtype from the coordinates) runs the tile kernel
-instantiated for double (``smk_fused_corr_f64``), whatever the build:
-the symmetric and narrow kernels are float32 only. Any other dtype
-raises.
+makes that choice, for float32 and float64 builds alike
+(``SMKConfig.dtype="float64"``; the TPU kernel takes its dtype from the
+coordinates): each kernel is built for both types, the float64 ones
+into a library of their own (C entry point ``smk_fused_corr_f64``).
+The tile kernel (layout 0), the port's first, is launched by no entry
+point at either type: the other two are held against it bit for bit.
+Any other dtype raises.
 
 Five entry points wrap it, as in the twin: :func:`fused_correlation`,
 :func:`fused_correlation_stack`, :func:`fused_masked_correlation_stack`,
@@ -33,8 +33,9 @@ launches the kernel or raises (there is no fall-back); on a CPU tensor
 it runs the plain PyTorch version, :func:`plain_build`, which is also
 what ``chip_smoke.py`` holds the kernel against on the card.
 ``LAUNCHES`` counts kernel launches per entry point, ``LAYOUT_LAUNCHES``
-the same launches per kernel, and ``PLAIN_CALLS`` the plain version's
-calls, so a run can show which path it took.
+the same launches per kernel and type (:func:`launch_key`), and
+``PLAIN_CALLS`` the plain version's calls, so a run can show which path
+it took.
 """
 
 from __future__ import annotations
@@ -57,15 +58,16 @@ ENTRY_POINTS = (
 LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 
-# output tile edge of the symmetric kernel (csrc/fused_corr.cu STILE);
-# the tile kernel uses 32
+# output tile edge of the float32 symmetric kernel (csrc/fused_corr.cu
+# SymTiles<float>); the double one uses 32, as the tile kernel does
 TILE = 64
-# the kernel a build launches (the C entry point's `layout` argument)
+# the kernel a build launches (the C entry points' `layout` argument)
 TILED, SYMMETRIC, NARROW = 0, 1, 2
-# the tile kernel instantiated for double (its own C entry point); a key
-# of LAYOUT_LAUNCHES, never a `layout` argument
-TILED_F64 = 3
-LAYOUT_LAUNCHES: Dict[int, int] = dict.fromkeys((TILED, SYMMETRIC, NARROW, TILED_F64), 0)
+# the same kernels built for double: keys of LAYOUT_LAUNCHES, never a
+# `layout` argument (launch_key)
+TILED_F64, SYMMETRIC_F64, NARROW_F64 = 3, 4, 5
+LAYOUT_LAUNCHES: Dict[int, int] = dict.fromkeys(
+    (TILED, SYMMETRIC, NARROW, TILED_F64, SYMMETRIC_F64, NARROW_F64), 0)
 # the widest square build the narrow kernel takes: it computes every
 # element, where the symmetric kernel computes one half
 NARROW_MAX_M = 256
@@ -97,19 +99,27 @@ def bind_kernel(lib):
 
 
 def bind_kernel_f64(lib):
-    """The float64 C entry point ``smk_fused_corr_f64``: the arguments of
-    :func:`bind_kernel` without ``layout``."""
+    """The float64 C entry point ``smk_fused_corr_f64`` of a built
+    ``fused_corr_f64`` library: the arguments of :func:`bind_kernel`."""
     fn = lib.smk_fused_corr_f64
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 7 + [i] * 5 + [ll, ll] + [i] * 5 + [p]
+        fn.argtypes = [p] * 7 + [i] * 5 + [ll, ll] + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _kernel(dtype=torch.float32):
-    lib = cuda_build.load("fused_corr")
-    return bind_kernel_f64(lib) if dtype == torch.float64 else bind_kernel(lib)
+    if dtype == torch.float64:
+        return bind_kernel_f64(cuda_build.load("fused_corr_f64"))
+    return bind_kernel(cuda_build.load("fused_corr"))
+
+
+def launch_key(layout: int, dtype) -> int:
+    """The LAYOUT_LAUNCHES key of a launch of kernel ``layout`` on
+    ``dtype`` coordinates: the layout at float32, its *_F64 key at
+    float64."""
+    return layout + TILED_F64 if dtype == torch.float64 else layout
 
 
 def plain_build(
@@ -163,7 +173,8 @@ def kernel_layout(coords_a, coords_b, zero_diag: bool, masked: bool,
     one coordinate set) and for a square same-coordinates zero-diagonal
     build of more than NARROW_MAX_M rows (its output is symmetric, so
     the kernel computes one half and mirrors it); NARROW for the rest:
-    every cross build, at any width, and the small square ones."""
+    every cross build, at any width, and the small square ones. The
+    same at float32 and float64."""
     square = coords_a is coords_b and zero_diag
     if masked or shifted or (square and coords_b.shape[-2] > NARROW_MAX_M):
         return SYMMETRIC
@@ -171,16 +182,12 @@ def kernel_layout(coords_a, coords_b, zero_diag: bool, masked: bool,
 
 
 def _launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout, row_mask=None):
-    """One kernel launch on the current stream; raises on a launch
-    error (the C function returns cudaGetLastError()). ``layout``
-    SYMMETRIC needs ``cb`` to be ``ca``; ``row_mask`` needs NARROW. A
-    float64 ``out`` launches the double tile kernel (``layout`` must be
-    TILED)."""
+    """One kernel launch on the current stream, of the kernel built for
+    ``out``'s dtype; raises on a launch error (the C function returns
+    cudaGetLastError()). ``layout`` SYMMETRIC needs ``cb`` to be ``ca``;
+    ``row_mask`` needs NARROW (or TILED, the reference)."""
     k, s, ma, mb = out.shape
     d = ca.shape[-1]
-    f64 = out.dtype == torch.float64
-    if f64 and layout != TILED:
-        raise ValueError(f"fused build: float64 runs the tile kernel only, not layout {layout}")
     args = [
         ca.data_ptr(), cb.data_ptr(), phis.data_ptr(),
         0 if mask is None else mask.data_ptr(),
@@ -189,10 +196,8 @@ def _launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout, row_mask=N
         out.data_ptr(), k, s, ma, mb, d,
         ca.stride(0), cb.stride(0),
         _MODEL_IDS[model], int(mask is not None), int(shift is not None),
-        int(row_mask is not None), int(zero_diag),
+        int(row_mask is not None), int(zero_diag), layout,
     ]
-    if not f64:
-        args.append(layout)
     err = _kernel(out.dtype)(*args, torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -268,8 +273,6 @@ def _fused_build(
             tensors.append(("row_mask", rm))
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"fused build: coordinates must be float32 or float64, got {dtype}")
-        if dtype == torch.float64:
-            layout = TILED  # the double tile kernel takes every float64 build
         for name, t in tensors:
             if t.device != dev:
                 raise ValueError(f"fused build: {name} is on {t.device}, not {dev}")
@@ -295,7 +298,7 @@ def _fused_build(
         if out.numel():
             _launch(ca, cb, ph, mk, sh, model, zero_diag, out, layout, rm)
             LAUNCHES[entry] += 1
-            LAYOUT_LAUNCHES[TILED_F64 if dtype == torch.float64 else layout] += 1
+            LAYOUT_LAUNCHES[launch_key(layout, dtype)] += 1
     return out if batched else out[0]
 
 

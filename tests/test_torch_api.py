@@ -8,8 +8,10 @@ port (FitRandomness below): the partition permutation of the fit key's
 first split, each subset's sweep keys, and the resample indices. n =
 200, K = 2, q = 2, p = 2, t = 6, 8 sweeps (6 burn-in, 2 kept), for
 fused_build "off" and "pallas" (interpret-mode Pallas in the JAX fit),
-and for the production sampler (collapsed phi every 2nd sweep, Nystrom
-CG with a bf16 operator, blocked solves) with the logit link.
+for the production sampler (collapsed phi every 2nd sweep, Nystrom
+CG with a bf16 operator, blocked solves) with the logit link, and for
+a K-chunked fit (chunk_size=1: each subset a chunk of its own, in both
+packages).
 
 Tolerance: the fits agree to fp32 roundoff through 8 sweeps, quantile
 compression, combine and resample (observed <= 7e-6; the production
@@ -17,9 +19,10 @@ logit fit <= 1.9e-6, accept rates equal); asserted at 5e-5 absolute +
 5e-5 relative.
 """
 
-# smklint: test-budget=the three JAX reference fits (6-35 s each on this CPU) run once each in a module fixture; every test compares stored arrays or runs the port at n <= 200
+# smklint: test-budget=the four JAX reference fits (6-35 s each on this CPU) run once each in a module fixture; every test compares stored arrays or runs the port at n <= 200
 import ast
 import pathlib
+import warnings
 
 import jax
 import numpy as np
@@ -27,6 +30,7 @@ import pytest
 import torch
 
 from smk_tpu.api import fit_meta_kriging as jax_fit
+from smk_tpu.config import PriorConfig as JaxPriors
 from smk_tpu.config import SMKConfig as JaxConfig
 from smk_tpu.parallel import partition as jpart
 from smk_torch import SMKConfig, api, convert, fit_meta_kriging
@@ -84,17 +88,22 @@ FIT_CONFIGS = {
     "off": dict(fused_build="off"),
     "pallas": dict(fused_build="pallas"),
     "production-logit": PRODUCTION_LOGIT,
+    "chunked": dict(fused_build="off"),
 }
+# fit_meta_kriging's chunk_size, by FIT_CONFIGS key (None elsewhere)
+FIT_CHUNK_SIZE = {"chunked": 1}
 
 
 @pytest.fixture(scope="module", params=sorted(FIT_CONFIGS))
 def fits(request):
     data = _problem()
     kw = dict(n_subsets=KSUB, n_samples=NS, **FIT_CONFIGS[request.param])
+    chunk = FIT_CHUNK_SIZE.get(request.param)
     key = jax.random.key(7)
-    ref = jax_fit(key, *data, config=JaxConfig(**kw))
+    ref = jax_fit(key, *data, config=JaxConfig(**kw), chunk_size=chunk)
     rng = JaxRandomness(key, collapsed=kw.get("phi_sampler") == "collapsed")
-    port = fit_meta_kriging(*data, config=SMKConfig(**kw), randomness=rng, device="cpu")
+    port = fit_meta_kriging(*data, config=SMKConfig(**kw), randomness=rng, device="cpu",
+                            chunk_size=chunk)
     return {"ref": ref, "port": port, "key": key, "data": data, "kw": kw}
 
 
@@ -176,6 +185,40 @@ def test_sampler_state_and_partition_from_numpy_round_trip(fits):
     with pytest.raises(ValueError, match="leading K"):
         convert.sampler_state_from_numpy({f: np.asarray(getattr(state, f))[0]
                                           for f in convert._STATE_FIELDS})
+
+
+def test_chunk_size_must_divide_k():
+    with pytest.raises(ValueError, match="must divide K=4"):
+        fit_meta_kriging(*_problem(), config=SMKConfig(n_subsets=4, n_samples=4),
+                         chunk_size=3, device="cpu")
+
+
+@pytest.mark.parametrize("q, temper, warns",
+                         [(2, "power", True), (3, "power", True), (1, "power", False),
+                          (2, "none", False)])
+def test_tempered_multivariate_warning_matches_twin(q, temper, warns):
+    """Power tempering is validated at q = 1 only: both packages warn, in
+    the same words, where it meets q >= 2, and are silent otherwise."""
+    twin = JaxConfig(priors=JaxPriors(temper=temper))
+    mine = SMKConfig(priors=PriorConfig(temper=temper))
+    if warns:
+        with pytest.warns(UserWarning, match="temper='power'") as want:
+            twin.warn_if_tempered_multivariate(q)
+        with pytest.warns(UserWarning, match="temper='power'") as got:
+            mine.warn_if_tempered_multivariate(q)
+        assert [str(w.message) for w in got] == [str(w.message) for w in want]
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            twin.warn_if_tempered_multivariate(q)
+            mine.warn_if_tempered_multivariate(q)
+
+
+def test_tempered_multivariate_fit_warns():
+    """The fit calls the warning once q is known (here q = 2)."""
+    cfg = SMKConfig(n_subsets=2, n_samples=8, priors=PriorConfig(temper="power"))
+    with pytest.warns(UserWarning, match="temper='power' with q>=2"):
+        fit_meta_kriging(*_problem(), config=cfg, seed=3, device="cpu")
 
 
 def test_no_device_given_and_no_card_raises(monkeypatch):

@@ -290,6 +290,50 @@ class TestWrapperContract:
         assert tfb.kernel_layout(c, c, True, True, True) == tfb.SYMMETRIC
         assert tfb.kernel_layout(c, c, True, False, True) == tfb.SYMMETRIC
 
+    @pytest.mark.parametrize("m", [8, tfb.NARROW_MAX_M, tfb.NARROW_MAX_M + 1])
+    def test_float64_builds_take_the_float32_layouts(self, m):
+        # the double kernels follow the float32 rules: symmetric for the
+        # masked, shifted and wide square builds, narrow for the rest,
+        # counted under their own keys; the tile kernel for none
+        f32 = torch.rand(3, m, 2)
+        f64 = f32.double()
+        sites = torch.rand(5, 2, dtype=torch.float64)
+        for flags in [(True, False, False), (True, True, False), (True, True, True),
+                      (True, False, True)]:
+            assert tfb.kernel_layout(f64, f64, *flags) == tfb.kernel_layout(f32, f32, *flags)
+        assert tfb.kernel_layout(f64, f64, True, True, False) == tfb.SYMMETRIC
+        assert tfb.kernel_layout(f64, sites, False, False, False) == tfb.NARROW
+        assert tfb.kernel_layout(f64, f64, True, False, False) == (
+            tfb.NARROW if m <= tfb.NARROW_MAX_M else tfb.SYMMETRIC)
+        keys = {layout: tfb.launch_key(layout, torch.float64)
+                for layout in (tfb.TILED, tfb.SYMMETRIC, tfb.NARROW)}
+        assert keys == {tfb.TILED: tfb.TILED_F64, tfb.SYMMETRIC: tfb.SYMMETRIC_F64,
+                        tfb.NARROW: tfb.NARROW_F64}
+        assert [tfb.launch_key(x, torch.float32) for x in (0, 1, 2)] == [0, 1, 2]
+        assert set(tfb.LAYOUT_LAUNCHES) == set(keys) | set(keys.values())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("layout", [tfb.TILED, tfb.SYMMETRIC, tfb.NARROW])
+    def test_launch_passes_the_layout_to_the_dtypes_entry_point(self, dtype, layout,
+                                                                  monkeypatch):
+        # _launch binds the entry point of the output's dtype and hands it
+        # the layout at either type (the pointers are not dereferenced)
+        calls = []
+
+        def kernel(dt):
+            return lambda *args: calls.append((dt, args)) or 0
+
+        monkeypatch.setattr(tfb, "_kernel", kernel)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: types.SimpleNamespace(cuda_stream=0))
+        c = torch.rand(2, 9, 2, dtype=dtype)
+        out = torch.empty(2, 1, 9, 9, dtype=dtype)
+        tfb._launch(c, c, torch.ones(2, 1, dtype=dtype), None, None, "matern52", True, out,
+                    layout)
+        (dt, args), = calls
+        assert dt == dtype and len(args) == 21
+        assert args[-2] == layout and args[7:12] == (2, 1, 9, 9, 2) and args[14] == 2
+
     def test_cpu_builds_count_no_layout_launch(self):
         tfb.reset_counts()
         c = torch.rand(2, 10, 2)
@@ -313,6 +357,24 @@ class TestWrapperContract:
         assert tfb.bind_kernel(types.SimpleNamespace(smk_fused_corr=fn)) is fn
         assert len(fn.argtypes) == params.count(",") + 1
         assert fn.restype is ctypes.c_int
+
+    def test_float64_entry_point_takes_the_same_arguments(self):
+        # one source, two libraries: the float64 entry point is built only
+        # under its macro, and takes the float32 one's arguments
+        src = (cuda_build.csrc_dir() / "fused_corr.cu").read_text()
+        params = {name: re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
+                  for name in ("smk_fused_corr", "smk_fused_corr_f64")}
+        names = {name: [a.split()[-1].lstrip("*") for a in ps.split(",")]
+                 for name, ps in params.items()}
+        assert names["smk_fused_corr_f64"] == names["smk_fused_corr"]
+        assert "layout" in names["smk_fused_corr_f64"]
+        fn = types.SimpleNamespace(argtypes=None, restype=None)
+        assert tfb.bind_kernel_f64(types.SimpleNamespace(smk_fused_corr_f64=fn)) is fn
+        assert len(fn.argtypes) == params["smk_fused_corr_f64"].count(",") + 1
+        assert fn.restype is ctypes.c_int
+        assert cuda_build.SOURCES["fused_corr_f64"] == ("fused_corr.cu", ("-DSMK_FUSED_CORR_F64",))
+        assert "#ifndef SMK_FUSED_CORR_F64" in src
+        assert cuda_build.library_path("fused_corr") != cuda_build.library_path("fused_corr_f64")
 
 
 @pytest.mark.gpu
@@ -443,3 +505,35 @@ class TestKernelOnCard:
             np.testing.assert_allclose(outs[0].cpu().numpy(), want.cpu().numpy(),
                                        atol=4e-6, rtol=1e-6)
             _check_invariants(outs[0].cpu(), "fused_correlation_stack", None, None)
+
+    # the double symmetric kernel's tile edges (32 x 32, a 4-double halo)
+    # and every row alignment mod 4 doubles
+    @pytest.mark.parametrize("m", [1, 2, 3, 5, 29, 30, 33, 62, 65, 147, 3906, 3907])
+    def test_double_kernels_equal_the_double_tile_kernel_bitwise(self, m):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        rng = np.random.default_rng(m)
+        coords = torch.as_tensor(rng.uniform(0.0, 2.0, size=(2, m, 2))).cuda()
+        test = torch.as_tensor(rng.uniform(0.3, 2.3, size=(2, 65, 2))).cuda()
+        ph = torch.as_tensor(rng.uniform(4.0, 12.0, size=(2, 2))).cuda()
+        mask = torch.as_tensor((rng.uniform(size=(2, m)) > 0.1).astype(np.float64)).cuda()
+        shift = torch.where(mask > 0, 1.5, 1e8).double()
+        for model in MODELS:
+            for layout, cb, kw in ((tfb.SYMMETRIC, coords, dict(mask=mask, zero_diag=True)),
+                                   (tfb.SYMMETRIC, coords,
+                                    dict(mask=mask, shift=shift, zero_diag=True)),
+                                   (tfb.NARROW, test, dict(row_mask=mask)),
+                                   (tfb.NARROW, test[:, :64], dict())):
+                outs = []
+                for lay in (layout, tfb.TILED):
+                    # NaN-filled: an element the kernel misses fails
+                    out = torch.full((2, 2, m, cb.shape[1]), float("nan"), device="cuda",
+                                     dtype=torch.float64)
+                    tfb._launch(coords, cb, ph, kw.get("mask"), kw.get("shift"), model,
+                                kw.get("zero_diag", False), out, lay, kw.get("row_mask"))
+                    outs.append(out)
+                torch.cuda.synchronize()
+                assert torch.equal(outs[0], outs[1]), (m, model, layout)
+                want = tfb.plain_build(coords, cb, ph, model, **kw)
+                np.testing.assert_allclose(outs[0].cpu().numpy(), want.cpu().numpy(),
+                                           atol=1e-14, rtol=1e-14)

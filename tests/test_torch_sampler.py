@@ -29,6 +29,8 @@ Pad latents enter no likelihood and no prediction.
 """
 
 # smklint: test-budget=the JAX sweeps run once per config variant in a module fixture (two small jit compiles, interpret-mode Pallas at m=40); each test compares stored arrays
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,6 +147,14 @@ class JaxSweepReplay:
         self.next_it += 1
         self.keys, arrays = self._draw(self.keys)
         return to_sweep_noise(arrays, collect)
+
+    def subset(self, lo, hi):
+        """The replay of rows [lo, hi) alone, from their own keys (a
+        K-chunked run's chunk, as GeneratorNoise.subset)."""
+        assert self.next_it == 0, "a chunk replays from the first sweep"
+        part = copy.copy(self)
+        part.keys = self.keys[lo:hi]
+        return part
 
 
 def _data(weight=1):

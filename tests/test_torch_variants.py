@@ -456,10 +456,11 @@ def test_state_from_numpy_carries_chains_and_float64():
 
 @pytest.mark.gpu
 def test_double_tile_kernel_matches_plain_version():
-    """The tile kernel instantiated for double (every float64 build on
-    the card) against its plain version at float64: masked, shifted,
-    cross with a row mask, square; then a float32 build still takes the
-    float32 kernels."""
+    """The double kernels (every float64 build on the card: the masked
+    and shifted builds on the symmetric kernel, the cross build with a
+    row mask and the small square stack on the narrow one) against
+    their plain version at float64: 12 launches, none of the double tile
+    kernel (the reference) or of the float32 kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused build kernel has no CPU mode")
     dev = torch.device("cuda")
@@ -485,7 +486,9 @@ def test_double_tile_kernel_matches_plain_version():
         for got, want in cases:
             assert got.dtype == torch.float64
             torch.testing.assert_close(got, want, atol=1e-13, rtol=1e-13)
-    assert tfb.LAYOUT_LAUNCHES[tfb.TILED_F64] == 12
-    assert sum(tfb.LAYOUT_LAUNCHES[x] for x in (tfb.TILED, tfb.SYMMETRIC, tfb.NARROW)) == 0
+    assert tfb.LAYOUT_LAUNCHES[tfb.SYMMETRIC_F64] == 6
+    assert tfb.LAYOUT_LAUNCHES[tfb.NARROW_F64] == 6
+    assert sum(tfb.LAYOUT_LAUNCHES.values()) == 12
+    assert tfb.LAYOUT_LAUNCHES[tfb.TILED_F64] == 0
     with pytest.raises(TypeError, match="float32 or float64"):
         tfb.fused_correlation_stack(test.half(), phis, "exponential")
