@@ -113,9 +113,42 @@ Phases 12-16 run the rest of the sampler's knobs:
               ms/sweep, peak memory, and one profiler window over two
               sweeps: device busy and idle, the factorizations' share.
 
+Phases 18-21 run the Vecchia/NNGP subset engine (ops/vecchia.py:
+SMKConfig(subset_engine="vecchia"), which builds no (m, m) matrix and
+so launches none of the kernels above), under the JAX bench's Vecchia
+rung (bench.py:1709-1720, :1761; vecchia_config below):
+
+18. vecchia_ops — at config5's shape (K = 32, m = 3906, nn = 16, t = 64)
+              on config5's data: device times (CUDA events, median of 20)
+              of the neighbor builds (train and test; their stable sort of
+              the candidate rows beside torch.topk, with the sites where
+              topk's tie order would differ), vecchia_coeffs on the
+              124,992 sites beside its cholesky_ex alone and its byte
+              bound, the reverse neighbor lists, the loglik, the Q matvec,
+              F^T through the reverse lists beside one scatter_add (and
+              whether five calls of each agree bit for bit), q_diag, an
+              8-step posterior draw and a kriging draw; the
+              neighbor build's peak memory; then every op on the card
+              against the CPU on small seeded inputs (the neighbor sets
+              equal, the rest at 1e-5 + 1e-5|x| at m = 60, of the largest
+              entry at m = 200).
+19. fit_vecchia_small_parity — a small Vecchia fit on the card against
+              the CPU, same random numbers (2e-3 (1 + |x|)), then the card
+              fit again, bit for bit (F^T and diag(Q) are summed through
+              reverse neighbor lists, not with float atomics).
+20. fit_vecchia_config5 — fit_meta_kriging with the Vecchia engine at
+              config5's full width, 64 sweeps (48 burn-in), phi every
+              16th: ms/sweep, phase_seconds, peak memory, finite outputs,
+              no build launched; then the schedule sweep by sweep
+              (direct_sweeps: update and non-update sweep ms, coefficient
+              builds per sweep, profiler windows with the idle share).
+21. fit_vecchia_m_large — the same n at K = 16, m = 7812 (the bench's
+              "dense-undispatchable" leg at twice m), 32 sweeps: ms/sweep,
+              peak memory, finite outputs, no build launched.
+
 Then each phase's wall time and the script's, the kernel summary line
 {"kernels": [...]} (launches from fit_config5, the double kernels' from
-fit_config5_float64, and per path), the card's
+fit_config5_float64, and per path, the Vecchia paths' all 0), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. A failing phase
 raises: the script exits non-zero and prints no ok line. It exits
 non-zero at once where no CUDA card is visible, or where the port
@@ -1162,8 +1195,9 @@ def sampler_setup(cfg, data_np, device, *, weight=1):
     shapes = tp.sweep_shapes(cfg, part.n_subsets, part.subset_size, q, p, ct.shape[0], weight)
     noise = rng.sweep_noise(shapes)
     data = model.chain_data(tp.SubsetData(part.coords, part.x, part.y, part.mask, ct, xt))
-    state = model.init_state(data, beta0)
-    return model, data, state, model._consts(data), noise
+    consts = model._consts(data)
+    state = model.init_state(data, beta0, consts=consts)
+    return model, data, state, consts, noise
 
 
 def direct_sweeps(cfg, data_np, device, *, weight=1):
@@ -1694,6 +1728,344 @@ def chol_blocked(device, c5_data):
     return res
 
 
+# ----------------------------------------------------------------------
+# phases 18-21: the Vecchia engine
+# ----------------------------------------------------------------------
+# neighbors per site (the twin's default, the bench rung's)
+VECCHIA_NN = 16
+# card vs CPU on the small seeded input: the test suite's fp32 tolerance
+# for the Vecchia ops against the twin
+VECCHIA_TOL = (1e-5, 1e-5)
+
+
+def vecchia_config(*, k, n_samples):
+    """The JAX bench's Vecchia rung (bench.py:1709-1720 and :1761): the
+    production sampler's fields (phi every 16th sweep) with
+    u_solver="chol", conditional single-try phi, no fused build, and the
+    Vecchia engine at 16 neighbors (its u-draw is its own 8-step Jacobi
+    CG, cg_iters)."""
+    return production_config(
+        k=k, n_samples=n_samples, u_solver="chol", phi_sampler="conditional",
+        phi_proposals=1, fused_build="off", subset_engine="vecchia",
+        n_neighbors=VECCHIA_NN)
+
+
+def vecchia_ops(device, c5_data):
+    """The Vecchia ops at config5's shape on config5's data (the fit's
+    partition, warm start and state), device times beside the byte bound
+    of the coefficient build; then each op card against CPU on a small
+    seeded input."""
+    import torch
+    from smk_torch.ops import vecchia as v
+    from smk_torch.ops.kernels import correlation
+
+    cfg = vecchia_config(k=MAIN_K, n_samples=64)
+    model, data, state, consts, noise = sampler_setup(cfg, c5_data, device)
+    nn, m = VECCHIA_NN, data.mask.shape[-1]
+    jit = cfg.effective_jitter(m)
+    phi = state.phi  # (K, 1)
+    out = {"phase": "vecchia_ops", "K": data.mask.shape[0], "m": m, "nn": nn,
+           "t": data.coords_test.shape[0], "sites": data.mask.numel()}
+
+    # the neighbor builds, and their candidate selection alone
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    v.build_neighbor_consts(data.coords, data.mask, nn)
+    torch.cuda.synchronize()
+    out["neighbor_build_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["neighbor_build_ms"] = ms_median(
+        lambda: v.build_neighbor_consts(data.coords, data.mask, nn), warmup=1, device_only=True)
+    out["test_neighbor_build_ms"] = ms_median(
+        lambda: v.build_test_neighbor_consts(data.coords, data.mask, data.coords_test, nn),
+        device_only=True)
+    out["reverse_lists_ms"] = ms_median(lambda: v.reverse_neighbors(consts.nbr_idx))
+    out["reverse_list_width"] = consts.nbr_rev.shape[-1]
+    from smk_torch.ops.distance import pairwise_distance
+
+    cand = pairwise_distance(data.coords)
+    ar = torch.arange(m, device=device)
+    cand.masked_fill_(~((ar[None, :] < ar[:, None])[None] & (data.mask > 0)[:, None, :]), v.LARGE)
+    top = torch.topk(cand, nn, dim=-1, largest=False, sorted=True)
+    srt = v._nearest(cand, nn)  # the stable sort, one subset at a time
+    valid = top.values < v.LARGE / 2
+    differ = lambda a, b: int(((a != b) & valid).any(-1).sum())  # noqa: E731
+    out["candidate_select"] = {
+        "topk_ms": ms_median(lambda: torch.topk(cand, nn, dim=-1, largest=False, sorted=True),
+                             device_only=True),
+        "stable_sort_per_subset_ms": ms_median(lambda: v._nearest(cand, nn), reps=5, warmup=1,
+                                               device_only=True),
+        "values_equal": bool(torch.equal(top.values, srt[0])),
+        # sites whose valid neighbors topk orders otherwise, or picks
+        # otherwise, than the twin's lower-index-first rule
+        "sites_order_differs": differ(top.indices, srt[1]),
+        "sites_set_differs": int(((top.indices.sort(-1).values != srt[1].sort(-1).values)
+                                  .any(-1) & valid.all(-1)).sum()),
+    }
+    check(out["candidate_select"]["values_equal"], "topk and the stable sort select other values")
+    del cand, top, srt, valid
+    torch.cuda.empty_cache()
+
+    # the coefficient build (one batched factor of K*m (nn, nn) blocks)
+    def coeffs():
+        return model._vecchia_coeffs(consts.nbr_dist, consts.nbr_valid, phi, m)
+
+    corr = correlation(consts.nbr_dist[:, None], phi[..., None, None, None], cfg.cov_model)
+    val = consts.nbr_valid[:, None]
+    vv = val[..., :, None] * val[..., None, :]
+    eye = torch.eye(nn, device=device)
+    c_nn = vv * corr[..., :nn, :nn] + (1.0 - vv) * eye + jit * eye
+    packed = coeffs()
+    bound_bytes = sum(t.numel() * t.element_size()
+                      for t in (consts.nbr_dist, consts.nbr_valid, packed))
+    out["coeffs"] = {
+        "ms": ms_median(coeffs, device_only=True),
+        "cholesky_ex_ms": ms_median(lambda: torch.linalg.cholesky_ex(c_nn), device_only=True),
+        "blocks": list(c_nn.shape), "bound_bytes": bound_bytes,
+        "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    out["coeffs"]["bound_fraction"] = out["coeffs"]["bound_ms"] / out["coeffs"]["ms"]
+    check(bool(torch.isfinite(packed).all()), "vecchia_coeffs: non-finite coefficients")
+    del corr, val, vv, c_nn
+    idx, rev = consts.nbr_idx, consts.nbr_rev
+    u_t = state.u.transpose(1, 2).contiguous()  # (K, 1, m)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 18)
+    vec = lambda: torch.randn((data.mask.shape[0], m), generator=gen, device=device)  # noqa: E731
+    b_vec, e1, e2 = vec(), vec(), vec()
+    c_safe = 0.5 + torch.rand((data.mask.shape[0], m), generator=gen, device=device)
+    p0 = packed[:, 0]
+
+    def scatter_ft(pk, nbr, w):
+        b, d = v.unpack_coeffs(pk)
+        wd = w / d
+        src = -(b * wd[..., None])
+        return wd.scatter_add(-1, nbr.reshape(nbr.shape[0], -1), src.reshape(src.shape[0], -1))
+
+    ft_rev, ft_sc = v.vecchia_ft_matvec(p0, idx, b_vec, rev), scatter_ft(p0, idx, b_vec)
+    # two summation orders of up to D terms: within fp32 roundoff of the
+    # largest entry
+    check(float((ft_rev - ft_sc).abs().max()) <= 1e-5 * (1.0 + float(ft_sc.abs().max())),
+          "F^T: the reverse lists and scatter_add disagree")
+    # run to run: five calls of each form on the same inputs
+    sc = [scatter_ft(p0, idx, b_vec) for _ in range(5)]
+    rv = [v.vecchia_ft_matvec(p0, idx, b_vec, rev) for _ in range(5)]
+    out["ft_repeats"] = {
+        "scatter_add_bitwise": all(torch.equal(sc[0], r) for r in sc[1:]),
+        "scatter_add_max_abs_diff": max(float((sc[0] - r).abs().max()) for r in sc[1:]),
+        "reverse_lists_bitwise": all(torch.equal(rv[0], r) for r in rv[1:]),
+    }
+    check(out["ft_repeats"]["reverse_lists_bitwise"], "F^T through the reverse lists differs run to run")
+    del sc, rv
+    tpacked = model._vecchia_coeffs(consts.tnbr_dist, consts.tnbr_valid, phi, m)
+    z = torch.randn(tpacked.shape[:-1], generator=gen, device=device)
+    out["ops_ms"] = {
+        "loglik": ms_median(lambda: v.vecchia_loglik(packed, idx, u_t), device_only=True),
+        "q_matvec": ms_median(lambda: v.vecchia_q_matvec(p0, idx, b_vec, rev),
+                              device_only=True),
+        # F^T summed through the reverse lists, beside the twin's form, one
+        # scatter_add (float atomics) of the same slot values
+        "ft_matvec": ms_median(lambda: v.vecchia_ft_matvec(p0, idx, b_vec, rev),
+                               device_only=True),
+        "ft_matvec_scatter_add": ms_median(lambda: scatter_ft(p0, idx, b_vec),
+                                           device_only=True),
+        "q_diag": ms_median(lambda: v.vecchia_q_diag(p0, idx, rev), device_only=True),
+        "posterior_draw_8": ms_median(lambda: v.vecchia_posterior_draw(
+            p0, idx, b_vec, c_safe, e1, e2, 8, rev), device_only=True),
+        "posterior_draw_8_with_host": ms_median(lambda: v.vecchia_posterior_draw(
+            p0, idx, b_vec, c_safe, e1, e2, 8, rev)),
+        "test_coeffs": ms_median(lambda: model._vecchia_coeffs(
+            consts.tnbr_dist, consts.tnbr_valid, phi, m), device_only=True),
+        "krige_draw": ms_median(lambda: v.vecchia_krige_draw(tpacked, consts.tnbr_idx, u_t, z),
+                                device_only=True),
+    }
+    del model, data, state, consts, noise, packed, tpacked
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = vecchia_ops_card_vs_cpu(device)
+    emit(out)
+    return out
+
+
+def vecchia_ops_card_vs_cpu(device):
+    """Every op of ops/vecchia.py on the card against the CPU on seeded
+    inputs: K = 3 subsets, 7 pad rows in the last, t = 11, two decays a
+    subset, nn 4 and 16. The neighbor sets must be equal where valid;
+    the rest runs on the CPU's geometry. At m = 60 (the test suite's
+    shapes) each op within VECCHIA_TOL elementwise; at m = 200, where
+    the sites are denser, d smaller and the entries of Q v reach ~1e3
+    with cancelling terms, within VECCHIA_TOL of the op's largest
+    entry."""
+    import numpy as np
+    import torch
+    from smk_torch.ops import vecchia as v
+
+    atol, rtol = VECCHIA_TOL
+    report = {"tolerance": {"atol": atol, "rtol": rtol}}
+    for m, elementwise in ((60, True), (200, False)):
+        rng = np.random.default_rng(SEED + m)
+        k, t, pad = 3, 11, 7
+        coords = rng.uniform(size=(k, m, 2)).astype(np.float32)
+        mask = np.ones((k, m), np.float32)
+        mask[-1, -pad:] = 0.0
+        coords[-1, -pad:] += 5.0
+        arrays = dict(coords=coords, mask=mask, ct=rng.uniform(size=(t, 2)).astype(np.float32),
+                      phi=rng.uniform(4.0, 12.0, size=(k, 2)).astype(np.float32))
+        for name in ("u", "b_vec", "e1", "e2"):
+            arrays[name] = rng.normal(size=(k, 2, m)).astype(np.float32)
+        arrays["c_safe"] = rng.uniform(0.5, 2.0, size=(k, 2, m)).astype(np.float32)
+        arrays["z"] = rng.normal(size=(k, 2, t)).astype(np.float32)
+        for nn in (4, 16):
+            geos = {}
+            for dev in ("cpu", device):
+                a = {n: torch.as_tensor(x, device=dev) for n, x in arrays.items()}
+                geos[str(dev)] = [g.cpu() for g in (
+                    v.build_neighbor_consts(a["coords"], a["mask"], nn)
+                    + v.build_test_neighbor_consts(a["coords"], a["mask"], a["ct"], nn))]
+            cpu_geo, card_geo = geos["cpu"], geos[str(device)]
+            for i in (0, 3):  # the train and the test indices, with their valid masks
+                ok = cpu_geo[i + 2] > 0
+                check(torch.equal(cpu_geo[i + 2], card_geo[i + 2]),
+                      f"vecchia m={m} nn={nn}: valid slots differ card vs CPU")
+                check(torch.equal(cpu_geo[i][ok].reshape(-1).sort().values,
+                                  card_geo[i][ok].reshape(-1).sort().values)
+                      and torch.equal(cpu_geo[i].sort(-1).values * ok,
+                                      card_geo[i].sort(-1).values * ok),
+                      f"vecchia m={m} nn={nn}: neighbor sets differ card vs CPU")
+            outs = {}
+            for dev in ("cpu", device):
+                a = {n: torch.as_tensor(x, device=dev) for n, x in arrays.items()}
+                idx, dist, valid, tidx, tdist, tvalid = (g.to(dev) for g in cpu_geo)
+                packed = v.vecchia_coeffs(dist[:, None], valid[:, None], a["phi"], 1e-5,
+                                          "exponential")
+                tpacked = v.vecchia_coeffs(tdist[:, None], tvalid[:, None], a["phi"], 1e-5,
+                                           "exponential")
+                flat = lambda x: x.flatten(0, 1)  # noqa: E731
+                outs[str(dev)] = {
+                    "coeffs": packed, "test_coeffs": tpacked,
+                    "loglik": v.vecchia_loglik(packed, idx, a["u"]),
+                    "f": v.vecchia_f_matvec(packed, idx, a["u"]),
+                    "ft": v.vecchia_ft_matvec(packed, idx, a["u"]),
+                    "q": v.vecchia_q_matvec(packed, idx, a["u"]),
+                    "q_diag": v.vecchia_q_diag(packed, idx),
+                    "draw": v.vecchia_posterior_draw(
+                        flat(packed), idx.repeat_interleave(2, 0), flat(a["b_vec"]),
+                        flat(a["c_safe"]), flat(a["e1"]), flat(a["e2"]), 8),
+                    "krige": v.vecchia_krige_draw(tpacked, tidx, a["u"], a["z"]),
+                }
+            errs = {}
+            for name, want in outs["cpu"].items():
+                got = outs[str(device)][name].cpu()
+                if elementwise:
+                    errs[name] = compare(got, want, f"vecchia m={m} nn={nn} {name}",
+                                         atol=atol, rtol=rtol)
+                else:
+                    scale = float(want.abs().max())
+                    err = float((got - want).abs().max())
+                    check(err <= atol + rtol * scale,
+                          f"vecchia m={m} nn={nn} {name}: card vs CPU {err:.3e} of {scale:.3e}")
+                    errs[name] = {"max_abs_err": err, "max_abs": scale}
+            report[f"m{m}_nn{nn}"] = {"max_abs_err": errs, "neighbor_sets_equal": True,
+                                      "elementwise_tolerance": elementwise}
+    return report
+
+
+def fit_vecchia_small_parity(device):
+    """A small Vecchia fit (n = 400, K = 4, m = 100, 12 sweeps) on the
+    card against the CPU with the same random numbers, 2e-3 (1 + |x|) as
+    the other small fits; then the card fit again, which must agree bit
+    for bit (F^T and diag(Q) sum through the reverse neighbor lists in a
+    fixed order, not with float atomics)."""
+    import torch
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.ops import fused_build as fb
+
+    cfg = SMKConfig(n_subsets=4, n_samples=12, subset_engine="vecchia",
+                    n_neighbors=VECCHIA_NN)
+    data = binary_field(400, 2, 2, 8, SEED)
+    fb.reset_counts()
+    runs = [fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, device),
+                             device=device) for _ in range(2)]
+    check(sum(fb.LAUNCHES.values()) + sum(fb.PLAIN_CALLS.values()) == 0,
+          "vecchia small parity: a correlation build ran")
+    cpu = fit_meta_kriging(*data, config=cfg, randomness=NoiseOnDevice(SEED, "cpu"),
+                           device="cpu")
+    fields = ("param_grid", "w_grid", "p_quant", "param_quant", "sample_par")
+    errs, same = {}, {}
+    for f in fields:
+        g, c = getattr(runs[0], f).cpu(), getattr(cpu, f)
+        errs[f] = float(((g - c).abs() / (1.0 + c.abs())).max())
+        check(errs[f] <= 2e-3, f"vecchia small parity: {f} differs by {errs[f]:.3e}")
+        same[f] = bool(torch.equal(getattr(runs[0], f), getattr(runs[1], f)))
+        check(same[f], f"vecchia small parity: two card runs differ in {f}")
+    out = {"phase": "fit_vecchia_small_parity", "max_rel_err": errs, "tolerance": 2e-3,
+           "accept_equal": bool(torch.equal(runs[0].phi_accept_rate.cpu(), cpu.phi_accept_rate)),
+           "two_card_runs_bitwise": same,
+           "two_card_runs_max_abs_diff": {
+               f: float((getattr(runs[0], f) - getattr(runs[1], f)).abs().max()) for f in fields}}
+    emit(out)
+    return out
+
+
+def fit_vecchia(name, *, cfg, data_np, device, direct=False):
+    """fit_meta_kriging with the Vecchia engine: no correlation build
+    launched or run plain, finite outputs of the expected shapes, p and
+    acceptance rates in [0, 1]; ms/sweep, phase_seconds and peak memory;
+    with `direct`, the schedule sweep by sweep (direct_sweeps), where an
+    update sweep counts q coefficient builds in one call and a non-update
+    sweep none."""
+    import numpy as np
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls, n_params
+    from smk_torch.ops import fused_build as fb
+
+    y, x, coords, ct, xt = data_np
+    q, p, t = y.shape[1], x.shape[2], ct.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_counts()
+    start = time.perf_counter()
+    res = fit_meta_kriging(y, x, coords, ct, xt, config=cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(fb.LAUNCHES)
+    check(launches == build_calls(cfg, q, cfg.n_samples, cfg.n_burn_in)
+          and sum(launches.values()) == 0, f"{name}: a correlation build launched: {launches}")
+    check(sum(fb.PLAIN_CALLS.values()) == 0, f"{name}: a plain correlation build ran")
+    check(tuple(res.p_quant.shape) == (3, t * q), f"{name}: p_quant shape")
+    check(tuple(res.param_quant.shape) == (3, n_params(q, p)), f"{name}: param_quant shape")
+    for f in ("p_quant", "param_quant", "param_grid", "w_grid"):
+        check(bool(torch.isfinite(getattr(res, f)).all()), f"{name}: non-finite {f}")
+    acc = res.phi_accept_rate
+    check(bool(((acc >= 0) & (acc <= 1)).all()), f"{name}: phi_accept_rate outside [0, 1]")
+    p_q = res.p_quant.cpu().numpy()
+    check(bool(((p_q >= 0) & (p_q <= 1)).all()), f"{name}: p outside [0, 1]")
+    secs = res.phase_seconds
+    m = -(-y.shape[0] // cfg.n_subsets)
+    out = {
+        "phase": name, "n": y.shape[0], "K": cfg.n_subsets, "m": m, "q": q, "p": p, "t": t,
+        "n_neighbors": cfg.n_neighbors, "phi_update_every": cfg.phi_update_every,
+        "cg_iters": cfg.cg_iters, "n_samples": cfg.n_samples, "n_burn_in": cfg.n_burn_in,
+        "wall_s": wall, "phase_seconds": secs,
+        "ms_per_sweep": secs["subset_fits"] / cfg.n_samples * 1e3,
+        "latent_ess_per_sec": res.latent_ess_per_sec, "peak_memory_bytes": peak,
+        "launches": launches, "launches_by_kernel": launches_by_kernel(),
+        "phi_accept_rate_mean": float(acc.mean()),
+        "param_quant_median": np.round(res.param_quant[0].cpu().numpy(), 4).tolist(),
+    }
+    check(sum(out["launches_by_kernel"].values()) == 0, f"{name}: a kernel launched")
+    del res
+    torch.cuda.empty_cache()
+    if direct:
+        out["direct"] = direct_sweeps(cfg, data_np, device)
+        got = out["direct"]["n_chol_n_chol_calls_per_sweep"]
+        check(got == {"update": [(q, 1)], "other": [(0, 0)]},
+              f"{name}: coefficient builds per sweep {got}")
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1780,10 +2152,18 @@ def main() -> int:
     c5f64 = phase("fit_config5_float64", run_fit, "fit_config5_float64", n=MAIN_K * MAIN_M,
                   k=MAIN_K, q=1, p=2, t=MAIN_T, n_samples=16, device=device, dtype="float64",
                   profile=True)
+    phase("vecchia_ops", vecchia_ops, device, c5_data)
+    phase("fit_vecchia_small_parity", fit_vecchia_small_parity, device)
+    v5 = phase("fit_vecchia_config5", fit_vecchia, "fit_vecchia_config5",
+               cfg=vecchia_config(k=MAIN_K, n_samples=64), data_np=c5_data, device=device,
+               direct=True)
+    vm = phase("fit_vecchia_m_large", fit_vecchia, "fit_vecchia_m_large",
+               cfg=vecchia_config(k=MAIN_K // 2, n_samples=32), data_np=c5_data, device=device)
     emit({"phase": "wall_s_by_phase", **walls, "total_s": time.perf_counter() - script_start})
     paths = {"fit_config5": c5, "fit_q2": q2, "fit_production_config5": p5,
              "fit_production_config4": p4, "fit_production_config5_mtm": p5m,
-             "fit_production_config4_chains": p4c, "fit_config5_float64": c5f64}
+             "fit_production_config4_chains": p4c, "fit_config5_float64": c5f64,
+             "fit_vecchia_config5": v5, "fit_vecchia_m_large": vm}
 
     f64_time = f64["main_path"]
     f64_kernels = (("symmetric kernel, float64", "symmetric_f64", "fused_masked_correlation_stack"),

@@ -17,6 +17,8 @@ import dataclasses
 import numbers
 import re
 
+from smk_torch.compile.buckets import validate_ladder
+
 COV_MODELS = ("exponential", "matern32", "matern52")
 PARTITION_METHODS = ("random", "coherent")
 LINKS = ("probit", "logit")
@@ -27,32 +29,6 @@ BUILD_DTYPES = ("float32", "bfloat16")
 CHUNK_PIPELINES = ("sync", "overlap")
 FAULT_POLICIES = ("abort", "quarantine")
 ADAPTIVE_SCHEDULES = ("off", "on")
-
-
-def _validate_ladder(ladder) -> tuple:
-    """Positive, strictly ascending ints (a bare scalar is one rung) —
-    the rule of ``smk_tpu/compile/buckets.validate_ladder``."""
-    if isinstance(ladder, (int, float)) and not isinstance(ladder, bool):
-        ladder = (ladder,)
-    if isinstance(ladder, (str, bytes)):
-        raise ValueError(
-            "bucket ladder must be a sequence of ascending positive "
-            f"ints (or one int), got {ladder!r}"
-        )
-    try:
-        out = tuple(int(b) for b in ladder)
-    except (TypeError, ValueError) as e:
-        raise ValueError(
-            "bucket ladder must be a sequence of ascending positive "
-            f"ints (or one int), got {ladder!r}"
-        ) from e
-    if not out:
-        raise ValueError("bucket ladder must not be empty")
-    if any(b < 1 for b in out):
-        raise ValueError(f"bucket ladder entries must be >= 1: {out}")
-    if any(b2 <= b1 for b1, b2 in zip(out, out[1:])):
-        raise ValueError(f"bucket ladder must be strictly ascending: {out}")
-    return out
 
 
 def _validate_chunk_range(spec: str) -> None:
@@ -219,7 +195,7 @@ class SMKConfig:
             )
         if self.bucket_ladder is not None:
             object.__setattr__(
-                self, "bucket_ladder", _validate_ladder(self.bucket_ladder)
+                self, "bucket_ladder", validate_ladder(self.bucket_ladder)
             )
         if self.link not in LINKS:
             raise ValueError(f"link must be one of {LINKS}")
@@ -455,10 +431,12 @@ class SMKConfig:
 # (knob, predicate on the config, ROADMAP item that ports it). Checked
 # in this order by check_ported; the first hit raises.
 _UNPORTED = (
-    ("subset_engine='vecchia'", lambda c: c.subset_engine != "dense", "A7"),
+    # a coherent partition is a PaddedPartition (parallel/partition.py),
+    # which the twin fits only through the chunked executor's ragged
+    # driver (smk_tpu/parallel/recovery.py:_fit_ragged_chunked)
     ("partition_method='coherent'",
-     lambda c: c.partition_method != "random", "A7"),
-    ("bucket_ladder", lambda c: c.bucket_ladder is not None, "A7"),
+     lambda c: c.partition_method != "random", "A8"),
+    ("bucket_ladder", lambda c: c.bucket_ladder is not None, "A8"),
     ("fault_policy='quarantine'", lambda c: c.fault_policy != "abort", "A8"),
     ("chunk_pipeline='overlap'", lambda c: c.chunk_pipeline != "sync", "A8"),
     ("adaptive_schedule='on'", lambda c: c.adaptive_schedule != "off", "A8"),

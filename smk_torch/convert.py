@@ -44,7 +44,9 @@ def sampler_state_from_numpy(
     arrays, leading K axis on every field; a multi-chain state has a
     leading (K, C)) as the port's SamplerState, K*C rows subset-major
     (row k*C + c), plus one generator per row seeded from ``seed`` in
-    place of the JAX key."""
+    place of the JAX key. ``chol_r`` is carried with whatever trailing
+    shape it has: the dense factor (q, m, m), or under the Vecchia
+    engine the packed coefficients (q, m, nn+1)."""
     out = SamplerState(
         **{f: _tensor(_field(state, f), device) for f in _STATE_FIELDS}
     )

@@ -1,6 +1,7 @@
 """Multivariate binary spatial GP regression — the per-subset model,
-twin of ``smk_tpu/models/probit_gp.py`` (dense engine; probit and logit
-links; conditional phi, or collapsed phi single-try or multiple-try
+twin of ``smk_tpu/models/probit_gp.py`` (the dense engine and the
+Vecchia/NNGP sparse engine, ``subset_engine``; probit and logit links;
+conditional phi, or collapsed phi single-try or multiple-try
 with a gaussian, student-t or mixture proposal; Cholesky or CG u-draw,
 the CG operator in fp32 or bf16, Jacobi- or Nystrom-preconditioned;
 native or blocked Cholesky and triangular solves; correlation builds in
@@ -24,6 +25,10 @@ of subset k, the order of the twin's per-(subset, chain) keys), and
 The correlation builds go through the dispatch seam below: with
 ``fused_build="pallas"`` every build is the fused kernel
 (ops/fused_build.py), with ``"off"`` it is the distance-matrix build.
+Under ``subset_engine="vecchia"`` no (m, m) matrix is built at all: the
+engine conditions each site on its nearest predecessors
+(ops/vecchia.py), and ``SamplerState.chol_r`` carries the packed
+per-site coefficients in place of the dense factor, as in the twin.
 No sweep reads a device value on the host: where the JAX sampler
 branches per subset with a ``lax.cond`` (an accept side), its vmapped K
 axis lowers the branch to a select, and the select is what runs here.
@@ -76,6 +81,15 @@ from smk_torch.ops.kernels import correlation
 from smk_torch.ops.polya_gamma import gamma_draws, sample_pg
 from smk_torch.ops.quantiles import quantile_grid
 from smk_torch.ops.truncnorm import _TINY, sample_albert_chib_latent
+from smk_torch.ops.vecchia import (
+    build_neighbor_consts,
+    build_test_neighbor_consts,
+    reverse_neighbors,
+    vecchia_coeffs,
+    vecchia_krige_draw,
+    vecchia_loglik,
+    vecchia_posterior_draw,
+)
 from smk_torch.utils.diagnostics import effective_sample_size, rhat
 
 
@@ -97,13 +111,24 @@ class SubsetData(NamedTuple):
 class BuildConsts(NamedTuple):
     """Geometry the correlation builds consume: the distance matrices
     on the unfused path (dist (K, m, m), dist_cross (K, m, t),
-    dist_test (t, t)), the raw coordinates on the fused path."""
+    dist_test (t, t)), the raw coordinates on the fused path. Under the
+    Vecchia engine those five are None and the neighbor geometry of
+    ops/vecchia.py takes their place: each site's nearest predecessors
+    (nbr_*, with the reverse lists that sum F^T in a fixed order) and
+    each test site's nearest observed sites (tnbr_*)."""
 
     dist: Optional[torch.Tensor]
     dist_cross: Optional[torch.Tensor]
     dist_test: Optional[torch.Tensor]
     coords: Optional[torch.Tensor]
     coords_test: Optional[torch.Tensor]
+    nbr_idx: Optional[torch.Tensor] = None  # (K, m, nn) int64
+    nbr_dist: Optional[torch.Tensor] = None  # (K, m, nn+1, nn+1)
+    nbr_valid: Optional[torch.Tensor] = None  # (K, m, nn)
+    tnbr_idx: Optional[torch.Tensor] = None  # (K, t, nn) int64
+    tnbr_dist: Optional[torch.Tensor] = None  # (K, t, nn+1, nn+1)
+    tnbr_valid: Optional[torch.Tensor] = None  # (K, t, nn)
+    nbr_rev: Optional[torch.Tensor] = None  # (K, m, D) reverse lists of nbr_idx
 
 
 class SamplerState(NamedTuple):
@@ -114,7 +139,8 @@ class SamplerState(NamedTuple):
     u: torch.Tensor  # (K, m, q) component GPs
     a: torch.Tensor  # (K, q, q) lower-triangular coregionalization
     phi: torch.Tensor  # (K, q)
-    chol_r: torch.Tensor  # (K, q, m, m) Cholesky of R~(phi)
+    chol_r: torch.Tensor  # (K, q, m, m) Cholesky of R~(phi); under the
+    # Vecchia engine the packed coefficients (K, q, m, nn+1) instead
     phi_accept: torch.Tensor  # (K, q) running acceptance count
     phi_log_step: torch.Tensor  # (K, q) log MH step
 
@@ -377,8 +403,14 @@ def build_calls(cfg: SMKConfig, q: int, n_sweeps: int, n_burn: int) -> dict:
       call, or one per component when collapsed); without the cache,
       one per collecting sweep.
 
-    Chains change nothing here: they widen every call's batch.
+    Chains change nothing here: they widen every call's batch. The
+    Vecchia engine builds no (m, m) matrix, so it calls none.
     """
+    if cfg.subset_engine == "vecchia":
+        return dict.fromkeys(
+            ("fused_correlation", "fused_masked_correlation_stack",
+             "fused_masked_shifted_build", "fused_cross_correlation",
+             "fused_correlation_stack"), 0)
     collapsed = cfg.phi_sampler == "collapsed"
     cg = cfg.u_solver == "cg"
     thread_s = cfg.factor_reuse and collapsed and not cg
@@ -418,7 +450,8 @@ def _np_float(dtype):
 
 
 class SpatialGPSampler:
-    """The K-batched subset sampler (dense engine).
+    """The K-batched subset sampler, dense or Vecchia engine
+    (``subset_engine``).
 
     ``guard_rejects``: (K*C,) int32 on the device, the collapsed moves the
     Metropolis test accepted and the finite-factor guard turned down,
@@ -431,6 +464,7 @@ class SpatialGPSampler:
         self.config = config
         self.weight = int(weight)
         self._fused = config.fused_build == "pallas"
+        self._vecchia = config.subset_engine == "vecchia"
         self.guard_rejects = None
 
     def chain_data(self, data: SubsetData) -> SubsetData:
@@ -522,6 +556,16 @@ class SpatialGPSampler:
         r.diagonal(dim1=-2, dim2=-1).add_(jit_eff)
         return cholesky(r)
 
+    def _vecchia_coeffs(self, nbr_dist, nbr_valid, phi, m):
+        """Packed Vecchia coefficients (K, q, ..., nn+1) at the (K, q)
+        decays ``phi`` over the neighbor blocks (K, ..., nn+1, nn+1) of
+        one geometry, under the jitter of subset size m."""
+        cfg = self.config
+        return vecchia_coeffs(
+            nbr_dist[:, None], nbr_valid[:, None], phi, cfg.effective_jitter(m),
+            cfg.cov_model, cfg.build_dtype,
+        )
+
     def _mv_dtype(self, dtype):
         return torch.bfloat16 if self.config.cg_matvec_dtype == "bfloat16" else dtype
 
@@ -611,6 +655,14 @@ class SpatialGPSampler:
         (collecting sweeps only), the kriging operators."""
         cfg = self.config
         r_mv = nys_z = chol_inv = krige_w = krige_chol = None
+        if self._vecchia:
+            # no dense operator exists: the u-draw is a CG on the sparse
+            # precision and the kriging rebuilds its coefficients per
+            # kept draw; only the factorization counters ride
+            return FactorCache(
+                r_mv=None, nys_z=None, chol_inv=None, n_chol=empty_counter(),
+                n_chol_calls=empty_counter(),
+            )
         if cfg.u_solver == "cg":
             r_mv, nys_z = self._r_operators(
                 self._masked_corr_stack(consts, state.phi, mask)
@@ -766,33 +818,47 @@ class SpatialGPSampler:
 
     # ------------------------------------------------------------------
     def init_state(
-        self, data: SubsetData, beta_init: Optional[torch.Tensor] = None
+        self, data: SubsetData, beta_init: Optional[torch.Tensor] = None,
+        consts: Optional[BuildConsts] = None,
     ) -> SamplerState:
         """Starting values mirroring the reference (R:56-60): beta from
-        the warm start, phi = 3/0.5, A = I, u = 0."""
+        the warm start, phi = 3/0.5, A = I, u = 0. ``consts``: the fit's
+        :meth:`_consts` of ``data``, whose geometry (the neighbor sets, or
+        the distance matrix) is then reused instead of built again (the
+        twin builds it here and in _consts; it is deterministic, so both
+        agree)."""
+        cfg = self.config
         k, m, q, p = data.x.shape
         dtype, dev = data.x.dtype, data.x.device
         if beta_init is None:
             beta_init = torch.zeros((q, p), dtype=dtype, device=dev)
-        lo, hi = self.config.priors.phi_min, self.config.priors.phi_max
+        lo, hi = cfg.priors.phi_min, cfg.priors.phi_max
         phi0 = torch.full((k, q), 3.0 / 0.5, dtype=dtype, device=dev)
         phi0 = torch.clamp(phi0, lo + 1e-3 * (hi - lo), hi - 1e-3 * (hi - lo))
-        if self._fused:
-            r0 = fused_masked_correlation_stack(
-                data.coords, phi0, data.mask, self.config.cov_model
-            )
+        if self._vecchia:
+            if consts is None:
+                _, nbr_dist, nbr_valid = build_neighbor_consts(
+                    data.coords, data.mask, cfg.n_neighbors
+                )
+            else:
+                nbr_dist, nbr_valid = consts.nbr_dist, consts.nbr_valid
+            chol0 = self._vecchia_coeffs(nbr_dist, nbr_valid, phi0, m)
+        elif self._fused:
+            chol0 = self._chol_r(fused_masked_correlation_stack(
+                data.coords, phi0, data.mask, cfg.cov_model
+            ))
         else:
-            dist = pairwise_distance(data.coords)
-            r0 = _pad_identity(
+            dist = pairwise_distance(data.coords) if consts is None else consts.dist
+            chol0 = self._chol_r(_pad_identity(
                 self._corr(dist[:, None], phi0[..., None, None]), data.mask
-            )
+            ))
         log_step = float(np.log(_np_float(dtype)(self.config.phi_step)))
         return SamplerState(
             beta=beta_init.to(dtype).expand(k, q, p).clone(),
             u=torch.zeros((k, m, q), dtype=dtype, device=dev),
             a=torch.eye(q, dtype=dtype, device=dev).expand(k, q, q).clone(),
             phi=phi0,
-            chol_r=self._chol_r(r0),
+            chol_r=chol0,
             phi_accept=torch.zeros((k, q), dtype=dtype, device=dev),
             phi_log_step=torch.full((k, q), log_step, dtype=dtype, device=dev),
         )
@@ -855,7 +921,31 @@ class SpatialGPSampler:
         is_update = it % cfg.phi_update_every == 0
         chol_r = state.chol_r
         accepted = torch.zeros((k, q), dtype=dtype, device=dev)
-        if is_update and not collapsed:
+        if is_update and self._vecchia:
+            # the same move, proposal and Jacobians (twin: phi_mh_vecchia),
+            # with the proposal's coefficients (one batched (q m, nn, nn)
+            # factor call) and the sparse loglik in place of the dense
+            # factor and its triangular-solve loglik
+            step = torch.exp(state.phi_log_step)
+            t_cur = torch.log((phi - lo) / (hi - phi))
+            t_prop = t_cur + step * noise.kprop
+            sig_cur = torch.sigmoid(t_cur)
+            sig_prop = torch.sigmoid(t_prop)
+            phi_prop = lo + (hi - lo) * sig_prop
+            packed_prop = self._vecchia_coeffs(consts.nbr_dist, consts.nbr_valid, phi_prop, m)
+            cache = tick(cache, q, n_calls=1)
+            u_t = u.transpose(1, 2)
+            log_ratio = (
+                vecchia_loglik(packed_prop, consts.nbr_idx, u_t)
+                + torch.log(sig_prop * (1.0 - sig_prop))
+                - vecchia_loglik(state.chol_r, consts.nbr_idx, u_t)
+                - torch.log(sig_cur * (1.0 - sig_cur))
+            )
+            accept = torch.log(noise.kphi) < log_ratio
+            phi = torch.where(accept, phi_prop, phi)
+            chol_r = torch.where(accept[..., None, None], packed_prop, state.chol_r)
+            accepted = accept.to(dtype)
+        elif is_update and not collapsed:
             step = torch.exp(state.phi_log_step)
             t_cur = torch.log((phi - lo) / (hi - phi))
             t_prop = t_cur + step * noise.kprop
@@ -919,6 +1009,15 @@ class SpatialGPSampler:
             c_safe = torch.clamp(c_vec, min=float(f(1.0) / f(big)))
             ytilde = b_vec / c_safe
             d_vec = torch.clamp(1.0 / c_safe, max=big)
+            if self._vecchia:
+                # the exact conditional N(P^{-1} b, P^{-1}), P = Q + diag(c),
+                # drawn by perturbation and Jacobi CG on the sparse
+                # precision, from the dense draw's two noise vectors
+                u[:, :, j] = vecchia_posterior_draw(
+                    chol_r[:, j], consts.nbr_idx, b_vec, c_safe, noise.ku_prior[:, j],
+                    noise.ku_noise[:, j], cfg.cg_iters, consts.nbr_rev,
+                )
+                continue
             chol_s = None
             if collapsed and is_update:
                 phi, chol_r, cache, acc_j, chol_s = self._collapsed_update(
@@ -1025,7 +1124,14 @@ class SpatialGPSampler:
             return new_state, cache, None
 
         # --- 6. predictive kriging draw (spPredict equivalent) --------
-        if cache.krige_w is not None:
+        if self._vecchia:
+            # nearest-neighbor kriging: the test sites' coefficients at
+            # the current phi (O(t nn^3), rebuilt per kept draw)
+            tpacked = self._vecchia_coeffs(consts.tnbr_dist, consts.tnbr_valid, phi, m)
+            u_star_test = vecchia_krige_draw(
+                tpacked, consts.tnbr_idx, u.transpose(1, 2), noise.kpred
+            )
+        elif cache.krige_w is not None:
             cond_mean = torch.einsum("kqmt,kmq->kqt", cache.krige_w, u)
             u_star_test = cond_mean + torch.einsum(
                 "kqts,kqs->kqt", cache.krige_chol, noise.kpred
@@ -1049,7 +1155,15 @@ class SpatialGPSampler:
     # ------------------------------------------------------------------
     def _consts(self, data: SubsetData) -> BuildConsts:
         """Distance matrices on the unfused path; the raw coordinates on
-        the fused path (no (m, m) distance matrix exists there)."""
+        the fused path (no (m, m) distance matrix exists there); the
+        neighbor geometry under the Vecchia engine (its (K, m, m)
+        candidate matrix is a transient of the build)."""
+        if self._vecchia:
+            nn = self.config.n_neighbors
+            nbr = build_neighbor_consts(data.coords, data.mask, nn)
+            tnbr = build_test_neighbor_consts(data.coords, data.mask, data.coords_test, nn)
+            return BuildConsts(None, None, None, None, None, *nbr, *tnbr,
+                               nbr_rev=reverse_neighbors(nbr[0]))
         if self._fused:
             return BuildConsts(None, None, None, data.coords, data.coords_test)
         return BuildConsts(
@@ -1067,12 +1181,15 @@ class SpatialGPSampler:
         noise: Optional[NoiseSource] = None,
         *,
         seed: int = 0,
+        consts: Optional[BuildConsts] = None,
     ) -> SubsetResult:
         """Burn-in sweeps, collecting sweeps, compression. ``data`` holds
         the K subsets; ``init_state`` and ``noise`` are K*C wide
         (n_chains = C; twin of ``run`` at C = 1 and of ``run_chains``
         above it), subset-major. ``noise`` defaults to per-row generators
-        seeded from ``seed``."""
+        seeded from ``seed``. ``consts``: :meth:`_consts` of the K*C-wide
+        chain data, if the caller has built it already (both scans use
+        one build)."""
         cfg = self.config
         rows = data.x.shape[0] * cfg.n_chains
         if init_state.beta.shape[0] != rows:
@@ -1083,9 +1200,11 @@ class SpatialGPSampler:
         if noise is None:
             noise = self.default_noise(data, seed)
         data = self.chain_data(data)
-        state = self._burn_in(data, init_state, noise)
+        if consts is None:
+            consts = self._consts(data)
+        state = self._burn_in(data, consts, init_state, noise)
         state, (param_draws, w_draws) = self._sample_chunk(
-            data, state, cfg.n_burn_in, cfg.n_kept, noise
+            data, consts, state, cfg.n_burn_in, cfg.n_kept, noise
         )
         return self.finalize(state, param_draws, w_draws)
 
@@ -1097,8 +1216,7 @@ class SpatialGPSampler:
         return GeneratorNoise(subset_generators(seed, shapes.k, data.x.device), shapes,
                               dtype=data.x.dtype, device=data.x.device)
 
-    def _burn_in(self, data, state, noise: NoiseSource) -> SamplerState:
-        consts = self._consts(data)
+    def _burn_in(self, data, consts, state, noise: NoiseSource) -> SamplerState:
         cache = self._solve_cache(consts, data.mask, state)
         for it in range(self.config.n_burn_in):
             state, cache, _ = self._gibbs_step(
@@ -1106,13 +1224,12 @@ class SpatialGPSampler:
             )
         return state._replace(phi_accept=torch.zeros_like(state.phi_accept))
 
-    def _sample_chunk(self, data, state, start_it: int, n_iters: int,
+    def _sample_chunk(self, data, consts, state, start_it: int, n_iters: int,
                       noise: NoiseSource):
         """Collecting sweeps [start_it, start_it + n_iters); returns
         (state, (param_draws (K, n, n_params), w_draws (K, n, t*q)))."""
         k, m, q, p = data.x.shape
         t = data.coords_test.shape[0]
-        consts = self._consts(data)
         cache = self._solve_cache(consts, data.mask, state, predict=True)
         opts = dict(dtype=data.x.dtype, device=data.x.device)
         param_draws = torch.empty((k, n_iters, n_params(q, p)), **opts)

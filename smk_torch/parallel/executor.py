@@ -37,10 +37,19 @@ def subset_chain_keys(seed: int, k: int, n_chains: int, device) -> List[torch.Ge
     return subset_generators(seed, k * n_chains, device)
 
 
-def init_subset_states(model: SpatialGPSampler, data: SubsetData, beta_init):
+def init_subset_states(model: SpatialGPSampler, data: SubsetData, beta_init, consts=None):
     """Initial states of all K * n_chains rows (one batched call on the
-    chain data: a subset's chains share its data and start alike)."""
-    return model.init_state(model.chain_data(data), beta_init)
+    chain data: a subset's chains share its data and start alike).
+    ``consts``: the sampler's geometry of that chain data, if built."""
+    return model.init_state(model.chain_data(data), beta_init, consts=consts)
+
+
+def _run(model: SpatialGPSampler, data: SubsetData, beta_init, noise) -> SubsetResult:
+    """Init and run of the stacked subsets ``data`` over one build of the
+    sampler's geometry, which init and both scans share."""
+    consts = model._consts(model.chain_data(data))
+    state = init_subset_states(model, data, beta_init, consts)
+    return model.run(data, state, noise, consts=consts)
 
 
 def _chunk_noise(noise, lo: int, hi: int):
@@ -74,7 +83,7 @@ def fit_subsets_vmap(
     data = stacked_subset_data(part, coords_test, x_test)
     k = part.n_subsets
     if chunk_size is None or chunk_size >= k:
-        return model.run(data, init_subset_states(model, data, beta_init), noise)
+        return _run(model, data, beta_init, noise)
     if k % chunk_size != 0:
         raise ValueError(f"chunk_size {chunk_size} must divide K={k}")
     c = model.config.n_chains
@@ -86,8 +95,7 @@ def fit_subsets_vmap(
         d = data._replace(coords=data.coords[lo:hi], x=data.x[lo:hi],
                           y=data.y[lo:hi], mask=data.mask[lo:hi])
         model.guard_rejects = None
-        results.append(model.run(d, init_subset_states(model, d, beta_init),
-                                 _chunk_noise(noise, lo * c, hi * c)))
+        results.append(_run(model, d, beta_init, _chunk_noise(noise, lo * c, hi * c)))
         guards.append(model.guard_rejects)
     model.guard_rejects = None if guards[0] is None else torch.cat(guards)
     return SubsetResult(*(torch.cat(f) for f in zip(*results)))

@@ -242,9 +242,8 @@ def test_default_randomness_fit_is_finite_and_seeded():
 @pytest.mark.parametrize(
     "knob, item",
     [
-        (dict(subset_engine="vecchia"), "A7"),
-        (dict(partition_method="coherent"), "A7"),
-        (dict(bucket_ladder=(64, 128)), "A7"),
+        (dict(partition_method="coherent"), "A8"),
+        (dict(bucket_ladder=(64, 128)), "A8"),
         (dict(chunk_pipeline="overlap"), "A8"),
         (dict(adaptive_schedule="on", live_diagnostics=True), "A8"),
         (dict(profile_dir="profiles"), "A8"),
