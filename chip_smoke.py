@@ -146,6 +146,42 @@ rung (bench.py:1709-1720, :1761; vecchia_config below):
               "dense-undispatchable" leg at twice m), 32 sweeps: ms/sweep,
               peak memory, finite outputs, no build launched.
 
+Phases 22-24 run the chunked, checkpointed, fault-isolating executor
+(parallel/recovery.py) through fit_meta_kriging's chunked arguments,
+with checkpoints in a temporary directory that the script removes:
+
+22. fit_chunked_small_parity — a chunked, checkpointed fit (n = 200,
+              K = 4, q = 2, chunks of 4) on the card against the CPU,
+              same random numbers (2e-3 (1 + |x|)), launches against
+              build_calls(chunk_iters=4); on the card: killed after two
+              checkpointed chunks (a progress callback raising
+              ProgressAbort) and resumed from disk, bitwise the
+              uninterrupted run; quarantine with one injected NaN
+              (retried once; the other subsets bitwise the clean run)
+              and with an exhausted ladder (the subset dropped, the
+              combine finite); a coherent fit (two bucket groups) on the
+              card against the CPU.
+23. fit_chunked_config5 — the production sampler at config5 with
+              fault_policy="quarantine", 64 sweeps in chunks of 16,
+              checkpointed every chunk (each manifest holds the 1.95 GB
+              carried state), nan_guard and progress on: ms/sweep beside
+              the unchunked production fit's, per chunk the sweeps'
+              seconds and the checkpoint's fetch and write seconds and
+              bytes, peak memory, launches against
+              build_calls(chunk_iters=16), whether the draws equal the
+              unchunked fit's bitwise; then killed after two chunks
+              (under "abort") and resumed from disk in a fresh call,
+              bitwise the uninterrupted run, with that run's peak; free
+              disk space before and after.
+24. fit_coherent_config4 — config4's eBird proxy with
+              partition_method="coherent" (production sampler, logit,
+              chunks of 16): the buckets (1024 and 1448) and their pad
+              share, the symmetric and narrow kernels at each group's
+              shape against their plain version, ms/sweep per group and
+              for the fit beside the random split's, peak memory,
+              launches per group against build_calls(chunk_iters=16),
+              finite outputs.
+
 Then each phase's wall time and the script's, the kernel summary line
 {"kernels": [...]} (launches from fit_config5, the double kernels' from
 fit_config5_float64, and per path, the Vecchia paths' all 0), the card's
@@ -158,9 +194,11 @@ cannot be imported (the script alone, outside a checkout).
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 (non
@@ -709,18 +747,40 @@ class NoiseOnDevice:
         return self.rng.permutation(n)
 
     def sweep_noise(self, shapes):
-        from smk_torch.models.probit_gp import SweepNoise
-
-        src = self.rng.sweep_noise(shapes)
-
-        def on_device(it, collect):
-            return SweepNoise(*(None if a is None else a.to(self.device)
-                                for a in src(it, collect)))
-
-        return on_device
+        return DeviceNoise(self.rng.sweep_noise(shapes), self.device)
 
     def resample_index(self, n_draws, n_grid):
         return self.rng.resample_index(n_draws, n_grid)
+
+
+class DeviceNoise:
+    """A noise source drawing on the CPU (GeneratorNoise) and handing each
+    sweep's numbers to the card, with the chunked executor's operations
+    (rows, snapshot, restore, fork, identity) on the CPU streams."""
+
+    def __init__(self, src, device):
+        self.src, self.device = src, device
+
+    def __call__(self, it, collect):
+        from smk_torch.models.probit_gp import SweepNoise
+
+        return SweepNoise(*(None if a is None else a.to(self.device)
+                            for a in self.src(it, collect)))
+
+    def rows(self, ids, *, m=None):
+        return DeviceNoise(self.src.rows(ids, m=m), self.device)
+
+    def snapshot(self):
+        return self.src.snapshot()
+
+    def restore(self, snap):
+        self.src.restore(snap)
+
+    def fork(self, mask, attempts):
+        self.src.fork(mask, attempts)
+
+    def identity(self):
+        return self.src.identity()
 
 
 def expected_launches(cfg, q):
@@ -2066,6 +2126,382 @@ def fit_vecchia(name, *, cfg, data_np, device, direct=False):
     return out
 
 
+# ----------------------------------------------------------------------
+# phases 22-24: the chunked, checkpointed, fault-isolating executor
+# (parallel/recovery.py) and coherent fits
+# ----------------------------------------------------------------------
+# card vs CPU, a chunked fit: the fit_variants_small_parity tolerance
+CHUNKED_TOL = 2e-3
+# the coherent split of config4's eBird proxy (n = 65,536, K = 64):
+# (occupied buckets, subsets in each)
+C4_COHERENT = ([1024, 1448], [34, 30])
+
+
+def kill_after(n_saved):
+    """A progress callback that kills the fit at boundary n_saved + 1,
+    before that boundary's save: the checkpoint on disk holds n_saved
+    chunks and the killed chunk's work is lost, as in a real kill."""
+    from smk_torch.parallel.recovery import ProgressAbort
+
+    class Kill(ProgressAbort):
+        pass
+
+    calls = []
+
+    def progress(info):
+        calls.append(info)
+        if len(calls) == n_saved + 1:
+            raise Kill()
+
+    return progress, Kill
+
+
+def kill_and_resume(fit, path, n_saved):
+    """Run ``fit(checkpoint_path=path, progress=...)`` killed after
+    n_saved checkpointed chunks, then resume it from disk in a fresh call
+    (a fresh model, state and noise source loaded from the files).
+    Returns (result, resume seconds)."""
+    progress, kill = kill_after(n_saved)
+    try:
+        fit(checkpoint_path=path, progress=progress)
+        raise AssertionError("the kill did not stop the fit")
+    except kill:
+        pass
+    start = time.perf_counter()
+    res = fit(checkpoint_path=path, progress=None)
+    return res, time.perf_counter() - start
+
+
+def bitwise(a, b, fields=("param_grid", "w_grid", "p_quant", "param_quant", "sample_par")):
+    import torch
+
+    return {f: bool(torch.equal(getattr(a, f), getattr(b, f))) for f in fields}
+
+
+def clustered_small(n, t, seed):
+    """A small fit's data (binary_field) on clustered coordinates (six
+    Gaussian clusters), which the coherent split cuts into unequal
+    subsets."""
+    import numpy as np
+
+    y, x, _, ct, xt = binary_field(n, 1, 2, t, seed)
+    rng = np.random.default_rng(0)
+    centers = rng.uniform(size=(6, 2))
+    coords = centers[rng.integers(0, 6, n)] + 0.04 * rng.normal(size=(n, 2))
+    return y, x, coords.astype(np.float32), ct, xt
+
+
+def fit_chunked_small_parity(device, tmp):
+    """A chunked, checkpointed fit (n = 200, K = 4, q = 2, 16 sweeps in
+    chunks of 4) through fit_meta_kriging on the card against the same
+    fit on the CPU, same random numbers, at CHUNKED_TOL (1 + |x|);
+    launches against build_calls(chunk_iters=4). On the card: killed
+    after two chunks and resumed from disk, bitwise the uninterrupted
+    run; one injected NaN under quarantine retried once, the survivors
+    bitwise the uninjected run; an exhausted ladder, the subset dropped
+    and the combine finite. Then a coherent fit (two bucket groups) on
+    the card against the CPU."""
+    import os
+    import warnings
+
+    import torch
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.testing.faults import inject_subset_nan
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    data = binary_field(200, 2, 2, 8, SEED + 200)
+    cfg = SMKConfig(n_subsets=4, n_samples=16, fused_build="pallas")
+    qcfg = SMKConfig(n_subsets=4, n_samples=16, fused_build="pallas", fault_policy="quarantine")
+
+    def fit(config=cfg, dev=device, **kw):
+        return fit_meta_kriging(*data, config=config, randomness=NoiseOnDevice(SEED, dev),
+                                device=dev, chunk_iters=4, **kw)
+
+    fb.reset_counts()
+    gpu = fit(checkpoint_path=os.path.join(tmp, "small_card.npz"))
+    launches = dict(fb.LAUNCHES)
+    want = build_calls(cfg, 2, cfg.n_samples, cfg.n_burn_in, chunk_iters=4)
+    check(launches == want, f"chunked small: launches {launches} != {want}")
+    check(sum(fb.PLAIN_CALLS.values()) == 0, "chunked small: a plain build ran on the card")
+    layouts = launches_by_kernel()
+    cpu = fit(dev="cpu", checkpoint_path=os.path.join(tmp, "small_cpu.npz"))
+    errs = {}
+    for f in ("param_grid", "w_grid", "p_quant", "param_quant"):
+        g, c = getattr(gpu, f).cpu(), getattr(cpu, f)
+        errs[f] = float(((g - c).abs() / (1.0 + c.abs())).max())
+        check(errs[f] <= CHUNKED_TOL, f"chunked small: {f} differs by {errs[f]:.3e}")
+    resumed, _ = kill_and_resume(fit, os.path.join(tmp, "small_kill.npz"), 2)
+    resume_equal = bitwise(gpu, resumed)
+    check(all(resume_equal.values()), f"chunked small: kill and resume {resume_equal}")
+    clean = fit(config=qcfg)
+    check(all(bitwise(clean, gpu).values()), "chunked small: quarantine differs from abort")
+    faults = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for name, fires in (("one_retry", 1), ("exhausted", 99)):
+            stats = ChunkPipelineStats()
+            with inject_subset_nan(1, 6, max_fires=fires):
+                res = fit(config=qcfg, pipeline_stats=stats)
+            keep = [0, 2, 3]
+            survivors = bool(torch.equal(res.subset_results.param_samples[keep],
+                                         clean.subset_results.param_samples[keep]))
+            check(survivors, f"chunked small ({name}): survivors differ from the clean run")
+            check(bool(torch.isfinite(res.p_quant).all()), f"chunked small ({name}): p_quant")
+            faults[name] = {"fault": stats.fault_summary(), "survivors_bitwise": survivors,
+                            "subsets_dropped": list(res.subsets_dropped)}
+    check(faults["one_retry"]["fault"]["retry_attempts"] == {"1": 1}
+          and faults["one_retry"]["subsets_dropped"] == [],
+          f"chunked small: one retry {faults['one_retry']}")
+    check(faults["exhausted"]["subsets_dropped"] == [1],
+          f"chunked small: exhausted ladder {faults['exhausted']}")
+    cdata = clustered_small(200, 8, SEED + 201)
+    ccfg = SMKConfig(n_subsets=4, n_samples=16, fused_build="pallas",
+                     partition_method="coherent")
+    coh = {d: fit_meta_kriging(*cdata, config=ccfg, randomness=NoiseOnDevice(SEED, d),
+                               device=d, chunk_iters=4) for d in (device, "cpu")}
+    coh_errs = {}
+    for f in ("param_grid", "w_grid", "p_quant"):
+        g, c = getattr(coh[device], f).cpu(), getattr(coh["cpu"], f)
+        coh_errs[f] = float(((g - c).abs() / (1.0 + c.abs())).max())
+        check(coh_errs[f] <= CHUNKED_TOL, f"coherent small: {f} differs by {coh_errs[f]:.3e}")
+    out = {"phase": "fit_chunked_small_parity", "tolerance": f"{CHUNKED_TOL} * (1 + |cpu|)",
+           "max_rel_err": errs, "launches": launches, "launches_expected": want,
+           "launches_by_kernel": layouts, "kill_resume_bitwise": resume_equal,
+           "faults": faults, "coherent_max_rel_err": coh_errs}
+    for f in os.listdir(tmp):
+        os.remove(os.path.join(tmp, f))
+    emit(out)
+    return out
+
+
+def free_disk_bytes(path):
+    import shutil
+
+    return shutil.disk_usage(path).free
+
+
+def fit_chunked_config5(device, c5_data, tmp, unchunked_ms):
+    """The chunked executor at config5's full width: the production
+    sampler with fault_policy="quarantine", 64 sweeps in chunks of 16
+    (three burn-in chunks, one sampling chunk, one update sweep each),
+    checkpointed every chunk, nan_guard and a progress callback on:
+    ms/sweep beside the unchunked production fit's, per chunk the
+    dispatch seconds and the checkpoint's fetch and write seconds and
+    bytes, peak memory, launches against build_calls(chunk_iters=16),
+    and whether the draws equal the unchunked fit's bitwise. Then the
+    fit killed after two chunks (fault_policy="abort") and resumed from
+    disk: bitwise the uninterrupted run, the peaks of both legs (the
+    run without the quarantine clone)."""
+    import os
+
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    qcfg = production_config(k=MAIN_K, n_samples=64, phi_every=16, fault_policy="quarantine")
+    acfg = production_config(k=MAIN_K, n_samples=64, phi_every=16)
+    path = os.path.join(tmp, "c5.npz")
+    stats, calls = ChunkPipelineStats(), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_counts()
+    start = time.perf_counter()
+    res = fit_meta_kriging(*c5_data, config=qcfg, seed=SEED, device=device, chunk_iters=16,
+                           checkpoint_path=path, nan_guard=True, progress=calls.append,
+                           pipeline_stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak_q = torch.cuda.max_memory_allocated()
+    launches = dict(fb.LAUNCHES)
+    want = build_calls(qcfg, 1, qcfg.n_samples, qcfg.n_burn_in, chunk_iters=16)
+    check(launches == want, f"chunked config5: launches {launches} != {want}")
+    layouts = launches_by_kernel()
+    check(layouts == expected_by_kernel(want), f"chunked config5: by kernel {layouts}")
+    check(all(launches[e] > 0 for e in MAIN_PATH), "chunked config5: a kernel never launched")
+    check(sum(fb.PLAIN_CALLS.values()) == 0, "chunked config5: a plain build ran on the card")
+    for f in ("p_quant", "param_quant", "param_grid", "w_grid"):
+        check(bool(torch.isfinite(getattr(res, f)).all()), f"chunked config5: non-finite {f}")
+    check([c["iteration"] for c in calls] == [16, 32, 48, 64],
+          f"chunked config5: progress {calls}")
+    disk_after_run = free_disk_bytes(tmp)
+    ckpt_files = sorted(os.listdir(tmp))
+    agg = stats.aggregate()
+    # every boundary writes the whole carried state, chol_r and all
+    chol_bytes = MAIN_K * MAIN_M * MAIN_M * 4
+    check(len(agg["ckpt_boundary_bytes"]) == 4
+          and min(agg["ckpt_boundary_bytes"]) > chol_bytes,
+          f"chunked config5: boundary bytes {agg['ckpt_boundary_bytes']}")
+    secs = res.phase_seconds
+    out = {
+        "phase": "fit_chunked_config5", "n": c5_data[0].shape[0], "K": MAIN_K, "m": MAIN_M,
+        "chunk_iters": 16, "n_samples": qcfg.n_samples, "fault_policy": "quarantine",
+        "wall_s": wall, "phase_seconds": secs,
+        "ms_per_sweep": secs["subset_fits"] / qcfg.n_samples * 1e3,
+        "unchunked_ms_per_sweep": unchunked_ms,
+        "chunks": stats.chunks, "aggregate": {k: agg[k] for k in (
+            "n_chunks", "total_wall_s", "dispatch_s", "host_work_s", "host_stall_frac",
+            "d2h_bytes", "ckpt_write_s", "ckpt_bytes", "ckpt_boundary_bytes", "fault")},
+        "progress": calls, "peak_memory_bytes_quarantine": peak_q,
+        "launches": launches, "launches_expected": want, "launches_by_kernel": layouts,
+        "checkpoint_files": ckpt_files, "free_disk_bytes_with_checkpoint": disk_after_run,
+    }
+    for f in os.listdir(tmp):
+        os.remove(os.path.join(tmp, f))
+    # the unchunked fit of the same sampler: chunked draws bitwise?
+    ref = fit_meta_kriging(*c5_data, config=acfg, seed=SEED, device=device)
+    same = bitwise(res, ref)
+    out["chunked_equals_unchunked"] = same
+    if not all(same.values()):
+        out["chunked_vs_unchunked_max_abs"] = {
+            f: float((getattr(res, f) - getattr(ref, f)).abs().max()) for f in same}
+    del ref
+    torch.cuda.empty_cache()
+
+    def fit(**kw):
+        return fit_meta_kriging(*c5_data, config=acfg, seed=SEED, device=device,
+                                chunk_iters=16, **kw)
+
+    # kill at the third boundary (two chunks on disk), resume from disk
+    torch.cuda.reset_peak_memory_stats()
+    kpath = os.path.join(tmp, "c5_kill.npz")
+    resumed, resume_s = kill_and_resume(fit, kpath, 2)
+    out["peak_memory_bytes_abort_kill_and_resume"] = torch.cuda.max_memory_allocated()
+    out["resume_call_s"] = resume_s
+    same = bitwise(res, resumed, ("param_grid", "w_grid", "p_quant"))
+    out["kill_resume_bitwise"] = same
+    check(all(same.values()), f"chunked config5: kill and resume {same}")
+    for f in os.listdir(tmp):
+        os.remove(os.path.join(tmp, f))
+    out["free_disk_bytes_after_cleanup"] = free_disk_bytes(tmp)
+    emit(out)
+    return out
+
+
+def ragged_kernel_checks(device, part):
+    """The symmetric kernel (masked and shifted builds) and the narrow
+    kernel (the cross build with the row mask) at each bucket group's
+    shape of a coherent partition, against the plain version."""
+    import torch
+    from smk_torch.ops import fused_build as fb
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 9)
+    test = torch.rand((C4_T, 2), generator=gen, device=device)
+    rows = []
+    for g in part.groups:
+        coords = g.part.coords.to(device)
+        mask = g.part.mask.to(device)
+        k, m = mask.shape
+        phis = 4.0 + 8.0 * torch.rand((k, C4_Q), generator=gen, device=device)
+        shift = torch.where(mask > 0, 0.5 + torch.rand((k, m), generator=gen, device=device),
+                            torch.full_like(mask, 1e8))
+        model = "exponential"
+        cases = {
+            "fused_masked_correlation_stack": (
+                fb.fused_masked_correlation_stack(coords, phis, mask, model),
+                fb.plain_build(coords, coords, phis, model, mask=mask, zero_diag=True)),
+            "fused_masked_shifted_build": (
+                fb.fused_masked_shifted_build(coords, phis, mask, shift, model),
+                fb.plain_build(coords, coords, phis, model, mask=mask, shift=shift,
+                               zero_diag=True)),
+            "fused_cross_correlation": (
+                fb.fused_cross_correlation(coords, test, phis[:, :1], model, row_mask=mask),
+                fb.plain_build(coords, test[None], phis[:, :1], model, row_mask=mask)),
+        }
+        for name, (got, want) in cases.items():
+            err = compare(got, want, f"coherent config4 {name} at K={k}, m={m}")
+            rows.append({"entry": name, "bucket": g.bucket, "shape": list(got.shape),
+                         "max_abs_err": err})
+        del cases
+    return rows
+
+
+def fit_coherent_config4(device, c4_data, random_ms):
+    """fit_meta_kriging at config4's width on the eBird proxy with the
+    coherent partition (partition_method="coherent", the production
+    sampler, logit, phi every 8th, 64 sweeps in chunks of 16): the
+    buckets and pad share (pad_summary), the kernels at each group's
+    shape against their plain version, ms/sweep per group and for the
+    whole fit beside the random split's, peak memory, launches per
+    group against build_calls(chunk_iters=16), finite outputs of K
+    rows."""
+    import numpy as np
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel.partition import coherent_partition
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    cfg = production_config(k=C4_K, n_samples=64, link="logit", phi_every=8,
+                            partition_method="coherent")
+    y, x, coords, ct, xt = c4_data
+    part = coherent_partition(*(torch.as_tensor(a) for a in (y, x, coords)), C4_K)
+    pads = part.pad_summary()
+    buckets = list(part.buckets)
+    sizes = [len(g.subset_ids) for g in part.groups]
+    check((buckets, sizes) == C4_COHERENT, f"coherent config4: buckets {buckets} {sizes}")
+    kernel_rows = ragged_kernel_checks(device, part)
+    del part
+    torch.cuda.empty_cache()
+    stats, marks = ChunkPipelineStats(), []
+
+    def progress(info):
+        marks.append((info["bucket"], info["iteration"], dict(fb.LAUNCHES)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_counts()
+    start = time.perf_counter()
+    res = fit_meta_kriging(y, x, coords, ct, xt, config=cfg, seed=SEED, device=device,
+                           chunk_iters=16, progress=progress, pipeline_stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(fb.LAUNCHES)
+    want = build_calls(cfg, C4_Q, cfg.n_samples, cfg.n_burn_in, chunk_iters=16)
+    first = [mk for mk in marks if mk[0] == buckets[0]][-1][2]
+    per_group = {str(buckets[0]): first,
+                 str(buckets[1]): {e: launches[e] - first[e] for e in launches}}
+    for b, got in per_group.items():
+        check(got == want, f"coherent config4: group {b} launches {got} != {want}")
+    check(sum(fb.PLAIN_CALLS.values()) == 0, "coherent config4: a plain build ran on the card")
+    layouts = launches_by_kernel()
+    total_want = {e: 2 * v for e, v in want.items()}
+    check(layouts == expected_by_kernel(total_want), f"coherent config4: by kernel {layouts}")
+    check(tuple(res.subset_results.param_grid.shape[:1]) == (C4_K,), "coherent config4: K rows")
+    for f in ("p_quant", "param_quant", "param_grid", "w_grid"):
+        check(bool(torch.isfinite(getattr(res, f)).all()), f"coherent config4: non-finite {f}")
+    check(bool(torch.isfinite(res.subset_results.param_grid).all()),
+          "coherent config4: a non-finite subset grid")
+    p_q = res.p_quant.cpu().numpy()
+    check(bool(((p_q >= 0) & (p_q <= 1)).all()), "coherent config4: p outside [0, 1]")
+    by_group = {}
+    for gi, b in enumerate(buckets):
+        chunks = stats.chunks[4 * gi: 4 * gi + 4]
+        by_group[str(b)] = {"sweep_s": sum(c["dispatch_s"] for c in chunks),
+                            "ms_per_sweep": sum(c["dispatch_s"] for c in chunks)
+                            / cfg.n_samples * 1e3}
+    secs = res.phase_seconds
+    out = {
+        "phase": "fit_coherent_config4", "n": y.shape[0], "K": C4_K, "q": C4_Q, "p": C4_P,
+        "t": C4_T, "link": cfg.link, "buckets": buckets, "subsets_per_bucket": sizes,
+        "pad_summary": pads, "kernel_checks": kernel_rows, "wall_s": wall,
+        "phase_seconds": secs, "ms_per_sweep": secs["subset_fits"] / cfg.n_samples * 1e3,
+        "ms_per_sweep_by_group": by_group, "random_partition_ms_per_sweep": random_ms,
+        "peak_memory_bytes": peak, "launches": launches, "launches_per_group": per_group,
+        "launches_expected_per_group": want, "launches_by_kernel": layouts,
+        "pad_waste_frac": res.pad_waste_frac, "ragged_groups": stats.ragged_groups,
+        "param_quant_median": np.round(res.param_quant[0].cpu().numpy(), 4).tolist(),
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2159,11 +2595,22 @@ def main() -> int:
                direct=True)
     vm = phase("fit_vecchia_m_large", fit_vecchia, "fit_vecchia_m_large",
                cfg=vecchia_config(k=MAIN_K // 2, n_samples=32), data_np=c5_data, device=device)
+    tmp = tempfile.mkdtemp(prefix="smk_chip_smoke_")
+    try:
+        emit({"phase": "checkpoint_dir", "path": tmp, "free_disk_bytes": free_disk_bytes(tmp)})
+        chs = phase("fit_chunked_small_parity", fit_chunked_small_parity, device, tmp)
+        cc5 = phase("fit_chunked_config5", fit_chunked_config5, device, c5_data, tmp,
+                    p5["ms_per_sweep"])
+        coh4 = phase("fit_coherent_config4", fit_coherent_config4, device, c4_data,
+                     p4["ms_per_sweep"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "wall_s_by_phase", **walls, "total_s": time.perf_counter() - script_start})
     paths = {"fit_config5": c5, "fit_q2": q2, "fit_production_config5": p5,
              "fit_production_config4": p4, "fit_production_config5_mtm": p5m,
              "fit_production_config4_chains": p4c, "fit_config5_float64": c5f64,
-             "fit_vecchia_config5": v5, "fit_vecchia_m_large": vm}
+             "fit_vecchia_config5": v5, "fit_vecchia_m_large": vm,
+             "fit_chunked_small": chs, "fit_chunked_config5": cc5, "fit_coherent_config4": coh4}
 
     f64_time = f64["main_path"]
     f64_kernels = (("symmetric kernel, float64", "symmetric_f64", "fused_masked_correlation_stack"),

@@ -40,15 +40,24 @@ from smk_torch.ops.quantiles import (
     resample_index,
 )
 from smk_torch.parallel.combine import combine_quantile_grids
+from smk_torch.parallel.domains import FailureDomainMap
 from smk_torch.parallel.executor import fit_subsets_vmap
-from smk_torch.parallel.partition import random_partition, random_permutation
-from smk_torch.utils.tracing import PhaseTimes, phase_timer
+from smk_torch.parallel.partition import (
+    PaddedPartition,
+    coherent_partition,
+    random_partition,
+    random_permutation,
+)
+from smk_torch.parallel.recovery import find_failed_subsets, fit_subsets_chunked
+from smk_torch.utils.tracing import ChunkPipelineStats, PhaseTimes, phase_timer
 
 
 class MetaKrigingResult(NamedTuple):
     """Everything the reference script materializes, plus diagnostics —
-    the twin's fields (see smk_tpu/api.py); the fields of the chunked,
-    fault-tolerant and adaptive executors keep their defaults here."""
+    the twin's fields (see smk_tpu/api.py). ``subsets_dropped`` and
+    ``domains_dropped`` name what quarantine dropped, ``pad_waste_frac``
+    is 0.0 on a ragged (coherent) fit off the mesh; the run log's and
+    the adaptive schedule's fields (ROADMAP A8b) keep their defaults."""
 
     param_grid: torch.Tensor
     w_grid: torch.Tensor
@@ -155,9 +164,14 @@ def predict_probability(
     raise ValueError(f"unknown link {link!r}")
 
 
-def combine(grids_par: torch.Tensor, grids_w: torch.Tensor, config: SMKConfig):
-    """The combine phase: (K, n_q, d) subset grids -> combined grids."""
-    kw = dict(n_iter=config.weiszfeld_iters, eps=config.weiszfeld_eps)
+def combine(grids_par: torch.Tensor, grids_w: torch.Tensor, config: SMKConfig,
+            survival_mask=None, domain_of_subset=None):
+    """The combine phase: (K, n_q, d) subset grids -> combined grids,
+    without the subsets ``survival_mask`` drops (the degraded combine
+    of a quarantined fit; see parallel/combine.apply_survival_mask)."""
+    kw = dict(n_iter=config.weiszfeld_iters, eps=config.weiszfeld_eps,
+              survival_mask=survival_mask, min_surviving_frac=config.min_surviving_frac,
+              domain_of_subset=domain_of_subset)
     return (
         combine_quantile_grids(grids_par, config.combiner, **kw),
         combine_quantile_grids(grids_w, config.combiner, **kw),
@@ -235,6 +249,12 @@ def fit_meta_kriging(
     randomness: Optional[FitRandomness] = None,
     device=None,
     chunk_size: Optional[int] = None,
+    chunk_iters: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 500,
+    progress=None,
+    nan_guard: bool = False,
+    pipeline_stats: Optional[ChunkPipelineStats] = None,
 ) -> MetaKrigingResult:
     """Full spatial meta-kriging pipeline (the twin's unmeshed path).
 
@@ -247,16 +267,46 @@ def fit_meta_kriging(
     unchunked run's). Everything computes in ``config.dtype``, under
     ``config.matmul_precision`` (the caller's settings are restored on
     return).
+
+    The subset fits run through the chunked executor
+    (parallel/recovery.fit_subsets_chunked) when any of its knobs asks
+    for it, as in the twin:
+
+    - ``chunk_iters``: sweeps per chunk of the host loop (default
+      ``checkpoint_every`` when another knob implies chunking);
+    - ``checkpoint_path``: checkpoint every chunk; an interrupted call
+      with the same arguments resumes bitwise. The files are the
+      port's own (a twin checkpoint does not resume here);
+    - ``progress``: callback(dict) after every chunk (phase, iteration,
+      n_samples, running phi acceptance);
+    - ``nan_guard``: raise parallel.recovery.SubsetNaNError naming the
+      non-finite subsets before the checkpoint is overwritten;
+    - ``pipeline_stats``: a utils.tracing.ChunkPipelineStats sink;
+    - ``config.fault_policy="quarantine"``: retry and drop faulted
+      subsets; the combine drops the dead ones
+      (``subsets_dropped``, ``domains_dropped``) and fails below
+      ``config.min_surviving_frac``;
+    - ``config.partition_method="coherent"``: the Morton split padded
+      onto the bucket ladder (``config.bucket_ladder``), one chunked fit
+      per occupied bucket.
     """
     cfg = config or SMKConfig()
     check_ported(cfg)
     dev = resolve_device(device)
+    chunked = dict(chunk_iters=chunk_iters or checkpoint_every,
+                   checkpoint_path=checkpoint_path, progress=progress,
+                   nan_guard=nan_guard, pipeline_stats=pipeline_stats)
+    asked = (checkpoint_path is not None or chunk_iters is not None
+             or progress is not None or nan_guard)
     with matmul_precision(cfg.matmul_precision, dev):
         return _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev,
-                    chunk_size)
+                    chunk_size, chunked, asked)
 
 
-def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, chunk_size):
+def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, chunk_size,
+         chunked, asked):
+    """``chunked``: the chunked executor's arguments; ``asked``: whether
+    the caller set one of them."""
     dt = torch.float64 if cfg.dtype == "float64" else torch.float32
     y, x, coords, coords_test, x_test = (
         _as_tensor(a, dt, dev) for a in (y, x, coords, coords_test, x_test)
@@ -290,9 +340,13 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
     times = PhaseTimes()
 
     with phase_timer(times, "partition", dev):
-        part = random_partition(
-            rng.permutation(n).to(dev), y, x, coords, cfg.n_subsets
-        )
+        if cfg.partition_method == "coherent":
+            part = coherent_partition(y, x, coords, cfg.n_subsets, ladder=cfg.bucket_ladder)
+        else:
+            part = random_partition(
+                rng.permutation(n).to(dev), y, x, coords, cfg.n_subsets
+            )
+    ragged = isinstance(part, PaddedPartition)
 
     with phase_timer(times, "warm_start", dev):
         y_long, x_long = stacked_design(y, x)
@@ -301,16 +355,41 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
         ).coef.reshape(q, p)
 
     model = SpatialGPSampler(cfg, weight=weight)
-    shapes = sweep_shapes(cfg, part.n_subsets, part.subset_size, q, p,
-                          coords_test.shape[0], weight)
+    m = max(part.buckets) if ragged else part.subset_size
+    shapes = sweep_shapes(cfg, part.n_subsets, m, q, p, coords_test.shape[0], weight)
     with phase_timer(times, "subset_fits", dev):
-        results = fit_subsets_vmap(
-            model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init,
-            chunk_size=chunk_size,
+        # quarantine and ragged partitions live in the chunked executor too
+        if asked or cfg.fault_policy == "quarantine" or ragged:
+            results = fit_subsets_chunked(
+                model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init,
+                chunk_size=chunk_size, **chunked,
+            )
+        else:
+            results = fit_subsets_vmap(
+                model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init,
+                chunk_size=chunk_size,
+            )
+
+    # the degraded combine of a quarantined fit: subsets whose retry
+    # ladder ran out ship non-finite grids and are dropped
+    survival_mask = domain_of_subset = None
+    subsets_dropped: tuple = ()
+    domains_dropped: tuple = ()
+    if cfg.fault_policy == "quarantine":
+        failed = find_failed_subsets(results)
+        survival_mask = np.ones(cfg.n_subsets, bool)
+        survival_mask[failed] = False
+        subsets_dropped = tuple(int(i) for i in failed)
+        dmap = FailureDomainMap.derive(cfg.n_subsets)
+        domain_of_subset = np.asarray(dmap.domain_of_subset, int)
+        domains_dropped = tuple(
+            int(d) for d in range(dmap.n_domains)
+            if not survival_mask[dmap.subsets_of(d)].any()
         )
 
     with phase_timer(times, "combine", dev):
-        param_grid, w_grid = combine(results.param_grid, results.w_grid, cfg)
+        param_grid, w_grid = combine(results.param_grid, results.w_grid, cfg,
+                                     survival_mask, domain_of_subset)
 
     with phase_timer(times, "resample_predict", dev):
         n_grid = int(round((1.0 - 1.0 / cfg.n_quantiles) / cfg.interp_grid_step)) + 1
@@ -338,4 +417,7 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
         w_rhat=results.w_rhat,
         latent_ess_per_sec=ess_total / fit_s if fit_s > 0.0 else 0.0,
         phase_seconds=secs,
+        subsets_dropped=subsets_dropped,
+        domains_dropped=domains_dropped,
+        pad_waste_frac=0.0 if ragged else None,
     )

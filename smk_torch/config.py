@@ -431,19 +431,14 @@ class SMKConfig:
 # (knob, predicate on the config, ROADMAP item that ports it). Checked
 # in this order by check_ported; the first hit raises.
 _UNPORTED = (
-    # a coherent partition is a PaddedPartition (parallel/partition.py),
-    # which the twin fits only through the chunked executor's ragged
-    # driver (smk_tpu/parallel/recovery.py:_fit_ragged_chunked)
-    ("partition_method='coherent'",
-     lambda c: c.partition_method != "random", "A8"),
-    ("bucket_ladder", lambda c: c.bucket_ladder is not None, "A8"),
-    ("fault_policy='quarantine'", lambda c: c.fault_policy != "abort", "A8"),
-    ("chunk_pipeline='overlap'", lambda c: c.chunk_pipeline != "sync", "A8"),
-    ("adaptive_schedule='on'", lambda c: c.adaptive_schedule != "off", "A8"),
-    ("live_diagnostics", lambda c: c.live_diagnostics, "A8"),
-    ("run_log_dir", lambda c: bool(c.run_log_dir), "A8"),
-    ("profile_dir", lambda c: bool(c.profile_dir), "A8"),
-    ("watchdog", lambda c: c.watchdog, "A8"),
+    # the chunked executor's second half (parallel/recovery.py ports the
+    # sync loop, the checkpoint, quarantine and the host ragged fan-out)
+    ("chunk_pipeline='overlap'", lambda c: c.chunk_pipeline != "sync", "A8b"),
+    ("adaptive_schedule='on'", lambda c: c.adaptive_schedule != "off", "A8b"),
+    ("live_diagnostics", lambda c: c.live_diagnostics, "A8b"),
+    ("run_log_dir", lambda c: bool(c.run_log_dir), "A8b"),
+    ("profile_dir", lambda c: bool(c.profile_dir), "A8b"),
+    ("watchdog", lambda c: c.watchdog, "A8b"),
     ("compile_store_dir", lambda c: c.compile_store_dir is not None, "A10"),
     ("xla_cache_dir", lambda c: c.xla_cache_dir is not None, "A10"),
     ("coalesce_window_ms>0", lambda c: c.coalesce_window_ms > 0, "A11"),

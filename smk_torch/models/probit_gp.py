@@ -231,7 +231,14 @@ class SweepNoise(NamedTuple):
     krev: Optional[torch.Tensor] = None
 
 
-# a noise source: (sweep index, collecting?) -> that sweep's SweepNoise
+# a noise source: (sweep index, collecting?) -> that sweep's SweepNoise.
+# The chunked executor (parallel/recovery.py) needs four more operations
+# of its source, which GeneratorNoise has: rows(ids, m=None) (the source
+# of batch rows ids alone, at subset size m), snapshot() and
+# restore(snap) (its state at a chunk boundary, as numpy), fork(mask,
+# attempts) (a quarantine retry's fresh stream for the masked rows) and
+# identity() (bytes naming the stream, for the checkpoint's run
+# identity). The twin carries its PRNG key in the chain state instead.
 NoiseSource = Callable[[int, bool], SweepNoise]
 
 
@@ -352,13 +359,25 @@ def subset_generators(seed: int, k: int, device) -> List[torch.Generator]:
     return gens
 
 
+def fork_seed(seed: int, attempt: int) -> int:
+    """The seed of a row's stream after its ``attempt``-th quarantine
+    retry: a child of the row's initial seed and the attempt (the
+    twin's fold_in(key, attempt) on the key held at chunk start)."""
+    child = np.random.SeedSequence([int(seed), int(attempt)])
+    return int(child.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
 class GeneratorNoise:
     """The default noise source: each batch row (subset, or (subset,
-    chain)) draws its sweep noise from its own generator."""
+    chain)) draws its sweep noise from its own generator. ``seeds``:
+    the rows' initial seeds (default: each generator's), which name the
+    stream and seed its quarantine forks."""
 
     def __init__(self, generators: Sequence[torch.Generator], shapes: SweepShapes,
-                 *, dtype=torch.float32, device=None):
+                 *, dtype=torch.float32, device=None, seeds: Optional[Sequence[int]] = None):
         self.generators = list(generators)
+        self.seeds = ([g.initial_seed() for g in self.generators] if seeds is None
+                      else [int(s) for s in seeds])
         self.shapes = shapes
         self.dtype = dtype
         self.device = device
@@ -370,11 +389,44 @@ class GeneratorNoise:
             for g in self.generators
         ])
 
+    def rows(self, ids, *, m: Optional[int] = None) -> "GeneratorNoise":
+        """The source of batch rows ``ids`` alone (in that order), their
+        own generators shared, so a run over those rows draws what the
+        whole run draws for them; ``m``: the subset size they sweep at
+        (a ragged bucket group's), default this source's."""
+        ids = [int(i) for i in ids]
+        shapes = self.shapes._replace(k=len(ids), m=self.shapes.m if m is None else int(m))
+        return GeneratorNoise([self.generators[i] for i in ids], shapes, dtype=self.dtype,
+                              device=self.device, seeds=[self.seeds[i] for i in ids])
+
     def subset(self, lo: int, hi: int) -> "GeneratorNoise":
-        """The source of batch rows [lo, hi) alone: their own generators,
-        so a K-chunked run draws what the whole run draws."""
-        return GeneratorNoise(self.generators[lo:hi], self.shapes._replace(k=hi - lo),
-                              dtype=self.dtype, device=self.device)
+        """The source of batch rows [lo, hi) alone (:meth:`rows`)."""
+        return self.rows(range(lo, hi))
+
+    def snapshot(self) -> np.ndarray:
+        """(rows, state bytes) uint8: each generator's state."""
+        return np.stack([g.get_state().numpy() for g in self.generators])
+
+    def restore(self, snap) -> None:
+        """Set each generator to its state in ``snap`` (from snapshot)."""
+        snap = np.asarray(snap, np.uint8)
+        if snap.shape[0] != len(self.generators):
+            raise ValueError(
+                f"noise snapshot has {snap.shape[0]} rows, the source {len(self.generators)}"
+            )
+        for g, s in zip(self.generators, snap):
+            g.set_state(torch.from_numpy(np.ascontiguousarray(s)))
+
+    def fork(self, mask, attempts) -> None:
+        """Reseed each row of ``mask`` from its initial seed and its
+        ``attempts`` entry (:func:`fork_seed`); the other rows keep
+        their streams."""
+        for i in np.flatnonzero(np.asarray(mask, bool)):
+            self.generators[i].manual_seed(fork_seed(self.seeds[i], int(attempts[i])))
+
+    def identity(self) -> bytes:
+        """The rows' initial seeds, as bytes."""
+        return np.asarray(self.seeds, np.uint64).tobytes()
 
 
 def n_params(q: int, p: int) -> int:
@@ -382,10 +434,15 @@ def n_params(q: int, p: int) -> int:
     return q * p + q * (q + 1) // 2 + q
 
 
-def build_calls(cfg: SMKConfig, q: int, n_sweeps: int, n_burn: int) -> dict:
+def build_calls(cfg: SMKConfig, q: int, n_sweeps: int, n_burn: int,
+                chunk_iters: Optional[int] = None) -> dict:
     """Calls per fused-build entry point of a fused run of the sampler:
     init, a burn-in scan of sweeps [0, n_burn) and a collecting scan of
-    [n_burn, n_sweeps), each scan entered with _solve_cache.
+    [n_burn, n_sweeps), each scan entered with _solve_cache. With
+    ``chunk_iters`` each scan runs as chunks of that many sweeps (the
+    chunked executor's plan, parallel/recovery.py), and each chunk is a
+    scan entry: the cache is rebuilt from the state at every chunk
+    start, as the twin's burn_chunk and sample_chunk do.
 
     - masked stack: R~ at init; the CG operator at each scan entry
       (u_solver="cg"); per update sweep the conditional proposal stack
@@ -417,14 +474,17 @@ def build_calls(cfg: SMKConfig, q: int, n_sweeps: int, n_burn: int) -> dict:
     n_upd = sum(1 for it in range(n_sweeps) if it % cfg.phi_update_every == 0)
     n_kept = n_sweeps - n_burn
     kept_upd = sum(1 for it in range(n_burn, n_sweeps) if it % cfg.phi_update_every == 0)
-    entries = (n_burn > 0) + (n_kept > 0)
+    if chunk_iters is None:
+        burn_entries, kept_entries = int(n_burn > 0), int(n_kept > 0)
+    else:
+        burn_entries, kept_entries = -(-n_burn // chunk_iters), -(-n_kept // chunk_iters)
     per_update = q if collapsed else 1
-    stack = 1 + (entries if cg else 0) + per_update * n_upd
+    stack = 1 + ((burn_entries + kept_entries) if cg else 0) + per_update * n_upd
     stack += q * n_sweeps if thread_s else 0
     shifted = 2 * q * n_upd if collapsed else 0
     if not cg:
         shifted += q * (n_sweeps - (n_upd if thread_s else 0))
-    krige = (1 + per_update * kept_upd) if cfg.krige_cache and n_kept else n_kept
+    krige = (kept_entries + per_update * kept_upd) if cfg.krige_cache else n_kept
     return {
         "fused_correlation": 0,
         "fused_masked_correlation_stack": stack,
@@ -1202,9 +1262,10 @@ class SpatialGPSampler:
         data = self.chain_data(data)
         if consts is None:
             consts = self._consts(data)
-        state = self._burn_in(data, consts, init_state, noise)
-        state, (param_draws, w_draws) = self._sample_chunk(
-            data, consts, state, cfg.n_burn_in, cfg.n_kept, noise
+        state = self.burn_chunk(data, consts, init_state, noise, 0, cfg.n_burn_in)
+        state = state._replace(phi_accept=torch.zeros_like(state.phi_accept))
+        state, (param_draws, w_draws) = self.sample_chunk(
+            data, consts, state, noise, cfg.n_burn_in, cfg.n_kept
         )
         return self.finalize(state, param_draws, w_draws)
 
@@ -1216,18 +1277,28 @@ class SpatialGPSampler:
         return GeneratorNoise(subset_generators(seed, shapes.k, data.x.device), shapes,
                               dtype=data.x.dtype, device=data.x.device)
 
-    def _burn_in(self, data, consts, state, noise: NoiseSource) -> SamplerState:
+    def burn_chunk(self, data: SubsetData, consts: BuildConsts, state: SamplerState,
+                   noise: NoiseSource, start_it: int, n_iters: int) -> SamplerState:
+        """Non-collecting sweeps [start_it, start_it + n_iters) of the
+        K*C-wide chain ``data`` (twin of ``burn_chunk``): the cache is
+        built from ``state`` at entry and the Robbins–Monro gain follows
+        the global sweep index. A caller that chunks the burn-in resets
+        ``phi_accept`` to zero after its last chunk, as ``run`` does."""
+        if n_iters == 0:
+            return state
         cache = self._solve_cache(consts, data.mask, state)
-        for it in range(self.config.n_burn_in):
+        for it in range(start_it, start_it + n_iters):
             state, cache, _ = self._gibbs_step(
                 data, consts, state, cache, it, noise(it, False), collect=False
             )
-        return state._replace(phi_accept=torch.zeros_like(state.phi_accept))
+        return state
 
-    def _sample_chunk(self, data, consts, state, start_it: int, n_iters: int,
-                      noise: NoiseSource):
-        """Collecting sweeps [start_it, start_it + n_iters); returns
-        (state, (param_draws (K, n, n_params), w_draws (K, n, t*q)))."""
+    def sample_chunk(self, data: SubsetData, consts: BuildConsts, state: SamplerState,
+                     noise: NoiseSource, start_it: int, n_iters: int):
+        """Collecting sweeps [start_it, start_it + n_iters) (twin of
+        ``sample_chunk``), the cache with its kriging operators built
+        from ``state`` at entry; returns (state, (param_draws (K*C,
+        n_iters, n_params), w_draws (K*C, n_iters, t*q)))."""
         k, m, q, p = data.x.shape
         t = data.coords_test.shape[0]
         cache = self._solve_cache(consts, data.mask, state, predict=True)

@@ -36,7 +36,9 @@ def quantile_probs(n_quantiles: int, dtype=torch.float32, device=None) -> torch.
 
 def _type7(samples: torch.Tensor, probs: torch.Tensor, dim: int) -> torch.Tensor:
     """Linear-interpolation quantiles of ``samples`` along ``dim`` at
-    ``probs``; the quantile axis replaces ``dim``."""
+    ``probs``; the quantile axis replaces ``dim``. A column holding a
+    NaN is NaN throughout, as ``jnp.quantile`` returns it (a subset
+    that quarantine dropped keeps NaN grids, not partly finite ones)."""
     n = samples.shape[dim]
     s = torch.sort(samples, dim=dim).values
     q = probs * (n - 1)
@@ -50,7 +52,9 @@ def _type7(samples: torch.Tensor, probs: torch.Tensor, dim: int) -> torch.Tensor
     shape[dim] = -1
     low_v = torch.index_select(s, dim, low)
     high_v = torch.index_select(s, dim, high)
-    return low_v * low_w.reshape(shape) + high_v * high_w.reshape(shape)
+    out = low_v * low_w.reshape(shape) + high_v * high_w.reshape(shape)
+    has_nan = torch.isnan(samples).any(dim=dim, keepdim=True)
+    return torch.where(has_nan, torch.full_like(out, float("nan")), out)
 
 
 def quantile_grid(

@@ -1,0 +1,1045 @@
+"""The chunked, checkpointed, fault-isolating executor — the sync half of
+``smk_tpu/parallel/recovery.py``.
+
+The whole MCMC (burn-in and sampling) runs as a host loop of
+``chunk_iters``-sweep chunks, the sampler's ``burn_chunk`` and
+``sample_chunk``. At each chunk boundary the loop fetches one small
+tensor (the per-subset finite vector and the mean phi acceptance, when
+a guard, a report or quarantine asks for it), then guards, reports and
+checkpoints:
+
+- the checkpoint (format 7, the twin's layout in the port's own files)
+  is a manifest holding the carried state, the noise source's snapshot,
+  the counters, the run identity and the fault ledger, plus one draw
+  segment per sampling chunk with its checksum, each file atomic
+  (utils/checkpoint.py). An interrupted call resumes bitwise: the chain
+  is a function of the carried state and the noise source's state, and
+  both are in the manifest;
+- ``fault_policy="quarantine"`` holds a clone of the state and the
+  noise snapshot at each chunk start; a subset that goes non-finite is
+  rewound to them with a forked stream (``noise.fork``) and a halved
+  phi step, up to ``fault_max_retries`` times, then dropped (its draws
+  stay non-finite and the combine's survival mask removes it). A
+  fault-free quarantine run is bitwise the ``"abort"`` run.
+
+The twin carries its PRNG key in the chain state; here randomness
+comes from a noise source (models/probit_gp.NoiseSource), which the
+executor snapshots, restores and forks. A ``PaddedPartition`` runs
+through the host ragged fan-out, one ordinary chunked fit per occupied
+bucket. The overlap pipeline with its background writer, the adaptive
+schedule, the streaming monitor, the run log, profiling, the watchdog
+and lenient resume are ROADMAP A8b; the mesh is A9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import warnings
+import zlib
+from typing import List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from smk_torch.device import sync
+from smk_torch.models.probit_gp import (
+    BuildConsts,
+    GeneratorNoise,
+    NoiseSource,
+    SamplerState,
+    SpatialGPSampler,
+    SubsetData,
+    SubsetResult,
+    n_params,
+    subset_generators,
+    sweep_shapes,
+)
+from smk_torch.parallel.domains import FailureDomainMap
+from smk_torch.parallel.executor import stacked_subset_data
+from smk_torch.parallel.partition import PaddedPartition, Partition
+from smk_torch.utils.checkpoint import (
+    load_pytree,
+    load_segment,
+    save_pytree,
+    save_segment,
+    segment_path,
+)
+from smk_torch.utils.tracing import ChunkPipelineStats, monotonic
+
+# The port's checkpoint format: the twin's v7 layout (manifest + one
+# checksummed draw segment per sampling chunk, the v7 fault-domain
+# ledger), with the noise snapshot in place of the PRNG keys.
+CKPT_VERSION = 7
+
+
+class ProgressAbort(Exception):
+    """Base class of the exceptions a ``progress`` callback raises to
+    abort a chunked run on purpose. Any other exception from the
+    callback is warned about once and the run goes on."""
+
+
+class _QuarantineRewind(Exception):
+    """A boundary's guard found non-finite subsets with retry budget
+    left; carries the (K,) retry mask. Never escapes the executor."""
+
+    def __init__(self, retry_mask):
+        self.retry_mask = retry_mask
+        super().__init__("quarantine rewind")
+
+
+class SubsetNaNError(RuntimeError):
+    """In-chain NaN/inf found by ``nan_guard``: which subsets, at which
+    global iteration. Raised before the chunk's checkpoint save, so the
+    checkpoint still holds the last finite state."""
+
+    def __init__(self, subset_ids, iteration):
+        self.subset_ids = list(int(i) for i in subset_ids)
+        self.iteration = int(iteration)
+        super().__init__(
+            f"sampler state non-finite in subsets {self.subset_ids} at iteration "
+            f"{self.iteration}; the last checkpoint (if any) precedes the failure — "
+            "resume from it or re-run the failed shards (rerun_subsets)"
+        )
+
+
+# ----------------------------------------------------------------------
+# device-side boundary statistics
+# ----------------------------------------------------------------------
+def _finite_subsets(state: SamplerState, n_chains: int) -> torch.Tensor:
+    """(K,) bool: every small carried leaf finite, over all of a
+    subset's chains. chol_r is left out (the one O(m^2) leaf; a
+    non-finite factor reaches u within one sweep)."""
+    k = state.beta.shape[0] // n_chains
+    oks = [torch.isfinite(leaf).reshape(k, -1).all(dim=1)
+           for leaf in (state.beta, state.u, state.a, state.phi)]
+    return torch.stack(oks).all(dim=0)
+
+
+def _chunk_stats(state: SamplerState, n_chains: int) -> torch.Tensor:
+    """(K + 1,) on the device: the finite vector as 0/1 and the mean of
+    the running phi-acceptance counters — one fetch per boundary."""
+    fin = _finite_subsets(state, n_chains).to(state.phi_accept.dtype)
+    return torch.cat([fin, torch.mean(state.phi_accept).reshape(1)])
+
+
+def _subset_draws_finite(param_draws: torch.Tensor, w_draws: torch.Tensor,
+                         n_chains: int) -> np.ndarray:
+    """(K,) bool on the host: every recorded draw of each subset finite
+    (the terminal boundary's quarantine verdict)."""
+    k = param_draws.shape[0] // n_chains
+    ok = (torch.isfinite(param_draws).reshape(k, -1).all(dim=1)
+          & torch.isfinite(w_draws).reshape(k, -1).all(dim=1))
+    return ok.cpu().numpy()
+
+
+# ----------------------------------------------------------------------
+# run identity
+# ----------------------------------------------------------------------
+def identity_config_repr(cfg) -> bytes:
+    """The run-identity view of a config: every chain-determining field,
+    the pipeline, fault, store, observability, host-resilience and
+    partition-layout knobs set to fixed values (the twin's
+    parallel/checkpoint.identity_config_repr), so resuming across them
+    stays legal."""
+    cfg_ident = dataclasses.replace(
+        cfg,
+        chunk_pipeline="sync",
+        fault_policy="abort",
+        fault_max_retries=2,
+        min_surviving_frac=0.5,
+        compile_store_dir=None,
+        xla_cache_dir=None,
+        run_log_dir=None,
+        profile_dir=None,
+        profile_chunks=None,
+        watchdog=False,
+        watchdog_min_deadline_s=60.0,
+        watchdog_margin=10.0,
+        dist_init_timeout_s=120.0,
+        dist_init_retries=3,
+        live_diagnostics=(cfg.adaptive_schedule != "off"),
+        ckpt_commit_timeout_s=120.0,
+        partition_method="random",
+        bucket_ladder=None,
+        coalesce_window_ms=0.0,
+    )
+    return repr(cfg_ident).encode()
+
+
+def _leaf_fingerprint(leaf: torch.Tensor) -> int:
+    """CRC of a tensor's shape, dtype and every byte (the data leaves are
+    O(n) in size: one fetch at the start of a checkpointed run)."""
+    h = zlib.crc32(repr((tuple(leaf.shape), str(leaf.dtype))).encode())
+    raw = leaf.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+    return zlib.crc32(raw.tobytes(), h)
+
+
+def _run_identity(cfg, noise, data: SubsetData, beta_init) -> np.ndarray:
+    """Fingerprint of everything that determines the chain: the config,
+    the noise stream (``noise.identity()``) and the data and warm
+    start. A checkpoint of another identity is rejected, not resumed."""
+    crcs = [zlib.crc32(identity_config_repr(cfg)), zlib.crc32(noise.identity())]
+    crcs += [_leaf_fingerprint(leaf) for leaf in data]
+    if beta_init is not None:
+        crcs.append(_leaf_fingerprint(beta_init))
+    return np.asarray(crcs, np.uint32)
+
+
+# ----------------------------------------------------------------------
+# the checkpoint
+# ----------------------------------------------------------------------
+class _HostStaging:
+    """The host copy of the carried state at a boundary: on the card,
+    one pinned buffer (allocated once, grown if needed), each leaf
+    copied into its slice without blocking and one synchronisation for
+    all of them; on the CPU the leaves themselves. The arrays it hands
+    back are reused at the next boundary."""
+
+    def __init__(self):
+        self.buf = None
+
+    def fetch(self, state: SamplerState) -> SamplerState:
+        leaves = list(state)
+        if leaves[0].device.type != "cuda":
+            return SamplerState(*(t.detach().numpy() for t in leaves))
+        offsets, off = [], 0
+        for t in leaves:
+            offsets.append(off)
+            off += -(-t.numel() * t.element_size() // 64) * 64
+        if self.buf is None or self.buf.numel() < off:
+            self.buf = None
+            self.buf = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+        out = []
+        for t, o in zip(leaves, offsets):
+            n = t.numel() * t.element_size()
+            dst = self.buf[o:o + n].view(t.dtype).view(t.shape)
+            dst.copy_(t, non_blocking=True)
+            out.append(dst.numpy())
+        torch.cuda.synchronize(leaves[0].device)
+        return SamplerState(*out)
+
+
+def _state_nbytes(state: SamplerState) -> int:
+    return sum(t.numel() * t.element_size() for t in state)
+
+
+def _read_segments(path, seg_base, n_segments, filled, dtype):
+    """The filled kept-draw region [0, filled) from segments
+    seg_base..seg_base+n_segments-1, checking contiguous coverage;
+    (None, None) when nothing is filled."""
+    if filled <= 0:
+        if n_segments != 0:
+            raise ValueError(
+                f"checkpoint {path} is inconsistent: {n_segments} segments recorded "
+                "but no filled draws"
+            )
+        return None, None
+    import zipfile
+
+    parts_p, parts_w = [], []
+    cursor = 0
+    for i in range(seg_base, seg_base + n_segments):
+        try:
+            seg = load_segment(path, i)
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+            raise ValueError(
+                f"checkpoint {path} is missing or has a corrupt draw segment "
+                f"{segment_path(path, i)} — the manifest records {n_segments} segments "
+                f"covering {filled} kept draws; restore the file or delete the "
+                "checkpoint and re-run"
+            ) from e
+        if seg["start"] != cursor or seg["stop"] <= seg["start"]:
+            raise ValueError(
+                f"checkpoint {path} segments are not contiguous: segment {i} covers "
+                f"[{seg['start']}, {seg['stop']}) but {cursor} was expected next"
+            )
+        if seg["param"].shape[-2] != seg["stop"] - seg["start"]:
+            raise ValueError(
+                f"checkpoint {path} segment {i} shape {seg['param'].shape} does not "
+                f"match its recorded range [{seg['start']}, {seg['stop']})"
+            )
+        cursor = seg["stop"]
+        parts_p.append(np.asarray(seg["param"], dtype))
+        parts_w.append(np.asarray(seg["w"], dtype))
+    if cursor != filled:
+        raise ValueError(
+            f"checkpoint {path} segments cover {cursor} kept draws but the manifest "
+            f"records {filled}"
+        )
+    return np.concatenate(parts_p, axis=-2), np.concatenate(parts_w, axis=-2)
+
+
+class _SegmentedCheckpoint:
+    """The manifest and its ordered draw segments (the twin's
+    ``_SegmentedCheckpoint`` with its writes inline). Each boundary
+    writes its segment, then the manifest, each atomic, and no write
+    touches a file the manifest on disk references: a kill at any
+    instant leaves the previous consistent view or the new one."""
+
+    def __init__(self, path: str, meta: np.ndarray, ident: np.ndarray, *,
+                 pstats: Optional[ChunkPipelineStats], fault_src):
+        self.path = path
+        self.meta = meta
+        self.ident = ident
+        self.version = np.asarray([CKPT_VERSION], np.int64)
+        self.pstats = pstats
+        self._fault_src = fault_src
+        self.seg_base = 0
+        self.n_segments = 0
+        self.filled = 0
+
+    def _write_manifest(self, state_np, noise_np, it: int) -> int:
+        attempts, dead, dom_map, dom_attempts, dom_dead = self._fault_src()
+        return save_pytree(self.path, {
+            "state": state_np,
+            "noise": noise_np,
+            "it": np.asarray([it], np.int64),
+            "meta": self.meta,
+            "ident": self.ident,
+            "version": self.version,
+            "seg_base": np.asarray([self.seg_base], np.int64),
+            "n_segments": np.asarray([self.n_segments], np.int64),
+            "filled": np.asarray([self.filled], np.int64),
+            "fault_attempts": np.asarray(attempts, np.int64),
+            "fault_dead": np.asarray(dead, np.int64),
+            "fault_domain": np.asarray(dom_map, np.int64),
+            "fault_domain_attempts": np.asarray(dom_attempts, np.int64),
+            "fault_domain_dead": np.asarray(dom_dead, np.int64),
+        })
+
+    def _record(self, seconds: float, nbytes: int) -> None:
+        if self.pstats is not None:
+            self.pstats.add_ckpt_write(seconds, nbytes)
+
+    def save(self, state_np, noise_np, seg, it: int):
+        """One boundary: the segment ``seg`` = (param, w, start, stop) of
+        a sampling chunk (None at a burn-in boundary), then the
+        manifest. Returns (seconds, bytes written)."""
+        t0 = monotonic()
+        nbytes = 0
+        if seg is not None:
+            param, w, start, stop = seg
+            if stop > start:
+                nbytes += save_segment(self.path, self.seg_base + self.n_segments,
+                                       param, w, start, stop)
+                self.n_segments += 1
+                self.filled = stop
+        nbytes += self._write_manifest(state_np, noise_np, it)
+        secs = monotonic() - t0
+        self._record(secs, nbytes)
+        return secs, nbytes
+
+    def adopt(self, seg_base: int, n_segments: int, filled: int) -> None:
+        """Resume bookkeeping after a load."""
+        self.seg_base, self.n_segments, self.filled = seg_base, n_segments, filled
+
+    def compact(self, state_np, noise_np, param, w, it: int, filled: int) -> None:
+        """Merge the segments into one at a fresh index, publish the
+        manifest, then unlink the superseded files (resume-time
+        compaction: the file count stays bounded across kills)."""
+        t0 = monotonic()
+        old = range(self.seg_base, self.seg_base + self.n_segments)
+        self.seg_base += self.n_segments
+        self.n_segments = self.filled = 0
+        nbytes = 0
+        if filled > 0:
+            nbytes += save_segment(self.path, self.seg_base, param, w, 0, filled)
+            self.n_segments, self.filled = 1, filled
+        nbytes += self._write_manifest(state_np, noise_np, it)
+        for i in old:
+            try:
+                os.remove(segment_path(self.path, i))
+            except OSError:  # pragma: no cover - cleanup only
+                pass
+        self._record(monotonic() - t0, nbytes)
+
+
+# ----------------------------------------------------------------------
+# the chunk
+# ----------------------------------------------------------------------
+class _Piece(NamedTuple):
+    """Rows [lo, hi) of the K*C-wide chain batch that one call of the
+    sampler sweeps (all of them unless ``chunk_size`` splits K)."""
+
+    lo: int
+    hi: int
+    data: SubsetData
+    consts: BuildConsts
+    noise: NoiseSource
+
+
+def _pieces(model: SpatialGPSampler, cdata: SubsetData, noise, k: int, c: int,
+            chunk_size: Optional[int]) -> List[_Piece]:
+    if chunk_size is None or chunk_size >= k:
+        return [_Piece(0, k * c, cdata, model._consts(cdata), noise)]
+    if k % chunk_size != 0:
+        raise ValueError(f"chunk_size {chunk_size} must divide K={k}")
+    _require(noise, ("rows",), "chunk_size")
+    out = []
+    for lo in range(0, k * c, chunk_size * c):
+        hi = lo + chunk_size * c
+        d = cdata._replace(coords=cdata.coords[lo:hi], x=cdata.x[lo:hi],
+                           y=cdata.y[lo:hi], mask=cdata.mask[lo:hi])
+        out.append(_Piece(lo, hi, d, model._consts(d), noise.rows(range(lo, hi))))
+    return out
+
+
+def _run_chunk(model: SpatialGPSampler, kind: str, pieces: Sequence[_Piece],
+               state: SamplerState, start: int, n: int):
+    """One chunk: sweeps [start, start + n) of every piece, burn-in
+    (``kind="burn"``) or collecting. Returns (state, draws), draws None
+    for a burn-in chunk. The sampler's ``guard_rejects`` counts stay
+    per row across pieces. testing/faults.inject_subset_nan wraps this
+    function while an injection is armed."""
+    if len(pieces) == 1:
+        pc = pieces[0]
+        if kind == "burn":
+            return model.burn_chunk(pc.data, pc.consts, state, pc.noise, start, n), None
+        return model.sample_chunk(pc.data, pc.consts, state, pc.noise, start, n)
+    full = model.guard_rejects
+    states, draws, guards = [], [], []
+    for pc in pieces:
+        model.guard_rejects = None if full is None else full[pc.lo:pc.hi]
+        st = SamplerState(*(t[pc.lo:pc.hi] for t in state))
+        if kind == "burn":
+            states.append(model.burn_chunk(pc.data, pc.consts, st, pc.noise, start, n))
+        else:
+            st, dr = model.sample_chunk(pc.data, pc.consts, st, pc.noise, start, n)
+            states.append(st)
+            draws.append(dr)
+        guards.append(model.guard_rejects)
+    model.guard_rejects = None if guards[0] is None else torch.cat(guards)
+    state = SamplerState(*(torch.cat(f) for f in zip(*states)))
+    if not draws:
+        return state, None
+    return state, (torch.cat([d[0] for d in draws]), torch.cat([d[1] for d in draws]))
+
+
+def _require(noise, ops, why: str) -> None:
+    missing = [op for op in ops if not callable(getattr(noise, op, None))]
+    if missing:
+        raise ValueError(
+            f"{why} needs a noise source with {', '.join(missing)} (as "
+            "models/probit_gp.GeneratorNoise has)"
+        )
+
+
+# ----------------------------------------------------------------------
+# entry points
+# ----------------------------------------------------------------------
+def fit_subsets_chunked(
+    model: SpatialGPSampler,
+    part,
+    coords_test: torch.Tensor,
+    x_test: torch.Tensor,
+    noise: Optional[NoiseSource] = None,
+    beta_init: Optional[torch.Tensor] = None,
+    *,
+    chunk_iters: int = 500,
+    checkpoint_path: Optional[str] = None,
+    chunk_size: Optional[int] = None,
+    progress=None,
+    stop_after_chunks: Optional[int] = None,
+    nan_guard: bool = False,
+    pipeline_stats: Optional[ChunkPipelineStats] = None,
+    domain_map: Optional[FailureDomainMap] = None,
+) -> Optional[SubsetResult]:
+    """The K-subset fan-out as a host loop of ``chunk_iters``-sweep
+    chunks (twin of ``fit_subsets_chunked``; ``noise`` stands where the
+    twin takes its key: the K*C rows' noise source, default one
+    generator per row seeded from 0).
+
+    - ``checkpoint_path``: checkpoint after every chunk, burn-in chunks
+      included; an interrupted call with the same arguments (a fresh
+      noise source of the same seed) resumes from the last boundary,
+      bitwise. A checkpoint of another config, noise stream or data is
+      rejected.
+    - ``chunk_size``: sweep the K subsets that many at a time inside
+      each chunk (it must divide K).
+    - ``progress``: callback(dict) after every chunk — phase ("burn" or
+      "sample"), iteration, n_samples and the running phi acceptance
+      rate. A callback that raises is warned about once and the run
+      goes on; a :class:`ProgressAbort` stops it.
+    - ``stop_after_chunks``: return None after that many chunks, with
+      the checkpoint on disk (the kill-and-resume hook).
+    - ``nan_guard``: after every chunk, raise :class:`SubsetNaNError`
+      naming the subsets whose small state leaves are non-finite,
+      before the checkpoint save.
+    - ``pipeline_stats``: a ChunkPipelineStats the loop records into.
+    - ``domain_map``: the failure domains quarantine attributes faults
+      to (default :meth:`FailureDomainMap.derive`).
+
+    ``model.config.fault_policy="quarantine"`` turns the guard into the
+    fault-isolation engine (module docstring). A
+    :class:`~smk_torch.parallel.partition.PaddedPartition` runs through
+    :func:`_fit_ragged_chunked`."""
+    kw = dict(chunk_iters=chunk_iters, checkpoint_path=checkpoint_path,
+              chunk_size=chunk_size, progress=progress,
+              stop_after_chunks=stop_after_chunks, nan_guard=nan_guard,
+              pipeline_stats=pipeline_stats, domain_map=domain_map)
+    if isinstance(part, PaddedPartition):
+        return _fit_ragged_chunked(model, part, coords_test, x_test, noise, beta_init, **kw)
+    return _fit_subsets_chunked_impl(model, part, coords_test, x_test, noise, beta_init, **kw)
+
+
+def _n_work_chunks(pstats: ChunkPipelineStats) -> int:
+    """Chunks recorded so far (the ragged fan-out's budget ledger)."""
+    return sum(1 for c in pstats.chunks if c.get("phase") != "drain")
+
+
+def _remap_fault_events(pstats: ChunkPipelineStats, start: int, ids: list) -> None:
+    """Rewrite the fault events a group fit recorded (group rows) into
+    original subset indices."""
+    for ev in pstats.fault_events[start:]:
+        for fld in ("retried", "dropped", "deferred"):
+            if fld in ev:
+                ev[fld] = [ids[j] for j in ev[fld]]
+        if "attempts" in ev:
+            ev["attempts"] = {ids[j]: n for j, n in ev["attempts"].items()}
+
+
+def _fit_ragged_chunked(
+    model: SpatialGPSampler,
+    part: PaddedPartition,
+    coords_test: torch.Tensor,
+    x_test: torch.Tensor,
+    noise: Optional[NoiseSource] = None,
+    beta_init: Optional[torch.Tensor] = None,
+    *,
+    chunk_iters: int = 500,
+    checkpoint_path: Optional[str] = None,
+    chunk_size: Optional[int] = None,
+    progress=None,
+    stop_after_chunks: Optional[int] = None,
+    nan_guard: bool = False,
+    pipeline_stats: Optional[ChunkPipelineStats] = None,
+    domain_map: Optional[FailureDomainMap] = None,
+) -> Optional[SubsetResult]:
+    """The host ragged fan-out (twin of ``_fit_ragged_chunked`` without a
+    mesh): one ordinary chunked fit per occupied bucket, in ascending
+    bucket order, stitched back into original subset order.
+
+    - Each group draws the noise rows of its GLOBAL subset ids
+      (``noise.rows``, at the group's bucket size), so a subset's chain
+      depends on its index and data only: a PaddedPartition whose
+      subsets share one exact bucket is bitwise the plain Partition fit.
+    - Each group checkpoints to ``<path>.bNNNNN``; a resume replays only
+      the groups the kill interrupted.
+    - SubsetNaNError ids and the fault events come back as original
+      subset indices.
+    - ``stop_after_chunks`` budgets the whole run, not a group."""
+    if domain_map is not None:
+        raise ValueError(
+            "domain_map is derived per bucket group on a ragged fit — an explicit "
+            "map cannot span groups of different K"
+        )
+    cfg = model.config
+    c = cfg.n_chains
+    k_total = part.n_subsets
+    if noise is None:  # one generator per (subset, chain) row, seeded from 0
+        g0 = part.groups[0].part
+        shapes = sweep_shapes(cfg, k_total, max(part.buckets), *g0.x.shape[2:],
+                              coords_test.shape[0], model.weight)
+        noise = GeneratorNoise(subset_generators(0, shapes.k, g0.x.device), shapes,
+                               dtype=g0.x.dtype, device=g0.x.device)
+    _require(noise, ("rows",), "a ragged partition")
+    pstats = pipeline_stats
+    if pstats is None and stop_after_chunks is not None:
+        pstats = ChunkPipelineStats()
+    group_results, ragged_groups, guards = [], [], []
+    remaining = stop_after_chunks
+    for gi, g in enumerate(part.groups):
+        model.guard_rejects = None  # the sampler's guard counts are per group
+        ids = list(g.subset_ids)
+        gnoise = noise.rows([j * c + ch for j in ids for ch in range(c)], m=g.bucket)
+        gpath = None if checkpoint_path is None else f"{checkpoint_path}.b{g.bucket:05d}"
+        gprog = None
+        if progress is not None:
+            def gprog(info, _b=g.bucket, _ids=tuple(ids)):
+                progress({**info, "bucket": _b, "subset_ids": list(_ids)})
+        chunks_before = _n_work_chunks(pstats) if pstats is not None else 0
+        faults_before = len(pstats.fault_events) if pstats is not None else 0
+        try:
+            res = _fit_subsets_chunked_impl(
+                model, g.part, coords_test, x_test, gnoise, beta_init,
+                chunk_iters=chunk_iters, checkpoint_path=gpath, chunk_size=chunk_size,
+                progress=gprog, stop_after_chunks=remaining, nan_guard=nan_guard,
+                pipeline_stats=pstats, domain_map=None,
+            )
+        except SubsetNaNError as e:
+            raise SubsetNaNError([ids[j] for j in e.subset_ids], e.iteration) from e
+        if pstats is not None:
+            _remap_fault_events(pstats, faults_before, ids)
+            ragged_groups.append({"bucket": int(g.bucket), "n_subsets": len(ids),
+                                  "live_ess_sum_final": None})
+            pstats.ragged_groups = ragged_groups
+        guards.append(model.guard_rejects)
+        if res is None:
+            return None
+        if remaining is not None:
+            remaining -= _n_work_chunks(pstats) - chunks_before
+            if remaining <= 0 and gi < len(part.groups) - 1:
+                return None
+        group_results.append(res)
+    # stitch: result row j is subset j, guard row j * C + ch its chain ch
+    order = np.asarray([j for g in part.groups for j in g.subset_ids])
+    dev = group_results[0].param_grid.device
+    inv = torch.as_tensor(np.argsort(order), device=dev)
+    if guards[0] is not None:
+        rows = (order[:, None] * c + np.arange(c)).reshape(-1)
+        model.guard_rejects = torch.cat(guards)[torch.as_tensor(np.argsort(rows), device=dev)]
+    return SubsetResult(*(torch.cat(f)[inv] for f in zip(*group_results)))
+
+
+def _fit_subsets_chunked_impl(
+    model: SpatialGPSampler,
+    part: Partition,
+    coords_test: torch.Tensor,
+    x_test: torch.Tensor,
+    noise: Optional[NoiseSource] = None,
+    beta_init: Optional[torch.Tensor] = None,
+    *,
+    chunk_iters: int = 500,
+    checkpoint_path: Optional[str] = None,
+    chunk_size: Optional[int] = None,
+    progress=None,
+    stop_after_chunks: Optional[int] = None,
+    nan_guard: bool = False,
+    pipeline_stats: Optional[ChunkPipelineStats] = None,
+    domain_map: Optional[FailureDomainMap] = None,
+) -> Optional[SubsetResult]:
+    """The equal-m executor (see :func:`fit_subsets_chunked`)."""
+    cfg = model.config
+    if chunk_iters < 1:
+        raise ValueError(f"chunk_iters must be >= 1, got {chunk_iters}")
+    k = part.n_subsets
+    c = cfg.n_chains
+    data = stacked_subset_data(part, coords_test, x_test)
+    dev, dtype = part.x.device, part.x.dtype
+    m, q, p = part.x.shape[1:]
+    if noise is None:
+        noise = model.default_noise(data)
+    policy_q = cfg.fault_policy == "quarantine"
+    if policy_q:
+        _require(noise, ("snapshot", "restore", "fork"), "fault_policy='quarantine'")
+    if checkpoint_path is not None:
+        _require(noise, ("snapshot", "restore", "identity"), "checkpoint_path")
+    cdata = model.chain_data(data)
+    pieces = _pieces(model, cdata, noise, k, c, chunk_size)
+    d_par = n_params(q, p)
+    d_w = coords_test.shape[0] * q
+    n_burn = cfg.n_burn_in
+    n_kept = cfg.n_samples - n_burn
+    meta = np.asarray([cfg.n_samples, n_burn, k, d_par, d_w, c], np.int64)
+
+    if domain_map is None:
+        domain_map = FailureDomainMap.derive(k)
+    elif domain_map.k != k:
+        raise ValueError(
+            f"domain_map covers {domain_map.k} subsets but the partition has K={k}"
+        )
+    attempts = np.zeros(k, np.int64)
+    dead = np.zeros(k, bool)
+    domain_attempts = np.zeros(domain_map.n_domains, np.int64)
+    domain_dead = np.zeros(domain_map.n_domains, bool)
+    domain_arr = np.asarray(domain_map.domain_of_subset, np.int64)
+    pstats = pipeline_stats
+    if pstats is not None:
+        pstats.mode = "sync"
+        pstats.fault_policy = cfg.fault_policy
+        if domain_map.n_domains > 1:
+            pstats.domain_of_subset = domain_arr.tolist()
+
+    def fault_snapshot():
+        return (attempts.copy(), dead.astype(np.int64), domain_arr.copy(),
+                domain_attempts.copy(), domain_dead.astype(np.int64))
+
+    ck = None
+    if checkpoint_path is not None:
+        ident = _run_identity(cfg, noise, data, beta_init)
+        ck = _SegmentedCheckpoint(checkpoint_path, meta, ident, pstats=pstats,
+                                  fault_src=fault_snapshot)
+
+    def adopt_fault_bookkeeping(src) -> None:
+        attempts[:] = np.asarray(src["fault_attempts"], np.int64)
+        dead[:] = np.asarray(src["fault_dead"], np.int64) != 0
+        ck_dom = np.asarray(src["fault_domain"], np.int64)
+        ck_dom_att = np.asarray(src["fault_domain_attempts"], np.int64)
+        ck_dom_dead = np.asarray(src["fault_domain_dead"], np.int64)
+        if (ck_dom.shape[0] == k and np.array_equal(ck_dom, domain_arr)
+                and ck_dom_att.shape[0] == domain_map.n_domains):
+            domain_attempts[:] = ck_dom_att
+            domain_dead[:] = ck_dom_dead != 0
+        else:
+            warnings.warn(
+                "elastic resume: the checkpoint was written under a different "
+                f"failure-domain topology ({ck_dom_att.shape[0]} domains) than the "
+                f"current one ({domain_map.n_domains}); per-subset deaths persist and "
+                "the per-domain retry ladders reset",
+                RuntimeWarning, stacklevel=3,
+            )
+
+    opts = dict(dtype=dtype, device=dev)
+    param_draws = torch.zeros((k * c, n_kept, d_par), **opts)
+    w_draws = torch.zeros((k * c, n_kept, d_w), **opts)
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        like = {
+            "state": SamplerState(*([np.zeros(0)] * len(SamplerState._fields))),
+            "noise": noise.snapshot(),
+            **dict.fromkeys(("it", "meta", "ident", "version", "seg_base", "n_segments",
+                             "filled", "fault_attempts", "fault_dead", "fault_domain",
+                             "fault_domain_attempts", "fault_domain_dead"), np.zeros(0)),
+        }
+        try:
+            ckpt = load_pytree(checkpoint_path, like)
+        except ValueError as e:
+            raise ValueError(
+                f"checkpoint {checkpoint_path} does not match the current checkpoint "
+                f"format v{CKPT_VERSION} of smk_torch (a manifest with the carried state, "
+                "the noise snapshot, the counters, the run identity and the fault "
+                "ledger) — it was written by another build, another package or for a "
+                "different run shape; delete the file or pass a fresh checkpoint_path"
+            ) from e
+        if int(np.asarray(ckpt["version"])[0]) != CKPT_VERSION:
+            raise ValueError(
+                f"checkpoint {checkpoint_path} has format version "
+                f"{int(np.asarray(ckpt['version'])[0])}, expected {CKPT_VERSION} — "
+                "delete the file or re-run"
+            )
+        if not np.array_equal(np.asarray(ckpt["meta"]), meta):
+            raise ValueError(
+                f"checkpoint {checkpoint_path} was written for a different run: meta "
+                f"{np.asarray(ckpt['meta'])} vs expected {meta}"
+            )
+        if not np.array_equal(np.asarray(ckpt["ident"]), ck.ident):
+            raise ValueError(
+                f"checkpoint {checkpoint_path} was written for a different run: "
+                "config/noise/data fingerprint mismatch — same shapes, different chain; "
+                "delete the file or pass a different checkpoint_path"
+            )
+        it = int(np.asarray(ckpt["it"])[0])
+        seg_base = int(np.asarray(ckpt["seg_base"])[0])
+        n_seg = int(np.asarray(ckpt["n_segments"])[0])
+        filled = int(np.asarray(ckpt["filled"])[0])
+        if filled != max(0, it - n_burn):
+            raise ValueError(
+                f"checkpoint {checkpoint_path} is inconsistent: manifest covers {filled} "
+                f"kept draws but the iteration counter {it} implies {max(0, it - n_burn)}"
+            )
+        adopt_fault_bookkeeping(ckpt)
+        try:
+            param_np, w_np = _read_segments(checkpoint_path, seg_base, n_seg, filled,
+                                            torch.empty(0, dtype=dtype).numpy().dtype)
+        except ValueError as e:
+            if policy_q:
+                raise NotImplementedError(
+                    f"{e} — under fault_policy='quarantine' the twin re-samples a "
+                    "corrupt or truncated segment's range (lenient resume); that is not "
+                    "ported to smk_torch yet (ROADMAP A8b)"
+                ) from e
+            raise
+        state = SamplerState(*(torch.as_tensor(np.asarray(a), device=dev)
+                               for a in ckpt["state"]))
+        noise.restore(ckpt["noise"])
+        if filled > 0:
+            param_draws[:, :filled] = torch.as_tensor(param_np, device=dev)
+            w_draws[:, :filled] = torch.as_tensor(w_np, device=dev)
+        ck.adopt(seg_base, n_seg, filled)
+        if n_seg > 1:
+            ck.compact(ckpt["state"], ckpt["noise"], param_np, w_np, it, filled)
+        del ckpt
+    else:
+        state = model.init_state(cdata, beta_init,
+                                 consts=pieces[0].consts if len(pieces) == 1 else None)
+        it = 0
+
+    plan = []
+    it_plan = it
+    while it_plan < n_burn:
+        n = min(chunk_iters, n_burn - it_plan)
+        plan.append(("burn", it_plan, n))
+        it_plan += n
+    while it_plan < cfg.n_samples:
+        n = min(chunk_iters, cfg.n_samples - it_plan)
+        plan.append(("samp", it_plan, n))
+        it_plan += n
+    truncated = stop_after_chunks is not None and stop_after_chunks < len(plan)
+    if truncated:
+        plan = plan[:stop_after_chunks]
+
+    want_stats = nan_guard or progress is not None or policy_q
+    stats_bytes = (k + 1) * param_draws.element_size()
+    staging = _HostStaging() if ck is not None else None
+    warned_progress = [False]
+
+    def call_progress(info):
+        if progress is None:
+            return
+        try:
+            progress(info)
+        except ProgressAbort:
+            raise
+        except Exception as e:
+            if not warned_progress[0]:
+                warned_progress[0] = True
+                warnings.warn(
+                    f"progress callback raised {e!r}; the run continues (this warning "
+                    "is emitted once — raise a ProgressAbort subclass from the callback "
+                    "to abort deliberately)",
+                    RuntimeWarning, stacklevel=3,
+                )
+
+    def report(phase, it_end, window_start, accept_mean):
+        pe = cfg.phi_update_every
+        n_updates = max(1, -(-it_end // pe) - -(-window_start // pe))
+        call_progress({
+            "phase": phase,
+            "iteration": it_end,
+            "n_samples": cfg.n_samples,
+            "phi_accept_rate": float(accept_mean) / n_updates,
+        })
+
+    def live_subsets(d):
+        return [int(j) for j in domain_map.subsets_of(d) if not dead[j]]
+
+    def quarantine_check(b, finite):
+        """The twin's quarantine_check: classify newly non-finite
+        subsets into retries and deaths (whole-domain faults on their
+        domain's ladder), defer a death while a rewind replays the
+        chunk anyway, spare a terminal-boundary death whose recorded
+        draws are finite; raise _QuarantineRewind when a retry is due."""
+        bad = (~finite.astype(bool)) & (~dead)
+        if not bad.any():
+            return
+        dom_hit = domain_map.whole_domain_faults(bad, dead) if domain_map.n_domains > 1 else []
+        dom_retried, dom_dropped = [], []
+        dom_live = {int(d): live_subsets(d) for d in dom_hit}
+        dom_subsets: set = set()
+        for d in dom_hit:
+            dom_subsets.update(dom_live[int(d)])
+            domain_attempts[d] += 1
+            if domain_attempts[d] > cfg.fault_max_retries:
+                dom_dropped.append(int(d))
+            else:
+                dom_retried.append(int(d))
+        retried, dropped = [], []
+        for j in np.where(bad)[0]:
+            if int(j) in dom_subsets:
+                continue
+            attempts[j] += 1
+            if attempts[j] > cfg.fault_max_retries:
+                dropped.append(int(j))
+            else:
+                retried.append(int(j))
+        retry_subsets = list(retried)
+        for d in dom_retried:
+            retry_subsets += dom_live[d]
+        deferred, dom_deferred, dom_spared = [], [], []
+        if retry_subsets:
+            deferred, dropped = dropped, []
+            dom_deferred, dom_dropped = dom_dropped, []
+        elif (dropped or dom_dropped) and b["index"] == len(plan) - 1:
+            draws_ok = _subset_draws_finite(param_draws, w_draws, c)
+            spared = [j for j in dropped if draws_ok[j]]
+            if spared:
+                deferred += spared
+                dropped = [j for j in dropped if not draws_ok[j]]
+            still_dropped = []
+            for d in dom_dropped:
+                subs = dom_live[d]
+                sp = [j for j in subs if draws_ok[j]]
+                if sp:
+                    deferred += sp
+                    dropped += [j for j in subs if not draws_ok[j]]
+                    dom_spared.append(d)
+                else:
+                    still_dropped.append(d)
+            dom_dropped = still_dropped
+        dom_dropped_subsets = []
+        for d in dom_dropped:
+            dom_dropped_subsets += dom_live[d]
+            domain_dead[d] = True
+        for j in dropped + dom_dropped_subsets:
+            dead[j] = True
+        dom_deferred_subsets = []
+        for d in dom_deferred:
+            dom_deferred_subsets += dom_live[d]
+        all_dropped = sorted(dropped + dom_dropped_subsets)
+        all_deferred = sorted(deferred + dom_deferred_subsets)
+        warnings.warn(
+            "subset state non-finite in subsets "
+            f"{sorted(retry_subsets) + all_dropped + all_deferred} at iteration "
+            f"{b['it']} (fault_policy='quarantine'): retrying "
+            f"{sorted(retry_subsets) or 'none'} from their chunk-start state with forked "
+            f"streams; dropping {all_dropped or 'none'} (retry ladder of "
+            f"{cfg.fault_max_retries} exhausted)"
+            + (f"; death of {all_deferred} deferred pending the replay"
+               if all_deferred else "")
+            + ("; whole-domain faults: " + ", ".join(
+                f"domain {d} ({domain_map.labels[d]})"
+                for d in dom_retried + dom_dropped + dom_deferred)
+               if dom_retried or dom_dropped or dom_deferred else ""),
+            RuntimeWarning, stacklevel=3,
+        )
+        if pstats is not None:
+            att = {j: int(attempts[j]) for j in retried + dropped + deferred}
+            for d in dom_retried + dom_dropped + dom_deferred + dom_spared:
+                for j in dom_live[d]:
+                    att[int(j)] = int(domain_attempts[d])
+            pstats.record_fault(
+                chunk=b["index"], iteration=b["it"], phase=b["phase"],
+                retried=sorted(retry_subsets), dropped=all_dropped,
+                deferred=all_deferred, attempts=att, domains_retried=dom_retried,
+                domains_dropped=dom_dropped, domains_deferred=dom_deferred,
+            )
+        if retry_subsets:
+            mask = np.zeros(k, bool)
+            mask[retry_subsets] = True
+            raise _QuarantineRewind(mask)
+
+    half = math.log(0.5)  # the retried subsets' phi step halves
+    t_loop0 = monotonic()
+    try:
+        idx = 0
+        while idx < len(plan):
+            kind, start, n = plan[idx]
+            phase = "burn" if kind == "burn" else "sample"
+            t0 = monotonic()
+            held = None
+            if policy_q:
+                held = (SamplerState(*(t.clone() for t in state)), noise.snapshot())
+            state, draws = _run_chunk(model, kind, pieces, state, start, n)
+            it_end = start + n
+            if draws is not None:
+                ofs = start - n_burn
+                param_draws[:, ofs:ofs + n] = draws[0]
+                w_draws[:, ofs:ofs + n] = draws[1]
+                del draws
+            stats = None
+            if want_stats:
+                stats = _chunk_stats(state, c).cpu().numpy()
+            elif pstats is not None:
+                sync(dev)
+            dispatch_s = monotonic() - t0
+            if kind == "burn" and it_end == n_burn:
+                # post-burn-in acceptance accounting, after the stats (the
+                # last burn report carries the full burn-in acceptance)
+                state = state._replace(phi_accept=torch.zeros_like(state.phi_accept))
+            t1 = monotonic()
+            b = {"index": idx, "it": it_end, "phase": phase}
+            if stats is not None:
+                finite = stats[:k] > 0.5
+                try:
+                    if policy_q:
+                        quarantine_check(b, finite)
+                    elif nan_guard and not finite.all():
+                        raise SubsetNaNError(np.where(~finite)[0], it_end)
+                except _QuarantineRewind as rw:
+                    held_state, held_noise = held
+                    row_mask = np.repeat(rw.retry_mask, c)
+                    noise.restore(held_noise)
+                    noise.fork(row_mask, np.repeat(attempts, c))
+                    step = held_state.phi_log_step
+                    tight = torch.as_tensor(row_mask, device=dev)[:, None]
+                    state = held_state._replace(
+                        phi_log_step=torch.where(tight, step + half, step))
+                    continue
+                report(phase, it_end, 0 if kind == "burn" else n_burn, stats[k])
+            d2h = stats_bytes if stats is not None else 0
+            ckpt_entry = {}
+            if ck is not None:
+                seg = None
+                if kind == "samp":
+                    a = start - n_burn
+                    seg = (param_draws[:, a:a + n], w_draws[:, a:a + n], a, a + n)
+                    d2h += (seg[0].numel() + seg[1].numel()) * param_draws.element_size()
+                t2 = monotonic()
+                state_np = staging.fetch(state)
+                d2h += _state_nbytes(state)
+                fetch_s = monotonic() - t2
+                write_s, nbytes = ck.save(state_np, noise.snapshot(), seg, it_end)
+                ckpt_entry = dict(state_fetch_s=fetch_s, ckpt_write_s=write_s,
+                                  ckpt_bytes=nbytes)
+            host_s = monotonic() - t1
+            if pstats is not None:
+                pstats.record_chunk(chunk=idx, phase=phase, n_iters=n, iteration=it_end,
+                                    dispatch_s=dispatch_s, host_work_s=host_s,
+                                    host_stall_s=host_s, d2h_bytes=d2h, **ckpt_entry)
+            idx += 1
+    finally:
+        if pstats is not None:
+            pstats.total_wall_s = monotonic() - t_loop0
+    if truncated:
+        return None
+    return model.finalize(state, param_draws, w_draws)
+
+
+def fit_subsets_checkpointed(
+    model: SpatialGPSampler,
+    part,
+    coords_test: torch.Tensor,
+    x_test: torch.Tensor,
+    noise: Optional[NoiseSource] = None,
+    beta_init: Optional[torch.Tensor] = None,
+    *,
+    checkpoint_path: str,
+    chunk_iters: int = 500,
+    stop_after_chunks: Optional[int] = None,
+    chunk_size: Optional[int] = None,
+    progress=None,
+    nan_guard: bool = False,
+    pipeline_stats: Optional[ChunkPipelineStats] = None,
+    domain_map: Optional[FailureDomainMap] = None,
+) -> Optional[SubsetResult]:
+    """:func:`fit_subsets_chunked` with a checkpoint (the twin's
+    checkpoint-requiring entry point)."""
+    return fit_subsets_chunked(
+        model, part, coords_test, x_test, noise, beta_init, chunk_iters=chunk_iters,
+        checkpoint_path=checkpoint_path, chunk_size=chunk_size, progress=progress,
+        stop_after_chunks=stop_after_chunks, nan_guard=nan_guard,
+        pipeline_stats=pipeline_stats, domain_map=domain_map,
+    )
+
+
+def find_failed_subsets(results: SubsetResult) -> np.ndarray:
+    """Indices of subsets whose compressed grids hold a non-finite
+    value."""
+    ok = (torch.isfinite(results.param_grid).flatten(1).all(dim=1)
+          & torch.isfinite(results.w_grid).flatten(1).all(dim=1))
+    return np.where(~ok.cpu().numpy())[0]
+
+
+def rerun_subsets(
+    model: SpatialGPSampler,
+    part: Partition,
+    coords_test: torch.Tensor,
+    x_test: torch.Tensor,
+    noise: NoiseSource,
+    results: SubsetResult,
+    subset_ids: Sequence[int],
+    beta_init: Optional[torch.Tensor] = None,
+) -> SubsetResult:
+    """Re-run only ``subset_ids`` and scatter them into ``results``.
+    ``noise`` is a fresh source of the original fit's streams (the same
+    seed; the twin takes the same fan-out key), so a re-run subset
+    draws its original chain: its rows are taken with ``noise.rows``."""
+    _require(noise, ("rows",), "rerun_subsets")
+    c = model.config.n_chains
+    ids = [int(i) for i in subset_ids]
+    sel = torch.as_tensor(ids, device=part.x.device)
+    data = SubsetData(coords=part.coords[sel], x=part.x[sel], y=part.y[sel],
+                      mask=part.mask[sel], coords_test=coords_test, x_test=x_test)
+    rows = noise.rows([j * c + ch for j in ids for ch in range(c)])
+    cdata = model.chain_data(data)
+    consts = model._consts(cdata)
+    init = model.init_state(cdata, beta_init, consts=consts)
+    rerun = model.run(data, init, rows, consts=consts)
+
+    def scatter(full, new):
+        out = full.clone()
+        out[sel] = new
+        return out
+
+    return SubsetResult(*(scatter(f, n) for f, n in zip(results, rerun)))

@@ -242,17 +242,14 @@ def test_default_randomness_fit_is_finite_and_seeded():
 @pytest.mark.parametrize(
     "knob, item",
     [
-        (dict(partition_method="coherent"), "A8"),
-        (dict(bucket_ladder=(64, 128)), "A8"),
-        (dict(chunk_pipeline="overlap"), "A8"),
-        (dict(adaptive_schedule="on", live_diagnostics=True), "A8"),
-        (dict(profile_dir="profiles"), "A8"),
-        (dict(watchdog=True), "A8"),
+        (dict(chunk_pipeline="overlap"), "A8b"),
+        (dict(adaptive_schedule="on", live_diagnostics=True), "A8b"),
+        (dict(profile_dir="profiles"), "A8b"),
+        (dict(watchdog=True), "A8b"),
         (dict(xla_cache_dir="xla_cache"), "A10"),
         (dict(coalesce_window_ms=5.0), "A11"),
-        (dict(fault_policy="quarantine"), "A8"),
-        (dict(live_diagnostics=True), "A8"),
-        (dict(run_log_dir="logs"), "A8"),
+        (dict(live_diagnostics=True), "A8b"),
+        (dict(run_log_dir="logs"), "A8b"),
         (dict(compile_store_dir="store"), "A10"),
     ],
 )

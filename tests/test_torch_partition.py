@@ -2,9 +2,8 @@
 bucket ladder (smk_torch/compile/buckets.py), the Morton partitioner
 and the padded partition (smk_torch/parallel/partition.py), each typed
 rejection with the twin's message; and the config's ladder check,
-which goes through the bucket module. (Coherent partitions and explicit
-ladders still raise at a fit, naming the chunked executor's ROADMAP
-item, A8: tests/test_torch_api.py.)
+which goes through the bucket module. (Coherent fits, through the
+chunked executor's ragged fan-out: tests/test_torch_ragged_fit.py.)
 
 Inputs are numpy arrays from seeded generators; uniform, clustered and
 three-dimensional coordinates, subset counts from 1 to 13.
