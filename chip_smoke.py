@@ -182,6 +182,36 @@ with checkpoints in a temporary directory that the script removes:
               launches per group against build_calls(chunk_iters=16),
               finite outputs.
 
+Phases 25-26 run the overlap pipeline (chunk_pipeline="overlap": chunk
+t's boundary while chunk t + 1 is queued, the checkpoint written by a
+background thread from two pinned staging buffers), lenient resume and
+the chunk watchdog, with the fault injectors of smk_torch/testing:
+
+25. fit_overlap_config5 — the production sampler at config5 with
+              fault_policy="quarantine", 288 sweeps (216 burn-in) in
+              chunks of 96, a 1.95 GB manifest at each of the four
+              boundaries, under "sync" and then "overlap": the fit's wall
+              and ms/sweep, the chunks' dispatch seconds and device
+              waits, the writes' seconds and bytes, host_stall_s and
+              overlap_efficiency, the drain, peak device memory and the
+              pinned staging bytes, launches against
+              build_calls(chunk_iters=96); the overlap's draws bitwise the
+              sync run's. First one burn-in and one sampling chunk of 16
+              sweeps under torch.cuda.set_sync_debug_mode("warn"): every
+              synchronising call inside a chunk, by line.
+26. fit_overlap_small_faults — K = 4, m = 200, chunks of 4, quarantine,
+              on the card: an overlapped checkpointed fit bitwise the sync
+              fit (launches against build_calls); a kill after two chunks
+              under overlap resumed under sync, bitwise; a failed writer
+              job (fail_writer_job) degrading with a warning to a
+              checkpoint that resumes; kill_at_manifest and a resume,
+              bitwise; a bit-flipped segment resumed leniently (refilled,
+              finite, the rest bitwise, one merged segment after);
+              watchdog=True on a healthy fit, bitwise the sync fit, and
+              stall_chunk under it raising ChunkTimeoutError;
+              dead_domain over two failure domains, dropped through the
+              domain ladder, the survivors bitwise.
+
 Then each phase's wall time and the script's, the kernel summary line
 {"kernels": [...]} (launches from fit_config5, the double kernels' from
 fit_config5_float64, and per path, the Vecchia paths' all 0), the card's
@@ -2502,6 +2532,341 @@ def fit_coherent_config4(device, c4_data, random_ms):
     return out
 
 
+OVERLAP_SAMPLES, OVERLAP_CHUNK = 288, 96
+
+
+def sync_debug_chunk(cfg, data_np, device, n=16):
+    """One burn-in chunk and one sampling chunk of ``n`` sweeps at the
+    fit's width, called directly on the sampler (sampler_setup) under
+    torch.cuda.set_sync_debug_mode("warn"): every synchronising call
+    inside a chunk, by the Python line that made it and the innermost
+    line of smk_torch on its stack; first the mode switched on and off
+    around no work ("none"), what the switch alone reports."""
+    import collections
+    import os
+    import traceback
+    import warnings
+
+    import torch
+
+    model, data, state, consts, noise = sampler_setup(cfg, data_np, device)
+    torch.cuda.synchronize()
+    found = {}
+    for kind in ("none", "burn", "sample"):
+        sites = collections.Counter()
+
+        def hook(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return
+            ours = [f for f in traceback.extract_stack()[:-1] if "smk_torch" in f.filename]
+            where = (f"{os.path.relpath(ours[-1].filename)}:{ours[-1].lineno}"
+                     f" ({ours[-1].name})" if ours else "outside smk_torch")
+            sites[f"{os.path.basename(filename)}:{lineno} from {where}"] += 1
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                if kind == "burn":
+                    state = model.burn_chunk(data, consts, state, noise, 0, n)
+                elif kind == "sample":
+                    state, _ = model.sample_chunk(data, consts, state, noise,
+                                                  cfg.n_burn_in, n)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        found[kind] = {"n_sweeps": 0 if kind == "none" else n, "n_syncs": sum(sites.values()),
+                       "by_line": dict(sites.most_common())}
+    torch.cuda.synchronize()
+    return found
+
+
+def fit_overlap_config5(device, c5_data, tmp):
+    """The overlap pipeline at config5's full width: the production
+    sampler with fault_policy="quarantine", 288 sweeps (216 burn-in) in
+    chunks of 96, a 1.95 GB manifest at each of the four boundaries,
+    nan_guard on, through fit_meta_kriging under chunk_pipeline="sync"
+    and then "overlap". For each: the fit's wall and ms/sweep, the sum of
+    the chunks' dispatch seconds and device waits, the checkpoint's write
+    seconds and bytes, host_stall_s and overlap_efficiency, the drain,
+    the peak device memory and the pinned staging bytes, launches against
+    build_calls(chunk_iters=96) with no plain build. The overlap's draws
+    must equal the sync run's bitwise. First one chunk of each kind under
+    the sync debug mode (sync_debug_chunk)."""
+    import dataclasses
+    import gc
+    import os
+
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    cfg_sync = production_config(k=MAIN_K, n_samples=OVERLAP_SAMPLES, phi_every=16,
+                                 fault_policy="quarantine")
+    out = {"phase": "fit_overlap_config5", "n": c5_data[0].shape[0], "K": MAIN_K,
+           "m": MAIN_M, "t": MAIN_T, "n_samples": OVERLAP_SAMPLES,
+           "n_burn_in": cfg_sync.n_burn_in, "chunk_iters": OVERLAP_CHUNK,
+           "fault_policy": "quarantine"}
+    out["sync_debug"] = sync_debug_chunk(cfg_sync, c5_data, device)
+    gc.collect()  # the direct sampler's state must not count in the fits' peaks
+    torch.cuda.empty_cache()
+    want = build_calls(cfg_sync, 1, OVERLAP_SAMPLES, cfg_sync.n_burn_in,
+                       chunk_iters=OVERLAP_CHUNK)
+    results = {}
+    for mode in ("sync", "overlap"):
+        cfg = dataclasses.replace(cfg_sync, chunk_pipeline=mode)
+        path = os.path.join(tmp, f"overlap5_{mode}.npz")
+        stats = ChunkPipelineStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        fb.reset_counts()
+        start = time.perf_counter()
+        res = fit_meta_kriging(*c5_data, config=cfg, seed=SEED, device=device,
+                               chunk_iters=OVERLAP_CHUNK, checkpoint_path=path,
+                               nan_guard=True, pipeline_stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = dict(fb.LAUNCHES)
+        layouts = launches_by_kernel()
+        check(launches == want, f"overlap config5 ({mode}): launches {launches} != {want}")
+        check(layouts == expected_by_kernel(want), f"overlap config5 ({mode}): {layouts}")
+        check(sum(fb.PLAIN_CALLS.values()) == 0,
+              f"overlap config5 ({mode}): a plain build ran on the card")
+        for f in ("p_quant", "param_quant", "param_grid", "w_grid"):
+            check(bool(torch.isfinite(getattr(res, f)).all()),
+                  f"overlap config5 ({mode}): non-finite {f}")
+        agg = stats.aggregate()
+        work = [c for c in stats.chunks if c["phase"] != "drain"]
+        check(len(agg["ckpt_boundary_bytes"]) == 4,
+              f"overlap config5 ({mode}): boundaries {agg['ckpt_boundary_bytes']}")
+        secs = res.phase_seconds
+        results[mode] = res
+        out[mode] = {
+            "wall_s": wall, "subset_fits_s": secs["subset_fits"],
+            "ms_per_sweep": secs["subset_fits"] / OVERLAP_SAMPLES * 1e3,
+            "dispatch_s_sum": sum(c["dispatch_s"] for c in work),
+            "device_wait_s_sum": sum(c.get("device_wait_s", 0.0) for c in work),
+            "state_fetch_s_sum": sum(c.get("state_fetch_s", 0.0) for c in work),
+            "staging_wait_s_sum": sum(c.get("staging_wait_s", 0.0) for c in work),
+            "drain_s": sum(c["host_work_s"] for c in stats.chunks if c["phase"] == "drain"),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "allocated_before_fit_bytes": held_before,
+            "pinned_staging_bytes": stats.host_staging_bytes,
+            "launches": launches, "launches_by_kernel": layouts,
+            "chunks": stats.chunks,
+            "aggregate": {k: agg[k] for k in (
+                "n_chunks", "total_wall_s", "dispatch_s", "host_work_s", "host_stall_s",
+                "host_stall_frac", "overlap_efficiency", "d2h_bytes", "ckpt_write_s",
+                "ckpt_bytes", "ckpt_boundary_bytes", "fault")},
+        }
+        for f in os.listdir(tmp):
+            os.remove(os.path.join(tmp, f))
+        torch.cuda.empty_cache()
+    same = bitwise(results["sync"], results["overlap"])
+    sub = {f: bool(torch.equal(getattr(results["sync"].subset_results, f),
+                               getattr(results["overlap"].subset_results, f)))
+           for f in ("param_samples", "w_samples", "phi_accept_rate")}
+    out["overlap_equals_sync"] = {**same, **sub}
+    check(all(same.values()) and all(sub.values()),
+          f"overlap config5: overlap differs from sync {out['overlap_equals_sync']}")
+    out["launches"] = out["overlap"]["launches"]
+    out["launches_by_kernel"] = out["overlap"]["launches_by_kernel"]
+    out["launches_expected"] = want
+    emit(out)
+    return out
+
+
+def fit_overlap_small_faults(device, tmp):
+    """The overlap pipeline's fault legs on the card, small (n = 800,
+    K = 4, m = 200, q = 1, 24 sweeps with 12 burn-in in chunks of 4:
+    three burn-in and three sampling chunks), quarantine: an overlapped,
+    checkpointed fit (launches against build_calls) bitwise the sync
+    fit; killed after two chunks under overlap and resumed under sync,
+    bitwise; a failed writer job (fail_writer_job) that degrades with a
+    warning and leaves a checkpoint that resumes to the same result;
+    kill_at_manifest and a resume, bitwise; a bit-flipped segment
+    resumed leniently (its range refilled, finite, the rest bitwise);
+    stall_chunk under watchdog=True, a ChunkTimeoutError within its
+    deadline; dead_domain over two failure domains through the domain
+    ladder (fit_subsets_chunked); the watchdog armed on a healthy fit,
+    bitwise the sync fit. Every leg runs on the card."""
+    import dataclasses
+    import os
+    import shutil as sh
+    import warnings
+
+    import torch
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.api import TorchRandomness
+    from smk_torch.models import probit_gp as tp
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel.domains import ChunkTimeoutError, FailureDomainMap
+    from smk_torch.parallel.partition import random_partition
+    from smk_torch.parallel.recovery import fit_subsets_chunked
+    from smk_torch.testing import faults
+    from smk_torch.utils.checkpoint import segment_path
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    k, chunk = 4, 4
+    data = binary_field(800, 1, 2, 8, SEED + 800)
+    sync_cfg = SMKConfig(n_subsets=k, n_samples=24, burn_in_frac=0.5, phi_update_every=2,
+                         fused_build="pallas", fault_policy="quarantine")
+    ov_cfg = dataclasses.replace(sync_cfg, chunk_pipeline="overlap")
+
+    def fit(cfg, **kw):
+        return fit_meta_kriging(*data, config=cfg, seed=SEED, device=device,
+                                chunk_iters=chunk, **kw)
+
+    golden = os.path.join(tmp, "golden")
+
+    def fresh(name):
+        """Clear the checkpoint files (the golden copy stays)."""
+        for f in os.listdir(tmp):
+            if os.path.isfile(os.path.join(tmp, f)):
+                os.remove(os.path.join(tmp, f))
+        return os.path.join(tmp, name)
+
+    legs = {}
+    fields = ("param_grid", "w_grid", "p_quant", "param_quant", "sample_par")
+    # the overlapped, checkpointed fit: the path's launches
+    fb.reset_counts()
+    ov = fit(ov_cfg, checkpoint_path=fresh("ov.npz"))
+    launches, layouts = dict(fb.LAUNCHES), launches_by_kernel()
+    want = build_calls(sync_cfg, 1, sync_cfg.n_samples, sync_cfg.n_burn_in, chunk_iters=chunk)
+    check(launches == want, f"overlap small: launches {launches} != {want}")
+    check(sum(fb.PLAIN_CALLS.values()) == 0, "overlap small: a plain build ran on the card")
+    ref_path = fresh("ref.npz")
+    ref = fit(sync_cfg, checkpoint_path=ref_path)
+    legs["overlap_equals_sync"] = bitwise(ov, ref, fields)
+    check(all(legs["overlap_equals_sync"].values()), f"overlap small: {legs}")
+    os.makedirs(golden)
+    for f in os.listdir(tmp):
+        if os.path.isfile(os.path.join(tmp, f)):
+            sh.copy(os.path.join(tmp, f), golden)
+    # killed after two chunks under overlap, resumed under sync
+    path = fresh("kill.npz")
+    progress, kill = kill_after(2)
+    try:
+        fit(ov_cfg, checkpoint_path=path, progress=progress)
+        raise AssertionError("overlap small: the kill did not stop the fit")
+    except kill:
+        pass
+    legs["kill_overlap_resume_sync"] = bitwise(fit(sync_cfg, checkpoint_path=path), ref,
+                                               fields)
+    check(all(legs["kill_overlap_resume_sync"].values()), f"overlap small: {legs}")
+    # a writer job fails: a warning, inline writes, a checkpoint that resumes
+    path = fresh("writer.npz")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with faults.fail_writer_job(2):
+            res = fit(ov_cfg, checkpoint_path=path)
+    degraded = [str(w.message)[:80] for w in caught if "degrading" in str(w.message)]
+    check(len(degraded) == 1, f"overlap small: writer failure warnings {degraded}")
+    legs["writer_failure"] = {"warning": degraded[0], "result": bitwise(res, ref, fields),
+                              "resume": bitwise(fit(sync_cfg, checkpoint_path=path), ref,
+                                                fields)}
+    check(all(legs["writer_failure"]["result"].values())
+          and all(legs["writer_failure"]["resume"].values()), f"overlap small: {legs}")
+    # a kill between a segment and its manifest, then a resume
+    path = fresh("manifest.npz")
+    try:
+        with faults.kill_at_manifest(5):
+            fit(sync_cfg, checkpoint_path=path)
+        raise AssertionError("overlap small: kill_at_manifest did not fire")
+    except faults.SimulatedKill:
+        pass
+    legs["kill_at_manifest_resume"] = bitwise(fit(sync_cfg, checkpoint_path=path), ref,
+                                              fields)
+    check(all(legs["kill_at_manifest_resume"].values()), f"overlap small: {legs}")
+    # a bit-flipped segment, resumed leniently under quarantine
+    fresh("none")
+    for f in os.listdir(golden):
+        sh.copy(os.path.join(golden, f), tmp)
+    faults.corrupt_segment(ref_path, 1, "bitflip")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = fit(ov_cfg, checkpoint_path=ref_path)
+    holes = [str(w.message)[:80] for w in caught if "re-sampled" in str(w.message)]
+    got, want_s = res.subset_results.param_samples, ref.subset_results.param_samples
+    legs["lenient_refill"] = {
+        "warnings": holes, "finite": bool(torch.isfinite(got).all()),
+        "outside_hole_bitwise": bool(torch.equal(got[:, :4], want_s[:, :4])
+                                     and torch.equal(got[:, 8:], want_s[:, 8:])),
+        "hole_resampled": not bool(torch.equal(got[:, 4:8], want_s[:, 4:8])),
+        "segments_after": sorted(f for f in os.listdir(tmp) if ".seg" in f
+                                 and os.path.isfile(os.path.join(tmp, f))),
+    }
+    check(len(holes) == 1 and legs["lenient_refill"]["finite"]
+          and legs["lenient_refill"]["outside_hole_bitwise"]
+          and legs["lenient_refill"]["hole_resampled"]
+          and legs["lenient_refill"]["segments_after"]
+          == [os.path.basename(segment_path(ref_path, 3))],
+          f"overlap small: lenient refill {legs['lenient_refill']}")
+    sh.rmtree(golden, ignore_errors=True)
+    # the watchdog armed: the same draws; then a stalled chunk under it
+    wd_cfg = dataclasses.replace(ov_cfg, watchdog=True, watchdog_min_deadline_s=2.0,
+                                 watchdog_margin=4.0)
+    fresh("none")
+    legs["watchdog_armed_equals_sync"] = bitwise(fit(wd_cfg), ref, fields)
+    check(all(legs["watchdog_armed_equals_sync"].values()), f"overlap small: {legs}")
+    start = time.perf_counter()
+    try:
+        with faults.stall_chunk(18, max_stall_s=120.0) as inj:
+            fit(wd_cfg)
+        raise AssertionError("overlap small: the stalled chunk did not time out")
+    except ChunkTimeoutError as e:
+        legs["watchdog"] = {"deadline_s": e.deadline_s, "chunk": e.chunk,
+                            "iteration": e.iteration, "fires": inj.fires,
+                            "labels": e.domain_labels,
+                            "wall_s": time.perf_counter() - start}
+    check(legs["watchdog"]["fires"] == 1 and legs["watchdog"]["wall_s"] < 60.0,
+          f"overlap small: watchdog {legs['watchdog']}")
+    time.sleep(0.5)  # the abandoned worker finishes its chunk
+    torch.cuda.synchronize()
+    # a dead domain through the domain ladder (two domains of two subsets)
+    y, x, coords, ct, xt = (torch.as_tensor(a, device=device, dtype=torch.float32)
+                            for a in data)
+    rng = TorchRandomness(SEED, device, torch.float32)
+    part = random_partition(rng.permutation(y.shape[0]).to(device), y, x, coords, k)
+    shapes = tp.sweep_shapes(ov_cfg, k, part.subset_size, 1, 2, ct.shape[0])
+    dmap = FailureDomainMap.from_n_domains(k, 2)
+
+    def domain_fit():
+        stats = ChunkPipelineStats()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            res = fit_subsets_chunked(
+                tp.SpatialGPSampler(ov_cfg), part, ct, xt,
+                TorchRandomness(SEED, device, torch.float32).sweep_noise(shapes),
+                chunk_iters=chunk, pipeline_stats=stats, domain_map=dmap)
+        return res, stats
+
+    clean, _ = domain_fit()
+    with faults.dead_domain(dmap.subsets_of(0), 14):
+        dead, dstats = domain_fit()
+    summary = dstats.fault_summary()
+    legs["dead_domain"] = {
+        "fault": summary,
+        "survivors_bitwise": bool(torch.equal(dead.param_samples[2:],
+                                              clean.param_samples[2:])),
+        "dropped_non_finite": not bool(torch.isfinite(dead.param_samples[:2]).all()),
+    }
+    check(summary["domains_dropped"] == [0] and summary["subsets_dropped"] == [0, 1]
+          and legs["dead_domain"]["survivors_bitwise"]
+          and legs["dead_domain"]["dropped_non_finite"],
+          f"overlap small: dead domain {legs['dead_domain']}")
+    fresh("none")
+    out = {"phase": "fit_overlap_small_faults", "n": 800, "K": k, "m": 200,
+           "n_samples": sync_cfg.n_samples, "chunk_iters": chunk, "legs": legs,
+           "launches": launches, "launches_expected": want, "launches_by_kernel": layouts}
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2603,6 +2968,8 @@ def main() -> int:
                     p5["ms_per_sweep"])
         coh4 = phase("fit_coherent_config4", fit_coherent_config4, device, c4_data,
                      p4["ms_per_sweep"])
+        ov5 = phase("fit_overlap_config5", fit_overlap_config5, device, c5_data, tmp)
+        ovs = phase("fit_overlap_small_faults", fit_overlap_small_faults, device, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "wall_s_by_phase", **walls, "total_s": time.perf_counter() - script_start})
@@ -2610,7 +2977,8 @@ def main() -> int:
              "fit_production_config4": p4, "fit_production_config5_mtm": p5m,
              "fit_production_config4_chains": p4c, "fit_config5_float64": c5f64,
              "fit_vecchia_config5": v5, "fit_vecchia_m_large": vm,
-             "fit_chunked_small": chs, "fit_chunked_config5": cc5, "fit_coherent_config4": coh4}
+             "fit_chunked_small": chs, "fit_chunked_config5": cc5, "fit_coherent_config4": coh4,
+             "fit_overlap_config5": ov5, "fit_overlap_small_faults": ovs}
 
     f64_time = f64["main_path"]
     f64_kernels = (("symmetric kernel, float64", "symmetric_f64", "fused_masked_correlation_stack"),

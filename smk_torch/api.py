@@ -57,7 +57,7 @@ class MetaKrigingResult(NamedTuple):
     the twin's fields (see smk_tpu/api.py). ``subsets_dropped`` and
     ``domains_dropped`` name what quarantine dropped, ``pad_waste_frac``
     is 0.0 on a ragged (coherent) fit off the mesh; the run log's and
-    the adaptive schedule's fields (ROADMAP A8b) keep their defaults."""
+    the adaptive schedule's fields (ROADMAP A8c) keep their defaults."""
 
     param_grid: torch.Tensor
     w_grid: torch.Tensor
@@ -289,6 +289,13 @@ def fit_meta_kriging(
     - ``config.partition_method="coherent"``: the Morton split padded
       onto the bucket ladder (``config.bucket_ladder``), one chunked fit
       per occupied bucket.
+
+    On the chunked path ``config.chunk_pipeline`` picks the host loop:
+    ``"sync"`` or ``"overlap"`` (chunk t's boundary runs while chunk t+1
+    is queued, the checkpoint written by a background thread; the draws
+    are bitwise the sync loop's), and ``config.watchdog`` puts each chunk
+    and boundary under a deadline (a hang raises
+    parallel.domains.ChunkTimeoutError). Neither implies chunking.
     """
     cfg = config or SMKConfig()
     check_ported(cfg)

@@ -431,14 +431,13 @@ class SMKConfig:
 # (knob, predicate on the config, ROADMAP item that ports it). Checked
 # in this order by check_ported; the first hit raises.
 _UNPORTED = (
-    # the chunked executor's second half (parallel/recovery.py ports the
-    # sync loop, the checkpoint, quarantine and the host ragged fan-out)
-    ("chunk_pipeline='overlap'", lambda c: c.chunk_pipeline != "sync", "A8b"),
-    ("adaptive_schedule='on'", lambda c: c.adaptive_schedule != "off", "A8b"),
-    ("live_diagnostics", lambda c: c.live_diagnostics, "A8b"),
-    ("run_log_dir", lambda c: bool(c.run_log_dir), "A8b"),
-    ("profile_dir", lambda c: bool(c.profile_dir), "A8b"),
-    ("watchdog", lambda c: c.watchdog, "A8b"),
+    # the chunked executor's last knobs (parallel/recovery.py ports the
+    # sync and overlap loops, the checkpoint, quarantine, the watchdog
+    # and the host ragged fan-out)
+    ("adaptive_schedule='on'", lambda c: c.adaptive_schedule != "off", "A8c"),
+    ("live_diagnostics", lambda c: c.live_diagnostics, "A8c"),
+    ("run_log_dir", lambda c: bool(c.run_log_dir), "A8c"),
+    ("profile_dir", lambda c: bool(c.profile_dir), "A8c"),
     ("compile_store_dir", lambda c: c.compile_store_dir is not None, "A10"),
     ("xla_cache_dir", lambda c: c.xla_cache_dir is not None, "A10"),
     ("coalesce_window_ms>0", lambda c: c.coalesce_window_ms > 0, "A11"),

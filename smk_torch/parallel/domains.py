@@ -1,20 +1,56 @@
-"""Failure domains off the mesh — twin of ``FailureDomainMap`` in
-``smk_tpu/parallel/domains.py`` (numpy only; the port keeps its own
-copy). The quarantine engine (parallel/recovery.py) attributes every
-fault, retry and death to a domain, and handles a whole-domain fault
-(every live subset of a domain non-finite at one boundary) as one
-event on the domain's own retry ladder.
+"""Failure domains off the mesh and the chunk watchdog — twin of
+``FailureDomainMap``, ``ChunkTimeoutError`` and ``ChunkWatchdog`` in
+``smk_tpu/parallel/domains.py`` (the port keeps its own copy). The
+quarantine engine (parallel/recovery.py) attributes every fault, retry
+and death to a domain, and handles a whole-domain fault (every live
+subset of a domain non-finite at one boundary) as one event on the
+domain's own retry ladder. The watchdog runs each guarded section of
+the chunked executor on a worker thread under a deadline, so a hung
+chunk becomes a typed :class:`ChunkTimeoutError` instead of a hang.
 
-The mesh constructors come with the multi-GPU executor (ROADMAP A9),
-the chunk watchdog with A8b. A single-process run is the one-domain
-map, under which quarantine keeps its per-subset semantics.
+The mesh constructors come with the multi-GPU executor (ROADMAP A9). A
+single-process run is the one-domain map, under which quarantine keeps
+its per-subset semantics.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+from typing import Optional
 
 import numpy as np
+
+from smk_torch.utils.tracing import monotonic
+
+# The deadline tracks the largest wall of the most recent guarded
+# sections: a chunk's dispatch and its boundary differ widely, and the
+# deadline must cover the slower one.
+_ESTIMATE_WINDOW = 32
+
+
+class ChunkTimeoutError(RuntimeError):
+    """A guarded chunk section outran its watchdog deadline: a hung
+    dispatch, a stuck kernel or a wedged device queue. Carries the chunk
+    index, the global iteration, the deadline that fired and the failure
+    domains in flight (a whole-K chunk spans every domain, so they are
+    the candidates, not a localization)."""
+
+    def __init__(self, chunk, iteration, deadline_s, domains, labels):
+        self.chunk = int(chunk)
+        self.iteration = int(iteration)
+        self.deadline_s = float(deadline_s)
+        self.domains = [int(d) for d in domains]
+        self.domain_labels = [str(lab) for lab in labels]
+        named = ", ".join(f"{d} ({lab})" for d, lab in zip(self.domains, self.domain_labels))
+        super().__init__(
+            f"chunk {self.chunk} (iteration {self.iteration}) exceeded its watchdog "
+            f"deadline of {self.deadline_s:.1f}s — failure domains in flight: [{named}]. "
+            "The dispatch or its boundary fetch is hung (a stuck kernel or a wedged "
+            "device queue); the last checkpoint (if any) precedes this chunk — resume "
+            "from it (under fault_policy='quarantine' the per-domain fault attribution "
+            "then narrows the suspect)"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,3 +146,93 @@ class FailureDomainMap:
         if n_proc <= 1:
             return cls.single_host(k)
         return cls.from_n_domains(k, min(n_proc, int(k)), prefix="process")
+
+
+class ChunkWatchdog:
+    """Deadline guard over the chunked executor's sections (twin of the
+    JAX package's ``ChunkWatchdog``).
+
+    ``run(fn, chunk=, iteration=)`` runs ``fn`` on a fresh daemon worker
+    thread and waits ``deadline_s``; a section that overruns raises
+    :class:`ChunkTimeoutError` on the calling thread and the stuck
+    worker is abandoned. The deadline is ``max(min_deadline_s, margin *
+    estimate)``, ``estimate`` the largest wall of the last
+    ``_ESTIMATE_WINDOW`` sections; until a first wall is observed a
+    section runs inline, observed and unguarded. The executor bypasses
+    the watchdog entirely for the first dispatch of each (kind, length)
+    (``parallel/recovery.py``, ``novel``), as the twin does for the
+    dispatch that compiles.
+
+    It only observes: ``fn`` runs the same work in the same order, and
+    its exceptions (the quarantine's rewind included) pass through. The
+    caller makes ``fn`` carry its CUDA device, stream and grad mode to
+    the worker (in torch all three are per thread). The twin's run-log
+    events ("armed", "fired") come with the run log (ROADMAP A8c).
+    """
+
+    def __init__(self, domain_map: FailureDomainMap, *, min_deadline_s: float = 60.0,
+                 margin: float = 10.0):
+        if min_deadline_s <= 0:
+            raise ValueError("min_deadline_s must be > 0")
+        if margin < 1.0:
+            raise ValueError(
+                "margin must be >= 1 (a deadline below the observed wall would kill "
+                "healthy chunks)"
+            )
+        self.domain_map = domain_map
+        self.min_deadline_s = float(min_deadline_s)
+        self.margin = float(margin)
+        self.fired = 0
+        self._walls: list = []
+
+    def observe(self, wall_s: float) -> None:
+        self._walls.append(float(wall_s))
+        if len(self._walls) > _ESTIMATE_WINDOW:
+            del self._walls[:-_ESTIMATE_WINDOW]
+
+    @property
+    def estimate_s(self) -> Optional[float]:
+        return max(self._walls) if self._walls else None
+
+    @property
+    def deadline_s(self) -> Optional[float]:
+        """None until a first wall is observed."""
+        est = self.estimate_s
+        if est is None:
+            return None
+        return max(self.min_deadline_s, self.margin * est)
+
+    def run(self, fn, *, chunk: int = -1, iteration: int = -1,
+            deadline_s: Optional[float] = None):
+        """``fn()`` under the current deadline (or ``deadline_s``):
+        returns its result, re-raises its exception, or raises
+        :class:`ChunkTimeoutError` on overrun."""
+        deadline = float(deadline_s) if deadline_s is not None else self.deadline_s
+        if deadline is None:
+            t0 = monotonic()
+            out = fn()
+            self.observe(monotonic() - t0)
+            return out
+        box = {}
+        done = threading.Event()
+
+        def worker():
+            t0 = monotonic()
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # re-raised on the caller
+                box["exc"] = e
+            finally:
+                box["wall"] = monotonic() - t0
+                done.set()
+
+        threading.Thread(target=worker, name="smk-chunk-watchdog", daemon=True).start()
+        if not done.wait(timeout=deadline):
+            self.fired += 1
+            domains = list(range(self.domain_map.n_domains))
+            raise ChunkTimeoutError(chunk, iteration, deadline, domains,
+                                    [self.domain_map.labels[d] for d in domains])
+        self.observe(box["wall"])
+        if "exc" in box:
+            raise box["exc"]
+        return box["result"]

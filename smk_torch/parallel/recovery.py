@@ -1,12 +1,12 @@
-"""The chunked, checkpointed, fault-isolating executor — the sync half of
-``smk_tpu/parallel/recovery.py``.
+"""The chunked, checkpointed, fault-isolating executor — twin of
+``smk_tpu/parallel/recovery.py`` without the mesh.
 
 The whole MCMC (burn-in and sampling) runs as a host loop of
 ``chunk_iters``-sweep chunks, the sampler's ``burn_chunk`` and
-``sample_chunk``. At each chunk boundary the loop fetches one small
-tensor (the per-subset finite vector and the mean phi acceptance, when
-a guard, a report or quarantine asks for it), then guards, reports and
-checkpoints:
+``sample_chunk``. Each chunk's boundary copies one small tensor to the
+host (the per-subset finite vector and the mean phi acceptance, when a
+guard, a report or quarantine asks for it) and, on a checkpointed run,
+the carried state, then guards, reports and checkpoints:
 
 - the checkpoint (format 7, the twin's layout in the port's own files)
   is a manifest holding the carried state, the noise source's snapshot,
@@ -15,20 +15,29 @@ checkpoints:
   (utils/checkpoint.py). An interrupted call resumes bitwise: the chain
   is a function of the carried state and the noise source's state, and
   both are in the manifest;
+- ``chunk_pipeline="overlap"`` queues chunk t + 1 before chunk t's
+  boundary work and writes the checkpoint on a ``BackgroundWriter``
+  thread, from two pinned staging buffers taken in turn; a failed write
+  degrades to inline writes after one full rewrite. Both pipelines run
+  the same plan, so their draws are bitwise equal;
 - ``fault_policy="quarantine"`` holds a clone of the state and the
   noise snapshot at each chunk start; a subset that goes non-finite is
   rewound to them with a forked stream (``noise.fork``) and a halved
   phi step, up to ``fault_max_retries`` times, then dropped (its draws
   stay non-finite and the combine's survival mask removes it). A
-  fault-free quarantine run is bitwise the ``"abort"`` run.
+  fault-free quarantine run is bitwise the ``"abort"`` run. On resume a
+  corrupt, truncated or missing draw segment is a hole, re-sampled by
+  extending the chain (lenient resume); ``"abort"`` rejects it;
+- ``watchdog=True`` runs each chunk and each boundary under a deadline
+  (parallel/domains.ChunkWatchdog): a hang becomes a typed
+  ``ChunkTimeoutError``.
 
 The twin carries its PRNG key in the chain state; here randomness
 comes from a noise source (models/probit_gp.NoiseSource), which the
 executor snapshots, restores and forks. A ``PaddedPartition`` runs
 through the host ragged fan-out, one ordinary chunked fit per occupied
-bucket. The overlap pipeline with its background writer, the adaptive
-schedule, the streaming monitor, the run log, profiling, the watchdog
-and lenient resume are ROADMAP A8b; the mesh is A9.
+bucket. The adaptive schedule, the streaming monitor, the run log and
+profiling are ROADMAP A8c; the mesh is A9.
 """
 
 from __future__ import annotations
@@ -43,7 +52,6 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from smk_torch.device import sync
 from smk_torch.models.probit_gp import (
     BuildConsts,
     GeneratorNoise,
@@ -56,10 +64,11 @@ from smk_torch.models.probit_gp import (
     subset_generators,
     sweep_shapes,
 )
-from smk_torch.parallel.domains import FailureDomainMap
+from smk_torch.parallel.domains import ChunkWatchdog, FailureDomainMap
 from smk_torch.parallel.executor import stacked_subset_data
 from smk_torch.parallel.partition import PaddedPartition, Partition
 from smk_torch.utils.checkpoint import (
+    BackgroundWriter,
     load_pytree,
     load_segment,
     save_pytree,
@@ -191,38 +200,127 @@ def _run_identity(cfg, noise, data: SubsetData, beta_init) -> np.ndarray:
 # the checkpoint
 # ----------------------------------------------------------------------
 class _HostStaging:
-    """The host copy of the carried state at a boundary: on the card,
-    one pinned buffer (allocated once, grown if needed), each leaf
-    copied into its slice without blocking and one synchronisation for
-    all of them; on the CPU the leaves themselves. The arrays it hands
-    back are reused at the next boundary."""
+    """The host copies a boundary checkpoints (the carried state and a
+    sampling chunk's draw segment), copied in without blocking: pinned
+    memory on the card, plain host memory on the CPU. A pool of
+    ``n_slots`` buffers, each allocated once at the largest boundary's
+    size and handed out in turn. A boundary takes the next slot only
+    once the writer job that reads it is done (``claim`` names that
+    job), so no job reads a buffer a later boundary overwrites. The
+    overlap pipeline has two slots: boundary t's job writes from one
+    while boundary t + 1 fills the other."""
 
-    def __init__(self):
-        self.buf = None
+    def __init__(self, n_slots: int, writer: Optional[BackgroundWriter] = None):
+        self.bufs: list = [None] * n_slots
+        self.jobs = [0] * n_slots  # the writer job reading each slot (0: none)
+        self.writer = writer
+        self.next = 0
 
-    def fetch(self, state: SamplerState) -> SamplerState:
-        leaves = list(state)
-        if leaves[0].device.type != "cuda":
-            return SamplerState(*(t.detach().numpy() for t in leaves))
+    @property
+    def nbytes(self) -> int:
+        return sum(b.numel() for b in self.bufs if b is not None)
+
+    def take(self, tensors: Sequence[torch.Tensor], capacity: int):
+        """Copy ``tensors`` into the next slot, waiting first for the job
+        that still reads it. Returns (slot, numpy views, seconds waited).
+        On the card the copies are queued on the current stream: the
+        caller records an event behind them and synchronizes it before
+        the views are read."""
+        slot = self.next
+        self.next = (slot + 1) % len(self.bufs)
+        t0 = monotonic()
+        if self.jobs[slot] and self.writer is not None:
+            self.writer.wait_done(self.jobs[slot])
+        self.jobs[slot] = 0
+        waited = monotonic() - t0
         offsets, off = [], 0
-        for t in leaves:
+        for t in tensors:
             offsets.append(off)
             off += -(-t.numel() * t.element_size() // 64) * 64
-        if self.buf is None or self.buf.numel() < off:
-            self.buf = None
-            self.buf = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+        buf = self.bufs[slot]
+        if buf is None or buf.numel() < off:
+            self.bufs[slot] = buf = None  # free the old buffer before pinning its successor
+            buf = torch.empty(max(off, capacity), dtype=torch.uint8,
+                              pin_memory=tensors[0].device.type == "cuda")
+            self.bufs[slot] = buf
         out = []
-        for t, o in zip(leaves, offsets):
+        for t, o in zip(tensors, offsets):
             n = t.numel() * t.element_size()
-            dst = self.buf[o:o + n].view(t.dtype).view(t.shape)
+            dst = buf[o:o + n].view(t.dtype).view(t.shape)
             dst.copy_(t, non_blocking=True)
             out.append(dst.numpy())
-        torch.cuda.synchronize(leaves[0].device)
-        return SamplerState(*out)
+        return slot, out, waited
+
+    def claim(self, slot: int, job: int) -> None:
+        """Writer job ``job`` reads ``slot`` until it is done."""
+        self.jobs[slot] = job
 
 
 def _state_nbytes(state: SamplerState) -> int:
     return sum(t.numel() * t.element_size() for t in state)
+
+
+class _HostState(NamedTuple):
+    """The carried state as a manifest holds it: each leaf in its memory
+    order (``arrays``) and the permutation that views it back in logical
+    order with the device tensor's own strides (``layout``). A resumed
+    chain then runs on the layouts the uninterrupted one had: the
+    sampler's factor is column-major, and on the card a triangular solve
+    against its contiguous copy rounds differently."""
+
+    arrays: SamplerState
+    layout: SamplerState
+
+
+def _memory_order(t: torch.Tensor):
+    """(permutation, view): ``t``'s dims by decreasing stride, and ``t``
+    permuted so, which is contiguous when ``t`` is a permuted contiguous
+    tensor; the identity and ``t`` itself otherwise."""
+    perm = sorted(range(t.dim()), key=lambda i: (-t.stride(i), i))
+    view = t.permute(perm)
+    if view.is_contiguous():
+        return np.asarray(perm, np.int64), view
+    return np.arange(t.dim(), dtype=np.int64), t
+
+
+def _state_views(state: SamplerState):
+    """(memory-order views of the leaves, their layout)."""
+    perms, views = zip(*(_memory_order(t) for t in state))
+    return list(views), SamplerState(*perms)
+
+
+def _host_state(state: SamplerState) -> _HostState:
+    """The live state's host copy (a synchronising fetch)."""
+    views, layout = _state_views(state)
+    return _HostState(SamplerState(*(v.cpu().numpy() for v in views)), layout)
+
+
+def _device_state(host: _HostState, device) -> SamplerState:
+    """A manifest's state on ``device``, each leaf with its saved layout."""
+    return SamplerState(*(
+        torch.as_tensor(np.asarray(a), device=device).permute(*np.argsort(p).tolist())
+        for a, p in zip(host.arrays, host.layout)))
+
+
+def _to_host_async(t: torch.Tensor):
+    """(host copy, event): on the card the copy into pinned memory is
+    queued without blocking and ``event`` marks where the stream stands
+    behind it; on the CPU the tensor itself and None."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host, _record_event(t.device)
+
+
+def _record_event(device: torch.device):
+    """A CUDA event recorded on ``device``'s current stream (None on the
+    CPU)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
 
 def _read_segments(path, seg_base, n_segments, filled, dtype):
@@ -271,29 +369,105 @@ def _read_segments(path, seg_base, n_segments, filled, dtype):
     return np.concatenate(parts_p, axis=-2), np.concatenate(parts_w, axis=-2)
 
 
+def _read_segments_lenient(path, seg_base, n_segments, filled, dtype, lead, d_par, d_w):
+    """The lenient read of ``fault_policy="quarantine"`` (the twin's
+    ``_read_segments_lenient``): every readable, checksum-clean segment
+    whose range and shape agree with the manifest lands at its range;
+    a truncated, bit-flipped, missing, overlapping or out-of-range one
+    becomes a hole, warned about, that the executor re-samples by
+    extending the chain. Returns (param, w, holes): ``lead + (filled,
+    d)`` arrays (zeros in the holes) and the sorted disjoint kept ranges
+    (a, b) no good segment covers; (None, None, []) when nothing is
+    filled."""
+    import zipfile
+
+    if filled <= 0:
+        return None, None, []
+    param = np.zeros(lead + (filled, d_par), dtype)
+    w = np.zeros(lead + (filled, d_w), dtype)
+    covered = np.zeros(filled, bool)
+    for i in range(seg_base, seg_base + n_segments):
+        try:
+            seg = load_segment(path, i)
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+            warnings.warn(
+                f"checkpoint {path}: draw segment {segment_path(path, i)} is corrupt or "
+                f"unreadable ({e!r}); its iteration range will be re-sampled "
+                "(fault_policy='quarantine' lenient resume)",
+                RuntimeWarning, stacklevel=3,
+            )
+            continue
+        a, b = seg["start"], seg["stop"]
+        if (not 0 <= a < b <= filled
+                or seg["param"].shape[-2] != b - a or seg["w"].shape[-2] != b - a
+                or seg["param"].shape[:-2] != lead or seg["param"].shape[-1] != d_par
+                or seg["w"].shape[-1] != d_w or covered[a:b].any()):
+            warnings.warn(
+                f"checkpoint {path}: draw segment {segment_path(path, i)} records range "
+                f"[{a}, {b}) inconsistent with the manifest (shape/bounds/overlap); "
+                "treating it as corrupt — its range will be re-sampled",
+                RuntimeWarning, stacklevel=3,
+            )
+            continue
+        param[..., a:b, :] = np.asarray(seg["param"], dtype)
+        w[..., a:b, :] = np.asarray(seg["w"], dtype)
+        covered[a:b] = True
+    holes = []
+    pos = 0
+    while pos < filled:
+        if covered[pos]:
+            pos += 1
+            continue
+        start = pos
+        while pos < filled and not covered[pos]:
+            pos += 1
+        holes.append((start, pos))
+    return param, w, holes
+
+
 class _SegmentedCheckpoint:
     """The manifest and its ordered draw segments (the twin's
-    ``_SegmentedCheckpoint`` with its writes inline). Each boundary
-    writes its segment, then the manifest, each atomic, and no write
-    touches a file the manifest on disk references: a kill at any
-    instant leaves the previous consistent view or the new one."""
+    ``_SegmentedCheckpoint``). Each boundary writes its segment, then the
+    manifest, each atomic, and no write touches a file the manifest on
+    disk references: appends land past the manifest's range, and a full
+    rewrite (compaction, the degraded writer's recovery, the lenient
+    refill) writes its merged segment at a fresh index before the
+    manifest that names it. A kill at any instant leaves the previous
+    consistent view or the new one.
+
+    Writes run inline (``chunk_pipeline="sync"``) or as jobs of the one
+    :class:`BackgroundWriter` (``"overlap"``). A failed background write
+    is warned about once at the next boundary and the checkpoint
+    degrades to inline writes, starting with one full rewrite that
+    re-establishes the files whatever jobs were lost."""
 
     def __init__(self, path: str, meta: np.ndarray, ident: np.ndarray, *,
-                 pstats: Optional[ChunkPipelineStats], fault_src):
+                 writer: Optional[BackgroundWriter] = None,
+                 pstats: Optional[ChunkPipelineStats] = None, full_draws=None,
+                 fault_src=None):
         self.path = path
         self.meta = meta
         self.ident = ident
         self.version = np.asarray([CKPT_VERSION], np.int64)
+        self.writer = writer
         self.pstats = pstats
+        self._full_draws = full_draws  # filled -> (param, w) numpy
         self._fault_src = fault_src
+        # touched only by the thread that writes (the writer under
+        # overlap, the caller inline; degrading flushes the writer first)
         self.seg_base = 0
         self.n_segments = 0
         self.filled = 0
+        self.degraded = False
+        self._need_full = False
 
-    def _write_manifest(self, state_np, noise_np, it: int) -> int:
-        attempts, dead, dom_map, dom_attempts, dom_dead = self._fault_src()
+    def _write_manifest(self, state_np, noise_np, it: int, fault=None) -> int:
+        if fault is None:
+            fault = self._fault_src()
+        attempts, dead, dom_map, dom_attempts, dom_dead = fault
         return save_pytree(self.path, {
-            "state": state_np,
+            "state": state_np.arrays,
+            "layout": state_np.layout,
             "noise": noise_np,
             "it": np.asarray([it], np.int64),
             "meta": self.meta,
@@ -313,9 +487,9 @@ class _SegmentedCheckpoint:
         if self.pstats is not None:
             self.pstats.add_ckpt_write(seconds, nbytes)
 
-    def save(self, state_np, noise_np, seg, it: int):
-        """One boundary: the segment ``seg`` = (param, w, start, stop) of
-        a sampling chunk (None at a burn-in boundary), then the
+    def _write(self, state_np, noise_np, seg, it: int, fault=None):
+        """One boundary's files: the segment ``seg`` = (param, w, start,
+        stop) of a sampling chunk (None at a burn-in boundary), then the
         manifest. Returns (seconds, bytes written)."""
         t0 = monotonic()
         nbytes = 0
@@ -326,19 +500,15 @@ class _SegmentedCheckpoint:
                                        param, w, start, stop)
                 self.n_segments += 1
                 self.filled = stop
-        nbytes += self._write_manifest(state_np, noise_np, it)
+        nbytes += self._write_manifest(state_np, noise_np, it, fault)
         secs = monotonic() - t0
         self._record(secs, nbytes)
         return secs, nbytes
 
-    def adopt(self, seg_base: int, n_segments: int, filled: int) -> None:
-        """Resume bookkeeping after a load."""
-        self.seg_base, self.n_segments, self.filled = seg_base, n_segments, filled
-
-    def compact(self, state_np, noise_np, param, w, it: int, filled: int) -> None:
-        """Merge the segments into one at a fresh index, publish the
-        manifest, then unlink the superseded files (resume-time
-        compaction: the file count stays bounded across kills)."""
+    def _write_full(self, state_np, noise_np, param, w, it: int, filled: int):
+        """One merged segment at the first index past the on-disk range,
+        then the manifest, then the superseded files unlinked. Returns
+        (seconds, bytes written)."""
         t0 = monotonic()
         old = range(self.seg_base, self.seg_base + self.n_segments)
         self.seg_base += self.n_segments
@@ -353,7 +523,78 @@ class _SegmentedCheckpoint:
                 os.remove(segment_path(self.path, i))
             except OSError:  # pragma: no cover - cleanup only
                 pass
-        self._record(monotonic() - t0, nbytes)
+        secs = monotonic() - t0
+        self._record(secs, nbytes)
+        return secs, nbytes
+
+    def _check_degrade(self) -> None:
+        if self.writer is not None and not self.degraded and self.writer.error is not None:
+            err = self.writer.acknowledge_error()
+            warnings.warn(
+                f"background checkpoint writer failed ({err!r}); degrading to "
+                "synchronous checkpoint writes — the next boundary rewrites a full "
+                "consistent checkpoint, then incremental segment writes resume inline",
+                RuntimeWarning, stacklevel=3,
+            )
+            self.writer.flush()  # the later jobs were skipped; drain them
+            self.degraded = True
+            self._need_full = True
+
+    def save(self, state_np, noise_np, seg, it: int, filled: int) -> dict:
+        """Persist one boundary: the host copies of the carried state,
+        the noise snapshot and ``seg`` (or None), as of the boundary.
+        Returns the chunk record's checkpoint entries: ``ckpt_job`` (the
+        writer job that reads the copies) when the write went to the
+        writer, else ``ckpt_write_s`` and ``ckpt_bytes``."""
+        self._check_degrade()
+        # the fault ledger as of this boundary, on the caller's thread:
+        # the executor goes on mutating it
+        fault = self._fault_src()
+        if self.writer is not None and not self.degraded:
+            job = self.writer.submit(lambda: self._write(state_np, noise_np, seg, it, fault))
+            return {"ckpt_job": job}
+        if self._need_full:
+            param, w = self._full_draws(filled)
+            secs, nbytes = self._write_full(state_np, noise_np, param, w, it, filled)
+            self._need_full = False
+        else:
+            secs, nbytes = self._write(state_np, noise_np, seg, it, fault)
+        return {"ckpt_write_s": secs, "ckpt_bytes": nbytes}
+
+    def ensure_synced(self, state_fn, noise_np, it: int, filled: int) -> None:
+        """Drain the writer; if a write was lost, rewrite a full
+        checkpoint inline from the live state (``state_fn()``, its host
+        copy) and draws (at the end of a run, a truncated one included)."""
+        if self.writer is None:
+            return
+        self.writer.flush()
+        if self.writer.error is not None and not self.degraded:
+            self._check_degrade()
+        if self._need_full:
+            param, w = self._full_draws(filled)
+            self._write_full(state_fn(), noise_np, param, w, it, filled)
+            self._need_full = False
+
+    def adopt(self, seg_base: int, n_segments: int, filled: int) -> None:
+        """Resume bookkeeping after a load."""
+        self.seg_base, self.n_segments, self.filled = seg_base, n_segments, filled
+
+    def compact(self, state_np, noise_np, param, w, it: int, filled: int) -> None:
+        """Merge the segments into one (resume-time compaction: the file
+        count stays bounded across kills). Call :meth:`adopt` first."""
+        self._write_full(state_np, noise_np, param, w, it, filled)
+
+    def rewrite_full(self, state_np, noise_np, param, w, it: int, filled: int) -> None:
+        """The lenient refill's closing write: one merged, checksummed
+        segment of the whole kept region and a new manifest (the refill
+        chunks wrote out of order and saved nothing). Drains the writer
+        first, so no stale append lands after it."""
+        if self.writer is not None:
+            self.writer.flush()
+            if self.writer.error is not None:
+                self._check_degrade()
+        self._write_full(state_np, noise_np, param, w, it, filled)
+        self._need_full = False
 
 
 # ----------------------------------------------------------------------
@@ -472,7 +713,11 @@ def fit_subsets_chunked(
       to (default :meth:`FailureDomainMap.derive`).
 
     ``model.config.fault_policy="quarantine"`` turns the guard into the
-    fault-isolation engine (module docstring). A
+    fault-isolation engine and makes resume lenient,
+    ``chunk_pipeline="overlap"`` overlaps each boundary with the next
+    chunk and writes the checkpoint in the background, and
+    ``watchdog=True`` puts each chunk under a deadline (module
+    docstring). A
     :class:`~smk_torch.parallel.partition.PaddedPartition` runs through
     :func:`_fit_ragged_chunked`."""
     kw = dict(chunk_iters=chunk_iters, checkpoint_path=checkpoint_path,
@@ -593,6 +838,25 @@ def _fit_ragged_chunked(
     return SubsetResult(*(torch.cat(f)[inv] for f in zip(*group_results)))
 
 
+def _in_callers_context(fn, dev: torch.device):
+    """``fn`` wrapped to run on another thread under this thread's CUDA
+    device, current stream and grad mode (all three are per thread in
+    torch), so the watchdog's worker queues the same work on the same
+    stream."""
+    grad = torch.is_grad_enabled()
+    if dev.type != "cuda":
+        def run():
+            with torch.set_grad_enabled(grad):
+                return fn()
+        return run
+    stream = torch.cuda.current_stream(dev)
+
+    def run():
+        with torch.cuda.device(dev), torch.cuda.stream(stream), torch.set_grad_enabled(grad):
+            return fn()
+    return run
+
+
 def _fit_subsets_chunked_impl(
     model: SpatialGPSampler,
     part: Partition,
@@ -618,9 +882,9 @@ def _fit_subsets_chunked_impl(
     c = cfg.n_chains
     data = stacked_subset_data(part, coords_test, x_test)
     dev, dtype = part.x.device, part.x.dtype
-    m, q, p = part.x.shape[1:]
     if noise is None:
         noise = model.default_noise(data)
+    mode = cfg.chunk_pipeline
     policy_q = cfg.fault_policy == "quarantine"
     if policy_q:
         _require(noise, ("snapshot", "restore", "fork"), "fault_policy='quarantine'")
@@ -628,8 +892,8 @@ def _fit_subsets_chunked_impl(
         _require(noise, ("snapshot", "restore", "identity"), "checkpoint_path")
     cdata = model.chain_data(data)
     pieces = _pieces(model, cdata, noise, k, c, chunk_size)
-    d_par = n_params(q, p)
-    d_w = coords_test.shape[0] * q
+    d_par = n_params(*part.x.shape[2:])
+    d_w = coords_test.shape[0] * part.x.shape[2]
     n_burn = cfg.n_burn_in
     n_kept = cfg.n_samples - n_burn
     meta = np.asarray([cfg.n_samples, n_burn, k, d_par, d_w, c], np.int64)
@@ -647,7 +911,7 @@ def _fit_subsets_chunked_impl(
     domain_arr = np.asarray(domain_map.domain_of_subset, np.int64)
     pstats = pipeline_stats
     if pstats is not None:
-        pstats.mode = "sync"
+        pstats.mode = mode
         pstats.fault_policy = cfg.fault_policy
         if domain_map.n_domains > 1:
             pstats.domain_of_subset = domain_arr.tolist()
@@ -656,11 +920,18 @@ def _fit_subsets_chunked_impl(
         return (attempts.copy(), dead.astype(np.int64), domain_arr.copy(),
                 domain_attempts.copy(), domain_dead.astype(np.int64))
 
+    opts = dict(dtype=dtype, device=dev)
+    param_draws = torch.zeros((k * c, n_kept, d_par), **opts)
+    w_draws = torch.zeros((k * c, n_kept, d_w), **opts)
+    writer = BackgroundWriter() if mode == "overlap" and checkpoint_path is not None else None
     ck = None
     if checkpoint_path is not None:
         ident = _run_identity(cfg, noise, data, beta_init)
-        ck = _SegmentedCheckpoint(checkpoint_path, meta, ident, pstats=pstats,
-                                  fault_src=fault_snapshot)
+        ck = _SegmentedCheckpoint(
+            checkpoint_path, meta, ident, writer=writer, pstats=pstats,
+            full_draws=lambda filled: (param_draws[:, :filled].cpu().numpy(),
+                                       w_draws[:, :filled].cpu().numpy()),
+            fault_src=fault_snapshot)
 
     def adopt_fault_bookkeeping(src) -> None:
         attempts[:] = np.asarray(src["fault_attempts"], np.int64)
@@ -681,12 +952,11 @@ def _fit_subsets_chunked_impl(
                 RuntimeWarning, stacklevel=3,
             )
 
-    opts = dict(dtype=dtype, device=dev)
-    param_draws = torch.zeros((k * c, n_kept, d_par), **opts)
-    w_draws = torch.zeros((k * c, n_kept, d_w), **opts)
+    holes: list = []
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
         like = {
             "state": SamplerState(*([np.zeros(0)] * len(SamplerState._fields))),
+            "layout": SamplerState(*([np.zeros(0)] * len(SamplerState._fields))),
             "noise": noise.snapshot(),
             **dict.fromkeys(("it", "meta", "ident", "version", "seg_base", "n_segments",
                              "filled", "fault_attempts", "fault_dead", "fault_domain",
@@ -729,49 +999,64 @@ def _fit_subsets_chunked_impl(
                 f"kept draws but the iteration counter {it} implies {max(0, it - n_burn)}"
             )
         adopt_fault_bookkeeping(ckpt)
-        try:
+        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        if policy_q:
+            # lenient: a corrupt, truncated or missing segment is a hole,
+            # re-sampled by the fill chunks planned below
+            param_np, w_np, holes = _read_segments_lenient(
+                checkpoint_path, seg_base, n_seg, filled, np_dtype, (k * c,), d_par, d_w)
+        else:
             param_np, w_np = _read_segments(checkpoint_path, seg_base, n_seg, filled,
-                                            torch.empty(0, dtype=dtype).numpy().dtype)
-        except ValueError as e:
-            if policy_q:
-                raise NotImplementedError(
-                    f"{e} — under fault_policy='quarantine' the twin re-samples a "
-                    "corrupt or truncated segment's range (lenient resume); that is not "
-                    "ported to smk_torch yet (ROADMAP A8b)"
-                ) from e
-            raise
-        state = SamplerState(*(torch.as_tensor(np.asarray(a), device=dev)
-                               for a in ckpt["state"]))
+                                            np_dtype)
+        host = _HostState(ckpt["state"], ckpt["layout"])
+        state = _device_state(host, dev)
         noise.restore(ckpt["noise"])
         if filled > 0:
             param_draws[:, :filled] = torch.as_tensor(param_np, device=dev)
             w_draws[:, :filled] = torch.as_tensor(w_np, device=dev)
         ck.adopt(seg_base, n_seg, filled)
-        if n_seg > 1:
-            ck.compact(ckpt["state"], ckpt["noise"], param_np, w_np, it, filled)
+        if n_seg > 1 and not holes:
+            # compacting a holed region would bake its zeros into a clean
+            # segment; the refill's closing rewrite compacts instead
+            ck.compact(host, ckpt["noise"], param_np, w_np, it, filled)
         del ckpt
     else:
         state = model.init_state(cdata, beta_init,
                                  consts=pieces[0].consts if len(pieces) == 1 else None)
         it = 0
 
+    # (kind, start iteration, sweeps, write offset on the kept axis): both
+    # pipelines run exactly this plan, so the draws cannot depend on the
+    # mode. A hole of a lenient resume is re-sampled by "fill" chunks that
+    # extend the chain past n_samples and write at the hole's offset.
     plan = []
     it_plan = it
     while it_plan < n_burn:
         n = min(chunk_iters, n_burn - it_plan)
-        plan.append(("burn", it_plan, n))
+        plan.append(("burn", it_plan, n, 0))
         it_plan += n
     while it_plan < cfg.n_samples:
         n = min(chunk_iters, cfg.n_samples - it_plan)
-        plan.append(("samp", it_plan, n))
+        plan.append(("samp", it_plan, n, it_plan - n_burn))
         it_plan += n
+    for a, b_ in holes:
+        ofs, left = a, b_ - a
+        while left > 0:
+            n_f = min(chunk_iters, left)
+            plan.append(("fill", it_plan, n_f, ofs))
+            it_plan += n_f
+            ofs += n_f
+            left -= n_f
     truncated = stop_after_chunks is not None and stop_after_chunks < len(plan)
     if truncated:
         plan = plan[:stop_after_chunks]
 
     want_stats = nan_guard or progress is not None or policy_q
-    stats_bytes = (k + 1) * param_draws.element_size()
-    staging = _HostStaging() if ck is not None else None
+    esize = param_draws.element_size()
+    stats_bytes = (k + 1) * esize
+    staging = _HostStaging(2 if writer is not None else 1, writer) if ck is not None else None
+    staging_cap = _state_nbytes(state) + 64 * (len(state) + 2) + (
+        k * c * min(chunk_iters, max(n_kept, 1)) * (d_par + d_w) * esize)
     warned_progress = [False]
 
     def call_progress(info):
@@ -899,81 +1184,203 @@ def _fit_subsets_chunked_impl(
             mask[retry_subsets] = True
             raise _QuarantineRewind(mask)
 
+    def chunk_work(idx, kind, start, n, w_ofs):
+        """Queue one chunk's sweeps and its boundary's copies to the host;
+        returns the boundary's record. The quarantine's held state and
+        noise snapshot and the checkpoint's noise snapshot are taken
+        here, before the next chunk draws (the noise source is not in
+        the state)."""
+        nonlocal state, it
+        t0 = monotonic()
+        held = None
+        if policy_q:
+            held = (SamplerState(*(t.clone() for t in state)), noise.snapshot())
+        guards_before = model.guard_rejects
+        state, draws = _run_chunk(model, kind, pieces, state, start, n)
+        if draws is not None:
+            param_draws[:, w_ofs:w_ofs + n] = draws[0]
+            w_draws[:, w_ofs:w_ofs + n] = draws[1]
+            del draws
+        it_end = start + n
+        if kind != "fill":
+            it = it_end
+        stats = ev_stats = None
+        if want_stats:
+            stats, ev_stats = _to_host_async(_chunk_stats(state, c))
+        if kind == "burn" and it_end == n_burn:
+            # post-burn-in acceptance accounting, after the stats (the
+            # last burn report carries the full burn-in acceptance)
+            state = state._replace(phi_accept=torch.zeros_like(state.phi_accept))
+        save = ck is not None and kind != "fill"
+        filled = max(0, it_end - n_burn)
+        d2h = stats_bytes if want_stats else 0
+        slot = state_np = seg = noise_np = None
+        wait_s = 0.0
+        if save:
+            tensors, layout = _state_views(state)
+            if kind == "samp":
+                tensors += [param_draws[:, w_ofs:w_ofs + n], w_draws[:, w_ofs:w_ofs + n]]
+            slot, arrays, wait_s = staging.take(tensors, staging_cap)
+            d2h += sum(t.numel() * t.element_size() for t in tensors)
+            state_np = _HostState(SamplerState(*arrays[:len(state)]), layout)
+            if kind == "samp":
+                seg = (arrays[-2], arrays[-1], w_ofs, w_ofs + n)
+            noise_np = noise.snapshot()
+        ev_state = _record_event(dev) if (save or pstats is not None) else None
+        return {
+            "index": idx, "kind": kind, "phase": _PHASES[kind], "start": start, "n": n,
+            "it": it_end, "window_start": 0 if kind == "burn" else n_burn,
+            "stats": stats, "ev_stats": ev_stats, "ev_state": ev_state,
+            "save": save, "slot": slot, "state_np": state_np, "seg": seg,
+            "noise_np": noise_np, "filled": filled, "held": held,
+            "guards_before": guards_before, "wait_s": wait_s, "d2h_bytes": d2h,
+            "dispatch_s": monotonic() - t0 - wait_s,
+        }
+
+    def boundary_host_work(b, stall):
+        """Guard, report and checkpoint one chunk. Under "sync" the
+        device waits for it (``stall``); under "overlap" it runs while the
+        next chunk is queued, and blocks only on this chunk's own stats.
+        The first synchronisation is the boundary's one fetch."""
+        t0 = monotonic()
+        entry = {}
+        if b["ev_stats"] is not None:
+            b["ev_stats"].synchronize()
+            entry["device_wait_s"] = monotonic() - t0
+        if b["ev_state"] is not None:
+            t1 = monotonic()
+            b["ev_state"].synchronize()
+            if b["save"]:
+                entry["state_fetch_s"] = monotonic() - t1
+        if b["stats"] is not None:
+            stats = b["stats"].numpy()
+            finite = stats[:k] > 0.5
+            if policy_q:
+                # a rewind skips this boundary's report and save
+                quarantine_check(b, finite)
+            elif nan_guard and not finite.all():
+                if writer is not None:
+                    writer.flush()  # the last checkpoint precedes the failure
+                raise SubsetNaNError(np.where(~finite)[0], b["it"])
+            if b["kind"] != "fill":
+                # refill chunks run past n_samples: the callback's
+                # contract is a monotone iteration <= n_samples
+                report(b["phase"], b["it"], b["window_start"], stats[k])
+        if b["save"]:
+            entry.update(ck.save(b["state_np"], b["noise_np"], b["seg"], b["it"],
+                                 b["filled"]))
+            job = entry.pop("ckpt_job", 0)
+            if job:
+                staging.claim(b["slot"], job)
+        host_s = monotonic() - t0
+        if pstats is not None:
+            if writer is not None:
+                entry["staging_wait_s"] = b["wait_s"]
+            pstats.record_chunk(chunk=b["index"], phase=b["phase"], n_iters=b["n"],
+                                iteration=b["it"], dispatch_s=b["dispatch_s"],
+                                host_work_s=host_s,
+                                host_stall_s=(host_s if stall else 0.0) + b["wait_s"],
+                                d2h_bytes=b["d2h_bytes"], **entry)
+
     half = math.log(0.5)  # the retried subsets' phi step halves
+
+    def apply_rewind(b, rw, successor):
+        """Rewind the faulted chunk to its held start state, the retried
+        rows on forked streams with a halved phi step, and discard the
+        successor in flight (its draws are overwritten by the replay; its
+        guard counts are dropped, as the sync loop never ran it)."""
+        nonlocal state, it
+        held_state, held_noise = b["held"]
+        row_mask = np.repeat(rw.retry_mask, c)
+        noise.restore(held_noise)
+        noise.fork(row_mask, np.repeat(attempts, c))
+        step = held_state.phi_log_step
+        tight = torch.as_tensor(row_mask, device=dev)[:, None]
+        state = held_state._replace(phi_log_step=torch.where(tight, step + half, step))
+        if b["kind"] != "fill":
+            it = b["start"]
+        if successor is not None:
+            model.guard_rejects = successor["guards_before"]
+
+    # The chunk watchdog: each guarded section runs on a worker thread
+    # under a deadline. The first dispatch of each (kind, length) runs
+    # unguarded and unobserved, as the twin's compiling dispatch does.
+    watchdog = (ChunkWatchdog(domain_map, min_deadline_s=cfg.watchdog_min_deadline_s,
+                              margin=cfg.watchdog_margin)
+                if cfg.watchdog else None)
+
+    def guarded(fn, chunk, iteration, novel=False):
+        if watchdog is None or novel:
+            return fn()
+        return watchdog.run(_in_callers_context(fn, dev), chunk=chunk, iteration=iteration)
+
+    # One loop drives both pipelines and the quarantine rewind. "sync"
+    # runs each boundary as its chunk ends; "overlap" queues chunk t + 1
+    # before chunk t's boundary, then drains the last one. A rewind
+    # resets the plan index to the faulted chunk and drops the successor
+    # in flight. Under "abort" this is the twin's schedule exactly.
     t_loop0 = monotonic()
     try:
         idx = 0
-        while idx < len(plan):
-            kind, start, n = plan[idx]
-            phase = "burn" if kind == "burn" else "sample"
+        pending = None
+        seen = set()
+        while True:
+            if idx < len(plan):
+                kind, start, n, w_ofs = plan[idx]
+                novel = (kind, n) not in seen
+                seen.add((kind, n))
+                rec = guarded(lambda a=(idx, kind, start, n, w_ofs): chunk_work(*a),
+                              idx, start + n, novel=novel)
+                idx += 1
+                if mode == "overlap":
+                    todo, pending, stall = pending, rec, False
+                else:
+                    todo, stall = rec, True
+                rec = None
+            elif pending is not None:
+                # the terminal drain: nothing is in flight behind it
+                todo, pending, stall = pending, None, True
+            else:
+                break
+            if todo is None:
+                continue
+            try:
+                guarded(lambda t=todo, st=stall: boundary_host_work(t, st),
+                        todo["index"], todo["it"])
+            except _QuarantineRewind as rw:
+                apply_rewind(todo, rw, pending)
+                idx = todo["index"]
+                pending = None
+            # drop the record (and its quarantine clone) before the next
+            # chunk takes its own
+            todo = None
+        if writer is not None:
             t0 = monotonic()
-            held = None
-            if policy_q:
-                held = (SamplerState(*(t.clone() for t in state)), noise.snapshot())
-            state, draws = _run_chunk(model, kind, pieces, state, start, n)
-            it_end = start + n
-            if draws is not None:
-                ofs = start - n_burn
-                param_draws[:, ofs:ofs + n] = draws[0]
-                w_draws[:, ofs:ofs + n] = draws[1]
-                del draws
-            stats = None
-            if want_stats:
-                stats = _chunk_stats(state, c).cpu().numpy()
-            elif pstats is not None:
-                sync(dev)
-            dispatch_s = monotonic() - t0
-            if kind == "burn" and it_end == n_burn:
-                # post-burn-in acceptance accounting, after the stats (the
-                # last burn report carries the full burn-in acceptance)
-                state = state._replace(phi_accept=torch.zeros_like(state.phi_accept))
-            t1 = monotonic()
-            b = {"index": idx, "it": it_end, "phase": phase}
-            if stats is not None:
-                finite = stats[:k] > 0.5
-                try:
-                    if policy_q:
-                        quarantine_check(b, finite)
-                    elif nan_guard and not finite.all():
-                        raise SubsetNaNError(np.where(~finite)[0], it_end)
-                except _QuarantineRewind as rw:
-                    held_state, held_noise = held
-                    row_mask = np.repeat(rw.retry_mask, c)
-                    noise.restore(held_noise)
-                    noise.fork(row_mask, np.repeat(attempts, c))
-                    step = held_state.phi_log_step
-                    tight = torch.as_tensor(row_mask, device=dev)[:, None]
-                    state = held_state._replace(
-                        phi_log_step=torch.where(tight, step + half, step))
-                    continue
-                report(phase, it_end, 0 if kind == "burn" else n_burn, stats[k])
-            d2h = stats_bytes if stats is not None else 0
-            ckpt_entry = {}
-            if ck is not None:
-                seg = None
-                if kind == "samp":
-                    a = start - n_burn
-                    seg = (param_draws[:, a:a + n], w_draws[:, a:a + n], a, a + n)
-                    d2h += (seg[0].numel() + seg[1].numel()) * param_draws.element_size()
-                t2 = monotonic()
-                state_np = staging.fetch(state)
-                d2h += _state_nbytes(state)
-                fetch_s = monotonic() - t2
-                write_s, nbytes = ck.save(state_np, noise.snapshot(), seg, it_end)
-                ckpt_entry = dict(state_fetch_s=fetch_s, ckpt_write_s=write_s,
-                                  ckpt_bytes=nbytes)
-            host_s = monotonic() - t1
+            ck.ensure_synced(lambda: _host_state(state), noise.snapshot(), it,
+                             max(0, it - n_burn))
             if pstats is not None:
-                pstats.record_chunk(chunk=idx, phase=phase, n_iters=n, iteration=it_end,
-                                    dispatch_s=dispatch_s, host_work_s=host_s,
-                                    host_stall_s=host_s, d2h_bytes=d2h, **ckpt_entry)
-            idx += 1
+                drain_s = monotonic() - t0
+                pstats.record_chunk(chunk=len(plan), phase="drain", n_iters=0, iteration=it,
+                                    dispatch_s=0.0, host_work_s=drain_s,
+                                    host_stall_s=drain_s, d2h_bytes=0)
+        if holes and not truncated and ck is not None:
+            # the refill wrote out of order and saved nothing: publish the
+            # whole kept region as one checksummed segment
+            ck.rewrite_full(_host_state(state), noise.snapshot(), param_draws.cpu().numpy(),
+                            w_draws.cpu().numpy(), cfg.n_samples, n_kept)
     finally:
+        if writer is not None:
+            writer.close()
         if pstats is not None:
             pstats.total_wall_s = monotonic() - t_loop0
+            if staging is not None:
+                pstats.host_staging_bytes = max(pstats.host_staging_bytes, staging.nbytes)
     if truncated:
         return None
     return model.finalize(state, param_draws, w_draws)
+
+
+_PHASES = {"burn": "burn", "samp": "sample", "fill": "fill"}
 
 
 def fit_subsets_checkpointed(

@@ -1,19 +1,36 @@
-"""Deterministic fault injection — the part of
-``smk_tpu/testing/faults.py`` the port's tests and chip smoke need:
-:func:`inject_subset_nan` and :func:`corrupt_segment`.
+"""Deterministic fault injection — twin of ``smk_tpu/testing/faults.py``
+for the chunked executor (the distributed, coordinator and serving
+injectors come with A9 and A11).
 
-:func:`inject_subset_nan` wraps the chunked executor's one-chunk seam
-(``parallel/recovery._run_chunk``) while an injection is armed and puts
-the seam back when the last one disarms, so a fit outside the context
-runs the executor untouched. A fault fires at exactly the configured
-chunk (no clock, no randomness): the chunk whose sweeps cover the
-iteration returns its carried state with the subset's latent u set to
-NaN — the twin's ``_poison`` — and travels the real guard, quarantine
-and drop path. For tests and probes only, as the twin's.
+Every injector is armed only inside its context manager and leaves
+nothing behind when it exits; each fires at exactly the configured
+chunk, job or write (no clock, no randomness), and travels the real
+path: a NaN planted in the carried state travels the guard, quarantine
+and drop; a failed writer job the degrade path; a flipped bit the
+checksum and lenient resume.
+
+- :func:`inject_subset_nan`: the chunk whose sweeps cover an iteration
+  returns its state with a subset's latent u set to NaN (the twin's
+  ``_poison``), a given number of times;
+- :func:`stall_chunk`: the chunk covering an iteration blocks after its
+  sweeps until the context exits (or a bounded fallback), a hung chunk
+  for the watchdog to turn into ``ChunkTimeoutError``;
+- :func:`dead_domain`: every subset of one failure domain non-finite at
+  one boundary, persistently (a dead device's signature);
+- :func:`fail_writer_job`: the Nth ``BackgroundWriter`` job of the scope
+  raises :class:`ChaosError`;
+- :func:`kill_at_manifest`: the Nth manifest write raises
+  :class:`SimulatedKill`, after its segment landed;
+- :func:`corrupt_segment`: truncate or bit-flip a draw segment on disk.
+
+The chunk injectors wrap the executor's one-chunk seam
+(``parallel/recovery._run_chunk``) while one is armed and put it back
+when the last disarms. For tests and probes only, as the twin's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -21,7 +38,16 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from smk_torch.parallel import recovery as _recovery
+from smk_torch.utils import checkpoint as _checkpoint
 from smk_torch.utils.checkpoint import segment_path
+
+
+class ChaosError(RuntimeError):
+    """The injected failure of :func:`fail_writer_job`."""
+
+
+class SimulatedKill(RuntimeError):
+    """The injected mid-boundary kill of :func:`kill_at_manifest`."""
 
 
 @dataclass
@@ -39,8 +65,23 @@ class SubsetNaNInjection:
     fired_at: list = field(default_factory=list)
 
 
+@dataclass
+class ChunkStallInjection:
+    """Arming state of :func:`stall_chunk`: the chunk covering
+    ``at_iteration`` blocks on ``release`` (set when the context exits)
+    or for ``max_stall_s``, ``max_fires`` times."""
+
+    at_iteration: int
+    max_fires: int = 1
+    max_stall_s: float = 600.0
+    fires: int = 0
+    stalled_at: list = field(default_factory=list)
+    release: threading.Event = field(default_factory=threading.Event)
+
+
 _arm_lock = threading.Lock()
 _active_nan: list = []
+_active_stall: list = []
 _real_run_chunk = None
 
 
@@ -54,6 +95,11 @@ def _poison(state, subset: int, n_chains: int):
 
 def _injecting_run_chunk(model, kind, pieces, state, start, n):
     state, draws = _real_run_chunk(model, kind, pieces, state, start, n)
+    for st in list(_active_stall):
+        if start <= st.at_iteration < start + n and st.fires < st.max_fires:
+            st.fires += 1
+            st.stalled_at.append(start)
+            st.release.wait(timeout=st.max_stall_s)
     hits = []
     for inj in list(_active_nan):
         if not start <= inj.at_iteration < start + n or inj.fires >= inj.max_fires:
@@ -70,6 +116,26 @@ def _injecting_run_chunk(model, kind, pieces, state, start, n):
 
 
 @contextmanager
+def _armed(registry: list, inj):
+    """Put ``inj`` in ``registry`` for the context, with the chunk seam
+    wrapped while any chunk injection is armed."""
+    global _real_run_chunk
+    with _arm_lock:
+        if not (_active_nan or _active_stall):
+            _real_run_chunk = _recovery._run_chunk
+            _recovery._run_chunk = _injecting_run_chunk
+        registry.append(inj)
+    try:
+        yield inj
+    finally:
+        with _arm_lock:
+            registry.remove(inj)
+            if not (_active_nan or _active_stall):
+                _recovery._run_chunk = _real_run_chunk
+                _real_run_chunk = None
+
+
+@contextmanager
 def inject_subset_nan(subset: int, at_iteration: int, max_fires: int = 1,
                       skip_fires: int = 0):
     """Arm a subset-NaN injection: the chunk whose sweeps cover
@@ -79,22 +145,89 @@ def inject_subset_nan(subset: int, at_iteration: int, max_fires: int = 1,
     through. A quarantine retry replays the window, so ``max_fires=1``
     lets the first retry succeed and a large value exhausts the ladder.
     Injections nest. Yields the injection record."""
-    global _real_run_chunk
     inj = SubsetNaNInjection(subset=int(subset), at_iteration=int(at_iteration),
                              max_fires=int(max_fires), skip_fires=int(skip_fires))
-    with _arm_lock:
-        if not _active_nan:
-            _real_run_chunk = _recovery._run_chunk
-            _recovery._run_chunk = _injecting_run_chunk
-        _active_nan.append(inj)
-    try:
+    with _armed(_active_nan, inj):
         yield inj
+
+
+@contextmanager
+def stall_chunk(at_iteration: int, max_fires: int = 1, max_stall_s: float = 600.0):
+    """Arm a hung chunk: the chunk whose sweeps cover ``at_iteration``
+    blocks after them until this context exits (its ``finally`` sets
+    the release) or ``max_stall_s`` passes, ``max_fires`` times. Under
+    ``SMKConfig.watchdog`` the deadline fires during the stall and
+    raises :class:`~smk_torch.parallel.domains.ChunkTimeoutError`.
+    Yields the injection record."""
+    inj = ChunkStallInjection(at_iteration=int(at_iteration), max_fires=int(max_fires),
+                              max_stall_s=float(max_stall_s))
+    try:
+        with _armed(_active_stall, inj):
+            yield inj
     finally:
-        with _arm_lock:
-            _active_nan.remove(inj)
-            if not _active_nan:
-                _recovery._run_chunk = _real_run_chunk
-                _real_run_chunk = None
+        inj.release.set()
+
+
+@contextmanager
+def dead_domain(subsets, at_iteration: int, max_fires: int = 99):
+    """Arm a dead domain: every subset in ``subsets`` (one domain's
+    roster, ``FailureDomainMap.subsets_of``) goes non-finite at the
+    boundary covering ``at_iteration``, persistently (``max_fires``
+    outlasts every replay), which the quarantine runs through the
+    domain's retry ladder as one event. Yields the per-subset records."""
+    with contextlib.ExitStack() as stack:
+        yield [stack.enter_context(inject_subset_nan(int(j), int(at_iteration),
+                                                     max_fires=max_fires))
+               for j in subsets]
+
+
+@contextmanager
+def fail_writer_job(nth: int, exc: BaseException = None):
+    """Arm a writer failure: the ``nth`` job (1-based, counted over every
+    ``BackgroundWriter`` of the scope) raises ``exc`` (default
+    :class:`ChaosError`) when the writer thread runs it. Yields a counter
+    dict (``{"submitted": n}``)."""
+    real = _checkpoint.BackgroundWriter.submit
+    counter = {"submitted": 0}
+
+    def patched(self, job):
+        counter["submitted"] += 1
+        if counter["submitted"] == nth:
+            def boom():
+                raise exc or ChaosError(f"chaos: injected failure of writer job {nth}")
+
+            return real(self, boom)
+        return real(self, job)
+
+    _checkpoint.BackgroundWriter.submit = patched
+    try:
+        yield counter
+    finally:
+        _checkpoint.BackgroundWriter.submit = real
+
+
+@contextmanager
+def kill_at_manifest(nth: int):
+    """Arm a kill: the ``nth`` manifest write of the scope (1-based, over
+    every checkpoint) raises :class:`SimulatedKill` after that
+    boundary's segment landed and before its manifest. Under "sync" the
+    kill unwinds the executor as a process death would; under "overlap"
+    it lands in the writer thread and the run degrades. Yields a counter
+    dict (``{"writes": n}``)."""
+    real = _recovery._SegmentedCheckpoint._write_manifest
+    counter = {"writes": 0}
+
+    def patched(self, state_np, noise_np, it, fault=None):
+        counter["writes"] += 1
+        if counter["writes"] == nth:
+            raise SimulatedKill(f"chaos: simulated kill at manifest write {nth}")
+        return real(self, state_np, noise_np, it, fault)
+
+    _recovery._SegmentedCheckpoint._write_manifest = patched
+    try:
+        yield counter
+    finally:
+        _recovery._SegmentedCheckpoint._write_manifest = real
 
 
 def corrupt_segment(path: str, index: int, mode: str = "bitflip") -> str:

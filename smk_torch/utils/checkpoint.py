@@ -9,19 +9,33 @@ the new one, never a torn one (the twin's SMK113 discipline;
 tests/test_torch_recovery.py holds this package to it). Leaves come
 back as numpy arrays. The files are the port's own: the twin stores
 its PRNG keys where the port stores its noise snapshot, so neither
-package resumes the other's checkpoint. The background writer of the
-overlap pipeline is ROADMAP A8b.
+package resumes the other's checkpoint.
+
+:class:`BackgroundWriter` runs those writes on one thread in submission
+order: the ``chunk_pipeline="overlap"`` half that takes the checkpoint
+off the host loop (parallel/recovery.py).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
+import threading
+import warnings
 import zlib
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from smk_torch.utils.tracing import monotonic
+
+# How long close() waits for the queued writes, then for the thread to
+# exit, before it warns and abandons the daemon thread: the exit path
+# never hangs on a wedged filesystem. The full rewrites of a normal
+# completion run inline (ensure_synced) before close().
+_CLOSE_TIMEOUT_S = 60.0
 
 
 def _flatten(tree: Any) -> Tuple[List[Any], str]:
@@ -191,3 +205,148 @@ def load_segment(path: str, index: int) -> dict:
                     f"{want:#010x}, recomputed {got:#010x}) — the file is corrupt"
                 )
     return out
+
+
+class BackgroundWriter:
+    """One background thread that runs write jobs in submission order
+    (twin of ``BackgroundWriter`` in ``smk_tpu/utils/checkpoint.py``).
+
+    The overlap pipeline submits each boundary's segment and manifest
+    here and goes back to dispatching. One thread and a FIFO queue keep
+    the order, and every write keeps its temp file and ``os.replace``,
+    so a kill at any instant leaves the previous manifest or the new
+    one. The first job that fails records its exception and every
+    later job is skipped (running job t+1 after job t failed could
+    publish a manifest whose segment never landed); the executor sees
+    ``error`` at its next boundary and degrades to inline writes.
+
+    A job that fails at the final boundary has no next boundary, so
+    ``close`` warns about an error nobody acknowledged
+    (:meth:`acknowledge_error`); a normal completion drains, acknowledges
+    and rewrites a full checkpoint inline
+    (``parallel/recovery._SegmentedCheckpoint.ensure_synced``).
+
+    ``submit`` returns the job's number and :meth:`wait_done` waits for
+    it to have run or been skipped: the executor's staging buffers are
+    reused only once the job that reads them is done.
+    """
+
+    def __init__(self, name: str = "smk-ckpt-writer"):
+        self._q: queue.Queue = queue.Queue()
+        self._error: Optional[BaseException] = None
+        self._error_acked = False
+        self._thread = threading.Thread(target=self._loop, name=name, daemon=True)
+        self._started = False
+        self._closed = False
+        self._submitted = 0
+        self._done = 0
+        self._done_cv = threading.Condition()
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        """The first exception a job raised, or None. Stays set: a
+        writer that failed once runs no other job."""
+        return self._error
+
+    def acknowledge_error(self) -> Optional[BaseException]:
+        """Mark the recorded error as surfaced (the degrade and recovery
+        paths call this) and return it. ``close`` warns about an error
+        nobody acknowledged."""
+        if self._error is not None:
+            self._error_acked = True
+        return self._error
+
+    def submit(self, job: Callable[[], None]) -> int:
+        """Queue ``job``; returns its number (1, 2, ... per writer)."""
+        if self._closed:
+            raise RuntimeError("BackgroundWriter is closed")
+        if not self._started:
+            self._thread.start()
+            self._started = True
+        self._submitted += 1
+        self._q.put(job)
+        return self._submitted
+
+    def wait_done(self, seq: int) -> None:
+        """Block until job ``seq`` (a number :meth:`submit` returned) and
+        every job before it has run or been skipped. Unbounded, as
+        :meth:`flush`: the caller is about to reuse what the job reads."""
+        with self._done_cv:
+            while self._done < seq:
+                self._done_cv.wait(timeout=1.0)
+
+    def flush(self) -> None:
+        """Block until every submitted job has run (or been skipped after
+        an error). Does not raise: check ``error``. Unbounded by
+        contract: the caller is about to read or rewrite what the
+        pending jobs write, and a deadline here would trade a visible
+        hang for a torn checkpoint. :meth:`close` is the bounded exit."""
+        if self._started:
+            self._q.join()
+
+    def _drain_bounded(self, timeout_s: float) -> bool:
+        """Wait up to ``timeout_s`` for every submitted job; True when
+        drained."""
+        deadline = monotonic() + timeout_s
+        with self._done_cv:
+            while self._done < self._submitted:
+                left = deadline - monotonic()
+                if left <= 0:
+                    return False
+                self._done_cv.wait(timeout=min(left, 0.05))
+        return True
+
+    def close(self) -> None:
+        """Drain (boundedly) and stop the thread. Idempotent. Warns when
+        a job failed and nothing surfaced the error, and when a wedged
+        write keeps the queue from draining within ``_CLOSE_TIMEOUT_S``
+        (the daemon thread is then abandoned; an abandoned write still
+        lands whole or not at all)."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._started:
+            drained = self._drain_bounded(_CLOSE_TIMEOUT_S)
+            self._q.put(None)
+            if drained:
+                self._thread.join(timeout=_CLOSE_TIMEOUT_S)
+            if not drained or self._thread.is_alive():
+                warnings.warn(
+                    "background checkpoint writer did not drain within "
+                    f"{_CLOSE_TIMEOUT_S:.0f}s (a wedged filesystem write?); abandoning "
+                    "the daemon thread — the checkpoint may be missing its final "
+                    "boundary (every write is atomic, so no file is torn)",
+                    RuntimeWarning, stacklevel=2,
+                )
+        if self._error is not None and not self._error_acked:
+            self._error_acked = True
+            warnings.warn(
+                f"background checkpoint writer failed ({self._error!r}) and the run "
+                "ended before any boundary could surface it — the checkpoint on disk "
+                "may be missing its final boundary (earlier writes are consistent: "
+                "the writer skips every job after a failure); re-run or resume to "
+                "re-establish it",
+                RuntimeWarning, stacklevel=2,
+            )
+
+    def _loop(self) -> None:
+        while True:
+            try:
+                # bounded wake-ups: the thread never waits forever on a
+                # job (or the sentinel) that does not come
+                job = self._q.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if job is None:
+                self._q.task_done()
+                break
+            try:
+                if self._error is None:
+                    job()
+            except BaseException as e:  # surfaced at the next boundary
+                self._error = e
+            finally:
+                with self._done_cv:
+                    self._done += 1
+                    self._done_cv.notify_all()
+                self._q.task_done()

@@ -4,11 +4,12 @@
 stream (as the twin's ``device_sync``), so its wall time covers the
 work and not only its enqueueing.
 
-``ChunkPipelineStats`` carries the members the sync host loop, the
-checkpoint and quarantine record into (parallel/recovery.py). The
-overlap pipeline, the streaming monitor and the run log are not ported
-(ROADMAP A8b), nor the program store (A10): ``aggregate`` reports
-their keys as the twin does when they are off.
+``ChunkPipelineStats`` carries the members the chunked executor's host
+loop (both pipelines), the checkpoint, its background writer and
+quarantine record into (parallel/recovery.py). The streaming monitor
+and the run log are not ported (ROADMAP A8c), nor the program store
+(A10): ``aggregate`` reports their keys as the twin does when they are
+off.
 """
 
 from __future__ import annotations
@@ -57,17 +58,25 @@ def phase_timer(
 
 @dataclass
 class ChunkPipelineStats:
-    """Per-chunk observability of the chunked executor's sync host loop
-    (see the twin's docstring for each field). One ``record_chunk``
-    entry per chunk: ``dispatch_s`` (the chunk's sweeps, enqueued and
-    run to the boundary's one synchronising fetch), ``host_work_s``
-    and ``host_stall_s`` (the boundary's guard, report and checkpoint:
-    the same seconds in the sync loop, where the device waits),
-    ``d2h_bytes`` (the boundary's device-to-host bytes), and on a
-    checkpointed run ``state_fetch_s`` (the carried state's copy to the
-    host), ``ckpt_write_s`` and ``ckpt_bytes`` (the boundary's files).
-    One ``add_ckpt_write`` per boundary write (seconds and bytes), one
-    ``record_fault`` per quarantine event."""
+    """Per-chunk observability of the chunked executor's host loop, both
+    ``chunk_pipeline`` modes (see the twin's docstring for each field).
+    One ``record_chunk`` entry per chunk: ``dispatch_s`` (the host's
+    seconds queuing the chunk's sweeps and its boundary's copies),
+    ``host_work_s`` (the boundary's fetch, guard, report and checkpoint
+    submit or write), ``host_stall_s`` (host seconds with no next chunk
+    queued: the whole boundary under "sync" and at the overlap's last
+    boundary, plus the wait for a free staging buffer), ``d2h_bytes``
+    (the boundary's device-to-host bytes) and, where they apply,
+    ``device_wait_s`` (the wait for the chunk's own stats: the sweeps'
+    device time the dispatch did not cover), ``state_fetch_s`` (the
+    state's copy into the staging buffer, after that), ``ckpt_write_s``
+    and ``ckpt_bytes`` (an inline write's files) and ``staging_wait_s``
+    (overlap: the wait for the writer job that held the buffer). Under
+    "overlap" a last ``phase="drain"`` entry holds the terminal drain
+    of the writer. One ``add_ckpt_write`` per boundary write (seconds
+    and bytes, from the writer thread under "overlap"), one
+    ``record_fault`` per quarantine event. ``host_staging_bytes`` is the
+    host memory the staging buffers held (pinned on the card)."""
 
     mode: str = "sync"
     fault_policy: str = "abort"
@@ -84,6 +93,7 @@ class ChunkPipelineStats:
     total_wall_s: float = 0.0
     # one entry per bucket group of a ragged fit, None on equal-m runs
     ragged_groups: Any = None
+    host_staging_bytes: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def record_chunk(self, **entry: Any) -> None:

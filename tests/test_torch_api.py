@@ -242,14 +242,12 @@ def test_default_randomness_fit_is_finite_and_seeded():
 @pytest.mark.parametrize(
     "knob, item",
     [
-        (dict(chunk_pipeline="overlap"), "A8b"),
-        (dict(adaptive_schedule="on", live_diagnostics=True), "A8b"),
-        (dict(profile_dir="profiles"), "A8b"),
-        (dict(watchdog=True), "A8b"),
+        (dict(adaptive_schedule="on", live_diagnostics=True), "A8c"),
+        (dict(profile_dir="profiles"), "A8c"),
         (dict(xla_cache_dir="xla_cache"), "A10"),
         (dict(coalesce_window_ms=5.0), "A11"),
-        (dict(live_diagnostics=True), "A8b"),
-        (dict(run_log_dir="logs"), "A8b"),
+        (dict(live_diagnostics=True), "A8c"),
+        (dict(run_log_dir="logs"), "A8c"),
         (dict(compile_store_dir="store"), "A10"),
     ],
 )
@@ -257,6 +255,18 @@ def test_unported_knobs_raise_naming_their_roadmap_item(knob, item):
     knob_name = next(iter(knob))
     with pytest.raises(NotImplementedError, match=f"{knob_name}.*{item}"):
         fit_meta_kriging(*_problem(), config=SMKConfig(**knob), device="cpu")
+
+
+@pytest.mark.parametrize("knob", [dict(chunk_pipeline="overlap"), dict(watchdog=True)])
+def test_overlap_and_watchdog_knobs_now_run(knob):
+    """Both knobs run through the public fit, on the chunked path (where
+    they act) bitwise the default sync, unwatched fit."""
+    cfg = SMKConfig(n_subsets=2, n_samples=8)
+    want = fit_meta_kriging(*_problem(), config=cfg, seed=3, device="cpu", chunk_iters=3)
+    got = fit_meta_kriging(*_problem(), config=SMKConfig(**dict(
+        n_subsets=2, n_samples=8, **knob)), seed=3, device="cpu", chunk_iters=3)
+    for f in ("param_grid", "w_grid", "p_quant"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def test_config_validates_like_the_twin():

@@ -142,6 +142,29 @@ def test_draws_match_twin_nan_where_the_twin_is_nan(runs, scenario):
                                   jrec.find_failed_subsets(want))
 
 
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_overlap_pipeline_keeps_the_twins_fault_ledger(problem, runs, scenario):
+    """Under chunk_pipeline="overlap" a fault is found one chunk late,
+    with the successor in flight; the rewind discards it, so the ledger
+    is the twin's and the draws are the sync run's, bit for bit."""
+    schedule, n_domains = SCENARIOS[scenario]
+    cfg = SMKConfig(**dict(CFG, chunk_pipeline="overlap"))
+    stats = ChunkPipelineStats()
+    dmap = None if n_domains is None else dom.FailureDomainMap.from_n_domains(K, n_domains)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with _inject(tfaults, schedule):
+            res = rec.fit_subsets_chunked(
+                tp.SpatialGPSampler(cfg), problem["part"], problem["ct_t"], problem["xt_t"],
+                replay(problem["key"], cfg, K, problem["part"].subset_size, t=T),
+                chunk_iters=CHUNK, pipeline_stats=stats, domain_map=dmap)
+    (_, want), (sync_res, _) = runs[scenario]["twin"], runs[scenario]["port"]
+    assert stats.fault_events == want.fault_events
+    assert stats.fault_summary() == want.fault_summary()
+    for a, b in zip(res, sync_res):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
 def test_scenarios_exercise_retry_drop_and_deferral(runs):
     """The schedules cover what they are named for (the twin's
     tests/test_fault_isolation.py expectations, on the port)."""
@@ -275,10 +298,21 @@ def test_abort_rejects_a_corrupt_segment_loudly(problem, golden_ckpt, tmp_path, 
 
 
 def test_quarantine_on_a_corrupt_segment_names_lenient_resume(problem, golden_ckpt, tmp_path):
-    path = _copy(golden_ckpt[1], tmp_path / "q")
+    """Under quarantine a corrupt segment resumes leniently, with a
+    warning that names it: the rows outside the hole are the golden
+    run's, the hole is re-sampled finite."""
+    ref, src = golden_ckpt
+    path = _copy(src, tmp_path / "q")
     corrupt_segment(path, 1, "bitflip")
-    with pytest.raises(NotImplementedError, match="lenient resume.*A8b"):
-        run_port(problem, "no_fault", checkpoint_path=path)
+    with pytest.warns(RuntimeWarning, match="lenient resume"):
+        res = rec.fit_subsets_chunked(
+            tp.SpatialGPSampler(SMKConfig(**CFG)), problem["part"], problem["ct_t"],
+            problem["xt_t"], replay(problem["key"], SMKConfig(**CFG), K,
+                                    problem["part"].subset_size, t=T),
+            chunk_iters=CHUNK, checkpoint_path=path)
+    assert torch.isfinite(res.param_samples).all()
+    assert torch.equal(res.param_samples[:, :4], ref.param_samples[:, :4])
+    assert torch.equal(res.param_samples[:, 8:], ref.param_samples[:, 8:])
 
 
 def test_clean_checkpoint_resumes_to_the_same_result(problem, golden_ckpt, tmp_path):
@@ -292,7 +326,8 @@ def test_manifest_carries_the_fault_ledger(problem, tmp_path):
     run_port(problem, "exhausted", checkpoint_path=path)
     from smk_torch.utils.checkpoint import load_pytree
 
-    like = {"state": tp.SamplerState(*([np.zeros(0)] * 7)), "noise": {"keys": 0, "next": 0},
+    like = {"state": tp.SamplerState(*([np.zeros(0)] * 7)),
+            "layout": tp.SamplerState(*([np.zeros(0)] * 7)), "noise": {"keys": 0, "next": 0},
             **dict.fromkeys(("it", "meta", "ident", "version", "seg_base", "n_segments",
                              "filled", "fault_attempts", "fault_dead", "fault_domain",
                              "fault_domain_attempts", "fault_domain_dead"), 0)}

@@ -235,6 +235,47 @@ def test_kill_and_resume_is_exact(problem, variant, tmp_path):
         assert torch.equal(getattr(full, f), getattr(resumed, f)), f
 
 
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_overlap_kill_and_resume_is_exact(problem, variant, tmp_path):
+    """The overlap pipeline (K pieces and two chains included): killed
+    after one sampling segment and resumed, bitwise the uninterrupted sync
+    run."""
+    kw, chunk_size = VARIANTS[variant]
+    kw = dict(kw, **KILL)
+    ov = dict(kw, chunk_pipeline="overlap")
+    path = str(tmp_path / "kill.npz")
+    full = port_fit(problem, kw, chunk_size=chunk_size)
+    assert port_fit(problem, ov, chunk_size=chunk_size, checkpoint_path=path,
+                    stop_after_chunks=4) is None
+    assert os.path.exists(ckpt.segment_path(path, 0))
+    resumed = port_fit(problem, ov, chunk_size=chunk_size, checkpoint_path=path)
+    for f in RESULT_FIELDS:
+        assert torch.equal(getattr(full, f), getattr(resumed, f)), f
+
+
+def test_resume_restores_the_carried_layout(problem, tmp_path, monkeypatch):
+    """The sampler's factor is column-major; a resumed chain gets its
+    leaves back with the strides the uninterrupted run carried into the
+    same chunk (on the card a solve against a contiguous copy rounds
+    differently), by the manifest's layout."""
+    seen = {}
+    real = rec._run_chunk
+
+    def spy(model, kind, pieces, state, start, n):
+        seen.setdefault(start, []).append([tuple(t.stride()) for t in state])
+        return real(model, kind, pieces, state, start, n)
+
+    monkeypatch.setattr(rec, "_run_chunk", spy)
+    path = str(tmp_path / "l.npz")
+    port_fit(problem, KILL)
+    assert port_fit(problem, KILL, checkpoint_path=path, stop_after_chunks=4) is None
+    port_fit(problem, KILL, checkpoint_path=path)
+    cols = seen[16][0][-1]
+    assert cols[-2] == 1  # chol_r column-major in the chain itself
+    for start in (16, 20):
+        assert seen[start][0] == seen[start][1], start
+
+
 def test_resume_of_a_finished_run_returns_it(problem, tmp_path):
     path = str(tmp_path / "done.npz")
     first = port_fit(problem, BASE, checkpoint_path=path)
