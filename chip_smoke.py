@@ -212,6 +212,41 @@ the chunk watchdog, with the fault injectors of smk_torch/testing:
               dead_domain over two failure domains, dropped through the
               domain ladder, the survivors bitwise.
 
+Phases 27-29 run the chunked executor's last knobs (the streaming
+monitor, the run log, the adaptive schedule, profiling):
+
+27. fit_adaptive_config5 — config5 at full width, the production sampler
+              with two chains, 160 sweeps (120 burn-in) in chunks of 10,
+              through fit_meta_kriging: (a) the fixed schedule; (b) the
+              fixed schedule with live_diagnostics and a run log, bitwise
+              (a), its last boundary's streaming R-hat against post-hoc
+              R-hat on the same draws (1e-4 relative), its run log with
+              root coverage >= 0.95 and no orphan span; (c) the adaptive
+              schedule with the JAX bench's targets (bench.py:1461-1560),
+              its launches equal to what its own chunk records imply at
+              their rungs and its frozen_at replayed on the host from its
+              logged statistics; (a) again, warm. Walls, ms/sweep, the
+              monitor's cost ((b) against the warm (a)), peak memory, the
+              adaptive telemetry. First one armed and one unarmed chunk
+              through the executor under the sync debug mode (the armed
+              one adds no synchronising call), and what a compaction moves
+              at this width (the host mirror's merge, the gather of the
+              rungs 23, 16 and 11). The kernels phase also holds the
+              symmetric and narrow kernels at those batches.
+28. fit_adaptive_small — the JAX package's adaptive problem (K = 4,
+              m = 16, two chains, 80 sweeps in chunks of 10) and K = 8,
+              m = 200 on the card: a freeze with fewer subset-chunks than
+              the fixed schedule, an extra grant past n_kept, a compaction
+              below K = 8, launches against the chunk records, a kill at
+              the first freeze resumed from the checkpoint and the
+              scheduler sidecar bitwise; the refusals (chunk_size,
+              "overlap").
+29. fit_profile_config5 — config5, the production sampler, 32 sweeps in
+              chunks of 8, unprofiled and with profile_chunks="1:3": the
+              Chrome trace, its top device ops (the symmetric kernel and
+              potrf among them), the chunk scopes' device span within 25 %
+              of the chunks' CUDA-event times, the profiler's overhead.
+
 Then each phase's wall time and the script's, the kernel summary line
 {"kernels": [...]} (launches from fit_config5, the double kernels' from
 fit_config5_float64, and per path, the Vecchia paths' all 0), the card's
@@ -268,6 +303,9 @@ RAGGED_M = (1, 2, 3, 63, 64, 65, 127, 129, 3905, 3906, 3907)
 # rows the layout takes and one past them; one row, a ragged strip,
 # and the main path's m + 1 rows
 NARROW_MB = (1, 3, 4, 5, 63, 64, 65, 123, 128, 256, 257)
+# the adaptive schedule's first compaction rungs below K = 32
+# (compile/buckets.k_ladder(32)): the kernels' batch sizes there
+COMPACT_K = (23, 16, 11)
 NARROW_MA = (1, 147, 3907)
 # cross builds timed on both the narrow and the tile kernel: t = 123
 # (rows not on 16 bytes) and prediction rasters of 1024 and 4096 sites
@@ -679,6 +717,59 @@ def kernels_phase(device):
         del got
         torch.cuda.empty_cache()
 
+    # the adaptive schedule's compacted groups: the symmetric and narrow
+    # kernels at the first rungs of the K ladder below K = 32, at m = 3906,
+    # timed as at K = 32
+    compacted = []
+    for kb in COMPACT_K:
+        cb, pb, mb_, sb = coords[:kb], phis[:kb], mask[:kb], shift[:kb]
+        tb = test[None].expand(kb, t, 2)
+        cases = (
+            ("fused_masked_correlation_stack", "symmetric",
+             lambda: fb.fused_masked_correlation_stack(cb, pb, mb_, model),
+             dict(ca=cb, cb=cb, mask=mb_, zero_diag=True), [cb, pb, mb_], (True, False),
+             (cb, cb)),
+            ("fused_masked_shifted_build", "symmetric",
+             lambda: fb.fused_masked_shifted_build(cb, pb, mb_, sb, model),
+             dict(ca=cb, cb=cb, mask=mb_, shift=sb, zero_diag=True), [cb, pb, mb_, sb],
+             (True, True), (cb, cb)),
+            ("fused_cross_correlation", "narrow",
+             lambda: fb.fused_cross_correlation(cb, test, pb, model, row_mask=mb_),
+             dict(ca=cb, cb=test[None], row_mask=mb_), [cb, test, pb, mb_], (False, False),
+             (cb, tb)),
+            ("fused_correlation_stack", "narrow",
+             lambda: fb.fused_correlation_stack(test, pb, model),
+             dict(ca=tb, cb=test[None], zero_diag=True), [test, pb], (False, False),
+             (test[None], test[None])),
+        )
+        for name, kern, run, spec, inputs, (masked, shifted), (a, b) in cases:
+            before = launches_by_kernel()[kern]
+            got = run()
+            torch.cuda.synchronize()
+            check(launches_by_kernel()[kern] == before + 1,
+                  f"{name} at K = {kb}: the {kern} kernel did not launch")
+            rm = spec.get("row_mask")
+            plain = lambda: fb.plain_build(  # noqa: E731
+                spec["ca"], spec["cb"], pb, model, mask=spec.get("mask"),
+                shift=spec.get("shift"), zero_diag=spec.get("zero_diag", False), row_mask=rm)
+
+            def library():
+                rho = torch.exp(-pb[:, :, None, None] * torch.cdist(a, b)[:, None])
+                return rho if rm is None else rm[:, None, :, None] * rho
+
+            want = plain()
+            err = compare(got, want, f"{name} at K = {kb}")
+            del want
+            b_ms, b_by = bound(inputs, got, model, masked, shifted, rm is not None)
+            compacted.append({"entry": name, "kernel": kern, "shape": list(got.shape),
+                              "max_abs_err": err, "ms": ms_median(run),
+                              "device_ms": ms_median(run, device_only=True),
+                              "plain_ms": ms_median(plain), "library_ms": ms_median(library),
+                              "bound_ms": b_ms, "bound_by": b_by})
+            del got
+            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+
     # the narrow and the tile kernel on wider cross builds
     wide = []
     for mb in WIDE_MB:
@@ -728,7 +819,7 @@ def kernels_phase(device):
     }
     emit({"phase": "kernels", "tolerance": {"atol": ATOL, "rtol": RTOL},
           "checks": checks, "ragged_sweep": sweep, "narrow_sweep": narrow,
-          "main_path": timings, "wide_cross": wide, **floor,
+          "main_path": timings, "compacted_batches": compacted, "wide_cross": wide, **floor,
           "cross_test_corr": krige, "launches_in_phase": dict(fb.LAUNCHES)})
     return timings
 
@@ -2866,6 +2957,574 @@ def fit_overlap_small_faults(device, tmp):
     emit(out)
     return out
 
+# ----------------------------------------------------------------------
+# phases 27-29: the chunked executor's last knobs — the streaming
+# monitor, the run log, the adaptive schedule, profiling
+# ----------------------------------------------------------------------
+ADAPT_SAMPLES, ADAPT_CHUNK = 160, 10
+PROFILE_SAMPLES, PROFILE_CHUNK, PROFILE_WINDOW = 32, 8, "1:3"
+# the streaming R-hat at the last boundary against post-hoc rhat on the
+# same draws (obs/streaming.py's contract), and the profiler's device
+# time over its window against the chunks' CUDA-event times
+STREAM_RTOL, PROFILE_AGREE = 1e-4, 0.25
+
+
+def dispatched_build_calls(cfg, q, chunks):
+    """The launches a chunked run implies from its own record: the
+    initial state's stack plus each dispatched chunk's calls at its rung
+    (``chunks``: ChunkPipelineStats.chunks, the drain left out), each
+    chunk's calls from probit_gp.chunk_build_calls."""
+    from smk_torch.models.probit_gp import chunk_build_calls
+
+    out = chunk_build_calls(cfg, q, "burn", 0, 0)
+    out["fused_masked_correlation_stack"] = 1  # the initial state's R~
+    for ch in chunks:
+        if ch["phase"] == "drain":
+            continue
+        kind = "burn" if ch["phase"] == "burn" else "samp"
+        for key, v in chunk_build_calls(cfg, q, kind, ch["iteration"] - ch["n_iters"],
+                                        ch["n_iters"]).items():
+            out[key] += v
+    return out
+
+
+def replay_schedule(cfg, k, events, chunks):
+    """A fresh AdaptiveScheduler replayed on the host over a run's logged
+    live_diagnostics events, the dispatch group re-formed as the
+    executor does (members, rung, the frozen riders that stop writing,
+    the plan growing at each grant). Returns the scheduler."""
+    import numpy as np
+    from smk_torch.parallel.schedule import AdaptiveScheduler
+
+    n_burn, n_kept = cfg.n_burn_in, cfg.n_kept
+    sched = AdaptiveScheduler(cfg, k=k, n_kept=n_kept, chunk_iters=ADAPT_CHUNK)
+    plan_len = -(-n_burn // ADAPT_CHUNK) + -(-n_kept // ADAPT_CHUNK)
+    members, kc = list(range(k)), k
+    live = {e["iteration"]: e for e in events}
+    for idx, ch in enumerate(c for c in chunks if c["phase"] != "drain"):
+        if ch["phase"] not in ("sample", "extra"):
+            continue
+        ev = live[ch["iteration"]]
+        written = [j for j in members if not sched.frozen[j]]
+        b = ch["iteration"] - n_burn
+        dec = sched.observe(
+            kind="samp" if ch["phase"] == "sample" else "extra", it=ch["iteration"],
+            span=(b - ch["n_iters"], b), written=written, kc_dispatched=kc,
+            rhat_max=np.asarray(ev["rhat_max"], np.float64),
+            ess_min=np.asarray(ev["ess_min"], np.float64),
+            plan_exhausted=idx == plan_len - 1)
+        if dec.grant is not None:
+            plan_len += 1
+        new = list(dec.active)
+        new_kc = sched.rung(len(new)) if new else 0
+        if new_kc != kc or any(j not in members for j in new):
+            sched.mark_stopped([j for j in members if j not in new], ch["iteration"])
+            members, kc = new, new_kc
+    return sched
+
+
+def regroup_cost(state, c, device):
+    """What a compaction of the adaptive schedule moves at the fit's
+    width, timed on ``state`` (K*C rows): the merge of the group's state
+    into the host mirror (the whole state, as the first compaction
+    fetches it), the gather of a compacted group's rows back to the
+    card at the first rungs below K, and a checkpointed boundary's merge
+    at K and at those rungs: the group's state copied into the pinned
+    staging buffer behind one event, then its rows written into the
+    mirror (recovery._host_state, _device_state, _HostStaging,
+    _merge_rows: the executor's own helpers)."""
+    import numpy as np
+    import torch
+    from smk_torch.models.probit_gp import SamplerState
+    from smk_torch.parallel import recovery as rec
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    full = rec._host_state(state)
+    out = {"merge_s": time.perf_counter() - start,
+           "host_mirror_bytes": sum(a.nbytes for a in full.arrays), "gather_s": {}}
+    for rung in COMPACT_K:
+        rows = np.asarray([j * c + ch for j in range(rung) for ch in range(c)])
+        start = time.perf_counter()
+        got = rec._device_state(rec._HostState(SamplerState(*(
+            np.take(a, rows, axis=rec._row_axis(p)) for a, p in zip(full.arrays, full.layout))),
+            full.layout), device)
+        torch.cuda.synchronize()
+        out["gather_s"][str(rung)] = time.perf_counter() - start
+        check(all(torch.equal(g, t[:rung * c]) and g.stride() == t[:rung * c].stride()
+                  for g, t in zip(got, state)), f"regroup at rung {rung}: rows or layout differ")
+        del got
+    # the first take pins the buffer (once a fit); K is timed again after
+    staging = rec._HostStaging(1)
+    out["boundary_merge_s"] = []
+    k = len(state[0]) // c
+    for rung in (k,) + tuple(COMPACT_K) + (k,):
+        group = SamplerState(*(t[:rung * c] for t in state))
+        views, layout = rec._state_views(group)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        _, arrays, _ = staging.take(views, rec._state_nbytes(state))
+        torch.cuda.current_stream().synchronize()
+        rec._merge_rows(full, rec._HostState(SamplerState(*arrays), layout),
+                        list(range(rung * c)))
+        out["boundary_merge_s"].append([rung, time.perf_counter() - start])
+    out["staging_bytes"] = staging.nbytes
+    again = rec._host_state(state)
+    check(all(np.array_equal(a, b) for a, b in zip(full.arrays, again.arrays)),
+          "boundary merge: the mirror differs from the state")
+    del staging, again
+    return out
+
+
+def sync_debug_armed(cfg, setup, device):
+    """One burn-in and one sampling chunk of 4 sweeps at the fit's width
+    through the chunked executor (``setup``: sampler_setup's inputs),
+    unarmed and then with the streaming monitor armed, both with a
+    progress callback (so both make the boundary's one fetch), under
+    torch.cuda.set_sync_debug_mode("warn"), after one unrecorded unarmed
+    run (the process's one-time synchronisations): the synchronising
+    calls by the line that made them, for each, and apart from them
+    those made with no port frame on the stack."""
+    import collections
+    import dataclasses
+    import os
+    import traceback
+    import warnings
+
+    import torch
+    from smk_torch.models import probit_gp as tp
+    from smk_torch.parallel import recovery as rec
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    data = setup[1]
+    c = cfg.n_chains
+    part = _partition_of(data, c)
+    found = {}
+    for label, live in (("warm-up", False), ("unarmed", False), ("armed", True)):
+        run_cfg = dataclasses.replace(cfg, n_samples=8, burn_in_frac=0.5, live_diagnostics=live)
+        model = tp.SpatialGPSampler(run_cfg)
+        noise = model.default_noise(rec.stacked_subset_data(part, data.coords_test,
+                                                            data.x_test), seed=SEED)
+        sites = collections.Counter()
+
+        def hook(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return
+            ours = [f for f in traceback.extract_stack()[:-1] if "smk_torch" in f.filename]
+            where = (f"{os.path.relpath(ours[-1].filename)}:{ours[-1].lineno}"
+                     f" ({ours[-1].name})" if ours else "outside smk_torch")
+            sites[f"{os.path.basename(filename)}:{lineno} from {where}"] += 1
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rec.fit_subsets_chunked(model, part, data.coords_test, data.x_test, noise,
+                                        chunk_iters=4,
+                                        progress=lambda info: None,
+                                        pipeline_stats=ChunkPipelineStats())
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        ours = {line: n for line, n in sites.most_common() if "outside smk_torch" not in line}
+        found[label] = {"n_syncs": sum(sites.values()), "by_line": ours,
+                        "outside_port": sum(sites.values()) - sum(ours.values())}
+    torch.cuda.synchronize()
+    del found["warm-up"]
+    return found
+
+
+def _partition_of(data, c):
+    """The K-subset Partition of a K*C-row chain batch (its first chain's
+    rows)."""
+    from smk_torch.parallel.partition import Partition
+
+    return Partition(y=data.y[::c], x=data.x[::c], coords=data.coords[::c],
+                     mask=data.mask[::c], index=None)
+
+
+def adaptive_config(*, k, n_samples, n_chains, adaptive, live, run_log_dir=None, **extra):
+    """The production sampler (bench.py:rung_config) with the JAX bench's
+    adaptive A/B knobs (bench.py:1461-1560): target_rhat 1.2,
+    target_ess 50, patience 2, min_samples_before_stop = kept // 4,
+    adapt_max_extra_frac 0.5."""
+    kept = n_samples - int(0.75 * n_samples)
+    return production_config(
+        k=k, n_samples=n_samples, phi_every=16, n_chains=n_chains,
+        live_diagnostics=live or adaptive, run_log_dir=run_log_dir,
+        adaptive_schedule="on" if adaptive else "off", target_rhat=1.2, target_ess=50.0,
+        adapt_patience=2, min_samples_before_stop=kept // 4, adapt_max_extra_frac=0.5,
+        **extra)
+
+
+def fit_adaptive_config5(device, c5_data, tmp):
+    """config5 at full width (K = 32, m = 3906, t = 64), the production
+    sampler with two chains, 160 sweeps (120 burn-in, 40 kept) in chunks
+    of 10, through fit_meta_kriging: (a) the fixed schedule, monitor off;
+    (b) the fixed schedule with live_diagnostics and run_log_dir; (c)
+    adaptive_schedule="on" with the bench's targets and the run log; (a)
+    again, warm. (b) and the second (a) must be bitwise (a); the streaming R-hat of (b)'s last boundary is
+    held against post-hoc rhat on the same draws; (b)'s run log
+    summarizes with root coverage >= 0.95 and no orphan; (c)'s build
+    launches equal those its dispatched chunks imply at their rungs; a
+    fresh scheduler replayed over (c)'s logged statistics gives (c)'s
+    frozen_at. For each run: wall, ms/sweep, peak memory, the adaptive
+    telemetry. First one armed chunk against an unarmed one under the
+    sync debug mode (sync_debug_armed) and a compaction's moves at this
+    width (regroup_cost)."""
+    import os
+
+    import numpy as np
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.obs import streaming as st
+    from smk_torch.obs.reporter import read_jsonl
+    from smk_torch.obs.summarize import summarize
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.utils.diagnostics import rhat
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    k, c = MAIN_K, 2
+    out = {"phase": "fit_adaptive_config5", "n": c5_data[0].shape[0], "K": k, "m": MAIN_M,
+           "t": MAIN_T, "n_chains": c, "n_samples": ADAPT_SAMPLES, "chunk_iters": ADAPT_CHUNK}
+    cfg_a = adaptive_config(k=k, n_samples=ADAPT_SAMPLES, n_chains=c, adaptive=False,
+                            live=False)
+    setup = sampler_setup(cfg_a, c5_data, device)
+    out["sync_debug"] = sync_debug_armed(cfg_a, setup, device)
+    out["regroup_cost"] = regroup_cost(setup[2], c, device)
+    del setup
+    sd = out["sync_debug"]
+    check(sd["armed"]["by_line"] == sd["unarmed"]["by_line"],
+          f"adaptive config5: the armed monitor added synchronising calls {sd}")
+    torch.cuda.empty_cache()
+    runs, results = {}, {}
+    # (a) runs again last: the first fit of the phase pays a warm-up, so
+    # the monitor's cost is (b) against the warm (a2)
+    for label, adaptive, live in (("a_fixed", False, False), ("b_fixed_live", False, True),
+                                  ("c_adaptive", True, True), ("a2_fixed", False, False)):
+        log_dir = None if not live else os.path.join(tmp, f"log_{label}")
+        cfg = adaptive_config(k=k, n_samples=ADAPT_SAMPLES, n_chains=c, adaptive=adaptive,
+                              live=live, run_log_dir=log_dir)
+        stats = ChunkPipelineStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fb.reset_counts()
+        start = time.perf_counter()
+        res = fit_meta_kriging(*c5_data, config=cfg, seed=SEED, device=device,
+                               chunk_iters=ADAPT_CHUNK, pipeline_stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = dict(fb.LAUNCHES)
+        want = dispatched_build_calls(cfg, 1, stats.chunks)
+        check(launches == want, f"adaptive config5 ({label}): launches {launches} != {want}")
+        check(sum(fb.PLAIN_CALLS.values()) == 0,
+              f"adaptive config5 ({label}): a plain build ran on the card")
+        for f in ("p_quant", "param_quant", "param_grid", "w_grid"):
+            check(bool(torch.isfinite(getattr(res, f)).all()),
+                  f"adaptive config5 ({label}): non-finite {f}")
+        agg = stats.aggregate()
+        work = [ch for ch in stats.chunks if ch["phase"] != "drain"]
+        runs[label] = {
+            "wall_s": wall, "subset_fits_s": res.phase_seconds["subset_fits"],
+            "ms_per_sweep": res.phase_seconds["subset_fits"] / ADAPT_SAMPLES * 1e3,
+            "chunk_device_s_sum": sum(ch.get("device_s", 0.0) for ch in work),
+            "n_chunks": len(work), "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches, "launches_by_kernel": launches_by_kernel(),
+            "d2h_bytes_last_boundary": work[-1]["d2h_bytes"],
+            **{key: agg[key] for key in ("live_rhat_final", "live_ess_min_final",
+                                         "live_ess_sum_final", "ess_per_second",
+                                         "ess_per_second_adaptive", "chunks_saved_frac",
+                                         "frozen_at", "hbm_peak_bytes")},
+            "run_log_path": res.run_log_path,
+        }
+        if adaptive:
+            ad = stats.adaptive
+            runs[label]["adaptive"] = {key: ad[key] for key in (
+                "frozen_at", "kept_counts", "subset_chunks_dispatched", "subset_chunks_baseline",
+                "chunks_saved_frac", "extra_granted", "n_frozen", "regroup_s",
+                "host_mirror_bytes")}
+            check(res.frozen_at == tuple(ad["frozen_at"])
+                  and res.chunks_saved_frac == ad["chunks_saved_frac"],
+                  "adaptive config5: the result's frozen_at / chunks_saved_frac")
+        results[label] = (res, stats)
+        torch.cuda.empty_cache()
+    (ra, _), (rb, sb) = results["a_fixed"], results["b_fixed_live"]
+    for other, key in ((rb, "armed_equals_unarmed"), (results["a2_fixed"][0], "a2_equals_a")):
+        same = bitwise(ra, other)
+        same.update({f: bool(torch.equal(getattr(ra.subset_results, f),
+                                         getattr(other.subset_results, f)))
+                     for f in ("param_samples", "w_samples", "phi_accept_rate")})
+        out[key] = same
+        check(all(same.values()), f"adaptive config5: {key} fails {same}")
+    # the monitor's own numbers: the last boundary's statistics against
+    # post-hoc rhat of the same draws, per parameter
+    live = [r["attrs"] for r in read_jsonl(rb.run_log_path)
+            if r.get("kind") == "event" and r.get("name") == "live_diagnostics"]
+    draws = rb.subset_results.param_samples.reshape(k, c, -1, rb.param_grid.shape[-1])
+    n_kept = ADAPT_SAMPLES - int(0.75 * ADAPT_SAMPLES)
+    s_upd, s_stats = st.make_stream_update(n_kept // 2, c), st.make_stream_stats(c)
+    stream = st.init_stream(k, c, draws.shape[-1], draws.dtype, device=device)
+    for a in range(0, draws.shape[2], ADAPT_CHUNK):
+        stream = s_upd(stream, draws[:, :, a:a + ADAPT_CHUNK], a)
+    s_rhat = s_stats(stream)[0].cpu().numpy().astype(np.float64)
+    post = rhat(draws).cpu().numpy().astype(np.float64)
+    last = np.asarray(live[-1]["rhat_max"], np.float64)
+    refold = np.nanmax(s_rhat, axis=1)
+    check(np.allclose(refold, last, rtol=1e-6, equal_nan=True),
+          "adaptive config5: the re-folded monitor != the last boundary's rhat_max")
+    halves = draws.reshape(k, c, 2, -1, draws.shape[-1])
+    within = halves.var(dim=3).mean(dim=(1, 2)).cpu().numpy()  # (K, d)
+    scale = 1.0 + np.square(draws.mean(dim=(1, 2)).cpu().numpy())
+    ok = np.isfinite(post) & (within > 1e-8 * scale)
+    rel = np.abs(s_rhat - post) / np.abs(post)
+    out["stream_vs_posthoc"] = {
+        "rtol": STREAM_RTOL, "max_rel_err": float(rel[ok].max()),
+        "n_compared": int(ok.sum()), "n_degenerate": int((~ok).sum()),
+        "degenerate_columns": sorted({int(j) for j in np.where(~ok)[1]}),
+        "last_boundary_rhat_max": last.tolist(), "posthoc_rhat_max": np.nanmax(post, 1).tolist(),
+        "stream_bytes_per_boundary": st.fetch_nbytes(k)}
+    check(out["stream_vs_posthoc"]["max_rel_err"] <= STREAM_RTOL,
+          f"adaptive config5: streaming vs post-hoc R-hat {out['stream_vs_posthoc']}")
+    summ = summarize(rb.run_log_path)
+    out["run_log_b"] = {key: summ[key] for key in ("root_coverage", "n_orphan_spans",
+                                                  "n_spans", "n_events", "truncated")}
+    check(summ["root_coverage"] >= 0.95 and summ["n_orphan_spans"] == 0 and not summ["truncated"],
+          f"adaptive config5: run log {out['run_log_b']}")
+    # (c): the schedule replayed on the host from its own log
+    rc, sc = results["c_adaptive"]
+    events = [r["attrs"] for r in read_jsonl(rc.run_log_path)
+              if r.get("kind") == "event" and r.get("name") == "live_diagnostics"]
+    cfg_c = adaptive_config(k=k, n_samples=ADAPT_SAMPLES, n_chains=c, adaptive=True, live=True)
+    replayed = replay_schedule(cfg_c, k, events, sc.chunks)
+    out["host_replay_frozen_at"] = replayed.summary()["frozen_at"]
+    check(out["host_replay_frozen_at"] == sc.adaptive["frozen_at"],
+          "adaptive config5: the host replay's frozen_at differs")
+    out["runs"] = runs
+    a_ms, b_ms = runs["a2_fixed"]["ms_per_sweep"], runs["b_fixed_live"]["ms_per_sweep"]
+    out["monitor_cost"] = {"ms_per_sweep": b_ms - a_ms, "frac": (b_ms - a_ms) / a_ms,
+                           "chunk_device_s": (runs["b_fixed_live"]["chunk_device_s_sum"]
+                                              - runs["a2_fixed"]["chunk_device_s_sum"])}
+    out["launches"] = runs["c_adaptive"]["launches"]
+    out["launches_by_kernel"] = runs["c_adaptive"]["launches_by_kernel"]
+    emit(out)
+    return out
+
+
+def _small_problem(n, k, device, seed=7):
+    """The twin's adaptive integration problem on the card (q = 1, p = 2,
+    t = 5): uniform sites, normal covariates, coin-flip responses, a
+    random partition into ``k`` subsets."""
+    import numpy as np
+    import torch
+    from smk_torch.parallel.partition import random_partition, random_permutation
+
+    rng = np.random.default_rng(seed)
+    f = dict(dtype=torch.float32, device=device)
+    coords = torch.tensor(rng.uniform(size=(n, 2)), **f)
+    x = torch.tensor(rng.normal(size=(n, 1, 2)), **f)
+    y = torch.tensor(rng.integers(0, 2, size=(n, 1)), **f)
+    ct = torch.tensor(rng.uniform(size=(5, 2)), **f)
+    xt = torch.tensor(rng.normal(size=(5, 1, 2)), **f)
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED)
+    return random_partition(random_permutation(g, n, device), y, x, coords, k), ct, xt
+
+
+def fit_adaptive_small(device, tmp):
+    """The twin's adaptive integration problem on the card (n = 64,
+    K = 4, m = 16, two chains, 80 sweeps in chunks of 10, target_rhat
+    1.5, target_ess 8, patience 1, min 8, extra 0.5), and a second case
+    at K = 8, m = 200. Each: at least one freeze with strictly fewer
+    subset-chunks than the fixed schedule, an extra grant past n_kept,
+    launches equal to the dispatched chunks', a kill at the first freeze
+    boundary resumed from the checkpoint and the sidecar bitwise the
+    uninterrupted run; then the refusals (chunk_size, "overlap")."""
+    import os
+
+    import torch
+    from smk_torch import SMKConfig
+    from smk_torch.models import probit_gp as tp
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel import recovery as rec
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    knobs = dict(n_samples=80, burn_in_frac=0.5, live_diagnostics=True, adaptive_schedule="on",
+                 target_rhat=1.5, target_ess=8.0, adapt_patience=1, min_samples_before_stop=8,
+                 adapt_max_extra_frac=0.5, n_chains=2, fused_build="pallas")
+    out = {"phase": "fit_adaptive_small", "cases": {}}
+    total = dict.fromkeys(MAIN_PATH + ("fused_correlation",), 0)
+    for label, n, k in (("K4_m16", 64, 4), ("K8_m200", 1600, 8)):
+        cfg = SMKConfig(n_subsets=k, **knobs)
+        part, ct, xt = _small_problem(n, k, device)
+
+        def fit(**kw):
+            model = tp.SpatialGPSampler(cfg)
+            stats = ChunkPipelineStats()
+            noise = model.default_noise(rec.stacked_subset_data(part, ct, xt), seed=SEED)
+            res = rec.fit_subsets_chunked(model, part, ct, xt, noise, chunk_iters=10,
+                                          pipeline_stats=stats, **kw)
+            return res, stats
+
+        fb.reset_counts()
+        full, stats = fit()
+        launches = dict(fb.LAUNCHES)
+        want = dispatched_build_calls(cfg, 1, stats.chunks)
+        check(launches == want, f"adaptive small {label}: launches {launches} != {want}")
+        for key in total:
+            total[key] += launches[key]
+        ad = stats.adaptive
+        frozen = [f for f in ad["frozen_at"] if f >= 0]
+        case = {key: ad[key] for key in ("frozen_at", "kept_counts", "subset_chunks_dispatched",
+                                         "subset_chunks_baseline", "chunks_saved_frac",
+                                         "extra_granted", "n_frozen", "regroup_s")}
+        case["rungs"] = sorted({ch.get("kc") for ch in stats.chunks if "kc" in ch})
+        check(ad["n_frozen"] >= 1 and ad["subset_chunks_dispatched"]
+              < ad["subset_chunks_baseline"], f"adaptive small {label}: no saving {case}")
+        check(ad["extra_granted"] >= 1 and max(ad["kept_counts"]) > cfg.n_kept,
+              f"adaptive small {label}: no extra grant past n_kept {case}")
+        for f in ("param_grid", "w_grid"):
+            check(bool(torch.isfinite(getattr(full, f)).all()),
+                  f"adaptive small {label}: non-finite {f}")
+        first = min(frozen)
+        path = os.path.join(tmp, f"adapt_{label}.npz")
+        check(fit(checkpoint_path=path, stop_after_chunks=first // 10)[0] is None,
+              f"adaptive small {label}: the kill did not stop the fit")
+        resumed, rstats = fit(checkpoint_path=path)
+        same = {f: bool(torch.equal(getattr(resumed, f).nan_to_num(7.0),
+                                    getattr(full, f).nan_to_num(7.0)))
+                for f in ("param_grid", "w_grid", "param_samples", "w_samples",
+                          "phi_accept_rate")}
+        case["kill_at_first_freeze"] = {"after_chunks": first // 10, "bitwise": same}
+        check(all(same.values()) and rstats.adaptive["frozen_at"] == ad["frozen_at"],
+              f"adaptive small {label}: the resume differs {same}")
+        out["cases"][label] = case
+    check(min(out["cases"]["K8_m200"]["rungs"]) < 8,
+          f"adaptive small K8: no compaction below K = 8 {out['cases']['K8_m200']}")
+    refusals = {}
+    part, ct, xt = _small_problem(64, 4, device)
+    try:
+        rec.fit_subsets_chunked(tp.SpatialGPSampler(SMKConfig(n_subsets=4, **knobs)), part,
+                                ct, xt, chunk_iters=10, chunk_size=2)
+        refusals["chunk_size"] = None
+    except ValueError as e:
+        refusals["chunk_size"] = str(e)
+    try:
+        SMKConfig(n_subsets=4, chunk_pipeline="overlap", **knobs)
+        refusals["overlap"] = None
+    except ValueError as e:
+        refusals["overlap"] = str(e)
+    out["refusals"] = refusals
+    check(refusals["chunk_size"] is not None and "incompatible with chunk_size"
+          in refusals["chunk_size"], f"adaptive small: chunk_size not refused {refusals}")
+    check(refusals["overlap"] is not None and "chunk_pipeline='sync'" in refusals["overlap"],
+          f"adaptive small: overlap not refused {refusals}")
+    for f in os.listdir(tmp):
+        if f.startswith("adapt_"):
+            os.remove(os.path.join(tmp, f))
+    out["launches"] = total
+    out["launches_by_kernel"] = expected_by_kernel(total)
+    emit(out)
+    return out
+
+
+def fit_profile_config5(device, c5_data, tmp):
+    """config5, the production sampler, one chain, 32 sweeps in chunks of
+    8, first unprofiled and then with profile_chunks="1:3" through
+    fit_meta_kriging: a Chrome trace must exist; its device ops must
+    hold the symmetric build kernel, no more often than the window's
+    chunks launched it (probit_gp.chunk_build_calls; the count, its
+    share of the device time and its rank reported), and cuSOLVER's
+    potrf; the window's
+    device time (each chunk scope's device span) must agree within 25 %
+    with the CUDA-event times of the same chunks.
+    The profiler's overhead: those chunks' CUDA-event times profiled
+    against unprofiled."""
+    import os
+
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import chunk_build_calls
+    from smk_torch.obs import profiling
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    prof_dir = os.path.join(tmp, "profile")
+    a, b = (int(v) for v in PROFILE_WINDOW.split(":"))
+    out = {"phase": "fit_profile_config5", "n_samples": PROFILE_SAMPLES,
+           "chunk_iters": PROFILE_CHUNK, "profile_chunks": PROFILE_WINDOW}
+    secs = {}
+    for label, pdir in (("unprofiled", None), ("profiled", prof_dir)):
+        cfg = production_config(k=MAIN_K, n_samples=PROFILE_SAMPLES, phi_every=16,
+                                profile_dir=pdir, profile_chunks=PROFILE_WINDOW if pdir else None)
+        stats = ChunkPipelineStats()
+        fb.reset_counts()
+        start = time.perf_counter()
+        res = fit_meta_kriging(*c5_data, config=cfg, seed=SEED, device=device,
+                               chunk_iters=PROFILE_CHUNK, pipeline_stats=stats)
+        torch.cuda.synchronize()
+        launches = dict(fb.LAUNCHES)
+        want = dispatched_build_calls(cfg, 1, stats.chunks)
+        check(launches == want, f"profile config5 ({label}): launches {launches} != {want}")
+        check(bool(torch.isfinite(res.p_quant).all()), f"profile config5 ({label}): p_quant")
+        secs[label] = [ch["device_s"] for ch in stats.chunks]
+        out[label] = {"wall_s": time.perf_counter() - start, "chunk_device_s": secs[label],
+                      "launches": launches}
+        del res
+        torch.cuda.empty_cache()
+    summ = profiling.summarize_trace(prof_dir)
+    check(summ is not None, "profile config5: the window wrote no trace")
+    events = profiling.load_trace_events(summ["trace_path"])
+    totals = sorted(profiling.device_op_totals(events).items(), key=lambda kv: -kv[1])
+    device_names = [e["name"] for e in events if profiling._is_device(e)]
+    # the window's chunks' own symmetric launches, as the counted wrappers
+    # made them (the masked and shifted builds)
+    win = [ch for ch in stats.chunks if a <= ch["chunk"] < b]
+    want_sym = 0
+    for ch in win:
+        calls = chunk_build_calls(cfg, 1, "burn" if ch["phase"] == "burn" else "samp",
+                                  ch["iteration"] - ch["n_iters"], ch["n_iters"])
+        want_sym += expected_by_kernel(calls)["symmetric"]
+    n_sym = sum("fused_corr_sym_kernel" in n for n in device_names)
+    n_potrf = sum("potrf" in n.lower() for n in device_names)
+    sym_us = sum(us for n, us in totals if "fused_corr_sym_kernel" in n)
+    rank = {name: next((i + 1 for i, (n, _) in enumerate(totals) if key(n)), None)
+            for name, key in (("symmetric_kernel", lambda n: "fused_corr_sym_kernel" in n),
+                              ("potrf", lambda n: "potrf" in n.lower()))}
+    window_s = sum(secs["profiled"][a:b])
+    scopes = [s for s in summ["scopes"] if s["scope"].startswith("smk_chunk[")]
+    span_s = sum(s["span_us"] for s in scopes) / 1e6
+    busy_s = sum(s["busy_us"] for s in scopes) / 1e6
+    out["trace"] = {"path": os.path.basename(summ["trace_path"]),
+                    "bytes": os.path.getsize(summ["trace_path"]),
+                    "device_us_total": summ["device_us_total"], "top_ops_us": summ["top_ops_us"],
+                    "n_device_ops": summ["n_device_ops"], "scopes": scopes, "rank": rank,
+                    "symmetric_launches": {"trace": n_sym, "window_chunks": want_sym},
+                    "symmetric_share": sym_us / summ["device_us_total"],
+                    "potrf_launches": n_potrf,
+                    "window_device_span_s": span_s, "window_device_busy_s": busy_s,
+                    "window_cuda_event_s": window_s,
+                    "span_vs_events": span_s / window_s - 1.0,
+                    "device_idle_share": 1.0 - busy_s / span_s if span_s else None}
+    out["profiler_overhead"] = {
+        "chunks": PROFILE_WINDOW, "profiled_s": window_s,
+        "unprofiled_s": sum(secs["unprofiled"][a:b]),
+        "frac": window_s / sum(secs["unprofiled"][a:b]) - 1.0}
+    # the profiler may drop a device event at its window's edge (4 of the
+    # 5 in one run), never add one: the trace holds at least one and at
+    # most the launches the counted wrappers made in the window
+    check(0 < n_sym <= want_sym,
+          f"profile config5: {n_sym} symmetric kernels in the trace, the window's chunks "
+          f"launched {want_sym}")
+    check(n_potrf > 0, f"profile config5: no potrf among the device ops {totals[:40]}")
+    check(len(scopes) == b - a, f"profile config5: chunk scopes {[s['scope'] for s in scopes]}")
+    check(abs(span_s / window_s - 1.0) <= PROFILE_AGREE,
+          f"profile config5: trace {span_s} s vs CUDA events {window_s} s")
+    out["launches"] = out["profiled"]["launches"]
+    out["launches_by_kernel"] = expected_by_kernel(out["launches"])
+    emit(out)
+    return out
+
 
 def main() -> int:
     try:
@@ -2970,6 +3629,9 @@ def main() -> int:
                      p4["ms_per_sweep"])
         ov5 = phase("fit_overlap_config5", fit_overlap_config5, device, c5_data, tmp)
         ovs = phase("fit_overlap_small_faults", fit_overlap_small_faults, device, tmp)
+        ad5 = phase("fit_adaptive_config5", fit_adaptive_config5, device, c5_data, tmp)
+        ads = phase("fit_adaptive_small", fit_adaptive_small, device, tmp)
+        pr5 = phase("fit_profile_config5", fit_profile_config5, device, c5_data, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "wall_s_by_phase", **walls, "total_s": time.perf_counter() - script_start})
@@ -2978,7 +3640,9 @@ def main() -> int:
              "fit_production_config4_chains": p4c, "fit_config5_float64": c5f64,
              "fit_vecchia_config5": v5, "fit_vecchia_m_large": vm,
              "fit_chunked_small": chs, "fit_chunked_config5": cc5, "fit_coherent_config4": coh4,
-             "fit_overlap_config5": ov5, "fit_overlap_small_faults": ovs}
+             "fit_overlap_config5": ov5, "fit_overlap_small_faults": ovs,
+             "fit_adaptive_config5": ad5, "fit_adaptive_small": ads,
+             "fit_profile_config5": pr5}
 
     f64_time = f64["main_path"]
     f64_kernels = (("symmetric kernel, float64", "symmetric_f64", "fused_masked_correlation_stack"),

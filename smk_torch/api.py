@@ -32,6 +32,7 @@ from smk_torch.models.probit_gp import (
     subset_generators,
     sweep_shapes,
 )
+from smk_torch.obs.events import open_run_log
 from smk_torch.ops.glm import glm_warm_start
 from smk_torch.ops.quantiles import (
     credible_summary,
@@ -56,8 +57,12 @@ class MetaKrigingResult(NamedTuple):
     """Everything the reference script materializes, plus diagnostics —
     the twin's fields (see smk_tpu/api.py). ``subsets_dropped`` and
     ``domains_dropped`` name what quarantine dropped, ``pad_waste_frac``
-    is 0.0 on a ragged (coherent) fit off the mesh; the run log's and
-    the adaptive schedule's fields (ROADMAP A8c) keep their defaults."""
+    is 0.0 on a ragged (coherent) fit off the mesh, ``run_log_path``
+    names the fit's run log (``config.run_log_dir``), and under
+    ``config.adaptive_schedule="on"`` ``frozen_at`` holds each subset's
+    freeze iteration (-1 where it ran to the end) and
+    ``chunks_saved_frac`` the share of the fixed schedule's subset-chunks
+    the run did not dispatch."""
 
     param_grid: torch.Tensor
     w_grid: torch.Tensor
@@ -296,24 +301,63 @@ def fit_meta_kriging(
     are bitwise the sync loop's), and ``config.watchdog`` puts each chunk
     and boundary under a deadline (a hang raises
     parallel.domains.ChunkTimeoutError). Neither implies chunking.
+
+    Telemetry (smk_torch/obs), observational all of it (the draws are
+    bitwise the same armed or not):
+
+    - ``config.run_log_dir``: one JSONL run log per fit, every phase a
+      span and every chunk, fault, checkpoint write and live-diagnostics
+      read an event (``python -m smk_torch.obs summarize <log>``); its
+      path is ``result.run_log_path``;
+    - ``config.live_diagnostics``: the streaming split-R-hat and ESS at
+      each chunk boundary (``live_rhat_max`` / ``live_ess_min`` in the
+      progress dict); implies chunking;
+    - ``config.profile_dir`` / ``profile_chunks``: a torch.profiler
+      window over a chunk range (or ``SMK_PROFILE_DIR`` /
+      ``SMK_PROFILE_CHUNKS``).
+
+    ``config.adaptive_schedule="on"`` (with live diagnostics and the
+    sync pipeline) freezes converged subsets, compacts the batch and
+    spends the saved sweeps on the stragglers
+    (parallel/schedule.py); ``result.frozen_at`` and
+    ``chunks_saved_frac`` report it.
     """
     cfg = config or SMKConfig()
     check_ported(cfg)
     dev = resolve_device(device)
-    chunked = dict(chunk_iters=chunk_iters or checkpoint_every,
-                   checkpoint_path=checkpoint_path, progress=progress,
-                   nan_guard=nan_guard, pipeline_stats=pipeline_stats)
     asked = (checkpoint_path is not None or chunk_iters is not None
              or progress is not None or nan_guard)
-    with matmul_precision(cfg.matmul_precision, dev):
-        return _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev,
-                    chunk_size, chunked, asked)
+    run_log = None
+    if cfg.run_log_dir:
+        run_log = open_run_log(cfg.run_log_dir, name="fit_meta_kriging", meta={
+            "n": int(y.shape[0]) if hasattr(y, "shape") else None,
+            "n_subsets": cfg.n_subsets, "n_samples": cfg.n_samples,
+            "cov_model": cfg.cov_model, "link": cfg.link})
+    pstats = pipeline_stats
+    if pstats is None and (run_log is not None or cfg.live_diagnostics):
+        # an internal sink: the chunk events reach the run log through it
+        pstats = ChunkPipelineStats()
+    if run_log is not None:
+        pstats.run_log = run_log
+    chunked = dict(chunk_iters=chunk_iters or checkpoint_every,
+                   checkpoint_path=checkpoint_path, progress=progress,
+                   nan_guard=nan_guard, pipeline_stats=pstats)
+    try:
+        with matmul_precision(cfg.matmul_precision, dev), (
+                run_log.span("fit_meta_kriging") if run_log is not None
+                else contextlib.nullcontext()):
+            return _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev,
+                        chunk_size, chunked, asked, run_log)
+    finally:
+        if run_log is not None:
+            run_log.close(pipeline=pstats.aggregate())
 
 
 def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, chunk_size,
-         chunked, asked):
+         chunked, asked, run_log):
     """``chunked``: the chunked executor's arguments; ``asked``: whether
-    the caller set one of them."""
+    the caller set one of them; ``run_log``: the fit's run log or
+    None."""
     dt = torch.float64 if cfg.dtype == "float64" else torch.float32
     y, x, coords, coords_test, x_test = (
         _as_tensor(a, dt, dev) for a in (y, x, coords, coords_test, x_test)
@@ -346,7 +390,7 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
     rng = randomness if randomness is not None else TorchRandomness(seed, dev, dt)
     times = PhaseTimes()
 
-    with phase_timer(times, "partition", dev):
+    with phase_timer(times, "partition", dev, log=run_log):
         if cfg.partition_method == "coherent":
             part = coherent_partition(y, x, coords, cfg.n_subsets, ladder=cfg.bucket_ladder)
         else:
@@ -355,7 +399,7 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
             )
     ragged = isinstance(part, PaddedPartition)
 
-    with phase_timer(times, "warm_start", dev):
+    with phase_timer(times, "warm_start", dev, log=run_log):
         y_long, x_long = stacked_design(y, x)
         beta_init = glm_warm_start(
             y_long, x_long, weight=weight, link=cfg.link
@@ -364,9 +408,10 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
     model = SpatialGPSampler(cfg, weight=weight)
     m = max(part.buckets) if ragged else part.subset_size
     shapes = sweep_shapes(cfg, part.n_subsets, m, q, p, coords_test.shape[0], weight)
-    with phase_timer(times, "subset_fits", dev):
-        # quarantine and ragged partitions live in the chunked executor too
-        if asked or cfg.fault_policy == "quarantine" or ragged:
+    with phase_timer(times, "subset_fits", dev, log=run_log):
+        # quarantine, ragged partitions and the streaming monitor live in
+        # the chunked executor too
+        if asked or cfg.fault_policy == "quarantine" or ragged or cfg.live_diagnostics:
             results = fit_subsets_chunked(
                 model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init,
                 chunk_size=chunk_size, **chunked,
@@ -394,11 +439,11 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
             if not survival_mask[dmap.subsets_of(d)].any()
         )
 
-    with phase_timer(times, "combine", dev):
+    with phase_timer(times, "combine", dev, log=run_log):
         param_grid, w_grid = combine(results.param_grid, results.w_grid, cfg,
                                      survival_mask, domain_of_subset)
 
-    with phase_timer(times, "resample_predict", dev):
+    with phase_timer(times, "resample_predict", dev, log=run_log):
         n_grid = int(round((1.0 - 1.0 / cfg.n_quantiles) / cfg.interp_grid_step)) + 1
         index = rng.resample_index(cfg.resample_size, n_grid).to(dev)
         (sample_par, sample_w, p_samples, param_quant, w_quant,
@@ -406,6 +451,8 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
 
     secs = times.as_dict()
     fit_s = secs.get("subset_fits", 0.0)
+    pstats = chunked["pipeline_stats"]
+    adaptive = getattr(pstats, "adaptive", None) if pstats is not None else None
     ess_total = float(torch.sum(torch.nan_to_num(results.w_ess, nan=0.0)))
     return MetaKrigingResult(
         param_grid=param_grid,
@@ -427,4 +474,7 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
         subsets_dropped=subsets_dropped,
         domains_dropped=domains_dropped,
         pad_waste_frac=0.0 if ragged else None,
+        run_log_path=run_log.path if run_log is not None else None,
+        frozen_at=(tuple(adaptive["frozen_at"]) if adaptive else None),
+        chunks_saved_frac=(adaptive["chunks_saved_frac"] if adaptive else None),
     )

@@ -10,6 +10,10 @@ Consecutive rungs differ by ~41 % (integer rounding stretches the worst
 small-rung gap to 16/11), so a subset's pad rows stay below ~0.46 of
 its real rows, and [min_bucket, max] needs only 2·log2(max/min) rungs.
 A size that is a rung takes its exact-size bucket, with no pad rows.
+
+The same ladder over the subset axis (:func:`k_ladder`,
+:func:`compaction_rung`) sizes the adaptive schedule's compacted
+dispatch groups (parallel/schedule.py).
 """
 
 from __future__ import annotations
@@ -112,3 +116,45 @@ def pad_accounting(sizes: Sequence[int], buckets: Sequence[int]) -> Dict[str, ob
         "pad_frac": round((padded - real) / padded, 6) if padded else 0.0,
         "occupied_buckets": sorted({int(b) for b in buckets}),
     }
+
+
+def k_ladder(max_k: int) -> Tuple[int, ...]:
+    """The K-axis compaction ladder of the adaptive schedule: √2 rungs
+    from one subset up to the run's K, the top rung clamped to K, so the
+    uncompacted dispatch group is always a rung (the twin's
+    ``k_ladder``)."""
+    rungs = [min(int(r), int(max_k)) for r in bucket_ladder(max_k, min_bucket=1)]
+    out: List[int] = []
+    for r in rungs:
+        if not out or r > out[-1]:
+            out.append(r)
+    return tuple(out)
+
+
+def compaction_rung(n_active: int, k: int, n_devices: int = 1) -> int:
+    """Dispatch-group size for ``n_active`` live subsets of a K-subset
+    adaptive run: the smallest :func:`k_ladder` rung holding them,
+    rounded up to a multiple of ``n_devices`` and capped at K. The gap
+    ``rung - n_active`` is padded with clones of the first live subset,
+    whose draws the executor drops."""
+    if not 1 <= n_active <= k:
+        raise ValueError(f"n_active must be in [1, {k}], got {n_active}")
+    if n_devices < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    if k % n_devices != 0:
+        raise ValueError(
+            f"K={k} not divisible by n_devices={n_devices} — the "
+            "uncompacted run would already violate the layout oracle"
+        )
+    rung = bucket_for(n_active, k_ladder(k))
+    return min(ceil_to_multiple(rung, n_devices), k)
+
+
+def ceil_to_multiple(n: int, multiple: int) -> int:
+    """``n`` rounded up to a multiple of ``multiple``."""
+    if n < 0 or multiple < 1:
+        raise ValueError(
+            f"ceil_to_multiple needs n >= 0 and multiple >= 1, got "
+            f"n={n}, multiple={multiple}"
+        )
+    return ((n + multiple - 1) // multiple) * multiple

@@ -281,14 +281,20 @@ class SMKConfig:
         if self.adaptive_schedule != "off":
             if not self.live_diagnostics:
                 raise ValueError(
-                    "adaptive_schedule='on' requires live_diagnostics=True"
+                    "adaptive_schedule='on' requires live_diagnostics=True — freeze "
+                    "decisions are pure functions of the streaming boundary "
+                    "diagnostics (parallel/schedule.py)"
                 )
             if self.chunk_pipeline != "sync":
                 raise ValueError(
-                    "adaptive_schedule='on' requires chunk_pipeline='sync'"
+                    "adaptive_schedule='on' requires chunk_pipeline='sync' — schedule "
+                    "decisions and active-set compaction happen with the device idle "
+                    "at the committed boundary"
                 )
         if self.target_rhat <= 1.0:
-            raise ValueError("target_rhat must be > 1")
+            raise ValueError(
+                "target_rhat must be > 1 (split-R-hat converges to 1 from above)"
+            )
         if self.target_ess < 0:
             raise ValueError("target_ess must be >= 0")
         if self.adapt_patience < 1:
@@ -431,13 +437,6 @@ class SMKConfig:
 # (knob, predicate on the config, ROADMAP item that ports it). Checked
 # in this order by check_ported; the first hit raises.
 _UNPORTED = (
-    # the chunked executor's last knobs (parallel/recovery.py ports the
-    # sync and overlap loops, the checkpoint, quarantine, the watchdog
-    # and the host ragged fan-out)
-    ("adaptive_schedule='on'", lambda c: c.adaptive_schedule != "off", "A8c"),
-    ("live_diagnostics", lambda c: c.live_diagnostics, "A8c"),
-    ("run_log_dir", lambda c: bool(c.run_log_dir), "A8c"),
-    ("profile_dir", lambda c: bool(c.profile_dir), "A8c"),
     ("compile_store_dir", lambda c: c.compile_store_dir is not None, "A10"),
     ("xla_cache_dir", lambda c: c.xla_cache_dir is not None, "A10"),
     ("coalesce_window_ms>0", lambda c: c.coalesce_window_ms > 0, "A11"),

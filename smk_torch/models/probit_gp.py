@@ -79,7 +79,7 @@ from smk_torch.ops.fused_build import (
 )
 from smk_torch.ops.kernels import correlation
 from smk_torch.ops.polya_gamma import gamma_draws, sample_pg
-from smk_torch.ops.quantiles import quantile_grid
+from smk_torch.ops.quantiles import masked_quantile_grid, quantile_grid
 from smk_torch.ops.truncnorm import _TINY, sample_albert_chib_latent
 from smk_torch.ops.vecchia import (
     build_neighbor_consts,
@@ -90,7 +90,12 @@ from smk_torch.ops.vecchia import (
     vecchia_loglik,
     vecchia_posterior_draw,
 )
-from smk_torch.utils.diagnostics import effective_sample_size, rhat
+from smk_torch.utils.diagnostics import (
+    effective_sample_size,
+    masked_effective_sample_size,
+    masked_rhat,
+    rhat,
+)
 
 
 class SubsetData(NamedTuple):
@@ -434,64 +439,70 @@ def n_params(q: int, p: int) -> int:
     return q * p + q * (q + 1) // 2 + q
 
 
-def build_calls(cfg: SMKConfig, q: int, n_sweeps: int, n_burn: int,
-                chunk_iters: Optional[int] = None) -> dict:
-    """Calls per fused-build entry point of a fused run of the sampler:
-    init, a burn-in scan of sweeps [0, n_burn) and a collecting scan of
-    [n_burn, n_sweeps), each scan entered with _solve_cache. With
-    ``chunk_iters`` each scan runs as chunks of that many sweeps (the
-    chunked executor's plan, parallel/recovery.py), and each chunk is a
-    scan entry: the cache is rebuilt from the state at every chunk
-    start, as the twin's burn_chunk and sample_chunk do.
+def chunk_build_calls(cfg: SMKConfig, q: int, kind: str, start: int, n: int) -> dict:
+    """Calls per fused-build entry point of one scan entry of the
+    sampler, sweeps [start, start + n) at whatever batch: a burn-in
+    chunk (``kind="burn"``) or a collecting one (any other kind). The
+    cache is built from the state at entry, as the twin's burn_chunk and
+    sample_chunk do.
 
-    - masked stack: R~ at init; the CG operator at each scan entry
-      (u_solver="cg"); per update sweep the conditional proposal stack
-      (one call) or the collapsed accept side (one per component: a
-      select over K, so built whether or not a subset accepts); R~ for
-      the back-multiply of a threaded S-factor (thread_s), every sweep;
+    - masked stack: the CG operator at entry (u_solver="cg"); per update
+      sweep the conditional proposal stack (one call) or the collapsed
+      accept side (one per component: a select over K, so built whether
+      or not a subset accepts); R~ for the back-multiply of a threaded
+      S-factor (thread_s), every sweep;
     - shifted build: S_cur and S_prop per component per collapsed
       update (multiple-try: the (J+1)-deep forward stack and the
       (J-1)-deep reverse stack, one call each, so the count is the
       same); the Cholesky u-draw's S per component per sweep, except
       where the collapsed block hands it over (thread_s on update
       sweeps);
-    - kriging cross and test builds: the cache at the collecting entry
-      and the proposal's operators per collecting update sweep (one
-      call, or one per component when collapsed); without the cache,
-      one per collecting sweep.
+    - kriging cross and test builds, collecting only: the cache at entry
+      and the proposal's operators per update sweep (one call, or one
+      per component when collapsed); without the cache, one per sweep.
 
     Chains change nothing here: they widen every call's batch. The
     Vecchia engine builds no (m, m) matrix, so it calls none.
     """
-    if cfg.subset_engine == "vecchia":
-        return dict.fromkeys(
-            ("fused_correlation", "fused_masked_correlation_stack",
-             "fused_masked_shifted_build", "fused_cross_correlation",
-             "fused_correlation_stack"), 0)
+    out = dict.fromkeys(
+        ("fused_correlation", "fused_masked_correlation_stack",
+         "fused_masked_shifted_build", "fused_cross_correlation",
+         "fused_correlation_stack"), 0)
+    if cfg.subset_engine == "vecchia" or n <= 0:
+        return out
     collapsed = cfg.phi_sampler == "collapsed"
     cg = cfg.u_solver == "cg"
     thread_s = cfg.factor_reuse and collapsed and not cg
-    n_upd = sum(1 for it in range(n_sweeps) if it % cfg.phi_update_every == 0)
-    n_kept = n_sweeps - n_burn
-    kept_upd = sum(1 for it in range(n_burn, n_sweeps) if it % cfg.phi_update_every == 0)
-    if chunk_iters is None:
-        burn_entries, kept_entries = int(n_burn > 0), int(n_kept > 0)
-    else:
-        burn_entries, kept_entries = -(-n_burn // chunk_iters), -(-n_kept // chunk_iters)
+    upd = sum(1 for it in range(start, start + n) if it % cfg.phi_update_every == 0)
     per_update = q if collapsed else 1
-    stack = 1 + ((burn_entries + kept_entries) if cg else 0) + per_update * n_upd
-    stack += q * n_sweeps if thread_s else 0
-    shifted = 2 * q * n_upd if collapsed else 0
+    out["fused_masked_correlation_stack"] = int(cg) + per_update * upd + (q * n if thread_s else 0)
+    shifted = 2 * q * upd if collapsed else 0
     if not cg:
-        shifted += q * (n_sweeps - (n_upd if thread_s else 0))
-    krige = (kept_entries + per_update * kept_upd) if cfg.krige_cache else n_kept
-    return {
-        "fused_correlation": 0,
-        "fused_masked_correlation_stack": stack,
-        "fused_masked_shifted_build": shifted,
-        "fused_cross_correlation": krige,
-        "fused_correlation_stack": krige,
-    }
+        shifted += q * (n - (upd if thread_s else 0))
+    out["fused_masked_shifted_build"] = shifted
+    if kind != "burn":
+        krige = (1 + per_update * upd) if cfg.krige_cache else n
+        out["fused_cross_correlation"] = out["fused_correlation_stack"] = krige
+    return out
+
+
+def build_calls(cfg: SMKConfig, q: int, n_sweeps: int, n_burn: int,
+                chunk_iters: Optional[int] = None) -> dict:
+    """Calls per fused-build entry point of a fused run of the sampler:
+    R~ at init, then a burn-in scan of sweeps [0, n_burn) and a
+    collecting scan of [n_burn, n_sweeps), each a scan entry
+    (chunk_build_calls). With ``chunk_iters`` each scan runs as chunks
+    of that many sweeps (the chunked executor's plan,
+    parallel/recovery.py), and each chunk is a scan entry."""
+    out = chunk_build_calls(cfg, q, "burn", 0, 0)
+    if cfg.subset_engine != "vecchia":
+        out["fused_masked_correlation_stack"] = 1  # R~ at init
+    for kind, lo, hi in (("burn", 0, n_burn), ("samp", n_burn, n_sweeps)):
+        step = (hi - lo) if chunk_iters is None else chunk_iters
+        for a in range(lo, hi, max(step, 1)):
+            for key, v in chunk_build_calls(cfg, q, kind, a, min(step, hi - a)).items():
+                out[key] += v
+    return out
 
 
 def _pad_identity(r: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -1341,4 +1352,44 @@ class SpatialGPSampler:
             param_rhat=rhat(chains_p),
             w_ess=torch.sum(effective_sample_size(chains_w, dim=2), dim=1),
             w_rhat=rhat(chains_w),
+        )
+
+    def finalize_masked(self, state, param_draws, w_draws, row_mask, it_end) -> SubsetResult:
+        """:meth:`finalize` over capacity-padded draw buffers (the
+        adaptive schedule's; twin of ``finalize_masked``): ``row_mask``
+        (K, n_cap) is true where a subset's rows hold draws (shared by
+        its chains, which advance together) and ``it_end`` (K,) the
+        global iteration at which each subset left the dispatch group,
+        which sets its phi-acceptance divisor. Only ``state.phi_accept``
+        is read. ``param_samples`` and ``w_samples`` come back at
+        capacity, invalid rows zeroed."""
+        cfg = self.config
+        c = cfg.n_chains
+        e = cfg.phi_update_every
+        kc, n = param_draws.shape[:2]
+        k = kc // c
+        dev = param_draws.device
+        row_mask = torch.as_tensor(np.asarray(row_mask, bool), device=dev)
+        ends = np.asarray(it_end, np.int64)
+        n_upd = np.maximum((ends + e - 1) // e - (cfg.n_burn_in + e - 1) // e, 1)
+        chains_p = param_draws.reshape(k, c, n, -1)
+        chains_w = w_draws.reshape(k, c, n, -1)
+        dt = param_draws.dtype
+        pooled_mask = row_mask.repeat(1, c)  # chain-major pooling
+        pooled_p = chains_p.reshape(k, c * n, -1) * pooled_mask[..., None].to(dt)
+        pooled_w = chains_w.reshape(k, c * n, -1) * pooled_mask[..., None].to(dt)
+        accept = state.phi_accept.to(dev)
+        div = torch.as_tensor(np.repeat(n_upd, c), dtype=accept.dtype, device=dev)
+        accept = accept / div[:, None]
+        chain_mask = row_mask[:, None, :]
+        return SubsetResult(
+            param_grid=masked_quantile_grid(pooled_p, pooled_mask, cfg.n_quantiles),
+            w_grid=masked_quantile_grid(pooled_w, pooled_mask, cfg.n_quantiles),
+            phi_accept_rate=torch.mean(accept.reshape(k, c, -1), dim=1),
+            param_samples=pooled_p,
+            w_samples=pooled_w,
+            param_ess=torch.sum(masked_effective_sample_size(chains_p, chain_mask), dim=1),
+            param_rhat=masked_rhat(chains_p, row_mask),
+            w_ess=torch.sum(masked_effective_sample_size(chains_w, chain_mask), dim=1),
+            w_rhat=masked_rhat(chains_w, row_mask),
         )

@@ -113,3 +113,28 @@ def credible_summary(samples: torch.Tensor) -> torch.Tensor:
         [0.5, 0.025, 0.975], dtype=samples.dtype, device=samples.device
     )
     return _type7(samples, probs, 0)
+
+
+def masked_quantile_grid(samples: torch.Tensor, mask: torch.Tensor,
+                         n_quantiles: int = 200) -> torch.Tensor:
+    """:func:`quantile_grid` over the valid rows of a capacity buffer
+    (the adaptive schedule's partly filled draws): ``samples`` (..., n,
+    d), ``mask`` (..., n) true where a row holds a draw. Invalid rows
+    sort to +inf, and the type-7 index h = p (count - 1) is gathered
+    from the valid prefix; with an all-valid mask this is the linear
+    quantile exactly (the twin's ``masked_quantile_grid``)."""
+    dt = samples.dtype
+    mk = mask.to(torch.bool)
+    cnt_i = torch.clamp(torch.sum(mk.to(torch.int64), dim=-1), min=1)  # (...,)
+    cnt = cnt_i.to(dt)
+    x = torch.where(mk[..., None], samples, torch.full_like(samples, float("inf")))
+    s = torch.sort(x, dim=-2).values
+    probs = quantile_probs(n_quantiles, dt, samples.device)
+    h = probs * (cnt[..., None] - 1.0)  # (..., n_q)
+    lo = torch.floor(h).to(torch.int64)
+    hi = torch.minimum(lo + 1, cnt_i[..., None] - 1)  # never read the +inf tail
+    frac = (h - lo.to(dt))[..., None]
+    d = samples.shape[-1]
+    lo_v = torch.gather(s, -2, lo[..., None].expand(*lo.shape, d))
+    hi_v = torch.gather(s, -2, hi[..., None].expand(*hi.shape, d))
+    return lo_v + frac * (hi_v - lo_v)

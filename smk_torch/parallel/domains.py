@@ -166,12 +166,14 @@ class ChunkWatchdog:
     It only observes: ``fn`` runs the same work in the same order, and
     its exceptions (the quarantine's rewind included) pass through. The
     caller makes ``fn`` carry its CUDA device, stream and grad mode to
-    the worker (in torch all three are per thread). The twin's run-log
-    events ("armed", "fired") come with the run log (ROADMAP A8c).
+    the worker (in torch all three are per thread). With ``run_log``
+    (an obs/events.RunLog) it writes a ``watchdog`` event when the first
+    deadline arms (``action="armed"``) and at each overrun
+    (``action="fired"``), as the twin does.
     """
 
     def __init__(self, domain_map: FailureDomainMap, *, min_deadline_s: float = 60.0,
-                 margin: float = 10.0):
+                 margin: float = 10.0, run_log=None):
         if min_deadline_s <= 0:
             raise ValueError("min_deadline_s must be > 0")
         if margin < 1.0:
@@ -182,8 +184,10 @@ class ChunkWatchdog:
         self.domain_map = domain_map
         self.min_deadline_s = float(min_deadline_s)
         self.margin = float(margin)
+        self.run_log = run_log
         self.fired = 0
         self._walls: list = []
+        self._armed_logged = False
 
     def observe(self, wall_s: float) -> None:
         self._walls.append(float(wall_s))
@@ -202,6 +206,14 @@ class ChunkWatchdog:
             return None
         return max(self.min_deadline_s, self.margin * est)
 
+    def _event(self, **attrs) -> None:
+        if self.run_log is None:
+            return
+        try:
+            self.run_log.event("watchdog", **attrs)
+        except Exception:
+            self.run_log = None
+
     def run(self, fn, *, chunk: int = -1, iteration: int = -1,
             deadline_s: Optional[float] = None):
         """``fn()`` under the current deadline (or ``deadline_s``):
@@ -213,6 +225,10 @@ class ChunkWatchdog:
             out = fn()
             self.observe(monotonic() - t0)
             return out
+        if not self._armed_logged:
+            self._armed_logged = True
+            self._event(action="armed", chunk=int(chunk), deadline_s=round(deadline, 3),
+                        n_domains=self.domain_map.n_domains)
         box = {}
         done = threading.Event()
 
@@ -230,6 +246,8 @@ class ChunkWatchdog:
         if not done.wait(timeout=deadline):
             self.fired += 1
             domains = list(range(self.domain_map.n_domains))
+            self._event(action="fired", chunk=int(chunk), iteration=int(iteration),
+                        deadline_s=round(deadline, 3), domains=domains)
             raise ChunkTimeoutError(chunk, iteration, deadline, domains,
                                     [self.domain_map.labels[d] for d in domains])
         self.observe(box["wall"])

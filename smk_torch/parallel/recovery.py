@@ -30,18 +30,36 @@ the carried state, then guards, reports and checkpoints:
   extending the chain (lenient resume); ``"abort"`` rejects it;
 - ``watchdog=True`` runs each chunk and each boundary under a deadline
   (parallel/domains.ChunkWatchdog): a hang becomes a typed
-  ``ChunkTimeoutError``.
+  ``ChunkTimeoutError``;
+- ``live_diagnostics=True`` folds each sampling chunk's kept draws into
+  the streaming monitor (obs/streaming.py) on the device; its (K,)
+  ``rhat_max`` and ``ess_min`` ride in the boundary's one copy to the
+  host and reach the progress callback, the chunk records and the run
+  log. A quarantine rewind rewinds the monitor too;
+- ``adaptive_schedule="on"`` consults parallel/schedule.AdaptiveScheduler
+  at each committed sampling boundary: converged subsets freeze, the
+  batch compacts onto a smaller rung of the K ladder, and the saved
+  slots buy extra chunks for the stragglers. Its state is the ``sched``
+  sidecar, written before each manifest, so a kill resumes the same
+  schedule bitwise; the finalize is masked (models/probit_gp
+  ``finalize_masked``);
+- ``run_log_dir`` writes the fit's run log (obs/events.py): spans for
+  the chunk loop and the finalize, and events for the plan, the chunks,
+  the faults, the checkpoint writes, the watchdog, the live diagnostics,
+  the compactions and the profiler window;
+- ``profile_dir`` / ``profile_chunks`` open one ``torch.profiler``
+  window over a chunk range (obs/profiling.py).
 
 The twin carries its PRNG key in the chain state; here randomness
 comes from a noise source (models/probit_gp.NoiseSource), which the
 executor snapshots, restores and forks. A ``PaddedPartition`` runs
 through the host ragged fan-out, one ordinary chunked fit per occupied
-bucket. The adaptive schedule, the streaming monitor, the run log and
-profiling are ROADMAP A8c; the mesh is A9.
+bucket. The mesh is ROADMAP A9.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -60,20 +78,34 @@ from smk_torch.models.probit_gp import (
     SpatialGPSampler,
     SubsetData,
     SubsetResult,
+    SweepNoise,
     n_params,
     subset_generators,
     sweep_shapes,
 )
+from smk_torch.obs.events import open_run_log
+from smk_torch.obs.memory import device_memory_stats
+from smk_torch.obs.profiling import ProfilerCapture, chunk_scope
+from smk_torch.obs.streaming import (
+    init_stream,
+    make_stream_stats,
+    make_stream_update,
+    make_stream_update_masked,
+)
 from smk_torch.parallel.domains import ChunkWatchdog, FailureDomainMap
 from smk_torch.parallel.executor import stacked_subset_data
 from smk_torch.parallel.partition import PaddedPartition, Partition
+from smk_torch.parallel.schedule import AdaptiveScheduler
 from smk_torch.utils.checkpoint import (
     BackgroundWriter,
     load_pytree,
     load_segment,
+    load_sidecar,
     save_pytree,
     save_segment,
+    save_sidecar,
     segment_path,
+    sidecar_path,
 )
 from smk_torch.utils.tracing import ChunkPipelineStats, monotonic
 
@@ -302,6 +334,72 @@ def _device_state(host: _HostState, device) -> SamplerState:
         for a, p in zip(host.arrays, host.layout)))
 
 
+def _row_axis(perm) -> int:
+    """The memory-order axis of a host leaf that holds its batch rows
+    (logical dim 0)."""
+    return int(np.flatnonzero(np.asarray(perm) == 0)[0])
+
+
+def _logical(arr: np.ndarray, perm) -> torch.Tensor:
+    """A host leaf in memory order as a tensor in logical order."""
+    return torch.from_numpy(np.asarray(arr)).permute(*np.argsort(perm).tolist())
+
+
+def _relayout(arr: np.ndarray, src_perm, dst_perm) -> np.ndarray:
+    """A host leaf in memory order ``src_perm`` re-laid in ``dst_perm``."""
+    if np.array_equal(src_perm, dst_perm):
+        return arr
+    return _logical(arr, src_perm).permute(*np.asarray(dst_perm).tolist()).contiguous().numpy()
+
+
+def _merge_rows(full: _HostState, part: _HostState, rows) -> None:
+    """Write the first ``len(rows)`` batch rows of ``part`` (a group's
+    host state) into rows ``rows`` of ``full`` (the host mirror), each
+    leaf re-laid to the mirror's memory order."""
+    rows = np.asarray(rows, np.int64)
+    for dst_leaf, src_leaf, fp, pp in zip(full.arrays, part.arrays, full.layout, part.layout):
+        src_leaf = _relayout(src_leaf, pp, fp)
+        ax = _row_axis(fp)
+        dst = [slice(None)] * dst_leaf.ndim
+        dst[ax] = rows
+        src = [slice(None)] * src_leaf.ndim
+        src[ax] = slice(0, len(rows))
+        dst_leaf[tuple(dst)] = src_leaf[tuple(src)]
+
+
+class _PaddedNoise:
+    """The noise of an adaptive dispatch group: its members' rows of the
+    source (``base``) followed by ``n_pad`` pad rows, each pad of C rows
+    fed the first member's numbers (a pad is a clone of that member, as
+    the twin's pad carries a clone of its key). Snapshots, restores and
+    forks act on the members' rows."""
+
+    def __init__(self, base, n_pad: int, n_chains: int):
+        self.base = base
+        self.n_pad = int(n_pad)
+        self.c = int(n_chains)
+
+    def __call__(self, it: int, collect: bool) -> SweepNoise:
+        nz = self.base(it, collect)
+        if not self.n_pad:
+            return nz
+        reps = self.n_pad // self.c
+        return SweepNoise(*(
+            None if f is None
+            else torch.cat([f, f[:self.c].repeat(reps, *([1] * (f.dim() - 1)))])
+            for f in nz))
+
+    def snapshot(self):
+        return self.base.snapshot()
+
+    def restore(self, snap) -> None:
+        self.base.restore(snap)
+
+    def fork(self, mask, attempts) -> None:
+        n = len(np.asarray(mask)) - self.n_pad
+        self.base.fork(np.asarray(mask)[:n], np.asarray(attempts)[:n])
+
+
 def _to_host_async(t: torch.Tensor):
     """(host copy, event): on the card the copy into pinned memory is
     queued without blocking and ``event`` marks where the stream stands
@@ -313,12 +411,12 @@ def _to_host_async(t: torch.Tensor):
     return host, _record_event(t.device)
 
 
-def _record_event(device: torch.device):
+def _record_event(device: torch.device, timing: bool = False):
     """A CUDA event recorded on ``device``'s current stream (None on the
-    CPU)."""
+    CPU); ``timing``: one that ``elapsed_time`` can read."""
     if device.type != "cuda":
         return None
-    ev = torch.cuda.Event()
+    ev = torch.cuda.Event(enable_timing=timing)
     ev.record(torch.cuda.current_stream(device))
     return ev
 
@@ -715,9 +813,12 @@ def fit_subsets_chunked(
     ``model.config.fault_policy="quarantine"`` turns the guard into the
     fault-isolation engine and makes resume lenient,
     ``chunk_pipeline="overlap"`` overlaps each boundary with the next
-    chunk and writes the checkpoint in the background, and
-    ``watchdog=True`` puts each chunk under a deadline (module
-    docstring). A
+    chunk and writes the checkpoint in the background,
+    ``watchdog=True`` puts each chunk under a deadline,
+    ``live_diagnostics`` arms the streaming monitor,
+    ``adaptive_schedule="on"`` the adaptive schedule, ``run_log_dir`` a
+    run log (this call opens one unless ``pipeline_stats`` carries its
+    caller's) and ``profile_dir`` a profiler window (module docstring). A
     :class:`~smk_torch.parallel.partition.PaddedPartition` runs through
     :func:`_fit_ragged_chunked`."""
     kw = dict(chunk_iters=chunk_iters, checkpoint_path=checkpoint_path,
@@ -726,12 +827,38 @@ def fit_subsets_chunked(
               pipeline_stats=pipeline_stats, domain_map=domain_map)
     if isinstance(part, PaddedPartition):
         return _fit_ragged_chunked(model, part, coords_test, x_test, noise, beta_init, **kw)
-    return _fit_subsets_chunked_impl(model, part, coords_test, x_test, noise, beta_init, **kw)
+    cfg = model.config
+    if not cfg.run_log_dir or (pipeline_stats is not None
+                               and pipeline_stats.run_log is not None):
+        return _fit_subsets_chunked_impl(model, part, coords_test, x_test, noise, beta_init,
+                                         **kw)
+    # a run log of its own, root span "fit_subsets_chunked", closed on
+    # every exit (inside fit_meta_kriging the caller's log is used)
+    run_log = open_run_log(cfg.run_log_dir, name="fit_subsets_chunked", meta={
+        "n_subsets": part.n_subsets, "n_samples": cfg.n_samples, "chunk_iters": chunk_iters,
+        "chunk_pipeline": cfg.chunk_pipeline, "fault_policy": cfg.fault_policy})
+    kw["pipeline_stats"] = pstats = pipeline_stats or ChunkPipelineStats()
+    pstats.run_log = run_log
+    try:
+        with run_log.span("fit_subsets_chunked", n_subsets=part.n_subsets):
+            return _fit_subsets_chunked_impl(model, part, coords_test, x_test, noise,
+                                             beta_init, **kw)
+    finally:
+        run_log.close()
 
 
 def _n_work_chunks(pstats: ChunkPipelineStats) -> int:
     """Chunks recorded so far (the ragged fan-out's budget ledger)."""
     return sum(1 for c in pstats.chunks if c.get("phase") != "drain")
+
+
+def _group_ess_final(pstats: ChunkPipelineStats, start: int) -> Optional[float]:
+    """The last total streaming ESS a group's chunks recorded (None
+    without live diagnostics), summed over groups by
+    ``ChunkPipelineStats.aggregate``."""
+    vals = [ch["live_ess_sum"] for ch in pstats.chunks[start:]
+            if ch.get("live_ess_sum") is not None]
+    return vals[-1] if vals else None
 
 
 def _remap_fault_events(pstats: ChunkPipelineStats, start: int, ids: list) -> None:
@@ -781,7 +908,6 @@ def _fit_ragged_chunked(
             "map cannot span groups of different K"
         )
     cfg = model.config
-    c = cfg.n_chains
     k_total = part.n_subsets
     if noise is None:  # one generator per (subset, chain) row, seeded from 0
         g0 = part.groups[0].part
@@ -791,8 +917,36 @@ def _fit_ragged_chunked(
                                dtype=g0.x.dtype, device=g0.x.device)
     _require(noise, ("rows",), "a ragged partition")
     pstats = pipeline_stats
-    if pstats is None and stop_after_chunks is not None:
+    run_log = pstats.run_log if pstats is not None else None
+    opened_log = None
+    if run_log is None and cfg.run_log_dir:
+        opened_log = run_log = open_run_log(cfg.run_log_dir, name="fit_subsets_ragged", meta={
+            "n_subsets": k_total, "buckets": list(part.buckets), "sizes": list(part.sizes),
+            "n_samples": cfg.n_samples, "chunk_iters": chunk_iters})
+    if pstats is None and (run_log is not None or stop_after_chunks is not None):
         pstats = ChunkPipelineStats()
+    if run_log is not None:
+        pstats.run_log = run_log
+    try:
+        with (run_log.span("fit_subsets_ragged", n_subsets=k_total, buckets=list(part.buckets))
+              if run_log is not None else contextlib.nullcontext()):
+            out = _ragged_groups(model, part, coords_test, x_test, noise, beta_init,
+                                 pstats, run_log, chunk_iters=chunk_iters,
+                                 checkpoint_path=checkpoint_path, chunk_size=chunk_size,
+                                 progress=progress, stop_after_chunks=stop_after_chunks,
+                                 nan_guard=nan_guard)
+    finally:
+        if opened_log is not None:
+            opened_log.close(pipeline=pstats.aggregate())
+    return out
+
+
+def _ragged_groups(model, part, coords_test, x_test, noise, beta_init, pstats, run_log, *,
+                   chunk_iters, checkpoint_path, chunk_size, progress, stop_after_chunks,
+                   nan_guard):
+    """The bucket groups of :func:`_fit_ragged_chunked`, one after
+    another, each under a ``bucket_group`` span of the run log."""
+    c = model.config.n_chains
     group_results, ragged_groups, guards = [], [], []
     remaining = stop_after_chunks
     for gi, g in enumerate(part.groups):
@@ -805,20 +959,24 @@ def _fit_ragged_chunked(
             def gprog(info, _b=g.bucket, _ids=tuple(ids)):
                 progress({**info, "bucket": _b, "subset_ids": list(_ids)})
         chunks_before = _n_work_chunks(pstats) if pstats is not None else 0
+        entries_before = len(pstats.chunks) if pstats is not None else 0
         faults_before = len(pstats.fault_events) if pstats is not None else 0
         try:
-            res = _fit_subsets_chunked_impl(
-                model, g.part, coords_test, x_test, gnoise, beta_init,
-                chunk_iters=chunk_iters, checkpoint_path=gpath, chunk_size=chunk_size,
-                progress=gprog, stop_after_chunks=remaining, nan_guard=nan_guard,
-                pipeline_stats=pstats, domain_map=None,
-            )
+            with (run_log.span("bucket_group", bucket=g.bucket, n_subsets=len(ids))
+                  if run_log is not None else contextlib.nullcontext()):
+                res = _fit_subsets_chunked_impl(
+                    model, g.part, coords_test, x_test, gnoise, beta_init,
+                    chunk_iters=chunk_iters, checkpoint_path=gpath, chunk_size=chunk_size,
+                    progress=gprog, stop_after_chunks=remaining, nan_guard=nan_guard,
+                    pipeline_stats=pstats, domain_map=None,
+                )
         except SubsetNaNError as e:
             raise SubsetNaNError([ids[j] for j in e.subset_ids], e.iteration) from e
         if pstats is not None:
             _remap_fault_events(pstats, faults_before, ids)
             ragged_groups.append({"bucket": int(g.bucket), "n_subsets": len(ids),
-                                  "live_ess_sum_final": None})
+                                  "live_ess_sum_final": _group_ess_final(pstats,
+                                                                         entries_before)})
             pstats.ragged_groups = ragged_groups
         guards.append(model.guard_rejects)
         if res is None:
@@ -886,16 +1044,32 @@ def _fit_subsets_chunked_impl(
         noise = model.default_noise(data)
     mode = cfg.chunk_pipeline
     policy_q = cfg.fault_policy == "quarantine"
+    adaptive = cfg.adaptive_schedule == "on"
+    live_on = cfg.live_diagnostics
     if policy_q:
         _require(noise, ("snapshot", "restore", "fork"), "fault_policy='quarantine'")
     if checkpoint_path is not None:
         _require(noise, ("snapshot", "restore", "identity"), "checkpoint_path")
+    n_burn = cfg.n_burn_in
+    n_kept = cfg.n_samples - n_burn
+    if adaptive:
+        if chunk_size is not None:
+            raise ValueError(
+                "adaptive_schedule='on' is incompatible with chunk_size: the inner "
+                "batching bakes a fixed K into the chunk, and active-set compaction "
+                "changes it mid-run — drop chunk_size or run the fixed schedule"
+            )
+        _require(noise, ("rows",), "adaptive_schedule='on'")
+        sched = AdaptiveScheduler(cfg, k=k, n_kept=n_kept, chunk_iters=chunk_iters)
+        n_cap = sched.n_cap
+    else:
+        sched = None
+        n_cap = n_kept
+    run_log = pipeline_stats.run_log if pipeline_stats is not None else None
     cdata = model.chain_data(data)
     pieces = _pieces(model, cdata, noise, k, c, chunk_size)
     d_par = n_params(*part.x.shape[2:])
     d_w = coords_test.shape[0] * part.x.shape[2]
-    n_burn = cfg.n_burn_in
-    n_kept = cfg.n_samples - n_burn
     meta = np.asarray([cfg.n_samples, n_burn, k, d_par, d_w, c], np.int64)
 
     if domain_map is None:
@@ -921,8 +1095,8 @@ def _fit_subsets_chunked_impl(
                 domain_attempts.copy(), domain_dead.astype(np.int64))
 
     opts = dict(dtype=dtype, device=dev)
-    param_draws = torch.zeros((k * c, n_kept, d_par), **opts)
-    w_draws = torch.zeros((k * c, n_kept, d_w), **opts)
+    param_draws = torch.zeros((k * c, n_cap, d_par), **opts)
+    w_draws = torch.zeros((k * c, n_cap, d_w), **opts)
     writer = BackgroundWriter() if mode == "overlap" and checkpoint_path is not None else None
     ck = None
     if checkpoint_path is not None:
@@ -953,6 +1127,7 @@ def _fit_subsets_chunked_impl(
             )
 
     holes: list = []
+    host = None
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
         like = {
             "state": SamplerState(*([np.zeros(0)] * len(SamplerState._fields))),
@@ -1025,10 +1200,170 @@ def _fit_subsets_chunked_impl(
                                  consts=pieces[0].consts if len(pieces) == 1 else None)
         it = 0
 
+    # ---- the adaptive regime ------------------------------------------
+    # The chunks sweep a compacted dispatch group: the live subsets
+    # ("members", frozen riders included until the rung shrinks) padded
+    # to their rung with clones of the first member. The draw buffers and
+    # the checkpoint stay K wide (the scatter drops pad and rider rows),
+    # and a host mirror of the K*C-row state (``state_full``, each leaf in
+    # its memory order, as a manifest holds it) keeps every subset's
+    # stop-time rows; it is brought up to date from the group where a
+    # regroup, a manifest or the finalize needs it. The noise is not in
+    # the state: the group draws from its members' rows of the source
+    # (``noise.rows``, shared, so a departed subset's stream waits where
+    # it stopped and a rider's advances), and a pad is fed its first
+    # member's numbers (_PaddedNoise), as the twin's pad carries a clone
+    # of that member's key.
+    members: list = list(range(k))
+    kc = k
+    chunk_noise = noise
+    state_full: Optional[_HostState] = None
+    full_fresh = False
+    guard_full = None
+    last_group: list = []  # the group the run ended with, once it is empty
+    write_members: tuple = tuple(range(k))
+    write_dst = write_src = write_mask_dev = None
+    adaptive_done = False
+    sched_saved: list = [None]
+    regroup_s: list = []
+
+    def batch_rows(slots):
+        return [j * c + ch for j in slots for ch in range(c)]
+
+    def merge_state_full(staged: Optional[_HostState] = None):
+        """Bring ``state_full`` up to date with the group's member rows:
+        from ``staged``, a saving boundary's pinned copy of the group's
+        state read after the boundary's wait, or else by one
+        synchronising fetch of the group's state."""
+        nonlocal state_full, full_fresh
+        if full_fresh or not members:
+            return
+        live = _host_state(state) if staged is None else staged
+        if state_full is None:  # the first merge: the group is the whole run
+            # a staged copy lives in a buffer the next boundary refills
+            state_full = live if staged is None else _HostState(
+                SamplerState(*(a.copy() for a in live.arrays)), live.layout)
+        else:
+            _merge_rows(state_full, live, batch_rows(members))
+        merge_guards(members)
+        full_fresh = True
+
+    def merge_guards(slots):
+        """The group's guard counts (``model.guard_rejects``, group rows)
+        into the K*C-row ``guard_full``, for the member ``slots``."""
+        nonlocal guard_full
+        if model.guard_rejects is None:
+            return
+        if guard_full is None:
+            guard_full = torch.zeros(k * c, dtype=model.guard_rejects.dtype, device=dev)
+        rows_t = torch.as_tensor(batch_rows(slots), device=dev)
+        guard_full[rows_t] = model.guard_rejects[:rows_t.numel()]
+
+    def set_write_group():
+        """The scatter's rows and the stream's mask for the current group:
+        members that are not frozen write, pads and frozen riders do
+        not."""
+        nonlocal write_members, write_dst, write_src, write_mask_dev
+        frozen = sched.frozen
+        writing = [(r, j) for r, j in enumerate(members) if not frozen[j]]
+        write_members = tuple(j for _, j in writing)
+        write_src = torch.as_tensor(batch_rows([r for r, _ in writing]), dtype=torch.long,
+                                    device=dev)
+        write_dst = torch.as_tensor(batch_rows([j for _, j in writing]), dtype=torch.long,
+                                    device=dev)
+        wm = np.zeros(k, bool)
+        wm[list(write_members)] = True
+        write_mask_dev = torch.as_tensor(wm, device=dev)
+
+    def apply_group(new_members):
+        """(Re)form the dispatch group from ``state_full``: the state and
+        data rows of ``new_members`` padded to the rung with clones of
+        the first. A reopened subset resumes from its stop-time rows and
+        its stream from where it stopped."""
+        nonlocal state, pieces, members, kc, chunk_noise, full_fresh, last_group
+        t0 = monotonic()
+        if not new_members:
+            # the run ends: the finalize reads this group's rows from the
+            # live state, so nothing is fetched
+            last_group, members, kc = list(members), [], 0
+            regroup_s.append(monotonic() - t0)
+            return
+        merge_state_full()
+        members = [int(j) for j in new_members]
+        kc = sched.rung(len(members))
+        group = members + [members[0]] * (kc - len(members))
+        rows = np.asarray(batch_rows(group), np.int64)
+        gathered = [np.take(full, rows, axis=_row_axis(fp))
+                    for full, fp in zip(state_full.arrays, state_full.layout)]
+        state = _device_state(_HostState(SamplerState(*gathered), state_full.layout), dev)
+        sel = torch.as_tensor(group, device=dev)
+        gdata = data._replace(coords=data.coords[sel], x=data.x[sel], y=data.y[sel],
+                              mask=data.mask[sel])
+        g_cdata = model.chain_data(gdata)
+        chunk_noise = _PaddedNoise(noise.rows(batch_rows(members)), (kc - len(members)) * c, c)
+        pieces = [_Piece(0, kc * c, g_cdata, model._consts(g_cdata), chunk_noise)]
+        if guard_full is not None:
+            model.guard_rejects = guard_full[torch.as_tensor(rows, device=dev)]
+        set_write_group()
+        full_fresh = True
+        regroup_s.append(monotonic() - t0)
+
+    if adaptive:
+        if holes:
+            raise ValueError(
+                "adaptive_schedule='on' cannot resume a checkpoint with corrupt draw "
+                "segments (lenient holes): the scheduler's row-validity map cannot "
+                "attribute refilled rows — delete the checkpoint, or resume with "
+                "adaptive_schedule='off'"
+            )
+        spath = None if checkpoint_path is None else sidecar_path(checkpoint_path, "sched")
+        if spath is not None and os.path.exists(spath):
+            blobs = load_sidecar(checkpoint_path, "sched")
+            snaps = [{n_[len(pfx):]: v for n_, v in blobs.items() if n_.startswith(pfx)}
+                     for pfx in ("cur_", "prev_")]
+            # adopt the snapshot written at the manifest's boundary (the
+            # sidecar keeps that boundary and the one before it, so a
+            # crash between sidecar and manifest still pairs exactly)
+            adopted = next((sn for sn in snaps
+                            if sn and int(np.asarray(sn["ledger"])[4]) == it), None)
+            if adopted is not None:
+                sched.restore_arrays(adopted)
+                sched_saved[0] = sched.to_arrays()
+            elif max(0, it - n_burn) > 0:
+                raise ValueError(
+                    f"checkpoint {checkpoint_path} does not pair with its scheduler "
+                    f"sidecar (manifest iteration {it} matches neither sidecar snapshot) "
+                    "— the sidecar is written before every manifest and keeps one "
+                    "boundary of history, so this pairing cannot come from one run; "
+                    "delete both and restart"
+                )
+        elif max(0, it - n_burn) > 0:
+            raise ValueError(
+                f"checkpoint {checkpoint_path} has kept draws but no scheduler sidecar "
+                f"({spath}) — it was written by a fixed-schedule run (adaptive schedules "
+                "change run identity; cross-policy resume is rejected) or the sidecar "
+                "was deleted"
+            )
+        if host is not None:
+            state_full = _HostState(
+                SamplerState(*(np.require(a, requirements="W") for a in host.arrays)),
+                host.layout)
+            full_fresh = True
+        # the group the uninterrupted run had at this boundary, frozen
+        # riders (frozen, no departure stamp) included
+        group_now = sorted(set(sched.active_ids) | {
+            int(j) for j in np.flatnonzero(sched.frozen) if sched.it_stopped[j] < 0})
+        if len(group_now) == k:
+            set_write_group()
+        else:
+            apply_group(group_now)
+    del host
+
     # (kind, start iteration, sweeps, write offset on the kept axis): both
     # pipelines run exactly this plan, so the draws cannot depend on the
     # mode. A hole of a lenient resume is re-sampled by "fill" chunks that
-    # extend the chain past n_samples and write at the hole's offset.
+    # extend the chain past n_samples and write at the hole's offset. The
+    # adaptive schedule appends "extra" chunks as it grants them.
     plan = []
     it_plan = it
     while it_plan < n_burn:
@@ -1047,13 +1382,62 @@ def _fit_subsets_chunked_impl(
             it_plan += n_f
             ofs += n_f
             left -= n_f
-    truncated = stop_after_chunks is not None and stop_after_chunks < len(plan)
-    if truncated:
+    truncated = False
+    if adaptive:
+        # granted extra chunks not committed yet survive a kill in the
+        # sidecar (written before the manifest)
+        for s_g, ln_g in sched.pending_extras(it):
+            plan.append(("extra", s_g, ln_g, s_g - n_burn))
+        if not members:
+            plan = []  # every subset frozen at resume: straight to the finalize
+    elif stop_after_chunks is not None and stop_after_chunks < len(plan):
+        # (an adaptive plan grows at its grants: its stop is checked at
+        # each boundary)
         plan = plan[:stop_after_chunks]
+        truncated = True
 
-    want_stats = nan_guard or progress is not None or policy_q
+    # the streaming monitor: accumulators on the device, folded in behind
+    # each sampling chunk; its (K,) rhat_max and ess_min ride in the
+    # boundary's one copy to the host
+    stream = stream_update = stream_stats = None
+    if live_on:
+        stream_stats = make_stream_stats(c)
+        stream_update = (make_stream_update_masked if adaptive else make_stream_update)(
+            n_kept // 2, c)
+        stream = init_stream(k, c, d_par, dtype, per_subset_counts=adaptive, device=dev)
+        filled_now = max(0, it - n_burn)
+        if filled_now > 0 and not holes:
+            # resume: replay the filled region in its chunk layout (the
+            # base sampling lengths, then the extra-chunk length), masked
+            # by the rows each chunk wrote under the adaptive schedule
+            ofs = 0
+            while ofs < filled_now:
+                if ofs < n_kept:
+                    ln = min(chunk_iters, n_kept - ofs, filled_now - ofs)
+                else:
+                    ln = min(sched.l_extra, filled_now - ofs)
+                x = param_draws[:, ofs:ofs + ln].reshape(k, c, ln, d_par)
+                if adaptive:
+                    col = np.ascontiguousarray(sched.rows_valid[:, ofs])
+                    stream = stream_update(stream, x, ofs, torch.as_tensor(col, device=dev))
+                else:
+                    stream = stream_update(stream, x, ofs)
+                ofs += ln
+        elif holes:
+            warnings.warn(
+                "live_diagnostics on a lenient (hole) resume covers only draws sampled "
+                "after the resume — the surviving segments are not replayed into the "
+                "streaming accumulators while corrupt ranges await refill "
+                "(obs/streaming.py)",
+                RuntimeWarning, stacklevel=3,
+            )
+
+    # device-memory watermarks at each boundary (None on the CPU)
+    sample_memory = pstats is not None and dev.type == "cuda"
+    prof = ProfilerCapture.from_config(cfg)
+
+    want_stats = nan_guard or progress is not None or policy_q or live_on
     esize = param_draws.element_size()
-    stats_bytes = (k + 1) * esize
     staging = _HostStaging(2 if writer is not None else 1, writer) if ck is not None else None
     staging_cap = _state_nbytes(state) + 64 * (len(state) + 2) + (
         k * c * min(chunk_iters, max(n_kept, 1)) * (d_par + d_w) * esize)
@@ -1076,15 +1460,21 @@ def _fit_subsets_chunked_impl(
                     RuntimeWarning, stacklevel=3,
                 )
 
-    def report(phase, it_end, window_start, accept_mean):
+    def report(phase, it_end, window_start, accept_mean, live=None):
         pe = cfg.phi_update_every
         n_updates = max(1, -(-it_end // pe) - -(-window_start // pe))
-        call_progress({
+        info = {
             "phase": phase,
             "iteration": it_end,
             "n_samples": cfg.n_samples,
             "phi_accept_rate": float(accept_mean) / n_updates,
-        })
+        }
+        if live is not None:
+            # this boundary's streaming verdict: the worst split-R-hat and
+            # the smallest ESS over subsets and parameters (a callback may
+            # raise a ProgressAbort on a sick value)
+            info["live_rhat_max"], info["live_ess_min"] = live
+        call_progress(info)
 
     def live_subsets(d):
         return [int(j) for j in domain_map.subsets_of(d) if not dead[j]]
@@ -1185,63 +1575,135 @@ def _fit_subsets_chunked_impl(
             raise _QuarantineRewind(mask)
 
     def chunk_work(idx, kind, start, n, w_ofs):
-        """Queue one chunk's sweeps and its boundary's copies to the host;
-        returns the boundary's record. The quarantine's held state and
-        noise snapshot and the checkpoint's noise snapshot are taken
-        here, before the next chunk draws (the noise source is not in
-        the state)."""
-        nonlocal state, it
+        """Queue one chunk's sweeps, its draws' write, the streaming
+        fold-in and the boundary's copies to the host; returns the
+        boundary's record. The quarantine's held state and noise snapshot
+        and the checkpoint's noise snapshot are taken here, before the
+        next chunk draws (the noise source is not in the state)."""
+        nonlocal state, it, stream, full_fresh
         t0 = monotonic()
+        ev_start = _record_event(dev, timing=True) if pstats is not None else None
         held = None
         if policy_q:
-            held = (SamplerState(*(t.clone() for t in state)), noise.snapshot())
+            held = (SamplerState(*(t.clone() for t in state)), chunk_noise.snapshot())
         guards_before = model.guard_rejects
         state, draws = _run_chunk(model, kind, pieces, state, start, n)
+        full_fresh = False
         if draws is not None:
-            param_draws[:, w_ofs:w_ofs + n] = draws[0]
-            w_draws[:, w_ofs:w_ofs + n] = draws[1]
+            if not adaptive:
+                param_draws[:, w_ofs:w_ofs + n] = draws[0]
+                w_draws[:, w_ofs:w_ofs + n] = draws[1]
+            elif write_dst.numel():
+                # the compacted group's rows land at their subsets' rows;
+                # pads and frozen riders are dropped
+                param_draws[write_dst, w_ofs:w_ofs + n] = draws[0][write_src]
+                w_draws[write_dst, w_ofs:w_ofs + n] = draws[1][write_src]
             del draws
         it_end = start + n
         if kind != "fill":
             it = it_end
+        stream_prev = stream
+        live = None
+        if stream is not None and kind in ("samp", "extra"):
+            # refill chunks are left out: the terminal rewrite publishes them
+            x = param_draws[:, w_ofs:w_ofs + n].reshape(k, c, n, d_par)
+            stream = (stream_update(stream, x, w_ofs, write_mask_dev) if adaptive
+                      else stream_update(stream, x, w_ofs))
+            live = stream_stats(stream)[2:]
         stats = ev_stats = None
         if want_stats:
-            stats, ev_stats = _to_host_async(_chunk_stats(state, c))
+            vec = [_chunk_stats(state, c)]
+            if live is not None:
+                vec += [live[0].to(dtype), live[1].to(dtype)]
+            stats, ev_stats = _to_host_async(torch.cat(vec))
         if kind == "burn" and it_end == n_burn:
             # post-burn-in acceptance accounting, after the stats (the
             # last burn report carries the full burn-in acceptance)
             state = state._replace(phi_accept=torch.zeros_like(state.phi_accept))
         save = ck is not None and kind != "fill"
         filled = max(0, it_end - n_burn)
-        d2h = stats_bytes if want_stats else 0
+        d2h = stats.numel() * esize if stats is not None else 0
         slot = state_np = seg = noise_np = None
         wait_s = 0.0
         if save:
+            # under the adaptive schedule this is the group's state: the
+            # boundary merges its members' rows into the host mirror, and
+            # the manifest holds the mirror (all K subsets' rows)
             tensors, layout = _state_views(state)
-            if kind == "samp":
+            if kind in ("samp", "extra"):
                 tensors += [param_draws[:, w_ofs:w_ofs + n], w_draws[:, w_ofs:w_ofs + n]]
             slot, arrays, wait_s = staging.take(tensors, staging_cap)
             d2h += sum(t.numel() * t.element_size() for t in tensors)
             state_np = _HostState(SamplerState(*arrays[:len(state)]), layout)
-            if kind == "samp":
+            if kind in ("samp", "extra"):
                 seg = (arrays[-2], arrays[-1], w_ofs, w_ofs + n)
             noise_np = noise.snapshot()
-        ev_state = _record_event(dev) if (save or pstats is not None) else None
+        ev_state = (_record_event(dev, timing=ev_start is not None)
+                    if (save or pstats is not None) else None)
+        group = members + [members[0]] * (kc - len(members)) if members else []
         return {
             "index": idx, "kind": kind, "phase": _PHASES[kind], "start": start, "n": n,
             "it": it_end, "window_start": 0 if kind == "burn" else n_burn,
-            "stats": stats, "ev_stats": ev_stats, "ev_state": ev_state,
+            "stats": stats, "ev_stats": ev_stats, "ev_state": ev_state, "ev_start": ev_start,
+            "k_stats": kc, "live": live is not None, "stream_prev": stream_prev,
             "save": save, "slot": slot, "state_np": state_np, "seg": seg,
             "noise_np": noise_np, "filled": filled, "held": held,
             "guards_before": guards_before, "wait_s": wait_s, "d2h_bytes": d2h,
             "dispatch_s": monotonic() - t0 - wait_s,
+            # the adaptive consult's and rewind's context, as dispatched
+            "kc": kc, "members": tuple(members), "group": tuple(group),
+            "written": write_members, "a": w_ofs, "b": w_ofs + n,
         }
 
+    def apply_decision(dec, b):
+        """Apply one committed boundary's scheduler decision: append the
+        granted extra chunk, re-form the dispatch group when the rung or
+        the membership changes (a compaction, or a reopened straggler),
+        and mark the run done when nothing is left to sample."""
+        nonlocal adaptive_done
+        if dec.grant is not None:
+            s_g, ln_g = dec.grant
+            plan.append(("extra", s_g, ln_g, s_g - n_burn))
+        new_active = [int(j) for j in dec.active]
+        new_kc = sched.rung(len(new_active)) if new_active else 0
+        now = set(members)
+        if new_kc != kc or any(j not in now for j in new_active):
+            keep = set(new_active)
+            sched.mark_stopped([j for j in members if j not in keep], b["it"])
+            apply_group(new_active)
+            if run_log is not None:
+                run_log.event(
+                    "adaptive_compaction", iteration=b["it"], kc=kc, n_active=len(new_active),
+                    newly_frozen=list(dec.newly_frozen),
+                    newly_budget_frozen=list(dec.newly_budget_frozen),
+                    newly_reopened=list(dec.newly_reopened),
+                    regroup_s=regroup_s[-1],
+                )
+        elif dec.newly_frozen or dec.newly_budget_frozen or dec.newly_reopened:
+            # the rung still covers the active set: newly frozen subsets
+            # ride as rows that no longer write
+            set_write_group()
+        if dec.all_done:
+            adaptive_done = True
+
+    def merge_staged(b, entry):
+        """A saving boundary of the adaptive schedule: the group's rows,
+        staged in pinned memory behind the boundary's wait, merged into
+        the host mirror, which the manifest then holds. Once a boundary,
+        after its guard (a rewind discards the staged rows)."""
+        if adaptive and b["save"] and b["state_np"] is not state_full:
+            t1 = monotonic()
+            merge_state_full(b["state_np"])
+            b["state_np"] = state_full
+            entry["mirror_merge_s"] = monotonic() - t1
+
     def boundary_host_work(b, stall):
-        """Guard, report and checkpoint one chunk. Under "sync" the
-        device waits for it (``stall``); under "overlap" it runs while the
-        next chunk is queued, and blocks only on this chunk's own stats.
-        The first synchronisation is the boundary's one fetch."""
+        """Guard, report and checkpoint one chunk, and consult the
+        adaptive schedule. Under "sync" the device waits for it
+        (``stall``); under "overlap" it runs while the next chunk is
+        queued, and blocks only on this chunk's own stats. The first
+        synchronisation is the boundary's one fetch: the guard's vector,
+        the acceptance and the streaming statistics in one copy."""
         t0 = monotonic()
         entry = {}
         if b["ev_stats"] is not None:
@@ -1252,9 +1714,21 @@ def _fit_subsets_chunked_impl(
             b["ev_state"].synchronize()
             if b["save"]:
                 entry["state_fetch_s"] = monotonic() - t1
+            if b["ev_start"] is not None:
+                entry["device_s"] = b["ev_start"].elapsed_time(b["ev_state"]) / 1e3
         if b["stats"] is not None:
             stats = b["stats"].numpy()
-            finite = stats[:k] > 0.5
+            ks = b["k_stats"]
+            finite = stats[:ks] > 0.5
+            if adaptive:
+                # the guard covers the group's rows: a frozen rider or a
+                # pad is never a rewind candidate
+                fin_full = np.ones(k, bool)
+                wset = set(b["written"])
+                for r, j in enumerate(b["members"]):
+                    if j in wset:
+                        fin_full[j] = bool(finite[r])
+                finite = fin_full
             if policy_q:
                 # a rewind skips this boundary's report and save
                 quarantine_check(b, finite)
@@ -1262,11 +1736,48 @@ def _fit_subsets_chunked_impl(
                 if writer is not None:
                     writer.flush()  # the last checkpoint precedes the failure
                 raise SubsetNaNError(np.where(~finite)[0], b["it"])
-            if b["kind"] != "fill":
-                # refill chunks run past n_samples: the callback's
-                # contract is a monotone iteration <= n_samples
-                report(b["phase"], b["it"], b["window_start"], stats[k])
+            merge_staged(b, entry)  # before the consult can regroup
+            live_vals = None
+            if b["live"]:
+                live_rh = stats[ks + 1:ks + 1 + k].astype(np.float64)
+                live_es = stats[ks + 1 + k:ks + 1 + 2 * k].astype(np.float64)
+                any_rh, any_es = np.isfinite(live_rh).any(), np.isfinite(live_es).any()
+                live_vals = (float(np.nanmax(live_rh)) if any_rh else float("nan"),
+                             float(np.nanmin(live_es)) if any_es else float("nan"))
+                entry["live_rhat_max"], entry["live_ess_min"] = live_vals
+                # the total streaming ESS over subsets (the numerator of
+                # the convergence-adjusted ess_per_second)
+                entry["live_ess_sum"] = (
+                    float(np.nansum(np.where(np.isfinite(live_es), live_es, 0.0)))
+                    if any_es else None)
+                if run_log is not None:
+                    run_log.event("live_diagnostics", iteration=b["it"], rhat_max=live_rh,
+                                  ess_min=live_es)
+                if sched is not None and b["kind"] in ("samp", "extra"):
+                    # the schedule's one consult site: fold the committed
+                    # boundary in and apply the decision, the sidecar
+                    # written before the manifest, so a crash between the
+                    # two replays the boundary without folding it twice
+                    decision = sched.observe(
+                        kind=b["kind"], it=b["it"], span=(b["a"], b["b"]),
+                        written=b["written"], kc_dispatched=b["kc"],
+                        rhat_max=live_rh, ess_min=live_es,
+                        plan_exhausted=(b["index"] == len(plan) - 1),
+                    )
+                    apply_decision(decision, b)
+                    if ck is not None and b["save"]:
+                        cur = sched.to_arrays()
+                        prev = sched_saved[0] if sched_saved[0] else cur
+                        save_sidecar(checkpoint_path, "sched",
+                                     {**{f"prev_{n_}": v for n_, v in prev.items()},
+                                      **{f"cur_{n_}": v for n_, v in cur.items()}})
+                        sched_saved[0] = cur
+            if b["kind"] not in ("fill", "extra"):
+                # refill and extra chunks run past n_samples: the
+                # callback's contract is a monotone iteration <= n_samples
+                report(b["phase"], b["it"], b["window_start"], stats[ks], live=live_vals)
         if b["save"]:
+            merge_staged(b, entry)
             entry.update(ck.save(b["state_np"], b["noise_np"], b["seg"], b["it"],
                                  b["filled"]))
             job = entry.pop("ckpt_job", 0)
@@ -1276,11 +1787,20 @@ def _fit_subsets_chunked_impl(
         if pstats is not None:
             if writer is not None:
                 entry["staging_wait_s"] = b["wait_s"]
+            if adaptive:
+                entry["kc"] = b["kc"]  # the chunk's dispatch group
+            mem = device_memory_stats(dev) if sample_memory else None
+            if mem is not None:
+                entry["hbm_bytes_in_use"] = mem.get("bytes_in_use")
+                entry["hbm_peak_bytes"] = mem.get("peak_bytes_in_use", mem.get("bytes_in_use"))
             pstats.record_chunk(chunk=b["index"], phase=b["phase"], n_iters=b["n"],
                                 iteration=b["it"], dispatch_s=b["dispatch_s"],
                                 host_work_s=host_s,
                                 host_stall_s=(host_s if stall else 0.0) + b["wait_s"],
                                 d2h_bytes=b["d2h_bytes"], **entry)
+        if prof is not None and prof.maybe_stop(b["index"]) and run_log is not None:
+            run_log.event("profile_stop", chunk=b["index"], out_dir=prof.out_dir,
+                          trace_path=prof.trace_path)
 
     half = math.log(0.5)  # the retried subsets' phi step halves
 
@@ -1288,25 +1808,33 @@ def _fit_subsets_chunked_impl(
         """Rewind the faulted chunk to its held start state, the retried
         rows on forked streams with a halved phi step, and discard the
         successor in flight (its draws are overwritten by the replay; its
-        guard counts are dropped, as the sync loop never ran it)."""
-        nonlocal state, it
+        guard counts are dropped, as the sync loop never ran it). The
+        streaming monitor forgets every fold-in from the faulted chunk
+        on."""
+        nonlocal state, it, stream, full_fresh
         held_state, held_noise = b["held"]
-        row_mask = np.repeat(rw.retry_mask, c)
-        noise.restore(held_noise)
-        noise.fork(row_mask, np.repeat(attempts, c))
+        # the retry mask is in subset space; the held state is the
+        # chunk's group (all K subsets on the fixed schedule)
+        grp = np.asarray(b["group"] if adaptive else range(k), np.int64)
+        row_mask = np.repeat(rw.retry_mask[grp], c)
+        chunk_noise.restore(held_noise)
+        chunk_noise.fork(row_mask, np.repeat(attempts[grp], c))
         step = held_state.phi_log_step
         tight = torch.as_tensor(row_mask, device=dev)[:, None]
         state = held_state._replace(phi_log_step=torch.where(tight, step + half, step))
+        full_fresh = False
+        if stream is not None:
+            stream = b["stream_prev"]
         if b["kind"] != "fill":
             it = b["start"]
         if successor is not None:
             model.guard_rejects = successor["guards_before"]
 
     # The chunk watchdog: each guarded section runs on a worker thread
-    # under a deadline. The first dispatch of each (kind, length) runs
-    # unguarded and unobserved, as the twin's compiling dispatch does.
+    # under a deadline. The first dispatch of each (kind, length, rung)
+    # runs unguarded and unobserved, as the twin's compiling dispatch does.
     watchdog = (ChunkWatchdog(domain_map, min_deadline_s=cfg.watchdog_min_deadline_s,
-                              margin=cfg.watchdog_margin)
+                              margin=cfg.watchdog_margin, run_log=run_log)
                 if cfg.watchdog else None)
 
     def guarded(fn, chunk, iteration, novel=False):
@@ -1314,11 +1842,27 @@ def _fit_subsets_chunked_impl(
             return fn()
         return watchdog.run(_in_callers_context(fn, dev), chunk=chunk, iteration=iteration)
 
-    # One loop drives both pipelines and the quarantine rewind. "sync"
-    # runs each boundary as its chunk ends; "overlap" queues chunk t + 1
-    # before chunk t's boundary, then drains the last one. A rewind
-    # resets the plan index to the faulted chunk and drops the successor
-    # in flight. Under "abort" this is the twin's schedule exactly.
+    def dispatch(a):
+        """chunk_work under the profiler's scope for the chunk while a
+        window is open."""
+        if prof is not None and prof.active:
+            with torch.profiler.record_function(chunk_scope(a[0])):
+                return chunk_work(*a)
+        return chunk_work(*a)
+
+    # One loop drives both pipelines, the quarantine rewind and the
+    # adaptive schedule. "sync" runs each boundary as its chunk ends;
+    # "overlap" queues chunk t + 1 before chunk t's boundary, then drains
+    # the last one. A rewind resets the plan index to the faulted chunk
+    # and drops the successor in flight. Under "abort" with the fixed
+    # schedule this is the twin's schedule exactly.
+    loop_span = None
+    if run_log is not None:
+        run_log.event("plan", n_chunks=len(plan), chunk_iters=chunk_iters, mode=mode,
+                      fault_policy=cfg.fault_policy, n_holes=len(holes), truncated=truncated,
+                      resumed_at_iteration=it, adaptive=adaptive)
+        loop_span = run_log.span("chunk_loop", n_chunks=len(plan), mode=mode)
+        loop_span.__enter__()
     t_loop0 = monotonic()
     try:
         idx = 0
@@ -1327,9 +1871,12 @@ def _fit_subsets_chunked_impl(
         while True:
             if idx < len(plan):
                 kind, start, n, w_ofs = plan[idx]
-                novel = (kind, n) not in seen
-                seen.add((kind, n))
-                rec = guarded(lambda a=(idx, kind, start, n, w_ofs): chunk_work(*a),
+                if prof is not None and prof.maybe_start(idx) and run_log is not None:
+                    run_log.event("profile_start", chunk=idx, out_dir=prof.out_dir)
+                key = (kind, n, kc) if adaptive else (kind, n)
+                novel = key not in seen
+                seen.add(key)
+                rec = guarded(lambda a=(idx, kind, start, n, w_ofs): dispatch(a),
                               idx, start + n, novel=novel)
                 idx += 1
                 if mode == "overlap":
@@ -1354,6 +1901,15 @@ def _fit_subsets_chunked_impl(
             # drop the record (and its quarantine clone) before the next
             # chunk takes its own
             todo = None
+            if adaptive:
+                if adaptive_done:
+                    # every subset frozen and nothing granted: the rest
+                    # of the plan is the saving (the schedule is sync, so
+                    # nothing is in flight)
+                    idx = len(plan)
+                if stop_after_chunks is not None and idx >= stop_after_chunks:
+                    truncated = True
+                    break
         if writer is not None:
             t0 = monotonic()
             ck.ensure_synced(lambda: _host_state(state), noise.snapshot(), it,
@@ -1369,18 +1925,51 @@ def _fit_subsets_chunked_impl(
             ck.rewrite_full(_host_state(state), noise.snapshot(), param_draws.cpu().numpy(),
                             w_draws.cpu().numpy(), cfg.n_samples, n_kept)
     finally:
+        if prof is not None:
+            prof.close()
+        if loop_span is not None:
+            loop_span.__exit__(None, None, None)
         if writer is not None:
             writer.close()
         if pstats is not None:
             pstats.total_wall_s = monotonic() - t_loop0
             if staging is not None:
                 pstats.host_staging_bytes = max(pstats.host_staging_bytes, staging.nbytes)
+            if sched is not None:
+                # recorded on every exit, a stop_after_chunks kill included
+                pstats.adaptive = {**sched.summary(), "regroup_s": list(regroup_s),
+                                   "host_mirror_bytes": (0 if state_full is None else sum(
+                                       a.nbytes for a in state_full.arrays))}
     if truncated:
         return None
-    return model.finalize(state, param_draws, w_draws)
+    with (run_log.span("finalize") if run_log is not None else contextlib.nullcontext()):
+        if not adaptive:
+            return model.finalize(state, param_draws, w_draws)
+        # subsets still in the group at the end ran the whole schedule
+        if members:
+            sched.mark_stopped(members, it)
+        # the finalize reads phi_accept alone: the departed subsets' rows
+        # from the host mirror, the last group's from its live state
+        live = members or last_group
+        rows_t = torch.as_tensor(batch_rows(live), device=dev)
+        if state_full is None:  # never regrouped: the group is the run
+            accept = state.phi_accept[:rows_t.numel()].clone()
+        else:
+            i_acc = SamplerState._fields.index("phi_accept")
+            accept = _logical(state_full.arrays[i_acc], state_full.layout[i_acc]).to(dev)
+            if live and not full_fresh:
+                accept[rows_t] = state.phi_accept[:rows_t.numel()]
+        if live:
+            merge_guards(live)
+        if guard_full is not None:
+            model.guard_rejects = guard_full
+        stops = np.where(sched.it_stopped < 0, it, sched.it_stopped)
+        fin_state = SamplerState(*([None] * len(SamplerState._fields)))._replace(
+            phi_accept=accept)
+        return model.finalize_masked(fin_state, param_draws, w_draws, sched.rows_valid, stops)
 
 
-_PHASES = {"burn": "burn", "samp": "sample", "fill": "fill"}
+_PHASES = {"burn": "burn", "samp": "sample", "fill": "fill", "extra": "extra"}
 
 
 def fit_subsets_checkpointed(

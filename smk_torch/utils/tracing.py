@@ -5,11 +5,12 @@ stream (as the twin's ``device_sync``), so its wall time covers the
 work and not only its enqueueing.
 
 ``ChunkPipelineStats`` carries the members the chunked executor's host
-loop (both pipelines), the checkpoint, its background writer and
-quarantine record into (parallel/recovery.py). The streaming monitor
-and the run log are not ported (ROADMAP A8c), nor the program store
-(A10): ``aggregate`` reports their keys as the twin does when they are
-off.
+loop (both pipelines), the checkpoint, its background writer,
+quarantine, the streaming monitor and the adaptive schedule record into
+(parallel/recovery.py); with a ``run_log`` each record is also an event
+of the fit's run log (obs/events.py). The program store is not ported
+(ROADMAP A10): ``aggregate`` reports its keys as the twin does when it
+is off.
 """
 
 from __future__ import annotations
@@ -43,16 +44,22 @@ class PhaseTimes:
 
 @contextlib.contextmanager
 def phase_timer(
-    times: PhaseTimes, name: str, device: Optional[torch.device] = None
+    times: PhaseTimes, name: str, device: Optional[torch.device] = None, log: Any = None
 ) -> Iterator[None]:
     """Time a phase; on a CUDA ``device`` the phase ends with a stream
-    sync."""
+    sync. With ``log`` (an obs/events.RunLog) the phase is also a span of
+    the run log."""
     start = monotonic()
+    span = log.span(name) if log is not None else None
+    if span is not None:
+        span.__enter__()
     try:
         yield
     finally:
         if device is not None:
             sync(device)
+        if span is not None:
+            span.__exit__(None, None, None)
         times.record(name, monotonic() - start)
 
 
@@ -69,7 +76,9 @@ class ChunkPipelineStats:
     (the boundary's device-to-host bytes) and, where they apply,
     ``device_wait_s`` (the wait for the chunk's own stats: the sweeps'
     device time the dispatch did not cover), ``state_fetch_s`` (the
-    state's copy into the staging buffer, after that), ``ckpt_write_s``
+    state's copy into the staging buffer, after that), ``mirror_merge_s``
+    (adaptive schedule: the staged group rows merged into the host
+    mirror the manifest holds), ``ckpt_write_s``
     and ``ckpt_bytes`` (an inline write's files) and ``staging_wait_s``
     (overlap: the wait for the writer job that held the buffer). Under
     "overlap" a last ``phase="drain"`` entry holds the terminal drain
@@ -94,11 +103,24 @@ class ChunkPipelineStats:
     # one entry per bucket group of a ragged fit, None on equal-m runs
     ragged_groups: Any = None
     host_staging_bytes: int = 0
+    run_log: Any = None
+    adaptive: Any = None
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def _emit(self, name: str, attrs: Dict[str, Any]) -> None:
+        """One record to the run log (the caller holds the lock); a log
+        that fails is dropped, never the fit."""
+        if self.run_log is None:
+            return
+        try:
+            self.run_log.event(name, **attrs)
+        except Exception:
+            self.run_log = None
 
     def record_chunk(self, **entry: Any) -> None:
         with self._lock:
             self.chunks.append(entry)
+            self._emit("chunk", entry)
 
     def record_fault(
         self,
@@ -130,6 +152,7 @@ class ChunkPipelineStats:
             ev["domains_deferred"] = [int(d) for d in domains_deferred]
         with self._lock:
             self.fault_events.append(ev)
+            self._emit("fault", ev)
 
     def add_ckpt_commit(
         self, seconds: float, *, generation: int, it: int = -1,
@@ -147,18 +170,21 @@ class ChunkPipelineStats:
             self.ckpt_write_s += float(seconds)
             self.ckpt_bytes += int(nbytes)
             self.ckpt_boundary_bytes.append(int(nbytes))
+            self._emit("ckpt_write", {"seconds": round(float(seconds), 6),
+                                      "nbytes": int(nbytes)})
 
     def aggregate(self) -> Dict[str, Any]:
-        """The twin's summary, key for key: the sync loop's, the
-        checkpoint's and the fault ledger's keys measured; the live
-        diagnostics', the adaptive schedule's, the ingest's and the
-        device-memory keys None and the program store's empty, as the
-        twin reports them when those are off."""
+        """The twin's summary, key for key: the loop's, the checkpoint's,
+        the fault ledger's, the device memory's, the live diagnostics'
+        and the adaptive schedule's keys measured (None where nothing
+        recorded them); the mesh's and the ingest's None and the program
+        store's empty, as the twin reports them when those are off."""
         stall = sum(c.get("host_stall_s", 0.0) for c in self.chunks)
         work = sum(c.get("host_work_s", 0.0) for c in self.chunks)
         disp = sum(c.get("dispatch_s", 0.0) for c in self.chunks)
         d2h = sum(int(c.get("d2h_bytes", 0)) for c in self.chunks)
         wall = self.total_wall_s
+        ess_final = self._ess_sum_final()
         return {
             "mode": self.mode,
             "n_chunks": len(self.chunks),
@@ -174,22 +200,44 @@ class ChunkPipelineStats:
             "ckpt_generations": self.ckpt_generations,
             "ckpt_commit_s": round(self.ckpt_commit_s, 4),
             "overlap_efficiency": round(1.0 - stall / wall, 4) if wall > 0 else 1.0,
-            "hbm_peak_bytes": None,
-            "live_rhat_final": None,
-            "live_ess_min_final": None,
-            "live_ess_sum_final": None,
-            "ess_per_second": None,
+            "hbm_peak_bytes": self._last_chunk_field("hbm_peak_bytes", reduce=max),
+            "live_rhat_final": self._last_chunk_field("live_rhat_max"),
+            "live_ess_min_final": self._last_chunk_field("live_ess_min"),
+            "live_ess_sum_final": ess_final,
+            "ess_per_second": (round(ess_final / wall, 4)
+                               if wall > 0 and ess_final is not None else None),
             "ragged_groups": self.ragged_groups,
             "ragged_mesh_plan": None,
-            "adaptive": None,
-            "chunks_saved_frac": None,
-            "frozen_at": None,
-            "ess_per_second_adaptive": None,
+            "adaptive": self.adaptive,
+            "chunks_saved_frac": (self.adaptive.get("chunks_saved_frac")
+                                  if self.adaptive else None),
+            "frozen_at": self.adaptive.get("frozen_at") if self.adaptive else None,
+            "ess_per_second_adaptive": (
+                round(ess_final / wall, 4)
+                if self.adaptive and wall > 0 and ess_final is not None else None),
             "ingest": None,
             "fault": self.fault_summary(),
             "compile_s": 0.0,
             "program_sources": {},
         }
+
+    def _ess_sum_final(self):
+        """The last boundary's total streaming ESS; on a ragged fit the
+        sum of every bucket group's last value (the groups run one after
+        another)."""
+        if self.ragged_groups:
+            vals = [g.get("live_ess_sum_final") for g in self.ragged_groups]
+            vals = [v for v in vals if v is not None]
+            return sum(vals) if vals else None
+        return self._last_chunk_field("live_ess_sum")
+
+    def _last_chunk_field(self, name: str, reduce=None):
+        """The last (or ``reduce``-d) non-None value of a chunk field;
+        None when no chunk carried it."""
+        vals = [c[name] for c in self.chunks if c.get(name) is not None]
+        if not vals:
+            return None
+        return reduce(vals) if reduce is not None else vals[-1]
 
     def fault_summary(self) -> Dict[str, Any]:
         """The retry-ladder history compressed for a record (the twin's

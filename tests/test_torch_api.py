@@ -21,6 +21,7 @@ logit fit <= 1.9e-6, accept rates equal); asserted at 5e-5 absolute +
 
 # smklint: test-budget=the four JAX reference fits (6-35 s each on this CPU) run once each in a module fixture; every test compares stored arrays or runs the port at n <= 200
 import ast
+import os
 import pathlib
 import warnings
 
@@ -242,12 +243,8 @@ def test_default_randomness_fit_is_finite_and_seeded():
 @pytest.mark.parametrize(
     "knob, item",
     [
-        (dict(adaptive_schedule="on", live_diagnostics=True), "A8c"),
-        (dict(profile_dir="profiles"), "A8c"),
         (dict(xla_cache_dir="xla_cache"), "A10"),
         (dict(coalesce_window_ms=5.0), "A11"),
-        (dict(live_diagnostics=True), "A8c"),
-        (dict(run_log_dir="logs"), "A8c"),
         (dict(compile_store_dir="store"), "A10"),
     ],
 )
@@ -255,6 +252,33 @@ def test_unported_knobs_raise_naming_their_roadmap_item(knob, item):
     knob_name = next(iter(knob))
     with pytest.raises(NotImplementedError, match=f"{knob_name}.*{item}"):
         fit_meta_kriging(*_problem(), config=SMKConfig(**knob), device="cpu")
+
+
+@pytest.mark.parametrize("knob", ["live_diagnostics", "run_log_dir", "profile_dir",
+                                  "adaptive_schedule"])
+def test_telemetry_and_adaptive_knobs_now_run(knob, tmp_path):
+    """The chunked executor's last knobs run through the public fit: the
+    three observational ones bitwise the plain chunked fit, the adaptive
+    schedule with its result fields filled."""
+    base = dict(n_subsets=2, n_samples=16 if knob == "adaptive_schedule" else 8, n_chains=2)
+    extra = {"live_diagnostics": dict(live_diagnostics=True),
+             "run_log_dir": dict(run_log_dir=str(tmp_path / "logs")),
+             "profile_dir": dict(profile_dir=str(tmp_path / "prof"), profile_chunks="1:2"),
+             "adaptive_schedule": dict(live_diagnostics=True, adaptive_schedule="on",
+                                       target_rhat=1.5, target_ess=4.0, adapt_patience=1)}
+    got = fit_meta_kriging(*_problem(), config=SMKConfig(**base, **extra[knob]), seed=3,
+                           device="cpu", chunk_iters=4)
+    if knob == "adaptive_schedule":
+        assert len(got.frozen_at) == 2 and 0.0 <= got.chunks_saved_frac < 1.0
+        assert torch.isfinite(got.p_quant).all()
+        return
+    want = fit_meta_kriging(*_problem(), config=SMKConfig(**base), seed=3, device="cpu",
+                            chunk_iters=4)
+    for f in ("param_grid", "w_grid", "p_quant"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert (got.run_log_path is not None) == (knob == "run_log_dir")
+    if knob == "profile_dir":
+        assert os.listdir(tmp_path / "prof")
 
 
 @pytest.mark.parametrize("knob", [dict(chunk_pipeline="overlap"), dict(watchdog=True)])

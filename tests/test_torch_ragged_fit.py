@@ -200,10 +200,11 @@ def test_bucket_ladder_and_quarantine_run_through_the_api(fits):
     dict(run_log_dir="logs"),
     dict(profile_dir="profiles"),
 ])
-def test_the_second_half_of_the_executor_still_raises_naming_a8b(knob):
-    """The executor's last knobs raise, naming ROADMAP A8c."""
-    with pytest.raises(NotImplementedError, match=f"{next(iter(knob))}.*A8c"):
-        check_ported(SMKConfig(**knob))
+def test_the_executors_last_knobs_pass_the_port_check(knob):
+    """The executor's last knobs (ROADMAP A8c) are ported: none of them
+    raises (tests/test_torch_obs.py and tests/test_torch_adaptive.py
+    hold them against the twin)."""
+    check_ported(SMKConfig(**knob))
 
 
 @pytest.mark.parametrize("knob", [
