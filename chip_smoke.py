@@ -46,7 +46,24 @@ printed as one JSON line:
 5. fit_config5 — fit_meta_kriging at the repo's per-chip north-star
               shape (n = 124,992, K = 32, m = 3906, q = 1, p = 2,
               t = 64, exponential, fused_build="pallas", 40 sweeps:
-              30 burn-in, 10 kept), with its kernel launch counts.
+              30 burn-in, 10 kept), with its kernel launch counts,
+              saved as a serving artifact.
+5b. serve_config5 — that artifact (S = 1000 draws, t = 64 anchors)
+              loaded and served by smk_torch.serve.PredictionEngine
+              with buckets (8, 32, 128, 1024, 4096): cold and warm
+              first-request latency; 64 requests of 32 rows serially
+              and from 8 clients with 4 in flight, twice (p50/p99, QPS,
+              every concurrent response bitwise the serial one); a 65,536-row
+              map request (rows/s); a 2-replica fleet; the card engine
+              against predict_at on the CPU on the same noise (1e-6);
+              pad-row identity, a NaN row masked alone, a stalled
+              dispatch timing out typed at 0.5 s, a queue flood shed
+              typed, the health counters; a warm request's synchronising
+              calls under the sync debug mode (the guard's fetch only);
+              TF32 on changes no response; the host and device ms of a
+              predict per bucket, the cross build's share of the device
+              time at 4096, the engine's peak memory; 0 fused-build
+              launches.
 6. fit_q2   — the bivariate case (q = 2, K = 8, m = 3906, 20 sweeps).
 
 Phases 5 and 6 run the default SMKConfig sampler. Phases 7-11 run the
@@ -945,14 +962,17 @@ def expected_by_kernel(launches, float64=False):
     return out
 
 
-def run_fit(name, *, n, k, q, p, t, n_samples, device, dtype="float32", profile=False):
+def run_fit(name, *, n, k, q, p, t, n_samples, device, dtype="float32", profile=False,
+            artifact_path=None):
     """fit_meta_kriging with the default sampler at (n, K, q, p, t) in
     `dtype`: launches per entry point and per kernel against the
     sampler's formula, no plain call, finite outputs of the expected
     shapes, p and acceptance rates in [0, 1]; with `profile`, one
     profiler window over two sweeps of the same sampler on the fit's
     inputs (profile_sweeps: device busy and idle, the factorizations'
-    share)."""
+    share); with `artifact_path`, the fit saved there as a serving
+    artifact (serve/artifact.save_artifact: its seconds and bytes under
+    "artifact")."""
     import numpy as np
     import torch
     from smk_torch import SMKConfig, fit_meta_kriging
@@ -986,8 +1006,19 @@ def run_fit(name, *, n, k, q, p, t, n_samples, device, dtype="float32", profile=
     check(bool(((acc >= 0) & (acc <= 1)).all()), f"{name}: phi_accept_rate outside [0, 1]")
     p_q = res.p_quant.cpu().numpy()
     check(bool(((p_q >= 0) & (p_q <= 1)).all()), f"{name}: p outside [0, 1]")
+    artifact = None
+    if artifact_path is not None:
+        import os
+
+        from smk_torch.serve import save_artifact
+
+        start = time.perf_counter()
+        save_artifact(artifact_path, res, data[3], config=cfg)
+        artifact = {"path": artifact_path, "save_s": time.perf_counter() - start,
+                    "bytes": os.path.getsize(artifact_path)}
     secs = res.phase_seconds
     out = {
+        "artifact": artifact,
         "phase": name, "n": n, "K": k, "m": -(-n // k), "q": q, "p": p, "t": t,
         "dtype": dtype, "n_samples": cfg.n_samples, "n_burn_in": cfg.n_burn_in,
         "n_kept": cfg.n_kept, "fused_build": cfg.fused_build, "wall_s": wall,
@@ -3526,6 +3557,491 @@ def fit_profile_config5(device, c5_data, tmp):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 5b: serve_config5
+# ----------------------------------------------------------------------
+# the bucket ladder the config5 artifact is served with, the twin's
+# serve rung (bench.py:1113-1160: 64 requests of 32 rows, 8 clients),
+# the engine's in-flight bound under the 8 clients, and the map request
+# (a 256 x 256 raster: 16 dispatches at the 4096 bucket)
+SERVE_BUCKETS = (8, 32, 128, 1024, 4096)
+SERVE_ROWS, SERVE_REQUESTS, SERVE_CLIENTS, SERVE_IN_FLIGHT = 32, 64, 8, 4
+MAP_SIDE = 256
+# the card engine against the port's predict_at on the CPU, same
+# artifact and noise: both compose in float64 and round p to float32,
+# so they part only where the two BLAS round a float64 sum differently
+# and the float32 rounding of a p <= 1 lands on the other side (an ulp,
+# 6e-8)
+SERVE_ATOL = 1e-6
+
+
+def serve_queries(rng, n):
+    """``n`` query sites uniform over the field's domain (binary_field's
+    unit square) with designs [1, N(0, 1)], float32."""
+    import numpy as np
+
+    coords = rng.uniform(size=(n, 2)).astype(np.float32)
+    x = np.concatenate([np.ones((n, 1, 1)), rng.normal(size=(n, 1, 1))], -1)
+    return coords, x.astype(np.float32)
+
+
+def cpu_noise(seed, shape, dtype, device):
+    """Composition noise drawn on the CPU from ``seed`` and moved to
+    ``device``: the card engine and the CPU predict_at consume the same
+    numbers."""
+    import torch
+
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randn(shape, generator=gen, dtype=dtype).to(device)
+
+
+def sync_debug_request(eng, cq, xq, seed):
+    """One request under torch.cuda.set_sync_debug_mode("warn"): every
+    synchronising call, by the engine step whose worker made it
+    ("dispatch", "guard", or "other" for anything outside both) and the
+    innermost smk_torch line on its stack; first ("none") the mode
+    switched on and off around no work, what the switch alone reports."""
+    found = {}
+    for kind in ("none", "request"):
+        found[kind] = _sync_sites(eng, cq, xq, seed, kind == "request")
+    return found
+
+
+def _sync_sites(eng, cq, xq, seed, run):
+    """The synchronising calls of one request (``run``) or of none."""
+    import collections
+    import os
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = {k: collections.Counter() for k in ("dispatch", "guard", "other")}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        names = {f.name for f in stack}
+        step = ("guard" if "guard_worker" in names
+                else "dispatch" if "dispatch_worker" in names else "other")
+        ours = [f for f in stack if "smk_torch" in f.filename]
+        where = (f"{os.path.relpath(ours[-1].filename)}:{ours[-1].lineno}"
+                 if ours else "outside smk_torch")
+        sites[step][f"{os.path.basename(filename)}:{lineno} from {where}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            if run:
+                eng.predict(cq, xq, seed=seed)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return {k: dict(v) for k, v in sites.items()}
+
+
+def host_and_device_ms(fn, reps=20):
+    """(host ms, device ms) of one call, medians: the host clock around
+    the call from an idle card (what queuing it costs the host), and CUDA
+    events around it queued behind a ~20 ms device sleep, longer than the
+    call takes to queue, so the events see the device's time alone."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    host, dev = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40 * SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    return statistics.median(host), statistics.median(dev)
+
+
+def _latency_summary(lat_s, wall_s):
+    import numpy as np
+
+    ms = np.asarray(lat_s) * 1e3
+    return {"n": len(lat_s), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "max_ms": float(ms.max()),
+            "wall_s": wall_s, "qps": len(lat_s) / wall_s}
+
+
+def serve_config5(device, artifact_path, tmp):
+    """The query path and the engine (smk_torch/serve) on fit_config5's
+    artifact (K = 32, m = 3906, t = 64 anchors, q = 1, p = 2, S = 1000
+    draws), saved by run_fit and loaded here, served with buckets
+    (8, 32, 128, 1024, 4096):
+
+    - a cold engine (warm=False) and a warm one, each answering the same
+      first request (cold and warm first-request latency, the same
+      response bit for bit);
+    - 64 requests of 32 rows uniform over the domain, serially, then from
+      8 clients into a second engine with max_in_flight = 4, twice (the
+      first round also starts its worker threads), and into a third with
+      max_in_flight = 1 (p50/p99 latency and QPS; (b) every concurrent
+      response bitwise the serial one, and the same seed twice bitwise);
+    - one map request of 65,536 rows (a 256 x 256 raster, 16 dispatches
+      at the 4096 bucket): rows per second;
+    - a 2-replica ReplicaFleet on the artifact taking 8 requests.
+
+    Checks: (a) the card engine against predict_at on the CPU on the same
+    artifact and noise (SERVE_ATOL); (c) rows shared by two batches of one
+    bucket bitwise equal; (d) inject_predict_nan(rows=[1]) masks exactly
+    that row and leaves the others bitwise clean; (e) stall_predict at a
+    0.5 s deadline raises RequestTimeoutError within the deadline and the
+    next request is served; (f) a queue flood (max_queue = 2, the
+    in-flight slot stalled) sheds typed at once and the admitted requests
+    complete; (g) health() counts what was sent; (h) under the sync debug
+    mode, one warm request synchronises only in the guard's fetch. Also
+    the response with TF32 switched on bitwise the response without it
+    (the composition is float64), 0 fused-build launches, the host and
+    device ms of one predict program per bucket (host_and_device_ms),
+    the (q, t, u) cross build's share of the device time at 4096, and the
+    engine's peak memory."""
+    import collections
+    import threading
+    import types
+
+    import numpy as np
+    import torch
+    from smk_torch.api import predict_at
+    from smk_torch.config import SMKConfig
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.ops.distance import cross_distance
+    from smk_torch.ops.factor_cache import FactorCache
+    from smk_torch.ops.kernels import correlation
+    from smk_torch.serve import (
+        PredictionEngine,
+        QueueFullError,
+        ReplicaFleet,
+        RequestTimeoutError,
+        load_artifact,
+    )
+    from smk_torch.testing.faults import inject_predict_nan, stall_predict
+
+    fb.reset_counts()
+    art = load_artifact(artifact_path)
+    s_draws, t, q = art.n_draws, art.n_anchor, art.q
+    check((s_draws, t, q, art.p) == (1000, MAIN_T, 1, 2),
+          f"serve: artifact geometry {(s_draws, t, q, art.p)}")
+    rng = np.random.default_rng(SEED + 5)
+    reqs = [serve_queries(rng, SERVE_ROWS) for _ in range(SERVE_REQUESTS)]
+    out = {"phase": "serve_config5", "artifact_bytes": int(sum(
+        np.asarray(a).nbytes for a in art if isinstance(a, np.ndarray))),
+        "n_draws": s_draws, "t": t, "q": q, "buckets": list(SERVE_BUCKETS)}
+    sent = collections.Counter()
+
+    # cold and warm first request (the same request and seed)
+    start = time.perf_counter()
+    cold = PredictionEngine(artifact_path, buckets=SERVE_BUCKETS, warm=False)
+    out["cold_construct_s"] = time.perf_counter() - start
+    start = time.perf_counter()
+    r_cold = cold.predict(*reqs[0], seed=0)
+    out["cold_first_request_ms"] = (time.perf_counter() - start) * 1e3
+    cold.close()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = time.perf_counter()
+    eng = PredictionEngine(artifact_path, buckets=SERVE_BUCKETS)
+    out["warm_construct_s"] = time.perf_counter() - start
+    start = time.perf_counter()
+    r_warm = eng.predict(*reqs[0], seed=0)
+    out["warm_first_request_ms"] = (time.perf_counter() - start) * 1e3
+    sent["served"] += 1
+    sent["dispatches"] += 1
+    check(np.array_equal(r_cold.p_quant, r_warm.p_quant), "serve: cold and warm engines differ")
+
+    # (h) synchronising calls of one warm request
+    found = sync_debug_request(eng, *reqs[1], seed=1)
+    sent["served"] += 1
+    sent["dispatches"] += 1
+    out["sync_debug_request"] = found
+    syncs = found["request"]
+    # the first switch of the mode reports one call of its own (torch's,
+    # outside the port): the request may show no site the bare switch
+    # did not
+    switch = found["none"]["other"]
+    check(not syncs["dispatch"]
+          and all(n <= switch.get(site, 0) for site, n in syncs["other"].items()),
+          f"serve: a synchronising call outside the guard's fetch: {found}")
+    check(sum(syncs["guard"].values()) > 0, "serve: the guard's fetch did not synchronise")
+
+    # serial traffic, then the same seed again
+    serial, lat = [], []
+    start = time.perf_counter()
+    for i, (cq, xq) in enumerate(reqs):
+        t0 = time.perf_counter()
+        serial.append(eng.predict(cq, xq, seed=i))
+        lat.append(time.perf_counter() - t0)
+    out["serial"] = _latency_summary(lat, time.perf_counter() - start)
+    sent["served"] += SERVE_REQUESTS
+    sent["dispatches"] += SERVE_REQUESTS
+    for r in serial:
+        check(r.buckets == (32,) and r.p_quant.shape == (3, SERVE_ROWS, 1),
+              f"serve: response shape {r.p_quant.shape} buckets {r.buckets}")
+        check(bool(np.isfinite(r.p_quant).all()) and not r.degraded, "serve: a bad row")
+        check(bool(((r.p_quant >= 0) & (r.p_quant <= 1)).all()), "serve: p outside [0, 1]")
+    again = eng.predict(*reqs[0], seed=0)
+    sent["served"] += 1
+    sent["dispatches"] += 1
+    check(np.array_equal(again.p_quant, serial[0].p_quant), "serve: (b) the same seed differs")
+    check(np.array_equal(serial[0].p_quant, r_warm.p_quant), "serve: (b) the first request differs")
+    other_seed = eng.predict(*reqs[0], seed=1)
+    sent["served"] += 1
+    sent["dispatches"] += 1
+    check(not np.array_equal(other_seed.p_quant, serial[0].p_quant), "serve: seed ignored")
+
+    # TF32 on for one request: the composition is float64, so nothing moves
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = eng.predict(*reqs[0], seed=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    sent["served"] += 1
+    sent["dispatches"] += 1
+    check(np.array_equal(tf32.p_quant, serial[0].p_quant), "serve: TF32 moved a response")
+
+    # (b) 8 clients into max_in_flight = 4, against the serial responses
+    eng8 = PredictionEngine(artifact_path, buckets=SERVE_BUCKETS, max_queue=64,
+                            max_in_flight=SERVE_IN_FLIGHT)
+    eng1 = PredictionEngine(artifact_path, buckets=SERVE_BUCKETS, max_queue=64)
+    conc, lat8, errs = {}, [], []
+    lock = threading.Lock()
+
+    def client(target, c):
+        try:
+            for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                t0 = time.perf_counter()
+                r = target.predict(*reqs[i], seed=i)
+                with lock:
+                    lat8.append(time.perf_counter() - t0)
+                    conc[i] = r
+        except Exception as e:  # recorded and failed below
+            errs.append(repr(e))
+
+    # two rounds at 4 in flight (the first also starts the engine's worker
+    # threads and their library handles; the second is the steady state),
+    # then one at 1 in flight: what the in-flight bound itself does
+    for rnd, target in (("concurrent_first_round", eng8), ("concurrent", eng8),
+                        ("concurrent_in_flight_1", eng1)):
+        conc.clear()
+        lat8.clear()
+        threads = [threading.Thread(target=client, args=(target, c))
+                   for c in range(SERVE_CLIENTS)]
+        start = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300.0)
+        out[rnd] = dict(_latency_summary(lat8, time.perf_counter() - start),
+                        clients=SERVE_CLIENTS, max_in_flight=target.max_in_flight)
+        check(not any(th.is_alive() for th in threads), "serve: a client hung")
+        check(not errs and len(conc) == SERVE_REQUESTS, f"serve: concurrent errors {errs[:3]}")
+        check(all(np.array_equal(conc[i].p_quant, serial[i].p_quant) for i in conc),
+              "serve: (b) a concurrent response differs from the serial one")
+    h8, h1 = eng8.health(), eng1.health()
+    check(h8["requests_served"] == 2 * SERVE_REQUESTS
+          and h8["dispatches"] == 2 * SERVE_REQUESTS
+          and h1["requests_served"] == SERVE_REQUESTS, f"serve: 8-way health {h8} {h1}")
+    eng8.close()
+    eng1.close()
+
+    # the map request: a 256 x 256 raster of the domain
+    g = (np.arange(MAP_SIDE, dtype=np.float32) + 0.5) / MAP_SIDE
+    map_c = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    map_x = serve_queries(rng, map_c.shape[0])[1]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    r_map = eng.predict(map_c, map_x, seed=7, deadline_s=120.0)
+    map_s = time.perf_counter() - start
+    n_map = map_c.shape[0]
+    sent["served"] += 1
+    sent["dispatches"] += n_map // SERVE_BUCKETS[-1]
+    check(r_map.buckets == (SERVE_BUCKETS[-1],) * (n_map // SERVE_BUCKETS[-1]),
+          f"serve: map buckets {r_map.buckets}")
+    check(r_map.p_quant.shape == (3, n_map, 1) and bool(np.isfinite(r_map.p_quant).all())
+          and not r_map.degraded, "serve: map response")
+    out["map_request"] = {"rows": n_map, "wall_s": map_s, "rows_per_s": n_map / map_s,
+                          "dispatches": len(r_map.buckets),
+                          "p_median_mean": float(r_map.p_quant[0].mean())}
+    out["engine_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["engine_resident_bytes"] = torch.cuda.memory_allocated() - base
+
+    # (c) pad-row identity: 20 rows each, the first 12 shared, bucket 32
+    ca, xa = serve_queries(rng, 20)
+    cb, xb = serve_queries(rng, 20)
+    cb[:12], xb[:12] = ca[:12], xa[:12]
+    ra, rb = eng.predict(ca, xa, seed=9), eng.predict(cb, xb, seed=9)
+    sent["served"] += 2
+    sent["dispatches"] += 2
+    check(ra.buckets == rb.buckets == (32,), "serve: pad batches not in bucket 32")
+    check(np.array_equal(ra.p_quant[:, :12], rb.p_quant[:, :12]),
+          "serve: (c) a shared row differs across batches")
+    check(not np.array_equal(ra.p_quant[:, 12:], rb.p_quant[:, 12:]), "serve: tails equal")
+
+    # (d) a NaN row: exactly it masked, the others bitwise clean
+    clean = eng.predict(*reqs[2], seed=3)
+    with inject_predict_nan(rows=[1], max_fires=1) as inj:
+        hurt = eng.predict(*reqs[2], seed=3)
+    sent["served"] += 2
+    sent["dispatches"] += 2
+    sent["requests_degraded"] += 1
+    sent["rows_degraded"] += 1
+    want_mask = np.zeros(SERVE_ROWS, bool)
+    want_mask[1] = True
+    check(inj.fires == 1 and np.array_equal(hurt.rows_degraded, want_mask),
+          f"serve: (d) rows_degraded {np.flatnonzero(hurt.rows_degraded)}")
+    check(np.array_equal(hurt.p_quant[:, ~want_mask], clean.p_quant[:, ~want_mask]),
+          "serve: (d) a healthy row moved")
+
+    # (e) a stalled dispatch at a 0.5 s deadline
+    with stall_predict(max_fires=1, max_stall_s=30.0) as inj:
+        start = time.perf_counter()
+        try:
+            eng.predict(*reqs[3], seed=3, deadline_s=0.5)
+            timed_out = None
+        except RequestTimeoutError as e:
+            timed_out = e
+        stall_wall = time.perf_counter() - start
+    sent["timed_out"] += 1
+    sent["dispatches"] += 1
+    check(timed_out is not None and timed_out.phase == "dispatch" and inj.fires == 1,
+          f"serve: (e) no typed timeout ({timed_out!r})")
+    check(stall_wall < 0.5 + 0.1, f"serve: (e) the timeout took {stall_wall:.3f} s")
+    after = eng.predict(*reqs[3], seed=3)
+    sent["served"] += 1
+    sent["dispatches"] += 1
+    check(np.array_equal(after.p_quant, serial[3].p_quant), "serve: (e) the next request")
+    out["stall"] = {"deadline_s": 0.5, "timeout_after_s": stall_wall, "label": timed_out.label}
+
+    # (g) the engine's counters
+    h = eng.health()
+    got = {"served": h["requests_served"], "timed_out": h["requests_timed_out"],
+           "dispatches": h["dispatches"], "requests_degraded": h["requests_degraded"],
+           "rows_degraded": h["rows_degraded"]}
+    want = {k: sent[k] for k in got}
+    check(got == want and h["requests_shed"] == 0 and h["state"] == "ready",
+          f"serve: (g) health {got} != sent {want}")
+    out["health"] = h
+
+    # host and device time of one predict program per bucket, and of the
+    # (q, t, u) cross build at 4096 (the composition's, in float64)
+    a_const = eng._gen.const
+    host_ms, dev_ms = {}, {}
+    for u in SERVE_BUCKETS:
+        pred, _ = eng._programs(u)
+        cq = torch.as_tensor(np.resize(map_c, (u, 2)), device=device)
+        xq = torch.as_tensor(np.resize(map_x, (u, 1, 2)), device=device)
+        host_ms[u], dev_ms[u] = host_and_device_ms(lambda: pred(*a_const, cq, xq, 11))
+        if u == SERVE_BUCKETS[-1]:
+            ct64, cq64 = a_const[4].double(), cq.double()
+            phi64 = a_const[3].double()
+            cross_host, cross_ms = host_and_device_ms(lambda: correlation(
+                cross_distance(ct64, cq64)[None], phi64[:, None, None], art.cov_model))
+    out["predict_host_ms_by_bucket"] = {str(u): v for u, v in host_ms.items()}
+    out["predict_device_ms_by_bucket"] = {str(u): v for u, v in dev_ms.items()}
+    out["cross_build_device_ms_4096"] = cross_ms
+    out["cross_build_share_4096"] = cross_ms / dev_ms[SERVE_BUCKETS[-1]]
+    eng.close()
+
+    # (a) the card engine against predict_at on the CPU, same noise
+    eng_a = PredictionEngine(artifact_path, buckets=(SERVE_ROWS,), include_samples=True,
+                             noise=cpu_noise, warm=False)
+    r_a = eng_a.predict(*reqs[4], seed=5)
+    eng_a.close()
+    cfg = SMKConfig(cov_model=art.cov_model, link=art.link, jitter=art.jitter,
+                    jitter_per_m=art.jitter_per_m)
+    fit_cpu = types.SimpleNamespace(sample_par=torch.as_tensor(art.sample_par),
+                                    sample_w=torch.as_tensor(art.sample_w),
+                                    param_grid=torch.as_tensor(art.param_grid))
+    cache = FactorCache(None, None, None, krige_chol=torch.as_tensor(art.chol_tt))
+    want_a, _ = predict_at(fit_cpu, art.coords_test, *reqs[4], config=cfg, cache=cache,
+                           eps=cpu_noise(5, (s_draws, SERVE_ROWS, q), torch.float32, "cpu"))
+    err_s = float(np.abs(r_a.p_samples - want_a.p_samples.numpy()).max())
+    err_q = float(np.abs(r_a.p_quant - want_a.p_quant.numpy()).max())
+    out["card_vs_cpu_max_abs_err"] = {"p_samples": err_s, "p_quant": err_q,
+                                      "atol": SERVE_ATOL}
+    check(err_s <= SERVE_ATOL and err_q <= SERVE_ATOL,
+          f"serve: (a) card vs CPU {err_s:.3g} / {err_q:.3g} > {SERVE_ATOL}")
+
+    # (f) a queue flood: the in-flight slot stalled, a waiting room of 2
+    eng_f = PredictionEngine(artifact_path, buckets=(SERVE_ROWS,), max_queue=2,
+                             max_in_flight=1)
+    results, errors = {}, {}
+
+    def call(name):
+        try:
+            results[name] = eng_f.predict(*reqs[5], seed=5, deadline_s=60.0)
+        except Exception as e:  # recorded and checked below
+            errors[name] = e
+
+    with stall_predict(max_fires=1, max_stall_s=30.0) as inj:
+        first = threading.Thread(target=call, args=("a",))
+        first.start()
+        for _ in range(500):
+            if inj.fires:
+                break
+            time.sleep(0.01)
+        waiting = [threading.Thread(target=call, args=(n,)) for n in ("b", "c")]
+        for th in waiting:
+            th.start()
+        for _ in range(500):
+            if eng_f._queue_sem._value == 0:
+                break
+            time.sleep(0.01)
+        start = time.perf_counter()
+        call("d")
+        shed_s = time.perf_counter() - start
+    for th in [first] + waiting:
+        th.join(timeout=60.0)
+    check(not first.is_alive() and not any(th.is_alive() for th in waiting),
+          "serve: (f) a flooded request hung")
+    check(isinstance(errors.get("d"), QueueFullError) and shed_s < 0.05,
+          f"serve: (f) the flood did not shed typed at once ({errors}, {shed_s:.4f} s)")
+    check(set(results) == {"a", "b", "c"}, f"serve: (f) admitted requests {sorted(results)}")
+    hf = eng_f.health()
+    check(hf["requests_shed"] == 1 and hf["requests_served"] == 3, f"serve: (f) health {hf}")
+    out["flood"] = {"max_queue": 2, "shed_s": shed_s, "served": 3, "shed": 1}
+    eng_f.close()
+
+    # the fleet: two replicas on the card, 8 requests
+    fleet = ReplicaFleet(artifact_path, n_replicas=2, buckets=SERVE_BUCKETS)
+    try:
+        start = time.perf_counter()
+        for i in range(8):
+            r = fleet.predict(*reqs[i], seed=i)
+            check(np.array_equal(r.p_quant, serial[i].p_quant), "serve: fleet response differs")
+        fleet_s = time.perf_counter() - start
+        hfl = fleet.health()
+        check(hfl["requests_routed"] == 8 and hfl["totals"]["requests_served"] == 8
+              and [rep["requests_served"] for rep in hfl["replicas"]] == [4, 4],
+              f"serve: fleet health {hfl}")
+        out["fleet"] = {"n_replicas": 2, "requests": 8, "wall_s": fleet_s}
+    finally:
+        fleet.close()
+
+    launches = dict(fb.LAUNCHES)
+    check(sum(launches.values()) == 0 and sum(fb.PLAIN_CALLS.values()) == 0,
+          f"serve: a fused build ran on the serving path: {launches}")
+    out["launches"] = launches
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3575,8 +4091,14 @@ def main() -> int:
 
     timings = phase("kernels", kernels_phase, device)
     phase("fit_small_parity", fit_small_parity, device)
-    c5 = phase("fit_config5", run_fit, "fit_config5", n=MAIN_K * MAIN_M, k=MAIN_K, q=1,
-               p=2, t=MAIN_T, n_samples=40, device=device)
+    serve_dir = tempfile.mkdtemp(prefix="smk_chip_serve_")
+    try:
+        c5 = phase("fit_config5", run_fit, "fit_config5", n=MAIN_K * MAIN_M, k=MAIN_K, q=1,
+                   p=2, t=MAIN_T, n_samples=40, device=device,
+                   artifact_path=f"{serve_dir}/config5.npz")
+        phase("serve_config5", serve_config5, device, c5["artifact"]["path"], serve_dir)
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
     q2 = phase("fit_q2", run_fit, "fit_q2", n=8 * MAIN_M, k=8, q=2, p=2, t=MAIN_T,
                n_samples=20, device=device)
     phase("kernels_config4", kernels_config4, device)

@@ -11,20 +11,30 @@ here (``csrc/fused_corr.cu``, bound in ``ops/fused_build.py``).
 from smk_torch.api import (
     FitRandomness,
     MetaKrigingResult,
+    PredictAtResult,
+    QueryValidationError,
     TorchRandomness,
     fit_meta_kriging,
     param_names,
+    predict_at,
     predict_probability,
+    prediction_factors,
+    validate_query_batch,
 )
 from smk_torch.config import PriorConfig, SMKConfig
 
 __all__ = [
     "FitRandomness",
     "MetaKrigingResult",
+    "PredictAtResult",
     "PriorConfig",
+    "QueryValidationError",
     "SMKConfig",
     "TorchRandomness",
     "fit_meta_kriging",
     "param_names",
+    "predict_at",
     "predict_probability",
+    "prediction_factors",
+    "validate_query_batch",
 ]

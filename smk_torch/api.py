@@ -33,7 +33,11 @@ from smk_torch.models.probit_gp import (
     sweep_shapes,
 )
 from smk_torch.obs.events import open_run_log
+from smk_torch.ops.chol import jittered_cholesky, tri_solve
+from smk_torch.ops.distance import cross_distance, pairwise_distance
+from smk_torch.ops.factor_cache import FactorCache, empty_counter, tick
 from smk_torch.ops.glm import glm_warm_start
+from smk_torch.ops.kernels import correlation
 from smk_torch.ops.quantiles import (
     credible_summary,
     interp_quantile_grid,
@@ -162,11 +166,244 @@ def predict_probability(
     betas = sample_par[:, : q * p].reshape(-1, q, p)
     eta_fixed = torch.einsum("tqp,sqp->stq", x_test, betas)
     eta = eta_fixed.reshape(sample_par.shape[0], -1) + sample_w
+    return _link_prob(eta, link)
+
+
+def _link_prob(eta: torch.Tensor, link: str) -> torch.Tensor:
     if link == "probit":
         return ndtr(eta)
     if link == "logit":
         return 1.0 / (1.0 + torch.exp(-eta))
     raise ValueError(f"unknown link {link!r}")
+
+
+class QueryValidationError(ValueError):
+    """A prediction query batch failed validation at the serve/API
+    boundary: NaN/Inf coordinates, a wrong coordinate or design
+    dimension, or an empty batch. Raised before any dispatch, so a
+    non-finite query never comes back as a NaN probability row."""
+
+
+def validate_query_batch(coords_query, x_query, *, d: int, q: int, p: int):
+    """Validate one prediction query batch against the fit's geometry
+    (the twin's checks and messages): ``coords_query`` (u, d) locations,
+    ``x_query`` (u, q, p) designs. Returns them as contiguous float32
+    numpy arrays (the engine pads on the host). Raises
+    :class:`QueryValidationError` on an empty batch, wrong shapes or
+    non-finite values."""
+    try:
+        cq = np.asarray(_host(coords_query), np.float32)
+    except (TypeError, ValueError) as e:
+        raise QueryValidationError(
+            f"coords_query is not a numeric array ({e!r})"
+        ) from e
+    if cq.ndim != 2 or cq.shape[1] != d:
+        raise QueryValidationError(
+            f"coords_query must be (n_queries, d={d}) locations, got "
+            f"shape {cq.shape}"
+        )
+    if cq.shape[0] == 0:
+        raise QueryValidationError(
+            "empty query batch — coords_query has zero rows"
+        )
+    if not np.isfinite(cq).all():
+        bad = np.unique(np.argwhere(~np.isfinite(cq))[:, 0])[:8]
+        raise QueryValidationError(
+            "coords_query contains non-finite values at rows "
+            f"{bad.tolist()} — a NaN/Inf coordinate would propagate "
+            "into the composition draw as a silent NaN probability"
+        )
+    try:
+        xq = np.asarray(_host(x_query), np.float32)
+    except (TypeError, ValueError) as e:
+        raise QueryValidationError(
+            f"x_query is not a numeric array ({e!r})"
+        ) from e
+    if xq.shape != (cq.shape[0], q, p):
+        raise QueryValidationError(
+            f"x_query must be (n_queries={cq.shape[0]}, q={q}, "
+            f"p={p}) designs, got shape {xq.shape}"
+        )
+    if not np.isfinite(xq).all():
+        bad = np.unique(np.argwhere(~np.isfinite(xq))[:, 0])[:8]
+        raise QueryValidationError(
+            "x_query contains non-finite values at rows "
+            f"{bad.tolist()}"
+        )
+    return np.ascontiguousarray(cq), np.ascontiguousarray(xq)
+
+
+def _host(a):
+    """``a`` as something numpy reads: a tensor is copied to the host."""
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else a
+
+
+def _krige_predict_core(
+    chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, eps,
+    *, cov_model: str, link: str, var_floor: float,
+):
+    """The kriging composition at query locations — the one formula
+    :func:`predict_at` and the serving engine (serve/engine.py) run
+    (the twin's ``_krige_predict_core``).
+
+    Per component j: W = R_tt^{-1} R_cross through the anchor factor;
+    the conditional mean carries each combined-posterior latent draw to
+    the queries, and the draw uses each query's marginal conditional
+    variance, so every query row is computed independently of every
+    other row (pad rows cannot perturb real rows; a non-finite row
+    stays alone).
+
+    chol_tt: (q, t, t) anchor Cholesky; w_test: (S, t, q); betas:
+    (S, q, p); phi: (q,); coords_test: (t, d); coords_q: (u, d); x_q:
+    (u, q, p); eps: (S, u, q) standard normals. Returns p(y=1) (S, u, q)
+    in ``w_test``'s dtype.
+
+    The composition runs in float64 and p is rounded to the draws'
+    dtype: no TF32 setting reaches a float64 product, and those settings
+    are process-global, which a serving thread must not depend on (the
+    fit scopes them per call, api.matmul_precision)."""
+    out_dt = w_test.dtype
+    chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, eps = (
+        a.double() for a in (chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, eps)
+    )
+    rc = correlation(
+        cross_distance(coords_test, coords_q)[None], phi[:, None, None], cov_model,
+    )  # (q, t, u)
+    v = tri_solve(chol_tt, rc)
+    wmat = tri_solve(chol_tt, v, trans=True)  # (q, t, u) = R_tt^{-1} R_cross
+    mean = torch.einsum("stq,qtu->suq", w_test, wmat)  # (S, u, q)
+    var = torch.clamp(
+        1.0 - torch.einsum("qtu,qtu->qu", rc, wmat), min=var_floor
+    )  # (q, u) marginal conditional variance
+    w_q = mean + torch.sqrt(var).T[None, :, :] * eps
+    eta = torch.einsum("uqp,sqp->suq", x_q, betas) + w_q
+    return _link_prob(eta, link).to(out_dt)
+
+
+def prediction_factors(
+    coords_test: torch.Tensor,
+    phi: torch.Tensor,
+    *,
+    config: Optional[SMKConfig] = None,
+) -> FactorCache:
+    """The query-independent kriging operator of the predict path, built
+    once as a :class:`~smk_torch.ops.factor_cache.FactorCache`:
+    ``krige_chol`` holds the (q, t, t) Cholesky of the anchor-grid
+    correlation R_tt(phi) + jitter, and ``n_chol`` ticks q (in one
+    batched call), so a cache-threaded second predict is seen to factor
+    nothing. Every other field is None."""
+    cfg = config or SMKConfig()
+    t = coords_test.shape[0]
+    r_tt = correlation(
+        pairwise_distance(coords_test)[None], phi[:, None, None], cfg.cov_model,
+    )  # (q, t, t)
+    chol_tt = jittered_cholesky(r_tt, cfg.effective_jitter(t))
+    cache = FactorCache(
+        r_mv=None, nys_z=None, chol_inv=None, krige_w=None, krige_chol=chol_tt,
+        n_chol=empty_counter(), n_chol_calls=empty_counter(),
+    )
+    return tick(cache, int(phi.shape[0]), 1)
+
+
+def _median_row(n_rows: int) -> int:
+    """Row of the 0.5 quantile in a combined quantile grid: row i holds
+    probability (i+1)/n, so the exact median of an even-length grid is
+    row n//2 - 1; an odd grid takes the upper neighbor."""
+    return (n_rows + 1) // 2 - 1
+
+
+def plugin_phi_layout(result: MetaKrigingResult, t: int) -> tuple:
+    """(q, p, phi) of a fit at anchor size ``t`` — the one site that
+    inverts the ``sample_par`` packing (q·p betas, q(q+1)/2 K entries,
+    q phis) and takes the plug-in posterior-median phi from the combined
+    grid. Shared by :func:`predict_at` and ``serve.artifact.save_artifact``.
+    ``phi`` is a (q,) numpy array. A ``t`` that is not the fit's anchor
+    size raises :class:`QueryValidationError`."""
+    n_w = int(result.sample_w.shape[1])
+    n_par = int(result.sample_par.shape[1])
+    q = n_w // t
+    p = (n_par - q * (q + 1) // 2 - q) // q if q > 0 else -1
+    # a mismatched t still floor-divides into some (q, p) whose reshape
+    # can succeed on element count alone: reject it typed
+    if (
+        q <= 0 or p <= 0 or n_w != q * t
+        or n_par != q * p + q * (q + 1) // 2 + q
+    ):
+        raise QueryValidationError(
+            f"anchor grid of {t} rows is inconsistent with this fit: "
+            f"sample_w has {n_w} latents and sample_par {n_par} "
+            "parameters, which do not factor as (q responses x "
+            f"{t} anchors) + (q*p + q(q+1)/2 + q) — pass the SAME "
+            "coords_test the fit was run with"
+        )
+    grid = np.asarray(_host(result.param_grid))
+    phi = np.asarray(grid[_median_row(grid.shape[0]), -q:])
+    return q, p, phi
+
+
+class PredictAtResult(NamedTuple):
+    """One query-location predict: ``p_samples`` (S, u, q) posterior
+    p(y=1) draws and ``p_quant`` (3, u, q) [median, 2.5%, 97.5%] per
+    query row."""
+
+    p_samples: torch.Tensor
+    p_quant: torch.Tensor
+
+
+def predict_at(
+    result: MetaKrigingResult,
+    coords_test,
+    coords_query,
+    x_query,
+    *,
+    eps: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    config: Optional[SMKConfig] = None,
+    cache: Optional[FactorCache] = None,
+) -> tuple:
+    """p(y=1) with credible intervals at arbitrary query locations from a
+    finished fit (the twin's ``predict_at``), on the device of the
+    result's tensors.
+
+    Each resampled draw's latent is kriged from the anchor grid
+    (``coords_test``) to the queries with the plug-in posterior-median
+    phi. The anchor-grid Cholesky is the query-independent factor: pass
+    the returned ``cache`` back in and a repeated predict factors
+    nothing. The composition noise is ``eps`` (S, u, q) when given, else
+    standard normals from ``generator`` (default: a ``torch.Generator``
+    seeded with 0 on the result's device).
+
+    Returns ``(PredictAtResult, FactorCache)``."""
+    cfg = config or SMKConfig()
+    dev, dt = result.sample_w.device, result.sample_w.dtype
+    ct = _as_tensor(coords_test, dt, dev)
+    t, d = ct.shape
+    q, p, phi_np = plugin_phi_layout(result, t)
+    cq, xq = validate_query_batch(coords_query, x_query, d=d, q=q, p=p)
+    phi = torch.as_tensor(phi_np, dtype=dt, device=dev)
+    if cache is None:
+        cache = prediction_factors(ct, phi, config=cfg)
+    s = result.sample_par.shape[0]
+    shape = (s, cq.shape[0], q)
+    if eps is None:
+        if generator is None:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(0)
+        eps = torch.randn(shape, generator=generator, dtype=dt, device=dev)
+    elif tuple(eps.shape) != shape:
+        raise ValueError(f"eps must be (S, u, q) = {shape}, got {tuple(eps.shape)}")
+    p_samples = _krige_predict_core(
+        cache.krige_chol,
+        result.sample_w.reshape(s, t, q),
+        result.sample_par[:, : q * p].reshape(s, q, p),
+        phi, ct,
+        _as_tensor(cq, dt, dev), _as_tensor(xq, dt, dev),
+        eps.to(dtype=dt, device=dev),
+        cov_model=cfg.cov_model, link=cfg.link,
+        var_floor=cfg.effective_jitter(t),
+    )
+    p_quant = credible_summary(p_samples.reshape(s, -1)).reshape(3, cq.shape[0], q)
+    return PredictAtResult(p_samples, p_quant), cache
 
 
 def combine(grids_par: torch.Tensor, grids_w: torch.Tensor, config: SMKConfig,

@@ -13,7 +13,9 @@ A size that is a rung takes its exact-size bucket, with no pad rows.
 
 The same ladder over the subset axis (:func:`k_ladder`,
 :func:`compaction_rung`) sizes the adaptive schedule's compacted
-dispatch groups (parallel/schedule.py).
+dispatch groups (parallel/schedule.py), and a query-batch ladder
+(:func:`slice_plan`) the serving engine's micro-batches
+(serve/engine.py).
 """
 
 from __future__ import annotations
@@ -70,6 +72,18 @@ def bucket_for(n: int, ladder: Sequence[int]) -> int:
         f"{int(ladder[-1])}) — extend bucket_ladder / "
         "config.bucket_ladder to cover the largest subset"
     )
+
+
+def slice_plan(n: int, buckets: Sequence[int]) -> List[Tuple[int, int, int]]:
+    """Micro-batch plan of one ``n``-row request over an ascending bucket
+    ladder: ``[(start, stop, bucket), ...]`` — slices of at most
+    ``max(buckets)`` rows, each padded up to the smallest bucket that
+    holds it (the serving engine's dispatch loop)."""
+    cap = int(buckets[-1])
+    return [
+        (lo, min(lo + cap, n), select_bucket(min(lo + cap, n) - lo, buckets))
+        for lo in range(0, n, cap)
+    ]
 
 
 def validate_ladder(ladder) -> Tuple[int, ...]:

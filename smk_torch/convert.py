@@ -107,3 +107,25 @@ def grids_from_numpy(
             f"{tuple(pg.shape)} and {tuple(wg.shape)}"
         )
     return pg, wg
+
+
+def meta_kriging_result_from_numpy(result, *, device="cpu"):
+    """A JAX ``MetaKrigingResult`` (or a dict of its fields) as the
+    port's :class:`~smk_torch.api.MetaKrigingResult`: every array as a
+    tensor on ``device``, ``subset_results`` as the port's SubsetResult,
+    the scalars and tuples as they are — so the port can predict at new
+    sites from, or save a serving artifact of, a JAX fit."""
+    from smk_torch.api import MetaKrigingResult
+    from smk_torch.models.probit_gp import SubsetResult
+
+    def conv(value):
+        if value is None or isinstance(value, (str, float, int, tuple, dict)):
+            return value
+        return _tensor(value, device)
+
+    subsets = _field(result, "subset_results")
+    fields = {f: conv(_field(result, f)) for f in MetaKrigingResult._fields
+              if f != "subset_results"}
+    fields["subset_results"] = SubsetResult(
+        **{f: _tensor(_field(subsets, f), device) for f in SubsetResult._fields})
+    return MetaKrigingResult(**fields)

@@ -26,3 +26,21 @@ def sync(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def in_callers_context(fn, dev: torch.device):
+    """``fn`` wrapped to run on another thread under this thread's CUDA
+    device, current stream and grad mode (all three are per thread in
+    torch), so a worker queues the same work on the same stream."""
+    grad = torch.is_grad_enabled()
+    if dev.type != "cuda":
+        def run():
+            with torch.set_grad_enabled(grad):
+                return fn()
+        return run
+    stream = torch.cuda.current_stream(dev)
+
+    def run():
+        with torch.cuda.device(dev), torch.cuda.stream(stream), torch.set_grad_enabled(grad):
+            return fn()
+    return run

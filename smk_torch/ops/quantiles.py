@@ -107,11 +107,19 @@ def inverse_cdf_resample(
     return [g[index, :] for g in dense_grids]
 
 
-def credible_summary(samples: torch.Tensor) -> torch.Tensor:
-    """(3, d) rows = [median, 2.5%, 97.5%] per column (R:163-165)."""
-    probs = torch.tensor(
-        [0.5, 0.025, 0.975], dtype=samples.dtype, device=samples.device
-    )
+def credible_probs(dtype=torch.float32, device=None) -> torch.Tensor:
+    """The probabilities of :func:`credible_summary`'s rows, as a tensor
+    (a host-to-device copy on the card: a caller on a hot path builds it
+    once and passes it)."""
+    return torch.tensor([0.5, 0.025, 0.975], dtype=dtype, device=device)
+
+
+def credible_summary(samples: torch.Tensor, probs=None) -> torch.Tensor:
+    """(3, d) rows = [median, 2.5%, 97.5%] per column (R:163-165);
+    ``probs``: :func:`credible_probs` in ``samples``' dtype and device,
+    built here when not given."""
+    if probs is None:
+        probs = credible_probs(samples.dtype, samples.device)
     return _type7(samples, probs, 0)
 
 

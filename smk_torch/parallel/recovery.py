@@ -70,6 +70,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from smk_torch.device import in_callers_context
 from smk_torch.models.probit_gp import (
     BuildConsts,
     GeneratorNoise,
@@ -996,25 +997,6 @@ def _ragged_groups(model, part, coords_test, x_test, noise, beta_init, pstats, r
     return SubsetResult(*(torch.cat(f)[inv] for f in zip(*group_results)))
 
 
-def _in_callers_context(fn, dev: torch.device):
-    """``fn`` wrapped to run on another thread under this thread's CUDA
-    device, current stream and grad mode (all three are per thread in
-    torch), so the watchdog's worker queues the same work on the same
-    stream."""
-    grad = torch.is_grad_enabled()
-    if dev.type != "cuda":
-        def run():
-            with torch.set_grad_enabled(grad):
-                return fn()
-        return run
-    stream = torch.cuda.current_stream(dev)
-
-    def run():
-        with torch.cuda.device(dev), torch.cuda.stream(stream), torch.set_grad_enabled(grad):
-            return fn()
-    return run
-
-
 def _fit_subsets_chunked_impl(
     model: SpatialGPSampler,
     part: Partition,
@@ -1840,7 +1822,7 @@ def _fit_subsets_chunked_impl(
     def guarded(fn, chunk, iteration, novel=False):
         if watchdog is None or novel:
             return fn()
-        return watchdog.run(_in_callers_context(fn, dev), chunk=chunk, iteration=iteration)
+        return watchdog.run(in_callers_context(fn, dev), chunk=chunk, iteration=iteration)
 
     def dispatch(a):
         """chunk_work under the profiler's scope for the chunk while a

@@ -1,6 +1,6 @@
 """Deterministic fault injection — twin of ``smk_tpu/testing/faults.py``
-for the chunked executor (the distributed, coordinator and serving
-injectors come with A9 and A11).
+for the chunked executor and the serving engine (the distributed and
+coordinator injectors come with A9).
 
 Every injector is armed only inside its context manager and leaves
 nothing behind when it exits; each fires at exactly the configured
@@ -21,11 +21,18 @@ checksum and lenient resume.
   raises :class:`ChaosError`;
 - :func:`kill_at_manifest`: the Nth manifest write raises
   :class:`SimulatedKill`, after its segment landed;
-- :func:`corrupt_segment`: truncate or bit-flip a draw segment on disk.
+- :func:`corrupt_segment`: truncate or bit-flip a draw segment on disk;
+- :func:`stall_predict`: the serving engine's next predict dispatches
+  block until the context exits (or a bounded fallback), a wedged
+  program for the request deadline to turn into ``RequestTimeoutError``;
+- :func:`inject_predict_nan`: the next predict dispatches come back with
+  chosen query rows NaN, for the per-row guard to quarantine.
 
 The chunk injectors wrap the executor's one-chunk seam
-(``parallel/recovery._run_chunk``) while one is armed and put it back
-when the last disarms. For tests and probes only, as the twin's.
+(``parallel/recovery._run_chunk``), the serving injectors the engine's
+program seam (``serve/engine._invoke_program``, predict calls only, never
+the guard), while one is armed, and put it back when the last disarms.
+For tests and probes only, as the twin's.
 """
 
 from __future__ import annotations
@@ -255,3 +262,115 @@ def corrupt_segment(path: str, index: int, mode: str = "bitflip") -> str:
         raise ValueError(f"unknown corruption mode {mode!r}")
     return seg
 
+
+
+# -- the serving engine (serve/engine.py) ---------------------------------
+
+_active_predict_stall: list = []
+_active_predict_nan: list = []
+_real_invoke = None
+
+
+@dataclass
+class PredictStallInjection:
+    """Arming state of :func:`stall_predict`: the next ``max_fires``
+    predict dispatches block on ``release`` (set when the context exits)
+    or for ``max_stall_s``."""
+
+    max_fires: int = 1
+    max_stall_s: float = 600.0
+    fires: int = 0
+    release: threading.Event = field(default_factory=threading.Event)
+
+
+@dataclass
+class PredictNaNInjection:
+    """Arming state of :func:`inject_predict_nan`: the next
+    ``max_fires`` predict dispatches return with ``rows`` of their output
+    set to NaN."""
+
+    rows: tuple
+    max_fires: int = 1
+    fires: int = 0
+
+
+def _poison_predict_rows(arr, rows):
+    """``arr`` with the query rows ``rows`` (axis 1) NaN, as a new tensor."""
+    out = arr.clone()
+    out[:, list(rows)] = float("nan")
+    return out
+
+
+def _injecting_invoke(prog, prog_key, *args):
+    if prog_key[0] != "serve_predict":
+        return _real_invoke(prog, prog_key, *args)
+    # the fire counts move under the arm lock: concurrent dispatches
+    # (max_in_flight > 1) never run past max_fires
+    with _arm_lock:
+        stalls = [st for st in _active_predict_stall if st.fires < st.max_fires]
+        for st in stalls:
+            st.fires += 1
+    for st in stalls:
+        st.release.wait(timeout=st.max_stall_s)
+    out = _real_invoke(prog, prog_key, *args)
+    hits: list = []
+    with _arm_lock:
+        for inj in list(_active_predict_nan):
+            if inj.fires < inj.max_fires:
+                inj.fires += 1
+                hits.extend(inj.rows)
+    if not hits:
+        return out
+    rows = sorted(set(hits))
+    ps, pq = out
+    return _poison_predict_rows(ps, rows), _poison_predict_rows(pq, rows)
+
+
+@contextmanager
+def _armed_serve(registry: list, inj):
+    """Put ``inj`` in ``registry`` for the context, with the engine's
+    program seam wrapped while any serving injection is armed."""
+    global _real_invoke
+    from smk_torch.serve import engine as _engine
+
+    with _arm_lock:
+        if not (_active_predict_stall or _active_predict_nan):
+            _real_invoke = _engine._invoke_program
+            _engine._invoke_program = _injecting_invoke
+        registry.append(inj)
+    try:
+        yield inj
+    finally:
+        with _arm_lock:
+            registry.remove(inj)
+            if not (_active_predict_stall or _active_predict_nan):
+                _engine._invoke_program = _real_invoke
+
+
+@contextmanager
+def stall_predict(max_fires: int = 1, max_stall_s: float = 600.0):
+    """Arm a wedged predict: the engine's next ``max_fires`` predict
+    dispatches block inside the dispatch until this context exits (its
+    ``finally`` sets the release) or ``max_stall_s`` passes. The request
+    deadline fires during the stall as a typed ``RequestTimeoutError``;
+    the abandoned worker finishes at context exit and its result is
+    dropped. Yields the injection record."""
+    inj = PredictStallInjection(max_fires=int(max_fires), max_stall_s=float(max_stall_s))
+    try:
+        with _armed_serve(_active_predict_stall, inj):
+            yield inj
+    finally:
+        inj.release.set()
+
+
+@contextmanager
+def inject_predict_nan(rows, max_fires: int = 1):
+    """Arm sick rows: the engine's next ``max_fires`` predict dispatches
+    come back with query ``rows`` (indices into the padded bucket, axis 1
+    of the output) NaN — after query validation, so the damage travels
+    the guard, the per-row quarantine, the partial response and the
+    health state as a faulty device would feed it. Yields the injection
+    record."""
+    inj = PredictNaNInjection(rows=tuple(int(r) for r in rows), max_fires=int(max_fires))
+    with _armed_serve(_active_predict_nan, inj):
+        yield inj

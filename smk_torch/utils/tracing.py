@@ -9,8 +9,9 @@ loop (both pipelines), the checkpoint, its background writer,
 quarantine, the streaming monitor and the adaptive schedule record into
 (parallel/recovery.py); with a ``run_log`` each record is also an event
 of the fit's run log (obs/events.py). The program store is not ported
-(ROADMAP A10): ``aggregate`` reports its keys as the twin does when it
-is off.
+(ROADMAP A10): the serving engine records its in-process bucket programs
+(``record_program``), and a fit's ``aggregate`` reports the store's keys
+as the twin does when it is off.
 """
 
 from __future__ import annotations
@@ -105,6 +106,10 @@ class ChunkPipelineStats:
     host_staging_bytes: int = 0
     run_log: Any = None
     adaptive: Any = None
+    # one entry per program acquisition (record_program): the serving
+    # engine's bucket programs until the program store (ROADMAP A10)
+    programs: List[Dict[str, Any]] = field(default_factory=list)
+    _program_keys: set = field(default_factory=set, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def _emit(self, name: str, attrs: Dict[str, Any]) -> None:
@@ -153,6 +158,37 @@ class ChunkPipelineStats:
         with self._lock:
             self.fault_events.append(ev)
             self._emit("fault", ev)
+
+    def record_program(self, *, key, source: str, compile_s: float = 0.0,
+                       aot: bool = False) -> None:
+        """One program acquisition (the twin's ``record_program``): the
+        bucket ``key``, where the program came from (``source``: "fresh"
+        when built, "l1" when reused from the in-process table) and the
+        host seconds the acquisition cost. The first record of a key
+        wins."""
+        key_t = tuple(str(f) for f in key)
+        entry = {
+            "key": list(key_t),
+            "source": source,
+            "compile_s": round(float(compile_s), 4),
+            "aot": bool(aot),
+        }
+        with self._lock:
+            if key_t in self._program_keys:
+                return
+            self._program_keys.add(key_t)
+            self.programs.append(entry)
+            self._emit("program", entry)
+
+    def program_summary(self) -> Dict[str, Any]:
+        """Total acquisition seconds and a histogram of sources."""
+        sources: Dict[str, int] = {}
+        for p in self.programs:
+            sources[p["source"]] = sources.get(p["source"], 0) + 1
+        return {
+            "compile_s": round(sum(p["compile_s"] for p in self.programs), 4),
+            "program_sources": sources,
+        }
 
     def add_ckpt_commit(
         self, seconds: float, *, generation: int, it: int = -1,
@@ -217,8 +253,7 @@ class ChunkPipelineStats:
                 if self.adaptive and wall > 0 and ess_final is not None else None),
             "ingest": None,
             "fault": self.fault_summary(),
-            "compile_s": 0.0,
-            "program_sources": {},
+            **self.program_summary(),
         }
 
     def _ess_sum_final(self):
