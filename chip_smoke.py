@@ -64,6 +64,16 @@ printed as one JSON line:
               predict per bucket, the cross build's share of the device
               time at 4096, the engine's peak memory; 0 fused-build
               launches.
+5c. serve_coalesced_config5 — the same artifact behind a 2 ms
+              coalescing window (coalesce_window_ms = 2, 4 in flight): the
+              same 64 requests from 8 clients, twice, then one at a time
+              (p50/p99, QPS, dispatches against requests, held seconds,
+              serve_block of the run log, beside serve_config5's figures);
+              every coalesced response bitwise the request served alone,
+              fewer dispatches than requests, a deadline-critical request
+              not held, a NaN row degrading its own request alone; host and
+              device ms of one row-seed predict at 32 and 4096 rows and of
+              its row noise at 4096; 0 fused-build launches.
 6. fit_q2   — the bivariate case (q = 2, K = 8, m = 3906, 20 sweeps).
 
 Phases 5 and 6 run the default SMKConfig sampler. Phases 7-11 run the
@@ -198,6 +208,18 @@ with checkpoints in a temporary directory that the script removes:
               for the fit beside the random split's, peak memory,
               launches per group against build_calls(chunk_iters=16),
               finite outputs.
+24b. ingest_config4 — the live loop (serve/ingest.LiveFit) on the same
+              data and config: fit (generation 0) served by an engine and
+              a 2-replica fleet; 256 rows ingested into subset 0, the
+              dirty refit (generation 1; ingest_to_visible_s), the 63
+              other subsets bitwise, subset 0's rung before and after; a
+              hot swap of both under 4 clients (no request dropped, each
+              response bitwise one generation's, 0 programs built; p50/p99
+              beside the steady round's); a full and a warm dirty refit
+              (refit_speedup); launches of every refit group against
+              build_calls(chunk_iters=16), no plain build; a torn publish;
+              generation 1 on the card against predict_at on the CPU; the
+              kernels at the refit group's shape; peak memory.
 
 Phases 25-26 run the overlap pipeline (chunk_pipeline="overlap": chunk
 t's boundary while chunk t + 1 is queued, the checkpoint written by a
@@ -266,8 +288,10 @@ monitor, the run log, the adaptive schedule, profiling):
 
 Then each phase's wall time and the script's, the kernel summary line
 {"kernels": [...]} (launches from fit_config5, the double kernels' from
-fit_config5_float64, and per path, the Vecchia paths' all 0), the card's
-nvidia-smi line, and last {"ok": true, "device": {...}}. A failing phase
+fit_config5_float64, and per path, the Vecchia paths' and the coalesced
+serving path's all 0: serving builds its correlations with torch ops, as
+the twin does outside Pallas), the card's nvidia-smi line, and last
+{"ok": true, "device": {...}}. A failing phase
 raises: the script exits non-zero and prints no ok line. It exits
 non-zero at once where no CUDA card is visible, or where the port
 cannot be imported (the script alone, outside a checkout).
@@ -2654,6 +2678,316 @@ def fit_coherent_config4(device, c4_data, random_ms):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 24b: ingest_config4
+# ----------------------------------------------------------------------
+# the live loop's traffic: rows per ingest (the twin's bench rung copies
+# subset 0's own coordinates, bench.py:1625-1634), distinct requests and
+# the client threads racing the swap, and each client's requests in it
+INGEST_ROWS, LIVE_REQUESTS, LIVE_CLIENTS, LIVE_RACE = 256, 16, 4, 24
+
+
+def _launch_delta(after, before):
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def ingest_config4(device, c4_data, tmp):
+    """The live loop (smk_torch/serve/ingest.LiveFit) at config4's width
+    on the eBird proxy: the production sampler, logit, phi every 8th, 64
+    sweeps in chunks of 16, coherent (buckets 1024 x 34 and 1448 x 30).
+
+    1. ``fit`` publishes generation 0; a PredictionEngine and a 2-replica
+       ReplicaFleet (buckets SERVE_BUCKETS) serve it: serial answers of
+       16 requests of 32 rows (the data's own sites and designs), then a
+       steady round from 4 clients.
+    2. 256 rows ingested: copies of subset 0's coordinates with fresh y
+       and x from default_rng(SEED); the dirty-only refit publishes
+       generation 1 (``ingest_to_visible_s``: the ingest call to the
+       generation committed and loadable).
+    3. ``swap_into`` the engine and the fleet while 4 clients send the
+       16 requests; then generation 1's serial answers.
+    4. A ``full=True`` refit and a dirty refit of subset 0 (the warm
+       ``refit_speedup``); a generation landed and never committed.
+
+    Checks: routed and dirty sets {0}; the served generation unchanged
+    until the swap; the 63 untouched subsets' grids and draws bitwise
+    after the refit, subset 0's not; launches of every refit group equal
+    build_calls(chunk_iters=16), by kernel too, and no plain build; no
+    request dropped in the race, each response bitwise one generation's
+    serial answer; a same-config swap builds 0 programs; generation 1 on
+    the card against predict_at on the CPU (SERVE_ATOL); after the torn
+    publish the committed generation still loads and the landed one is an
+    orphan; the append log empty after each commit; every output finite,
+    p in [0, 1]. Then the symmetric and narrow kernels at the refit
+    group's shape against their plain version (ragged_kernel_checks)."""
+    import os
+    import threading
+    import types
+
+    import numpy as np
+    import torch
+    from smk_torch.api import predict_at
+    from smk_torch.compile.buckets import bucket_for
+    from smk_torch.config import SMKConfig
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.ops.factor_cache import FactorCache
+    from smk_torch.parallel.partition import padded_partition
+    from smk_torch.serve import (
+        LiveFit,
+        PredictionEngine,
+        ReplicaFleet,
+        current_generation,
+        generation_artifact_name,
+        land_generation,
+        load_artifact,
+        load_current_generation,
+        orphan_generations,
+    )
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    cfg = production_config(k=C4_K, n_samples=64, link="logit", phi_every=8,
+                            partition_method="coherent")
+    y, x, coords, ct, xt = c4_data
+    want = build_calls(cfg, C4_Q, cfg.n_samples, cfg.n_burn_in, chunk_iters=16)
+    gen_dir = os.path.join(tmp, "ingest_config4")
+    pending = os.path.join(gen_dir, "pending")
+    pstats = ChunkPipelineStats()
+    live = LiveFit(gen_dir, config=cfg, coords_test=ct, x_test=xt, chunk_iters=16,
+                   pipeline_stats=pstats, device=device)
+    out = {"phase": "ingest_config4", "n": y.shape[0], "K": C4_K, "q": C4_Q, "p": C4_P,
+           "t": C4_T, "ingest_rows": INGEST_ROWS, "buckets": list(SERVE_BUCKETS)}
+    steps = {}
+
+    def step(name, fn, groups):
+        """Run one step of the loop; its launches against ``groups``
+        refit groups of build_calls."""
+        before = dict(fb.LAUNCHES)
+        start = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        got = _launch_delta(dict(fb.LAUNCHES), before)
+        expect = {e: groups() * v for e, v in want.items()}
+        check(got == expect, f"ingest: {name} launches {got} != {groups()} x {want}")
+        steps[name] = {"wall_s": wall, "groups": groups(), "launches": got}
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_counts()
+    manifest0 = step("fit", lambda: live.fit(SEED, y, x, coords),
+                     lambda: len(pstats.ragged_groups))
+    check(manifest0["generation"] == 0 and [g["bucket"] for g in pstats.ragged_groups]
+          == C4_COHERENT[0], f"ingest: fit {manifest0} {pstats.ragged_groups}")
+    rung0_before = bucket_for(len(live._assignments[0]), live._ladder())
+
+    # generation 0 served by an engine and a 2-replica fleet
+    art0, _ = live.load_current()
+    eng = PredictionEngine(art0, buckets=SERVE_BUCKETS, max_queue=64, device=device)
+    fleet = ReplicaFleet(art0, n_replicas=2, buckets=SERVE_BUCKETS, max_queue=64, device=device)
+    rng = np.random.default_rng(SEED + 11)
+    reqs = []
+    for _ in range(LIVE_REQUESTS):
+        rows = rng.choice(y.shape[0], SERVE_ROWS, replace=False)
+        reqs.append((np.asarray(coords[rows], np.float32), np.asarray(x[rows], np.float32)))
+
+    def serial_answers(target):
+        lat, resp = [], []
+        start = time.perf_counter()
+        for i, (cq, xq) in enumerate(reqs):
+            t0 = time.perf_counter()
+            resp.append(target.predict(cq, xq, seed=i).p_quant)
+            lat.append(time.perf_counter() - t0)
+        return resp, _latency_summary(lat, time.perf_counter() - start)
+
+    gen0, out["serial_gen0"] = serial_answers(eng)
+
+    def race(during=None):
+        """LIVE_CLIENTS clients, LIVE_RACE requests each, alternating the
+        engine and the fleet; ``during`` runs on this thread once 8
+        responses are in. Returns (records, errors, during's result and
+        its window)."""
+        recs, errs = [], []
+        lock = threading.Lock()
+
+        def client(c):
+            try:
+                for j in range(LIVE_RACE):
+                    i = (c + LIVE_CLIENTS * j) % LIVE_REQUESTS
+                    target = eng if j % 2 == 0 else fleet
+                    t0 = time.perf_counter()
+                    r = target.predict(*reqs[i], seed=i)
+                    with lock:
+                        recs.append((i, t0, time.perf_counter(), r.p_quant))
+            except Exception as e:  # recorded and failed below
+                errs.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(LIVE_CLIENTS)]
+        start = time.perf_counter()
+        for th in threads:
+            th.start()
+        got, window = None, None
+        if during is not None:
+            while len(recs) < 8 and not errs and time.perf_counter() - start < 60.0:
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            got = during()
+            window = (t0, time.perf_counter())
+        for th in threads:
+            th.join(timeout=300.0)
+        check(not any(th.is_alive() for th in threads), "ingest: a client hung")
+        wall = time.perf_counter() - start
+        check(not errs and len(recs) == LIVE_CLIENTS * LIVE_RACE,
+              f"ingest: dropped requests ({len(recs)} served, errors {errs[:3]})")
+        return recs, wall, got, window
+
+    recs, wall, _, _ = race()
+    check(all(np.array_equal(p, gen0[i]) for i, _, _, p in recs),
+          "ingest: a steady response differs from generation 0's")
+    out["steady"] = _latency_summary([t1 - t0 for _, t0, t1, _ in recs], wall)
+
+    # ingest 256 rows that route to subset 0 alone, then the dirty refit
+    own = np.asarray(live._assignments[0][:INGEST_ROWS], np.int64)
+    nrng = np.random.default_rng(SEED)
+    y_new = nrng.integers(0, 2, size=(len(own), C4_Q)).astype(np.float64)
+    x_new = nrng.normal(size=(len(own), C4_Q, C4_P))
+    pre = type(live._subset_results)(*(a.copy() for a in live._subset_results))
+    t_ingest = time.perf_counter()
+    receipt = live.ingest(y_new, x_new, live._coords[own])
+    check(set(receipt.routed_subsets) == {0} and receipt.dirty_subsets == (0,)
+          and receipt.generation == 0, f"ingest: receipt {receipt}")
+    rep = step("dirty_refit", lambda: live.refit(SEED + 1), lambda: 1)
+    art1, manifest1 = load_current_generation(gen_dir)
+    out["ingest_to_visible_s"] = time.perf_counter() - t_ingest
+    check(manifest1["generation"] == 1 and rep.refit_subsets == (0,)
+          and rep.reused_subsets == tuple(range(1, C4_K)), f"ingest: refit {rep}")
+    check(os.listdir(pending) == [] and manifest1["ingest_watermark"] == 0,
+          "ingest: the append log outlived its commit")
+    post = live._subset_results
+    for f, a, b in zip(post._fields, pre, post):
+        check(np.array_equal(a[1:], b[1:]), f"ingest: an untouched subset's {f} moved")
+    check(not np.array_equal(pre.w_samples[0], post.w_samples[0])
+          and not np.array_equal(pre.param_grid[0], post.param_grid[0]),
+          "ingest: subset 0 did not change")
+    rung0_after = bucket_for(len(live._assignments[0]), live._ladder())
+    # nothing swapped yet: both still serve generation 0
+    check(eng.generation == 0 and [e.generation for e in fleet.engines] == [0, 0]
+          and np.array_equal(eng.predict(*reqs[0], seed=0).p_quant, gen0[0])
+          and np.array_equal(fleet.predict(*reqs[1], seed=1).p_quant, gen0[1]),
+          "ingest: the served generation moved before the swap")
+
+    # swap both while 4 clients send requests
+    def fresh(e):
+        return e.program_summary()["program_sources"].get("fresh", 0)
+
+    targets = [eng] + list(fleet.engines)
+    built = [fresh(e) for e in targets]
+
+    def swap():
+        t0 = time.perf_counter()
+        s_eng = live.swap_into(eng)
+        t1 = time.perf_counter()
+        s_fleet = live.swap_into(fleet)
+        return {"engine_s": t1 - t0, "fleet_s": time.perf_counter() - t1,
+                "generation": (s_eng["generation"], s_fleet["generation"])}
+
+    recs, wall, swap_out, window = race(swap)
+    gen1, out["serial_gen1"] = serial_answers(eng)
+    check(swap_out["generation"] == (1, 1) and eng.generation == 1
+          and [e.generation for e in fleet.engines] == [1, 1], f"ingest: swap {swap_out}")
+    which = [0 if np.array_equal(p, gen0[i]) else 1 if np.array_equal(p, gen1[i]) else -1
+             for i, _, _, p in recs]
+    check(-1 not in which, "ingest: a racing response is neither generation's answer")
+    check(not any(np.array_equal(gen0[i], gen1[i]) for i in range(LIVE_REQUESTS)),
+          "ingest: generation 1 answers like generation 0")
+    swap_out["programs_built"] = [fresh(e) - b for e, b in zip(targets, built)]
+    check(swap_out["programs_built"] == [0, 0, 0], f"ingest: the swap built {swap_out}")
+    lat = [t1 - t0 for _, t0, t1, _ in recs]
+    overlapping = [t1 - t0 for _, t0, t1, _ in recs if t1 >= window[0] and t0 <= window[1]]
+    out["swap"] = swap_out
+    out["during_swap"] = dict(_latency_summary(lat, wall), answered_gen0=which.count(0),
+                              answered_gen1=which.count(1))
+    out["overlapping_swap"] = _latency_summary(overlapping, window[1] - window[0])
+    h = fleet.health()
+    check(h["totals"]["generation_swaps"] == 2 and eng.health()["generation_swaps"] == 1,
+          f"ingest: swap counters {h['totals']}")
+    eng.close()
+    fleet.close()
+
+    # the warm walls: a full refit, then subset 0 alone again
+    rep_full = step("full_refit", lambda: live.refit(SEED + 2, full=True),
+                    lambda: len(pstats.ragged_groups))
+    rep_dirty = step("dirty_refit_warm", lambda: live.refit(SEED + 3, subsets=[0]), lambda: 1)
+    check(rep_full.generation == 2 and rep_dirty.generation == 3 and rep_dirty.refit_speedup,
+          f"ingest: refits {rep_full} {rep_dirty}")
+    launches = dict(fb.LAUNCHES)
+    layouts = launches_by_kernel()
+    n_groups = sum(st["groups"] for st in steps.values())
+    check(launches == {e: n_groups * v for e, v in want.items()},
+          f"ingest: path launches {launches}")
+    check(layouts == expected_by_kernel(launches), f"ingest: by kernel {layouts}")
+    check(sum(fb.PLAIN_CALLS.values()) == 0, "ingest: a plain build ran on the card")
+    peak = torch.cuda.max_memory_allocated()
+
+    # a torn publish: landed, never committed
+    committed = current_generation(gen_dir)
+    torn, _ = land_generation(gen_dir, live._last_combined, ct, config=cfg)
+    art_now, m_now = load_current_generation(gen_dir)
+    check(m_now == committed and orphan_generations(gen_dir) == (torn,) and torn == 4,
+          f"ingest: torn publish {m_now} {orphan_generations(gen_dir)}")
+    check(bool(np.isfinite(art_now.sample_w).all()), "ingest: the committed bundle")
+
+    # generation 1 on the card against predict_at on the CPU, same noise
+    art1 = load_artifact(os.path.join(gen_dir, generation_artifact_name(1)))
+    eng_a = PredictionEngine(art1, buckets=(SERVE_ROWS,), include_samples=True,
+                             noise=cpu_noise, warm=False, device=device)
+    r_a = eng_a.predict(*reqs[2], seed=5)
+    eng_a.close()
+    acfg = SMKConfig(cov_model=art1.cov_model, link=art1.link, jitter=art1.jitter,
+                     jitter_per_m=art1.jitter_per_m)
+    fit_cpu = types.SimpleNamespace(sample_par=torch.as_tensor(art1.sample_par),
+                                    sample_w=torch.as_tensor(art1.sample_w),
+                                    param_grid=torch.as_tensor(art1.param_grid))
+    cache = FactorCache(None, None, None, krige_chol=torch.as_tensor(art1.chol_tt))
+    want_a, _ = predict_at(fit_cpu, art1.coords_test, *reqs[2], config=acfg, cache=cache,
+                           eps=cpu_noise(5, (art1.n_draws, SERVE_ROWS, C4_Q), torch.float32, "cpu"))
+    err_s = float(np.abs(r_a.p_samples - want_a.p_samples.numpy()).max())
+    err_q = float(np.abs(r_a.p_quant - want_a.p_quant.numpy()).max())
+    check(err_s <= SERVE_ATOL and err_q <= SERVE_ATOL,
+          f"ingest: generation 1 card vs CPU {err_s:.3g} / {err_q:.3g}")
+    for p in gen0 + gen1 + [r_a.p_quant]:
+        check(bool(np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()),
+              "ingest: a response not finite or outside [0, 1]")
+    live.close()
+
+    # the kernels at the refit group's shape (after the path's count)
+    part = padded_partition(*(torch.as_tensor(np.asarray(a, np.float32))
+                              for a in (live._y, live._x, live._coords)),
+                            [live._assignments[0]], ladder=live._ladder())
+    kernel_rows = ragged_kernel_checks(device, part)
+    # the later phases clear the checkpoint directory file by file
+    shutil.rmtree(gen_dir)
+    out.update({
+        "fit_wall_s": steps["fit"]["wall_s"], "steps": steps,
+        "refit_wall_s": {"dirty_cold": rep.refit_wall_s, "full": rep_full.refit_wall_s,
+                         "dirty_warm": rep_dirty.refit_wall_s},
+        "refit_speedup": rep_dirty.refit_speedup, "refit_speedup_cold": rep.refit_speedup,
+        "dirty_group_frac": rep.dirty_group_frac, "dirty_groups": list(receipt.dirty_groups),
+        "subset0_rows": [len(live._assignments[0]) - INGEST_ROWS, len(live._assignments[0])],
+        "subset0_rung": [rung0_before, rung0_after],
+        "launches_expected_per_group": want, "launches": launches,
+        "launches_by_kernel": layouts, "kernel_checks": kernel_rows,
+        "card_vs_cpu_gen1_max_abs_err": {"p_samples": err_s, "p_quant": err_q,
+                                         "atol": SERVE_ATOL},
+        "torn_generation": torn, "committed_generation": m_now["generation"],
+        "peak_memory_bytes": peak, "ledger": pstats.ingest,
+        "param_rhat_max": rep_dirty.param_rhat_max, "nvidia_smi": nvidia_smi_line(),
+    })
+    emit(out)
+    return out
+
+
 OVERLAP_SAMPLES, OVERLAP_CHUNK = 288, 96
 
 
@@ -4042,6 +4376,187 @@ def serve_config5(device, artifact_path, tmp):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 5c: serve_coalesced_config5
+# ----------------------------------------------------------------------
+# the coalescing window (ms) of the window-armed engine
+COALESCE_WINDOW_MS = 2.0
+
+
+def serve_coalesced_config5(device, artifact_path, tmp, uncoalesced):
+    """Cross-request coalescing (serve/coalesce.py, the engine's row-seed
+    path) on serve_config5's artifact (S = 1000, t = 64, q = 1), beside
+    serve_config5's uncoalesced figures (``uncoalesced``, this process):
+    the same 64 requests of 32 rows from 8 clients into 4 in flight, twice
+    (the first round also starts the threads), on an engine with
+    coalesce_window_ms = 2 and a run log; then the same requests one at a
+    time on that engine.
+
+    Printed: p50, p99 and QPS of each round; dispatches against requests
+    and the mean requests a batch; the held-time histogram and the
+    admission counters (obs/summarize.serve_block of the run log); the
+    host and device ms of one row-seed predict at 32 and at 4096 rows and
+    of its default row noise (hash_row_noise) at 4096 rows.
+
+    Checks: every coalesced response bitwise the same request served
+    alone; strictly fewer dispatches than requests in each round; a
+    deadline-critical request never held; a NaN row (inject_predict_nan)
+    degrading only the request that owns it, its batch-mates bitwise
+    their solo responses; 0 fused-build launches."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+    from smk_torch.obs.summarize import load_run, serve_block
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.serve import PredictionEngine, hash_row_noise
+    from smk_torch.testing.faults import inject_predict_nan
+
+    fb.reset_counts()
+    rng = np.random.default_rng(SEED + 5)
+    reqs = [serve_queries(rng, SERVE_ROWS) for _ in range(SERVE_REQUESTS)]
+    log_dir = os.path.join(tmp, "coalesce_logs")
+    eng = PredictionEngine(artifact_path, buckets=SERVE_BUCKETS, max_queue=64,
+                           max_in_flight=SERVE_IN_FLIGHT, coalesce_window_ms=COALESCE_WINDOW_MS,
+                           run_log_dir=log_dir, device=device)
+    out = {"phase": "serve_coalesced_config5", "window_ms": COALESCE_WINDOW_MS,
+           "buckets": list(SERVE_BUCKETS), "clients": SERVE_CLIENTS,
+           "max_in_flight": SERVE_IN_FLIGHT,
+           "uncoalesced": {k: uncoalesced[k] for k in ("serial", "concurrent",
+                                                       "concurrent_first_round",
+                                                       "concurrent_in_flight_1")}}
+    rounds = []
+    for rnd in ("concurrent_first_round", "concurrent"):
+        conc, lat, errs = {}, [], []
+        lock = threading.Lock()
+
+        def client(c):
+            try:
+                for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                    t0 = time.perf_counter()
+                    r = eng.predict(*reqs[i], seed=i)
+                    with lock:
+                        lat.append(time.perf_counter() - t0)
+                        conc[i] = r
+            except Exception as e:  # recorded and failed below
+                errs.append(repr(e))
+
+        d0 = eng.health()["dispatches"]
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        start = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300.0)
+        wall = time.perf_counter() - start
+        check(not any(th.is_alive() for th in threads), "coalesce: a client hung")
+        check(not errs and len(conc) == SERVE_REQUESTS, f"coalesce: errors {errs[:3]}")
+        dispatches = eng.health()["dispatches"] - d0
+        check(dispatches < SERVE_REQUESTS,
+              f"coalesce: {dispatches} dispatches for {SERVE_REQUESTS} requests")
+        held = [conc[i].held_s for i in range(SERVE_REQUESTS)]
+        out[rnd] = dict(_latency_summary(lat, wall), dispatches=dispatches,
+                        requests=SERVE_REQUESTS,
+                        mean_requests_per_dispatch=SERVE_REQUESTS / dispatches,
+                        held_ms_median=statistics.median(held) * 1e3,
+                        held_ms_max=max(held) * 1e3)
+        rounds.append(dict(conc))
+
+    # the same requests one at a time on the same engine
+    solo, lat = [], []
+    start = time.perf_counter()
+    for i, (cq, xq) in enumerate(reqs):
+        t0 = time.perf_counter()
+        solo.append(eng.predict(cq, xq, seed=i))
+        lat.append(time.perf_counter() - t0)
+    out["one_at_a_time"] = _latency_summary(lat, time.perf_counter() - start)
+    for conc in rounds:
+        check(all(np.array_equal(conc[i].p_quant, solo[i].p_quant)
+                  and np.array_equal(conc[i].rows_degraded, solo[i].rows_degraded)
+                  for i in range(SERVE_REQUESTS)),
+              "coalesce: a coalesced response differs from the request served alone")
+    for r in solo:
+        check(r.buckets == (32,) and bool(np.isfinite(r.p_quant).all()) and not r.degraded
+              and bool(((r.p_quant >= 0) & (r.p_quant <= 1)).all()), "coalesce: a bad response")
+
+    # a deadline-critical request: its headroom is gone, so it is not held
+    co = eng._coalescer
+    crit0 = co.stats_snapshot()["critical_flushes"]
+    co._walls.append(5.0)
+    try:
+        crit = eng.predict(*reqs[0], seed=0, deadline_s=8.0)
+    finally:
+        co._walls.clear()
+    check(co.stats_snapshot()["critical_flushes"] == crit0 + 1
+          and crit.held_s < 0.5 * COALESCE_WINDOW_MS / 1e3
+          and np.array_equal(crit.p_quant, solo[0].p_quant),
+          f"coalesce: a deadline-critical request held {crit.held_s * 1e3:.3f} ms")
+    out["critical_held_ms"] = crit.held_s * 1e3
+
+    # a NaN row in a coalesced dispatch degrades its own request alone
+    trio = [3, 4, 5]
+    results, errs = {}, []
+    gate = threading.Barrier(len(trio))
+
+    def member(i):
+        try:
+            gate.wait(timeout=30.0)
+            results[i] = eng.predict(*reqs[i], seed=i)
+        except Exception as e:  # recorded and failed below
+            errs.append(repr(e))
+
+    with inject_predict_nan(rows=[1], max_fires=1) as inj:
+        threads = [threading.Thread(target=member, args=(i,)) for i in trio]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60.0)
+    check(not errs and inj.fires == 1 and len(results) == 3, f"coalesce: NaN trio {errs}")
+    hurt = [i for i in trio if results[i].degraded]
+    check(len(hurt) == 1 and int(results[hurt[0]].rows_degraded.sum()) == 1
+          and results[hurt[0]].rows_degraded[1], f"coalesce: degraded {hurt}")
+    ok = ~results[hurt[0]].rows_degraded
+    check(np.array_equal(results[hurt[0]].p_quant[:, ok], solo[hurt[0]].p_quant[:, ok])
+          and all(np.array_equal(results[i].p_quant, solo[i].p_quant)
+                  for i in trio if i != hurt[0]), "coalesce: a batch-mate moved")
+    out["nan_row"] = {"degraded_request": hurt[0], "rows_degraded": 1}
+
+    # one row-seed predict at 32 and 4096 rows, and its row noise at 4096
+    const = eng._gen.const
+    s_draws = eng.artifact.n_draws
+    host_ms, dev_ms = {}, {}
+    for u in (SERVE_ROWS, SERVE_BUCKETS[-1]):
+        pred, _ = eng._programs_rows(u)
+        cq = torch.as_tensor(np.resize(reqs[0][0], (u, 2)), device=device)
+        xq = torch.as_tensor(np.resize(reqs[0][1], (u, 1, 2)), device=device)
+        rs = torch.full((u,), 7, dtype=torch.int64, device=device)
+        ri = torch.arange(u, dtype=torch.int64, device=device)
+        host_ms[u], dev_ms[u] = host_and_device_ms(lambda: pred(*const, cq, xq, rs, ri))
+    noise_host, noise_dev = host_and_device_ms(lambda: hash_row_noise(
+        rs, ri, (s_draws, 1), torch.float32, device))
+    out["row_predict_host_ms"] = {str(u): v for u, v in host_ms.items()}
+    out["row_predict_device_ms"] = {str(u): v for u, v in dev_ms.items()}
+    out["per_request_predict_device_ms"] = {
+        str(u): uncoalesced["predict_device_ms_by_bucket"][str(u)]
+        for u in (SERVE_ROWS, SERVE_BUCKETS[-1])}
+    out["row_noise_4096"] = {"host_ms": noise_host, "device_ms": noise_dev}
+    out["health"] = eng.health()
+    log_path = eng.run_log.path
+    eng.close()
+    block = serve_block(load_run(log_path))
+    out["serve_block"] = block
+    check(block["coalesce"]["requests"] == 3 * SERVE_REQUESTS + 1 + len(trio),
+          f"coalesce: serve_block requests {block['coalesce']}")
+    launches = dict(fb.LAUNCHES)
+    check(sum(launches.values()) == 0 and sum(fb.PLAIN_CALLS.values()) == 0,
+          f"coalesce: a fused build ran on the serving path: {launches}")
+    out["launches"] = launches
+    out["launches_by_kernel"] = launches_by_kernel()
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4096,7 +4611,9 @@ def main() -> int:
         c5 = phase("fit_config5", run_fit, "fit_config5", n=MAIN_K * MAIN_M, k=MAIN_K, q=1,
                    p=2, t=MAIN_T, n_samples=40, device=device,
                    artifact_path=f"{serve_dir}/config5.npz")
-        phase("serve_config5", serve_config5, device, c5["artifact"]["path"], serve_dir)
+        sc5 = phase("serve_config5", serve_config5, device, c5["artifact"]["path"], serve_dir)
+        co5 = phase("serve_coalesced_config5", serve_coalesced_config5, device,
+                    c5["artifact"]["path"], serve_dir, sc5)
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
     q2 = phase("fit_q2", run_fit, "fit_q2", n=8 * MAIN_M, k=8, q=2, p=2, t=MAIN_T,
@@ -4149,6 +4666,7 @@ def main() -> int:
                     p5["ms_per_sweep"])
         coh4 = phase("fit_coherent_config4", fit_coherent_config4, device, c4_data,
                      p4["ms_per_sweep"])
+        ing4 = phase("ingest_config4", ingest_config4, device, c4_data, tmp)
         ov5 = phase("fit_overlap_config5", fit_overlap_config5, device, c5_data, tmp)
         ovs = phase("fit_overlap_small_faults", fit_overlap_small_faults, device, tmp)
         ad5 = phase("fit_adaptive_config5", fit_adaptive_config5, device, c5_data, tmp)
@@ -4162,6 +4680,7 @@ def main() -> int:
              "fit_production_config4_chains": p4c, "fit_config5_float64": c5f64,
              "fit_vecchia_config5": v5, "fit_vecchia_m_large": vm,
              "fit_chunked_small": chs, "fit_chunked_config5": cc5, "fit_coherent_config4": coh4,
+             "ingest_config4": ing4, "serve_coalesced_config5": co5,
              "fit_overlap_config5": ov5, "fit_overlap_small_faults": ovs,
              "fit_adaptive_config5": ad5, "fit_adaptive_small": ads,
              "fit_profile_config5": pr5}

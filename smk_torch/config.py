@@ -439,7 +439,6 @@ class SMKConfig:
 _UNPORTED = (
     ("compile_store_dir", lambda c: c.compile_store_dir is not None, "A10"),
     ("xla_cache_dir", lambda c: c.xla_cache_dir is not None, "A10"),
-    ("coalesce_window_ms>0", lambda c: c.coalesce_window_ms > 0, "A11d"),
 )
 
 

@@ -1,5 +1,6 @@
-"""Run-log summarizer — the fit half of ``smk_tpu/obs/summarize.py``:
-``python -m smk_torch.obs summarize <run.jsonl> [--json]``.
+"""Run-log summarizer — twin of ``smk_tpu/obs/summarize.py`` (without the
+mesh and program-store blocks): ``python -m smk_torch.obs summarize
+<run.jsonl> [--json]``.
 
 Rebuilds the timeline a fit wrote (obs/events.py) into:
 
@@ -13,11 +14,12 @@ Rebuilds the timeline a fit wrote (obs/events.py) into:
   the ``chunk`` events;
 - the checkpoint writes, the faults, the watchdog's events, the live
   diagnostics' trajectory, the adaptive schedule's compactions and the
-  profiler's windows.
-
-The twin's serving and ingest summaries (coalesced batches, held
-seconds, shed and served requests, refits) come with the serving port
-(ROADMAP A11).
+  profiler's windows;
+- the serving view (:func:`serve_block`: coalesced batches, the held-time
+  histogram, the admission counters) and the live-fit view
+  (:func:`ingest_block`: ingested batches, refits, published generations
+  and swaps), each the twin's, so both packages read one log to the same
+  blocks.
 """
 
 from __future__ import annotations
@@ -140,6 +142,88 @@ def chunk_breakdown(run: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+# held-time histogram edges (ms) of the serve block: fixed bins, so two
+# logs' histograms line up whatever their windows
+_HELD_EDGES_MS = (1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0)
+
+
+def _held_histogram(held_s: List[float]) -> Dict[str, int]:
+    hist: Dict[str, int] = {}
+    for h in held_s:
+        ms = float(h) * 1000.0
+        for edge in _HELD_EDGES_MS:
+            if ms < edge:
+                label = f"<{edge:g}ms"
+                break
+        else:
+            label = f">={_HELD_EDGES_MS[-1]:g}ms"
+        hist[label] = hist.get(label, 0) + 1
+    return hist
+
+
+def serve_block(run: Dict[str, Any]) -> Dict[str, Any]:
+    """The serving view of a run log: coalesced-batch occupancy from the
+    ``coalesce`` spans, the held-time histogram from their per-request
+    ``held_s``, and the admission counters the engine (or fleet) wrote
+    into ``run_end``. Zeros and empties on a fit's log."""
+    req_spans = [s for s in run["spans"] if s["name"] == "request"]
+    co_spans = [s for s in run["spans"] if s["name"] == "coalesce"]
+    end_attrs = (run["end"] or {}).get("attrs", {})
+    stats = end_attrs.get("serve") or end_attrs.get("fleet") or {}
+    held = [float(h) for s in co_spans for h in (s["attrs"].get("held_s") or [])]
+    n_req = [int(s["attrs"].get("n_requests", 0)) for s in co_spans]
+    n_rows = [int(s["attrs"].get("rows", 0)) for s in co_spans]
+    shed_keys = (
+        "requests_served", "requests_shed", "requests_timed_out",
+        "requests_rejected", "dispatches", "requests_shed_fleet",
+        "replica_fallthroughs",
+    )
+    return {
+        "n_request_spans": len(req_spans),
+        "coalesce": {
+            "n_batches": len(co_spans),
+            "requests": sum(n_req),
+            "rows": sum(n_rows),
+            "mean_requests_per_batch": (round(sum(n_req) / len(co_spans), 2)
+                                        if co_spans else None),
+            "max_requests_per_batch": max(n_req, default=None),
+            "mean_rows_per_batch": (round(sum(n_rows) / len(co_spans), 2)
+                                    if co_spans else None),
+        },
+        "held_s_hist": _held_histogram(held),
+        "held_s_max": round(max(held), 6) if held else None,
+        "sheds": {k: stats[k] for k in shed_keys if k in stats},
+    }
+
+
+def ingest_block(run: Dict[str, Any]) -> Dict[str, Any]:
+    """The live-fit view of a run log: ingest routing, refit scheduling
+    and the generations published and swapped, from the
+    ``ingest_routed`` / ``refit_scheduled`` / ``generation_published`` /
+    ``generation_swap`` events. Zeros and None on a plain fit or serve
+    log.
+
+    As the twin has it: the refit totals sum ``n_refit`` / ``n_reused``,
+    which no ``refit_scheduled`` event carries (LiveFit writes
+    ``refit_subsets``, a list, and ``reused_subsets``, a count), so both
+    totals read 0 in either package (ROADMAP queue C)."""
+    routed = [e["attrs"] for e in _events_named(run, "ingest_routed")]
+    refits = [e["attrs"] for e in _events_named(run, "refit_scheduled")]
+    published = [e["attrs"] for e in _events_named(run, "generation_published")]
+    swaps = [e["attrs"] for e in _events_named(run, "generation_swap")]
+    return {
+        "n_ingest_batches": len(routed),
+        "rows_ingested": sum(int(r.get("n_rows", 0)) for r in routed),
+        "n_refits": len(refits),
+        "refit_subsets_total": sum(int(r.get("n_refit", 0)) for r in refits),
+        "reused_subsets_total": sum(int(r.get("n_reused", 0)) for r in refits),
+        "n_generations_published": len(published),
+        "last_generation": published[-1].get("generation") if published else None,
+        "n_generation_swaps": len(swaps),
+        "last_swap": swaps[-1] if swaps else None,
+    }
+
+
 def summarize(path: str) -> Dict[str, Any]:
     """The full machine-readable summary of one run log."""
     run = load_run(path)
@@ -222,6 +306,8 @@ def summarize(path: str) -> Dict[str, Any]:
         },
         "profile": [e["attrs"] for e in run["events"]
                     if e.get("name") in ("profile_start", "profile_stop")],
+        "serve": serve_block(run),
+        "ingest": ingest_block(run),
         "counters": (run["end"] or {}).get("counters", {}),
     }
 
@@ -254,8 +340,8 @@ def main(argv: List[str]) -> int:
             "[--json]\n"
             "  reconstructs the span tree, wall coverage, "
             "stall/overlap breakdown\n"
-            "  and fault/live-diagnostics history of one "
-            "fit's run log"
+            "  and fault/live-diagnostics/serve/ingest history of one "
+            "run log"
         )
         return 0 if argv else 2
     path = argv[0]
@@ -313,5 +399,30 @@ def main(argv: List[str]) -> int:
         print(
             f"\nlive diagnostics: {live['n_boundaries']} boundaries, "
             f"final {live['final']}"
+        )
+    sv = summary["serve"]
+    co = sv["coalesce"]
+    if sv["n_request_spans"] or co["n_batches"] or sv["sheds"]:
+        print(
+            f"\nserve: {sv['n_request_spans']} request span(s), "
+            f"{co['n_batches']} coalesced batch(es)"
+            + (f" (occupancy {co['mean_requests_per_batch']} req/batch, max "
+               f"{co['max_requests_per_batch']}; {co['mean_rows_per_batch']} rows/batch)"
+               if co["n_batches"] else "")
+        )
+        if sv["held_s_hist"]:
+            print(f"  held-time histogram: {sv['held_s_hist']} (max {sv['held_s_max']}s)")
+        if sv["sheds"]:
+            print(f"  admission counters: {sv['sheds']}")
+    ig = summary["ingest"]
+    if ig["n_ingest_batches"] or ig["n_generations_published"] or ig["n_generation_swaps"]:
+        print(
+            f"\ningest: {ig['n_ingest_batches']} batch(es), "
+            f"{ig['rows_ingested']} row(s); {ig['n_refits']} refit(s) "
+            f"({ig['refit_subsets_total']} refit / "
+            f"{ig['reused_subsets_total']} reused subsets); "
+            f"{ig['n_generations_published']} generation(s) published "
+            f"(last {ig['last_generation']}), "
+            f"{ig['n_generation_swaps']} swap(s)"
         )
     return 0

@@ -1,6 +1,6 @@
-"""Fit artifacts — twin of ``smk_tpu/serve/artifact.py`` (the bundle;
-generation publication is ROADMAP A11c): everything the prediction
-engine needs from a finished fit, as one integrity-checked bundle.
+"""Fit artifacts — twin of ``smk_tpu/serve/artifact.py``: everything the
+prediction engine needs from a finished fit, as one integrity-checked
+bundle, and the generations a live fit publishes them in.
 
 The serving path holds no training data, no chain state and no live
 ``MetaKrigingResult``: it loads a frozen artifact holding the combined
@@ -15,19 +15,37 @@ over every payload field and the format version. An artifact either
 package writes loads in the other; only ``config_digest`` is the writing
 package's own (compile/programs.config_digest). A truncated or
 bit-flipped artifact raises a typed :class:`ArtifactError` at load.
+
+**Generations.** A live fit (serve/ingest.py) re-fits and republishes,
+so a generation directory holds numbered bundles
+(``artifact.g000000.npz``, ...) and one manifest, ``MANIFEST.json``,
+naming the current one. A publish has two phases:
+:func:`land_generation` writes the bundle at its generation's name
+(itself atomic), then :func:`commit_generation` renames a temp manifest
+over the live one. A crash in either window leaves the previous
+manifest, and so every replica's load, intact; the orphaned bundle is
+overwritten by the next publish at the same name. The manifest's fields
+and format number are the twin's: a generation directory either package
+publishes loads in the other.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import time
 import zlib
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from smk_torch.utils.checkpoint import _atomic_savez
 
 ARTIFACT_VERSION = 1
+
+# the one live pointer of a generation directory: names the current
+# bundle; replaced atomically by commit_generation
+GENERATION_MANIFEST = "MANIFEST.json"
 
 # every stored field is covered by the CRC, in the order hashed — the
 # scalars and strings too (a flipped byte in jitter/cov_model/link
@@ -130,7 +148,9 @@ def save_artifact(path: str, result, coords_test, *, config=None, cache=None) ->
     ct = _np32(coords_test)
     q, p, phi = plugin_phi_layout(result, ct.shape[0])
     if cache is None:
-        dev = result.sample_w.device
+        # a result of numpy arrays (serve/ingest.py's combined fit) has
+        # its factor built on the CPU
+        dev = result.sample_w.device if torch.is_tensor(result.sample_w) else "cpu"
         cache = prediction_factors(
             torch.as_tensor(ct, device=dev), torch.as_tensor(phi, device=dev), config=cfg
         )
@@ -212,3 +232,136 @@ def load_artifact(path: str) -> FitArtifact:
         jitter_per_m=float(arrays["jitter_per_m"][0]),
         config_digest=arrays["config_digest"].tobytes().decode(),
     )
+
+
+# ---------------------------------------------------------------------------
+# Generation-committed publication
+# ---------------------------------------------------------------------------
+
+
+class GenerationError(ArtifactError):
+    """A generation directory cannot be served from: nothing was ever
+    committed, or the committed manifest is unreadable or not a
+    manifest."""
+
+
+def generation_artifact_name(generation: int) -> str:
+    """The bundle name of a generation: deterministic, so a torn
+    publish's orphan is overwritten by the retry at the same name."""
+    g = int(generation)
+    if g < 0:
+        raise ValueError(f"generation must be >= 0, got {g}")
+    return f"artifact.g{g:06d}.npz"
+
+
+def current_generation(gen_dir: str) -> Optional[dict]:
+    """The committed manifest of ``gen_dir``, or None when nothing was
+    ever committed. A manifest that exists but does not parse is a
+    :class:`GenerationError` (commits are atomic renames, so it is
+    damage, not a crash window)."""
+    path = os.path.join(gen_dir, GENERATION_MANIFEST)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError) as e:
+        raise GenerationError(
+            f"generation manifest {path!r} is unreadable ({e!r}) — "
+            "commits are atomic renames, so this is corruption, not "
+            "a crash window; recommit with publish_generation"
+        ) from e
+    if not isinstance(manifest, dict) or "generation" not in manifest or "artifact" not in manifest:
+        raise GenerationError(
+            f"generation manifest {path!r} is missing its "
+            "generation/artifact fields — not a commit_generation "
+            "manifest"
+        )
+    return manifest
+
+
+def land_generation(gen_dir: str, result, coords_test, *, config=None, cache=None,
+                    generation: Optional[int] = None) -> Tuple[int, str]:
+    """Phase one of a publish: write the bundle at its generation's name
+    (atomic and CRC-stamped, :func:`save_artifact`) without touching the
+    manifest. ``generation`` defaults to the committed one + 1 (0 in a
+    fresh directory). Returns ``(generation, bundle_path)``."""
+    os.makedirs(gen_dir, exist_ok=True)
+    if generation is None:
+        cur = current_generation(gen_dir)
+        generation = 0 if cur is None else int(cur["generation"]) + 1
+    path = os.path.join(gen_dir, generation_artifact_name(generation))
+    save_artifact(path, result, coords_test, config=config, cache=cache)
+    return int(generation), path
+
+
+def commit_generation(gen_dir: str, generation: int, *, meta: Optional[dict] = None) -> dict:
+    """Phase two: write the manifest to a temp file, fsync it and rename
+    it over the live one, making ``generation`` current in one step. The
+    bundle must be landed (a :class:`GenerationError` otherwise).
+    Returns the committed manifest."""
+    name = generation_artifact_name(generation)
+    bundle = os.path.join(gen_dir, name)
+    if not os.path.exists(bundle):
+        raise GenerationError(
+            f"cannot commit generation {int(generation)}: bundle "
+            f"{bundle!r} is not landed — call land_generation first"
+        )
+    manifest = {
+        "generation": int(generation),
+        "artifact": name,
+        "format": ARTIFACT_VERSION,
+        # a wall-clock provenance stamp, not a duration
+        "published_at": time.time(),
+    }
+    if meta:
+        manifest.update(meta)
+    path = os.path.join(gen_dir, GENERATION_MANIFEST)
+    tmp = path + f".tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return manifest
+
+
+def publish_generation(gen_dir: str, result, coords_test, *, config=None, cache=None,
+                       generation: Optional[int] = None, meta: Optional[dict] = None) -> dict:
+    """Land the bundle, then commit the manifest; returns the manifest."""
+    gen, _ = land_generation(gen_dir, result, coords_test, config=config, cache=cache,
+                             generation=generation)
+    return commit_generation(gen_dir, gen, meta=meta)
+
+
+def load_current_generation(gen_dir: str) -> Tuple[FitArtifact, dict]:
+    """``(artifact, manifest)`` of the committed generation: a
+    :class:`GenerationError` when nothing was committed, the bundle's own
+    :class:`ArtifactError` when the committed bundle is damaged."""
+    manifest = current_generation(gen_dir)
+    if manifest is None:
+        raise GenerationError(
+            f"no generation committed in {gen_dir!r} — publish one "
+            "with publish_generation"
+        )
+    return load_artifact(os.path.join(gen_dir, manifest["artifact"])), manifest
+
+
+def orphan_generations(gen_dir: str) -> Tuple[int, ...]:
+    """Landed but never committed generations (bundles newer than the
+    committed one): a torn publish's residue or a publish in flight.
+    Inert; the next publish overwrites the lowest."""
+    if not os.path.isdir(gen_dir):
+        return ()
+    cur = current_generation(gen_dir)
+    committed = -1 if cur is None else int(cur["generation"])
+    out = []
+    for name in os.listdir(gen_dir):
+        if name.startswith("artifact.g") and name.endswith(".npz"):
+            try:
+                g = int(name[len("artifact.g"):-len(".npz")])
+            except ValueError:
+                continue
+            if g > committed:
+                out.append(g)
+    return tuple(sorted(out))

@@ -1,5 +1,5 @@
-"""The batched prediction engine — twin of the per-request path of
-``smk_tpu/serve/engine.py``: one engine wraps one frozen
+"""The batched prediction engine — twin of ``smk_tpu/serve/engine.py``:
+one engine wraps one frozen
 :class:`~smk_torch.serve.artifact.FitArtifact` and serves
 ``predict(coords_query, x_query)`` — p(y=1) with credible intervals at
 arbitrary query locations — on the card, with the twin's failure
@@ -37,10 +37,25 @@ response bit for bit. The composition runs in float64
 it and concurrent dispatches need no shared state.
 
 The engine's artifact and device constants live in one immutable
-:class:`_Generation` snapshot that each request captures once. Not
-ported yet: ``swap_artifact`` (ROADMAP A11c) and cross-request
-coalescing (``coalesce_window_ms > 0``, A11d); ``compile_store_dir`` is
-A10. Each raises ``NotImplementedError``.
+:class:`_Generation` snapshot that each request captures once at
+admission, so a response is never torn across two artifacts, and
+:meth:`PredictionEngine.swap_artifact` publishes a new generation with
+one reference assignment: requests in flight finish on the snapshot they
+took, new ones see the new one, none is dropped or blocked. Programs are
+keyed by geometry and ``serve_digest``, so swapping in a re-fit of the
+same config builds nothing.
+
+**Cross-request coalescing** (``coalesce_window_ms > 0``): admitted
+requests go through serve/coalesce.RequestCoalescer, which holds each up
+to the window (never past its deadline's headroom) and packs concurrent
+requests' rows into one padded dispatch of a row-seed program whose
+noise is drawn per row from (the request's seed, the row's index in the
+request) by ``row_noise`` (:data:`RowNoise`, default
+:func:`hash_row_noise`, one vectorised pass on the device). Packing
+cannot change a row's draw, so a coalesced response is bitwise the same
+request served alone by a window-armed engine. ``coalesce_window_ms = 0``
+(the default) keeps the per-request path and its programs.
+``compile_store_dir`` (ROADMAP A10) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,6 +92,10 @@ _WARM_DEADLINE_S = 600.0
 
 # (seed, shape, dtype, device) -> standard normals of ``shape``
 Noise = Callable[[int, tuple, torch.dtype, torch.device], torch.Tensor]
+# (seeds (u,), row indices (u,), (s, q), dtype, device) -> (s, u, q)
+# standard normals, row r's column a function of (seeds[r], idx[r]) alone
+RowNoise = Callable[[torch.Tensor, torch.Tensor, tuple, torch.dtype, torch.device],
+                    torch.Tensor]
 
 
 def torch_noise(seed: int, shape: tuple, dtype: torch.dtype,
@@ -86,6 +105,56 @@ def torch_noise(seed: int, shape: tuple, dtype: torch.dtype,
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2**32 for int64 ``h`` in [0, 2**32): the constant's
+    two 16-bit halves keep every product below 2**48, so int64 holds it
+    exactly on any device."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer: a bijection of [0, 2**32) with
+    full avalanche."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def hash_row_noise(seeds: torch.Tensor, idx: torch.Tensor, shape: tuple,
+                   dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The default row noise: a counter-based hash of (seed, row index,
+    draw) in int64 torch ops, then Box–Muller, in one vectorised pass on
+    ``device``. Row r's (s, q) draws depend on (seeds[r], idx[r]) alone,
+    so where a row is packed cannot change them. Returns (s, u, q)."""
+    s, q = shape
+    n = s * q
+    u = seeds.shape[0]
+    seeds = seeds.to(device=device, dtype=torch.int64) & _M32
+    idx = idx.to(device=device, dtype=torch.int64) & _M32
+    row_key = _fmix32(_fmix32(seeds) ^ _mul32(_fmix32(idx ^ 0x5BD1E995), 0x9E3779B9))
+    n_pairs = -(-n // 2)
+    counter = torch.arange(2 * n_pairs, device=device, dtype=torch.int64)
+    draw_key = _fmix32(_mul32(counter, 0x9E3779B9) ^ 0x7F4A7C15)
+    bits = _fmix32(row_key[:, None] ^ draw_key[None, :]).view(u, n_pairs, 2)
+    # uniforms in (0, 1) at the centre of each of the 2**32 cells
+    uni = (bits.to(torch.float64) + 0.5) * 2.0 ** -32
+    radius = torch.sqrt(-2.0 * torch.log(uni[..., 0]))
+    theta = (2.0 * torch.pi) * uni[..., 1]
+    z = torch.stack((radius * torch.cos(theta), radius * torch.sin(theta)), -1)
+    return z.reshape(u, 2 * n_pairs)[:, :n].reshape(u, s, q).transpose(0, 1).to(dtype)
+
+
+class ArtifactSwapError(RuntimeError):
+    """A generation swap was rejected: the incoming artifact's geometry
+    (draws, anchors, q, p, coordinate dimension, dtype) differs from the
+    serving generation's. A new geometry needs a new engine."""
 
 
 class _Generation(NamedTuple):
@@ -124,7 +193,9 @@ class PredictResponse(NamedTuple):
     produced); healthy rows are bitwise those of a fault-free engine.
     ``p_samples`` (S, n, q) only with ``include_samples=True``.
     ``buckets``: the bucket of each micro-batch slice. ``latency_s``:
-    admission to response. ``held_s``: 0.0 (no coalescing)."""
+    admission to response; under coalescing it includes the held
+    interval, also reported as ``held_s`` (admission to the batch's
+    dispatch; 0.0 on the per-request path)."""
 
     p_quant: np.ndarray
     rows_degraded: np.ndarray
@@ -169,11 +240,13 @@ class PredictionEngine:
     request a ``request`` span over ``bucket`` → ``dispatch`` / ``guard``
     spans. ``device``: where to serve (default: the CUDA device; pass
     ``"cpu"`` for the plain path). ``noise``: the composition noise
-    (:data:`Noise`, default :func:`torch_noise`). ``include_samples``:
-    return the draws too. ``pipeline_stats``: a
-    utils.tracing.ChunkPipelineStats sink for the program records.
-    ``compile_store_dir`` (ROADMAP A10) and ``coalesce_window_ms > 0``
-    (A11d) raise ``NotImplementedError``."""
+    (:data:`Noise`, default :func:`torch_noise`). ``coalesce_window_ms``:
+    > 0 arms cross-request coalescing (module docstring), whose row-seed
+    dispatches draw from ``row_noise`` (:data:`RowNoise`, default
+    :func:`hash_row_noise`). ``include_samples``: return the draws too.
+    ``pipeline_stats``: a utils.tracing.ChunkPipelineStats sink for the
+    program records. ``compile_store_dir`` (ROADMAP A10) raises
+    ``NotImplementedError``."""
 
     def __init__(
         self,
@@ -192,6 +265,7 @@ class PredictionEngine:
         pipeline_stats=None,
         device=None,
         noise: Optional[Noise] = None,
+        row_noise: Optional[RowNoise] = None,
     ):
         if compile_store_dir:
             raise NotImplementedError(
@@ -202,11 +276,6 @@ class PredictionEngine:
             raise ValueError(
                 "coalesce_window_ms must be >= 0 (0 disables "
                 "cross-request coalescing)"
-            )
-        if coalesce_window_ms > 0:
-            raise NotImplementedError(
-                "PredictionEngine coalesce_window_ms>0 is not ported to "
-                "smk_torch yet (ROADMAP A11d); the JAX package smk_tpu runs it"
             )
         if isinstance(artifact, (str, bytes)) or hasattr(artifact, "__fspath__"):
             artifact = load_artifact(artifact)
@@ -226,6 +295,7 @@ class PredictionEngine:
         self.coalesce_window_ms = float(coalesce_window_ms)
         self.device = resolve_device(device)
         self._noise = noise if noise is not None else torch_noise
+        self._row_noise = row_noise if row_noise is not None else hash_row_noise
         self._queue_sem = threading.BoundedSemaphore(self.max_queue)
         self._inflight = threading.BoundedSemaphore(self.max_in_flight)
         self._lock = threading.Lock()
@@ -242,7 +312,7 @@ class PredictionEngine:
             "rows_degraded": 0,
             # padded bucket dispatches issued (one per micro-batch slice)
             "dispatches": 0,
-            # generation rollovers (swap_artifact, ROADMAP A11c): 0
+            # generation rollovers (swap_artifact)
             "generation_swaps": 0,
         }
         self.pstats = pipeline_stats if pipeline_stats is not None else ChunkPipelineStats()
@@ -266,6 +336,11 @@ class PredictionEngine:
         # the credible summary's probabilities, on the device once
         self._probs = credible_probs(self._dtype, self.device)
         self._gen = self._make_generation(artifact, 0)
+        self._coalescer = None
+        if self.coalesce_window_ms > 0:
+            from smk_torch.serve.coalesce import RequestCoalescer
+
+            self._coalescer = RequestCoalescer(self, window_s=self.coalesce_window_ms / 1000.0)
         if warm:
             self.warm()
 
@@ -293,6 +368,45 @@ class PredictionEngine:
     @property
     def generation(self) -> int:
         return self._gen.gen_id
+
+    def swap_artifact(self, artifact, *, generation=None) -> dict:
+        """Hot-swap onto a new generation with no request dropped: build
+        the new snapshot (its device constants, and the programs of a new
+        ``serve_digest`` run once) off the request path, then publish it
+        with one reference assignment. Requests in flight finish on the
+        snapshot they took at admission. Same geometry only (a typed
+        :class:`ArtifactSwapError` otherwise); a re-fit of the same config
+        has the same program keys, so the swap builds nothing. Returns
+        ``{"generation", "programs"}``."""
+        if isinstance(artifact, (str, bytes)) or hasattr(artifact, "__fspath__"):
+            artifact = load_artifact(artifact)
+        if not isinstance(artifact, FitArtifact):
+            raise TypeError("artifact must be a FitArtifact or a path to one")
+        old = self._gen
+        cur = old.artifact
+
+        def geom(a):
+            return (a.n_draws, a.n_anchor, a.q, a.p, a.coord_dim, str(a.sample_w.dtype))
+
+        if geom(artifact) != geom(cur):
+            raise ArtifactSwapError(
+                "generation swap rejected: artifact geometry "
+                f"{geom(artifact)} != serving geometry {geom(cur)} — "
+                "the bucket programs are built for the serving shapes; "
+                "build a new engine for a new geometry"
+            )
+        gen_id = int(generation) if generation is not None else old.gen_id + 1
+        new = self._make_generation(artifact, gen_id)
+        if self._warm and artifact.serve_digest() != cur.serve_digest():
+            # new program keys (cov_model, link or jitter changed): built
+            # and run once before any request can reach them
+            self._warm_generation(new)
+        self._gen = new
+        self._count("generation_swaps")
+        if self.run_log is not None:
+            self.run_log.event("generation_swap", from_generation=old.gen_id,
+                               to_generation=gen_id, config_digest=artifact.config_digest)
+        return {"generation": gen_id, "programs": self.program_summary()}
 
     # -- programs ----------------------------------------------------
 
@@ -358,29 +472,77 @@ class PredictionEngine:
         guard = self._program(self._guard_key(u, a), lambda: self._build_guard(u))
         return pred, guard
 
-    def warm(self) -> dict:
-        """Build every bucket's predict and guard and run each once on
-        finite dummy inputs (pad-style rows at the first anchor, zero
-        designs), under a bounded deadline, so the first request meets
-        nothing cold. Returns the program summary."""
-        a = self.artifact
+    def _predict_rows_key(self, u: int, a=None) -> tuple:
+        return ("serve_predict_rs",) + self._predict_key(u, a)[1:]
+
+    def _build_predict_rows(self, u: int, a: FitArtifact):
+        """The row-seed variant of :meth:`_build_predict`: each row's
+        noise comes from its own (request seed, row index) pair, so the
+        draw a row receives cannot depend on where the coalescer packed
+        it (the per-request program draws by position in the bucket,
+        which is why coalescing has its own program kind)."""
+        from smk_torch.api import _krige_predict_core
+
+        s, q = a.n_draws, a.q
+        cov_model, link, var_floor = a.cov_model, a.link, a.var_floor()
+        row_noise, dt, dev, probs = self._row_noise, self._dtype, self.device, self._probs
+
+        def fn(chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, row_seed, row_idx):
+            eps = row_noise(row_seed, row_idx, (s, q), dt, dev)
+            ps = _krige_predict_core(
+                chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, eps,
+                cov_model=cov_model, link=link, var_floor=var_floor,
+            )
+            pq = credible_summary(ps.reshape(s, -1), probs).reshape(3, u, q)
+            return ps, pq
+
+        return fn
+
+    def _programs_rows(self, u: int, a=None):
+        """(predict, guard) of bucket ``u`` in the row-seed variant; the
+        guard is the per-request path's (same (S, u, q) input), so arming
+        coalescing adds one predict program a bucket."""
+        a = a if a is not None else self.artifact
+        pred = self._program(self._predict_rows_key(u, a),
+                             lambda: self._build_predict_rows(u, a))
+        guard = self._program(self._guard_key(u, a), lambda: self._build_guard(u))
+        return pred, guard
+
+    def _warm_generation(self, gen: _Generation) -> None:
+        """Build every bucket's programs for ``gen``'s artifact (the
+        row-seed ones too when coalescing is armed) and run each once on
+        its constants with finite dummy inputs (rows at the first anchor,
+        zero designs), under a bounded deadline."""
+        a = gen.artifact
         budget = DeadlineBudget(_WARM_DEADLINE_S)
-        for u in self.buckets:
-            pred, guard = self._programs(u)
-            coords_q = np.repeat(np.asarray(a.coords_test[:1], np.float32), u, axis=0)
-            x_q = np.zeros((u, a.q, a.p), np.float32)
-            pkey, gkey = self._predict_key(u), self._guard_key(u)
+        kinds = [(self._programs, self._predict_key, False)]
+        if self._coalescer is not None:
+            kinds.append((self._programs_rows, self._predict_rows_key, True))
+        for programs, predict_key, rows in kinds:
+            for u in self.buckets:
+                pred, guard = programs(u, a)
+                coords_q = np.repeat(np.asarray(a.coords_test[:1], np.float32), u, axis=0)
+                x_q = np.zeros((u, a.q, a.p), np.float32)
+                pkey, gkey = predict_key(u, a), self._guard_key(u, a)
+                seed = (np.zeros(u, np.int64), np.zeros(u, np.int64)) if rows else (0,)
 
-            def worker(pred=pred, guard=guard, coords_q=coords_q, x_q=x_q, pkey=pkey,
-                       gkey=gkey):
-                cq = _upload(coords_q, self.device).to(self._dtype)
-                xq = _upload(x_q, self.device).to(self._dtype)
-                ps, pq = _invoke_program(pred, pkey, *self._gen.const, cq, xq, 0)
-                mask = _invoke_program(guard, gkey, ps)
-                return mask.cpu(), pq.cpu()
+                def worker(pred=pred, guard=guard, coords_q=coords_q, x_q=x_q, pkey=pkey,
+                           gkey=gkey, seed=seed, rows=rows):
+                    cq = _upload(coords_q, self.device).to(self._dtype)
+                    xq = _upload(x_q, self.device).to(self._dtype)
+                    sd = tuple(_upload(v, self.device) for v in seed) if rows else seed
+                    ps, pq = _invoke_program(pred, pkey, *gen.const, cq, xq, *sd)
+                    mask = _invoke_program(guard, gkey, ps)
+                    return mask.cpu(), pq.cpu()
 
-            run_under_deadline(worker, budget, label=f"warmup/bucket{u}", phase="dispatch",
-                               run_log=self.run_log, device=self.device)
+                run_under_deadline(worker, budget, label=f"warmup/bucket{u}",
+                                   phase="dispatch", run_log=self.run_log, device=self.device)
+
+    def warm(self) -> dict:
+        """Build every bucket's predict and guard (and, with coalescing
+        armed, its row-seed predict) and run each once, so the first
+        request meets nothing cold. Returns the program summary."""
+        self._warm_generation(self._gen)
         self._warm = True
         if self.run_log is not None:
             self.run_log.event("warm", buckets=list(self.buckets),
@@ -448,6 +610,20 @@ class PredictionEngine:
         if not self._queue_sem.acquire(blocking=False):
             self._count("requests_shed")
             raise QueueFullError(self.max_queue)
+        if self._coalescer is not None:
+            # the request keeps its waiting-room slot for the held and
+            # dispatch interval (the window is a waiting room); the batch
+            # leader takes the in-flight gate for the whole batch
+            span = (self.run_log.span("request", id=rid, n=int(cq.shape[0]), coalesced=True)
+                    if self.run_log is not None else contextlib.nullcontext())
+            try:
+                with span:
+                    return self._coalescer.submit(cq, xq, rid, int(seed), budget)
+            except RequestTimeoutError:
+                self._count("requests_timed_out")
+                raise
+            finally:
+                self._queue_sem.release()
         try:
             if not self._inflight.acquire(timeout=budget.remaining()):
                 self._count("requests_timed_out")
@@ -500,11 +676,23 @@ class PredictionEngine:
         )
 
     def _dispatch_slice(self, sl_c, sl_x, u, rid, seed, budget, gen=None):
-        """One micro-batch slice through its bucket: pad, dispatch, guard,
-        every device wait under the request's deadline. Pad rows repeat
-        the slice's first query with a zero design (finite, sliced away
-        before the response). Constants and program keys come from the
-        request's generation ``gen``."""
+        """One micro-batch slice of a request through its bucket's
+        predict program, with the slice's seed (:meth:`_run_slice`)."""
+        return self._run_slice(sl_c, sl_x, (), u, f"{rid}/bucket{u}", budget, gen,
+                               seed=seed & 0xFFFFFFFF)
+
+    def _dispatch_slice_rows(self, sl_c, sl_x, sl_rs, sl_ri, u, label, budget, gen=None):
+        """One coalesced slice through its bucket's row-seed program, with
+        each row's request seed ``sl_rs`` and row index ``sl_ri``
+        (:meth:`_run_slice`); ``gen`` is the batch's one generation."""
+        return self._run_slice(sl_c, sl_x, (sl_rs, sl_ri), u, label, budget, gen)
+
+    def _run_slice(self, sl_c, sl_x, rows, u, label, budget, gen, seed=None):
+        """Pad, dispatch, guard, every device wait under ``budget``. Pad
+        rows repeat the slice's first entry (its coordinates and, for the
+        row-seed program, the per-row arrays ``rows``) with a zero design:
+        finite, and sliced away before the response. Constants and
+        program keys come from the generation ``gen``."""
         gen = gen if gen is not None else self._gen
         a = gen.artifact
         log = self.run_log
@@ -513,19 +701,27 @@ class PredictionEngine:
         if pad:
             sl_c = np.concatenate([sl_c, np.repeat(sl_c[:1], pad, axis=0)])
             sl_x = np.concatenate([sl_x, np.zeros((pad,) + sl_x.shape[1:], sl_x.dtype)])
-        pred, guard = self._programs(u, a)
-        label = f"{rid}/bucket{u}"
-        pkey, gkey = self._predict_key(u, a), self._guard_key(u, a)
+            rows = tuple(np.concatenate([r, np.repeat(r[:1], pad)]) for r in rows)
+        if rows:
+            pred, guard = self._programs_rows(u, a)
+            pkey = self._predict_rows_key(u, a)
+            rows = tuple(np.ascontiguousarray(r, dtype=np.int64) for r in rows)
+        else:
+            pred, guard = self._programs(u, a)
+            pkey = self._predict_key(u, a)
+        gkey = self._guard_key(u, a)
         const = gen.const
-        seed_u32 = seed & 0xFFFFFFFF
         dev, dt = self.device, self._dtype
+        tag = {"coalesced": True} if rows else {}
 
         def dispatch_worker():
             cq = _upload(np.ascontiguousarray(sl_c), dev).to(dt)
             xq = _upload(np.ascontiguousarray(sl_x), dev).to(dt)
-            return _invoke_program(pred, pkey, *const, cq, xq, seed_u32)
+            args = tuple(_upload(r, dev) for r in rows) if rows else (seed,)
+            return _invoke_program(pred, pkey, *const, cq, xq, *args)
 
-        dspan = log.span("dispatch", bucket=u) if log is not None else contextlib.nullcontext()
+        dspan = (log.span("dispatch", bucket=u, **tag) if log is not None
+                 else contextlib.nullcontext())
         self._count("dispatches")
         with dspan:
             ps, pq = run_under_deadline(dispatch_worker, budget, label=label,
@@ -542,7 +738,8 @@ class PredictionEngine:
             ps_np = ps.cpu().numpy() if include_samples else None
             return mask, pq_np, ps_np
 
-        gspan = log.span("guard", bucket=u) if log is not None else contextlib.nullcontext()
+        gspan = (log.span("guard", bucket=u, **tag) if log is not None
+                 else contextlib.nullcontext())
         with gspan:
             mask, pq_np, ps_np = run_under_deadline(guard_worker, budget, label=label,
                                                     phase="guard", run_log=log, device=dev)
@@ -569,6 +766,8 @@ class PredictionEngine:
             out["max_queue"] = self.max_queue
             out["max_in_flight"] = self.max_in_flight
             out["coalesce_window_ms"] = self.coalesce_window_ms
+        if self._coalescer is not None:
+            out["coalesce"] = self._coalescer.stats_snapshot()
         return out
 
     def drain(self) -> None:

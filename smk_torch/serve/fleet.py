@@ -1,6 +1,6 @@
-"""Replica fleet — twin of ``smk_tpu/serve/fleet.py`` (without
-``swap_artifact``, ROADMAP A11c): N prediction engines behind one
-shedding front door, in one process, all on the one card.
+"""Replica fleet — twin of ``smk_tpu/serve/fleet.py``: N prediction
+engines behind one shedding front door, in one process, all on the one
+card.
 
 - **Routing**: round-robin over the replicas, falling through to the
   next when one's waiting room is full, so per-replica admission
@@ -10,6 +10,8 @@ shedding front door, in one process, all on the one card.
   backoff applies unchanged); every fall-through is a zero-wait poll.
 - **Health**: :meth:`ReplicaFleet.health` is "ready" while any replica
   is ready, with the replicas' counters summed.
+- **Rollover**: :meth:`ReplicaFleet.swap_artifact` hot-swaps the
+  replicas one after another onto a new generation.
 
 The replicas share one artifact object; each puts its own constants on
 the device. Every other engine keyword is forwarded to each replica.
@@ -140,6 +142,25 @@ class ReplicaFleet:
                                n_replicas=self.n_replicas)
             self.run_log.counter("fleet_requests_shed", 1)
         raise FleetSaturatedError(self.n_replicas, self._engines[0].max_queue)
+
+    def swap_artifact(self, artifact, *, generation=None) -> dict:
+        """Hot-swap every replica onto a new generation with no request
+        dropped. ``artifact`` (a FitArtifact or a path) is loaded once
+        and shared; the replicas swap in sequence, so mid-rollover the
+        fleet briefly serves two generations, each response from one.
+        Returns ``{"generation", "replicas"}``."""
+        if isinstance(artifact, (str, bytes)) or hasattr(artifact, "__fspath__"):
+            artifact = load_artifact(artifact)
+        if not isinstance(artifact, FitArtifact):
+            raise TypeError("artifact must be a FitArtifact or a path to one")
+        out = None
+        for eng in self._engines:
+            out = eng.swap_artifact(artifact, generation=generation)
+        self.artifact = artifact
+        gen = out["generation"] if out else generation
+        if self.run_log is not None:
+            self.run_log.event("generation_swap", generation=gen, n_replicas=self.n_replicas)
+        return {"generation": gen, "replicas": self.n_replicas}
 
     def health(self) -> dict:
         """"ready" while any replica is ready, "draining" when all are,

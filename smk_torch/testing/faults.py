@@ -30,8 +30,8 @@ checksum and lenient resume.
 
 The chunk injectors wrap the executor's one-chunk seam
 (``parallel/recovery._run_chunk``), the serving injectors the engine's
-program seam (``serve/engine._invoke_program``, predict calls only, never
-the guard), while one is armed, and put it back when the last disarms.
+program seam (``serve/engine._invoke_program``, the per-request and the
+coalesced row-seed predict calls, never the guard), while one is armed, and put it back when the last disarms.
 For tests and probes only, as the twin's.
 """
 
@@ -302,7 +302,7 @@ def _poison_predict_rows(arr, rows):
 
 
 def _injecting_invoke(prog, prog_key, *args):
-    if prog_key[0] != "serve_predict":
+    if prog_key[0] not in ("serve_predict", "serve_predict_rs"):
         return _real_invoke(prog, prog_key, *args)
     # the fire counts move under the arm lock: concurrent dispatches
     # (max_in_flight > 1) never run past max_fires

@@ -106,6 +106,9 @@ class ChunkPipelineStats:
     host_staging_bytes: int = 0
     run_log: Any = None
     adaptive: Any = None
+    # the live-fit ledger (serve/ingest.LiveFit): ingested batches and
+    # rows, refits, the published generation, the append log's watermark
+    ingest: Any = None
     # one entry per program acquisition (record_program): the serving
     # engine's bucket programs until the program store (ROADMAP A10)
     programs: List[Dict[str, Any]] = field(default_factory=list)
@@ -213,8 +216,9 @@ class ChunkPipelineStats:
         """The twin's summary, key for key: the loop's, the checkpoint's,
         the fault ledger's, the device memory's, the live diagnostics'
         and the adaptive schedule's keys measured (None where nothing
-        recorded them); the mesh's and the ingest's None and the program
-        store's empty, as the twin reports them when those are off."""
+        recorded them), the ingest ledger (None without a live fit); the
+        mesh's None and the program store's empty, as the twin reports
+        them when those are off."""
         stall = sum(c.get("host_stall_s", 0.0) for c in self.chunks)
         work = sum(c.get("host_work_s", 0.0) for c in self.chunks)
         disp = sum(c.get("dispatch_s", 0.0) for c in self.chunks)
@@ -251,7 +255,7 @@ class ChunkPipelineStats:
             "ess_per_second_adaptive": (
                 round(ess_final / wall, 4)
                 if self.adaptive and wall > 0 and ess_final is not None else None),
-            "ingest": None,
+            "ingest": self.ingest,
             "fault": self.fault_summary(),
             **self.program_summary(),
         }

@@ -244,7 +244,6 @@ def test_default_randomness_fit_is_finite_and_seeded():
     "knob, item",
     [
         (dict(xla_cache_dir="xla_cache"), "A10"),
-        (dict(coalesce_window_ms=5.0), "A11"),
         (dict(compile_store_dir="store"), "A10"),
     ],
 )

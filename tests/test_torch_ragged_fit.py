@@ -210,6 +210,7 @@ def test_the_executors_last_knobs_pass_the_port_check(knob):
 @pytest.mark.parametrize("knob", [
     dict(partition_method="coherent"), dict(bucket_ladder=(64, 128)),
     dict(fault_policy="quarantine"), dict(chunk_pipeline="overlap"), dict(watchdog=True),
+    dict(coalesce_window_ms=5.0),
 ])
 def test_ported_knobs_no_longer_raise(knob):
     check_ported(SMKConfig(**knob))

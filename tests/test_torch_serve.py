@@ -637,11 +637,21 @@ def test_fleet_drain_typed(paths):
 
 @pytest.mark.parametrize("knob,item", [
     (dict(compile_store_dir="store"), "A10"),
-    (dict(coalesce_window_ms=5.0), "A11d"),
 ])
 def test_unported_engine_knobs_raise_naming_their_item(paths, knob, item):
     with pytest.raises(NotImplementedError, match=item):
         PredictionEngine(paths["twin"], device="cpu", **knob)
+
+
+@pytest.mark.parametrize("knob", [dict(coalesce_window_ms=5.0)])
+def test_ported_engine_knobs_now_run(paths, knob):
+    """Cross-request coalescing is ported (tests/test_torch_coalesce.py
+    holds it against the twin): a window-armed engine serves."""
+    eng = _engine(paths, **knob)
+    r = eng.predict(*_queries(3), seed=1)
+    assert np.isfinite(r.p_quant).all() and r.held_s > 0.0
+    assert eng.health()["coalesce"]["requests"] == 1
+    eng.close()
 
 
 def test_negative_coalesce_window_rejected(paths):
