@@ -286,6 +286,29 @@ monitor, the run log, the adaptive schedule, profiling):
               potrf among them), the chunk scopes' device span within 25 %
               of the chunks' CUDA-event times, the profiler's overhead.
 
+Program reuse (ROADMAP A10): from here on every chunk program of the
+chunked executor (phases 22-29) and every serving program (5b, 5c, 24b)
+is a CUDA graph captured once per bucket key and replayed
+(smk_torch/compile/programs.py).
+
+30. programs_config5 — the executor's chunk runner, captured bucket
+              programs replayed, against the sampler's eager burn_chunk /
+              sample_chunk on two identical setups, at config5 with the
+              production sampler and at config4 with the logit link (64
+              sweeps in chunks of 16 and one chunk more, so every bucket
+              replays): state, draws, noise snapshots and guard counts
+              bitwise after every chunk; launches equal to build_calls,
+              counted through the replays; per bucket its key, source,
+              capture seconds and pool bytes; ms/sweep of both; one update
+              and one non-update sweep as one-sweep programs against
+              eager (wall ms from an idle card, device ms behind a long
+              device sleep, the idle share). Then a fresh process
+              (`python3 chip_smoke.py --programs-child STORE`, an empty
+              build directory) on the warm compile_store_dir: 0 nvcc runs,
+              program sources "l2"; the stored library's fingerprint
+              tampered: a warned miss, one nvcc run, "fresh", the store
+              refilled.
+
 Then each phase's wall time and the script's, the kernel summary line
 {"kernels": [...]} (launches from fit_config5, the double kernels' from
 fit_config5_float64, and per path, the Vecchia paths' and the coalesced
@@ -299,7 +322,9 @@ cannot be imported (the script alone, outside a checkout).
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -380,6 +405,9 @@ def check(cond: bool, what: str) -> None:
 # device time, so that the host has queued the call's launches when its
 # start event is reached
 SLEEP_CYCLES = 1_000_000
+# the same for a whole sweep: ~0.1 s at the H100's clocks, longer than
+# the host takes to queue one sweep's launches
+LONG_SLEEP_CYCLES = 200_000_000
 
 
 def ms_median(fn, reps: int = 20, warmup: int = 3, device_only: bool = False) -> float:
@@ -3909,6 +3937,235 @@ MAP_SIDE = 256
 SERVE_ATOL = 1e-6
 
 
+def _graph_leg(name, cfg, data_np, device, chunk=16):
+    """One leg of programs_config5: the executor's chunk runner
+    (parallel/recovery._run_chunk: captured bucket programs, replayed)
+    and the sampler's eager burn_chunk / sample_chunk on two identical
+    setups (sampler_setup) over the fit's schedule in chunks of
+    ``chunk``, bitwise after every chunk (state, draws, noise snapshot,
+    guard counts); launches against build_calls; per bucket its key,
+    source, capture seconds and pool bytes; then one update and one
+    non-update sweep as one-sweep programs against eager: wall ms from
+    an idle card, device ms behind a sleep, the idle share."""
+    import statistics as st
+
+    import numpy as np
+    import torch
+    from smk_torch.compile import programs as cprog
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel import recovery
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    model_g, data, state_g, consts_g, noise_g = sampler_setup(cfg, data_np, device)
+    model_e, data_e, state_e, consts_e, noise_e = sampler_setup(cfg, data_np, device)
+    k = cfg.n_subsets
+    q = data.x.shape[2]
+    stats = ChunkPipelineStats()
+    ctx = recovery._ProgramCtx(None, stats, k, None)
+    pieces = recovery._pieces(model_g, data, noise_g, k, cfg.n_chains, None, ctx)
+    plan = [("burn", a, min(chunk, cfg.n_burn_in - a)) for a in range(0, cfg.n_burn_in, chunk)]
+    # the collecting chunks, and one more past the schedule so that every
+    # bucket is replayed at least once
+    n_total = cfg.n_samples + chunk
+    plan += [("samp", a, min(chunk, n_total - a)) for a in range(cfg.n_burn_in, n_total, chunk)]
+    chunks, same = [], []
+    fb.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kind, a, n in plan:
+        rec = {"kind": kind, "start": a, "n": n}
+        for mode in ("graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "graph":
+                counts = fb.count_snapshot()
+                state_g, dr_g = recovery._run_chunk(model_g, kind, pieces, state_g, a, n)
+                graph_counts = fb.count_delta(counts)
+            elif kind == "burn":
+                counts = fb.count_snapshot()
+                state_e, dr_e = model_e.burn_chunk(data_e, consts_e, state_e, noise_e, a, n), None
+                fb.restore_counts(counts)
+            else:
+                counts = fb.count_snapshot()
+                state_e, dr_e = model_e.sample_chunk(data_e, consts_e, state_e, noise_e, a, n)
+                fb.restore_counts(counts)
+            torch.cuda.synchronize()
+            rec[f"{mode}_ms_per_sweep"] = (time.perf_counter() - t0) * 1e3 / n
+        rec["launches"] = graph_counts[0]
+        eq = {f: bool(torch.equal(x, y)) for f, x, y in zip(state_g._fields, state_g, state_e)}
+        if dr_g is not None:
+            eq["param_draws"] = bool(torch.equal(dr_g[0], dr_e[0]))
+            eq["w_draws"] = bool(torch.equal(dr_g[1], dr_e[1]))
+        eq["noise_snapshot"] = bool(np.array_equal(noise_g.snapshot(), noise_e.snapshot()))
+        if model_e.guard_rejects is not None:
+            eq["guard_rejects"] = bool(torch.equal(model_g.guard_rejects, model_e.guard_rejects))
+        rec["bitwise"] = eq
+        same.append(all(eq.values()))
+        chunks.append(rec)
+        if kind == "burn" and a + n == cfg.n_burn_in:
+            state_g = state_g._replace(phi_accept=torch.zeros_like(state_g.phi_accept))
+            state_e = state_e._replace(phi_accept=torch.zeros_like(state_e.phi_accept))
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(fb.LAUNCHES)
+    # the chunks' launches, counted through the replays: build_calls of
+    # the plan less R~ at init (sampler_setup's, before the count)
+    want_chunks = build_calls(cfg, q, n_total, cfg.n_burn_in, chunk_iters=chunk)
+    want_chunks["fused_masked_correlation_stack"] -= 1
+    check(launches == want_chunks,
+          f"programs {name}: launches {launches} != build_calls {want_chunks}")
+    check(all(same), f"programs {name}: graph chunks differ from eager: "
+          f"{[c['bitwise'] for c in chunks]}")
+    buckets = [p.info() for p in cprog.programs_of(model_g)]
+    check(all(b["captured"] and b["replays"] >= 1 for b in buckets),
+          f"programs {name}: a bucket was not captured and replayed: {buckets}")
+
+    # one update and one non-update sweep: one-sweep programs vs eager
+    e = cfg.phi_update_every
+    base = cfg.n_samples + (-cfg.n_samples) % e  # an update sweep past the schedule
+    sweeps = {}
+    for label, off in (("update", 0), ("other", 1)):
+        starts = iter(range(base + off, base + off + 1000 * e, e))
+
+        def graph_call():
+            nonlocal state_g
+            state_g, _ = recovery._run_chunk(model_g, "burn", pieces, state_g, next(starts), 1)
+
+        def eager_call():
+            nonlocal state_e
+            state_e = model_e.burn_chunk(data_e, consts_e, state_e, noise_e, next(starts), 1)
+
+        res = {}
+        for mode, fn in (("graph", graph_call), ("eager", eager_call)):
+            fn()  # the graph's capture, the eager path's first call
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            # device time alone: each call queued behind a device sleep long
+            # enough (~0.1 s) that the host has queued the whole sweep, the
+            # eager one's launches included, before the card reaches it
+            devs = []
+            for _ in range(10):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(LONG_SLEEP_CYCLES)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                devs.append(start.elapsed_time(end))
+            dev_ms = st.median(devs)
+            wall_ms = st.median(walls)
+            res[mode] = {"wall_ms": wall_ms, "device_ms": dev_ms,
+                         "idle_share": max(0.0, 1.0 - dev_ms / wall_ms)}
+        res["graph_over_eager_wall"] = res["graph"]["wall_ms"] / res["eager"]["wall_ms"]
+        sweeps[label] = res
+    fb.reset_counts()
+    out = {"leg": name, "K": k, "m": data.x.shape[1], "q": q, "link": cfg.link,
+           "phi_update_every": e, "n_samples": cfg.n_samples, "chunk_iters": chunk,
+           "chunks": chunks, "launches": launches, "launches_expected": want_chunks,
+           "peak_memory_bytes": peak, "buckets": buckets,
+           "program_records": stats.programs, "sweep_ms": sweeps}
+    del model_g, model_e, state_g, state_e, pieces
+    torch.cuda.empty_cache()
+    return out
+
+
+def _store_child(store_dir: str) -> int:
+    """The fresh process of programs_config5's warm-store leg (``python3
+    chip_smoke.py --programs-child STORE``): a small chunked production
+    fit with compile_store_dir=STORE, in the build directory
+    SMK_TORCH_BUILD_DIR names; prints what nvcc ran and where every
+    program came from as its last line."""
+    import warnings
+
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.ops import cuda_build
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    device = torch.device("cuda", 0)
+    cfg = production_config(k=4, n_samples=16, phi_every=4, compile_store_dir=store_dir)
+    stats = ChunkPipelineStats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = fit_meta_kriging(*binary_field(4 * 200, 1, 2, 16, SEED), config=cfg, seed=SEED,
+                               device=device, chunk_iters=4, pipeline_stats=stats)
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "nvcc_runs": dict(cuda_build.NVCC_RUNS), "origin": dict(cuda_build.ORIGIN),
+        "sources": sorted({p["source"] for p in stats.programs
+                           if p["key"][0] in ("burn", "samp")}),
+        "finite": bool(torch.isfinite(res.p_quant).all()),
+        "warnings": [str(w.message)[:300] for w in caught
+                     if "compile store" in str(w.message)],
+        "build_dir": str(cuda_build.build_dir())}), flush=True)
+    return 0
+
+
+def programs_config5(device, c5_data, c4_data, tmp):
+    """Program reuse (ROADMAP A10): the graph legs at config5 (the
+    production sampler, 64 sweeps in chunks of 16) and config4 (the
+    production sampler with the logit link), then the warm-store leg: a
+    fresh subprocess with an empty build directory and a warm
+    compile_store_dir runs 0 nvcc builds and reports "l2"; a tampered
+    fingerprint is a warned miss, and the rebuild follows."""
+    import pickle
+    import subprocess
+
+    from smk_torch.compile.store import ProgramStore
+    from smk_torch.ops import cuda_build
+
+    out = {"phase": "programs_config5", "legs": []}
+    for name, cfg, data_np in (
+            ("config5", production_config(k=MAIN_K, n_samples=64, phi_every=16), c5_data),
+            ("config4_logit", production_config(k=C4_K, n_samples=64, link="logit",
+                                                phi_every=8), c4_data)):
+        leg = _graph_leg(name, cfg, data_np, device)
+        emit({"phase": "programs_config5_leg", **leg})
+        out["legs"].append({k_: leg[k_] for k_ in ("leg", "peak_memory_bytes", "sweep_ms",
+                                                   "buckets")})
+    store_dir = os.path.join(tmp, "store")
+    store = ProgramStore(store_dir)
+    cuda_build.ensure(list(cuda_build.SOURCES), store)  # the parent's libraries, stored
+
+    def child(build_name):
+        env = dict(os.environ, SMK_TORCH_BUILD_DIR=os.path.join(tmp, build_name))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--programs-child",
+                              store_dir], env=env, capture_output=True, text=True,
+                             timeout=300)
+        check(run.returncode == 0, f"programs: the store child failed: {run.stderr[-2000:]}")
+        rec = json.loads(run.stdout.strip().splitlines()[-1])
+        rec["wall_s"] = time.perf_counter() - t0
+        return rec
+
+    warm = child("child_build_warm")
+    check(warm["nvcc_runs"] == {} and warm["sources"] == ["l2"] and warm["finite"],
+          f"programs: warm store child {warm}")
+    key = cuda_build.store_key("fused_corr")
+    path = store.path_for(key)
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    blob["fingerprint"] = dict(blob["fingerprint"], torch="0.0.0-tampered")
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+    tampered = child("child_build_tampered")
+    check(tampered["nvcc_runs"] == {"fused_corr": 1} and tampered["sources"] == ["fresh"]
+          and any("different environment" in w for w in tampered["warnings"])
+          and tampered["finite"], f"programs: tampered store child {tampered}")
+    check(store.load(key) is not None, "programs: the rebuild did not refill the store")
+    out["warm_store_child"] = warm
+    out["tampered_store_child"] = tampered
+    emit(out)
+    return out
+
+
 def serve_queries(rng, n):
     """``n`` query sites uniform over the field's domain (binary_field's
     unit square) with designs [1, N(0, 1)], float32."""
@@ -4280,7 +4537,8 @@ def serve_config5(device, artifact_path, tmp):
         pred, _ = eng._programs(u)
         cq = torch.as_tensor(np.resize(map_c, (u, 2)), device=device)
         xq = torch.as_tensor(np.resize(map_x, (u, 1, 2)), device=device)
-        host_ms[u], dev_ms[u] = host_and_device_ms(lambda: pred(*a_const, cq, xq, 11))
+        eps = eng._noise(11, (s_draws, u, q), torch.float32, device)
+        host_ms[u], dev_ms[u] = host_and_device_ms(lambda: pred(*a_const, cq, xq, eps))
         if u == SERVE_BUCKETS[-1]:
             ct64, cq64 = a_const[4].double(), cq.double()
             phi64 = a_const[3].double()
@@ -4558,6 +4816,8 @@ def serve_coalesced_config5(device, artifact_path, tmp, uncoalesced):
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--programs-child":
+        return _store_child(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -4597,10 +4857,13 @@ def main() -> int:
     walls = {}
 
     def phase(name, fn, *args, **kwargs):
-        """Run one phase, record its wall time, free the cached blocks."""
+        """Run one phase, record its wall time, free the cached blocks
+        (and the graphs of the phase's models, which reference cycles
+        keep until the collector runs)."""
         start = time.perf_counter()
         out = fn(*args, **kwargs)
         walls[name] = time.perf_counter() - start
+        gc.collect()
         torch.cuda.empty_cache()
         return out
 
@@ -4672,6 +4935,7 @@ def main() -> int:
         ad5 = phase("fit_adaptive_config5", fit_adaptive_config5, device, c5_data, tmp)
         ads = phase("fit_adaptive_small", fit_adaptive_small, device, tmp)
         pr5 = phase("fit_profile_config5", fit_profile_config5, device, c5_data, tmp)
+        phase("programs_config5", programs_config5, device, c5_data, c4_data, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "wall_s_by_phase", **walls, "total_s": time.perf_counter() - script_start})

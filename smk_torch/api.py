@@ -21,6 +21,8 @@ import numpy as np
 import torch
 from torch.special import ndtr
 
+from smk_torch.compile.programs import store_from_config
+from smk_torch.compile.xla_cache import maybe_enable_from_config
 from smk_torch.config import SMKConfig, check_ported
 from smk_torch.device import resolve_device
 from smk_torch.models.probit_gp import (
@@ -33,6 +35,7 @@ from smk_torch.models.probit_gp import (
     sweep_shapes,
 )
 from smk_torch.obs.events import open_run_log
+from smk_torch.ops import cuda_build
 from smk_torch.ops.chol import jittered_cholesky, tri_solve
 from smk_torch.ops.distance import cross_distance, pairwise_distance
 from smk_torch.ops.factor_cache import FactorCache, empty_counter, tick
@@ -561,6 +564,9 @@ def fit_meta_kriging(
     """
     cfg = config or SMKConfig()
     check_ported(cfg)
+    # L3 of the program store: the kernel libraries' build directory,
+    # armed for the process (compile/xla_cache.py)
+    maybe_enable_from_config(cfg)
     dev = resolve_device(device)
     asked = (checkpoint_path is not None or chunk_iters is not None
              or progress is not None or nan_guard)
@@ -643,6 +649,11 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
         ).coef.reshape(q, p)
 
     model = SpatialGPSampler(cfg, weight=weight)
+    store = store_from_config(cfg)
+    if store is not None:
+        # L2 of the program store: the kernel libraries out of the store
+        # (or into it) before the first launch, on either executor
+        cuda_build.ensure(model.kernel_libraries(dt, dev), store)
     m = max(part.buckets) if ragged else part.subset_size
     shapes = sweep_shapes(cfg, part.n_subsets, m, q, p, coords_test.shape[0], weight)
     with phase_timer(times, "subset_fits", dev, log=run_log):

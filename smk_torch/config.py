@@ -4,11 +4,10 @@ a config carries over field for field.
 
 The port imports nothing of the JAX package, so the dataclasses live
 here again. Field semantics are documented once, on the JAX twin; the
-comments below note only what differs in the port. Knob values this
-port does not implement yet are accepted by the dataclass (a config
-stays valid in both packages) and rejected when a fit starts, by
-:func:`check_ported`, with a ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+comments below note only what differs in the port. Every knob is
+ported; :func:`check_ported` stays the one place a fit would reject a
+knob value the port does not implement, with a ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -120,6 +119,15 @@ class SMKConfig:
     watchdog_min_deadline_s: float = 60.0
     watchdog_margin: float = 10.0
     coalesce_window_ms: float = 0.0
+    # The program store (compile/). L1, always on: each model's table of
+    # bucket programs, on the card CUDA graphs captured once per bucket
+    # key and replayed (on the CPU the same static-buffer programs run
+    # directly). compile_store_dir (L2): a store of the built kernel
+    # libraries (libfused_corr*.so), fingerprint-guarded, so a fresh
+    # process with a warm store runs no nvcc and only captures.
+    # xla_cache_dir (L3): the build directory the libraries compile into
+    # and load from, armed for the process once per fit. Neither changes
+    # a draw.
     compile_store_dir: str = None
     xla_cache_dir: str = None
     run_log_dir: str = None
@@ -435,11 +443,10 @@ class SMKConfig:
 
 
 # (knob, predicate on the config, ROADMAP item that ports it). Checked
-# in this order by check_ported; the first hit raises.
-_UNPORTED = (
-    ("compile_store_dir", lambda c: c.compile_store_dir is not None, "A10"),
-    ("xla_cache_dir", lambda c: c.xla_cache_dir is not None, "A10"),
-)
+# in this order by check_ported; the first hit raises. Every knob of the
+# config is ported now; a device mesh, which is no config field here, is
+# refused where it is passed (compile/programs.topology_fingerprint).
+_UNPORTED: tuple = ()
 
 
 def check_ported(cfg: SMKConfig) -> None:

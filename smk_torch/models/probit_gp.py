@@ -37,6 +37,7 @@ axis lowers the branch to a select, and the select is what runs here.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -350,6 +351,16 @@ def stack_noise(per_subset: Sequence[SweepNoise]) -> SweepNoise:
         None if f[0] is None else torch.stack(f)
         for f in zip(*per_subset)
     ))
+
+
+def chunk_noise(noise: "NoiseSource", start_it: int, n_iters: int, collect: bool) -> SweepNoise:
+    """The buffered noise of sweeps [start_it, start_it + n_iters): the
+    source called sweep by sweep, as an eager chunk calls it (so each
+    generator draws the same numbers in the same order), every field
+    stacked on a leading sweep axis. A captured chunk reads it from its
+    static buffers; nothing inside the chunk draws."""
+    per = [noise(start_it + i, collect) for i in range(n_iters)]
+    return SweepNoise(*(None if f[0] is None else torch.stack(f) for f in zip(*per)))
 
 
 def subset_generators(seed: int, k: int, device) -> List[torch.Generator]:
@@ -945,9 +956,14 @@ class SpatialGPSampler:
         noise: SweepNoise,
         *,
         collect: bool,
+        gain: Optional[torch.Tensor] = None,
     ) -> Tuple[SamplerState, FactorCache, Optional[tuple]]:
         """One Gibbs sweep of every subset. Returns (state, cache,
-        (params (K, n_params), w_star (K, t*q)) or None)."""
+        (params (K, n_params), w_star (K, t*q)) or None). ``gain``: the
+        sweep's Robbins–Monro scale as a 0-d tensor (:meth:`chunk_gains`);
+        with it, ``it`` only decides whether phi updates, so any index
+        congruent to the sweep's modulo ``phi_update_every`` will do (a
+        captured chunk replays at any start of its phase)."""
         cfg = self.config
         k, m, q, p = data.x.shape
         dtype, dev = data.x.dtype, data.x.device
@@ -1054,10 +1070,7 @@ class SpatialGPSampler:
             # the gain clock counts phi updates (float32, as the twin)
             if not (cfg.phi_adapt and not collect):
                 return state.phi_log_step
-            gain = f(cfg.phi_adapt_rate) * (
-                f(1.0) + f(it) / f(cfg.phi_update_every)
-            ) ** f(-0.6)
-            scale = float(gain * f(1.0 if is_update else 0.0))
+            scale = gain if gain is not None else float(self._rm_scale(it, f))
             return torch.clamp(
                 state.phi_log_step + scale * (accepted - cfg.phi_target_accept),
                 float(np.log(f(1e-3))), float(np.log(f(50.0))),
@@ -1288,21 +1301,68 @@ class SpatialGPSampler:
         return GeneratorNoise(subset_generators(seed, shapes.k, data.x.device), shapes,
                               dtype=data.x.dtype, device=data.x.device)
 
+    def _rm_scale(self, it: int, f):
+        """The Robbins–Monro scale of sweep ``it`` as a scalar of numpy
+        type ``f`` (the working dtype's, _np_float): the gain (its clock
+        counts phi updates, as the twin's), zero on a sweep that does not
+        update phi."""
+        cfg = self.config
+        gain = f(cfg.phi_adapt_rate) * (f(1.0) + f(it) / f(cfg.phi_update_every)) ** f(-0.6)
+        return gain * f(1.0 if it % cfg.phi_update_every == 0 else 0.0)
+
+    def chunk_gains(self, start_it: int, n_iters: int, collect: bool, dtype,
+                    device) -> Optional[torch.Tensor]:
+        """The (n_iters,) Robbins–Monro scales of sweeps [start_it,
+        start_it + n_iters) on ``device`` (None when the chunk does not
+        adapt): a device value multiplies bitwise as the Python scalar
+        does, and it lets one captured chunk serve every start. Uploaded
+        through pinned memory, so no call waits for the device."""
+        if not (self.config.phi_adapt and not collect):
+            return None
+        f = _np_float(dtype)
+        vals = np.asarray([self._rm_scale(it, f) for it in range(start_it, start_it + n_iters)], f)
+        host = torch.from_numpy(vals)
+        if torch.device(device).type == "cuda":
+            return host.pin_memory().to(device, non_blocking=True)
+        return host
+
+    def _sweeps(self, data: SubsetData, consts: BuildConsts, state: SamplerState, noise_at,
+                gains: Optional[torch.Tensor], it0: int, n_iters: int, collect: bool):
+        """Sweeps it0 .. it0 + n_iters - 1: the one body of the eager
+        chunks and of the captured chunk programs. ``noise_at(i)`` is
+        sweep i's SweepNoise; ``gains`` :meth:`chunk_gains`. Returns
+        (state, draws or None)."""
+        cache = self._solve_cache(consts, data.mask, state, predict=collect)
+        draws = None
+        if collect:
+            k, m, q, p = data.x.shape
+            t = data.coords_test.shape[0]
+            opts = dict(dtype=data.x.dtype, device=data.x.device)
+            draws = (torch.empty((k, n_iters, n_params(q, p)), **opts),
+                     torch.empty((k, n_iters, t * q), **opts))
+        for i in range(n_iters):
+            state, cache, out = self._gibbs_step(
+                data, consts, state, cache, it0 + i, noise_at(i), collect=collect,
+                gain=None if gains is None else gains[i],
+            )
+            if collect:
+                draws[0][:, i] = out[0]
+                draws[1][:, i] = out[1]
+        return state, draws
+
     def burn_chunk(self, data: SubsetData, consts: BuildConsts, state: SamplerState,
                    noise: NoiseSource, start_it: int, n_iters: int) -> SamplerState:
         """Non-collecting sweeps [start_it, start_it + n_iters) of the
         K*C-wide chain ``data`` (twin of ``burn_chunk``): the cache is
         built from ``state`` at entry and the Robbins–Monro gain follows
         the global sweep index. A caller that chunks the burn-in resets
-        ``phi_accept`` to zero after its last chunk, as ``run`` does."""
+        ``phi_accept`` to zero after its last chunk, as ``run`` does. The
+        noise is drawn sweep by sweep (a long burn-in never holds it all)."""
         if n_iters == 0:
             return state
-        cache = self._solve_cache(consts, data.mask, state)
-        for it in range(start_it, start_it + n_iters):
-            state, cache, _ = self._gibbs_step(
-                data, consts, state, cache, it, noise(it, False), collect=False
-            )
-        return state
+        gains = self.chunk_gains(start_it, n_iters, False, data.x.dtype, data.x.device)
+        return self._sweeps(data, consts, state, lambda i: noise(start_it + i, False), gains,
+                            start_it, n_iters, False)[0]
 
     def sample_chunk(self, data: SubsetData, consts: BuildConsts, state: SamplerState,
                      noise: NoiseSource, start_it: int, n_iters: int):
@@ -1310,20 +1370,64 @@ class SpatialGPSampler:
         ``sample_chunk``), the cache with its kriging operators built
         from ``state`` at entry; returns (state, (param_draws (K*C,
         n_iters, n_params), w_draws (K*C, n_iters, t*q)))."""
-        k, m, q, p = data.x.shape
-        t = data.coords_test.shape[0]
-        cache = self._solve_cache(consts, data.mask, state, predict=True)
-        opts = dict(dtype=data.x.dtype, device=data.x.device)
-        param_draws = torch.empty((k, n_iters, n_params(q, p)), **opts)
-        w_draws = torch.empty((k, n_iters, t * q), **opts)
-        for i in range(n_iters):
-            it = start_it + i
-            state, cache, (params, w_star) = self._gibbs_step(
-                data, consts, state, cache, it, noise(it, True), collect=True
-            )
-            param_draws[:, i] = params
-            w_draws[:, i] = w_star
-        return state, (param_draws, w_draws)
+        return self._sweeps(data, consts, state, lambda i: noise(start_it + i, True), None,
+                            start_it, n_iters, True)
+
+    def program_bucket_fields(self) -> tuple:
+        """The model-identity fields of every program bucket key
+        (compile/programs.py), the twin's eight: ``(cov_model, link,
+        fused_build, n_chains, phi_proposals, subset_engine, n_neighbors,
+        build_dtype)``."""
+        cfg = self.config
+        return (cfg.cov_model, cfg.link, cfg.fused_build, cfg.n_chains, cfg.phi_proposals,
+                cfg.subset_engine, cfg.n_neighbors, cfg.build_dtype)
+
+    def kernel_libraries(self, dtype, device) -> tuple:
+        """The CUDA kernel libraries (ops/cuda_build.SOURCES) the sampler
+        launches on ``dtype`` data on ``device``: the correlation build of
+        that dtype on the fused dense path on the card, none elsewhere."""
+        if not self._fused or self._vecchia or torch.device(device).type != "cuda":
+            return ()
+        return ("fused_corr_f64",) if dtype == torch.float64 else ("fused_corr",)
+
+    def chunk_touches_guard(self, phase: int, n_iters: int) -> bool:
+        """Whether sweeps phase .. phase + n_iters - 1 (modulo
+        ``phi_update_every``) can add to ``guard_rejects``: a collapsed
+        update on the dense engine."""
+        cfg = self.config
+        return (cfg.phi_sampler == "collapsed" and not self._vecchia
+                and any((phase + i) % cfg.phi_update_every == 0 for i in range(n_iters)))
+
+    def chunk_program(self, collect: bool, n_iters: int, phase: int):
+        """The static-buffer body of one chunk bucket (compile/programs
+        .GraphProgram): ``fn(data, consts, state, noise, gains, guard) ->
+        (state, draws or None, guard)``, where ``noise`` is the chunk's
+        SweepNoise stacked on a leading sweep axis (:func:`chunk_noise`),
+        ``gains`` :meth:`chunk_gains` and ``guard`` the rows'
+        ``guard_rejects`` in (zeros for none yet) when
+        :meth:`chunk_touches_guard`, else None. It reads nothing else of
+        the model's mutable state, draws nothing and syncs nothing, so
+        it can be captured and replayed at any chunk start of ``phase``."""
+        touches = self.chunk_touches_guard(phase, n_iters)
+        # the model holds its programs (compile/programs.get_program): a
+        # weak reference back keeps that from being a cycle, so a model's
+        # graphs and their memory go when the model does
+        ref = weakref.ref(self)
+
+        def fn(data, consts, state, noise, gains, guard):
+            model = ref()
+            held = model.guard_rejects
+            model.guard_rejects = guard if touches else None
+            try:
+                state, draws = model._sweeps(
+                    data, consts, state,
+                    lambda i: SweepNoise(*(None if f is None else f[i] for f in noise)),
+                    gains, phase, n_iters, collect)
+                return state, draws, model.guard_rejects if touches else None
+            finally:
+                model.guard_rejects = held
+
+        return fn
 
     def finalize(self, state, param_draws, w_draws) -> SubsetResult:
         """Quantile compression and diagnostics over the kept draws of the

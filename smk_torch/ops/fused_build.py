@@ -84,6 +84,36 @@ def reset_counts() -> None:
         LAYOUT_LAUNCHES[layout] = 0
 
 
+# Launch accounting through CUDA graphs (compile/programs.py): a graph's
+# capture runs the wrappers' Python once and launches nothing, and each
+# replay launches every captured kernel again with no Python. So the
+# capture's counts are taken back out, and each replay adds them.
+_COUNTERS = (LAUNCHES, LAYOUT_LAUNCHES, PLAIN_CALLS)
+
+
+def count_snapshot() -> tuple:
+    """Every launch and plain-call count, as copies."""
+    return tuple(dict(c) for c in _COUNTERS)
+
+
+def count_delta(before: tuple) -> tuple:
+    """The counts added since the snapshot ``before``."""
+    return tuple({k: c[k] - b[k] for k in c} for c, b in zip(_COUNTERS, before))
+
+
+def restore_counts(snap: tuple) -> None:
+    """Set every count back to the snapshot ``snap``."""
+    for c, s in zip(_COUNTERS, snap):
+        c.update(s)
+
+
+def add_counts(delta: tuple) -> None:
+    """Add ``delta`` (from :func:`count_delta`) to every count."""
+    for c, d in zip(_COUNTERS, delta):
+        for k, v in d.items():
+            c[k] += v
+
+
 def bind_kernel(lib):
     """The C entry point ``smk_fused_corr`` of a built ``fused_corr``
     library, with its ctypes signature: seven pointers (ca, cb, phis,

@@ -70,6 +70,8 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from smk_torch.compile import programs as compile_programs
+from smk_torch.compile.programs import GraphProgram
 from smk_torch.device import in_callers_context
 from smk_torch.models.probit_gp import (
     BuildConsts,
@@ -80,11 +82,13 @@ from smk_torch.models.probit_gp import (
     SubsetData,
     SubsetResult,
     SweepNoise,
+    chunk_noise,
     n_params,
     subset_generators,
     sweep_shapes,
 )
 from smk_torch.obs.events import open_run_log
+from smk_torch.ops import cuda_build
 from smk_torch.obs.memory import device_memory_stats
 from smk_torch.obs.profiling import ProfilerCapture, chunk_scope
 from smk_torch.obs.streaming import (
@@ -164,6 +168,14 @@ def _chunk_stats(state: SamplerState, n_chains: int) -> torch.Tensor:
     the running phi-acceptance counters — one fetch per boundary."""
     fin = _finite_subsets(state, n_chains).to(state.phi_accept.dtype)
     return torch.cat([fin, torch.mean(state.phi_accept).reshape(1)])
+
+
+def _refork(held: SamplerState, row_mask: torch.Tensor, half: float) -> SamplerState:
+    """A quarantine retry's start state: the held chunk-start state with
+    the phi step of the retried rows (``row_mask``, (K*C,) bool) moved
+    by ``half`` (log 0.5)."""
+    step = held.phi_log_step
+    return held._replace(phi_log_step=torch.where(row_mask[:, None], step + half, step))
 
 
 def _subset_draws_finite(param_draws: torch.Tensor, w_draws: torch.Tensor,
@@ -699,21 +711,34 @@ class _SegmentedCheckpoint:
 # ----------------------------------------------------------------------
 # the chunk
 # ----------------------------------------------------------------------
+class _ProgramCtx(NamedTuple):
+    """Where a run's chunk programs come from: the L2 ``store`` (or
+    None), the ``stats`` sink their acquisitions are recorded in, and the
+    K and ``chunk_size`` of their bucket keys."""
+
+    store: object
+    stats: object
+    k: int
+    chunk_size: Optional[int]
+
+
 class _Piece(NamedTuple):
     """Rows [lo, hi) of the K*C-wide chain batch that one call of the
-    sampler sweeps (all of them unless ``chunk_size`` splits K)."""
+    sampler sweeps (all of them unless ``chunk_size`` splits K), and the
+    context its chunk program is acquired in."""
 
     lo: int
     hi: int
     data: SubsetData
     consts: BuildConsts
     noise: NoiseSource
+    ctx: _ProgramCtx
 
 
 def _pieces(model: SpatialGPSampler, cdata: SubsetData, noise, k: int, c: int,
-            chunk_size: Optional[int]) -> List[_Piece]:
+            chunk_size: Optional[int], ctx: _ProgramCtx) -> List[_Piece]:
     if chunk_size is None or chunk_size >= k:
-        return [_Piece(0, k * c, cdata, model._consts(cdata), noise)]
+        return [_Piece(0, k * c, cdata, model._consts(cdata), noise, ctx)]
     if k % chunk_size != 0:
         raise ValueError(f"chunk_size {chunk_size} must divide K={k}")
     _require(noise, ("rows",), "chunk_size")
@@ -722,32 +747,102 @@ def _pieces(model: SpatialGPSampler, cdata: SubsetData, noise, k: int, c: int,
         hi = lo + chunk_size * c
         d = cdata._replace(coords=cdata.coords[lo:hi], x=cdata.x[lo:hi],
                            y=cdata.y[lo:hi], mask=cdata.mask[lo:hi])
-        out.append(_Piece(lo, hi, d, model._consts(d), noise.rows(range(lo, hi))))
+        out.append(_Piece(lo, hi, d, model._consts(d), noise.rows(range(lo, hi)), ctx))
     return out
+
+
+# L1 of the program store (smk_torch/compile/programs.py). Every program
+# of the executor is acquired through `_cached_program`, as in the twin.
+def _cached_program(model, key, build, **kw):
+    """Program acquisition for one shape bucket: compile.programs
+    .get_program (L1 table on the model, then the kernel libraries from
+    L2, L3 or nvcc), recorded in ``stats``."""
+    return compile_programs.get_program(model, key, build, **kw)
+
+
+def _chunk_key(model, kind, length, k, chunk_size, m, q, p, t, d, mesh=None, phase=0):
+    """Bucket key of one chunk program: (kind, chunk_len, K, chunk_size,
+    m, q, p, t, d, n_chains, J, cov_model, link, fused_build, engine,
+    n_neighbors, build_dtype, config digest, phase)."""
+    return compile_programs.chunk_bucket_key(model, kind, length, k, chunk_size, m, q, p, t, d,
+                                             mesh=mesh, phase=phase)
+
+
+def _stats_key(model, k, m, q, p, mesh=None):
+    # the guard's input is the carried state, shaped by (k, m, q, p)
+    return compile_programs.aux_bucket_key(model, "stats", k, m, q, p, mesh=mesh)
+
+
+def _finalize_key(model, k, m, q, n_kept, d_par, d_w, mesh=None):
+    # d_par = n_params(q, p) covers p; d_w = t*q covers t
+    return compile_programs.aux_bucket_key(model, "finalize", k, m, q, n_kept, d_par, d_w,
+                                           mesh=mesh)
+
+
+def _refork_key(model, k, m, q, p, mesh=None):
+    # state-shaped like the stats program
+    return compile_programs.aux_bucket_key(model, "refork", k, m, q, p, mesh=mesh)
+
+
+def _chunk_program(model: SpatialGPSampler, collect: bool, n: int, phase: int, pc: _Piece):
+    """The chunk program of ``pc``'s bucket for ``n`` sweeps of
+    ``phase`` (compile/programs.GraphProgram over the sampler's
+    ``chunk_program``)."""
+    ctx = pc.ctx
+    data = pc.data
+    _, m, q, p = data.x.shape
+    t, d = data.coords_test.shape
+    dev = data.x.device
+    key = _chunk_key(model, "samp" if collect else "burn", n, ctx.k, ctx.chunk_size, m, q, p,
+                     t, d, phase=phase)
+    return _cached_program(
+        model, key,
+        lambda: GraphProgram(model.chunk_program(collect, n, phase), key, dev, owner=model),
+        store=ctx.store, stats=ctx.stats, libraries=model.kernel_libraries(data.x.dtype, dev),
+        device=dev)
+
+
+def _run_piece(model: SpatialGPSampler, kind: str, pc: _Piece, state: SamplerState,
+               start: int, n: int):
+    """Sweeps [start, start + n) of one piece: its bucket's chunk
+    program replayed on the piece's data, the state, the chunk's noise
+    (drawn here, sweep by sweep, before the program runs:
+    models/probit_gp.chunk_noise) and its Robbins–Monro gains."""
+    collect = kind != "burn"
+    data = pc.data
+    phase = start % model.config.phi_update_every
+    prog = _chunk_program(model, collect, n, phase, pc)
+    guard = None
+    if model.chunk_touches_guard(phase, n):
+        guard = model.guard_rejects
+        if guard is None:
+            guard = torch.zeros(data.x.shape[0], dtype=torch.int32, device=data.x.device)
+    noise = chunk_noise(pc.noise, start, n, collect)
+    gains = model.chunk_gains(start, n, collect, data.x.dtype, data.x.device)
+    state, draws, guard = prog(data, pc.consts, state, noise, gains, guard)
+    if guard is not None:
+        model.guard_rejects = guard
+    return state, draws
 
 
 def _run_chunk(model: SpatialGPSampler, kind: str, pieces: Sequence[_Piece],
                state: SamplerState, start: int, n: int):
     """One chunk: sweeps [start, start + n) of every piece, burn-in
-    (``kind="burn"``) or collecting. Returns (state, draws), draws None
-    for a burn-in chunk. The sampler's ``guard_rejects`` counts stay
+    (``kind="burn"``) or collecting, each piece through its bucket's
+    chunk program (:func:`_run_piece`). Returns (state, draws), draws
+    None for a burn-in chunk. The sampler's ``guard_rejects`` counts stay
     per row across pieces. testing/faults.inject_subset_nan wraps this
     function while an injection is armed."""
     if len(pieces) == 1:
-        pc = pieces[0]
-        if kind == "burn":
-            return model.burn_chunk(pc.data, pc.consts, state, pc.noise, start, n), None
-        return model.sample_chunk(pc.data, pc.consts, state, pc.noise, start, n)
+        return _run_piece(model, kind, pieces[0], state, start, n)
     full = model.guard_rejects
     states, draws, guards = [], [], []
     for pc in pieces:
         model.guard_rejects = None if full is None else full[pc.lo:pc.hi]
         st = SamplerState(*(t[pc.lo:pc.hi] for t in state))
-        if kind == "burn":
-            states.append(model.burn_chunk(pc.data, pc.consts, st, pc.noise, start, n))
-        else:
-            st, dr = model.sample_chunk(pc.data, pc.consts, st, pc.noise, start, n)
-            states.append(st)
+        st, dr = _run_piece(model, kind, pc, st, start, n)
+        states.append(st)
+        if dr is not None:
             draws.append(dr)
         guards.append(model.guard_rejects)
     model.guard_rejects = None if guards[0] is None else torch.cat(guards)
@@ -1049,7 +1144,15 @@ def _fit_subsets_chunked_impl(
         n_cap = n_kept
     run_log = pipeline_stats.run_log if pipeline_stats is not None else None
     cdata = model.chain_data(data)
-    pieces = _pieces(model, cdata, noise, k, c, chunk_size)
+    # every chunk runs its bucket's program (compile/programs.py), the
+    # kernel libraries from the L2 store when the config names one
+    store = compile_programs.store_from_config(cfg)
+    if store is not None:
+        # before anything launches a kernel (the initial state's build)
+        cuda_build.ensure(model.kernel_libraries(dtype, dev), store)
+    ctx = _ProgramCtx(store, pipeline_stats, k, chunk_size)
+    pieces = _pieces(model, cdata, noise, k, c, chunk_size, ctx)
+    m_sub, q_dim, p_dim = part.x.shape[1:]
     d_par = n_params(*part.x.shape[2:])
     d_w = coords_test.shape[0] * part.x.shape[2]
     meta = np.asarray([cfg.n_samples, n_burn, k, d_par, d_w, c], np.int64)
@@ -1283,7 +1386,8 @@ def _fit_subsets_chunked_impl(
                               mask=data.mask[sel])
         g_cdata = model.chain_data(gdata)
         chunk_noise = _PaddedNoise(noise.rows(batch_rows(members)), (kc - len(members)) * c, c)
-        pieces = [_Piece(0, kc * c, g_cdata, model._consts(g_cdata), chunk_noise)]
+        pieces = [_Piece(0, kc * c, g_cdata, model._consts(g_cdata), chunk_noise,
+                         ctx._replace(k=kc))]
         if guard_full is not None:
             model.guard_rejects = guard_full[torch.as_tensor(rows, device=dev)]
         set_write_group()
@@ -1556,6 +1660,12 @@ def _fit_subsets_chunked_impl(
             mask[retry_subsets] = True
             raise _QuarantineRewind(mask)
 
+    def program(key, fn):
+        """An eager program of the run (the guard, the finalize, the
+        refork, the streaming monitor's), keyed and recorded as the
+        twin's are."""
+        return _cached_program(model, key, lambda: fn, store=store, stats=pstats, device=dev)
+
     def chunk_work(idx, kind, start, n, w_ofs):
         """Queue one chunk's sweeps, its draws' write, the streaming
         fold-in and the boundary's copies to the host; returns the
@@ -1589,12 +1699,15 @@ def _fit_subsets_chunked_impl(
         if stream is not None and kind in ("samp", "extra"):
             # refill chunks are left out: the terminal rewrite publishes them
             x = param_draws[:, w_ofs:w_ofs + n].reshape(k, c, n, d_par)
-            stream = (stream_update(stream, x, w_ofs, write_mask_dev) if adaptive
-                      else stream_update(stream, x, w_ofs))
-            live = stream_stats(stream)[2:]
+            upd = program(compile_programs.aux_bucket_key(
+                model, "streamm" if adaptive else "stream", n, k, d_par), stream_update)
+            stream = (upd(stream, x, w_ofs, write_mask_dev) if adaptive
+                      else upd(stream, x, w_ofs))
+            live = program(compile_programs.aux_bucket_key(model, "stream_stats", k, d_par),
+                           stream_stats)(stream)[2:]
         stats = ev_stats = None
         if want_stats:
-            vec = [_chunk_stats(state, c)]
+            vec = [program(_stats_key(model, kc, m_sub, q_dim, p_dim), _chunk_stats)(state, c)]
             if live is not None:
                 vec += [live[0].to(dtype), live[1].to(dtype)]
             stats, ev_stats = _to_host_async(torch.cat(vec))
@@ -1801,9 +1914,8 @@ def _fit_subsets_chunked_impl(
         row_mask = np.repeat(rw.retry_mask[grp], c)
         chunk_noise.restore(held_noise)
         chunk_noise.fork(row_mask, np.repeat(attempts[grp], c))
-        step = held_state.phi_log_step
-        tight = torch.as_tensor(row_mask, device=dev)[:, None]
-        state = held_state._replace(phi_log_step=torch.where(tight, step + half, step))
+        refork = program(_refork_key(model, len(grp), m_sub, q_dim, p_dim), _refork)
+        state = refork(held_state, torch.as_tensor(row_mask, device=dev), half)
         full_fresh = False
         if stream is not None:
             stream = b["stream_prev"]
@@ -1813,8 +1925,8 @@ def _fit_subsets_chunked_impl(
             model.guard_rejects = successor["guards_before"]
 
     # The chunk watchdog: each guarded section runs on a worker thread
-    # under a deadline. The first dispatch of each (kind, length, rung)
-    # runs unguarded and unobserved, as the twin's compiling dispatch does.
+    # under a deadline. The first dispatch of each (kind, length, phase,
+    # rung) runs unguarded and unobserved, as the twin's compiling dispatch does.
     watchdog = (ChunkWatchdog(domain_map, min_deadline_s=cfg.watchdog_min_deadline_s,
                               margin=cfg.watchdog_margin, run_log=run_log)
                 if cfg.watchdog else None)
@@ -1855,7 +1967,10 @@ def _fit_subsets_chunked_impl(
                 kind, start, n, w_ofs = plan[idx]
                 if prof is not None and prof.maybe_start(idx) and run_log is not None:
                     run_log.event("profile_start", chunk=idx, out_dir=prof.out_dir)
-                key = (kind, n, kc) if adaptive else (kind, n)
+                # a new bucket program captures on its first dispatch:
+                # the phase of its first sweep is part of its key
+                phase = start % cfg.phi_update_every
+                key = (kind, n, phase, kc) if adaptive else (kind, n, phase)
                 novel = key not in seen
                 seen.add(key)
                 rec = guarded(lambda a=(idx, kind, start, n, w_ofs): dispatch(a),
@@ -1926,7 +2041,8 @@ def _fit_subsets_chunked_impl(
         return None
     with (run_log.span("finalize") if run_log is not None else contextlib.nullcontext()):
         if not adaptive:
-            return model.finalize(state, param_draws, w_draws)
+            return program(_finalize_key(model, k, m_sub, q_dim, n_kept, d_par, d_w),
+                           model.finalize)(state, param_draws, w_draws)
         # subsets still in the group at the end ran the whole schedule
         if members:
             sched.mark_stopped(members, it)
@@ -1948,7 +2064,9 @@ def _fit_subsets_chunked_impl(
         stops = np.where(sched.it_stopped < 0, it, sched.it_stopped)
         fin_state = SamplerState(*([None] * len(SamplerState._fields)))._replace(
             phi_accept=accept)
-        return model.finalize_masked(fin_state, param_draws, w_draws, sched.rows_valid, stops)
+        fin = program(compile_programs.aux_bucket_key(model, "finadapt", k, m_sub, q_dim, n_cap,
+                                                      d_par, d_w), model.finalize_masked)
+        return fin(fin_state, param_draws, w_draws, sched.rows_valid, stops)
 
 
 _PHASES = {"burn": "burn", "samp": "sample", "fill": "fill", "extra": "extra"}

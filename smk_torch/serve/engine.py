@@ -9,10 +9,13 @@ semantics:
   ``max(buckets)`` rows, each padded to the smallest bucket that holds it
   (compile/buckets.slice_plan). Pad rows repeat the slice's first query;
   the composition draw is row-independent, so they never perturb a real
-  row. Each bucket's predict and guard programs come from an in-process
-  table (the program store is ROADMAP A10), and ``warm=True`` runs every
-  bucket once at construction so the first request finds cuBLAS and
-  cuSOLVER handles, loaded modules and allocator blocks in place.
+  row. Each bucket's predict and guard programs come from the program
+  store (compile/programs.get_program, keyed by geometry and
+  ``serve_digest``): on the card each is a CUDA graph captured once and
+  replayed per slice, its inputs (the query rows, the slice's noise and
+  the generation's constants) copied into its static buffers first.
+  ``warm=True`` runs and captures every bucket at construction, so the
+  first request meets nothing cold.
 - **Admission control**: a bounded waiting room (a typed
   :class:`QueueFullError` at once when it is full) and an in-flight gate.
 - **Deadlines**: every request carries a budget; queue waits spend from
@@ -31,10 +34,11 @@ The composition noise of a slice is drawn by ``noise(seed, shape,
 dtype, device)`` with the slice's seed (the request's ``seed`` plus the
 slice's first row), by default from a ``torch.Generator`` on the
 engine's device (the twin draws ``jax.random.normal(key(seed))``; tests
-inject those numbers). The same artifact, batch and seed give the same
-response bit for bit. The composition runs in float64
-(api._krige_predict_core), so no process-global TF32 setting reaches
-it and concurrent dispatches need no shared state.
+inject those numbers). It is drawn outside the predict program, which
+takes it as an input: a graph cannot seed a generator per call. The
+same artifact, batch and seed give the same response bit for bit. The
+composition runs in float64 (api._krige_predict_core), so no
+process-global TF32 setting reaches it.
 
 The engine's artifact and device constants live in one immutable
 :class:`_Generation` snapshot that each request captures once at
@@ -55,7 +59,9 @@ request) by ``row_noise`` (:data:`RowNoise`, default
 cannot change a row's draw, so a coalesced response is bitwise the same
 request served alone by a window-armed engine. ``coalesce_window_ms = 0``
 (the default) keeps the per-request path and its programs.
-``compile_store_dir`` (ROADMAP A10) raises ``NotImplementedError``.
+``compile_store_dir`` names the L2 store of the program store: the
+serving programs launch no kernel library, so it only records where the
+engine's programs came from (compile/).
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ import numpy as np
 import torch
 
 from smk_torch.compile.buckets import slice_plan
+from smk_torch.compile.programs import GraphProgram, get_program
+from smk_torch.compile.store import ProgramStore
 from smk_torch.device import resolve_device
 from smk_torch.ops.quantiles import credible_probs, credible_summary
 from smk_torch.serve.artifact import FitArtifact, load_artifact
@@ -245,8 +253,8 @@ class PredictionEngine:
     dispatches draw from ``row_noise`` (:data:`RowNoise`, default
     :func:`hash_row_noise`). ``include_samples``: return the draws too.
     ``pipeline_stats``: a utils.tracing.ChunkPipelineStats sink for the
-    program records. ``compile_store_dir`` (ROADMAP A10) raises
-    ``NotImplementedError``."""
+    program records. ``compile_store_dir``: the program store's L2
+    directory (compile/)."""
 
     def __init__(
         self,
@@ -267,11 +275,6 @@ class PredictionEngine:
         noise: Optional[Noise] = None,
         row_noise: Optional[RowNoise] = None,
     ):
-        if compile_store_dir:
-            raise NotImplementedError(
-                "PredictionEngine compile_store_dir is not ported to smk_torch "
-                "yet (ROADMAP A10); the JAX package smk_tpu runs it"
-            )
         if coalesce_window_ms < 0:
             raise ValueError(
                 "coalesce_window_ms must be >= 0 (0 disables "
@@ -316,7 +319,7 @@ class PredictionEngine:
             "generation_swaps": 0,
         }
         self.pstats = pipeline_stats if pipeline_stats is not None else ChunkPipelineStats()
-        self._program_table: dict = {}
+        self._store = ProgramStore(compile_store_dir) if compile_store_dir else None
         self.run_log = None
         if run_log_dir:
             from smk_torch.obs.events import open_run_log
@@ -430,10 +433,9 @@ class PredictionEngine:
 
         s, q = a.n_draws, a.q
         cov_model, link, var_floor = a.cov_model, a.link, a.var_floor()
-        noise, dt, dev, probs = self._noise, self._dtype, self.device, self._probs
+        probs = self._probs
 
-        def fn(chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, seed):
-            eps = noise(seed, (s, u, q), dt, dev)
+        def fn(chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, eps):
             ps = _krige_predict_core(
                 chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, eps,
                 cov_model=cov_model, link=link, var_floor=var_floor,
@@ -453,16 +455,14 @@ class PredictionEngine:
         return fn
 
     def _program(self, key: tuple, build):
-        """The program of ``key`` from the in-process table, built on
-        first use; recorded in ``pstats`` as "fresh" when built and "l1"
-        when reused (the first record of a key stands)."""
+        """The program of ``key`` from the engine's L1 table
+        (compile/programs.get_program), a GraphProgram over ``build()``
+        on first use, captured at its first call; recorded in ``pstats``
+        (the first record of a key stands)."""
         with self._lock:
-            fn = self._program_table.get(key)
-            fresh = fn is None
-            if fresh:
-                fn = self._program_table[key] = build()
-        self.pstats.record_program(key=key, source="fresh" if fresh else "l1")
-        return fn
+            return get_program(
+                self, key, lambda: GraphProgram(build(), key, self.device, owner=self),
+                store=self._store, stats=self.pstats, device=self.device)
 
     def _programs(self, u: int, a=None):
         """(predict, guard) of bucket ``u`` for artifact ``a`` (default:
@@ -524,13 +524,14 @@ class PredictionEngine:
                 coords_q = np.repeat(np.asarray(a.coords_test[:1], np.float32), u, axis=0)
                 x_q = np.zeros((u, a.q, a.p), np.float32)
                 pkey, gkey = predict_key(u, a), self._guard_key(u, a)
-                seed = (np.zeros(u, np.int64), np.zeros(u, np.int64)) if rows else (0,)
+                seed = (np.zeros(u, np.int64), np.zeros(u, np.int64)) if rows else None
 
                 def worker(pred=pred, guard=guard, coords_q=coords_q, x_q=x_q, pkey=pkey,
-                           gkey=gkey, seed=seed, rows=rows):
+                           gkey=gkey, seed=seed, rows=rows, u=u):
                     cq = _upload(coords_q, self.device).to(self._dtype)
                     xq = _upload(x_q, self.device).to(self._dtype)
-                    sd = tuple(_upload(v, self.device) for v in seed) if rows else seed
+                    sd = (tuple(_upload(v, self.device) for v in seed) if rows
+                          else (self._noise(0, (a.n_draws, u, a.q), self._dtype, self.device),))
                     ps, pq = _invoke_program(pred, pkey, *gen.const, cq, xq, *sd)
                     mask = _invoke_program(guard, gkey, ps)
                     return mask.cpu(), pq.cpu()
@@ -717,7 +718,9 @@ class PredictionEngine:
         def dispatch_worker():
             cq = _upload(np.ascontiguousarray(sl_c), dev).to(dt)
             xq = _upload(np.ascontiguousarray(sl_x), dev).to(dt)
-            args = tuple(_upload(r, dev) for r in rows) if rows else (seed,)
+            # the per-request noise is drawn here, outside the program
+            args = (tuple(_upload(r, dev) for r in rows) if rows
+                    else (self._noise(seed, (a.n_draws, u, a.q), dt, dev),))
             return _invoke_program(pred, pkey, *const, cq, xq, *args)
 
         dspan = (log.span("dispatch", bucket=u, **tag) if log is not None

@@ -55,7 +55,8 @@ class ReplicaFleet:
     shared). ``n_replicas``: the engine count. ``run_log_dir``: the
     fleet's own run log (``replica`` spans for spin-up, shed and
     saturation events, routing counters). Every other keyword goes to
-    each :class:`PredictionEngine`."""
+    each :class:`PredictionEngine` (``compile_store_dir`` among them:
+    each replica captures its own graphs, compile/programs.py)."""
 
     def __init__(self, artifact, *, n_replicas: int = 2,
                  run_log_dir: Optional[str] = None, **engine_kwargs):

@@ -57,6 +57,7 @@ from smk_torch.api import (
     stacked_design,
 )
 from smk_torch.compile.buckets import bucket_for, bucket_ladder, validate_ladder
+from smk_torch.compile.xla_cache import maybe_enable_from_config
 from smk_torch.config import check_ported
 from smk_torch.device import resolve_device
 from smk_torch.models.probit_gp import (
@@ -447,7 +448,12 @@ class LiveFit:
 
     def _fit_subsets(self, rng: LiveRandomness, assignments, beta_init) -> SubsetResult:
         """Fit ``assignments`` as their own PaddedPartition through the
-        chunked executor; returns the stacked results as host arrays."""
+        chunked executor; returns the stacked results as host arrays. The
+        model is the live fit's one, so a refit finds its bucket programs
+        in the model's L1 (compile/programs.py); the config's
+        ``compile_store_dir`` reaches the executor with it, and its
+        ``xla_cache_dir`` is armed here as a fit arms it."""
+        maybe_enable_from_config(self.cfg)
         part = padded_partition(self._tensor(self._y), self._tensor(self._x),
                                 self._tensor(self._coords), assignments, ladder=self._ladder())
         q, p = self._x.shape[1], self._x.shape[2]

@@ -8,10 +8,10 @@ work and not only its enqueueing.
 loop (both pipelines), the checkpoint, its background writer,
 quarantine, the streaming monitor and the adaptive schedule record into
 (parallel/recovery.py); with a ``run_log`` each record is also an event
-of the fit's run log (obs/events.py). The program store is not ported
-(ROADMAP A10): the serving engine records its in-process bucket programs
-(``record_program``), and a fit's ``aggregate`` reports the store's keys
-as the twin does when it is off.
+of the fit's run log (obs/events.py). Every program acquisition of the
+chunked executor and the serving engine (compile/programs.get_program)
+is recorded by ``record_program``, and ``aggregate`` reports their
+sources and seconds as the twin's does.
 """
 
 from __future__ import annotations
@@ -109,8 +109,8 @@ class ChunkPipelineStats:
     # the live-fit ledger (serve/ingest.LiveFit): ingested batches and
     # rows, refits, the published generation, the append log's watermark
     ingest: Any = None
-    # one entry per program acquisition (record_program): the serving
-    # engine's bucket programs until the program store (ROADMAP A10)
+    # one entry per program acquisition (record_program, through
+    # compile/programs.get_program)
     programs: List[Dict[str, Any]] = field(default_factory=list)
     _program_keys: set = field(default_factory=set, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
@@ -164,11 +164,13 @@ class ChunkPipelineStats:
 
     def record_program(self, *, key, source: str, compile_s: float = 0.0,
                        aot: bool = False) -> None:
-        """One program acquisition (the twin's ``record_program``): the
-        bucket ``key``, where the program came from (``source``: "fresh"
-        when built, "l1" when reused from the in-process table) and the
-        host seconds the acquisition cost. The first record of a key
-        wins."""
+        """One program acquisition (the twin's ``record_program``,
+        compile/programs.get_program): the bucket ``key``, where the
+        program came from (``source``: "l1" already in memory, "l2"
+        captured with its kernel libraries from the store, "l3" captured
+        with them from the build directory, "fresh" nvcc ran in this
+        process) and ``compile_s``, the library acquisition plus the
+        warm-up and capture seconds. The first record of a key wins."""
         key_t = tuple(str(f) for f in key)
         entry = {
             "key": list(key_t),
@@ -216,9 +218,9 @@ class ChunkPipelineStats:
         """The twin's summary, key for key: the loop's, the checkpoint's,
         the fault ledger's, the device memory's, the live diagnostics'
         and the adaptive schedule's keys measured (None where nothing
-        recorded them), the ingest ledger (None without a live fit); the
-        mesh's None and the program store's empty, as the twin reports
-        them when those are off."""
+        recorded them), the ingest ledger (None without a live fit), the
+        program records' seconds and sources; the mesh's None, as the
+        twin reports it when it is off."""
         stall = sum(c.get("host_stall_s", 0.0) for c in self.chunks)
         work = sum(c.get("host_work_s", 0.0) for c in self.chunks)
         disp = sum(c.get("dispatch_s", 0.0) for c in self.chunks)

@@ -247,10 +247,23 @@ def test_default_randomness_fit_is_finite_and_seeded():
         (dict(compile_store_dir="store"), "A10"),
     ],
 )
-def test_unported_knobs_raise_naming_their_roadmap_item(knob, item):
-    knob_name = next(iter(knob))
-    with pytest.raises(NotImplementedError, match=f"{knob_name}.*{item}"):
-        fit_meta_kriging(*_problem(), config=SMKConfig(**knob), device="cpu")
+def test_unported_knobs_raise_naming_their_roadmap_item(knob, item, tmp_path, monkeypatch):
+    """The program store's two directory knobs (ROADMAP ``item``) are
+    ported now: each no longer raises, the fit with it draws exactly
+    what the fit without it draws, and xla_cache_dir arms the kernel
+    build directory (compile/xla_cache.py)."""
+    from smk_torch import config as tconfig
+    from smk_torch.compile import xla_cache
+
+    monkeypatch.setattr(xla_cache, "_ARMED", None)
+    knob_name, value = next(iter(knob.items()))
+    assert knob_name not in {k for k, _, _ in tconfig._UNPORTED}
+    cfg = SMKConfig(n_samples=40, **{knob_name: str(tmp_path / value)})
+    a = fit_meta_kriging(*_problem(), config=cfg, seed=1, device="cpu", chunk_iters=10)
+    b = fit_meta_kriging(*_problem(), config=SMKConfig(n_samples=40), seed=1, device="cpu",
+                         chunk_iters=10)
+    assert torch.equal(a.p_quant, b.p_quant) and torch.equal(a.param_quant, b.param_quant)
+    assert (xla_cache.armed_dir() == str(tmp_path / value)) == (knob_name == "xla_cache_dir")
 
 
 @pytest.mark.parametrize("knob", ["live_diagnostics", "run_log_dir", "profile_dir",

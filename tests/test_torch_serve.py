@@ -638,9 +638,17 @@ def test_fleet_drain_typed(paths):
 @pytest.mark.parametrize("knob,item", [
     (dict(compile_store_dir="store"), "A10"),
 ])
-def test_unported_engine_knobs_raise_naming_their_item(paths, knob, item):
-    with pytest.raises(NotImplementedError, match=item):
-        PredictionEngine(paths["twin"], device="cpu", **knob)
+def test_unported_engine_knobs_raise_naming_their_item(paths, knob, item, tmp_path):
+    """The engine's program store knob (ROADMAP ``item``) is ported now:
+    an engine with it serves bitwise what an engine without it serves."""
+    name, value = next(iter(knob.items()))
+    with_store = PredictionEngine(paths["twin"], device="cpu", **{name: str(tmp_path / value)})
+    plain = PredictionEngine(paths["twin"], device="cpu")
+    cq, xq = _queries(5)
+    assert np.array_equal(with_store.predict(cq, xq, seed=3).p_quant,
+                          plain.predict(cq, xq, seed=3).p_quant)
+    with_store.close()
+    plain.close()
 
 
 @pytest.mark.parametrize("knob", [dict(coalesce_window_ms=5.0)])
