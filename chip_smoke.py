@@ -309,6 +309,35 @@ is a CUDA graph captured once per bucket key and replayed
               tampered: a warned miss, one nvcc run, "fresh", the store
               refilled.
 
+The device mesh and the process group (ROADMAP A9a; the card is one
+H100, so every mesh here has one entry):
+
+31. mesh_config5 — config5 with the production sampler, 32 sweeps: the
+              unmeshed fit and fit_meta_kriging(n_devices=1), both with a
+              run log: every result field bitwise, the meshed fit's
+              launches per entry point == build_calls, its gather span's
+              seconds, ms/sweep of both; then the chunked fit (chunks of
+              16, quarantine) on the mesh bitwise the unmeshed one, its
+              chunk programs new captures keyed under the printed
+              topology fingerprint, launches == build_calls(chunk_iters=16).
+32. mesh_coherent_config4 — config4 coherent (32 sweeps in chunks of 16)
+              on the host path and on a 1-entry mesh: the plan the
+              identity, every field bitwise, launches per group ==
+              build_calls.
+33. dist_world_of_one — a real NCCL process group of one on
+              tcp://127.0.0.1 (a free port) through
+              flaky_coordinator(2, passthrough=True): 3 init calls;
+              barrier_sync and allgather_bytes; a small fit over the
+              group's mesh bitwise its unmeshed fit; gather_grids through
+              an NCCL all-gather, bitwise; the group destroyed.
+34. sharded_chol — one (3906, 3906) fp32 SPD matrix on the 1-entry
+              mesh: sharded_cholesky against blocked_cholesky (block 512),
+              the difference, both residuals and device times;
+              sharded_matvec.
+35. thread_launch — the symmetric and narrow kernels launched from a
+              worker thread with its own current device and stream,
+              bitwise the main thread's launches.
+
 Then each phase's wall time and the script's, the kernel summary line
 {"kernels": [...]} (launches from fit_config5, the double kernels' from
 fit_config5_float64, and per path, the Vecchia paths' and the coalesced
@@ -4166,6 +4195,355 @@ def programs_config5(device, c5_data, c4_data, tmp):
     return out
 
 
+
+# ----------------------------------------------------------------------
+# phases 31-35: the device mesh and the process group (ROADMAP A9a)
+# ----------------------------------------------------------------------
+MESH_FIELDS = ("param_grid", "w_grid", "sample_par", "sample_w", "p_samples", "param_quant",
+               "w_quant", "p_quant", "phi_accept_rate")
+
+
+def same_bits(a, b):
+    """Bitwise equal tensors, NaN where NaN."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def every_field_bitwise(a, b):
+    """Per result field (and per subset_results field) whether the two
+    fits are bitwise equal."""
+    out = {f: same_bits(getattr(a, f), getattr(b, f)) for f in MESH_FIELDS}
+    for f, u, v in zip(a.subset_results._fields, a.subset_results, b.subset_results):
+        out["subset_results." + f] = same_bits(u, v)
+    return out
+
+
+def span_seconds(path, name):
+    """The summed seconds of the run log's spans called ``name``."""
+    total, n = 0.0, 0
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("kind") == "span" and rec.get("name") == name:
+                total += rec["t1"] - rec["t0"]
+                n += 1
+    return total, n
+
+
+def mesh_config5(device, c5_data, tmp):
+    """config5's production data and sampler, 32 sweeps: the unmeshed
+    fit, then fit_meta_kriging(n_devices=1), both with a run log; every
+    result field bitwise, the meshed run's launches per entry point ==
+    build_calls (counts set to 0 just before it), its gather span's
+    seconds, ms/sweep of both. Then the chunked fits (chunks of 16,
+    quarantine), unmeshed and on the 1-entry mesh: bitwise, the meshed
+    one's programs new captures keyed under the topology fingerprint,
+    its launches == build_calls(chunk_iters=16)."""
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.compile.programs import topology_fingerprint
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel.executor import make_mesh
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    cfg = production_config(k=MAIN_K, n_samples=32, phi_every=16,
+                            run_log_dir=os.path.join(tmp, "mesh_logs"))
+    mesh = make_mesh(1)
+    check(mesh.size == 1 and mesh.home == device, f"mesh_config5: mesh {mesh}")
+    fits, walls = {}, {}
+    for leg in ("unmeshed", "meshed"):
+        torch.cuda.synchronize()
+        fb.reset_counts()
+        t0 = time.perf_counter()
+        fits[leg] = fit_meta_kriging(*c5_data, config=cfg, seed=SEED, device=device,
+                                     **({"n_devices": 1} if leg == "meshed" else {}))
+        torch.cuda.synchronize()
+        walls[leg] = time.perf_counter() - t0
+        if leg == "meshed":
+            launches = dict(fb.LAUNCHES)
+            layouts = launches_by_kernel()
+            plain = sum(fb.PLAIN_CALLS.values())
+    same = every_field_bitwise(fits["meshed"], fits["unmeshed"])
+    check(all(same.values()), f"mesh_config5: meshed fit not bitwise the unmeshed one {same}")
+    want = build_calls(cfg, 1, cfg.n_samples, cfg.n_burn_in)
+    check(launches == want, f"mesh_config5: launches {launches} != {want}")
+    check(layouts == expected_by_kernel(want), f"mesh_config5: by kernel {layouts}")
+    check(all(launches[e] > 0 for e in MAIN_PATH), "mesh_config5: a kernel never launched")
+    check(plain == 0, "mesh_config5: a plain build ran on the card path")
+    gather_s, n_gather = span_seconds(fits["meshed"].run_log_path, "gather")
+    check(n_gather == 1, f"mesh_config5: {n_gather} gather spans")
+    check(span_seconds(fits["unmeshed"].run_log_path, "gather")[1] == 0,
+          "mesh_config5: a gather span in the unmeshed fit")
+    ms = {leg: r.phase_seconds["subset_fits"] / cfg.n_samples * 1e3 for leg, r in fits.items()}
+    out = {"phase": "mesh_config5", "K": MAIN_K, "m": MAIN_M, "n_samples": cfg.n_samples,
+           "mesh": repr(mesh), "bitwise": same, "wall_s": walls, "ms_per_sweep": ms,
+           "phase_seconds": {leg: r.phase_seconds for leg, r in fits.items()},
+           "gather_s": gather_s, "launches": launches, "launches_expected": want,
+           "launches_by_kernel": layouts}
+    del fits
+    torch.cuda.empty_cache()
+
+    # the chunked executor on the same mesh
+    qcfg = production_config(k=MAIN_K, n_samples=32, phi_every=16, fault_policy="quarantine")
+    chunked, stats = {}, {}
+    for leg in ("unmeshed", "meshed"):
+        stats[leg] = ChunkPipelineStats()
+        torch.cuda.synchronize()
+        fb.reset_counts()
+        t0 = time.perf_counter()
+        chunked[leg] = fit_meta_kriging(*c5_data, config=qcfg, seed=SEED, device=device,
+                                        chunk_iters=16, pipeline_stats=stats[leg],
+                                        **({"mesh": mesh} if leg == "meshed" else {}))
+        torch.cuda.synchronize()
+        walls["chunked_" + leg] = time.perf_counter() - t0
+        if leg == "meshed":
+            c_launches = dict(fb.LAUNCHES)
+            c_layouts = launches_by_kernel()
+    same_c = every_field_bitwise(chunked["meshed"], chunked["unmeshed"])
+    check(all(same_c.values()), f"mesh_config5: chunked meshed fit not bitwise {same_c}")
+    c_want = build_calls(qcfg, 1, qcfg.n_samples, qcfg.n_burn_in, chunk_iters=16)
+    check(c_launches == c_want, f"mesh_config5: chunked launches {c_launches} != {c_want}")
+    check(c_layouts == expected_by_kernel(c_want), f"mesh_config5: chunked by kernel {c_layouts}")
+    fp = topology_fingerprint(mesh)
+    progs = stats["meshed"].programs
+    chunk_progs = [p for p in progs if p["key"][0] in ("burn", "samp")]
+    check(chunk_progs and all(p["key"][-1] == str(fp) for p in progs),
+          f"mesh_config5: programs without the fingerprint {progs}")
+    check(any(p["source"] != "l1" for p in chunk_progs),
+          "mesh_config5: the meshed chunk programs were not new captures")
+    out.update({
+        "topology_fingerprint": list(fp), "chunked_bitwise": same_c,
+        "chunked_ms_per_sweep": {leg: r.phase_seconds["subset_fits"] / qcfg.n_samples * 1e3
+                                 for leg, r in chunked.items()},
+        "chunked_launches": c_launches, "chunked_launches_expected": c_want,
+        "chunked_launches_by_kernel": c_layouts,
+        "meshed_programs": [{"key": p["key"][:2] + p["key"][-2:], "source": p["source"],
+                             "compile_s": p["compile_s"]} for p in chunk_progs],
+        "wall_s": walls,
+    })
+    print("topology fingerprint:", fp, flush=True)
+    emit(out)
+    return out
+
+
+def mesh_coherent_config4(device, c4_data):
+    """config4's eBird proxy with the coherent partition (the production
+    sampler, logit, 32 sweeps in chunks of 16) on the host path and on a
+    1-entry mesh: the plan is the identity (one entry per bucket group,
+    no pads), pad_waste_frac 0.0, every field bitwise, launches per
+    group == build_calls(chunk_iters=16)."""
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    cfg = production_config(k=C4_K, n_samples=32, link="logit", phi_every=8,
+                            partition_method="coherent")
+    fits, stats, walls = {}, {}, {}
+    for leg in ("host", "meshed"):
+        stats[leg] = ChunkPipelineStats()
+        torch.cuda.synchronize()
+        fb.reset_counts()
+        t0 = time.perf_counter()
+        fits[leg] = fit_meta_kriging(*c4_data, config=cfg, seed=SEED, device=device,
+                                     chunk_iters=16, pipeline_stats=stats[leg],
+                                     **({"n_devices": 1} if leg == "meshed" else {}))
+        torch.cuda.synchronize()
+        walls[leg] = time.perf_counter() - t0
+        if leg == "meshed":
+            launches = dict(fb.LAUNCHES)
+            layouts = launches_by_kernel()
+    same = every_field_bitwise(fits["meshed"], fits["host"])
+    check(all(same.values()), f"mesh_coherent_config4: not bitwise the host fit {same}")
+    plan = stats["meshed"].ragged_mesh_plan
+    check(plan is not None and plan["n_devices"] == 1 and plan["pad_waste_frac"] == 0.0
+          and [e["group_ids"] for e in plan["entries"]] == [[0], [1]]
+          and not any(e["fused"] for e in plan["entries"]),
+          f"mesh_coherent_config4: the 1-entry plan is not the identity {plan}")
+    check(fits["meshed"].pad_waste_frac == 0.0, "mesh_coherent_config4: pad waste")
+    want = build_calls(cfg, C4_Q, cfg.n_samples, cfg.n_burn_in, chunk_iters=16)
+    total = {e: 2 * v for e, v in want.items()}
+    check(launches == total, f"mesh_coherent_config4: launches {launches} != {total}")
+    check(layouts == expected_by_kernel(total), f"mesh_coherent_config4: by kernel {layouts}")
+    out = {"phase": "mesh_coherent_config4", "K": C4_K, "n_samples": cfg.n_samples,
+           "bitwise": same, "plan": plan, "wall_s": walls,
+           "ms_per_sweep": {leg: r.phase_seconds["subset_fits"] / cfg.n_samples * 1e3
+                            for leg, r in fits.items()},
+           "launches": launches, "launches_expected": total, "launches_by_kernel": layouts}
+    emit(out)
+    return out
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def dist_world_of_one(device):
+    """A real NCCL process group of one (tcp://127.0.0.1, a free port)
+    brought up through flaky_coordinator(2, passthrough=True): three
+    init_process_group calls; barrier_sync and allgather_bytes; a small
+    fit over the process-group mesh bitwise its unmeshed fit (launches
+    equal); gather_grids through an NCCL all-gather, bitwise; the group
+    destroyed at the end."""
+    import warnings
+
+    import torch
+    import torch.distributed as tdist
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel import distributed as D
+    from smk_torch.parallel.combine import gather_grids
+    from smk_torch.parallel.executor import make_mesh
+    from smk_torch.testing.faults import flaky_coordinator
+
+    port = _free_port()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with flaky_coordinator(2, passthrough=True) as ctr:
+            topo = D.init_distributed(f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                                      device=device, backoff_s=0.01, timeout_s=60.0)
+    init_s = time.perf_counter() - t0
+    try:
+        check(ctr["calls"] == 3, f"dist_world_of_one: {ctr['calls']} init calls")
+        check(D.backend_name() == "nccl", f"dist_world_of_one: backend {D.backend_name()}")
+        check((topo.num_processes, topo.process_id) == (1, 0), f"dist_world_of_one: {topo}")
+        D.barrier_sync("smoke", timeout_s=30.0)
+        check(D.allgather_bytes("smoke", b"smk", timeout_s=30.0) == [b"smk"],
+              "dist_world_of_one: allgather_bytes")
+        mesh = make_mesh()
+        check(mesh.size == torch.cuda.device_count() and mesh.process_indices == (0,),
+              f"dist_world_of_one: mesh {mesh}")
+        mesh = make_mesh(1)
+        y, x, coords, ct, xt = binary_field(4 * 200, 1, 2, 16, SEED + 7)
+        cfg = SMKConfig(n_subsets=4, n_samples=16, fused_build="pallas")
+        fb.reset_counts()
+        plain = fit_meta_kriging(y, x, coords, ct, xt, config=cfg, seed=SEED, device=device)
+        plain_launches = dict(fb.LAUNCHES)
+        fb.reset_counts()
+        meshed = fit_meta_kriging(y, x, coords, ct, xt, config=cfg, seed=SEED, device=device,
+                                  mesh=mesh)
+        launches = dict(fb.LAUNCHES)
+        layouts = launches_by_kernel()
+        same = every_field_bitwise(meshed, plain)
+        check(all(same.values()), f"dist_world_of_one: meshed fit not bitwise {same}")
+        check(launches == plain_launches and all(launches[e] > 0 for e in MAIN_PATH),
+              f"dist_world_of_one: launches {launches} != {plain_launches}")
+        grids = plain.subset_results.param_grid
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gathered = gather_grids(grids, mesh)
+        torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t1) * 1e3
+        check(gathered.data_ptr() != grids.data_ptr() and same_bits(gathered, grids),
+              "dist_world_of_one: the NCCL gather is not bitwise")
+    finally:
+        D.destroy_distributed()
+    check(not tdist.is_initialized(), "dist_world_of_one: the process group survived")
+    out = {"phase": "dist_world_of_one", "init_calls": ctr["calls"], "init_s": init_s,
+           "backend": "nccl", "topology": topo.__dict__, "bitwise": same,
+           "launches": launches, "launches_by_kernel": layouts, "gather_ms": gather_ms}
+    emit(out)
+    return out
+
+
+def sharded_chol(device):
+    """parallel/sharded_chol on the 1-entry mesh: a (3906, 3906) fp32 SPD
+    matrix (an exponential correlation at phi = 6 plus 1e-3 I on config5's
+    coordinates) factored by sharded_cholesky(block 512) and by
+    ops/chol.blocked_cholesky(block 512): the factors' difference, both
+    residuals ||L L^T - A|| / ||A||, both device times (CUDA events,
+    median of 5); sharded_matvec against A @ v."""
+    import torch
+    from smk_torch.ops.chol import blocked_cholesky
+    from smk_torch.parallel.executor import make_mesh
+    from smk_torch.parallel.sharded_chol import sharded_cholesky, sharded_matvec
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    coords = torch.rand((MAIN_M, 2), generator=g).to(device)
+    a = torch.exp(-6.0 * torch.cdist(coords, coords)) + 1e-3 * torch.eye(MAIN_M, device=device)
+    mesh = make_mesh(1)
+    got = sharded_cholesky(a, mesh, block_size=512)
+    l_sh = got.gather()
+    l_bl = blocked_cholesky(a, 0.0, 512)
+
+    def resid(lf):
+        return float(torch.linalg.norm(lf @ lf.T - a) / torch.linalg.norm(a))
+
+    diff = float((l_sh - l_bl).abs().max())
+    r_sh, r_bl = resid(l_sh), resid(l_bl)
+    check(bool(torch.isfinite(l_sh).all()) and r_sh < 1e-5 and diff < 1e-3,
+          f"sharded_chol: residual {r_sh}, diff {diff}")
+    ms_sh = ms_median(lambda: sharded_cholesky(a, mesh, block_size=512), reps=5, warmup=1,
+                      device_only=True)
+    ms_bl = ms_median(lambda: blocked_cholesky(a, 0.0, 512), reps=5, warmup=1,
+                      device_only=True)
+    v = torch.randn(MAIN_M, generator=g).to(device)
+    mv = sharded_matvec(a, v, mesh).gather()
+    mv_err = float((mv - a @ v).abs().max())
+    check(mv_err < 1e-3, f"sharded_chol: matvec error {mv_err}")
+    out = {"phase": "sharded_chol", "m": MAIN_M, "block": 512, "mesh": repr(mesh),
+           "bitwise_blocked": bool(torch.equal(l_sh, l_bl)), "max_abs_diff": diff,
+           "residual_sharded": r_sh, "residual_blocked": r_bl, "sharded_ms": ms_sh,
+           "blocked_ms": ms_bl, "matvec_max_abs_err": mv_err}
+    emit(out)
+    return out
+
+
+def thread_launch(device):
+    """The kernel launched from a worker thread (its own current device
+    and stream, set there and not by the caller) against the same call
+    on the main thread, bitwise: the wrapper enters the output's device
+    itself (ops/fused_build._launch). Launches made here are checks and
+    are not counted for any path."""
+    import threading
+
+    import torch
+    from smk_torch.ops import fused_build as fb
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    coords = torch.rand((4, 1024, 2), generator=g).to(device)
+    phis = torch.full((4, 1), 6.0, device=device)
+    mask = (torch.rand((4, 1024), generator=g) > 0.1).float().to(device)
+    before = fb.count_snapshot()
+    main = fb.fused_masked_correlation_stack(coords, phis, mask, "exponential")
+    cross = fb.fused_cross_correlation(coords, coords[:, :64], phis, "exponential")
+    box = {}
+
+    def worker():
+        try:
+            torch.cuda.set_device(torch.cuda.device_count() - 1)
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                box["sym"] = fb.fused_masked_correlation_stack(coords, phis, mask,
+                                                               "exponential")
+                box["narrow"] = fb.fused_cross_correlation(coords, coords[:, :64], phis,
+                                                           "exponential")
+            s.synchronize()
+        except BaseException as e:  # reported on the main thread
+            box["error"] = e
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=60)
+    check(not t.is_alive() and "error" not in box, f"thread_launch: {box.get('error')}")
+    torch.cuda.synchronize()
+    fb.restore_counts(before)
+    same = {"symmetric": bool(torch.equal(box["sym"], main)),
+            "narrow": bool(torch.equal(box["narrow"], cross))}
+    check(all(same.values()), f"thread_launch: a worker thread's launch differs {same}")
+    out = {"phase": "thread_launch", "bitwise": same, "devices": torch.cuda.device_count()}
+    emit(out)
+    return out
+
+
 def serve_queries(rng, n):
     """``n`` query sites uniform over the field's domain (binary_field's
     unit square) with designs [1, N(0, 1)], float32."""
@@ -4936,6 +5314,11 @@ def main() -> int:
         ads = phase("fit_adaptive_small", fit_adaptive_small, device, tmp)
         pr5 = phase("fit_profile_config5", fit_profile_config5, device, c5_data, tmp)
         phase("programs_config5", programs_config5, device, c5_data, c4_data, tmp)
+        m5 = phase("mesh_config5", mesh_config5, device, c5_data, tmp)
+        mc4 = phase("mesh_coherent_config4", mesh_coherent_config4, device, c4_data)
+        d1 = phase("dist_world_of_one", dist_world_of_one, device)
+        phase("sharded_chol", sharded_chol, device)
+        phase("thread_launch", thread_launch, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "wall_s_by_phase", **walls, "total_s": time.perf_counter() - script_start})
@@ -4947,7 +5330,8 @@ def main() -> int:
              "ingest_config4": ing4, "serve_coalesced_config5": co5,
              "fit_overlap_config5": ov5, "fit_overlap_small_faults": ovs,
              "fit_adaptive_config5": ad5, "fit_adaptive_small": ads,
-             "fit_profile_config5": pr5}
+             "fit_profile_config5": pr5, "mesh_config5": m5, "mesh_coherent_config4": mc4,
+             "dist_world_of_one": d1}
 
     f64_time = f64["main_path"]
     f64_kernels = (("symmetric kernel, float64", "symmetric_f64", "fused_masked_correlation_stack"),

@@ -47,9 +47,18 @@ from smk_torch.ops.quantiles import (
     inverse_cdf_resample,
     resample_index,
 )
-from smk_torch.parallel.combine import combine_quantile_grids
+from smk_torch.compile.buckets import plan_ragged_mesh
+from smk_torch.parallel.combine import combine_quantile_grids, gather_grids
 from smk_torch.parallel.domains import FailureDomainMap
-from smk_torch.parallel.executor import fit_subsets_vmap
+from smk_torch.parallel.executor import (
+    Mesh,
+    fit_subsets_sharded,
+    fit_subsets_vmap,
+    fits_layout,
+    make_mesh,
+    run_per_device,
+)
+from smk_torch.parallel.sharded_chol import row_sharding
 from smk_torch.parallel.partition import (
     PaddedPartition,
     coherent_partition,
@@ -429,14 +438,29 @@ def resample_predict(
     x_test: torch.Tensor,
     index: torch.Tensor,
     config: SMKConfig,
+    mesh=None,
 ):
     """The resample/predict phase: densify the combined grids, draw the
     rows ``index`` from both, and summarise. Returns (sample_par,
-    sample_w, p_samples, param_quant, w_quant, p_quant)."""
+    sample_w, p_samples, param_quant, w_quant, p_quant). Under a ``mesh``
+    whose size divides the draws, the link probabilities are computed
+    row-split over this process's entries (the draws are independent;
+    parallel/sharded_chol.row_sharding) and gathered back on
+    ``mesh.home``."""
     dense_par = interp_quantile_grid(param_grid, config.interp_grid_step)
     dense_w = interp_quantile_grid(w_grid, config.interp_grid_step)
     sample_par, sample_w = inverse_cdf_resample(index, [dense_par, dense_w])
-    p_samples = predict_probability(sample_par, sample_w, x_test, link=config.link)
+    if mesh is not None and fits_layout(sample_par.shape[0], mesh.size):
+        lay = row_sharding(Mesh(mesh.local_entries(), mesh.axis_names))
+        bp, bw = lay.place(sample_par), lay.place(sample_w)
+        parts = run_per_device([
+            (a.device, lambda a=a, w=w: predict_probability(a, w, x_test.to(a.device),
+                                                            link=config.link))
+            for a, w in zip(bp.blocks, bw.blocks)])
+        p_samples = (parts[0] if len(parts) == 1
+                     else torch.cat([t.to(sample_par.device) for t in parts]))
+    else:
+        p_samples = predict_probability(sample_par, sample_w, x_test, link=config.link)
     return (
         sample_par, sample_w, p_samples,
         credible_summary(sample_par), credible_summary(sample_w),
@@ -493,6 +517,9 @@ def fit_meta_kriging(
     seed: int = 0,
     randomness: Optional[FitRandomness] = None,
     device=None,
+    sharded: bool = False,
+    mesh=None,
+    n_devices: Optional[int] = None,
     chunk_size: Optional[int] = None,
     chunk_iters: Optional[int] = None,
     checkpoint_path: Optional[str] = None,
@@ -501,7 +528,7 @@ def fit_meta_kriging(
     nan_guard: bool = False,
     pipeline_stats: Optional[ChunkPipelineStats] = None,
 ) -> MetaKrigingResult:
-    """Full spatial meta-kriging pipeline (the twin's unmeshed path).
+    """Full spatial meta-kriging pipeline.
 
     y: (n, q) binary/binomial counts; x: (n, q, p) designs; coords:
     (n, d); coords_test: (t, d); x_test: (t, q, p); weight: binomial
@@ -512,6 +539,20 @@ def fit_meta_kriging(
     unchunked run's). Everything computes in ``config.dtype``, under
     ``config.matmul_precision`` (the caller's settings are restored on
     return).
+
+    The device mesh (parallel/executor.py): ``mesh`` passes one,
+    ``n_devices`` builds one over the first that many devices
+    (``make_mesh(n_devices, device=device)``: cards, or virtual CPU
+    entries with ``device="cpu"``; not both), bare ``sharded=True``
+    meshes every visible card. Under a mesh the K subsets are laid out
+    over the entries (``fit_subsets_sharded``, or the chunked executor's
+    per-entry blocks; a ragged partition runs its RaggedMeshPlan, derived
+    once, whose ``pad_waste_frac`` the result reports), the grids are
+    gathered onto ``mesh.home`` (a ``gather`` span in the run log; an
+    all-gather over the process group on a multi-process mesh), and the
+    prediction composition is row-split over the entries when the
+    resample size divides over the mesh. On a one-entry mesh the whole
+    pipeline is bitwise the unmeshed one.
 
     The subset fits run through the chunked executor
     (parallel/recovery.fit_subsets_chunked) when any of its knobs asks
@@ -567,7 +608,16 @@ def fit_meta_kriging(
     # L3 of the program store: the kernel libraries' build directory,
     # armed for the process (compile/xla_cache.py)
     maybe_enable_from_config(cfg)
-    dev = resolve_device(device)
+    if n_devices is not None:
+        if mesh is not None:
+            # conflicting topology asks must not silently pick one
+            raise ValueError(
+                f"pass either mesh= or n_devices=, not both — mesh spans {mesh.size} "
+                f"device(s) while n_devices={n_devices} asks for its own")
+        mesh = make_mesh(n_devices, axis=cfg.mesh_axis, device=device)
+    elif sharded and mesh is None:
+        mesh = make_mesh(axis=cfg.mesh_axis, device=device)
+    dev = mesh.home if mesh is not None else resolve_device(device)
     asked = (checkpoint_path is not None or chunk_iters is not None
              or progress is not None or nan_guard)
     run_log = None
@@ -590,17 +640,17 @@ def fit_meta_kriging(
                 run_log.span("fit_meta_kriging") if run_log is not None
                 else contextlib.nullcontext()):
             return _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev,
-                        chunk_size, chunked, asked, run_log)
+                        chunk_size, chunked, asked, run_log, mesh)
     finally:
         if run_log is not None:
             run_log.close(pipeline=pstats.aggregate())
 
 
 def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, chunk_size,
-         chunked, asked, run_log):
+         chunked, asked, run_log, mesh=None):
     """``chunked``: the chunked executor's arguments; ``asked``: whether
     the caller set one of them; ``run_log``: the fit's run log or
-    None."""
+    None; ``mesh``: the run's mesh or None."""
     dt = torch.float64 if cfg.dtype == "float64" else torch.float32
     y, x, coords, coords_test, x_test = (
         _as_tensor(a, dt, dev) for a in (y, x, coords, coords_test, x_test)
@@ -649,7 +699,13 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
         ).coef.reshape(q, p)
 
     model = SpatialGPSampler(cfg, weight=weight)
-    store = store_from_config(cfg)
+    # the ragged fit's device layout, derived once: the failure domains
+    # and pad_waste_frac describe the layout the executor runs
+    ragged_plan = None
+    if mesh is not None and ragged:
+        ragged_plan = plan_ragged_mesh([g.bucket for g in part.groups],
+                                       [len(g.subset_ids) for g in part.groups], mesh.size)
+    store = store_from_config(cfg, mesh)
     if store is not None:
         # L2 of the program store: the kernel libraries out of the store
         # (or into it) before the first launch, on either executor
@@ -662,7 +718,12 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
         if asked or cfg.fault_policy == "quarantine" or ragged or cfg.live_diagnostics:
             results = fit_subsets_chunked(
                 model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init,
-                chunk_size=chunk_size, **chunked,
+                chunk_size=chunk_size, mesh=mesh, **chunked,
+            )
+        elif mesh is not None:
+            results = fit_subsets_sharded(
+                model, part, coords_test, x_test, rng.sweep_noise(shapes), beta_init,
+                mesh=mesh, chunk_size=chunk_size,
             )
         else:
             results = fit_subsets_vmap(
@@ -670,32 +731,42 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
                 chunk_size=chunk_size,
             )
 
-    # the degraded combine of a quarantined fit: subsets whose retry
-    # ladder ran out ship non-finite grids and are dropped
-    survival_mask = domain_of_subset = None
-    subsets_dropped: tuple = ()
-    domains_dropped: tuple = ()
-    if cfg.fault_policy == "quarantine":
-        failed = find_failed_subsets(results)
-        survival_mask = np.ones(cfg.n_subsets, bool)
-        survival_mask[failed] = False
-        subsets_dropped = tuple(int(i) for i in failed)
-        dmap = FailureDomainMap.derive(cfg.n_subsets)
-        domain_of_subset = np.asarray(dmap.domain_of_subset, int)
-        domains_dropped = tuple(
-            int(d) for d in range(dmap.n_domains)
-            if not survival_mask[dmap.subsets_of(d)].any()
-        )
-
     with phase_timer(times, "combine", dev, log=run_log):
-        param_grid, w_grid = combine(results.param_grid, results.w_grid, cfg,
-                                     survival_mask, domain_of_subset)
+        grids_par, grids_w = results.param_grid, results.w_grid
+        if mesh is not None:
+            # the grids, whole, on mesh.home: pure data movement (an
+            # all-gather across processes), its own span of the run log
+            with (run_log.span("gather", n_subsets=cfg.n_subsets) if run_log is not None
+                  else contextlib.nullcontext()):
+                grids_par = gather_grids(grids_par, mesh)
+                grids_w = gather_grids(grids_w, mesh)
+        # the degraded combine of a quarantined fit: subsets whose retry
+        # ladder ran out ship non-finite grids and are dropped
+        survival_mask = domain_of_subset = None
+        subsets_dropped: tuple = ()
+        domains_dropped: tuple = ()
+        if cfg.fault_policy == "quarantine":
+            failed = find_failed_subsets(results._replace(param_grid=grids_par,
+                                                          w_grid=grids_w))
+            survival_mask = np.ones(cfg.n_subsets, bool)
+            survival_mask[failed] = False
+            subsets_dropped = tuple(int(i) for i in failed)
+            if ragged_plan is not None:
+                dmap = FailureDomainMap.derive_ragged(ragged_plan, part, mesh)
+            else:
+                dmap = FailureDomainMap.derive(cfg.n_subsets, mesh)
+            domain_of_subset = np.asarray(dmap.domain_of_subset, int)
+            domains_dropped = tuple(
+                int(d) for d in range(dmap.n_domains)
+                if not survival_mask[dmap.subsets_of(d)].any()
+            )
+        param_grid, w_grid = combine(grids_par, grids_w, cfg, survival_mask, domain_of_subset)
 
     with phase_timer(times, "resample_predict", dev, log=run_log):
         n_grid = int(round((1.0 - 1.0 / cfg.n_quantiles) / cfg.interp_grid_step)) + 1
         index = rng.resample_index(cfg.resample_size, n_grid).to(dev)
         (sample_par, sample_w, p_samples, param_quant, w_quant,
-         p_quant) = resample_predict(param_grid, w_grid, x_test, index, cfg)
+         p_quant) = resample_predict(param_grid, w_grid, x_test, index, cfg, mesh=mesh)
 
     secs = times.as_dict()
     fit_s = secs.get("subset_fits", 0.0)
@@ -721,7 +792,8 @@ def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, 
         phase_seconds=secs,
         subsets_dropped=subsets_dropped,
         domains_dropped=domains_dropped,
-        pad_waste_frac=0.0 if ragged else None,
+        pad_waste_frac=(ragged_plan.pad_waste_frac if ragged_plan is not None
+                        else 0.0 if ragged else None),
         run_log_path=run_log.path if run_log is not None else None,
         frozen_at=(tuple(adaptive["frozen_at"]) if adaptive else None),
         chunks_saved_frac=(adaptive["chunks_saved_frac"] if adaptive else None),

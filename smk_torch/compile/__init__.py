@@ -21,15 +21,20 @@ program store (twin of ``smk_tpu/compile/``).
   it is ``SMK_TORCH_BUILD_DIR`` or ``build/smk_torch/``.
 
 ``warmup.precompile`` acquires and captures every program of a chunked
-fit ahead of time. A device mesh (``topology_fingerprint`` of a mesh,
-``warmup.mesh_from_spec``) is ROADMAP A9 and raises.
+fit ahead of time, on a device mesh too (``mesh=``, or ``mesh_spec=``
+through ``warmup.mesh_from_spec``); a mesh's programs are keyed under
+its ``topology_fingerprint``. ``buckets.plan_ragged_mesh`` lays a ragged
+fit's bucket groups over a mesh.
 """
 
 from smk_torch.compile.buckets import (
     MIN_BUCKET,
+    RaggedMeshEntry,
+    RaggedMeshPlan,
     bucket_for,
     bucket_ladder,
     pad_accounting,
+    plan_ragged_mesh,
     select_bucket,
     slice_plan,
     validate_ladder,
@@ -45,7 +50,7 @@ from smk_torch.compile.programs import (
     topology_fingerprint,
 )
 from smk_torch.compile.store import STORE_FORMAT, ProgramStore, env_fingerprint
-from smk_torch.compile.warmup import chunk_plan_lengths, precompile
+from smk_torch.compile.warmup import MeshSpecError, chunk_plan_lengths, mesh_from_spec, precompile
 from smk_torch.compile.xla_cache import (
     default_cache_dir,
     enable_persistent_cache,
@@ -55,6 +60,9 @@ from smk_torch.compile.xla_cache import (
 
 __all__ = [
     "MIN_BUCKET",
+    "RaggedMeshEntry",
+    "RaggedMeshPlan",
+    "plan_ragged_mesh",
     "bucket_for",
     "bucket_ladder",
     "pad_accounting",
@@ -72,7 +80,9 @@ __all__ = [
     "STORE_FORMAT",
     "ProgramStore",
     "env_fingerprint",
+    "MeshSpecError",
     "chunk_plan_lengths",
+    "mesh_from_spec",
     "precompile",
     "default_cache_dir",
     "enable_persistent_cache",

@@ -106,15 +106,23 @@ def config_digest(cfg) -> str:
     return hashlib.sha256(repr(neutral).encode()).hexdigest()[:12]
 
 
-def topology_fingerprint(mesh=None):
-    """None for the unmeshed path, the only one the port runs; a mesh is
-    ROADMAP A9."""
+def topology_fingerprint(mesh=None) -> Optional[tuple]:
+    """The topology field of a bucket key: None for the unmeshed path (its
+    keys stay as they were), else the twin's tuple ``("mesh", shape,
+    axis_names, kinds, n_procs, devices_per_proc)`` of a
+    parallel/executor.Mesh: a program of another mesh shape, axis name,
+    card or process layout keys another bucket."""
     if mesh is None:
         return None
-    raise NotImplementedError(
-        "a device mesh is not ported to smk_torch yet (ROADMAP A9); the JAX package "
-        "smk_tpu runs it"
-    )
+    n_procs = max(1, len(mesh.process_indices))
+    return ("mesh", tuple(int(s) for s in mesh.devices.shape),
+            tuple(str(a) for a in mesh.axis_names), mesh.device_kind, n_procs,
+            mesh.size // n_procs)
+
+
+def _with_topology(key: tuple, mesh) -> tuple:
+    topo = topology_fingerprint(mesh)
+    return key if topo is None else key + (topo,)
 
 
 def chunk_bucket_key(model, kind: str, length: int, k: int, chunk_size: Optional[int],
@@ -122,30 +130,33 @@ def chunk_bucket_key(model, kind: str, length: int, k: int, chunk_size: Optional
                      phase: int = 0) -> tuple:
     """Shape-bucket key of one chunk program: ``kind`` "burn" or "samp",
     ``length`` its sweeps, every data dimension explicit (the digest
-    cannot see them), and last ``phase``, the chunk's first sweep modulo
-    ``phi_update_every``."""
-    topology_fingerprint(mesh)
+    cannot see them), then ``phase``, the chunk's first sweep modulo
+    ``phi_update_every``, and last, under a mesh, its topology
+    fingerprint."""
     (cov_model, link, fused, n_chains, j, engine, n_nbr, build_dt) = \
         model.program_bucket_fields()
-    return (kind, length, k, chunk_size, m, q, p, t, d, n_chains, j, cov_model, link,
-            fused, engine, n_nbr, build_dt, config_digest(model.config), int(phase))
+    return _with_topology(
+        (kind, length, k, chunk_size, m, q, p, t, d, n_chains, j, cov_model, link,
+         fused, engine, n_nbr, build_dt, config_digest(model.config), int(phase)), mesh)
 
 
 def aux_bucket_key(model, kind: str, *shape_fields, mesh=None) -> tuple:
     """Bucket key of a non-chunk program (stats guard, finalize, refork,
     the streaming monitor's): ``kind`` never collides with the chunk
-    kinds."""
-    topology_fingerprint(mesh)
+    kinds; a mesh appends its fingerprint."""
     (cov_model, link, fused, n_chains, j, engine, n_nbr, build_dt) = \
         model.program_bucket_fields()
-    return ((kind,) + tuple(shape_fields)
-            + (n_chains, j, cov_model, link, fused, engine, n_nbr, build_dt,
-               config_digest(model.config)))
+    return _with_topology(
+        (kind,) + tuple(shape_fields)
+        + (n_chains, j, cov_model, link, fused, engine, n_nbr, build_dt,
+           config_digest(model.config)), mesh)
 
 
 def store_from_config(cfg, mesh=None) -> Optional[ProgramStore]:
-    """The L2 store a run consults: ``cfg.compile_store_dir``, or None."""
-    topology_fingerprint(mesh)
+    """The L2 store a run consults: ``cfg.compile_store_dir``, or None.
+    One store serves every topology: the libraries it holds are the same
+    on every mesh, and the programs' keys carry the fingerprint."""
+    del mesh
     d = getattr(cfg, "compile_store_dir", None)
     return ProgramStore(d) if d else None
 
@@ -221,19 +232,29 @@ def programs_of(owner) -> list:
 
 
 class _Shared:
-    """What one owner's graph programs share: a lock (their calls run one
-    at a time), one graph memory pool and capture stream a device, and
-    their static input and output buffers, by role, shape, layout and
-    dtype. Sharing is sound because the calls are serialised and every
-    output is copied out before the next call binds its inputs: so a
-    model's many buckets (kinds, lengths, phases) hold one copy of the
-    state, not one each."""
+    """What one owner's graph programs share, per device: a lock (their
+    calls on a device run one at a time), the last call's completion
+    event, one graph memory pool and capture stream, and their static
+    input and output buffers, by role, shape, layout, dtype and device.
+    Sharing is sound because the calls on a device are serialised and
+    every output is copied out before the next call binds its inputs: so
+    a model's many buckets (kinds, lengths, phases) hold one copy of the
+    state a device, not one each, and programs on two mesh entries'
+    devices never wait for each other."""
 
     def __init__(self):
-        self.lock = threading.RLock()
+        self._locks_lock = threading.Lock()
+        self.locks: dict = {}
         self.pools: dict = {}
         self.buffers: dict = {}
-        self.done = None
+        self.done: dict = {}
+
+    def lock(self, device) -> threading.RLock:
+        key = str(device)
+        with self._locks_lock:
+            if key not in self.locks:
+                self.locks[key] = threading.RLock()
+            return self.locks[key]
 
     def pool(self, device):
         """The graph memory pool on ``device`` and the one side stream
@@ -364,13 +385,14 @@ class GraphProgram:
 
     def __call__(self, *args):
         sh = self._shared
-        with sh.lock:
+        dkey = str(self.device)
+        with sh.lock(self.device):
             if not self.captures:
                 self._bind(args)
                 return self._owned(self.fn(*self._args()))
             cur = torch.cuda.current_stream(self.device)
-            if sh.done is not None:
-                cur.wait_event(sh.done)
+            if sh.done.get(dkey) is not None:
+                cur.wait_event(sh.done[dkey])
             self._bind(args)
             if self._graph is None:
                 out = self._capture(count=True)
@@ -383,24 +405,25 @@ class GraphProgram:
                 flat, spec = self._out
                 out = tree_unflatten(
                     [o.clone() if isinstance(o, torch.Tensor) else o for o in flat], spec)
-            sh.done = torch.cuda.Event()
-            sh.done.record(cur)
+            sh.done[dkey] = torch.cuda.Event()
+            sh.done[dkey].record(cur)
             return out
 
     def capture(self, *args) -> None:
         """Warm up and capture on ``args`` now (precompile), counting no
         launch; a no-op on the CPU and for a captured program."""
         sh = self._shared
-        with sh.lock:
+        dkey = str(self.device)
+        with sh.lock(self.device):
             if not self.captures or self._graph is not None:
                 return
             cur = torch.cuda.current_stream(self.device)
-            if sh.done is not None:
-                cur.wait_event(sh.done)
+            if sh.done.get(dkey) is not None:
+                cur.wait_event(sh.done[dkey])
             self._bind(args)
             self._capture(count=False)
-            sh.done = torch.cuda.Event()
-            sh.done.record(cur)
+            sh.done[dkey] = torch.cuda.Event()
+            sh.done[dkey].record(cur)
 
     def _capture(self, count: bool):
         with _CAPTURE_LOCK:

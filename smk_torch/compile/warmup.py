@@ -13,7 +13,13 @@ program in L1.
 
 Unlike the twin's, the warm-up runs real work: the port precompiles on
 the data it is given (a seeded noise source of its own, so the fit's
-streams are untouched), not on abstract shapes.
+streams are untouched), not on abstract shapes. Under a mesh (``mesh``,
+or ``mesh_spec`` resolved by :func:`mesh_from_spec` against the live
+devices) it captures each entry device's programs under the mesh's
+topology fingerprint, and a ragged partition's programs per entry of its
+RaggedMeshPlan. There is no abstract-topology compile in the port
+(``allow_topology`` raises): a CUDA graph is captured on the card it
+replays on.
 """
 
 from __future__ import annotations
@@ -22,16 +28,57 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from smk_torch.compile.programs import aux_bucket_key, store_from_config
+from smk_torch.compile.programs import aux_bucket_key, store_from_config, topology_fingerprint
 from smk_torch.compile.store import ProgramStore
 from smk_torch.utils.tracing import monotonic
 
 
-def mesh_from_spec(*args, **kwargs):
-    """Resolving a mesh spec is ROADMAP A9."""
-    raise NotImplementedError(
-        "mesh_from_spec is not ported to smk_torch yet (ROADMAP A9); the JAX package "
-        "smk_tpu runs it")
+class MeshSpecError(RuntimeError):
+    """A ``mesh_spec`` could not be resolved to a mesh on this host:
+    carries the mismatch (wrong device kind, too few devices)."""
+
+
+def mesh_from_spec(mesh_shape, device_kind: Optional[str] = None, *, axis: str = "subsets",
+                   allow_topology: bool = False, device=None):
+    """Resolve a ``(mesh_shape, device_kind)`` spec to a live mesh
+    (parallel/executor.make_mesh): the visible cards (every rank's once a
+    process group is up) when there are enough of them and their name
+    (``torch.cuda.get_device_name``) is ``device_kind`` (or it is None);
+    with ``device="cpu"``, virtual CPU entries of kind ``"cpu"``. Only
+    1-D shapes. ``allow_topology=True`` raises: the twin's fallback to an
+    abstract TPU topology (``jax.experimental.topologies``) has no
+    counterpart, since a CUDA graph is captured on the card that replays
+    it."""
+    from smk_torch.parallel.distributed import process_count
+    from smk_torch.parallel.executor import make_mesh
+
+    if allow_topology:
+        raise MeshSpecError(
+            "allow_topology=True asks for an abstract-topology compile, which smk_torch "
+            "does not have (jax.experimental.topologies is a TPU feature; a CUDA graph "
+            "is captured on the card it replays on) — precompile on a host of the target "
+            "topology, or pass a live mesh")
+    if len(mesh_shape) != 1:
+        raise MeshSpecError(
+            f"mesh_spec shape {tuple(mesh_shape)!r} is not 1-D — the K-subset fan-out "
+            "shards exactly one axis (see executor.make_mesh)")
+    n = int(mesh_shape[0])
+    if device is not None and torch.device(device).type == "cpu":
+        n_live, kind = None, "cpu"
+    elif torch.cuda.is_available():
+        n_live = (torch.cuda.device_count() if process_count() <= 1
+                  else process_count())
+        kind = torch.cuda.get_device_name(torch.cuda.current_device())
+    else:
+        raise MeshSpecError(
+            f"mesh_spec ({tuple(mesh_shape)!r}, {device_kind!r}): no CUDA device is "
+            "visible to resolve it against; pass device='cpu' for virtual CPU entries")
+    if (n_live is None or n_live >= n) and (device_kind is None or str(device_kind) == kind):
+        return make_mesh(n, axis=axis, device=device)
+    raise MeshSpecError(
+        f"mesh_spec ({tuple(mesh_shape)!r}, {device_kind!r}) does not match the live "
+        f"devices ({n_live if n_live is not None else 'any number of'} x {kind!r}) — "
+        "precompile on a host of the target topology, or pass a live mesh")
 
 
 class _Recorder:
@@ -43,6 +90,11 @@ class _Recorder:
     def record_program(self, *, key, source, compile_s, aot):
         self.programs.append({"key": [str(f) for f in key], "source": source,
                               "compile_s": round(float(compile_s), 4), "aot": bool(aot)})
+
+
+def part_device(part):
+    """The device a Partition or PaddedPartition lives on."""
+    return (part.groups[0].part if hasattr(part, "groups") else part).x.device
 
 
 def chunk_plan_lengths(n_burn: int, n_samples: int, chunk_iters: int) -> List[tuple]:
@@ -93,30 +145,58 @@ def precompile(model, part, coords_test, x_test, *, chunk_iters: int = 500,
     reports merged), on the device the fit will run on. ``store_dir``
     overrides ``model.config.compile_store_dir``. Returns a report: per
     program its source and seconds (``stats`` receives the records when
-    given). ``mesh`` / ``mesh_spec`` are ROADMAP A9 and raise."""
+    given). ``mesh`` (a parallel/executor.Mesh) or ``mesh_spec`` (a
+    ``(mesh_shape, device_kind)`` pair for :func:`mesh_from_spec`, with
+    ``allow_topology`` passed through) captures the programs a
+    ``fit_subsets_chunked(mesh=...)`` run dispatches, keyed under the
+    mesh's fingerprint, on each of its entries' devices."""
     from smk_torch.parallel import recovery as rec_mod
     from smk_torch.parallel.executor import stacked_subset_data
     from smk_torch.parallel.partition import PaddedPartition
     from smk_torch.parallel.schedule import AdaptiveScheduler
-    from smk_torch.models.probit_gp import chunk_noise, n_params
+    from smk_torch.models.probit_gp import SweepNoise, chunk_noise, n_params
 
-    if mesh is not None or mesh_spec is not None or allow_topology:
-        raise NotImplementedError(
-            "precompile for a device mesh is not ported to smk_torch yet (ROADMAP A9)")
+    if mesh is None and mesh_spec is not None:
+        shape_spec, kind_spec = mesh_spec
+        mesh = mesh_from_spec(tuple(shape_spec), kind_spec, axis=model.config.mesh_axis,
+                              allow_topology=allow_topology, device=part_device(part))
     if isinstance(part, PaddedPartition):
         t0 = monotonic()
-        sub = [precompile(model, g.part, coords_test, x_test, chunk_iters=chunk_iters,
-                          chunk_size=chunk_size, store_dir=store_dir, stats=stats)
-               for g in part.groups]
-        return {
+        plan = None
+        if mesh is None:
+            sub = [precompile(model, g.part, coords_test, x_test, chunk_iters=chunk_iters,
+                              chunk_size=chunk_size, store_dir=store_dir, stats=stats)
+                   for g in part.groups]
+        else:
+            from smk_torch.compile.buckets import plan_ragged_mesh
+            from smk_torch.parallel.executor import fits_layout, sub_mesh
+            from smk_torch.parallel.partition import ragged_mesh_entry_partition
+
+            plan = plan_ragged_mesh([g.bucket for g in part.groups],
+                                    [len(g.subset_ids) for g in part.groups], mesh.size)
+            sub = []
+            for e in plan.entries:
+                # the driver's per-entry chunk_size rule
+                ecs = chunk_size
+                if chunk_size is not None and (e.padded_k % chunk_size
+                                               or not fits_layout(chunk_size, e.n_devices)):
+                    ecs = None
+                sub.append(precompile(model, ragged_mesh_entry_partition(part, e)[0],
+                                      coords_test, x_test, chunk_iters=chunk_iters,
+                                      chunk_size=ecs, store_dir=store_dir, stats=stats,
+                                      mesh=sub_mesh(mesh, e.n_devices)))
+        report = {
             "store_dir": sub[0]["store_dir"],
             "n_programs": sum(r["n_programs"] for r in sub),
             "programs": [p for r in sub for p in r["programs"]],
             "compile_s": round(monotonic() - t0, 4),
-            "topology": None,
+            "topology": sub[0]["topology"],
             "buckets": [{"bucket": int(g.bucket), "n_subsets": len(g.subset_ids)}
                         for g in part.groups],
         }
+        if plan is not None:
+            report["ragged_mesh_plan"] = plan.summary()
+        return report
 
     cfg = model.config
     t0 = monotonic()
@@ -128,6 +208,15 @@ def precompile(model, part, coords_test, x_test, *, chunk_iters: int = 500,
     m, q, p = part.x.shape[1:]
     t = coords_test.shape[0]
     d_par, d_w = n_params(q, p), t * q
+    if mesh is not None:
+        from smk_torch.parallel.partition import Partition
+
+        from smk_torch.parallel.executor import process_row_range
+
+        home = mesh.home
+        lo, hi = process_row_range(part.n_subsets, mesh)  # this process's rows
+        part = Partition(*(t[lo:hi].to(home) for t in part))
+        coords_test, x_test = coords_test.to(home), x_test.to(home)
     dev = part.x.device
     data = stacked_subset_data(part, coords_test, x_test)
     e = cfg.phi_update_every
@@ -137,26 +226,35 @@ def precompile(model, part, coords_test, x_test, *, chunk_iters: int = 500,
         then the guard and refork programs of that K."""
         cdata = model.chain_data(rows_data)
         noise = model.default_noise(rows_data, seed=0)  # the precompile's own streams
-        ctx = rec_mod._ProgramCtx(store, rec, kk, csize)
-        pieces = rec_mod._pieces(model, cdata, noise, kk, c, csize, ctx)
-        pc = pieces[0]
-        state = model.init_state(pc.data, consts=pc.consts)
-        rows = pc.data.x.shape[0]
-        for kind, n, phase, start in buckets:
-            collect = kind != "burn"
-            prog = rec_mod._chunk_program(model, collect, n, phase, pc)
-            guard = (torch.zeros(rows, dtype=torch.int32, device=dev)
-                     if model.chunk_touches_guard(phase, n) else None)
-            prog.capture(pc.data, pc.consts, state, chunk_noise(pc.noise, start, n, collect),
-                         model.chunk_gains(start, n, collect, pc.data.x.dtype, dev), guard)
-        for key, fn in ((rec_mod._stats_key(model, kk, m, q, p), rec_mod._chunk_stats),
-                        (rec_mod._refork_key(model, kk, m, q, p), rec_mod._refork)):
+        ctx = rec_mod._ProgramCtx(store, rec, kk, csize, mesh)
+        pieces = rec_mod._pieces(model, cdata, noise, rows_data.x.shape[0], c, csize, ctx)
+        firsts: dict = {}  # one capture a device: the pieces of a device share a bucket
+        for pc in pieces:
+            firsts.setdefault(str(pc.data.x.device), pc)
+        for pc in firsts.values():
+            pdev = pc.data.x.device
+            state = model.init_state(pc.data, consts=pc.consts)
+            rows = pc.data.x.shape[0]
+            for kind, n, phase, start in buckets:
+                collect = kind != "burn"
+                prog = rec_mod._chunk_program(model, collect, n, phase, pc)
+                guard = (torch.zeros(rows, dtype=torch.int32, device=pdev)
+                         if model.chunk_touches_guard(phase, n) else None)
+                nz = chunk_noise(pc.noise, start, n, collect)
+                if pc.sliced:
+                    nz = SweepNoise(*(None if f is None else f[:, pc.lo:pc.hi].to(pdev)
+                                      for f in nz))
+                prog.capture(pc.data, pc.consts, state, nz,
+                             model.chunk_gains(start, n, collect, pc.data.x.dtype, pdev), guard)
+        for key, fn in ((rec_mod._stats_key(model, kk, m, q, p, mesh), rec_mod._chunk_stats),
+                        (rec_mod._refork_key(model, kk, m, q, p, mesh), rec_mod._refork)):
             rec_mod._cached_program(model, key, lambda fn=fn: fn, store=store, stats=rec,
                                     device=dev)
 
     plan = chunk_plan_buckets(cfg.n_burn_in, cfg.n_samples, chunk_iters, e)
     warm(k, data, plan, chunk_size)
-    rec_mod._cached_program(model, rec_mod._finalize_key(model, k, m, q, cfg.n_kept, d_par, d_w),
+    rec_mod._cached_program(model, rec_mod._finalize_key(model, k, m, q, cfg.n_kept, d_par, d_w,
+                                                         mesh),
                             lambda: model.finalize, store=store, stats=rec, device=dev)
     adaptive = cfg.adaptive_schedule == "on"
     if cfg.live_diagnostics:
@@ -172,10 +270,11 @@ def precompile(model, part, coords_test, x_test, *, chunk_iters: int = 500,
         for n in sorted(lengths):
             fn = make(cfg.n_kept // 2, c)
             rec_mod._cached_program(
-                model, aux_bucket_key(model, "streamm" if adaptive else "stream", n, k, d_par),
+                model, aux_bucket_key(model, "streamm" if adaptive else "stream", n, k, d_par,
+                                      mesh=mesh),
                 lambda fn=fn: fn, store=store, stats=rec, device=dev)
         fn = make_stream_stats(c)
-        rec_mod._cached_program(model, aux_bucket_key(model, "stream_stats", k, d_par),
+        rec_mod._cached_program(model, aux_bucket_key(model, "stream_stats", k, d_par, mesh=mesh),
                                 lambda: fn, store=store, stats=rec, device=dev)
 
     if adaptive:
@@ -198,7 +297,7 @@ def precompile(model, part, coords_test, x_test, *, chunk_iters: int = 500,
                                  mask=data.mask[sel])
             warm(kk, rows, samp if kk != k else [b for b in samp if b[:3] not in in_plan], None)
         rec_mod._cached_program(
-            model, aux_bucket_key(model, "finadapt", k, m, q, sched.n_cap, d_par, d_w),
+            model, aux_bucket_key(model, "finadapt", k, m, q, sched.n_cap, d_par, d_w, mesh=mesh),
             lambda: model.finalize_masked, store=store, stats=rec, device=dev)
 
     programs = rec.programs[n_before:]
@@ -207,5 +306,5 @@ def precompile(model, part, coords_test, x_test, *, chunk_iters: int = 500,
         "n_programs": len(programs),
         "programs": programs,
         "compile_s": round(monotonic() - t0, 4),
-        "topology": None,
+        "topology": topology_fingerprint(mesh),
     }

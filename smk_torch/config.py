@@ -444,8 +444,9 @@ class SMKConfig:
 
 # (knob, predicate on the config, ROADMAP item that ports it). Checked
 # in this order by check_ported; the first hit raises. Every knob of the
-# config is ported now; a device mesh, which is no config field here, is
-# refused where it is passed (compile/programs.topology_fingerprint).
+# config is ported now. A device mesh is no config field; a checkpointed
+# fit over a multi-process mesh is refused where it is passed
+# (parallel/recovery.py, ROADMAP A9b).
 _UNPORTED: tuple = ()
 
 

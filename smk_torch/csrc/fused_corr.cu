@@ -786,12 +786,16 @@ cudaError_t launch_sym(const ArgsT<T>& args, cudaStream_t stream) {
   const long long pairs = nt * (nt + 1) / 2;
   const long long items = (long long)args.K * args.S * pairs;
   if (items > INT_MAX / 2) return cudaErrorInvalidValue;  // w + grid stays an int
-  static int per_sm = 0;  // resident blocks per SM, asked once
+  static int per_sm_of[64] = {};  // resident blocks per SM, asked once a device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int per_sm = dev >= 0 && dev < 64 ? per_sm_of[dev] : 0;
   if (per_sm == 0) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, fused_corr_sym_kernel<T, MODEL, MASKED, SHIFTED, DIM>, G::THREADS, 0);
     if (err != cudaSuccess) return err;
     per_sm = per_sm > 0 ? per_sm : 1;
+    if (dev >= 0 && dev < 64) per_sm_of[dev] = per_sm;
   }
   const long long resident = (long long)sm_count() * per_sm;
   const int grid = (int)(items < resident ? items : resident);
@@ -809,13 +813,17 @@ cudaError_t launch_narrow(const ArgsT<T>& args, cudaStream_t stream) {
   g.quads = (quads + g.panels - 1) / g.panels;
   g.vec = args.MB % V == 0 && (reinterpret_cast<uintptr_t>(args.out) & 15) == 0;
   const int step = NARROW_THREADS / g.quads;
-  static int per_sm = 0;  // resident blocks per SM, asked once
+  static int per_sm_of[64] = {};  // resident blocks per SM, asked once a device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int per_sm = dev >= 0 && dev < 64 ? per_sm_of[dev] : 0;
   if (per_sm == 0) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, fused_corr_narrow_kernel<T, MODEL, ROW_MASK, ZERO_DIAG, DIM>,
         NARROW_THREADS, 0);
     if (err != cudaSuccess) return err;
     per_sm = per_sm > 0 ? per_sm : 1;
+    if (dev >= 0 && dev < 64) per_sm_of[dev] = per_sm;
   }
   // strips of NARROW_ROWS rows, halved while that leaves SMs without an item
   const long long matrices = (long long)args.K * args.S * g.panels;

@@ -419,6 +419,24 @@ class GeneratorNoise:
         """The source of batch rows [lo, hi) alone (:meth:`rows`)."""
         return self.rows(range(lo, hi))
 
+    def to(self, device) -> "GeneratorNoise":
+        """This source drawing on ``device`` (a mesh entry's): new
+        generators of that device in these generators' states, so they
+        draw the same numbers (a card's Philox state is the same on every
+        card; a CPU and a CUDA generator share no state format). The
+        copies advance on their own."""
+        device = torch.device(device)
+        gens = []
+        for g in self.generators:
+            if g.device.type != device.type:
+                raise ValueError(
+                    f"a {g.device.type} generator's state cannot move to {device}")
+            new = torch.Generator(device=device)
+            new.set_state(g.get_state())
+            gens.append(new)
+        return GeneratorNoise(gens, self.shapes, dtype=self.dtype, device=device,
+                              seeds=self.seeds)
+
     def snapshot(self) -> np.ndarray:
         """(rows, state bytes) uint8: each generator's state."""
         return np.stack([g.get_state().numpy() for g in self.generators])

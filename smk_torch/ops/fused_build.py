@@ -40,6 +40,7 @@ it took.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional
 
@@ -212,7 +213,8 @@ def kernel_layout(coords_a, coords_b, zero_diag: bool, masked: bool,
 
 
 def _launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout, row_mask=None):
-    """One kernel launch on the current stream, of the kernel built for
+    """One kernel launch on ``out``'s device and its current stream there
+    (under ``torch.cuda.device(out.device)``), of the kernel built for
     ``out``'s dtype; raises on a launch error (the C function returns
     cudaGetLastError()). ``layout`` SYMMETRIC needs ``cb`` to be ``ca``;
     ``row_mask`` needs NARROW (or TILED, the reference)."""
@@ -228,7 +230,12 @@ def _launch(ca, cb, phis, mask, shift, model, zero_diag, out, layout, row_mask=N
         _MODEL_IDS[model], int(mask is not None), int(shift is not None),
         int(row_mask is not None), int(zero_diag), layout,
     ]
-    err = _kernel(out.dtype)(*args, torch.cuda.current_stream(out.device).cuda_stream)
+    # the launch and the launcher's device queries (SM count, occupancy)
+    # happen on out's device, whichever device this thread has current
+    on_device = (torch.cuda.device(out.device) if out.device.type == "cuda"
+                 else contextlib.nullcontext())
+    with on_device:
+        err = _kernel(out.dtype)(*args, torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"fused_corr kernel launch failed: CUDA error {err} "

@@ -1,8 +1,8 @@
 """Quantile-grid combiners — twin of ``wasserstein_barycenter``,
 ``weiszfeld_median``, ``apply_survival_mask`` and
 ``combine_quantile_grids`` in ``smk_tpu/parallel/combine.py``, with the
-survival errors. No mesh: the gathered combine comes with the
-multi-GPU executor (ROADMAP A9).
+survival errors, and the mesh's data movement (:func:`gather_grids`,
+:func:`replicate_to_mesh`).
 
 Under ``fault_policy="quarantine"`` a subset whose retry ladder ran
 out ships non-finite grids home; the survival mask drops it from the
@@ -52,6 +52,50 @@ class DomainSurvivalError(SubsetSurvivalError):
             "checkpoint manifest's fault_domain fields) or lower "
             "config.min_surviving_frac deliberately",
         )
+
+
+def gather_grids(grids: torch.Tensor, mesh, *, axis: Optional[str] = None,
+                 timeout_s: float = 120.0) -> torch.Tensor:
+    """The (K, ...) stack of a meshed fit, whole, on the mesh's first
+    local device (``mesh.home``), so the combiner's small reduction runs
+    there. Pure data movement, bitwise:
+
+    - within a process the rows already sit on ``mesh.home`` (the
+      executor gathers its entries' results there) or are peer-copied;
+    - across processes (a mesh over every rank of the process group,
+      each process holding its own rows, executor.process_row_range; a
+      world of one included) it is an all-gather over the process group — NCCL between cards, gloo on the CPU — of equal
+      row counts (the layout oracle guarantees them), concatenated in
+      process order. A barrier on the group's store (bounded by
+      ``timeout_s``, parallel/distributed.barrier_sync) comes first, so a
+      dead peer is a typed ``CollectiveTimeoutError`` and not a hang in
+      the backend.
+
+    ``axis`` is accepted for symmetry with the twin."""
+    del axis
+    import torch.distributed as dist
+
+    from smk_torch.parallel.distributed import barrier_sync, process_count
+
+    home = mesh.home
+    local = grids.to(home)
+    if not (dist.is_available() and dist.is_initialized()
+            and mesh.process_indices == tuple(range(process_count()))):
+        return local
+    barrier_sync("gather_grids", timeout_s=timeout_s)
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, local.contiguous())
+    return torch.cat(parts)
+
+
+def replicate_to_mesh(tree, mesh):
+    """Every tensor of ``tree`` on the mesh's first local device (a
+    process holds its inputs whole, so nothing crosses processes).
+    Bitwise."""
+    from torch.utils._pytree import tree_map
+
+    home = mesh.home
+    return tree_map(lambda a: a.to(home) if isinstance(a, torch.Tensor) else a, tree)
 
 
 def wasserstein_barycenter(grids: torch.Tensor) -> torch.Tensor:

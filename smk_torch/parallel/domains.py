@@ -8,9 +8,12 @@ domain's own retry ladder. The watchdog runs each guarded section of
 the chunked executor on a worker thread under a deadline, so a hung
 chunk becomes a typed :class:`ChunkTimeoutError` instead of a hang.
 
-The mesh constructors come with the multi-GPU executor (ROADMAP A9). A
-single-process run is the one-domain map, under which quarantine keeps
-its per-subset semantics.
+Over a mesh (parallel/executor.py) a subset's domain is its entry's
+process, or its entry itself where one process drives several (the
+chip is then the failure unit). A single-process run without a mesh is
+the one-domain map, under which quarantine keeps its per-subset
+semantics. The checkpoint's shard-row constructor waits for the
+distributed checkpoint (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -131,21 +134,84 @@ class FailureDomainMap:
                    labels=tuple(f"{prefix}:{d}" for d in range(n_domains)))
 
     @classmethod
-    def derive(cls, k: int, mesh=None) -> "FailureDomainMap":
-        """The executor's default map: one domain per process of the job
-        (the twin's derivation without a mesh). A process group, where
-        one is initialized, gives the process count."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "FailureDomainMap.derive over a device mesh is not ported to "
-                "smk_torch yet (ROADMAP A9)"
-            )
-        import torch.distributed as dist
+    def from_mesh(cls, k: int, mesh, granularity: str = "process") -> "FailureDomainMap":
+        """The map of a mesh: subset ``i`` on entry ``i // (K / mesh.size)``
+        (executor.subset_device_assignment), its domain the entry's
+        process (``granularity="process"``) or the entry itself
+        (``"device"``)."""
+        from smk_torch.parallel.executor import subset_device_assignment
 
-        n_proc = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        return cls._from_devices(subset_device_assignment(k, mesh), granularity)
+
+    @classmethod
+    def _from_devices(cls, devices, granularity) -> "FailureDomainMap":
+        """Entry-per-subset list -> domain map."""
+        if granularity == "device":
+            ids = [int(getattr(d, "id", i)) for i, d in enumerate(devices)]
+            order = sorted(set(ids))
+            remap = {dev: i for i, dev in enumerate(order)}
+            return cls(domain_of_subset=tuple(remap[i] for i in ids),
+                       labels=tuple(f"device:{dev}" for dev in order))
+        if granularity != "process":
+            raise ValueError(f"granularity must be 'process' or 'device', got {granularity!r}")
+        procs = [int(getattr(d, "process_index", 0)) for d in devices]
+        order = sorted(set(procs))
+        remap = {p: i for i, p in enumerate(order)}
+        return cls(domain_of_subset=tuple(remap[p] for p in procs),
+                   labels=tuple(f"process:{p}" for p in order))
+
+    @classmethod
+    def from_ragged_plan(cls, plan, part, mesh, granularity: str = "process") -> "FailureDomainMap":
+        """The global-subset map of a ragged mesh fit: each plan entry lays
+        its padded K over a prefix sub-mesh, so a subset's entry is the
+        sub-mesh entry of its row in the plan entry (K-pad clones
+        excluded) — the placement the ragged executor runs."""
+        from smk_torch.parallel.executor import sub_mesh, subset_device_assignment
+
+        dev_of = {}
+        for e in plan.entries:
+            devices = subset_device_assignment(e.padded_k, sub_mesh(mesh, e.n_devices))
+            ids = [j for g in e.group_ids for j in part.groups[g].subset_ids]
+            for r, j in enumerate(ids):
+                dev_of[j] = devices[r]
+        return cls._from_devices([dev_of[j] for j in range(part.n_subsets)], granularity)
+
+    @classmethod
+    def derive_ragged(cls, plan, part, mesh) -> "FailureDomainMap":
+        """:meth:`derive`'s granularity policy over a ragged mesh plan."""
+        m = cls.from_ragged_plan(plan, part, mesh, granularity="process")
+        if m.n_domains == 1 and int(mesh.size) > 1:
+            return cls.from_ragged_plan(plan, part, mesh, granularity="device")
+        return m
+
+    @classmethod
+    def derive(cls, k: int, mesh=None) -> "FailureDomainMap":
+        """The executor's default map: over a mesh the process-granular map,
+        or the device-granular one where one process drives several
+        entries (the chip is then the failure unit, and one domain would
+        switch the whole-domain machinery off); without a mesh one domain
+        per process of the job (a process group, where one is up, gives
+        the count)."""
+        if mesh is not None:
+            m = cls.from_mesh(k, mesh, granularity="process")
+            if m.n_domains == 1 and int(mesh.size) > 1:
+                return cls.from_mesh(k, mesh, granularity="device")
+            return m
+        from smk_torch.parallel.distributed import process_count
+
+        n_proc = process_count()
         if n_proc <= 1:
             return cls.single_host(k)
         return cls.from_n_domains(k, min(n_proc, int(k)), prefix="process")
+
+    def restrict(self, lo: int, hi: int) -> "FailureDomainMap":
+        """The map of subsets [lo, hi) alone (a process's own rows of a
+        multi-process fit), keeping the labels of the domains they use."""
+        doms = self.domain_of_subset[lo:hi]
+        order = sorted(set(int(d) for d in doms))
+        remap = {d: i for i, d in enumerate(order)}
+        return FailureDomainMap(domain_of_subset=tuple(remap[int(d)] for d in doms),
+                                labels=tuple(self.labels[d] for d in order))
 
 
 class ChunkWatchdog:

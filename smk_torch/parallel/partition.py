@@ -197,6 +197,57 @@ def padded_partition(
     return PaddedPartition(groups=tuple(groups), sizes=sizes, ladder=lad)
 
 
+def _extend_m_axis(part: Partition, m_new: int) -> Partition:
+    """Re-pad an equal-m stack up to ``m_new`` rows a subset (the m-axis
+    half of a fused ragged-mesh entry). Appended rows carry the pad-row
+    identity (mask 0, index -1, zeroed y/x) with far-line coordinates
+    past the STACK's own maximum, so they are distinct from every real
+    and every existing pad point (the twin's)."""
+    k, m = part.mask.shape
+    if m_new < m:
+        raise ValueError(f"cannot shrink m axis {m} -> {m_new}")
+    if m_new == m:
+        return part
+    extra = m_new - m
+    d = part.coords.shape[-1]
+    dt, dev = part.coords.dtype, part.coords.device
+    span = torch.max(part.coords) - torch.min(part.coords) + 1.0
+    far = torch.max(part.coords) + span
+    offsets = (torch.arange(extra, dtype=dt, device=dev)[None, :, None]
+               * torch.ones((1, 1, d), dtype=dt, device=dev) * span * 0.01)
+    pad_coords = torch.broadcast_to(far + offsets, (k, extra, d))
+    q, p = part.y.shape[-1], part.x.shape[-1]
+    return Partition(
+        y=torch.cat([part.y, torch.zeros((k, extra, q), dtype=part.y.dtype, device=dev)], 1),
+        x=torch.cat([part.x, torch.zeros((k, extra, q, p), dtype=part.x.dtype, device=dev)], 1),
+        coords=torch.cat([part.coords, pad_coords], 1),
+        mask=torch.cat([part.mask, torch.zeros((k, extra), dtype=part.mask.dtype, device=dev)],
+                       1),
+        index=torch.cat([part.index, torch.full((k, extra), -1, dtype=part.index.dtype,
+                                                device=dev)], 1),
+    )
+
+
+def ragged_mesh_entry_partition(part: PaddedPartition, entry) -> tuple:
+    """The stack one RaggedMeshPlan entry runs (compile/buckets.py): the
+    member groups re-padded on the m axis to the entry's bucket,
+    concatenated along K in entry order, then K-padded up to
+    ``entry.padded_k`` with CLONES of the entry's first real subset (a
+    clone replays a well-posed chain; an all-pad subset would not be
+    one). Returns ``(Partition, subset_ids)``, the original subset of each
+    real row. A single-group entry with no K pad returns the group's
+    stack itself, so the one-device plan is bitwise the host path."""
+    groups = [part.groups[g] for g in entry.group_ids]
+    ids = [j for g in groups for j in g.subset_ids]
+    if len(groups) == 1 and entry.pad_k == 0:
+        return groups[0].part, ids
+    stacks = [_extend_m_axis(g.part, entry.bucket) for g in groups]
+    stacked = Partition(*(torch.cat(leaves, 0) for leaves in zip(*stacks)))
+    if entry.pad_k:
+        stacked = Partition(*(torch.cat([a] + [a[0:1]] * entry.pad_k, 0) for a in stacked))
+    return stacked, ids
+
+
 # quantization depth of the Morton curve: 16 bits per dimension (the
 # twin's MORTON_BITS, which its ingest router shares)
 MORTON_BITS = 16

@@ -1,5 +1,5 @@
 """The chunked, checkpointed, fault-isolating executor — twin of
-``smk_tpu/parallel/recovery.py`` without the mesh.
+``smk_tpu/parallel/recovery.py``.
 
 The whole MCMC (burn-in and sampling) runs as a host loop of
 ``chunk_iters``-sweep chunks, the sampler's ``burn_chunk`` and
@@ -53,8 +53,11 @@ the carried state, then guards, reports and checkpoints:
 The twin carries its PRNG key in the chain state; here randomness
 comes from a noise source (models/probit_gp.NoiseSource), which the
 executor snapshots, restores and forks. A ``PaddedPartition`` runs
-through the host ragged fan-out, one ordinary chunked fit per occupied
-bucket. The mesh is ROADMAP A9.
+through the ragged fan-out, one ordinary chunked fit per occupied
+bucket, or per entry of its RaggedMeshPlan on a mesh. Over a mesh
+(parallel/executor.Mesh) each chunk program runs per entry block on the
+entry's device; a multi-process mesh runs this process's rows and takes
+no checkpoint (the distributed checkpoint is ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -98,8 +101,17 @@ from smk_torch.obs.streaming import (
     make_stream_update_masked,
 )
 from smk_torch.parallel.domains import ChunkWatchdog, FailureDomainMap
-from smk_torch.parallel.executor import stacked_subset_data
-from smk_torch.parallel.partition import PaddedPartition, Partition
+from smk_torch.compile.buckets import plan_ragged_mesh
+from smk_torch.parallel.executor import (
+    fits_layout,
+    model_on,
+    process_row_range,
+    require_divisible_layout,
+    run_per_device,
+    stacked_subset_data,
+    sub_mesh,
+)
+from smk_torch.parallel.partition import PaddedPartition, Partition, ragged_mesh_entry_partition
 from smk_torch.parallel.schedule import AdaptiveScheduler
 from smk_torch.utils.checkpoint import (
     BackgroundWriter,
@@ -412,6 +424,9 @@ class _PaddedNoise:
         n = len(np.asarray(mask)) - self.n_pad
         self.base.fork(np.asarray(mask)[:n], np.asarray(attempts)[:n])
 
+    def identity(self) -> bytes:
+        return self.base.identity() + np.asarray([self.n_pad], np.int64).tobytes()
+
 
 def _to_host_async(t: torch.Tensor):
     """(host copy, event): on the card the copy into pinned memory is
@@ -713,19 +728,25 @@ class _SegmentedCheckpoint:
 # ----------------------------------------------------------------------
 class _ProgramCtx(NamedTuple):
     """Where a run's chunk programs come from: the L2 ``store`` (or
-    None), the ``stats`` sink their acquisitions are recorded in, and the
-    K and ``chunk_size`` of their bucket keys."""
+    None), the ``stats`` sink their acquisitions are recorded in, the K
+    and ``chunk_size`` of their bucket keys, and the run's ``mesh`` (or
+    None), whose fingerprint ends every key."""
 
     store: object
     stats: object
     k: int
     chunk_size: Optional[int]
+    mesh: object = None
 
 
 class _Piece(NamedTuple):
     """Rows [lo, hi) of the K*C-wide chain batch that one call of the
-    sampler sweeps (all of them unless ``chunk_size`` splits K), and the
-    context its chunk program is acquired in."""
+    sampler sweeps (all of them unless ``chunk_size`` or a mesh splits
+    K), on the device of ``data``, and the context its chunk program is
+    acquired in. ``sliced``: the piece's noise is rows [lo, hi) of the
+    chunk noise drawn once from ``noise``, the whole batch's source (a
+    mesh's pieces; the unmeshed ``chunk_size`` pieces draw from their
+    own rows' source)."""
 
     lo: int
     hi: int
@@ -733,10 +754,13 @@ class _Piece(NamedTuple):
     consts: BuildConsts
     noise: NoiseSource
     ctx: _ProgramCtx
+    sliced: bool = False
 
 
 def _pieces(model: SpatialGPSampler, cdata: SubsetData, noise, k: int, c: int,
             chunk_size: Optional[int], ctx: _ProgramCtx) -> List[_Piece]:
+    if ctx.mesh is not None:
+        return _mesh_pieces(model, cdata, noise, k, c, chunk_size, ctx)
     if chunk_size is None or chunk_size >= k:
         return [_Piece(0, k * c, cdata, model._consts(cdata), noise, ctx)]
     if k % chunk_size != 0:
@@ -748,6 +772,37 @@ def _pieces(model: SpatialGPSampler, cdata: SubsetData, noise, k: int, c: int,
         d = cdata._replace(coords=cdata.coords[lo:hi], x=cdata.x[lo:hi],
                            y=cdata.y[lo:hi], mask=cdata.mask[lo:hi])
         out.append(_Piece(lo, hi, d, model._consts(d), noise.rows(range(lo, hi)), ctx))
+    return out
+
+
+def _mesh_pieces(model, cdata, noise, k, c, chunk_size, ctx) -> List[_Piece]:
+    """The pieces of a meshed run: this process's ``k`` subsets laid
+    contiguously over its entries of ``ctx.mesh``, each entry's block on
+    its device, split into ``chunk_size / mesh.size`` subsets a piece
+    when a ``chunk_size`` asks for it (the twin's chunk spans the whole
+    mesh). A one-entry mesh on the data's device is one piece of the
+    whole batch, the unmeshed computation."""
+    mesh = ctx.mesh
+    entries = mesh.local_entries()
+    per = require_divisible_layout(k, len(entries))
+    step = per
+    if chunk_size is not None and chunk_size < ctx.k:
+        step = require_divisible_layout(chunk_size, mesh.size, what="chunk_size")
+        if per % step:
+            raise ValueError(f"chunk_size {chunk_size} must divide K={ctx.k}")
+    out = []
+    for i, e in enumerate(entries):
+        dev = torch.device(e.device)
+        for lo in range(i * per * c, (i + 1) * per * c, step * c):
+            hi = lo + step * c
+            if (lo, hi) == (0, k * c) and dev == cdata.x.device:
+                d = cdata
+            else:
+                d = cdata._replace(
+                    coords=cdata.coords[lo:hi].to(dev), x=cdata.x[lo:hi].to(dev),
+                    y=cdata.y[lo:hi].to(dev), mask=cdata.mask[lo:hi].to(dev),
+                    coords_test=cdata.coords_test.to(dev), x_test=cdata.x_test.to(dev))
+            out.append(_Piece(lo, hi, d, model._consts(d), noise, ctx, sliced=True))
     return out
 
 
@@ -763,7 +818,7 @@ def _cached_program(model, key, build, **kw):
 def _chunk_key(model, kind, length, k, chunk_size, m, q, p, t, d, mesh=None, phase=0):
     """Bucket key of one chunk program: (kind, chunk_len, K, chunk_size,
     m, q, p, t, d, n_chains, J, cov_model, link, fused_build, engine,
-    n_neighbors, build_dtype, config digest, phase)."""
+    n_neighbors, build_dtype, config digest, phase[, topology])."""
     return compile_programs.chunk_bucket_key(model, kind, length, k, chunk_size, m, q, p, t, d,
                                              mesh=mesh, phase=phase)
 
@@ -784,45 +839,56 @@ def _refork_key(model, k, m, q, p, mesh=None):
     return compile_programs.aux_bucket_key(model, "refork", k, m, q, p, mesh=mesh)
 
 
+def _owner(model: SpatialGPSampler, pc: _Piece) -> SpatialGPSampler:
+    """The sampler that owns ``pc``'s programs: the model, or on a mesh
+    entry's device other than the run's home its view for that device
+    (parallel/executor.model_on)."""
+    if pc.ctx.mesh is None:
+        return model
+    return model_on(model, pc.data.x.device, pc.ctx.mesh.home)
+
+
 def _chunk_program(model: SpatialGPSampler, collect: bool, n: int, phase: int, pc: _Piece):
     """The chunk program of ``pc``'s bucket for ``n`` sweeps of
     ``phase`` (compile/programs.GraphProgram over the sampler's
-    ``chunk_program``)."""
+    ``chunk_program``), owned by the piece's sampler (:func:`_owner`)."""
     ctx = pc.ctx
     data = pc.data
     _, m, q, p = data.x.shape
     t, d = data.coords_test.shape
     dev = data.x.device
+    owner = _owner(model, pc)
     key = _chunk_key(model, "samp" if collect else "burn", n, ctx.k, ctx.chunk_size, m, q, p,
-                     t, d, phase=phase)
+                     t, d, mesh=ctx.mesh, phase=phase)
     return _cached_program(
-        model, key,
-        lambda: GraphProgram(model.chunk_program(collect, n, phase), key, dev, owner=model),
+        owner, key,
+        lambda: GraphProgram(owner.chunk_program(collect, n, phase), key, dev, owner=owner),
         store=ctx.store, stats=ctx.stats, libraries=model.kernel_libraries(data.x.dtype, dev),
         device=dev)
 
 
 def _run_piece(model: SpatialGPSampler, kind: str, pc: _Piece, state: SamplerState,
-               start: int, n: int):
+               start: int, n: int, guard, nz: Optional[SweepNoise] = None):
     """Sweeps [start, start + n) of one piece: its bucket's chunk
     program replayed on the piece's data, the state, the chunk's noise
-    (drawn here, sweep by sweep, before the program runs:
-    models/probit_gp.chunk_noise) and its Robbins–Monro gains."""
+    (``nz``, or drawn here from the piece's source, sweep by sweep,
+    before the program runs: models/probit_gp.chunk_noise) and its
+    Robbins–Monro gains. ``guard``: the rows' guard counts in (None for
+    none yet). Returns (state, draws, guard out), the guard None when the
+    chunk cannot touch it."""
     collect = kind != "burn"
     data = pc.data
     phase = start % model.config.phi_update_every
     prog = _chunk_program(model, collect, n, phase, pc)
-    guard = None
+    g = None
     if model.chunk_touches_guard(phase, n):
-        guard = model.guard_rejects
-        if guard is None:
-            guard = torch.zeros(data.x.shape[0], dtype=torch.int32, device=data.x.device)
-    noise = chunk_noise(pc.noise, start, n, collect)
+        g = guard
+        if g is None:
+            g = torch.zeros(data.x.shape[0], dtype=torch.int32, device=data.x.device)
+    if nz is None:
+        nz = chunk_noise(pc.noise, start, n, collect)
     gains = model.chunk_gains(start, n, collect, data.x.dtype, data.x.device)
-    state, draws, guard = prog(data, pc.consts, state, noise, gains, guard)
-    if guard is not None:
-        model.guard_rejects = guard
-    return state, draws
+    return prog(data, pc.consts, state, nz, gains, g)
 
 
 def _run_chunk(model: SpatialGPSampler, kind: str, pieces: Sequence[_Piece],
@@ -831,25 +897,44 @@ def _run_chunk(model: SpatialGPSampler, kind: str, pieces: Sequence[_Piece],
     (``kind="burn"``) or collecting, each piece through its bucket's
     chunk program (:func:`_run_piece`). Returns (state, draws), draws
     None for a burn-in chunk. The sampler's ``guard_rejects`` counts stay
-    per row across pieces. testing/faults.inject_subset_nan wraps this
-    function while an injection is armed."""
-    if len(pieces) == 1:
-        return _run_piece(model, kind, pieces[0], state, start, n)
+    per row across pieces. A mesh's pieces take their rows of one draw of
+    the chunk noise, move to their entries' devices and back to the
+    state's, and run per device (parallel/executor.run_per_device:
+    distinct devices at once). testing/faults.inject_subset_nan wraps
+    this function while an injection is armed."""
     full = model.guard_rejects
-    states, draws, guards = [], [], []
-    for pc in pieces:
-        model.guard_rejects = None if full is None else full[pc.lo:pc.hi]
-        st = SamplerState(*(t[pc.lo:pc.hi] for t in state))
-        st, dr = _run_piece(model, kind, pc, st, start, n)
-        states.append(st)
-        if dr is not None:
-            draws.append(dr)
-        guards.append(model.guard_rejects)
-    model.guard_rejects = None if guards[0] is None else torch.cat(guards)
-    state = SamplerState(*(torch.cat(f) for f in zip(*states)))
+    if len(pieces) == 1 and not pieces[0].sliced:
+        st, dr, g = _run_piece(model, kind, pieces[0], state, start, n, full)
+        if g is not None:
+            model.guard_rejects = g
+        return st, dr
+    home = state[0].device
+    nz_all = (chunk_noise(pieces[0].noise, start, n, kind != "burn")
+              if pieces[0].sliced else None)
+
+    def job(pc):
+        dev = pc.data.x.device
+        st = SamplerState(*(t[pc.lo:pc.hi].to(dev) for t in state))
+        g = None if full is None else full[pc.lo:pc.hi].to(dev)
+        nz = None if nz_all is None else SweepNoise(*(
+            None if f is None else f[:, pc.lo:pc.hi].to(dev) for f in nz_all))
+        st, dr, g_out = _run_piece(model, kind, pc, st, start, n, g, nz)
+        return st, dr, g if g_out is None else g_out
+
+    outs = run_per_device([(pc.data.x.device, lambda pc=pc: job(pc)) for pc in pieces])
+    if len(outs) == 1 and outs[0][0][0].device == home:
+        st, dr, g = outs[0]
+        model.guard_rejects = g
+        return st, dr
+    guards = [o[2] for o in outs]
+    model.guard_rejects = None if guards[0] is None else torch.cat([g.to(home) for g in guards])
+    state = SamplerState(*(torch.cat([f.to(home) for f in fs])
+                           for fs in zip(*(o[0] for o in outs))))
+    draws = [o[1] for o in outs if o[1] is not None]
     if not draws:
         return state, None
-    return state, (torch.cat([d[0] for d in draws]), torch.cat([d[1] for d in draws]))
+    return state, (torch.cat([d[0].to(home) for d in draws]),
+                   torch.cat([d[1].to(home) for d in draws]))
 
 
 def _require(noise, ops, why: str) -> None:
@@ -880,6 +965,7 @@ def fit_subsets_chunked(
     nan_guard: bool = False,
     pipeline_stats: Optional[ChunkPipelineStats] = None,
     domain_map: Optional[FailureDomainMap] = None,
+    mesh=None,
 ) -> Optional[SubsetResult]:
     """The K-subset fan-out as a host loop of ``chunk_iters``-sweep
     chunks (twin of ``fit_subsets_chunked``; ``noise`` stands where the
@@ -905,6 +991,14 @@ def fit_subsets_chunked(
     - ``pipeline_stats``: a ChunkPipelineStats the loop records into.
     - ``domain_map``: the failure domains quarantine attributes faults
       to (default :meth:`FailureDomainMap.derive`).
+    - ``mesh``: a parallel/executor.Mesh. K (and ``chunk_size``) must
+      divide over it (the layout oracle); each chunk program runs per
+      entry block on the entry's device (distinct devices at once), the
+      state and draws gathered on ``mesh.home``, the programs keyed under
+      the mesh's topology fingerprint. A multi-process mesh runs this
+      process's rows (executor.process_row_range) and returns them; it
+      takes no ``checkpoint_path`` (the distributed checkpoint is ROADMAP
+      A9b). A ragged partition runs its RaggedMeshPlan.
 
     ``model.config.fault_policy="quarantine"`` turns the guard into the
     fault-isolation engine and makes resume lenient,
@@ -920,7 +1014,7 @@ def fit_subsets_chunked(
     kw = dict(chunk_iters=chunk_iters, checkpoint_path=checkpoint_path,
               chunk_size=chunk_size, progress=progress,
               stop_after_chunks=stop_after_chunks, nan_guard=nan_guard,
-              pipeline_stats=pipeline_stats, domain_map=domain_map)
+              pipeline_stats=pipeline_stats, domain_map=domain_map, mesh=mesh)
     if isinstance(part, PaddedPartition):
         return _fit_ragged_chunked(model, part, coords_test, x_test, noise, beta_init, **kw)
     cfg = model.config
@@ -984,10 +1078,11 @@ def _fit_ragged_chunked(
     nan_guard: bool = False,
     pipeline_stats: Optional[ChunkPipelineStats] = None,
     domain_map: Optional[FailureDomainMap] = None,
+    mesh=None,
 ) -> Optional[SubsetResult]:
-    """The host ragged fan-out (twin of ``_fit_ragged_chunked`` without a
-    mesh): one ordinary chunked fit per occupied bucket, in ascending
-    bucket order, stitched back into original subset order.
+    """The ragged fan-out (twin of ``_fit_ragged_chunked``): one ordinary
+    chunked fit per occupied bucket, in ascending bucket order, stitched
+    back into original subset order.
 
     - Each group draws the noise rows of its GLOBAL subset ids
       (``noise.rows``, at the group's bucket size), so a subset's chain
@@ -997,7 +1092,16 @@ def _fit_ragged_chunked(
       the groups the kill interrupted.
     - SubsetNaNError ids and the fault events come back as original
       subset indices.
-    - ``stop_after_chunks`` budgets the whole run, not a group."""
+    - ``stop_after_chunks`` budgets the whole run, not a group.
+
+    On a ``mesh`` the units are the entries of the RaggedMeshPlan
+    (compile/buckets.plan_ragged_mesh), each run on its prefix sub-mesh:
+    a group K-padded with clones of its first real subset (fed that
+    subset's numbers, _PaddedNoise, as the twin's pads carry its keys;
+    dropped at the stitch), or small groups fused at the largest member
+    bucket. ``pstats.ragged_mesh_plan`` records the plan. A one-entry
+    mesh's plan is the identity, bitwise the host path. A ``chunk_size``
+    that does not fit an entry's own layout is dropped for that entry."""
     if domain_map is not None:
         raise ValueError(
             "domain_map is derived per bucket group on a ragged fit — an explicit "
@@ -1023,6 +1127,12 @@ def _fit_ragged_chunked(
         pstats = ChunkPipelineStats()
     if run_log is not None:
         pstats.run_log = run_log
+    plan = None
+    if mesh is not None:
+        plan = plan_ragged_mesh([g.bucket for g in part.groups],
+                                [len(g.subset_ids) for g in part.groups], mesh.size)
+        if pstats is not None:
+            pstats.ragged_mesh_plan = plan.summary()
     try:
         with (run_log.span("fit_subsets_ragged", n_subsets=k_total, buckets=list(part.buckets))
               if run_log is not None else contextlib.nullcontext()):
@@ -1030,7 +1140,7 @@ def _fit_ragged_chunked(
                                  pstats, run_log, chunk_iters=chunk_iters,
                                  checkpoint_path=checkpoint_path, chunk_size=chunk_size,
                                  progress=progress, stop_after_chunks=stop_after_chunks,
-                                 nan_guard=nan_guard)
+                                 nan_guard=nan_guard, mesh=mesh, plan=plan)
     finally:
         if opened_log is not None:
             opened_log.close(pipeline=pstats.aggregate())
@@ -1039,57 +1149,124 @@ def _fit_ragged_chunked(
 
 def _ragged_groups(model, part, coords_test, x_test, noise, beta_init, pstats, run_log, *,
                    chunk_iters, checkpoint_path, chunk_size, progress, stop_after_chunks,
-                   nan_guard):
-    """The bucket groups of :func:`_fit_ragged_chunked`, one after
-    another, each under a ``bucket_group`` span of the run log."""
+                   nan_guard, mesh=None, plan=None):
+    """The units of :func:`_fit_ragged_chunked` (bucket groups, or the
+    plan's entries on a mesh), one after another, each under a
+    ``bucket_group`` span of the run log."""
     c = model.config.n_chains
     group_results, ragged_groups, guards = [], [], []
     remaining = stop_after_chunks
-    for gi, g in enumerate(part.groups):
+    units = list(part.groups) if plan is None else list(plan.entries)
+    for gi, u in enumerate(units):
         model.guard_rejects = None  # the sampler's guard counts are per group
-        ids = list(g.subset_ids)
-        gnoise = noise.rows([j * c + ch for j in ids for ch in range(c)], m=g.bucket)
-        gpath = None if checkpoint_path is None else f"{checkpoint_path}.b{g.bucket:05d}"
+        if plan is None:
+            upart, ids, umesh, k_real, pad_k, ucs = (
+                u.part, list(u.subset_ids), None, len(u.subset_ids), 0, chunk_size)
+        else:
+            upart, ids = ragged_mesh_entry_partition(part, u)
+            umesh, k_real, pad_k = sub_mesh(mesh, u.n_devices), u.k_real, u.pad_k
+            ucs = chunk_size
+            if chunk_size is not None and (u.padded_k % chunk_size
+                                           or not fits_layout(chunk_size, u.n_devices)):
+                ucs = None
+        gnoise = noise.rows([j * c + ch for j in ids for ch in range(c)], m=u.bucket)
+        if pad_k:
+            gnoise = _PaddedNoise(gnoise, pad_k * c, c)
+        gpath = None if checkpoint_path is None else f"{checkpoint_path}.b{u.bucket:05d}"
         gprog = None
         if progress is not None:
-            def gprog(info, _b=g.bucket, _ids=tuple(ids)):
+            def gprog(info, _b=u.bucket, _ids=tuple(ids)):
                 progress({**info, "bucket": _b, "subset_ids": list(_ids)})
         chunks_before = _n_work_chunks(pstats) if pstats is not None else 0
         entries_before = len(pstats.chunks) if pstats is not None else 0
         faults_before = len(pstats.fault_events) if pstats is not None else 0
         try:
-            with (run_log.span("bucket_group", bucket=g.bucket, n_subsets=len(ids))
+            with (run_log.span("bucket_group", bucket=u.bucket, n_subsets=len(ids))
                   if run_log is not None else contextlib.nullcontext()):
                 res = _fit_subsets_chunked_impl(
-                    model, g.part, coords_test, x_test, gnoise, beta_init,
-                    chunk_iters=chunk_iters, checkpoint_path=gpath, chunk_size=chunk_size,
+                    model, upart, coords_test, x_test, gnoise, beta_init,
+                    chunk_iters=chunk_iters, checkpoint_path=gpath, chunk_size=ucs,
                     progress=gprog, stop_after_chunks=remaining, nan_guard=nan_guard,
-                    pipeline_stats=pstats, domain_map=None,
+                    pipeline_stats=pstats, domain_map=None, mesh=umesh,
                 )
         except SubsetNaNError as e:
-            raise SubsetNaNError([ids[j] for j in e.subset_ids], e.iteration) from e
+            # a K-pad clone row names its source, the entry's first subset
+            gl = list(dict.fromkeys(ids[j] if j < len(ids) else ids[0] for j in e.subset_ids))
+            raise SubsetNaNError(gl, e.iteration) from e
         if pstats is not None:
-            _remap_fault_events(pstats, faults_before, ids)
-            ragged_groups.append({"bucket": int(g.bucket), "n_subsets": len(ids),
-                                  "live_ess_sum_final": _group_ess_final(pstats,
-                                                                         entries_before)})
+            _remap_fault_events(pstats, faults_before, ids + [-1] * pad_k)
+            rec = {"bucket": int(u.bucket), "n_subsets": k_real,
+                   "live_ess_sum_final": _group_ess_final(pstats, entries_before)}
+            if plan is not None:
+                rec.update(group_ids=list(u.group_ids), padded_k=u.padded_k,
+                           n_devices=u.n_devices, fused=u.fused)
+            ragged_groups.append(rec)
             pstats.ragged_groups = ragged_groups
-        guards.append(model.guard_rejects)
+        guard = model.guard_rejects
+        if res is not None and pad_k:
+            # the plan's K-pad clones are invisible downstream
+            res = SubsetResult(*(f[:k_real] for f in res))
+            guard = None if guard is None else guard[:k_real * c]
+        guards.append(guard)
         if res is None:
             return None
         if remaining is not None:
             remaining -= _n_work_chunks(pstats) - chunks_before
-            if remaining <= 0 and gi < len(part.groups) - 1:
+            if remaining <= 0 and gi < len(units) - 1:
                 return None
         group_results.append(res)
     # stitch: result row j is subset j, guard row j * C + ch its chain ch
-    order = np.asarray([j for g in part.groups for j in g.subset_ids])
+    order = np.asarray([j for u in units for j in (
+        u.subset_ids if plan is None
+        else [i for g in u.group_ids for i in part.groups[g].subset_ids])])
     dev = group_results[0].param_grid.device
     inv = torch.as_tensor(np.argsort(order), device=dev)
     if guards[0] is not None:
         rows = (order[:, None] * c + np.arange(c)).reshape(-1)
         model.guard_rejects = torch.cat(guards)[torch.as_tensor(np.argsort(rows), device=dev)]
     return SubsetResult(*(torch.cat(f)[inv] for f in zip(*group_results)))
+
+
+def _on_mesh(model, part, coords_test, x_test, noise, beta_init, domain_map, mesh, *,
+             chunk_size, checkpoint_path):
+    """A meshed run's inputs: the layout checks (K and ``chunk_size``
+    over the mesh, the twin's), the data on ``mesh.home``, and under a
+    multi-process mesh this process's rows alone, with their noise rows
+    and their failure domains."""
+    cfg = model.config
+    k = part.n_subsets
+    c = cfg.n_chains
+    require_divisible_layout(k, mesh.size)
+    if chunk_size is not None:
+        # each step runs chunk_size subsets over the whole mesh
+        require_divisible_layout(chunk_size, mesh.size, what="chunk_size")
+    if cfg.adaptive_schedule == "on" and mesh.size > 1:
+        raise NotImplementedError(
+            "adaptive_schedule='on' over a mesh of more than one entry is not ported to "
+            "smk_torch (its compaction replans the group onto a sub-mesh); run the fixed "
+            "schedule on the mesh, or the adaptive one on one entry")
+    home = mesh.home
+    part = Partition(*(t.to(home) for t in part))
+    coords_test, x_test = coords_test.to(home), x_test.to(home)
+    if beta_init is not None:
+        beta_init = beta_init.to(home)
+    if not mesh.multi_process:
+        return part, coords_test, x_test, noise, beta_init, domain_map
+    if checkpoint_path is not None:
+        raise NotImplementedError(
+            "a checkpointed fit over a multi-process mesh needs the distributed checkpoint "
+            "(per-process shards with a two-phase commit, format v8), which is ROADMAP A9b "
+            "and not ported to smk_torch yet; run it without checkpoint_path, or on a "
+            "single-process mesh")
+    if domain_map is not None:
+        raise ValueError("a multi-process mesh derives its failure domains from the mesh")
+    lo, hi = process_row_range(k, mesh)
+    if noise is None:  # the whole run's rows, seeded from 0, then this process's
+        noise = model.default_noise(stacked_subset_data(part, coords_test, x_test))
+    _require(noise, ("subset",), "a multi-process mesh")
+    domain_map = FailureDomainMap.derive(k, mesh).restrict(lo, hi)
+    part = Partition(*(t[lo:hi] for t in part))
+    return part, coords_test, x_test, noise.subset(lo * c, hi * c), beta_init, domain_map
 
 
 def _fit_subsets_chunked_impl(
@@ -1108,13 +1285,19 @@ def _fit_subsets_chunked_impl(
     nan_guard: bool = False,
     pipeline_stats: Optional[ChunkPipelineStats] = None,
     domain_map: Optional[FailureDomainMap] = None,
+    mesh=None,
 ) -> Optional[SubsetResult]:
     """The equal-m executor (see :func:`fit_subsets_chunked`)."""
     cfg = model.config
     if chunk_iters < 1:
         raise ValueError(f"chunk_iters must be >= 1, got {chunk_iters}")
-    k = part.n_subsets
+    k_key = part.n_subsets  # the K of the bucket keys: the whole run's
     c = cfg.n_chains
+    if mesh is not None:
+        part, coords_test, x_test, noise, beta_init, domain_map = _on_mesh(
+            model, part, coords_test, x_test, noise, beta_init, domain_map, mesh,
+            chunk_size=chunk_size, checkpoint_path=checkpoint_path)
+    k = part.n_subsets
     data = stacked_subset_data(part, coords_test, x_test)
     dev, dtype = part.x.device, part.x.dtype
     if noise is None:
@@ -1146,11 +1329,11 @@ def _fit_subsets_chunked_impl(
     cdata = model.chain_data(data)
     # every chunk runs its bucket's program (compile/programs.py), the
     # kernel libraries from the L2 store when the config names one
-    store = compile_programs.store_from_config(cfg)
+    store = compile_programs.store_from_config(cfg, mesh)
     if store is not None:
         # before anything launches a kernel (the initial state's build)
         cuda_build.ensure(model.kernel_libraries(dtype, dev), store)
-    ctx = _ProgramCtx(store, pipeline_stats, k, chunk_size)
+    ctx = _ProgramCtx(store, pipeline_stats, k_key, chunk_size, mesh)
     pieces = _pieces(model, cdata, noise, k, c, chunk_size, ctx)
     m_sub, q_dim, p_dim = part.x.shape[1:]
     d_par = n_params(*part.x.shape[2:])
@@ -1158,7 +1341,7 @@ def _fit_subsets_chunked_impl(
     meta = np.asarray([cfg.n_samples, n_burn, k, d_par, d_w, c], np.int64)
 
     if domain_map is None:
-        domain_map = FailureDomainMap.derive(k)
+        domain_map = FailureDomainMap.derive(k, mesh)
     elif domain_map.k != k:
         raise ValueError(
             f"domain_map covers {domain_map.k} subsets but the partition has K={k}"
@@ -1282,7 +1465,7 @@ def _fit_subsets_chunked_impl(
         del ckpt
     else:
         state = model.init_state(cdata, beta_init,
-                                 consts=pieces[0].consts if len(pieces) == 1 else None)
+                                 consts=pieces[0].consts if pieces[0].data is cdata else None)
         it = 0
 
     # ---- the adaptive regime ------------------------------------------
@@ -1700,14 +1883,16 @@ def _fit_subsets_chunked_impl(
             # refill chunks are left out: the terminal rewrite publishes them
             x = param_draws[:, w_ofs:w_ofs + n].reshape(k, c, n, d_par)
             upd = program(compile_programs.aux_bucket_key(
-                model, "streamm" if adaptive else "stream", n, k, d_par), stream_update)
+                model, "streamm" if adaptive else "stream", n, k, d_par, mesh=mesh),
+                stream_update)
             stream = (upd(stream, x, w_ofs, write_mask_dev) if adaptive
                       else upd(stream, x, w_ofs))
-            live = program(compile_programs.aux_bucket_key(model, "stream_stats", k, d_par),
+            live = program(compile_programs.aux_bucket_key(model, "stream_stats", k, d_par,
+                                                           mesh=mesh),
                            stream_stats)(stream)[2:]
         stats = ev_stats = None
         if want_stats:
-            vec = [program(_stats_key(model, kc, m_sub, q_dim, p_dim), _chunk_stats)(state, c)]
+            vec = [program(_stats_key(model, kc, m_sub, q_dim, p_dim, mesh=mesh), _chunk_stats)(state, c)]
             if live is not None:
                 vec += [live[0].to(dtype), live[1].to(dtype)]
             stats, ev_stats = _to_host_async(torch.cat(vec))
@@ -1914,7 +2099,7 @@ def _fit_subsets_chunked_impl(
         row_mask = np.repeat(rw.retry_mask[grp], c)
         chunk_noise.restore(held_noise)
         chunk_noise.fork(row_mask, np.repeat(attempts[grp], c))
-        refork = program(_refork_key(model, len(grp), m_sub, q_dim, p_dim), _refork)
+        refork = program(_refork_key(model, len(grp), m_sub, q_dim, p_dim, mesh=mesh), _refork)
         state = refork(held_state, torch.as_tensor(row_mask, device=dev), half)
         full_fresh = False
         if stream is not None:
@@ -2041,7 +2226,7 @@ def _fit_subsets_chunked_impl(
         return None
     with (run_log.span("finalize") if run_log is not None else contextlib.nullcontext()):
         if not adaptive:
-            return program(_finalize_key(model, k, m_sub, q_dim, n_kept, d_par, d_w),
+            return program(_finalize_key(model, k, m_sub, q_dim, n_kept, d_par, d_w, mesh=mesh),
                            model.finalize)(state, param_draws, w_draws)
         # subsets still in the group at the end ran the whole schedule
         if members:
@@ -2065,7 +2250,8 @@ def _fit_subsets_chunked_impl(
         fin_state = SamplerState(*([None] * len(SamplerState._fields)))._replace(
             phi_accept=accept)
         fin = program(compile_programs.aux_bucket_key(model, "finadapt", k, m_sub, q_dim, n_cap,
-                                                      d_par, d_w), model.finalize_masked)
+                                                      d_par, d_w, mesh=mesh),
+                      model.finalize_masked)
         return fin(fin_state, param_draws, w_draws, sched.rows_valid, stops)
 
 

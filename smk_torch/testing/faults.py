@@ -1,6 +1,6 @@
 """Deterministic fault injection — twin of ``smk_tpu/testing/faults.py``
-for the chunked executor and the serving engine (the distributed and
-coordinator injectors come with A9).
+for the chunked executor, the serving engine and the process group's
+bring-up (the distributed-checkpoint injectors come with ROADMAP A9b).
 
 Every injector is armed only inside its context manager and leaves
 nothing behind when it exits; each fires at exactly the configured
@@ -26,7 +26,10 @@ checksum and lenient resume.
   block until the context exits (or a bounded fallback), a wedged
   program for the request deadline to turn into ``RequestTimeoutError``;
 - :func:`inject_predict_nan`: the next predict dispatches come back with
-  chosen query rows NaN, for the per-row guard to quarantine.
+  chosen query rows NaN, for the per-row guard to quarantine;
+- :func:`flaky_coordinator`: the first calls of
+  ``torch.distributed.init_process_group`` raise a transient
+  coordinator error, for ``init_distributed``'s backoff ladder.
 
 The chunk injectors wrap the executor's one-chunk seam
 (``parallel/recovery._run_chunk``), the serving injectors the engine's
@@ -374,3 +377,33 @@ def inject_predict_nan(rows, max_fires: int = 1):
     inj = PredictNaNInjection(rows=tuple(int(r) for r in rows), max_fires=int(max_fires))
     with _armed_serve(_active_predict_nan, inj):
         yield inj
+
+
+@contextmanager
+def flaky_coordinator(fail_first: int, passthrough: bool = False):
+    """Arm the transient-coordinator injector: the first ``fail_first``
+    calls of ``torch.distributed.init_process_group`` raise a transient
+    (retryable) coordinator error; later calls go to the real function
+    when ``passthrough`` (a real bring-up surviving a flaky start) or
+    return as a no-op stub (unit tests of the backoff ladder, which must
+    not start a process group). Yields a counter dict (``{"calls": n}``)."""
+    import torch.distributed as dist
+
+    real = dist.init_process_group
+    counter = {"calls": 0}
+
+    def patched(*args, **kwargs):
+        counter["calls"] += 1
+        if counter["calls"] <= fail_first:
+            raise RuntimeError(
+                "UNAVAILABLE: chaos: injected transient coordinator failure (attempt "
+                f"{counter['calls']}; connection timed out)")
+        if passthrough:
+            return real(*args, **kwargs)
+        return None
+
+    dist.init_process_group = patched
+    try:
+        yield counter
+    finally:
+        dist.init_process_group = real

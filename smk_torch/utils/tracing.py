@@ -96,13 +96,15 @@ class ChunkPipelineStats:
     ckpt_write_s: float = 0.0
     ckpt_bytes: int = 0
     ckpt_boundary_bytes: List[int] = field(default_factory=list)
-    # generations of the distributed checkpoint (ROADMAP A9): 0 on one
+    # generations of the distributed checkpoint (ROADMAP A9b): 0 on one
     # host, as in the twin
     ckpt_generations: int = 0
     ckpt_commit_s: float = 0.0
     total_wall_s: float = 0.0
     # one entry per bucket group of a ragged fit, None on equal-m runs
     ragged_groups: Any = None
+    # the RaggedMeshPlan summary of a ragged fit on a mesh
+    ragged_mesh_plan: Any = None
     host_staging_bytes: int = 0
     run_log: Any = None
     adaptive: Any = None
@@ -249,7 +251,7 @@ class ChunkPipelineStats:
             "ess_per_second": (round(ess_final / wall, 4)
                                if wall > 0 and ess_final is not None else None),
             "ragged_groups": self.ragged_groups,
-            "ragged_mesh_plan": None,
+            "ragged_mesh_plan": self.ragged_mesh_plan,
             "adaptive": self.adaptive,
             "chunks_saved_frac": (self.adaptive.get("chunks_saved_frac")
                                   if self.adaptive else None),

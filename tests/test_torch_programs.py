@@ -45,6 +45,7 @@ from smk_torch.api import FactorCache, predict_at
 from smk_torch.compile import programs, warmup
 from smk_torch.models import probit_gp as tp
 from smk_torch.parallel import recovery
+from smk_torch.parallel.executor import make_mesh
 from smk_torch.parallel.partition import random_partition
 from smk_torch.serve import PredictionEngine, load_artifact, save_artifact
 from smk_torch.serve.engine import torch_noise
@@ -86,14 +87,16 @@ def test_chunk_key_layout():
                    chunk_pipeline="overlap", watchdog=True)
     assert programs.chunk_bucket_key(armed, "burn", 5, *dims.values(), phase=1) == key
     assert programs.aux_bucket_key(model, "stats", K, M, Q, P)[0] == "stats"
-    with pytest.raises(NotImplementedError, match="A9"):
-        programs.chunk_bucket_key(model, "burn", 5, *dims.values(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        warmup.mesh_from_spec((1,), "H100")
+    # a mesh appends its topology fingerprint (ROADMAP A9a)
+    mesh = make_mesh(1, device="cpu")
+    meshed = programs.chunk_bucket_key(model, "burn", 5, *dims.values(), mesh=mesh, phase=1)
+    assert meshed[:-1] == key and meshed[-1] == programs.topology_fingerprint(mesh)
+    with pytest.raises(warmup.MeshSpecError):
+        warmup.mesh_from_spec((1,), "H100", device="cpu")
     part, ct, xt = _fit_problem()
-    for kw in (dict(mesh=object()), dict(mesh_spec=((1,), "H100"))):
-        with pytest.raises(NotImplementedError, match="A9"):
-            warmup.precompile(model, part, ct, xt, **kw)
+    for kw in (dict(mesh=mesh), dict(mesh_spec=((1,), "cpu"))):
+        assert warmup.precompile(model, part, ct, xt, chunk_iters=4, **kw)["topology"] == \
+            programs.topology_fingerprint(mesh)
 
 
 @pytest.mark.parametrize("n_burn,n_samples,chunk_iters", [
