@@ -330,6 +330,25 @@ H100, so every mesh here has one entry):
               barrier_sync and allgather_bytes; a small fit over the
               group's mesh bitwise its unmeshed fit; gather_grids through
               an NCCL all-gather, bitwise; the group destroyed.
+33b. dist_ckpt_config5 — the distributed checkpoint (format 8, through
+              FORCE_DISTRIBUTED_FOR_TESTING) at config5 with the
+              production sampler under quarantine, 64 sweeps in chunks of
+              16, inside a real NCCL process group of one (its commit
+              barriers on the group's store): (a) bitwise format 7 and
+              the uncheckpointed chunked fit in every field, 4
+              generations, per boundary the commit seconds, shard bytes
+              and host wall beside format 7's, launches == build_calls;
+              (b) a kill between shard-land and manifest-publish of
+              generation 2 rolled back and resumed bitwise; (c) a torn
+              segment refilled leniently, a torn state shard a typed
+              error naming shard:0; (d) a checkpoint re-split as two
+              processes' shards resumed elastically in one, bitwise.
+33c. data_csv_config4 — the eBird proxy at config4's 65,600 rows written
+              and loaded through the CSV edge (seconds, rows/s), fitted
+              with the config4 production sampler for 16 sweeps
+              (launches == build_calls); count_subset_factorizations at
+              K = 4 on the card: n_chol the FactorCache's count, and the
+              CPU's.
 34. sharded_chol — one (3906, 3906) fp32 SPD matrix on the 1-entry
               mesh: sharded_cholesky against blocked_cholesky (block 512),
               the difference, both residuals and device times;
@@ -4454,6 +4473,307 @@ def dist_world_of_one(device):
     return out
 
 
+def _dir_bytes(path, prefix):
+    """{file name: bytes} of the files under ``path`` starting with
+    ``prefix``."""
+    import os
+
+    return {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))
+            if f.startswith(prefix)}
+
+
+def _remove_prefix(path, prefix):
+    import os
+
+    for f in os.listdir(path):
+        if f.startswith(prefix):
+            os.remove(os.path.join(path, f))
+
+
+def dist_ckpt_config5(device, c5_data, tmp):
+    """The distributed checkpoint (format 8, parallel/checkpoint.py) at
+    config5 inside a real NCCL process group of one, so its commit
+    barriers and identity all-gather run on the group's store: the
+    production sampler, fault_policy="quarantine", 64 sweeps in chunks of
+    16 (three burn-in generations and one sampling generation), format 8
+    through FORCE_DISTRIBUTED_FOR_TESTING.
+
+    (a) the uninterrupted format-8 fit bitwise, in every field, the
+        format-7 checkpointed fit and the uncheckpointed chunked fit of
+        the same seed; 4 generations; per boundary the commit seconds,
+        the shard bytes and the boundary's host wall beside format 7's;
+        the state shards on disk at each boundary; launches ==
+        build_calls(chunk_iters=16);
+    (b) kill_process_at_generation(2): SimulatedKill, the manifest still
+        at generation 1, generation 2's shard an orphan on disk; the
+        resume warns of it, overwrites it and ends bitwise (a);
+    (c) torn_shard(kind="segment") on (a)'s checkpoint: the lenient
+        resume completes, its kept draws before the torn range bitwise
+        (a)'s; then torn_shard(kind="state"): a typed error naming
+        shard:0;
+    (d) a run stopped after three generations, its files re-split as two
+        processes' shards (rows [0, 16) and [16, 32)), resumed in one
+        process: the elastic path, warned, bitwise (a).
+    The files of each leg are removed at its end."""
+    import os
+    import warnings
+
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel import checkpoint as dck
+    from smk_torch.parallel import distributed as D
+    from smk_torch.testing.faults import (SimulatedKill, kill_process_at_generation,
+                                          resplit_shards, torn_shard)
+    from smk_torch.utils.checkpoint import load_pytree
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    cfg = production_config(k=MAIN_K, n_samples=64, phi_every=16, fault_policy="quarantine")
+    want = build_calls(cfg, 1, cfg.n_samples, cfg.n_burn_in, chunk_iters=16)
+
+    def fit(**kw):
+        return fit_meta_kriging(*c5_data, config=cfg, seed=SEED, device=device,
+                                chunk_iters=16, **kw)
+
+    def generation(path):
+        return int(load_pytree(path, dck._manifest_like())["generation"][0])
+
+    def caught(fn):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            out = fn()
+        return out, [str(x.message) for x in w]
+
+    def boundaries(stats):
+        keys = ("host_work_s", "ckpt_write_s", "ckpt_commit_s", "ckpt_bytes", "state_fetch_s")
+        return [{k: c.get(k) for k in keys} for c in stats.chunks if c.get("phase") != "drain"]
+
+    port = _free_port()
+    topo = D.init_distributed(f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                              device=device, timeout_s=60.0)
+    out = {"phase": "dist_ckpt_config5", "K": MAIN_K, "m": MAIN_M, "n_samples": cfg.n_samples,
+           "chunk_iters": 16, "fault_policy": "quarantine", "backend": D.backend_name(),
+           "topology": topo.__dict__}
+    try:
+        check(D.backend_name() == "nccl", f"dist_ckpt_config5: backend {D.backend_name()}")
+        # (a) uncheckpointed, format 7, format 8
+        t0 = time.perf_counter()
+        plain = fit()
+        out["uncheckpointed_wall_s"] = time.perf_counter() - t0
+        p7 = os.path.join(tmp, "v7.npz")
+        s7 = ChunkPipelineStats()
+        t0 = time.perf_counter()
+        v7 = fit(checkpoint_path=p7, pipeline_stats=s7)
+        out["v7_wall_s"] = time.perf_counter() - t0
+        check(not dck.is_distributed_manifest(p7), "dist_ckpt_config5: format 7 not written")
+        _remove_prefix(tmp, "v7.npz")
+        p8 = os.path.join(tmp, "v8.npz")
+        s8 = ChunkPipelineStats()
+        on_disk = []
+
+        def watch(info):
+            on_disk.append(len([f for f in os.listdir(tmp)
+                                if f.startswith("v8.npz.p") and f.endswith(".state.npz")]))
+
+        dck.FORCE_DISTRIBUTED_FOR_TESTING = True
+        barriers0 = sum(v for (kind, _), v in D._KV_SEQ.items() if kind == "barrier")
+        fb.reset_counts()
+        t0 = time.perf_counter()
+        v8 = fit(checkpoint_path=p8, pipeline_stats=s8, progress=watch)
+        out["v8_wall_s"] = time.perf_counter() - t0
+        launches = dict(fb.LAUNCHES)
+        layouts = launches_by_kernel()
+        store_barriers = sum(v for (kind, _), v in D._KV_SEQ.items()
+                             if kind == "barrier") - barriers0
+        check(launches == want, f"dist_ckpt_config5: launches {launches} != {want}")
+        check(layouts == expected_by_kernel(want), f"dist_ckpt_config5: by kernel {layouts}")
+        check(sum(fb.PLAIN_CALLS.values()) == 0, "dist_ckpt_config5: a plain build ran")
+        vs7, vsu = every_field_bitwise(v8, v7), every_field_bitwise(v8, plain)
+        check(all(vs7.values()) and all(vsu.values()),
+              f"dist_ckpt_config5: format 8 not bitwise: v7 {vs7} uncheckpointed {vsu}")
+        check(s8.ckpt_generations == 4 and generation(p8) == 4,
+              f"dist_ckpt_config5: {s8.ckpt_generations} generations")
+        check(store_barriers == 8, f"dist_ckpt_config5: {store_barriers} store barriers")
+        check(max(on_disk) <= 2, f"dist_ckpt_config5: state shards on disk {on_disk}")
+        files = _dir_bytes(tmp, "v8.npz")
+        out.update(
+            bitwise_v7=vs7, bitwise_uncheckpointed=vsu, generations=s8.ckpt_generations,
+            store_barriers=store_barriers, ckpt_commit_s=s8.ckpt_commit_s,
+            ckpt_write_s={"v7": s7.ckpt_write_s, "v8": s8.ckpt_write_s},
+            boundary_bytes={"v7": s7.ckpt_boundary_bytes, "v8": s8.ckpt_boundary_bytes},
+            boundaries={"v7": boundaries(s7), "v8": boundaries(s8)},
+            state_shards_on_disk_at_each_boundary=on_disk, files_after=files,
+            disk_bytes_after=sum(files.values()), launches=launches,
+            launches_expected=want, launches_by_kernel=layouts)
+        del v7, plain
+        torch.cuda.empty_cache()
+
+        # (b) a kill between shard-land and manifest-publish of generation 2
+        pk = os.path.join(tmp, "kill.npz")
+        try:
+            with kill_process_at_generation(2):
+                fit(checkpoint_path=pk)
+            raise AssertionError("dist_ckpt_config5: the kill did not stop the fit")
+        except SimulatedKill:
+            pass
+        check(generation(pk) == 1, f"dist_ckpt_config5: manifest at {generation(pk)} after kill")
+        orphan = os.path.exists(dck.shard_state_path(pk, 0, 2))
+        check(orphan, "dist_ckpt_config5: generation 2's shard is not on disk")
+        t0 = time.perf_counter()
+        resumed, msgs = caught(lambda: fit(checkpoint_path=pk))
+        out["kill"] = {"resume_s": time.perf_counter() - t0,
+                       "orphan_warned": any("orphan shard" in m for m in msgs),
+                       "bitwise": every_field_bitwise(resumed, v8)}
+        check(out["kill"]["orphan_warned"] and all(out["kill"]["bitwise"].values()),
+              f"dist_ckpt_config5: kill and resume {out['kill']}")
+        _remove_prefix(tmp, "kill.npz")
+        del resumed
+
+        # (c) torn shards on (a)'s checkpoint
+        torn_shard(p8, 0, "segment")
+        torn, msgs = caught(lambda: fit(checkpoint_path=p8))
+        n_kept = cfg.n_samples - cfg.n_burn_in
+        out["torn_segment"] = {
+            "resampled_warned": any("re-sampled" in m for m in msgs),
+            "finite": bool(torch.isfinite(torn.subset_results.param_samples).all()),
+            "kept": n_kept}
+        check(out["torn_segment"]["resampled_warned"] and out["torn_segment"]["finite"],
+              f"dist_ckpt_config5: torn segment {out['torn_segment']}")
+        del torn
+        torn_shard(p8, 0, "state")
+        try:
+            fit(checkpoint_path=p8)
+            raise AssertionError("dist_ckpt_config5: a torn state shard resumed")
+        except ValueError as e:
+            out["torn_state_error"] = str(e)[:200]
+            check("shard:0" in str(e), f"dist_ckpt_config5: torn state error {e}")
+        _remove_prefix(tmp, "v8.npz")
+
+        # (d) stopped after three generations, re-split, elastic resume
+        pe = os.path.join(tmp, "elastic.npz")
+        progress, kill = kill_after(3)
+        try:
+            fit(checkpoint_path=pe, progress=progress)
+            raise AssertionError("dist_ckpt_config5: the stop did not stop the fit")
+        except kill:
+            pass
+        check(generation(pe) == 3, f"dist_ckpt_config5: stopped at {generation(pe)}")
+        resplit_shards(pe, [[0, MAIN_K // 2], [MAIN_K // 2, MAIN_K]])
+        dck.FORCE_DISTRIBUTED_FOR_TESTING = False
+        t0 = time.perf_counter()
+        elastic, msgs = caught(lambda: fit(checkpoint_path=pe))
+        out["elastic"] = {"resume_s": time.perf_counter() - t0,
+                          "warned": any("elastic resume" in m for m in msgs),
+                          "bitwise": every_field_bitwise(elastic, v8)}
+        check(out["elastic"]["warned"] and all(out["elastic"]["bitwise"].values()),
+              f"dist_ckpt_config5: elastic resume {out['elastic']}")
+        _remove_prefix(tmp, "elastic.npz")
+    finally:
+        dck.FORCE_DISTRIBUTED_FOR_TESTING = False
+        D.destroy_distributed()
+    emit(out)
+    return out
+
+
+def data_csv_config4(device, tmp):
+    """The CSV edge at config4's size: the eBird proxy (65,600 rows)
+    written with write_presence_absence_csv and loaded back with
+    load_presence_absence_csv (seconds, rows/s), then fitted with the
+    config4 production sampler (logit, phi every 8th) for 16 sweeps on the
+    card, launches == build_calls; then count_subset_factorizations on a
+    K = 4, m = 200 problem on the card: its n_chol equal to the
+    FactorCache counter of the same sweeps run by hand, and to the count
+    on the CPU; its launches the sweeps' build calls."""
+    import os
+
+    import numpy as np
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.data.ebird import (load_presence_absence_csv, make_ebird_proxy,
+                                      write_presence_absence_csv)
+    from smk_torch.data.synthetic import tiny_binary_problem
+    from smk_torch.models.probit_gp import SpatialGPSampler, build_calls, chunk_build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel.executor import (count_subset_factorizations, init_subset_states,
+                                             stacked_subset_data)
+    from smk_torch.parallel.partition import random_partition
+
+    n = C4_K * C4_M
+    d = make_ebird_proxy(n=n + C4_T)
+    path = os.path.join(tmp, "ebird.csv")
+    t0 = time.perf_counter()
+    write_presence_absence_csv(path, d)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_presence_absence_csv(path, list(d.species_names),
+                                     covariate_cols=("effort", "elevation"))
+    load_s = time.perf_counter() - t0
+    rows = back.y.shape[0]
+    check(rows == n + C4_T and np.array_equal(back.y, d.y) and back.x.shape == d.x.shape,
+          f"data_csv_config4: loaded {back.y.shape}")
+    out = {"phase": "data_csv_config4", "rows": rows, "file_bytes": os.path.getsize(path),
+           "write_s": write_s, "load_s": load_s, "load_rows_per_s": rows / load_s}
+    os.remove(path)
+    cfg = production_config(k=C4_K, n_samples=16, link="logit", phi_every=8)
+    fb.reset_counts()
+    t0 = time.perf_counter()
+    res = fit_meta_kriging(back.y[:n], back.x[:n], back.coords[:n], back.coords[n:],
+                           back.x[n:], config=cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    out["fit_wall_s"] = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    layouts = launches_by_kernel()
+    want = build_calls(cfg, C4_Q, cfg.n_samples, cfg.n_burn_in)
+    check(launches == want, f"data_csv_config4: launches {launches} != {want}")
+    check(layouts == expected_by_kernel(want), f"data_csv_config4: by kernel {layouts}")
+    for f in ("p_quant", "param_grid", "w_grid"):
+        check(bool(torch.isfinite(getattr(res, f)).all()), f"data_csv_config4: non-finite {f}")
+    out.update(launches=launches, launches_expected=want, launches_by_kernel=layouts,
+               phase_seconds=res.phase_seconds)
+    del res
+    # count_subset_factorizations, K = 4, m = 200, 8 sweeps of the default sampler
+    y, x, coords, ct, xt = tiny_binary_problem(seed=3, n=800, t=16)
+    ccfg = production_config(k=4, n_samples=16, phi_every=2, rank=32)
+    counted = {}
+    for dev in (device, torch.device("cpu")):
+        perm = torch.randperm(800, generator=torch.Generator().manual_seed(0)).to(dev)
+        part = random_partition(perm, *(torch.as_tensor(a, device=dev) for a in (y, x, coords)),
+                                4)
+        ctd, xtd = torch.as_tensor(ct, device=dev), torch.as_tensor(xt, device=dev)
+        model = SpatialGPSampler(ccfg)
+        fb.reset_counts()
+        acc, (n_chol, n_calls) = count_subset_factorizations(model, part, ctd, xtd, n_iters=8,
+                                                            with_calls=True)
+        counted[dev.type] = {"n_chol": n_chol.tolist(), "n_chol_calls": n_calls.tolist(),
+                             "launches": dict(fb.LAUNCHES),
+                             "plain_calls": sum(fb.PLAIN_CALLS.values())}
+        # the same sweeps by hand: the FactorCache's own counter
+        data = stacked_subset_data(part, ctd, xtd)
+        consts = model._consts(data)
+        state = init_subset_states(model, data, None, consts)
+        noise = model.default_noise(data)
+        cache = model._solve_cache(consts, data.mask, state)
+        for i in range(8):
+            state, cache, _ = model._gibbs_step(data, consts, state, cache, i, noise(i, False),
+                                                collect=False)
+        counted[dev.type]["factor_cache"] = [cache.n_chol, cache.n_chol_calls]
+    card = counted[device.type]
+    check(card["n_chol"] == [card["factor_cache"][0]] * 4
+          and card["n_chol_calls"] == [card["factor_cache"][1]] * 4,
+          f"data_csv_config4: count_subset_factorizations {card}")
+    check(card["n_chol"] == counted["cpu"]["n_chol"]
+          and card["n_chol_calls"] == counted["cpu"]["n_chol_calls"],
+          f"data_csv_config4: card {card} vs CPU {counted['cpu']}")
+    step = chunk_build_calls(ccfg, 1, "burn", 0, 8)
+    step["fused_masked_correlation_stack"] += 1  # R~ at init
+    check(card["launches"] == step and card["plain_calls"] == 0,
+          f"data_csv_config4: count launches {card['launches']} != {step}")
+    out["count_subset_factorizations"] = counted
+    emit(out)
+    return out
+
+
 def sharded_chol(device):
     """parallel/sharded_chol on the 1-entry mesh: a (3906, 3906) fp32 SPD
     matrix (an exponential correlation at phi = 6 plus 1e-3 I on config5's
@@ -5317,6 +5637,8 @@ def main() -> int:
         m5 = phase("mesh_config5", mesh_config5, device, c5_data, tmp)
         mc4 = phase("mesh_coherent_config4", mesh_coherent_config4, device, c4_data)
         d1 = phase("dist_world_of_one", dist_world_of_one, device)
+        dc5 = phase("dist_ckpt_config5", dist_ckpt_config5, device, c5_data, tmp)
+        csv4 = phase("data_csv_config4", data_csv_config4, device, tmp)
         phase("sharded_chol", sharded_chol, device)
         phase("thread_launch", thread_launch, device)
     finally:
@@ -5331,7 +5653,7 @@ def main() -> int:
              "fit_overlap_config5": ov5, "fit_overlap_small_faults": ovs,
              "fit_adaptive_config5": ad5, "fit_adaptive_small": ads,
              "fit_profile_config5": pr5, "mesh_config5": m5, "mesh_coherent_config4": mc4,
-             "dist_world_of_one": d1}
+             "dist_world_of_one": d1, "dist_ckpt_config5": dc5, "data_csv_config4": csv4}
 
     f64_time = f64["main_path"]
     f64_kernels = (("symmetric kernel, float64", "symmetric_f64", "fused_masked_correlation_stack"),

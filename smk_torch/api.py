@@ -562,7 +562,17 @@ def fit_meta_kriging(
       ``checkpoint_every`` when another knob implies chunking);
     - ``checkpoint_path``: checkpoint every chunk; an interrupted call
       with the same arguments resumes bitwise. The files are the
-      port's own (a twin checkpoint does not resume here);
+      port's own (a twin checkpoint does not resume here). Under a
+      multi-process mesh the checkpoint is the distributed format 8
+      (parallel/checkpoint.py): every process writes only its rows to
+      its own shard files, and each boundary is published as one
+      two-phase-committed generation (``config.ckpt_commit_timeout_s``
+      bounds the commit's barriers; a dead peer is a typed
+      ``CkptCommitError``), so a killed process rolls the job back to
+      the last committed generation, and a relaunch on the same
+      topology, or elastically on fewer processes, resumes from it.
+      ``checkpoint_path`` must then be on a filesystem every process
+      shares;
     - ``progress``: callback(dict) after every chunk (phase, iteration,
       n_samples, running phi acceptance);
     - ``nan_guard``: raise parallel.recovery.SubsetNaNError naming the

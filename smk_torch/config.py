@@ -444,9 +444,7 @@ class SMKConfig:
 
 # (knob, predicate on the config, ROADMAP item that ports it). Checked
 # in this order by check_ported; the first hit raises. Every knob of the
-# config is ported now. A device mesh is no config field; a checkpointed
-# fit over a multi-process mesh is refused where it is passed
-# (parallel/recovery.py, ROADMAP A9b).
+# config is ported now (a device mesh is no config field).
 _UNPORTED: tuple = ()
 
 

@@ -1368,6 +1368,27 @@ class SpatialGPSampler:
                 draws[1][:, i] = out[1]
         return state, draws
 
+    def count_chunk(self, data: SubsetData, consts: BuildConsts, state: SamplerState,
+                    noise: NoiseSource, start_it: int, n_iters: int, *, collect: bool = False,
+                    with_calls: bool = False):
+        """Sweeps [start_it, start_it + n_iters) as :meth:`burn_chunk`
+        (``collect=False``) or :meth:`sample_chunk` (draws discarded) run
+        them, returning ``(state, n_chol)``: the m x m factorizations the
+        sweeps performed, the FactorCache counter of the cache built at
+        entry (twin of ``count_chunk``). ``with_calls``: ``(state, (n_chol,
+        n_chol_calls))``, the second the batched Cholesky calls issued.
+        The counters are the whole batch's per row (every row factors
+        alike)."""
+        gains = self.chunk_gains(start_it, n_iters, collect, data.x.dtype, data.x.device)
+        cache = self._solve_cache(consts, data.mask, state, predict=collect)
+        for i in range(n_iters):
+            state, cache, _ = self._gibbs_step(
+                data, consts, state, cache, start_it + i, noise(start_it + i, collect),
+                collect=collect, gain=None if gains is None else gains[i])
+        if with_calls:
+            return state, (cache.n_chol, cache.n_chol_calls)
+        return state, cache.n_chol
+
     def burn_chunk(self, data: SubsetData, consts: BuildConsts, state: SamplerState,
                    noise: NoiseSource, start_it: int, n_iters: int) -> SamplerState:
         """Non-collecting sweeps [start_it, start_it + n_iters) of the

@@ -239,6 +239,7 @@ def summarize(path: str) -> Dict[str, Any]:
         e["attrs"] for e in _events_named(run, "adaptive_compaction")
     ]
     ckpt = [e["attrs"] for e in _events_named(run, "ckpt_write")]
+    commits = [e["attrs"] for e in _events_named(run, "ckpt_commit")]
     breakdown = chunk_breakdown(run)
     span_walls: Dict[str, float] = {}
     for s in run["spans"]:
@@ -278,6 +279,18 @@ def summarize(path: str) -> Dict[str, Any]:
                 sum(float(c.get("seconds", 0.0)) for c in ckpt), 4
             ),
             "bytes": sum(int(c.get("nbytes", 0)) for c in ckpt),
+        },
+        # the distributed checkpoint's commits: one ckpt_commit event a
+        # published generation (its barriers' and publish's seconds), and
+        # the "ckpt_commit" spans' wall under the sync pipeline (the
+        # overlap pipeline commits on the writer thread, events only);
+        # empty under format 7
+        "ckpt_commit": {
+            "n_generations": len(commits),
+            "seconds": round(sum(float(c.get("seconds", 0.0)) for c in commits), 4),
+            "span_s": _span_wall("ckpt_commit"),
+            "last_generation": commits[-1].get("generation") if commits else None,
+            "n_processes": commits[-1].get("n_processes") if commits else None,
         },
         # the post-sampling phases of fit_meta_kriging
         "combine": {
@@ -380,6 +393,11 @@ def main(argv: List[str]) -> int:
     if cb["combine_s"] is not None:
         print(f"\ncombine: {cb['combine_s']}s  resample_predict: "
               f"{cb['resample_predict_s']}s")
+    cc = summary["ckpt_commit"]
+    if cc["n_generations"]:
+        print(f"\nckpt commits: {cc['n_generations']} generation(s), {cc['seconds']}s "
+              f"coordination (last generation {cc['last_generation']}, "
+              f"{cc['n_processes']} process(es))")
     if summary["watchdog"]["fired"]:
         print(
             f"\nwatchdog fired {len(summary['watchdog']['fired'])} "

@@ -74,7 +74,10 @@ class DistributedConfigError(DistributedInitError):
 class CollectiveTimeoutError(RuntimeError):
     """A barrier or key-value agreement did not complete within its
     deadline: a peer is dead, hung, or off the collective schedule.
-    Carries the operation name and the deadline."""
+    Carries the operation name and the deadline. The distributed
+    checkpoint (parallel/checkpoint.py) turns it into a commit abort,
+    whose effect on disk is that the previous generation stays
+    published."""
 
     def __init__(self, op: str, timeout_s: float, cause=None):
         self.op = str(op)
@@ -83,8 +86,9 @@ class CollectiveTimeoutError(RuntimeError):
         super().__init__(
             f"cross-process collective {self.op!r} did not complete within "
             f"{self.timeout_s:.0f}s" + (f" ({cause!r})" if cause is not None else "")
-            + " — a peer process is dead or hung; abort and resume on a reduced "
-            "topology if a host is gone"
+            + " — a peer process is dead or hung; the last PUBLISHED checkpoint "
+            "generation is unaffected (two-phase commit), so abort and resume from it, on a "
+            "reduced topology if a host is gone"
         )
 
 
@@ -319,10 +323,11 @@ def destroy_distributed(timeout_s: float = 60.0) -> None:
 
 
 def _store():
-    """The process group's key-value store, or None in a single-process
-    job (the degenerate case every collective below treats as 'I am the
-    whole job')."""
-    if process_count() <= 1:
+    """The process group's key-value store (a world of one included, so
+    its barriers and agreements run on the store too), or None without a
+    process group (the degenerate case every collective below treats as
+    'I am the whole job')."""
+    if not (dist.is_available() and dist.is_initialized()):
         return None
     from torch.distributed import distributed_c10d
 

@@ -12,8 +12,9 @@ Over a mesh (parallel/executor.py) a subset's domain is its entry's
 process, or its entry itself where one process drives several (the
 chip is then the failure unit). A single-process run without a mesh is
 the one-domain map, under which quarantine keeps its per-subset
-semantics. The checkpoint's shard-row constructor waits for the
-distributed checkpoint (ROADMAP A9b).
+semantics. A distributed checkpoint's shard-ownership table maps to one
+domain a writing process (:meth:`FailureDomainMap.from_shard_rows`), the
+vocabulary its elastic-resume and torn-shard messages speak in.
 """
 
 from __future__ import annotations
@@ -183,6 +184,26 @@ class FailureDomainMap:
         if m.n_domains == 1 and int(mesh.size) > 1:
             return cls.from_ragged_plan(plan, part, mesh, granularity="device")
         return m
+
+    @classmethod
+    def from_shard_rows(cls, shard_rows) -> "FailureDomainMap":
+        """The map of a distributed checkpoint's manifest
+        (parallel/checkpoint.py): ``shard_rows`` holds the ``(start,
+        stop)`` subset rows of each process of the WRITING topology, and
+        each becomes one domain, labelled ``shard:p``. An elastic resume
+        names the shards it re-lays, and a torn shard its owner, in these
+        labels."""
+        rows = [(int(a), int(b)) for a, b in np.asarray(shard_rows).reshape(-1, 2)]
+        if not rows or rows[0][0] != 0:
+            raise ValueError(f"shard_rows {rows} do not start at subset 0")
+        doms: list = []
+        for p, (a, b) in enumerate(rows):
+            if b <= a or a != len(doms):
+                raise ValueError(
+                    f"shard_rows {rows} are not a contiguous partition of the subset axis")
+            doms.extend([p] * (b - a))
+        return cls(domain_of_subset=tuple(doms),
+                   labels=tuple(f"shard:{p}" for p in range(len(rows))))
 
     @classmethod
     def derive(cls, k: int, mesh=None) -> "FailureDomainMap":

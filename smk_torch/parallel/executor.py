@@ -119,6 +119,48 @@ def fit_subsets_vmap(
     return SubsetResult(*(torch.cat(f) for f in zip(*results)))
 
 
+def count_subset_factorizations(
+    model: SpatialGPSampler,
+    part: Partition,
+    coords_test: torch.Tensor,
+    x_test: torch.Tensor,
+    noise: Optional[NoiseSource] = None,
+    beta_init: Optional[torch.Tensor] = None,
+    *,
+    n_iters: int,
+    start_it: int = 0,
+    collect: bool = False,
+    with_calls: bool = False,
+):
+    """The instrumented fan-out (twin of ``count_subset_factorizations``):
+    every subset advances ``n_iters`` sweeps from its initial state, and
+    the result is ``(phi_accepts, n_chol)``: the (K, q) phi-acceptance
+    counts and the (K,) m x m factorizations performed, read from the
+    sampler's FactorCache counters (``with_calls``: ``(phi_accepts,
+    (n_chol, n_chol_calls))``, the second the batched Cholesky calls).
+    ``noise`` defaults to a generator a subset seeded from 0. One chain
+    only, as in the twin: chains multiply the counts."""
+    if model.config.n_chains != 1:
+        raise ValueError(
+            "count_subset_factorizations measures single-chain programs; chains scale "
+            "counts linearly")
+    data = stacked_subset_data(part, coords_test, x_test)
+    if noise is None:
+        noise = model.default_noise(data)
+    consts = model._consts(data)
+    state = init_subset_states(model, data, beta_init, consts)
+    state, counts = model.count_chunk(data, consts, state, noise, start_it, n_iters,
+                                      collect=collect, with_calls=with_calls)
+    k, dev = part.n_subsets, part.x.device
+
+    def per_subset(n):
+        return torch.full((k,), int(n), dtype=torch.int64, device=dev)
+
+    if with_calls:
+        return state.phi_accept, (per_subset(counts[0]), per_subset(counts[1]))
+    return state.phi_accept, per_subset(counts)
+
+
 # ----------------------------------------------------------------------
 # the mesh and its layout oracle
 # ----------------------------------------------------------------------

@@ -56,14 +56,16 @@ executor snapshots, restores and forks. A ``PaddedPartition`` runs
 through the ragged fan-out, one ordinary chunked fit per occupied
 bucket, or per entry of its RaggedMeshPlan on a mesh. Over a mesh
 (parallel/executor.Mesh) each chunk program runs per entry block on the
-entry's device; a multi-process mesh runs this process's rows and takes
-no checkpoint (the distributed checkpoint is ROADMAP A9b).
+entry's device; a multi-process mesh runs this process's rows, and its
+checkpoint is the distributed format 8 (parallel/checkpoint.py:
+per-process shard files, each boundary a two-phase-committed generation,
+elastic resume onto another topology), which a single-process run takes
+when ``checkpoint_path`` already holds a format-8 manifest.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import math
 import os
 import warnings
@@ -100,6 +102,8 @@ from smk_torch.obs.streaming import (
     make_stream_update,
     make_stream_update_masked,
 )
+from smk_torch.parallel import checkpoint as dist_ckpt
+from smk_torch.parallel.checkpoint import identity_config_repr
 from smk_torch.parallel.domains import ChunkWatchdog, FailureDomainMap
 from smk_torch.compile.buckets import plan_ragged_mesh
 from smk_torch.parallel.executor import (
@@ -203,37 +207,6 @@ def _subset_draws_finite(param_draws: torch.Tensor, w_draws: torch.Tensor,
 # ----------------------------------------------------------------------
 # run identity
 # ----------------------------------------------------------------------
-def identity_config_repr(cfg) -> bytes:
-    """The run-identity view of a config: every chain-determining field,
-    the pipeline, fault, store, observability, host-resilience and
-    partition-layout knobs set to fixed values (the twin's
-    parallel/checkpoint.identity_config_repr), so resuming across them
-    stays legal."""
-    cfg_ident = dataclasses.replace(
-        cfg,
-        chunk_pipeline="sync",
-        fault_policy="abort",
-        fault_max_retries=2,
-        min_surviving_frac=0.5,
-        compile_store_dir=None,
-        xla_cache_dir=None,
-        run_log_dir=None,
-        profile_dir=None,
-        profile_chunks=None,
-        watchdog=False,
-        watchdog_min_deadline_s=60.0,
-        watchdog_margin=10.0,
-        dist_init_timeout_s=120.0,
-        dist_init_retries=3,
-        live_diagnostics=(cfg.adaptive_schedule != "off"),
-        ckpt_commit_timeout_s=120.0,
-        partition_method="random",
-        bucket_ladder=None,
-        coalesce_window_ms=0.0,
-    )
-    return repr(cfg_ident).encode()
-
-
 def _leaf_fingerprint(leaf: torch.Tensor) -> int:
     """CRC of a tensor's shape, dtype and every byte (the data leaves are
     O(n) in size: one fetch at the start of a checkpointed run)."""
@@ -245,7 +218,8 @@ def _leaf_fingerprint(leaf: torch.Tensor) -> int:
 def _run_identity(cfg, noise, data: SubsetData, beta_init) -> np.ndarray:
     """Fingerprint of everything that determines the chain: the config,
     the noise stream (``noise.identity()``) and the data and warm
-    start. A checkpoint of another identity is rejected, not resumed."""
+    start. A checkpoint of another identity is rejected, not resumed.
+    (identity_config_repr is parallel/checkpoint's, re-exported here.)"""
     crcs = [zlib.crc32(identity_config_repr(cfg)), zlib.crc32(noise.identity())]
     crcs += [_leaf_fingerprint(leaf) for leaf in data]
     if beta_init is not None:
@@ -996,9 +970,10 @@ def fit_subsets_chunked(
       entry block on the entry's device (distinct devices at once), the
       state and draws gathered on ``mesh.home``, the programs keyed under
       the mesh's topology fingerprint. A multi-process mesh runs this
-      process's rows (executor.process_row_range) and returns them; it
-      takes no ``checkpoint_path`` (the distributed checkpoint is ROADMAP
-      A9b). A ragged partition runs its RaggedMeshPlan.
+      process's rows (executor.process_row_range) and returns them, and
+      its ``checkpoint_path`` is the distributed checkpoint (format 8,
+      parallel/checkpoint.py), a path every process shares. A ragged
+      partition runs its RaggedMeshPlan.
 
     ``model.config.fault_policy="quarantine"`` turns the guard into the
     fault-isolation engine and makes resume lenient,
@@ -1228,11 +1203,11 @@ def _ragged_groups(model, part, coords_test, x_test, noise, beta_init, pstats, r
 
 
 def _on_mesh(model, part, coords_test, x_test, noise, beta_init, domain_map, mesh, *,
-             chunk_size, checkpoint_path):
+             chunk_size):
     """A meshed run's inputs: the layout checks (K and ``chunk_size``
     over the mesh, the twin's), the data on ``mesh.home``, and under a
     multi-process mesh this process's rows alone, with their noise rows
-    and their failure domains."""
+    and their failure domains (its checkpoint is then format 8)."""
     cfg = model.config
     k = part.n_subsets
     c = cfg.n_chains
@@ -1252,12 +1227,6 @@ def _on_mesh(model, part, coords_test, x_test, noise, beta_init, domain_map, mes
         beta_init = beta_init.to(home)
     if not mesh.multi_process:
         return part, coords_test, x_test, noise, beta_init, domain_map
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "a checkpointed fit over a multi-process mesh needs the distributed checkpoint "
-            "(per-process shards with a two-phase commit, format v8), which is ROADMAP A9b "
-            "and not ported to smk_torch yet; run it without checkpoint_path, or on a "
-            "single-process mesh")
     if domain_map is not None:
         raise ValueError("a multi-process mesh derives its failure domains from the mesh")
     lo, hi = process_row_range(k, mesh)
@@ -1296,7 +1265,7 @@ def _fit_subsets_chunked_impl(
     if mesh is not None:
         part, coords_test, x_test, noise, beta_init, domain_map = _on_mesh(
             model, part, coords_test, x_test, noise, beta_init, domain_map, mesh,
-            chunk_size=chunk_size, checkpoint_path=checkpoint_path)
+            chunk_size=chunk_size)
     k = part.n_subsets
     data = stacked_subset_data(part, coords_test, x_test)
     dev, dtype = part.x.device, part.x.dtype
@@ -1308,8 +1277,22 @@ def _fit_subsets_chunked_impl(
     live_on = cfg.live_diagnostics
     if policy_q:
         _require(noise, ("snapshot", "restore", "fork"), "fault_policy='quarantine'")
+    # the checkpoint's format: format 8 (parallel/checkpoint.py) under a
+    # multi-process mesh, under the testing hook, or to resume a format-8
+    # checkpoint (the elastic resume onto one process); format 7 otherwise
+    use_v8 = checkpoint_path is not None and (
+        (mesh is not None and mesh.multi_process) or dist_ckpt.FORCE_DISTRIBUTED_FOR_TESTING
+        or (os.path.exists(checkpoint_path)
+            and dist_ckpt.is_distributed_manifest(checkpoint_path)))
+    if adaptive and use_v8:
+        raise NotImplementedError(
+            "adaptive_schedule='on' is not supported with the distributed checkpoint (format "
+            "8, a multi-process mesh): the scheduler sidecar and the full-K state merge are "
+            "single-process operations — run the fixed schedule, or checkpoint adaptively "
+            "in a single process")
     if checkpoint_path is not None:
-        _require(noise, ("snapshot", "restore", "identity"), "checkpoint_path")
+        _require(noise, ("snapshot", "restore", "identity") + (("rows",) if use_v8 else ()),
+                 "checkpoint_path")
     n_burn = cfg.n_burn_in
     n_kept = cfg.n_samples - n_burn
     if adaptive:
@@ -1338,7 +1321,8 @@ def _fit_subsets_chunked_impl(
     m_sub, q_dim, p_dim = part.x.shape[1:]
     d_par = n_params(*part.x.shape[2:])
     d_w = coords_test.shape[0] * part.x.shape[2]
-    meta = np.asarray([cfg.n_samples, n_burn, k, d_par, d_w, c], np.int64)
+    # the whole run's K (k is this process's rows under a multi-process mesh)
+    meta = np.asarray([cfg.n_samples, n_burn, k_key, d_par, d_w, c], np.int64)
 
     if domain_map is None:
         domain_map = FailureDomainMap.derive(k, mesh)
@@ -1367,13 +1351,22 @@ def _fit_subsets_chunked_impl(
     w_draws = torch.zeros((k * c, n_cap, d_w), **opts)
     writer = BackgroundWriter() if mode == "overlap" and checkpoint_path is not None else None
     ck = None
-    if checkpoint_path is not None:
+
+    def draws_np(filled):
+        return param_draws[:, :filled].cpu().numpy(), w_draws[:, :filled].cpu().numpy()
+
+    if use_v8:
+        layout = dist_ckpt.ShardLayout.current(k_key, mesh)
+        ident = dist_ckpt.distributed_run_identity(cfg, noise, data, beta_init, layout,
+                                                   timeout_s=cfg.ckpt_commit_timeout_s)
+        ck = dist_ckpt.DistributedCheckpoint(
+            checkpoint_path, meta, ident, layout, writer=writer, pstats=pstats,
+            local_draws=draws_np, fault_src=fault_snapshot,
+            commit_timeout_s=cfg.ckpt_commit_timeout_s, run_log=run_log)
+    elif checkpoint_path is not None:
         ident = _run_identity(cfg, noise, data, beta_init)
-        ck = _SegmentedCheckpoint(
-            checkpoint_path, meta, ident, writer=writer, pstats=pstats,
-            full_draws=lambda filled: (param_draws[:, :filled].cpu().numpy(),
-                                       w_draws[:, :filled].cpu().numpy()),
-            fault_src=fault_snapshot)
+        ck = _SegmentedCheckpoint(checkpoint_path, meta, ident, writer=writer, pstats=pstats,
+                                  full_draws=draws_np, fault_src=fault_snapshot)
 
     def adopt_fault_bookkeeping(src) -> None:
         attempts[:] = np.asarray(src["fault_attempts"], np.int64)
@@ -1396,7 +1389,31 @@ def _fit_subsets_chunked_impl(
 
     holes: list = []
     host = None
-    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+    if use_v8 and os.path.exists(checkpoint_path):
+        # the last committed generation: this process's rows, read from
+        # its own shards, or assembled from every shard on another
+        # topology (parallel/checkpoint.DistributedCheckpoint.load)
+        loaded = ck.load(state_like=SamplerState(*([np.zeros(0)] * len(SamplerState._fields))),
+                         noise_like=noise.snapshot(),
+                         dtype=torch.empty(0, dtype=dtype).numpy().dtype, d_par=d_par,
+                         d_w=d_w, lenient=policy_q)
+        it = loaded["it"]
+        filled = ck.filled
+        if filled != max(0, it - n_burn):
+            raise ValueError(
+                f"checkpoint {checkpoint_path} is inconsistent: manifest covers {filled} "
+                f"kept draws but the iteration counter {it} implies {max(0, it - n_burn)}"
+            )
+        holes = loaded["holes"]
+        adopt_fault_bookkeeping(loaded)
+        host = loaded["state"]
+        state = _device_state(host, dev)
+        noise.restore(loaded["noise"])
+        if loaded["param"] is not None:
+            param_draws[:, :filled] = torch.as_tensor(loaded["param"], device=dev)
+            w_draws[:, :filled] = torch.as_tensor(loaded["w"], device=dev)
+        del loaded
+    elif checkpoint_path is not None and os.path.exists(checkpoint_path):
         like = {
             "state": SamplerState(*([np.zeros(0)] * len(SamplerState._fields))),
             "layout": SamplerState(*([np.zeros(0)] * len(SamplerState._fields))),
@@ -2203,9 +2220,14 @@ def _fit_subsets_chunked_impl(
                                     host_stall_s=drain_s, d2h_bytes=0)
         if holes and not truncated and ck is not None:
             # the refill wrote out of order and saved nothing: publish the
-            # whole kept region as one checksummed segment
-            ck.rewrite_full(_host_state(state), noise.snapshot(), param_draws.cpu().numpy(),
-                            w_draws.cpu().numpy(), cfg.n_samples, n_kept)
+            # whole kept region as one checksummed segment (a process's
+            # rows of it in a fresh generation, under format 8)
+            if use_v8:
+                ck.rewrite_full_from_device(state, noise.snapshot(), param_draws.cpu().numpy(),
+                                            w_draws.cpu().numpy(), cfg.n_samples, n_kept)
+            else:
+                ck.rewrite_full(_host_state(state), noise.snapshot(), param_draws.cpu().numpy(),
+                                w_draws.cpu().numpy(), cfg.n_samples, n_kept)
     finally:
         if prof is not None:
             prof.close()

@@ -2,7 +2,8 @@
 counterpart of the twin's ``scripts/_dcn_worker.py``.
 
 Every process builds the same small problem from fixed seeds (K = 4
-subsets of m = 24 rows), joins the process group
+subsets of m = 24 rows, data/synthetic.tiny_binary_problem), joins the
+process group
 (parallel/distributed.init_distributed), lays the subsets over the job's
 mesh (one virtual CPU entry a process), fits the rows it owns, and
 gathers the grids over the group for the combine. It prints one line of
@@ -26,9 +27,32 @@ Usage::
   of ``SMK_DCN_DEADLINE_S`` seconds (default 20): with a dead peer the
   gather's barrier waits, and the watchdog's ChunkTimeoutError, naming
   the process domains, is printed as ``DCN_TIMEOUT``;
-- ``ckpt``: a checkpointed fit over the job's mesh, which needs the
-  distributed checkpoint (ROADMAP A9b) and raises its
-  NotImplementedError; prints ``DCN_CKPT``.
+- ``ckpt``: ``fit_meta_kriging`` over the job's mesh with a
+  ``checkpoint_path``, the distributed checkpoint (format 8: per-process
+  shard files, a two-phase-committed generation a chunk boundary). The
+  environment drives it:
+
+  - ``SMK_DCN_CKPT_PATH``: the shared checkpoint path (required);
+  - ``SMK_DCN_CKPT_STOP``: stop after that many committed generations
+    (a progress callback raising a ProgressAbort at the next boundary);
+  - ``SMK_DCN_CKPT_KILL_GEN``: on process 0, testing/faults
+    .kill_process_at_generation of that generation (a SimulatedKill
+    between shard-land and manifest-publish; the peer's commit aborts
+    with a typed CkptCommitError within the commit deadline);
+  - ``SMK_DCN_CKPT_POLICY``: ``fault_policy`` (default ``abort``);
+  - ``SMK_DCN_CKPT_TIMEOUT``: ``ckpt_commit_timeout_s`` (default 60);
+  - ``SMK_DCN_CKPT_CHUNK``: ``chunk_iters`` (default 5).
+
+  Prints one ``DCN_CKPT`` line: ``outcome`` (``completed``, ``stopped``,
+  ``killed`` or ``commit_abort``), ``local_sha`` (this process's rows of
+  the draws), ``global_sha`` (all K rows, through
+  checkpoint.fetch_global), ``final_generation`` and
+  ``resume_from_generation`` (the manifest's after and before the run),
+  ``generations`` and ``ckpt_commit_s`` (the run's commits),
+  ``warnings`` (``elastic``, ``orphan``, ``other``), and after a resume
+  ``committed_rows_sha``: the digest of the kept draws that were
+  committed before it. A one-process job (world 1) on a checkpoint that
+  two processes wrote resumes elastically.
 """
 
 from __future__ import annotations
@@ -48,15 +72,9 @@ SEED = 3
 def problem():
     """The job's data, the same on every process: (y, x, coords,
     coords_test, x_test) as float32 numpy arrays, n = K * M."""
-    rng = np.random.default_rng(11)
-    n = K * M
-    coords = rng.uniform(size=(n, 2)).astype(np.float32)
-    x = np.concatenate([np.ones((n, Q, 1)), rng.normal(size=(n, Q, P - 1))],
-                       -1).astype(np.float32)
-    y = (rng.uniform(size=(n, Q)) < 0.5).astype(np.float32)
-    coords_test = rng.uniform(size=(T, 2)).astype(np.float32)
-    x_test = np.ones((T, Q, P), np.float32)
-    return y, x, coords, coords_test, x_test
+    from smk_torch.data.synthetic import tiny_binary_problem
+
+    return tiny_binary_problem(seed=11, n=K * M, q=Q, p=P, t=T)
 
 
 def config(**kw):
@@ -105,18 +123,118 @@ def e2e_fit(mesh=None):
                             device="cpu", mesh=mesh, chunk_iters=10)
 
 
+def samples_digest(res, upto=None) -> str:
+    """The digest of a SubsetResult's kept draws (param and latent), of
+    the first ``upto`` of them when given."""
+    cut = (lambda t: t) if upto is None else (lambda t: t[:, :upto])
+    return digest(cut(res.param_samples), cut(res.w_samples))
+
+
+def ckpt_config():
+    """The ``ckpt`` mode's config, from its environment knobs."""
+    return config(fault_policy=os.environ.get("SMK_DCN_CKPT_POLICY", "abort"),
+                  ckpt_commit_timeout_s=float(os.environ.get("SMK_DCN_CKPT_TIMEOUT", "60")))
+
+
+def ckpt_fit(mesh=None, **kw):
+    """The ``ckpt`` mode's fit: ``fit_meta_kriging`` on the CPU (over
+    ``mesh`` when given) in chunks of ``SMK_DCN_CKPT_CHUNK`` sweeps."""
+    from smk_torch.api import fit_meta_kriging
+
+    return fit_meta_kriging(*problem(), config=ckpt_config(), seed=SEED, device="cpu",
+                            mesh=mesh, chunk_iters=int(os.environ.get("SMK_DCN_CKPT_CHUNK", "5")),
+                            **kw)
+
+
+def _manifest_field(path, name):
+    from smk_torch.parallel import checkpoint as dck
+    from smk_torch.utils.checkpoint import load_pytree
+
+    if not (os.path.exists(path) and dck.is_distributed_manifest(path)):
+        return None
+    return int(np.asarray(load_pytree(path, dck._manifest_like())[name])[0])
+
+
+def _ckpt_mode(mesh, out) -> bool:
+    """The ``ckpt`` mode (module docstring); fills ``out`` and returns
+    whether the process must leave without the group's goodbye (a
+    killed process, or a peer of one)."""
+    import contextlib
+    import time
+    import warnings
+
+    from smk_torch.parallel.checkpoint import CkptCommitError, ShardLayout, fetch_global
+    from smk_torch.parallel.recovery import ProgressAbort
+    from smk_torch.testing.faults import SimulatedKill, kill_process_at_generation
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    class Stop(ProgressAbort):
+        pass
+
+    path = os.environ["SMK_DCN_CKPT_PATH"]
+    stop = os.environ.get("SMK_DCN_CKPT_STOP")
+    kill_gen = os.environ.get("SMK_DCN_CKPT_KILL_GEN")
+    filled_at_start = _manifest_field(path, "filled")
+    out.update(resume_from_generation=_manifest_field(path, "generation"),
+               filled_at_start=filled_at_start)
+    progress = None
+    if stop:
+        seen = []
+
+        def progress(info):
+            seen.append(info)
+            if len(seen) > int(stop):
+                raise Stop()
+
+    kill = (kill_process_at_generation(int(kill_gen)) if kill_gen and out["process_id"] == 0
+            else contextlib.nullcontext())
+    pstats = ChunkPipelineStats()
+    t0 = time.monotonic()
+    try:
+        with warnings.catch_warnings(record=True) as caught, kill:
+            warnings.simplefilter("always")
+            try:
+                res = ckpt_fit(mesh, checkpoint_path=path, progress=progress,
+                               pipeline_stats=pstats)
+            finally:
+                out["warnings"] = sorted({
+                    "elastic" if "elastic resume" in str(w.message)
+                    else "orphan" if "orphan shard" in str(w.message) else "other"
+                    for w in caught})
+        sr = res.subset_results
+        layout = ShardLayout.current(K, mesh)
+        out.update(outcome="completed", local_sha=samples_digest(sr),
+                   global_sha=digest(*(torch.as_tensor(fetch_global(t, layout, timeout_s=60.0))
+                                       for t in (sr.param_samples, sr.w_samples))))
+        if filled_at_start:
+            out["committed_rows_sha"] = samples_digest(sr, upto=filled_at_start)
+    except Stop:
+        out["outcome"] = "stopped"
+    except SimulatedKill as e:
+        out.update(outcome="killed", error=str(e)[:120])
+    except CkptCommitError as e:
+        out.update(outcome="commit_abort", error=str(e)[:200])
+    out.update(elapsed_s=time.monotonic() - t0, generations=pstats.ckpt_generations,
+               ckpt_commit_s=round(pstats.ckpt_commit_s, 4),
+               final_generation=_manifest_field(path, "generation"))
+    return out["outcome"] in ("killed", "commit_abort")
+
+
 E2E_FIELDS = ("param_grid", "w_grid", "sample_par", "sample_w", "p_samples", "p_quant")
 
 
 def reference() -> dict:
     """The one-process fits of the same seeds, digested as the workers
-    digest theirs."""
+    digest theirs (the ckpt mode's result whole: a test digests the rows
+    and the prefix it needs)."""
     res, comb, comb_w = sharded_fit()
     e2e = e2e_fit()
     return {"combined": digest(comb), "combined_w": digest(comb_w),
             "rows": [digest(res.param_samples[lo:lo + K // 2], res.w_samples[lo:lo + K // 2])
                      for lo in range(0, K, K // 2)],
-            "e2e": {f: digest(getattr(e2e, f)) for f in E2E_FIELDS}}
+            "e2e": {f: digest(getattr(e2e, f)) for f in E2E_FIELDS},
+            # the ckpt mode's fit without a checkpoint: its SubsetResult
+            "ckpt": ckpt_fit().subset_results}
 
 
 def main(argv) -> int:
@@ -150,16 +268,12 @@ def main(argv) -> int:
         print("DCN_NO_TIMEOUT " + json.dumps(out), flush=True)
         os._exit(1)
     if mode == "ckpt":
-        from smk_torch.api import fit_meta_kriging
-
-        try:
-            fit_meta_kriging(*problem(), config=config(), seed=SEED, device="cpu", mesh=mesh,
-                             chunk_iters=10, checkpoint_path=os.path.join(
-                                 os.environ.get("SMK_DCN_CKPT_DIR", "."), "dcn.ckpt"))
-            out["outcome"] = "completed"
-        except NotImplementedError as e:
-            out.update(outcome="not_implemented", error=str(e))
+        gone = _ckpt_mode(mesh, out)
         print("DCN_CKPT " + json.dumps(out), flush=True)
+        if gone:
+            # a killed process, or the peer of one: the group's goodbye
+            # would wait on the dead
+            os._exit(0)
     elif mode == "e2e":
         from smk_torch.compile.programs import topology_fingerprint
 

@@ -1,6 +1,6 @@
 """Deterministic fault injection — twin of ``smk_tpu/testing/faults.py``
-for the chunked executor, the serving engine and the process group's
-bring-up (the distributed-checkpoint injectors come with ROADMAP A9b).
+for the chunked executor, the distributed checkpoint, the serving engine
+and the process group's bring-up.
 
 Every injector is armed only inside its context manager and leaves
 nothing behind when it exits; each fires at exactly the configured
@@ -22,6 +22,13 @@ checksum and lenient resume.
 - :func:`kill_at_manifest`: the Nth manifest write raises
   :class:`SimulatedKill`, after its segment landed;
 - :func:`corrupt_segment`: truncate or bit-flip a draw segment on disk;
+- :func:`kill_process_at_generation`: the publish of one generation of
+  the distributed checkpoint raises :class:`SimulatedKill` after the
+  shards landed (the torn generation the two-phase commit rolls back);
+- :func:`torn_shard`: truncate one process's last draw segment or its
+  committed state shard of a distributed checkpoint;
+- :func:`resplit_shards`: rewrite a one-process distributed checkpoint
+  as another topology's shards, for an elastic resume;
 - :func:`stall_predict`: the serving engine's next predict dispatches
   block until the context exits (or a bounded fallback), a wedged
   program for the request deadline to turn into ``RequestTimeoutError``;
@@ -57,7 +64,8 @@ class ChaosError(RuntimeError):
 
 
 class SimulatedKill(RuntimeError):
-    """The injected mid-boundary kill of :func:`kill_at_manifest`."""
+    """The injected mid-boundary kill of :func:`kill_at_manifest` and
+    :func:`kill_process_at_generation`."""
 
 
 @dataclass
@@ -265,6 +273,123 @@ def corrupt_segment(path: str, index: int, mode: str = "bitflip") -> str:
         raise ValueError(f"unknown corruption mode {mode!r}")
     return seg
 
+
+
+# -- the distributed checkpoint (parallel/checkpoint.py) --------------------
+
+@contextmanager
+def kill_process_at_generation(generation: int):
+    """Arm the crash-window kill of the distributed checkpoint: the
+    manifest publish of generation ``generation`` raises
+    :class:`SimulatedKill` instead of writing, on the one process that
+    publishes (process 0), after its shards landed and the land barrier
+    passed. Its peers then time out at the publish barrier with a typed
+    CkptCommitError (bounded by ``ckpt_commit_timeout_s``). On disk the
+    previous generation stays published and the killed generation's
+    shard files are orphans that a resume finds and overwrites. Yields a
+    counter dict (``{"publishes": n}``)."""
+    from smk_torch.parallel import checkpoint as _dist
+
+    real = _dist.DistributedCheckpoint._publish_manifest
+    counter = {"publishes": 0}
+
+    def patched(self, it, gen):
+        counter["publishes"] += 1
+        if int(gen) == int(generation):
+            raise SimulatedKill(
+                "chaos: simulated process death between shard-land and manifest-publish "
+                f"of generation {gen}")
+        return real(self, it, gen)
+
+    _dist.DistributedCheckpoint._publish_manifest = patched
+    try:
+        yield counter
+    finally:
+        _dist.DistributedCheckpoint._publish_manifest = real
+
+
+def torn_shard(path: str, process_id: int, kind: str = "segment") -> str:
+    """Damage one process's shard of the newest committed generation of
+    the distributed checkpoint at ``path``: ``kind="segment"`` truncates
+    process ``process_id``'s last draw segment to half (a lenient resume
+    re-samples its iteration range across all subsets);
+    ``kind="state"`` truncates its committed state shard (not
+    recoverable: the resume raises a typed error naming the shard's
+    owner). Returns the damaged path."""
+    from smk_torch.parallel import checkpoint as _dist
+    from smk_torch.utils.checkpoint import load_pytree
+
+    man = load_pytree(path, _dist._manifest_like())
+    if kind == "segment":
+        seg_base = int(np.asarray(man["seg_base"])[0])
+        n_seg = int(np.asarray(man["n_segments"])[0])
+        if n_seg < 1:
+            raise ValueError(f"checkpoint {path} has no draw segments to tear")
+        target = segment_path(_dist.shard_segment_prefix(path, int(process_id)),
+                              seg_base + n_seg - 1)
+    elif kind == "state":
+        gen = int(np.asarray(man["generation"])[0])
+        target = _dist.shard_state_path(path, int(process_id), gen)
+    else:
+        raise ValueError(f"unknown torn_shard kind {kind!r}")
+    with open(target, "rb") as f:
+        data = f.read()
+    with open(target, "wb") as f:
+        f.write(data[: len(data) // 2])
+    return target
+
+
+def resplit_shards(path: str, shard_rows, noise_like=None) -> None:
+    """Rewrite a one-process distributed checkpoint on disk as if
+    ``len(shard_rows)`` processes had written it: per-process state shards
+    and segments cut on the subset axis at ``shard_rows`` ((start, stop)
+    subset rows each), the manifest's ``shard_rows`` and ``n_processes``
+    updated. A resume then takes the genuine elastic path. ``noise_like``:
+    the structure of the noise snapshot (default: one array, as
+    models/probit_gp.GeneratorNoise's)."""
+    from smk_torch.models.probit_gp import SamplerState
+    from smk_torch.parallel import checkpoint as _dist
+    from smk_torch.parallel.recovery import _row_axis
+    from smk_torch.utils.checkpoint import load_pytree, load_segment, save_pytree, save_segment
+
+    man = load_pytree(path, _dist._manifest_like())
+    if int(np.asarray(man["n_processes"])[0]) != 1:
+        raise ValueError(f"checkpoint {path} was not written by one process")
+    c = int(np.asarray(man["meta"])[5])
+    gen = int(np.asarray(man["generation"])[0])
+    seg_base = int(np.asarray(man["seg_base"])[0])
+    n_seg = int(np.asarray(man["n_segments"])[0])
+    placeholder = SamplerState(*([np.zeros(0)] * len(SamplerState._fields)))
+    like = {"generation": np.zeros(1), "rows": np.zeros(2), "state": placeholder,
+            "layout": placeholder, "noise": np.zeros(0) if noise_like is None else noise_like,
+            "fault": dict.fromkeys(_dist._FAULT_FIELDS, np.zeros(0))}
+    src = load_pytree(_dist.shard_state_path(path, 0, gen), like)
+    rows = [(int(a), int(b)) for a, b in shard_rows]
+
+    def cut(arr, ax, a, b):
+        ix = [slice(None)] * arr.ndim
+        ix[ax] = slice(a * c, b * c)
+        return arr[tuple(ix)]
+
+    for pid, (a, b) in enumerate(rows):
+        state = SamplerState(*(cut(np.asarray(x), _row_axis(perm), a, b)
+                               for x, perm in zip(src["state"], src["layout"])))
+        noise = _dist._tree_map(lambda x: np.asarray(x)[a * c:b * c], src["noise"])
+        fault = dict(src["fault"])
+        for f in ("fault_attempts", "fault_dead", "fault_domain"):
+            fault[f] = np.asarray(fault[f])[a:b]
+        save_pytree(_dist.shard_state_path(path, pid, gen), {
+            **src, "rows": np.asarray([a, b], np.int64), "state": state, "noise": noise,
+            "fault": fault})
+    prefix0 = _dist.shard_segment_prefix(path, 0)
+    for i in range(seg_base, seg_base + n_seg):
+        seg = load_segment(prefix0, i)
+        for pid, (a, b) in enumerate(rows):
+            save_segment(_dist.shard_segment_prefix(path, pid), i, seg["param"][a * c:b * c],
+                         seg["w"][a * c:b * c], seg["start"], seg["stop"])
+    man["shard_rows"] = np.asarray(rows, np.int64)
+    man["n_processes"] = np.asarray([len(rows)], np.int64)
+    save_pytree(path, man)
 
 
 # -- the serving engine (serve/engine.py) ---------------------------------

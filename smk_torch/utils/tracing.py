@@ -96,8 +96,8 @@ class ChunkPipelineStats:
     ckpt_write_s: float = 0.0
     ckpt_bytes: int = 0
     ckpt_boundary_bytes: List[int] = field(default_factory=list)
-    # generations of the distributed checkpoint (ROADMAP A9b): 0 on one
-    # host, as in the twin
+    # generations of the distributed checkpoint (format 8,
+    # parallel/checkpoint.py) and their commits' seconds: 0 under format 7
     ckpt_generations: int = 0
     ckpt_commit_s: float = 0.0
     total_wall_s: float = 0.0
@@ -201,12 +201,19 @@ class ChunkPipelineStats:
         self, seconds: float, *, generation: int, it: int = -1,
         filled: int = -1, n_processes: int = 1,
     ) -> None:
-        """One committed checkpoint generation (the distributed layout's
-        accounting; nothing on one host calls it)."""
-        del generation, it, filled, n_processes
+        """One committed generation of the distributed checkpoint
+        (parallel/checkpoint.py; the twin's): ``seconds`` is the commit's
+        coordination, the land and publish barriers and process 0's
+        manifest write, measured on the writing thread (the shard files'
+        writes go to :meth:`add_ckpt_write`). Emits one ``ckpt_commit``
+        event to the run log."""
         with self._lock:
             self.ckpt_generations += 1
             self.ckpt_commit_s += float(seconds)
+            self._emit("ckpt_commit", {"generation": int(generation),
+                                       "seconds": round(float(seconds), 6), "it": int(it),
+                                       "filled": int(filled),
+                                       "n_processes": int(n_processes)})
 
     def add_ckpt_write(self, seconds: float, nbytes: int) -> None:
         with self._lock:

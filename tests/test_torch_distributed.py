@@ -17,16 +17,25 @@ thread a process), all legs at once in a module fixture:
 - ``guard`` beside a ``die_mid`` peer: the gather's store barrier waits
   on the dead process and the watchdog raises ChunkTimeoutError naming
   both process domains within its 8 s deadline;
-- ``ckpt``: a checkpointed fit over a multi-process mesh raises the
-  NotImplementedError of ROADMAP A9b on both processes.
+- ``ckpt`` (the distributed checkpoint, format 8): a two-process
+  checkpointed ``fit_meta_kriging`` completes, each process's rows bitwise
+  the one-process fit's; a kill of process 0 between shard-land and
+  manifest-publish of generation 7 (the first sampling boundary) leaves
+  the leader ``killed`` and the peer ``commit_abort`` within the 5 s commit
+  deadline, and a relaunch resumes from generation 6 bitwise; a
+  two-process job stopped after 7 generations resumes elastically in one
+  process, its committed rows and its whole draws bitwise. Chains of
+  jobs (kill then relaunch, stop then resume) run one job after the other,
+  the chains at once.
 """
 
-# smklint: test-budget=stubbed initializers (milliseconds); one gloo world of one in this process; one module fixture runs eight worker processes at once (four pairs, about 10 s of wall, the guard leg bounded by its 8 s deadline) and the one-process reference fits (K=4, m=24, ~2 s)
+# smklint: test-budget=stubbed initializers (milliseconds); one gloo world of one in this process; one module fixture runs six chains of worker processes at once (four pairs, then a kill and its relaunch, a stop and its one-process resume: about 15 s of wall, the guard leg bounded by its 8 s deadline) and the one-process reference fits (K=4, m=24, ~3 s)
 import json
 import os
 import socket
 import subprocess
 import sys
+import threading
 import warnings
 
 import pytest
@@ -168,48 +177,86 @@ def test_gloo_world_of_one_through_a_flaky_coordinator(fresh_state):
 
 # -- two gloo processes ----------------------------------------------------------
 
-LEGS = {"normal": ("normal", "normal"), "e2e": ("e2e", "e2e"),
-        "guard": ("guard", "die_mid"), "ckpt": ("ckpt", "ckpt")}
 TAGS = {"normal": "DCN_RESULT", "e2e": "DCN_E2E", "guard": "DCN_TIMEOUT",
         "die_mid": "DCN_DYING", "ckpt": "DCN_CKPT"}
 DEADLINE_S = 8.0
+COMMIT_TIMEOUT_S = 5.0
+KILL_GEN = 7  # the first sampling boundary: 30 burn-in sweeps in chunks of 5
+STOP_GEN = 7
+# chain -> its jobs, one after the other: (modes, one per rank; the ckpt
+# environment)
+CHAINS = {
+    "normal": [(("normal", "normal"), {})],
+    "e2e": [(("e2e", "e2e"), {})],
+    "guard": [(("guard", "die_mid"), {})],
+    "ckpt": [(("ckpt", "ckpt"), {"SMK_DCN_CKPT_PATH": "ckpt/run.ckpt"})],
+    "kill": [(("ckpt", "ckpt"), {"SMK_DCN_CKPT_PATH": "kill/run.ckpt",
+                                 "SMK_DCN_CKPT_KILL_GEN": str(KILL_GEN),
+                                 "SMK_DCN_CKPT_TIMEOUT": str(COMMIT_TIMEOUT_S)}),
+             (("ckpt", "ckpt"), {"SMK_DCN_CKPT_PATH": "kill/run.ckpt",
+                                 "SMK_DCN_CKPT_TIMEOUT": str(COMMIT_TIMEOUT_S)})],
+    "elastic": [(("ckpt", "ckpt"), {"SMK_DCN_CKPT_PATH": "elastic/run.ckpt",
+                                    "SMK_DCN_CKPT_STOP": str(STOP_GEN)}),
+                (("ckpt",), {"SMK_DCN_CKPT_PATH": "elastic/run.ckpt"})],
+}
+
+
+def _run_job(modes, env):
+    """One job of ``len(modes)`` worker processes on a fresh port; the
+    parsed tagged line of each."""
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "smk_torch.testing.dcn_worker", str(r), str(len(modes)), port,
+         mode], stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True, cwd=REPO)
+        for r, mode in enumerate(modes)]
+    res = []
+    for r, pr in enumerate(procs):
+        stdout, stderr = pr.communicate(timeout=240)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith(TAGS[modes[r]] + " ")]
+        assert pr.returncode == 0 and lines, (
+            f"{modes[r]} rc={pr.returncode}\n{stdout}\n{stderr[-3000:]}")
+        res.append(json.loads(lines[0][len(TAGS[modes[r]]) + 1:]))
+    return res
 
 
 @pytest.fixture(scope="module")
 def legs(tmp_path_factory):
-    env = dict(os.environ, OMP_NUM_THREADS="1", SMK_DCN_DEADLINE_S=str(DEADLINE_S),
-               SMK_DCN_CKPT_DIR=str(tmp_path_factory.mktemp("dcn")),
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs = {}
-    for leg, modes in LEGS.items():
-        port = str(_free_port())
-        procs[leg] = [subprocess.Popen(
-            [sys.executable, "-m", "smk_torch.testing.dcn_worker", str(r), "2", port, mode],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True, cwd=REPO)
-            for r, mode in enumerate(modes)]
-    threads = torch.get_num_threads()
+    root = tmp_path_factory.mktemp("dcn")
+    base = dict(os.environ, OMP_NUM_THREADS="1", SMK_DCN_DEADLINE_S=str(DEADLINE_S),
+                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out, errors = {}, []
+
+    def chain(name, jobs):
+        try:
+            results = []
+            for modes, extra in jobs:
+                env = dict(base, **extra)
+                if "SMK_DCN_CKPT_PATH" in extra:
+                    env["SMK_DCN_CKPT_PATH"] = str(root / extra["SMK_DCN_CKPT_PATH"])
+                    os.makedirs(os.path.dirname(env["SMK_DCN_CKPT_PATH"]), exist_ok=True)
+                results.append(_run_job(modes, env))
+            out[name] = results
+        except BaseException as e:  # surfaced below, on the test's thread
+            errors.append((name, e))
+
+    threads = [threading.Thread(target=chain, args=item) for item in CHAINS.items()]
+    for t in threads:
+        t.start()
+    threads_before = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         ref = dcn_worker.reference()
     finally:
-        torch.set_num_threads(threads)
-    out = {}
-    for leg, pair in procs.items():
-        res = []
-        for r, pr in enumerate(pair):
-            stdout, stderr = pr.communicate(timeout=240)
-            mode = LEGS[leg][r]
-            lines = [ln for ln in stdout.splitlines() if ln.startswith(TAGS[mode] + " ")]
-            assert pr.returncode == 0 and lines, (
-                f"{leg}/{mode} rc={pr.returncode}\n{stdout}\n{stderr[-3000:]}")
-            res.append(json.loads(lines[0][len(TAGS[mode]) + 1:]))
-        out[leg] = res
+        torch.set_num_threads(threads_before)
+        for t in threads:
+            t.join()
+    assert not errors, errors
     return out, ref
 
 
 def test_two_process_sharded_fit_is_bitwise_the_one_process_fit(legs):
     out, ref = legs
-    r0, r1 = out["normal"]
+    r0, r1 = out["normal"][0]
     for r in (r0, r1):
         assert (r["num_processes"], r["global_devices"], r["mesh_size"]) == (2, 2, 2)
         assert r["param_grid_shape"][0] == 2  # this process's rows
@@ -220,7 +267,7 @@ def test_two_process_sharded_fit_is_bitwise_the_one_process_fit(legs):
 
 def test_two_process_whole_fit_is_bitwise_the_one_process_fit(legs):
     out, ref = legs
-    for r in out["e2e"]:
+    for r in out["e2e"][0]:
         assert {f: r[f] for f in dcn_worker.E2E_FIELDS} == ref["e2e"]
         assert r["topology_fingerprint"] == ["mesh", [2], ["subsets"], "cpu", 2, 1]
         assert r["subsets_dropped"] == []
@@ -228,14 +275,54 @@ def test_two_process_whole_fit_is_bitwise_the_one_process_fit(legs):
 
 def test_dead_peer_is_a_typed_timeout_naming_the_process_domains(legs):
     out, _ = legs
-    guard, dying = out["guard"]
+    guard, dying = out["guard"][0]
     assert dying == {"process_id": 1}
     assert guard["process_id"] == 0 and guard["deadline_s"] == DEADLINE_S
     assert guard["domains"] == [0, 1]
     assert guard["domain_labels"] == ["process:0", "process:1"]
 
 
+def _rows_sha(res, lo, hi, upto=None):
+    return dcn_worker.samples_digest(type(res)(*(f[lo:hi] for f in res)), upto=upto)
+
+
 def test_multi_process_checkpoint_waits_for_the_distributed_checkpoint(legs):
-    out, _ = legs
-    for r in out["ckpt"]:
-        assert r["outcome"] == "not_implemented" and "A9b" in r["error"]
+    """A checkpointed fit over a two-process mesh writes format 8 and
+    completes, every generation committed by both processes, each
+    process's rows bitwise the one-process fit's."""
+    out, ref = legs
+    n_chunks = 40 // 5
+    for r, (lo, hi) in zip(out["ckpt"][0], ((0, 2), (2, 4))):
+        assert r["outcome"] == "completed" and r["warnings"] == []
+        assert r["local_sha"] == _rows_sha(ref["ckpt"], lo, hi)
+        assert r["global_sha"] == dcn_worker.samples_digest(ref["ckpt"])
+        assert r["generations"] == r["final_generation"] == n_chunks
+        assert r["resume_from_generation"] is None and r["ckpt_commit_s"] >= 0.0
+
+
+def test_kill_between_land_and_publish_rolls_back_and_resumes_bitwise(legs):
+    out, ref = legs
+    killed, relaunch = out["kill"]
+    leader, peer = killed
+    assert leader["outcome"] == "killed" and f"generation {KILL_GEN}" in leader["error"]
+    assert peer["outcome"] == "commit_abort" and f"generation {KILL_GEN}" in peer["error"]
+    assert peer["elapsed_s"] < 30.0 + COMMIT_TIMEOUT_S
+    for r in killed:
+        assert r["final_generation"] == KILL_GEN - 1
+    for r, (lo, hi) in zip(relaunch, ((0, 2), (2, 4))):
+        assert r["outcome"] == "completed" and r["resume_from_generation"] == KILL_GEN - 1
+        assert "orphan" in r["warnings"]
+        assert r["local_sha"] == _rows_sha(ref["ckpt"], lo, hi)
+
+
+def test_stopped_two_process_job_resumes_elastically_on_one_process(legs):
+    out, ref = legs
+    stopped, (resumed,) = out["elastic"]
+    assert [r["outcome"] for r in stopped] == ["stopped", "stopped"]
+    assert [r["final_generation"] for r in stopped] == [STOP_GEN, STOP_GEN]
+    assert resumed["num_processes"] == 1 and resumed["outcome"] == "completed"
+    assert resumed["resume_from_generation"] == STOP_GEN and "elastic" in resumed["warnings"]
+    filled = resumed["filled_at_start"]
+    assert filled == 5
+    assert resumed["committed_rows_sha"] == dcn_worker.samples_digest(ref["ckpt"], upto=filled)
+    assert resumed["local_sha"] == resumed["global_sha"] == dcn_worker.samples_digest(ref["ckpt"])
