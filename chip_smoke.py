@@ -349,6 +349,25 @@ H100, so every mesh here has one entry):
               (launches == build_calls); count_subset_factorizations at
               K = 4 on the card: n_chol the FactorCache's count, and the
               CPU's.
+33d. analysis_config5 — the analysis layer at config5 (production
+              sampler, quarantine, overlap, nan_guard, 32 sweeps in chunks
+              of 16, a checkpoint), three fits on one model: cold; warm
+              under the logging sync debug mode (no synchronising call
+              outside the sanitizers' ledger); warm under
+              recompile_guard(0) and transfer_guard_strict() (0 nvcc runs,
+              0 captures, the ledger's tags, counts, bytes, directions;
+              every field bitwise the cold fit's; launches == build_calls);
+              a fit at an unseen chunk length (8) raising RecompileError,
+              and a lone .item() raising in the armed region; the port's
+              smklint over smk_torch/, chip_smoke.py and scripts/torch_*.py
+              (0 findings, seconds).
+33e. adaptive_mesh_config5 — fit_adaptive_config5's adaptive run (c) on
+              make_mesh(1): bitwise the unmeshed (c) in every held field,
+              frozen_at equal, launches == its dispatched chunks', one
+              adaptive_mesh_replan event (entries 1) per compaction of a
+              live group; then fit_adaptive_small's K = 8, m = 200 case
+              (where compactions happen) unmeshed and on make_mesh(1),
+              the same checks.
 34. sharded_chol — one (3906, 3906) fp32 SPD matrix on the 1-entry
               mesh: sharded_cholesky against blocked_cholesky (block 512),
               the difference, both residuals and device times;
@@ -3749,6 +3768,8 @@ def fit_adaptive_config5(device, c5_data, tmp):
     out["launches"] = runs["c_adaptive"]["launches"]
     out["launches_by_kernel"] = runs["c_adaptive"]["launches_by_kernel"]
     emit(out)
+    # (c)'s draws on the host, for adaptive_mesh_config5 (not printed)
+    out["c_result"] = {"fields": _adaptive_fields(rc), "frozen_at": list(sc.adaptive["frozen_at"])}
     return out
 
 
@@ -4774,6 +4795,285 @@ def data_csv_config4(device, tmp):
     return out
 
 
+ANALYSIS_SAMPLES, ANALYSIS_CHUNK = 32, 16
+
+
+def _analysis_setup(cfg, c5_data, device):
+    """config5's partition, test sites and warm start, as sampler_setup
+    builds them (TorchRandomness(SEED)), for fits that share one model."""
+    import torch
+    from smk_torch.api import TorchRandomness, stacked_design
+    from smk_torch.ops.glm import glm_warm_start
+    from smk_torch.parallel.partition import random_partition
+
+    y, x, coords, ct, xt = (torch.as_tensor(a, device=device, dtype=torch.float32)
+                            for a in c5_data)
+    n, q = y.shape
+    rng = TorchRandomness(SEED, device, torch.float32)
+    part = random_partition(rng.permutation(n).to(device), y, x, coords, cfg.n_subsets)
+    y_long, x_long = stacked_design(y, x)
+    beta0 = glm_warm_start(y_long, x_long, link=cfg.link).coef.reshape(q, x.shape[-1])
+    return part, ct, xt, beta0
+
+
+def analysis_config5(device, c5_data, tmp):
+    """The analysis layer on the card at config5's full width (K = 32,
+    m = 3906): the production sampler with fault_policy="quarantine",
+    chunk_pipeline="overlap", nan_guard, 32 sweeps (16 burn-in) in
+    chunks of 16, a checkpoint in ``tmp``, all fits on one model (its L1
+    table of captured programs):
+
+    (a) a cold fit, unguarded;
+    (b) the model's second fit under recompile_guard(0) and
+        transfer_guard_strict() (torch's sync debug mode "error"): no
+        error, 0 nvcc runs and 0 captures, the ledger's tags, counts,
+        bytes and directions, draws bitwise (a)'s in every field, launches
+        == build_calls; before it the same warm fit unguarded (the walls'
+        baseline) and under the logging mode ("warn"), its synchronising
+        calls outside the ledger by line (none expected);
+    (c) both guards provoked: a fit at a chunk length the model has not
+        seen (8) raises RecompileError with a count > 0, and a lone
+        .item() inside transfer_guard_strict() raises;
+    (d) the port's smklint over smk_torch/, chip_smoke.py and
+        scripts/torch_*.py: 0 findings, and its seconds."""
+    import collections
+    import glob
+    import traceback
+    import warnings
+
+    import torch
+    from smk_torch.analysis.engine import lint_paths
+    from smk_torch.analysis.sanitizers import (RecompileError, recompile_guard,
+                                               transfer_guard_strict)
+    from smk_torch.models import probit_gp as tp
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import cuda_build
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel import recovery as rec
+
+    cfg = production_config(k=MAIN_K, n_samples=ANALYSIS_SAMPLES, phi_every=16,
+                            burn_in_frac=0.5, fault_policy="quarantine",
+                            chunk_pipeline="overlap")
+    part, ct, xt, beta0 = _analysis_setup(cfg, c5_data, device)
+    model = tp.SpatialGPSampler(cfg)
+    out = {"phase": "analysis_config5", "K": MAIN_K, "m": MAIN_M, "n_samples": cfg.n_samples,
+           "n_burn_in": cfg.n_burn_in, "chunk_iters": ANALYSIS_CHUNK,
+           "fault_policy": cfg.fault_policy, "chunk_pipeline": cfg.chunk_pipeline}
+
+    def fit(label, chunk_iters=ANALYSIS_CHUNK, **kw):
+        noise = model.default_noise(rec.stacked_subset_data(part, ct, xt), seed=SEED)
+        path = os.path.join(tmp, f"analysis_{label}.npz")
+        t0 = time.perf_counter()
+        res = rec.fit_subsets_chunked(model, part, ct, xt, noise, beta0,
+                                      chunk_iters=chunk_iters, checkpoint_path=path,
+                                      nan_guard=True, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    fb.reset_counts()
+    cold, out["cold_wall_s"] = fit("a")
+    out["cold_captures"] = sum(1 for p in model.__dict__.get("_program_l1", {}).values()
+                               if getattr(p, "captures", False))
+    # a warm fit with no guard: the baseline of the two guarded passes' walls
+    plain, out["plain_warm_wall_s"] = fit("b_plain")
+    # the warm fit under the logging mode: any synchronising call that
+    # the ledger does not sanction, by line (torch warns at each call;
+    # its one-time notice that the mode is a prototype is not a call)
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1] if "smk_torch" in f.filename]
+        where = (f"{os.path.relpath(ours[-1].filename)}:{ours[-1].lineno} ({ours[-1].name})"
+                 if ours else f"{os.path.basename(filename)}:{lineno}")
+        sites[where] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        with transfer_guard_strict(d2h="log", h2d="log") as log_ledger:
+            logged, out["logged_wall_s"] = fit("b_log")
+    out["logged_untagged_syncs"] = dict(sites.most_common())
+    check(not sites, f"analysis config5: synchronising calls outside the ledger {dict(sites)}")
+    nvcc_before = sum(cuda_build.NVCC_RUNS.values())
+    fb.reset_counts()
+    with recompile_guard(0, label="analysis_config5 warm fit") as guard:
+        with transfer_guard_strict() as ledger:
+            check(torch.cuda.get_sync_debug_mode() == 2,
+                  "analysis config5: the sync debug mode is not armed")
+            warm, out["warm_wall_s"] = fit("b")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "analysis config5: the sync debug mode was not restored")
+    launches = dict(fb.LAUNCHES)
+    want = build_calls(cfg, 1, cfg.n_samples, cfg.n_burn_in, chunk_iters=ANALYSIS_CHUNK)
+    check(launches == want, f"analysis config5: warm launches {launches} != {want}")
+    check(sum(fb.PLAIN_CALLS.values()) == 0, "analysis config5: a plain build ran on the card")
+    out.update(warm_compiles=guard.compiles,
+               warm_nvcc_runs=sum(cuda_build.NVCC_RUNS.values()) - nvcc_before,
+               ledger=ledger_report(ledger), ledger_log_pass=ledger_report(log_ledger),
+               launches=launches, launches_expected=want,
+               launches_by_kernel=launches_by_kernel())
+    check(guard.compiles == 0 and out["warm_nvcc_runs"] == 0,
+          f"analysis config5: the warm fit had {guard.compiles} compile events, "
+          f"{out['warm_nvcc_runs']} nvcc runs")
+    check(ledger.tags >= {"run_identity", "chunk_stats", "host_snapshot"},
+          f"analysis config5: ledger tags {ledger.tags}")
+    n_chunks = cfg.n_samples // ANALYSIS_CHUNK
+    check(ledger.count("chunk_stats") == n_chunks,
+          f"analysis config5: {ledger.count('chunk_stats')} chunk_stats fetches")
+    def fields_same(u, v):
+        return {f: (a is None and b is None) or same_bits(a, b)
+                for f, a, b in zip(u._fields, u, v)}
+
+    same, same_log = fields_same(cold, warm), fields_same(cold, logged)
+    out["warm_equals_cold"], out["logged_equals_cold"] = same, same_log
+    out["plain_warm_equals_cold"] = fields_same(cold, plain)
+    check(all(same.values()) and all(same_log.values())
+          and all(out["plain_warm_equals_cold"].values()),
+          f"analysis config5: guarded draws differ {same} {same_log}")
+    del cold, warm, logged, plain
+    for f in glob.glob(os.path.join(tmp, "analysis_*")):
+        os.remove(f)
+    # (c) both guards, provoked
+    try:
+        with recompile_guard(0, label="unseen chunk length"):
+            fit("c8", chunk_iters=8, stop_after_chunks=1)
+        out["recompile_raised"] = None
+    except RecompileError as e:
+        out["recompile_raised"] = {"compiles": e.compiles}
+    check(out["recompile_raised"] is not None and out["recompile_raised"]["compiles"] > 0,
+          f"analysis config5: the unseen chunk length did not raise {out['recompile_raised']}")
+    try:
+        with transfer_guard_strict():
+            torch.ones(4, device=device).sum().item()
+        out["item_raised"] = None
+    except RuntimeError as e:
+        out["item_raised"] = str(e).splitlines()[0][:160]
+    check(out["item_raised"] is not None, "analysis config5: a lone .item() did not raise")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "analysis config5: the sync debug mode was not restored after the raise")
+    for f in glob.glob(os.path.join(tmp, "analysis_*")):
+        os.remove(f)
+    # (d) the port's lint over its own tree
+    root = os.path.dirname(os.path.abspath(__file__))
+    targets = [os.path.join(root, "smk_torch"), os.path.join(root, "chip_smoke.py")] + sorted(
+        glob.glob(os.path.join(root, "scripts", "torch_*.py")))
+    t0 = time.perf_counter()
+    findings = lint_paths(targets, repo_root=root)
+    out["lint"] = {"n_files_targets": len(targets), "findings": [f.render() for f in findings],
+                   "seconds": time.perf_counter() - t0}
+    check(not findings, f"analysis config5: smklint findings {out['lint']['findings']}")
+    out["nvidia_smi"] = nvidia_smi_line()
+    emit(out)
+    return out
+
+
+def ledger_report(ledger) -> dict:
+    """Per tag of a TransferLedger: its count, bytes and directions."""
+    rows = {}
+    for (tag, _), direction in zip(ledger.entries, ledger.directions):
+        rows.setdefault(tag, set()).add(direction)
+    return {tag: {"count": ledger.count(tag), "bytes": ledger.bytes_for(tag),
+                  "directions": sorted(dirs)} for tag, dirs in sorted(rows.items())}
+
+
+def _adaptive_fields(res) -> dict:
+    """The fields an adaptive fit is held bitwise on, copied to the host
+    (a later phase compares against them)."""
+    out = {f: getattr(res, f).detach().cpu()
+           for f in ("param_grid", "w_grid", "p_quant", "param_quant", "sample_par")}
+    out.update({f: getattr(res.subset_results, f).detach().cpu()
+                for f in ("param_samples", "w_samples", "phi_accept_rate")})
+    return out
+
+
+def adaptive_mesh_config5(device, c5_data, ad5, tmp):
+    """fit_adaptive_config5's adaptive run (c) repeated on make_mesh(1):
+    draws and frozen_at bitwise the unmeshed run's (kept by
+    fit_adaptive_config5), launches == its dispatched chunks', and one
+    adaptive_mesh_replan event with entries 1 per compaction of a live
+    group; then the K = 8, m = 200 case of fit_adaptive_small (where
+    compactions happen) unmeshed and on make_mesh(1), the same checks."""
+    import glob
+
+    import torch
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.models import probit_gp as tp
+    from smk_torch.obs.reporter import read_jsonl
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel import recovery as rec
+    from smk_torch.parallel.executor import make_mesh
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    def events(path, name):
+        return [r["attrs"] for r in read_jsonl(path)
+                if r.get("kind") == "event" and r.get("name") == name]
+
+    mesh = make_mesh(1)
+    out = {"phase": "adaptive_mesh_config5", "mesh": repr(mesh), "K": MAIN_K, "m": MAIN_M,
+           "n_samples": ADAPT_SAMPLES, "chunk_iters": ADAPT_CHUNK}
+    ref = ad5["c_result"]
+    log_dir = os.path.join(tmp, "log_c_adaptive_mesh")
+    cfg = adaptive_config(k=MAIN_K, n_samples=ADAPT_SAMPLES, n_chains=2, adaptive=True,
+                          live=True, run_log_dir=log_dir)
+    stats = ChunkPipelineStats()
+    fb.reset_counts()
+    t0 = time.perf_counter()
+    res = fit_meta_kriging(*c5_data, config=cfg, seed=SEED, device=device,
+                           chunk_iters=ADAPT_CHUNK, pipeline_stats=stats, mesh=mesh)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    want = dispatched_build_calls(cfg, 1, stats.chunks)
+    check(launches == want, f"adaptive mesh config5: launches {launches} != {want}")
+    same = {f: same_bits(v, ref["fields"][f]) for f, v in _adaptive_fields(res).items()}
+    out["bitwise_unmeshed"] = same
+    out["frozen_at"] = list(stats.adaptive["frozen_at"])
+    check(all(same.values()) and out["frozen_at"] == ref["frozen_at"],
+          f"adaptive mesh config5: not bitwise the unmeshed run {same}")
+    comp = [e for e in events(res.run_log_path, "adaptive_compaction") if e["n_active"] > 0]
+    replan = events(res.run_log_path, "adaptive_mesh_replan")
+    out["compactions"], out["replans"] = len(comp), replan
+    check(len(replan) == len(comp) and all(e["entries"] == 1 for e in replan),
+          f"adaptive mesh config5: replans {replan} for {len(comp)} compactions")
+    out.update(launches=launches, launches_expected=want,
+               launches_by_kernel=launches_by_kernel())
+    del res
+    # a case with compactions: fit_adaptive_small's K = 8, m = 200
+    knobs = dict(n_samples=80, burn_in_frac=0.5, live_diagnostics=True, adaptive_schedule="on",
+                 target_rhat=1.5, target_ess=8.0, adapt_patience=1, min_samples_before_stop=8,
+                 adapt_max_extra_frac=0.5, n_chains=2, fused_build="pallas")
+    part, ct, xt = _small_problem(1600, 8, device)
+    small = {}
+    for leg, m in (("unmeshed", None), ("meshed", mesh)):
+        cfg_s = SMKConfig(n_subsets=8, run_log_dir=os.path.join(tmp, f"log_small_{leg}"), **knobs)
+        model = tp.SpatialGPSampler(cfg_s)
+        st = ChunkPipelineStats()
+        noise = model.default_noise(rec.stacked_subset_data(part, ct, xt), seed=SEED)
+        r = rec.fit_subsets_chunked(model, part, ct, xt, noise, chunk_iters=10,
+                                    pipeline_stats=st, mesh=m)
+        (log,) = glob.glob(os.path.join(cfg_s.run_log_dir, "*.jsonl"))
+        small[leg] = (r, st, log)
+    (ru, su, _), (rm, sm, log_m) = small["unmeshed"], small["meshed"]
+    same_s = {f: (a is None and b is None) or same_bits(a, b)
+              for f, a, b in zip(ru._fields, ru, rm)}
+    comp_s = [e for e in events(log_m, "adaptive_compaction") if e["n_active"] > 0]
+    replan_s = events(log_m, "adaptive_mesh_replan")
+    out["small"] = {"K": 8, "m": 200, "bitwise_unmeshed": same_s,
+                    "frozen_at": list(sm.adaptive["frozen_at"]),
+                    "rungs": sorted({ch.get("kc") for ch in sm.chunks if "kc" in ch}),
+                    "compactions": len(comp_s), "replans": replan_s}
+    check(all(same_s.values()) and sm.adaptive["frozen_at"] == su.adaptive["frozen_at"],
+          f"adaptive mesh small: not bitwise the unmeshed run {same_s}")
+    check(len(comp_s) >= 1 and len(replan_s) == len(comp_s)
+          and all(e["entries"] == 1 for e in replan_s),
+          f"adaptive mesh small: replans {replan_s} for {len(comp_s)} compactions")
+    out["nvidia_smi"] = nvidia_smi_line()
+    emit(out)
+    return out
+
+
 def sharded_chol(device):
     """parallel/sharded_chol on the 1-entry mesh: a (3906, 3906) fp32 SPD
     matrix (an exponential correlation at phi = 6 plus 1e-3 I on config5's
@@ -5639,6 +5939,9 @@ def main() -> int:
         d1 = phase("dist_world_of_one", dist_world_of_one, device)
         dc5 = phase("dist_ckpt_config5", dist_ckpt_config5, device, c5_data, tmp)
         csv4 = phase("data_csv_config4", data_csv_config4, device, tmp)
+        an5 = phase("analysis_config5", analysis_config5, device, c5_data, tmp)
+        am5 = phase("adaptive_mesh_config5", adaptive_mesh_config5, device, c5_data, ad5, tmp)
+        del ad5["c_result"]
         phase("sharded_chol", sharded_chol, device)
         phase("thread_launch", thread_launch, device)
     finally:
@@ -5653,7 +5956,8 @@ def main() -> int:
              "fit_overlap_config5": ov5, "fit_overlap_small_faults": ovs,
              "fit_adaptive_config5": ad5, "fit_adaptive_small": ads,
              "fit_profile_config5": pr5, "mesh_config5": m5, "mesh_coherent_config4": mc4,
-             "dist_world_of_one": d1, "dist_ckpt_config5": dc5, "data_csv_config4": csv4}
+             "dist_world_of_one": d1, "dist_ckpt_config5": dc5, "data_csv_config4": csv4,
+             "analysis_config5": an5, "adaptive_mesh_config5": am5}
 
     f64_time = f64["main_path"]
     f64_kernels = (("symmetric kernel, float64", "symmetric_f64", "fused_masked_correlation_stack"),

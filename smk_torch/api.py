@@ -51,7 +51,6 @@ from smk_torch.compile.buckets import plan_ragged_mesh
 from smk_torch.parallel.combine import combine_quantile_grids, gather_grids
 from smk_torch.parallel.domains import FailureDomainMap
 from smk_torch.parallel.executor import (
-    Mesh,
     fit_subsets_sharded,
     fit_subsets_vmap,
     fits_layout,
@@ -250,6 +249,7 @@ def _host(a):
     return a.detach().cpu().numpy() if torch.is_tensor(a) else a
 
 
+# smklint: captured
 def _krige_predict_core(
     chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, eps,
     *, cov_model: str, link: str, var_floor: float,
@@ -451,7 +451,7 @@ def resample_predict(
     dense_w = interp_quantile_grid(w_grid, config.interp_grid_step)
     sample_par, sample_w = inverse_cdf_resample(index, [dense_par, dense_w])
     if mesh is not None and fits_layout(sample_par.shape[0], mesh.size):
-        lay = row_sharding(Mesh(mesh.local_entries(), mesh.axis_names))
+        lay = row_sharding(mesh.local())
         bp, bw = lay.place(sample_par), lay.place(sample_w)
         parts = run_per_device([
             (a.device, lambda a=a, w=w: predict_probability(a, w, x_test.to(a.device),

@@ -49,6 +49,7 @@ from typing import Optional, Sequence
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from smk_torch.analysis.sanitizers import note_compile
 from smk_torch.compile.store import ProgramStore
 from smk_torch.compile.xla_cache import persistent_cache_enabled
 from smk_torch.utils.tracing import monotonic
@@ -213,6 +214,10 @@ def get_program(owner, key: tuple, build, *, store: Optional[ProgramStore] = Non
     origins = cuda_build.ensure(libraries, store) if libraries else {}
     source = _library_source(origins)
     prog = build()
+    if not (isinstance(prog, GraphProgram) and prog.captures):
+        # the compile event of the sanitizers (analysis/sanitizers.py):
+        # this build, or on the card the program's capture
+        note_compile()
     if store is not None:
         persisted.add((store.root, slot))
     while len(table) >= L1_CACHE_MAX:
@@ -483,6 +488,7 @@ class GraphProgram:
         fused_build.restore_counts(before)
         self._out = (out_bufs, out_spec)
         self._graph = graph
+        note_compile()
         self.pool_bytes = int(r1 - r0)
         self.capture_s = monotonic() - t0
         self.compile_s += self.capture_s

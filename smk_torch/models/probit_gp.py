@@ -269,15 +269,15 @@ def mtm_proposal_eps(generator: torch.Generator, shape, family: str, *,
     z / sqrt((z_1^2 + z_2^2 + z_3^2) / 3) from four normals (exact for
     an integer df, and no gamma sampler is needed); "mixture" a 50/50
     scale mixture z * (8 if u < 0.5 else 1)."""
-    opts = dict(generator=generator, dtype=dtype, device=device)
+    opts = dict(dtype=dtype, device=device)
     if family == "gaussian":
-        return torch.randn(shape, **opts)
+        return torch.randn(shape, generator=generator, **opts)
     if family == "student_t":
-        z = torch.randn((_MTM_T_DF + 1,) + tuple(shape), **opts)
+        z = torch.randn((_MTM_T_DF + 1,) + tuple(shape), generator=generator, **opts)
         return z[0] / torch.sqrt(torch.sum(z[1:] * z[1:], dim=0) / _MTM_T_DF)
     if family == "mixture":
-        z = torch.randn(shape, **opts)
-        wide = torch.rand(shape, **opts) < 0.5
+        z = torch.randn(shape, generator=generator, **opts)
+        wide = torch.rand(shape, generator=generator, **opts) < 0.5
         return z * torch.where(wide, _MTM_MIX_WIDE, 1.0).to(dtype)
     raise ValueError(f"unknown phi_proposal_family {family!r}")
 
@@ -1164,11 +1164,14 @@ class SpatialGPSampler:
                 cache = tick(cache, 1)
                 s = chol_solve(chol_s, rhs_vec)
                 u[:, :, j] = u_star + (s_mat @ s[..., None])[..., 0] - d_vec * s
+            elif chol_s is None:
+                chol_s, _, r0 = self._shifted_chol_one(consts, phi[:, j], mask,
+                                                       jit_eff + d_vec)
+                cache = tick(cache, 1)
+                s = chol_solve(chol_s, rhs_vec)
+                u[:, :, j] = u_star + (r0 @ s[..., None])[..., 0] + jit_eff * s
             else:
                 r0 = self._masked_corr_one(consts, phi[:, j], mask)
-                if chol_s is None:
-                    chol_s = shifted_cholesky(r0, jit_eff + d_vec)
-                    cache = tick(cache, 1)
                 s = chol_solve(chol_s, rhs_vec)
                 u[:, :, j] = u_star + (r0 @ s[..., None])[..., 0] + jit_eff * s
             del chol_s
@@ -1344,6 +1347,7 @@ class SpatialGPSampler:
             return host.pin_memory().to(device, non_blocking=True)
         return host
 
+    # smklint: captured
     def _sweeps(self, data: SubsetData, consts: BuildConsts, state: SamplerState, noise_at,
                 gains: Optional[torch.Tensor], it0: int, n_iters: int, collect: bool):
         """Sweeps it0 .. it0 + n_iters - 1: the one body of the eager
@@ -1453,6 +1457,7 @@ class SpatialGPSampler:
         # graphs and their memory go when the model does
         ref = weakref.ref(self)
 
+        # smklint: captured
         def fn(data, consts, state, noise, gains, guard):
             model = ref()
             held = model.guard_rejects
@@ -1536,3 +1541,9 @@ class SpatialGPSampler:
             w_ess=torch.sum(masked_effective_sample_size(chains_w, chain_mask), dim=1),
             w_rhat=masked_rhat(chains_w, row_mask),
         )
+
+
+# The twin's aliases: the probit name of the sampler, and the factor
+# cache under its former name.
+SpatialProbitGP = SpatialGPSampler
+SolveCache = FactorCache

@@ -49,8 +49,7 @@ class JsonlWriter:
         self.path = path
         parent = os.path.dirname(os.path.abspath(path))
         os.makedirs(parent, exist_ok=True)
-        # flush-per-record and read_jsonl's torn-line tolerance are the
-        # atomicity model: a temp file and rename would break tailing
+        # smklint: disable=SMK113 -- the reporter is the blessed append-atomic writer: flush-per-record and read_jsonl's torn-line tolerance are its atomicity model; a temp file and rename would break tailing
         self._f = open(path, "a" if append else "w", encoding="utf-8")
         self._lock = threading.Lock()
         self._closed = False

@@ -31,9 +31,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from smk_torch.analysis.sanitizers import note_compile
+from smk_torch.utils.tracing import monotonic
 
 # library name -> (source file under smk_torch/csrc, its own nvcc flags):
 # the correlation build's float32 and float64 entry points are one
@@ -162,7 +164,7 @@ def build(names: Optional[Iterable[str]] = None, store=None) -> Dict[str, dict]:
                 _compile_cmd(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True,
             ),
-            tmp, target, time.perf_counter(),
+            tmp, target, monotonic(),
         )
     failures = []
     for name, (proc, tmp, target, start) in procs.items():
@@ -173,13 +175,14 @@ def build(names: Optional[Iterable[str]] = None, store=None) -> Dict[str, dict]:
             stdout, stderr = proc.communicate()
             failures.append(f"{name}: nvcc ran over {BUILD_TIMEOUT_S} s\n{stdout}{stderr}")
             continue
-        secs = time.perf_counter() - start
+        secs = monotonic() - start
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{stdout}{stderr}")
             continue
         os.replace(tmp, target)
         ORIGIN[name] = "fresh"
         NVCC_RUNS[name] = NVCC_RUNS.get(name, 0) + 1
+        note_compile()
         if store is not None:
             store.save(store_key(name), target.read_bytes())
         report[name] = {"seconds": secs, "ptxas": stderr, "origin": "fresh"}

@@ -20,11 +20,12 @@ def _linspace(start: float, stop: float, num: int, dtype, device) -> torch.Tenso
     if num == 1:
         return torch.full((1,), start, dtype=dtype, device=device)
     div = num - 1
-    step = torch.arange(div, dtype=dtype, device=device) / torch.tensor(
-        div, dtype=dtype, device=device
+    # the scalars are filled on the device (no host upload to wait on)
+    step = torch.arange(div, dtype=dtype, device=device) / torch.full(
+        (), div, dtype=dtype, device=device
     )
-    lo = torch.tensor(start, dtype=dtype, device=device)
-    hi = torch.tensor(stop, dtype=dtype, device=device)
+    lo = torch.full((), start, dtype=dtype, device=device)
+    hi = torch.full((), stop, dtype=dtype, device=device)
     out = lo * (1 - step) + hi * step
     return torch.cat([out, hi[None]])
 

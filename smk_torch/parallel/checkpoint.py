@@ -63,6 +63,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from smk_torch.analysis.sanitizers import explicit_d2h
 from smk_torch.parallel.distributed import CollectiveTimeoutError, allgather_bytes, barrier_sync
 from smk_torch.parallel.domains import FailureDomainMap
 from smk_torch.utils.checkpoint import (
@@ -211,7 +212,8 @@ class LocalShardSnapshot:
     def get(self):
         for ev in self._events:
             ev.synchronize()
-        return local_tree_np(self._tree)
+        with explicit_d2h("host_snapshot", nbytes=self.nbytes):
+            return local_tree_np(self._tree)
 
 
 def fetch_global(local, layout: ShardLayout, *, timeout_s: float = 120.0,
@@ -221,7 +223,8 @@ def fetch_global(local, layout: ShardLayout, *, timeout_s: float = 120.0,
     subset) through one bounded all-gather on the store; every process
     calls in the same order. The one-shard layout returns ``local`` as
     numpy. A dead peer is a typed CollectiveTimeoutError."""
-    arr = to_numpy(local)
+    with explicit_d2h(tag, nbytes=local_tree_nbytes(local)):
+        arr = to_numpy(local)
     if layout.n_processes == 1:
         return arr
     a, b = layout.rows
@@ -336,12 +339,14 @@ def distributed_run_identity(cfg, noise, data, beta_init, layout: ShardLayout, *
                           np.uint32)
     leaves = [("noise", row_crcs, a * c, (layout.k * c,), True)]
     for name, leaf, sharded in zip(data._fields, data, (True,) * 4 + (False,) * 2):
-        arr = _host_array(leaf)
+        with explicit_d2h("run_identity"):
+            arr = _host_array(leaf)
         shape = ((layout.k,) + arr.shape[1:]) if sharded else arr.shape
         row = int(np.prod(arr.shape[1:], dtype=np.int64)) if arr.ndim else 1
         leaves.append((name, arr, a * row, shape, sharded))
     if beta_init is not None:
-        arr = _host_array(beta_init)
+        with explicit_d2h("run_identity"):
+            arr = _host_array(beta_init)
         leaves.append(("beta", arr, 0, arr.shape, False))
     sums = []
     for _, arr, offset, _, sharded in leaves:

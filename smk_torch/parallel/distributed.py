@@ -42,6 +42,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from smk_torch.utils.tracing import monotonic
+
 
 class DistributedInitError(RuntimeError):
     """Base of the ``init_distributed`` error taxonomy."""
@@ -313,8 +315,8 @@ def destroy_distributed(timeout_s: float = 60.0) -> None:
         if process_index() != 0:
             store.add(key, 1)
         else:
-            deadline = time.monotonic() + float(timeout_s)
-            while store.add(key, 0) < process_count() - 1 and time.monotonic() < deadline:
+            deadline = monotonic() + float(timeout_s)
+            while store.add(key, 0) < process_count() - 1 and monotonic() < deadline:
                 time.sleep(0.01)
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()

@@ -21,7 +21,6 @@ are the unmeshed run's.
 from __future__ import annotations
 
 import copy
-import json
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -218,6 +217,10 @@ class Mesh:
         me = process_index()
         return [e for e in self.entries if e.process_index == me]
 
+    def local(self) -> "Mesh":
+        """The mesh of this process's entries alone, on the same axis."""
+        return Mesh(self.local_entries(), self.axis_names)
+
     @property
     def home(self) -> torch.device:
         """The device of this process's first entry: where the executor
@@ -395,6 +398,7 @@ def run_per_device(jobs: Sequence[tuple]) -> list:
                                              torch.device(jobs[ids[0]][0])))
                 for ids in groups.values()]
         for f in futs:
+            # smklint: disable=SMK111 -- one chunk's dispatch per entry; an armed chunk watchdog bounds the whole call from outside (parallel/domains.ChunkWatchdog)
             f.result()
     return out
 

@@ -102,6 +102,7 @@ from smk_torch.obs.streaming import (
     make_stream_update,
     make_stream_update_masked,
 )
+from smk_torch.analysis.sanitizers import explicit_d2h, explicit_h2d
 from smk_torch.parallel import checkpoint as dist_ckpt
 from smk_torch.parallel.checkpoint import identity_config_repr
 from smk_torch.parallel.domains import ChunkWatchdog, FailureDomainMap
@@ -211,7 +212,8 @@ def _leaf_fingerprint(leaf: torch.Tensor) -> int:
     """CRC of a tensor's shape, dtype and every byte (the data leaves are
     O(n) in size: one fetch at the start of a checkpointed run)."""
     h = zlib.crc32(repr((tuple(leaf.shape), str(leaf.dtype))).encode())
-    raw = leaf.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+    with explicit_d2h("run_identity"):
+        raw = leaf.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
     return zlib.crc32(raw.tobytes(), h)
 
 
@@ -326,11 +328,19 @@ def _host_state(state: SamplerState) -> _HostState:
     return _HostState(SamplerState(*(v.cpu().numpy() for v in views)), layout)
 
 
-def _device_state(host: _HostState, device) -> SamplerState:
-    """A manifest's state on ``device``, each leaf with its saved layout."""
-    return SamplerState(*(
-        torch.as_tensor(np.asarray(a), device=device).permute(*np.argsort(p).tolist())
-        for a, p in zip(host.arrays, host.layout)))
+def _snapshot_state(state: SamplerState) -> _HostState:
+    """:func:`_host_state` as a sanctioned host snapshot."""
+    with explicit_d2h("host_snapshot", nbytes=_state_nbytes(state)):
+        return _host_state(state)
+
+
+def _device_state(host: _HostState, device, tag: str = "checkpoint_restore") -> SamplerState:
+    """A manifest's state on ``device``, each leaf with its saved layout
+    (a sanctioned upload, ``tag`` in the sanitizers' ledger)."""
+    with explicit_h2d(tag, nbytes=sum(np.asarray(a).nbytes for a in host.arrays)):
+        return SamplerState(*(
+            torch.as_tensor(np.asarray(a), device=device).permute(*np.argsort(p).tolist())
+            for a, p in zip(host.arrays, host.layout)))
 
 
 def _row_axis(perm) -> int:
@@ -1215,11 +1225,6 @@ def _on_mesh(model, part, coords_test, x_test, noise, beta_init, domain_map, mes
     if chunk_size is not None:
         # each step runs chunk_size subsets over the whole mesh
         require_divisible_layout(chunk_size, mesh.size, what="chunk_size")
-    if cfg.adaptive_schedule == "on" and mesh.size > 1:
-        raise NotImplementedError(
-            "adaptive_schedule='on' over a mesh of more than one entry is not ported to "
-            "smk_torch (its compaction replans the group onto a sub-mesh); run the fixed "
-            "schedule on the mesh, or the adaptive one on one entry")
     home = mesh.home
     part = Partition(*(t.to(home) for t in part))
     coords_test, x_test = coords_test.to(home), x_test.to(home)
@@ -1262,6 +1267,12 @@ def _fit_subsets_chunked_impl(
         raise ValueError(f"chunk_iters must be >= 1, got {chunk_iters}")
     k_key = part.n_subsets  # the K of the bucket keys: the whole run's
     c = cfg.n_chains
+    if cfg.adaptive_schedule == "on" and mesh is not None and mesh.multi_process:
+        raise NotImplementedError(
+            "adaptive_schedule='on' is not supported on a multi-process mesh: each process "
+            "holds only its own subsets, so its scheduler would decide freezes and extra "
+            "chunks over those alone, not over all K as the one-process run does — run the "
+            "fixed schedule, or the adaptive schedule on one process's mesh")
     if mesh is not None:
         part, coords_test, x_test, noise, beta_init, domain_map = _on_mesh(
             model, part, coords_test, x_test, noise, beta_init, domain_map, mesh,
@@ -1303,7 +1314,10 @@ def _fit_subsets_chunked_impl(
                 "changes it mid-run — drop chunk_size or run the fixed schedule"
             )
         _require(noise, ("rows",), "adaptive_schedule='on'")
-        sched = AdaptiveScheduler(cfg, k=k, n_kept=n_kept, chunk_iters=chunk_iters)
+        # under a mesh every compaction rung is a device multiple, so a
+        # compacted group runs over the whole (unchanged) mesh
+        sched = AdaptiveScheduler(cfg, k=k, n_kept=n_kept, chunk_iters=chunk_iters,
+                                  n_devices=mesh.size if mesh is not None else 1)
         n_cap = sched.n_cap
     else:
         sched = None
@@ -1353,7 +1367,10 @@ def _fit_subsets_chunked_impl(
     ck = None
 
     def draws_np(filled):
-        return param_draws[:, :filled].cpu().numpy(), w_draws[:, :filled].cpu().numpy()
+        # the sanctioned full fetch of the filled draws region: only the
+        # degraded writer's recovery and a resume's compaction pay it
+        with explicit_d2h("checkpoint_full_rewrite"):
+            return param_draws[:, :filled].cpu().numpy(), w_draws[:, :filled].cpu().numpy()
 
     if use_v8:
         layout = dist_ckpt.ShardLayout.current(k_key, mesh)
@@ -1410,8 +1427,9 @@ def _fit_subsets_chunked_impl(
         state = _device_state(host, dev)
         noise.restore(loaded["noise"])
         if loaded["param"] is not None:
-            param_draws[:, :filled] = torch.as_tensor(loaded["param"], device=dev)
-            w_draws[:, :filled] = torch.as_tensor(loaded["w"], device=dev)
+            with explicit_h2d("checkpoint_restore"):
+                param_draws[:, :filled] = torch.as_tensor(loaded["param"], device=dev)
+                w_draws[:, :filled] = torch.as_tensor(loaded["w"], device=dev)
         del loaded
     elif checkpoint_path is not None and os.path.exists(checkpoint_path):
         like = {
@@ -1472,8 +1490,9 @@ def _fit_subsets_chunked_impl(
         state = _device_state(host, dev)
         noise.restore(ckpt["noise"])
         if filled > 0:
-            param_draws[:, :filled] = torch.as_tensor(param_np, device=dev)
-            w_draws[:, :filled] = torch.as_tensor(w_np, device=dev)
+            with explicit_h2d("checkpoint_restore", nbytes=param_np.nbytes + w_np.nbytes):
+                param_draws[:, :filled] = torch.as_tensor(param_np, device=dev)
+                w_draws[:, :filled] = torch.as_tensor(w_np, device=dev)
         ck.adopt(seg_base, n_seg, filled)
         if n_seg > 1 and not holes:
             # compacting a holed region would bake its zeros into a clean
@@ -1523,7 +1542,11 @@ def _fit_subsets_chunked_impl(
         nonlocal state_full, full_fresh
         if full_fresh or not members:
             return
-        live = _host_state(state) if staged is None else staged
+        if staged is None:
+            with explicit_d2h("adaptive_state_merge"):
+                live = _host_state(state)
+        else:
+            live = staged
         if state_full is None:  # the first merge: the group is the whole run
             # a staged copy lives in a buffer the next boundary refills
             state_full = live if staged is None else _HostState(
@@ -1541,7 +1564,8 @@ def _fit_subsets_chunked_impl(
             return
         if guard_full is None:
             guard_full = torch.zeros(k * c, dtype=model.guard_rejects.dtype, device=dev)
-        rows_t = torch.as_tensor(batch_rows(slots), device=dev)
+        with explicit_h2d("adaptive_regroup"):
+            rows_t = torch.as_tensor(batch_rows(slots), device=dev)
         guard_full[rows_t] = model.guard_rejects[:rows_t.numel()]
 
     def set_write_group():
@@ -1552,13 +1576,14 @@ def _fit_subsets_chunked_impl(
         frozen = sched.frozen
         writing = [(r, j) for r, j in enumerate(members) if not frozen[j]]
         write_members = tuple(j for _, j in writing)
-        write_src = torch.as_tensor(batch_rows([r for r, _ in writing]), dtype=torch.long,
-                                    device=dev)
-        write_dst = torch.as_tensor(batch_rows([j for _, j in writing]), dtype=torch.long,
-                                    device=dev)
         wm = np.zeros(k, bool)
         wm[list(write_members)] = True
-        write_mask_dev = torch.as_tensor(wm, device=dev)
+        with explicit_h2d("adaptive_regroup"):
+            write_src = torch.as_tensor(batch_rows([r for r, _ in writing]), dtype=torch.long,
+                                        device=dev)
+            write_dst = torch.as_tensor(batch_rows([j for _, j in writing]), dtype=torch.long,
+                                        device=dev)
+            write_mask_dev = torch.as_tensor(wm, device=dev)
 
     def apply_group(new_members):
         """(Re)form the dispatch group from ``state_full``: the state and
@@ -1580,19 +1605,32 @@ def _fit_subsets_chunked_impl(
         rows = np.asarray(batch_rows(group), np.int64)
         gathered = [np.take(full, rows, axis=_row_axis(fp))
                     for full, fp in zip(state_full.arrays, state_full.layout)]
-        state = _device_state(_HostState(SamplerState(*gathered), state_full.layout), dev)
-        sel = torch.as_tensor(group, device=dev)
+        state = _device_state(_HostState(SamplerState(*gathered), state_full.layout), dev,
+                              tag="adaptive_regroup")
+        with explicit_h2d("adaptive_regroup"):
+            sel = torch.as_tensor(group, device=dev)
+            rows_dev = torch.as_tensor(rows, device=dev)
         gdata = data._replace(coords=data.coords[sel], x=data.x[sel], y=data.y[sel],
                               mask=data.mask[sel])
         g_cdata = model.chain_data(gdata)
         chunk_noise = _PaddedNoise(noise.rows(batch_rows(members)), (kc - len(members)) * c, c)
-        pieces = [_Piece(0, kc * c, g_cdata, model._consts(g_cdata), chunk_noise,
-                         ctx._replace(k=kc))]
+        # the compacted group over the same pieces the fixed schedule
+        # uses: on a mesh, kc (a device multiple) laid over every entry
+        pieces = _pieces(model, g_cdata, chunk_noise, kc, c, None, ctx._replace(k=kc))
         if guard_full is not None:
-            model.guard_rejects = guard_full[torch.as_tensor(rows, device=dev)]
+            model.guard_rejects = guard_full[rows_dev]
         set_write_group()
         full_fresh = True
         regroup_s.append(monotonic() - t0)
+        if mesh is not None:
+            # the shrunken group replanned onto the unchanged mesh: kc is
+            # a device multiple, so the plan is one full-mesh entry; the
+            # rung's pad waste is reported apart from the m-axis pad
+            mplan = plan_ragged_mesh([m_sub], [kc], mesh.size)
+            if run_log is not None:
+                run_log.event("adaptive_mesh_replan", kc=kc, n_active=len(members),
+                              entries=len(mplan.entries),
+                              rung_pad_waste_frac=(kc - len(members)) / kc if kc else 0.0)
 
     if adaptive:
         if holes:
@@ -1802,7 +1840,8 @@ def _fit_subsets_chunked_impl(
             deferred, dropped = dropped, []
             dom_deferred, dom_dropped = dom_dropped, []
         elif (dropped or dom_dropped) and b["index"] == len(plan) - 1:
-            draws_ok = _subset_draws_finite(param_draws, w_draws, c)
+            with explicit_d2h("terminal_guard", nbytes=k):
+                draws_ok = _subset_draws_finite(param_draws, w_draws, c)
             spared = [j for j in dropped if draws_ok[j]]
             if spared:
                 deferred += spared
@@ -1912,6 +1951,8 @@ def _fit_subsets_chunked_impl(
             vec = [program(_stats_key(model, kc, m_sub, q_dim, p_dim, mesh=mesh), _chunk_stats)(state, c)]
             if live is not None:
                 vec += [live[0].to(dtype), live[1].to(dtype)]
+            # one pinned copy behind an event; the boundary reads it
+            # under the twin's tags (chunk_stats, streaming_stats)
             stats, ev_stats = _to_host_async(torch.cat(vec))
         if kind == "burn" and it_end == n_burn:
             # post-burn-in acceptance accounting, after the stats (the
@@ -1921,6 +1962,7 @@ def _fit_subsets_chunked_impl(
         filled = max(0, it_end - n_burn)
         d2h = stats.numel() * esize if stats is not None else 0
         slot = state_np = seg = noise_np = None
+        snap_bytes = []
         wait_s = 0.0
         if save:
             # under the adaptive schedule this is the group's state: the
@@ -1930,7 +1972,12 @@ def _fit_subsets_chunked_impl(
             if kind in ("samp", "extra"):
                 tensors += [param_draws[:, w_ofs:w_ofs + n], w_draws[:, w_ofs:w_ofs + n]]
             slot, arrays, wait_s = staging.take(tensors, staging_cap)
-            d2h += sum(t.numel() * t.element_size() for t in tensors)
+            sizes = [t.numel() * t.element_size() for t in tensors]
+            d2h += sum(sizes)
+            # the twin's host snapshots: the state, and a sampling
+            # chunk's draw segment
+            snap_bytes = [sum(sizes[:len(state)])] + (
+                [sum(sizes[len(state):])] if len(sizes) > len(state) else [])
             state_np = _HostState(SamplerState(*arrays[:len(state)]), layout)
             if kind in ("samp", "extra"):
                 seg = (arrays[-2], arrays[-1], w_ofs, w_ofs + n)
@@ -1944,6 +1991,7 @@ def _fit_subsets_chunked_impl(
             "stats": stats, "ev_stats": ev_stats, "ev_state": ev_state, "ev_start": ev_start,
             "k_stats": kc, "live": live is not None, "stream_prev": stream_prev,
             "save": save, "slot": slot, "state_np": state_np, "seg": seg,
+            "snap_bytes": snap_bytes,
             "noise_np": noise_np, "filled": filled, "held": held,
             "guards_before": guards_before, "wait_s": wait_s, "d2h_bytes": d2h,
             "dispatch_s": monotonic() - t0 - wait_s,
@@ -2014,8 +2062,12 @@ def _fit_subsets_chunked_impl(
             if b["ev_start"] is not None:
                 entry["device_s"] = b["ev_start"].elapsed_time(b["ev_state"]) / 1e3
         if b["stats"] is not None:
-            stats = b["stats"].numpy()
             ks = b["k_stats"]
+            with contextlib.ExitStack() as fetch:
+                fetch.enter_context(explicit_d2h("chunk_stats", nbytes=(ks + 1) * esize))
+                if b["live"]:
+                    fetch.enter_context(explicit_d2h("streaming_stats", nbytes=2 * k * esize))
+                stats = b["stats"].numpy()
             finite = stats[:ks] > 0.5
             if adaptive:
                 # the guard covers the group's rows: a frozen rider or a
@@ -2075,8 +2127,12 @@ def _fit_subsets_chunked_impl(
                 report(b["phase"], b["it"], b["window_start"], stats[ks], live=live_vals)
         if b["save"]:
             merge_staged(b, entry)
-            entry.update(ck.save(b["state_np"], b["noise_np"], b["seg"], b["it"],
-                                 b["filled"]))
+            with contextlib.ExitStack() as snaps:
+                # the save reads the boundary's staged host snapshots
+                for nb in b["snap_bytes"]:
+                    snaps.enter_context(explicit_d2h("host_snapshot", nbytes=nb))
+                entry.update(ck.save(b["state_np"], b["noise_np"], b["seg"], b["it"],
+                                     b["filled"]))
             job = entry.pop("ckpt_job", 0)
             if job:
                 staging.claim(b["slot"], job)
@@ -2117,7 +2173,9 @@ def _fit_subsets_chunked_impl(
         chunk_noise.restore(held_noise)
         chunk_noise.fork(row_mask, np.repeat(attempts[grp], c))
         refork = program(_refork_key(model, len(grp), m_sub, q_dim, p_dim, mesh=mesh), _refork)
-        state = refork(held_state, torch.as_tensor(row_mask, device=dev), half)
+        with explicit_h2d("quarantine_refork"):
+            row_mask_dev = torch.as_tensor(row_mask, device=dev)
+        state = refork(held_state, row_mask_dev, half)
         full_fresh = False
         if stream is not None:
             stream = b["stream_prev"]
@@ -2211,7 +2269,7 @@ def _fit_subsets_chunked_impl(
                     break
         if writer is not None:
             t0 = monotonic()
-            ck.ensure_synced(lambda: _host_state(state), noise.snapshot(), it,
+            ck.ensure_synced(lambda: _snapshot_state(state), noise.snapshot(), it,
                              max(0, it - n_burn))
             if pstats is not None:
                 drain_s = monotonic() - t0
@@ -2222,12 +2280,14 @@ def _fit_subsets_chunked_impl(
             # the refill wrote out of order and saved nothing: publish the
             # whole kept region as one checksummed segment (a process's
             # rows of it in a fresh generation, under format 8)
-            if use_v8:
-                ck.rewrite_full_from_device(state, noise.snapshot(), param_draws.cpu().numpy(),
-                                            w_draws.cpu().numpy(), cfg.n_samples, n_kept)
-            else:
-                ck.rewrite_full(_host_state(state), noise.snapshot(), param_draws.cpu().numpy(),
-                                w_draws.cpu().numpy(), cfg.n_samples, n_kept)
+            with explicit_d2h("checkpoint_full_rewrite"):
+                p_np, w_np = param_draws.cpu().numpy(), w_draws.cpu().numpy()
+                if use_v8:
+                    ck.rewrite_full_from_device(state, noise.snapshot(), p_np, w_np,
+                                                cfg.n_samples, n_kept)
+                else:
+                    ck.rewrite_full(_host_state(state), noise.snapshot(), p_np, w_np,
+                                    cfg.n_samples, n_kept)
     finally:
         if prof is not None:
             prof.close()
@@ -2256,12 +2316,14 @@ def _fit_subsets_chunked_impl(
         # the finalize reads phi_accept alone: the departed subsets' rows
         # from the host mirror, the last group's from its live state
         live = members or last_group
-        rows_t = torch.as_tensor(batch_rows(live), device=dev)
+        with explicit_h2d("adaptive_regroup"):
+            rows_t = torch.as_tensor(batch_rows(live), device=dev)
         if state_full is None:  # never regrouped: the group is the run
             accept = state.phi_accept[:rows_t.numel()].clone()
         else:
             i_acc = SamplerState._fields.index("phi_accept")
-            accept = _logical(state_full.arrays[i_acc], state_full.layout[i_acc]).to(dev)
+            with explicit_h2d("adaptive_regroup"):
+                accept = _logical(state_full.arrays[i_acc], state_full.layout[i_acc]).to(dev)
             if live and not full_fresh:
                 accept[rows_t] = state.phi_accept[:rows_t.numel()]
         if live:

@@ -311,7 +311,7 @@ def commit_generation(gen_dir: str, generation: int, *, meta: Optional[dict] = N
         "generation": int(generation),
         "artifact": name,
         "format": ARTIFACT_VERSION,
-        # a wall-clock provenance stamp, not a duration
+        # smklint: disable=SMK110 -- a wall-clock provenance stamp in the durable manifest (operators correlate generations with outside logs), not a duration; monotonic() has no epoch
         "published_at": time.time(),
     }
     if meta:

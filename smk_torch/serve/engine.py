@@ -435,6 +435,7 @@ class PredictionEngine:
         cov_model, link, var_floor = a.cov_model, a.link, a.var_floor()
         probs = self._probs
 
+        # smklint: captured
         def fn(chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, eps):
             ps = _krige_predict_core(
                 chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, eps,
@@ -447,6 +448,7 @@ class PredictionEngine:
 
     @staticmethod
     def _build_guard(u: int):
+        # smklint: captured
         def fn(ps):
             # per-row finiteness of the (S, u, q) draws: a separate small
             # program, u bools home per slice
@@ -487,6 +489,7 @@ class PredictionEngine:
         cov_model, link, var_floor = a.cov_model, a.link, a.var_floor()
         row_noise, dt, dev, probs = self._row_noise, self._dtype, self.device, self._probs
 
+        # smklint: captured
         def fn(chol_tt, w_test, betas, phi, coords_test, coords_q, x_q, row_seed, row_idx):
             eps = row_noise(row_seed, row_idx, (s, q), dt, dev)
             ps = _krige_predict_core(
@@ -607,7 +610,7 @@ class PredictionEngine:
         budget = DeadlineBudget(
             deadline_s if deadline_s is not None else self.default_deadline_s
         )
-        # a zero-wait poll: a full waiting room sheds at once
+        # smklint: disable=SMK111 -- blocking=False is a zero-wait poll: a full waiting room sheds at once, stricter than any timeout
         if not self._queue_sem.acquire(blocking=False):
             self._count("requests_shed")
             raise QueueFullError(self.max_queue)

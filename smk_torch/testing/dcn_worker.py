@@ -160,13 +160,12 @@ def _ckpt_mode(mesh, out) -> bool:
     whether the process must leave without the group's goodbye (a
     killed process, or a peer of one)."""
     import contextlib
-    import time
     import warnings
 
     from smk_torch.parallel.checkpoint import CkptCommitError, ShardLayout, fetch_global
     from smk_torch.parallel.recovery import ProgressAbort
     from smk_torch.testing.faults import SimulatedKill, kill_process_at_generation
-    from smk_torch.utils.tracing import ChunkPipelineStats
+    from smk_torch.utils.tracing import ChunkPipelineStats, monotonic
 
     class Stop(ProgressAbort):
         pass
@@ -189,7 +188,7 @@ def _ckpt_mode(mesh, out) -> bool:
     kill = (kill_process_at_generation(int(kill_gen)) if kill_gen and out["process_id"] == 0
             else contextlib.nullcontext())
     pstats = ChunkPipelineStats()
-    t0 = time.monotonic()
+    t0 = monotonic()
     try:
         with warnings.catch_warnings(record=True) as caught, kill:
             warnings.simplefilter("always")
@@ -214,7 +213,7 @@ def _ckpt_mode(mesh, out) -> bool:
         out.update(outcome="killed", error=str(e)[:120])
     except CkptCommitError as e:
         out.update(outcome="commit_abort", error=str(e)[:200])
-    out.update(elapsed_s=time.monotonic() - t0, generations=pstats.ckpt_generations,
+    out.update(elapsed_s=monotonic() - t0, generations=pstats.ckpt_generations,
                ckpt_commit_s=round(pstats.ckpt_commit_s, 4),
                final_generation=_manifest_field(path, "generation"))
     return out["outcome"] in ("killed", "commit_abort")

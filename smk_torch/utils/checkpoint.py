@@ -282,6 +282,7 @@ class BackgroundWriter:
         pending jobs write, and a deadline here would trade a visible
         hang for a torn checkpoint. :meth:`close` is the bounded exit."""
         if self._started:
+            # smklint: disable=SMK111 -- the drain is unbounded by contract (a deadline here trades a visible hang for a torn checkpoint); close() is the bounded exit
             self._q.join()
 
     def _drain_bounded(self, timeout_s: float) -> bool:

@@ -23,13 +23,31 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
 
 import torch
+from torch.utils._pytree import tree_flatten
 
+from smk_torch.analysis.sanitizers import explicit_wait
 from smk_torch.device import sync
 
 
 def monotonic() -> float:
     """The telemetry clock: monotonic seconds, as the twin's."""
     return time.perf_counter()
+
+
+def device_sync(tree: Any) -> None:
+    """Wait for the queued work of every CUDA device a tensor of ``tree``
+    lives on (twin of ``device_sync``, whose ``block_until_ready`` this
+    stream sync replaces); a no-op for host tensors. Inside
+    analysis.sanitizers.transfer_guard_strict it is a sanctioned wait,
+    ledgered apart from the transfers (tag "device_sync", direction
+    "wait")."""
+    devices = {leaf.device for leaf in tree_flatten(tree)[0]
+               if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda"}
+    if not devices:
+        return
+    with explicit_wait("device_sync"):
+        for dev in sorted(devices, key=str):
+            sync(dev)
 
 
 @dataclass
@@ -58,7 +76,8 @@ def phase_timer(
         yield
     finally:
         if device is not None:
-            sync(device)
+            with explicit_wait("device_sync"):
+                sync(device)
         if span is not None:
             span.__exit__(None, None, None)
         times.record(name, monotonic() - start)

@@ -22,14 +22,23 @@ then fits.
 - ``sharded_cholesky`` and ``sharded_matvec`` on 8 entries against the
   twin's and against ``blocked_cholesky``.
 - The kernel wrapper launches on its output's device.
+- The adaptive schedule over a mesh (A9c): the twin's adaptive problem
+  on a 2-entry mesh against the twin's meshed fit, draw for draw by the
+  replayed keys (frozen_at, kept counts, every rung even, the fields at
+  the sweep tolerance, the ``adaptive_mesh_replan`` events equal); on 4
+  entries (K = 8, scripted statistics, the port's own noise) the
+  executor's consults replayed in the twin's AdaptiveScheduler
+  (n_devices=4), decision for decision, and each replan event against
+  the twin's rung and planner.
 
-Two twin fits (one meshed fit a module fixture); the rest is host math
-or port fits at n <= 200.
+Three twin fits (each a module fixture); the rest is host math or port
+fits at n <= 200.
 """
 
-# smklint: test-budget=two JAX meshed reference fits (n=200: 8 sweeps over 8 virtual devices, ~10 s; a coherent ragged mesh fit, 16 sweeps, ~20 s), each in a module fixture; the rest is host integer math or port fits at n <= 200 (about a second each)
+# smklint: test-budget=three JAX meshed reference fits (n=200: 8 sweeps over 8 virtual devices, ~10 s; a coherent ragged mesh fit, 16 sweeps, ~20 s; the adaptive problem on 2 devices, ~25 s), each in a module fixture; the rest is host integer math or port fits at n <= 200 (about a second each)
 import contextlib
 import json
+import os
 import types
 
 import jax
@@ -406,10 +415,179 @@ def test_meshed_chunked_layout_checks_and_refusals():
     with pytest.raises(executor.SubsetLayoutError, match="chunk_size"):
         recovery.fit_subsets_chunked(model, part, ct, xt, chunk_iters=4, mesh=_port_mesh(4),
                                      chunk_size=2)
+    # the adaptive schedule runs over a mesh of more than one entry now
+    # (A9c); its refusal of chunk_size stays, on a mesh as off one
     adaptive = tp.SpatialGPSampler(SMKConfig(n_subsets=KSUB, n_samples=8,
                                              live_diagnostics=True, adaptive_schedule="on"))
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        recovery.fit_subsets_chunked(adaptive, part, ct, xt, chunk_iters=4, mesh=_port_mesh(2))
+    res = recovery.fit_subsets_chunked(adaptive, part, ct, xt, chunk_iters=4,
+                                       mesh=_port_mesh(2))
+    assert torch.isfinite(res.param_grid).all()
+    with pytest.raises(ValueError, match="incompatible with chunk_size"):
+        recovery.fit_subsets_chunked(adaptive, part, ct, xt, chunk_iters=4, mesh=_port_mesh(2),
+                                     chunk_size=4)
+
+
+def test_adaptive_on_a_multi_process_mesh_is_refused():
+    """Each process of a multi-process mesh holds only its own subsets,
+    so a scheduler per process would decide over its rows alone: the
+    adaptive schedule is refused there (the fixed schedule runs), before
+    the executor touches the process group."""
+    part, ct, xt = _chunked_problem()
+    cpu = torch.device("cpu")
+    mesh = executor.Mesh([executor.MeshEntry(i, cpu, i // 2, "cpu") for i in range(4)],
+                         ("subsets",))
+    assert mesh.multi_process
+    adaptive = tp.SpatialGPSampler(SMKConfig(n_subsets=KSUB, n_samples=8,
+                                             live_diagnostics=True, adaptive_schedule="on"))
+    with pytest.raises(NotImplementedError, match="multi-process mesh"):
+        recovery.fit_subsets_chunked(adaptive, part, ct, xt, chunk_iters=4, mesh=mesh)
+
+
+# -- the adaptive schedule over a mesh (A9c) ----------------------------------
+def _replans(path, name="adaptive_mesh_replan"):
+    from smk_torch.obs.reporter import read_jsonl
+
+    return [r["attrs"] for r in read_jsonl(path)
+            if r.get("kind") == "event" and r.get("name") == name]
+
+
+def _log_path(log_dir):
+    (name,) = os.listdir(log_dir)
+    return os.path.join(log_dir, name)
+
+
+@pytest.fixture(scope="module")
+def adaptive_meshed(tmp_path_factory):
+    """The twin's adaptive integration problem (n = 64, K = 4, m = 16,
+    two chains, 80 sweeps in chunks of 10) on a 2-entry mesh: one twin
+    fit on its forced CPU mesh, the port's on two virtual CPU entries fed
+    the replayed JAX keys, and the port's unmeshed fit."""
+    from test_torch_adaptive import ADAPT, _port_fit, _twin_fit, _twin_problem
+
+    prob = _twin_problem(64, 4)
+    jdir, pdir = tmp_path_factory.mktemp("jlog"), tmp_path_factory.mktemp("plog")
+    twin = _twin_fit(prob, dict(ADAPT, run_log_dir=str(jdir)), mesh=_twin_mesh(2))
+    port = _port_fit(prob, dict(ADAPT, run_log_dir=str(pdir)), mesh=_port_mesh(2))
+    plain = _port_fit(prob, ADAPT)
+    return {"twin": twin, "port": port, "plain": plain,
+            "twin_log": _log_path(str(jdir)), "port_log": _log_path(str(pdir))}
+
+
+def test_adaptive_fit_on_two_entries_matches_twin(adaptive_meshed):
+    from test_torch_adaptive import FIELDS
+
+    (twin_res, twin_stats), (port_res, port_stats) = adaptive_meshed["twin"], \
+        adaptive_meshed["port"]
+    ja, pa = twin_stats.adaptive, port_stats.adaptive
+    for key in ("frozen_at", "kept_counts", "subset_chunks_dispatched",
+                "subset_chunks_baseline", "chunks_saved_frac", "extra_granted", "n_frozen"):
+        assert pa[key] == ja[key], key
+    # every rung a device multiple: the dispatch groups are even
+    assert {ch["kc"] for ch in port_stats.chunks if "kc" in ch} <= {0, 2, 4}
+    for f in FIELDS:
+        got = getattr(port_res, f).numpy()
+        want = np.asarray(getattr(twin_res, f))
+        np.testing.assert_allclose(got, want.reshape(got.shape), equal_nan=True, err_msg=f,
+                                   **TOL)
+    # the replan events, with the twin's keys and values
+    assert _replans(adaptive_meshed["port_log"]) == _replans(adaptive_meshed["twin_log"])
+
+
+def test_adaptive_rungs_on_two_entries_differ_from_the_unmeshed_ladder(adaptive_meshed):
+    """On one entry the ladder compacts 4 -> 3 -> ...; on two every rung
+    is even, so the meshed schedule is its own (the twin's) and not the
+    unmeshed one's."""
+    port_stats, plain_stats = adaptive_meshed["port"][1], adaptive_meshed["plain"][1]
+    meshed_rungs = {ch["kc"] for ch in port_stats.chunks if "kc" in ch}
+    plain_rungs = {ch["kc"] for ch in plain_stats.chunks if "kc" in ch}
+    assert all(r % 2 == 0 for r in meshed_rungs)
+    assert meshed_rungs != plain_rungs
+
+
+def _recording(base, script, log):
+    """The scheduler with the live R-hat replaced by ``script`` (the
+    twin's budget-freeze-and-reopen scenario); every observe (its
+    arguments and decision) and mark_stopped call is logged in order."""
+    class Recording(base):
+        def observe(self, **kw):
+            step = getattr(self, "_step", 0)
+            self._step = step + 1
+            kw["rhat_max"] = np.asarray(script[step], np.float64)
+            kw["ess_min"] = np.full(8, 99.0)
+            log.append(("observe", dict(kw)))
+            dec = super().observe(**kw)
+            log.append(("decision", dec))
+            return dec
+
+        def mark_stopped(self, ids, it):
+            log.append(("mark_stopped", (list(ids), it)))
+            return super().mark_stopped(ids, it)
+    return Recording
+
+
+def test_adaptive_on_four_entries_replays_in_the_twins_scheduler(tmp_path):
+    """K = 8 on a 4-entry mesh, the scheduler scripted (the port's own
+    noise; no twin fit): the boundaries the executor consulted, replayed
+    on the host in the twin's AdaptiveScheduler(n_devices=4), give the
+    same decisions and summary; each compaction of a live group is one
+    replan event whose kc is the twin's rung and whose plan is the
+    twin's planner's (one full-mesh entry)."""
+    from smk_tpu.config import SMKConfig as JaxConfig
+    from smk_tpu.parallel import schedule as jsched
+    from smk_torch.parallel import schedule as tsched
+    from test_torch_adaptive import BAD, CHUNK, GOOD, REOPEN, _dec
+
+    # five subsets converge at the first boundary (8 -> 3 live: the
+    # rung 4 on four entries), two more at the second, the last one
+    # needs an extra chunk
+    script = [[GOOD] * 5 + [BAD] * 3, [1] * 5 + [GOOD, GOOD, BAD]] + [[1] * 7 + [BAD]] * 2 + [
+        [1] * 7 + [GOOD]] * 4
+
+    rng = np.random.default_rng(11)
+    n, t = 64, 5
+    f = torch.float32
+    coords = torch.tensor(rng.uniform(size=(n, 2)), dtype=f)
+    x = torch.tensor(rng.normal(size=(n, 1, 2)), dtype=f)
+    y = torch.tensor(rng.integers(0, 2, size=(n, 1)), dtype=f)
+    ct = torch.tensor(rng.uniform(size=(t, 2)), dtype=f)
+    xt = torch.tensor(rng.normal(size=(t, 1, 2)), dtype=f)
+    g = torch.Generator()
+    g.manual_seed(0)
+    part = partition.random_partition(partition.random_permutation(g, n, "cpu"), y, x,
+                                      coords, 8)
+    cfg = SMKConfig(**dict(REOPEN, run_log_dir=str(tmp_path)))
+    model = tp.SpatialGPSampler(cfg)
+    noise = model.default_noise(recovery.stacked_subset_data(part, ct, xt), seed=5)
+    log, stats = [], ChunkPipelineStats()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(recovery, "AdaptiveScheduler",
+                   _recording(tsched.AdaptiveScheduler, script, log))
+        res = recovery.fit_subsets_chunked(model, part, ct, xt, noise, chunk_iters=CHUNK,
+                                           pipeline_stats=stats, mesh=_port_mesh(4))
+    assert torch.isfinite(res.param_grid).all()
+    twin = jsched.AdaptiveScheduler(JaxConfig(**REOPEN), k=8, n_kept=40, chunk_iters=CHUNK,
+                                    n_devices=4)
+    n_obs = 0
+    for i, (kind, val) in enumerate(log):
+        if kind == "observe":
+            got = _dec(twin.observe(**val))
+            assert got == _dec(log[i + 1][1]), i
+            n_obs += 1
+        elif kind == "mark_stopped":
+            twin.mark_stopped(*val)
+    assert 3 <= n_obs < len(script)
+    summary = twin.summary()
+    assert {key: stats.adaptive[key] for key in summary} == summary
+    path = _log_path(str(tmp_path))
+    comps = [e for e in _replans(path, "adaptive_compaction") if e["n_active"] > 0]
+    replans = _replans(path)
+    assert len(comps) >= 1 and len(replans) == len(comps)
+    for comp, ev in zip(comps, replans):
+        kc, n_active = ev["kc"], ev["n_active"]
+        assert (kc, n_active) == (comp["kc"], comp["n_active"])
+        assert kc == twin.rung(n_active) and kc % 4 == 0
+        assert ev["entries"] == len(jbuckets.plan_ragged_mesh([8], [kc], 4).entries) == 1
+        assert ev["rung_pad_waste_frac"] == (kc - n_active) / kc
 
 
 def test_precompile_on_a_mesh_leaves_the_fit_nothing_to_acquire():
