@@ -368,6 +368,23 @@ H100, so every mesh here has one entry):
               live group; then fit_adaptive_small's K = 8, m = 200 case
               (where compactions happen) unmeshed and on make_mesh(1),
               the same checks.
+33f. r_frontend_config4 — the eBird user driving the port from R
+              (r/meta_kriging_torch.R, backend = "gpu"), its call sequence
+              replayed in Python with the R file's conversions and
+              keywords (no R runtime here): meta_kriging_binary at
+              config4 (the production sampler through config.overrides,
+              logit, 32 sweeps) bitwise a direct fit_meta_kriging of the
+              same seed and config, launches == build_calls; then
+              smk.live.fit, smk.ingest of 256 rows into subset 0,
+              smk.refit (dirty: launches == one group's build_calls) and
+              smk.predict.serve of 32 rows on the published generation
+              (0 build launches); each call's wall.
+33g. adaptive_dist_config5 — fit_adaptive_config5's adaptive run (c)
+              over make_mesh() of a real NCCL process group of one:
+              bitwise the unmeshed (c) in every held field, frozen_at,
+              chunks_saved_frac and extra_granted equal, launches == its
+              dispatched chunks', one decision gather over the group a
+              sampling boundary (their count and median ms).
 34. sharded_chol — one (3906, 3906) fp32 SPD matrix on the 1-entry
               mesh: sharded_cholesky against blocked_cholesky (block 512),
               the difference, both residuals and device times;
@@ -3769,7 +3786,9 @@ def fit_adaptive_config5(device, c5_data, tmp):
     out["launches_by_kernel"] = runs["c_adaptive"]["launches_by_kernel"]
     emit(out)
     # (c)'s draws on the host, for adaptive_mesh_config5 (not printed)
-    out["c_result"] = {"fields": _adaptive_fields(rc), "frozen_at": list(sc.adaptive["frozen_at"])}
+    out["c_result"] = {"fields": _adaptive_fields(rc), "frozen_at": list(sc.adaptive["frozen_at"]),
+                       "chunks_saved_frac": sc.adaptive["chunks_saved_frac"],
+                       "extra_granted": sc.adaptive["extra_granted"]}
     return out
 
 
@@ -5074,6 +5093,261 @@ def adaptive_mesh_config5(device, c5_data, ad5, tmp):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 33f: r_frontend_config4 (r/meta_kriging_torch.R replayed)
+# ----------------------------------------------------------------------
+def _r_aperm(mats):
+    """R's aperm(simplify2array(list of q n x p matrices), c(1, 3, 2)):
+    the (n, q, p) stack."""
+    import numpy as np
+
+    return np.transpose(np.stack(mats, axis=-1), (0, 2, 1))
+
+
+def _r_to_r(a):
+    """The R file's .smk.to_r: a tensor comes home from its device."""
+    import numpy as np
+
+    return np.asarray(a.detach().cpu().numpy() if hasattr(a, "cpu") else a)
+
+
+def r_meta_kriging_binary(y, x, coords, coords_test, x_test, *, n_core, n_samples, link,
+                          fused_build, seed, config_overrides, backend="gpu"):
+    """meta_kriging_binary of r/meta_kriging_torch.R, step for step, at
+    the R defaults of every argument not given: the layout conversions
+    (y a list of q vectors, x and x_test lists of q (n, p) matrices), the
+    modifyList config merge, the fit call's keywords (``seed`` an
+    integer, ``device`` the backend's), and the returned list. Returns
+    (the R list as a dict, the config, the Python result)."""
+    import numpy as np
+    import smk_torch as smk
+
+    y_arr = np.column_stack([np.asarray(v, np.float64) for v in y])
+    x_arr, xt_arr = _r_aperm(x), _r_aperm(x_test)
+    cfg_args = dict(
+        n_subsets=int(n_core), n_samples=int(n_samples), burn_in_frac=0.75,
+        cov_model="exponential", combiner="wasserstein_mean", link=link, phi_proposals=1,
+        phi_proposal_family="gaussian", fused_build=fused_build, subset_engine="dense",
+        n_neighbors=16, build_dtype="float32", partition_method="random", bucket_ladder=None,
+        chunk_pipeline="sync", adaptive_schedule="off", target_rhat=1.05, target_ess=100.0,
+        adapt_max_extra_frac=0.5, fault_policy="abort", fault_max_retries=2, watchdog=False,
+        dist_init_timeout_s=120.0, ckpt_commit_timeout_s=120.0, compile_store_dir=None,
+        run_log_dir=None, priors=smk.PriorConfig(a_prior="invwishart"))
+    cfg = smk.SMKConfig(**{**cfg_args, **config_overrides})
+    res = smk.fit_meta_kriging(
+        *(np.asarray(a, np.float32) for a in (y_arr, x_arr, coords, coords_test, xt_arr)),
+        config=cfg, weight=1, seed=int(seed), device="cuda" if backend == "gpu" else "cpu")
+    out = {name: _r_to_r(getattr(res, f)) for name, f in (
+        ("result", "param_grid"), ("result2", "w_grid"), ("SamplePar", "sample_par"),
+        ("Samplew", "sample_w"), ("p.sample", "p_samples"), ("param.quant", "param_quant"),
+        ("w.quant", "w_quant"), ("p.quant", "p_quant"), ("phi.accept", "phi_accept_rate"),
+        ("ess", "param_ess"), ("rhat", "param_rhat"), ("w.ess", "w_ess"),
+        ("w.rhat", "w_rhat"))}
+    from smk_torch.api import param_names
+
+    out.update({"ess.per.sec": res.latent_ess_per_sec, "phases": dict(res.phase_seconds),
+                "param.names": param_names(len(y), x[0].shape[1])})
+    return out, cfg, res
+
+
+def r_frontend_config4(device, c4_data, tmp):
+    """The eBird user at config4 (bench.py:2666-2674: n = 65,536 + 64,
+    K = 64, m = 1024, q = 2, p = 3, logit) driving the port through
+    r/meta_kriging_torch.R with backend = "gpu", the production sampler
+    through config.overrides, 32 sweeps. No R runtime runs here: each
+    call is replayed with the R file's conversions and keywords
+    (r_meta_kriging_binary; the live calls inline).
+
+    1. meta_kriging_binary: bitwise a direct fit_meta_kriging of the same
+       seed and config (every result field), its config equal to the
+       direct one, launches == build_calls, every output finite.
+    2. smk.live.fit (coherent, the same knobs; generation 0),
+       smk.ingest of 256 rows into subset 0 (copies of its own sites,
+       fresh y and x), smk.refit (dirty: subset 0 alone, generation 1,
+       launches == one refit group's build_calls) and smk.predict.serve
+       of 32 rows on generation 1's artifact (0 build launches, finite,
+       p in [0, 1]).
+    Each call's wall and launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from smk_torch import SMKConfig, fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.serve import LiveFit, PredictionEngine, generation_artifact_name
+
+    y, x, coords, ct, xt = c4_data
+    y_l = [np.asarray(y[:, j], np.float64) for j in range(C4_Q)]
+    x_l = [np.asarray(x[:, j, :], np.float64) for j in range(C4_Q)]
+    xt_l = [np.asarray(xt[:, j, :], np.float64) for j in range(C4_Q)]
+    prod = production_config(k=C4_K, n_samples=32, link="logit", phi_every=8)
+    overrides = {f: getattr(prod, f) for f in (
+        "phi_sampler", "phi_update_every", "u_solver", "cg_precond", "cg_precond_rank",
+        "cg_iters", "cg_matvec_dtype", "trisolve_block_size")}
+    out = {"phase": "r_frontend_config4", "n": y.shape[0], "K": C4_K, "q": C4_Q, "p": C4_P,
+           "t": C4_T, "n_samples": 32, "config_overrides": overrides}
+    walls, launches = {}, {}
+
+    backend = "gpu" if device.type == "cuda" else "cpu"  # "cpu": a rehearsal off the card
+
+    def timed(name, fn):
+        fb.reset_counts()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = dict(fb.LAUNCHES)
+        return got
+
+    r_out, cfg, res = timed("meta_kriging_binary", lambda: r_meta_kriging_binary(
+        y_l, x_l, coords, ct, xt_l, n_core=C4_K, n_samples=32, link="logit",
+        fused_build="pallas", seed=SEED, config_overrides=overrides, backend=backend))
+    by_kernel = launches_by_kernel()
+    direct_cfg = dataclasses.replace(prod, burn_in_frac=0.75)
+    check(cfg == direct_cfg, f"r_frontend: the R call's config differs {cfg} {direct_cfg}")
+    want = build_calls(cfg, C4_Q, cfg.n_samples, cfg.n_burn_in)
+    check(launches["meta_kriging_binary"] == want,
+          f"r_frontend: launches {launches['meta_kriging_binary']} != {want}")
+    direct = timed("direct_fit", lambda: fit_meta_kriging(
+        *(np.asarray(a, np.float32) for a in c4_data), config=direct_cfg, weight=1, seed=SEED,
+        device=device))
+    same = every_field_bitwise(res, direct)
+    out["bitwise_direct"] = same
+    check(all(same.values()), f"r_frontend: the R call is not bitwise the direct fit {same}")
+    check(all(np.isfinite(v).all() for k, v in r_out.items()
+              if isinstance(v, np.ndarray) and k not in ("rhat", "w.rhat")),
+          "r_frontend: a non-finite output")
+    check(r_out["param.names"][0] == "beta[0,0]" and len(r_out["param.names"]) ==
+          r_out["result"].shape[1], "r_frontend: param.names")
+    r_launches, r_by_kernel = launches["meta_kriging_binary"], by_kernel
+    del res, direct
+    # the live loop from R: smk.live.fit (its config: the R function's
+    # keywords, the production knobs and fused.build through
+    # config.overrides), smk.ingest, smk.refit, smk.predict.serve
+    gen_dir = os.path.join(tmp, "r_frontend_config4")
+    live_cfg = SMKConfig(**{**dict(
+        n_subsets=C4_K, n_samples=32, burn_in_frac=0.75, cov_model="exponential",
+        combiner="wasserstein_mean", link="logit", partition_method="coherent",
+        bucket_ladder=None, run_log_dir=None), **overrides, "fused_build": "pallas"})
+    live = LiveFit(gen_dir, config=live_cfg, coords_test=np.asarray(ct, np.float64),
+                   x_test=_r_aperm(xt_l).astype(np.float64), weight=1, device=device)
+    manifest = timed("smk.live.fit", lambda: live.fit(
+        SEED, np.column_stack(y_l), _r_aperm(x_l), np.asarray(coords, np.float64)))
+    check(manifest["generation"] == 0, f"r_frontend: live fit {manifest}")
+    own = np.asarray(live._assignments[0][:INGEST_ROWS], np.int64)
+    nrng = np.random.default_rng(SEED)
+    y_new = [nrng.integers(0, 2, size=len(own)).astype(np.float64) for _ in range(C4_Q)]
+    x_new = [nrng.normal(size=(len(own), C4_P)) for _ in range(C4_Q)]
+    receipt = timed("smk.ingest", lambda: live.ingest(
+        np.column_stack(y_new), coords_new=np.asarray(live._coords[own], np.float64),
+        x_new=_r_aperm(x_new)))
+    check(receipt.dirty_subsets == (0,) and receipt.generation == 0,
+          f"r_frontend: ingest {receipt}")
+    report = timed("smk.refit", lambda: live.refit(1, full=False))
+    check(report.generation == 1 and report.refit_subsets == (0,) and not report.skipped,
+          f"r_frontend: refit {report}")
+    want_refit = build_calls(live_cfg, C4_Q, live_cfg.n_samples, live_cfg.n_burn_in,
+                             chunk_iters=live.chunk_iters or 500)
+    check(launches["smk.refit"] == want_refit,
+          f"r_frontend: refit launches {launches['smk.refit']} != {want_refit}")
+    art = os.path.join(gen_dir, generation_artifact_name(report.generation))
+    rows = np.random.default_rng(SEED + 17).choice(y.shape[0], SERVE_ROWS, replace=False)
+    eng = timed("engine", lambda: PredictionEngine(art, device=device))
+    resp = timed("smk.predict.serve", lambda: eng.predict(
+        np.asarray(coords[rows], np.float32),
+        _r_aperm([np.asarray(x[rows, j, :]) for j in range(C4_Q)]).astype(np.float32),
+        seed=0))
+    pq = _r_to_r(resp.p_quant)
+    check(pq.shape == (3, SERVE_ROWS, C4_Q) and np.isfinite(pq).all()
+          and ((pq >= 0) & (pq <= 1)).all() and not resp.rows_degraded.any(),
+          "r_frontend: serve response")
+    check(sum(launches["smk.predict.serve"].values()) == 0,
+          f"r_frontend: serving launched builds {launches['smk.predict.serve']}")
+    out.update(backend=backend, walls_s=walls, launches_by_call=launches, launches=r_launches,
+               launches_expected=want, launches_by_kernel=r_by_kernel,
+               refit={"generation": report.generation, "refit_subsets": list(report.refit_subsets),
+                      "refit_wall_s": report.refit_wall_s},
+               serve={"latency_s": resp.latency_s, "buckets": list(resp.buckets)},
+               nvidia_smi=nvidia_smi_line())
+    del eng, live
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 33g: adaptive_dist_config5 (the adaptive schedule in a process group)
+# ----------------------------------------------------------------------
+def adaptive_dist_config5(device, c5_data, ad5, tmp):
+    """fit_adaptive_config5's adaptive run (c) over make_mesh() of a real
+    NCCL process group of one (dist_world_of_one's recipe): each sampling
+    boundary's statistics are gathered over the group before the
+    scheduler folds them. Bitwise the unmeshed (c) in every held field,
+    frozen_at, chunks_saved_frac and extra_granted equal; launches ==
+    its dispatched chunks'; one gather a sampling boundary, their count
+    and median ms."""
+    import warnings
+
+    import torch
+    import torch.distributed as tdist
+    from smk_torch import fit_meta_kriging
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.parallel import distributed as D
+    from smk_torch.parallel.executor import make_mesh
+    from smk_torch.testing.faults import flaky_coordinator
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    ref = ad5["c_result"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with flaky_coordinator(2, passthrough=True) as ctr:
+            D.init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0,
+                               device=device, backoff_s=0.01, timeout_s=60.0)
+    try:
+        check(D.backend_name() == "nccl", f"adaptive_dist: backend {D.backend_name()}")
+        mesh = make_mesh(device=device)
+        cfg = adaptive_config(k=MAIN_K, n_samples=ADAPT_SAMPLES, n_chains=2, adaptive=True,
+                              live=True, run_log_dir=os.path.join(tmp, "log_c_adaptive_dist"))
+        stats = ChunkPipelineStats()
+        fb.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_meta_kriging(*c5_data, config=cfg, seed=SEED, device=device,
+                               chunk_iters=ADAPT_CHUNK, pipeline_stats=stats, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        D.destroy_distributed()
+    check(not tdist.is_initialized(), "adaptive_dist: the process group survived")
+    launches = dict(fb.LAUNCHES)
+    want = dispatched_build_calls(cfg, 1, stats.chunks)
+    check(launches == want, f"adaptive_dist: launches {launches} != {want}")
+    ad = stats.adaptive
+    same = {f: same_bits(v, ref["fields"][f]) for f, v in _adaptive_fields(res).items()}
+    check(all(same.values()) and list(ad["frozen_at"]) == ref["frozen_at"]
+          and ad["chunks_saved_frac"] == ref["chunks_saved_frac"]
+          and ad["extra_granted"] == ref["extra_granted"],
+          f"adaptive_dist: not bitwise the unmeshed (c) {same}")
+    gathers = ad.get("decision_gather_s", [])
+    consults = sum(1 for ch in stats.chunks if ch["phase"] in ("sample", "extra"))
+    check(len(gathers) >= 1 and len(gathers) == consults,
+          f"adaptive_dist: {len(gathers)} gathers for {consults} sampling boundaries")
+    out = {"phase": "adaptive_dist_config5", "mesh": repr(mesh), "init_calls": ctr["calls"],
+           "K": MAIN_K, "m": MAIN_M, "n_samples": ADAPT_SAMPLES, "chunk_iters": ADAPT_CHUNK,
+           "wall_s": wall, "bitwise_unmeshed": same, "frozen_at": list(ad["frozen_at"]),
+           "chunks_saved_frac": ad["chunks_saved_frac"], "extra_granted": ad["extra_granted"],
+           "decision_gathers": len(gathers),
+           "decision_gather_ms_median": statistics.median(gathers) * 1e3,
+           "decision_gather_ms_max": max(gathers) * 1e3,
+           "launches": launches, "launches_expected": want,
+           "launches_by_kernel": launches_by_kernel(), "nvidia_smi": nvidia_smi_line()}
+    emit(out)
+    return out
+
+
 def sharded_chol(device):
     """parallel/sharded_chol on the 1-entry mesh: a (3906, 3906) fp32 SPD
     matrix (an exponential correlation at phi = 6 plus 1e-3 I on config5's
@@ -5941,7 +6215,9 @@ def main() -> int:
         csv4 = phase("data_csv_config4", data_csv_config4, device, tmp)
         an5 = phase("analysis_config5", analysis_config5, device, c5_data, tmp)
         am5 = phase("adaptive_mesh_config5", adaptive_mesh_config5, device, c5_data, ad5, tmp)
+        ad5d = phase("adaptive_dist_config5", adaptive_dist_config5, device, c5_data, ad5, tmp)
         del ad5["c_result"]
+        rf4 = phase("r_frontend_config4", r_frontend_config4, device, c4_data, tmp)
         phase("sharded_chol", sharded_chol, device)
         phase("thread_launch", thread_launch, device)
     finally:
@@ -5957,7 +6233,8 @@ def main() -> int:
              "fit_adaptive_config5": ad5, "fit_adaptive_small": ads,
              "fit_profile_config5": pr5, "mesh_config5": m5, "mesh_coherent_config4": mc4,
              "dist_world_of_one": d1, "dist_ckpt_config5": dc5, "data_csv_config4": csv4,
-             "analysis_config5": an5, "adaptive_mesh_config5": am5}
+             "analysis_config5": an5, "adaptive_mesh_config5": am5,
+             "adaptive_dist_config5": ad5d, "r_frontend_config4": rf4}
 
     f64_time = f64["main_path"]
     f64_kernels = (("symmetric kernel, float64", "symmetric_f64", "fused_masked_correlation_stack"),

@@ -5,7 +5,9 @@ A JAX fit's sampler state, factor cache, partition and subset grids can
 be picked up by the port — to continue a chain on the card, or to
 combine and predict from a JAX fit (api.combine / api.resample_predict). The JAX
 PRNG key has no counterpart: the port's randomness comes from its own
-generators, seeded anew.
+generators, seeded anew. Like every entry point of the port, each
+function here puts its tensors on the CUDA device unless it is given
+``device`` (``device="cpu"`` for the CPU), and raises with no card.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from smk_torch.device import resolve_device
 from smk_torch.models.probit_gp import SamplerState, subset_generators
 from smk_torch.ops.factor_cache import FactorCache, empty_counter
 from smk_torch.parallel.partition import Partition
@@ -38,7 +41,7 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 
 def sampler_state_from_numpy(
-    state, *, seed: int = 0, device="cpu"
+    state, *, seed: int = 0, device=None
 ) -> Tuple[SamplerState, List[torch.Generator]]:
     """A K-stacked JAX ``SamplerState`` (a NamedTuple or a dict of its
     arrays, leading K axis on every field; a multi-chain state has a
@@ -47,6 +50,7 @@ def sampler_state_from_numpy(
     place of the JAX key. ``chol_r`` is carried with whatever trailing
     shape it has: the dense factor (q, m, m), or under the Vecchia
     engine the packed coefficients (q, m, nn+1)."""
+    device = resolve_device(device)
     out = SamplerState(
         **{f: _tensor(_field(state, f), device) for f in _STATE_FIELDS}
     )
@@ -60,12 +64,13 @@ def sampler_state_from_numpy(
     return out, subset_generators(seed, out.beta.shape[0], device)
 
 
-def factor_cache_from_numpy(cache, *, device="cpu") -> FactorCache:
+def factor_cache_from_numpy(cache, *, device=None) -> FactorCache:
     """A K-stacked JAX ``FactorCache`` (or a dict of its arrays; None
     fields stay None) as the port's. A bf16 ``r_mv`` comes out of JAX
     as an ml_dtypes bfloat16 array, which ``torch.as_tensor`` does not
     take: it goes through float32, exact both ways. The counters start
     at zero, as at a scan entry."""
+    device = resolve_device(device)
 
     def arr(name):
         a = _field(cache, name)
@@ -83,8 +88,9 @@ def factor_cache_from_numpy(cache, *, device="cpu") -> FactorCache:
     )
 
 
-def partition_from_numpy(part, *, device="cpu") -> Partition:
+def partition_from_numpy(part, *, device=None) -> Partition:
     """A JAX ``Partition`` (or a dict of its arrays) as the port's."""
+    device = resolve_device(device)
     return Partition(
         y=_tensor(_field(part, "y"), device),
         x=_tensor(_field(part, "x"), device),
@@ -95,11 +101,12 @@ def partition_from_numpy(part, *, device="cpu") -> Partition:
 
 
 def grids_from_numpy(
-    param_grid, w_grid, *, device="cpu"
+    param_grid, w_grid, *, device=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(K, n_q, d) subset quantile grids of a JAX fit
     (``SubsetResult.param_grid`` / ``w_grid``) as tensors, ready for
     api.combine."""
+    device = resolve_device(device)
     pg, wg = _tensor(param_grid, device), _tensor(w_grid, device)
     if pg.dim() != 3 or wg.dim() != 3 or pg.shape[:2] != wg.shape[:2]:
         raise ValueError(
@@ -109,7 +116,7 @@ def grids_from_numpy(
     return pg, wg
 
 
-def meta_kriging_result_from_numpy(result, *, device="cpu"):
+def meta_kriging_result_from_numpy(result, *, device=None):
     """A JAX ``MetaKrigingResult`` (or a dict of its fields) as the
     port's :class:`~smk_torch.api.MetaKrigingResult`: every array as a
     tensor on ``device``, ``subset_results`` as the port's SubsetResult,
@@ -117,6 +124,8 @@ def meta_kriging_result_from_numpy(result, *, device="cpu"):
     sites from, or save a serving artifact of, a JAX fit."""
     from smk_torch.api import MetaKrigingResult
     from smk_torch.models.probit_gp import SubsetResult
+
+    device = resolve_device(device)
 
     def conv(value):
         if value is None or isinstance(value, (str, float, int, tuple, dict)):

@@ -9,17 +9,16 @@ import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``device`` as a ``torch.device``; None means the CUDA device, and
-    raises when there is none (pass ``device="cpu"`` to run the plain
-    PyTorch versions on the CPU, as the tests do)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device`` as a ``torch.device``; None means the CUDA device. None
+    or a CUDA device raises when there is no card (pass ``device="cpu"``
+    to run the plain PyTorch versions on the CPU, as the tests do)."""
+    dev = None if device is None else torch.device(device)
+    if (dev is None or dev.type == "cuda") and not torch.cuda.is_available():
         raise RuntimeError(
             "smk_torch runs on the CUDA device and none is available; "
             "pass device='cpu' to run on the CPU"
         )
-    return torch.device("cuda", torch.cuda.current_device())
+    return dev if dev is not None else torch.device("cuda", torch.cuda.current_device())
 
 
 def sync(device: torch.device) -> None:

@@ -42,7 +42,12 @@ the carried state, then guards, reports and checkpoints:
   slots buy extra chunks for the stragglers. Its state is the ``sched``
   sidecar, written before each manifest, so a kill resumes the same
   schedule bitwise; the finalize is masked (models/probit_gp
-  ``finalize_masked``);
+  ``finalize_masked``). Over a multi-process mesh every process holds
+  the same scheduler over all K: each boundary's (K,) statistics and
+  guard verdicts are gathered over the process group (one
+  ``allgather_bytes`` a boundary, a world of one included), every
+  process applies the same decision, and each regroups its own
+  survivors onto a rung over its own entries;
 - ``run_log_dir`` writes the fit's run log (obs/events.py): spans for
   the chunk loop and the finalize, and events for the plan, the chunks,
   the faults, the checkpoint writes, the watchdog, the live diagnostics,
@@ -106,8 +111,10 @@ from smk_torch.analysis.sanitizers import explicit_d2h, explicit_h2d
 from smk_torch.parallel import checkpoint as dist_ckpt
 from smk_torch.parallel.checkpoint import identity_config_repr
 from smk_torch.parallel.domains import ChunkWatchdog, FailureDomainMap
-from smk_torch.compile.buckets import plan_ragged_mesh
+from smk_torch.compile.buckets import compaction_rung, plan_ragged_mesh
+from smk_torch.parallel import distributed
 from smk_torch.parallel.executor import (
+    all_process_row_ranges,
     fits_layout,
     model_on,
     process_row_range,
@@ -1267,17 +1274,14 @@ def _fit_subsets_chunked_impl(
         raise ValueError(f"chunk_iters must be >= 1, got {chunk_iters}")
     k_key = part.n_subsets  # the K of the bucket keys: the whole run's
     c = cfg.n_chains
-    if cfg.adaptive_schedule == "on" and mesh is not None and mesh.multi_process:
-        raise NotImplementedError(
-            "adaptive_schedule='on' is not supported on a multi-process mesh: each process "
-            "holds only its own subsets, so its scheduler would decide freezes and extra "
-            "chunks over those alone, not over all K as the one-process run does — run the "
-            "fixed schedule, or the adaptive schedule on one process's mesh")
     if mesh is not None:
         part, coords_test, x_test, noise, beta_init, domain_map = _on_mesh(
             model, part, coords_test, x_test, noise, beta_init, domain_map, mesh,
             chunk_size=chunk_size)
     k = part.n_subsets
+    # this process's first subset in the run's numbering (0 but on a
+    # multi-process mesh, where k is this process's rows of the K)
+    lo = process_row_range(k_key, mesh)[0] if mesh is not None else 0
     data = stacked_subset_data(part, coords_test, x_test)
     dev, dtype = part.x.device, part.x.dtype
     if noise is None:
@@ -1314,9 +1318,10 @@ def _fit_subsets_chunked_impl(
                 "changes it mid-run — drop chunk_size or run the fixed schedule"
             )
         _require(noise, ("rows",), "adaptive_schedule='on'")
-        # under a mesh every compaction rung is a device multiple, so a
-        # compacted group runs over the whole (unchanged) mesh
-        sched = AdaptiveScheduler(cfg, k=k, n_kept=n_kept, chunk_iters=chunk_iters,
+        # one scheduler over all K on every process: under a mesh every
+        # compaction rung is a device multiple, the rung its budget
+        # ledger charges whatever the layout of the group
+        sched = AdaptiveScheduler(cfg, k=k_key, n_kept=n_kept, chunk_iters=chunk_iters,
                                   n_devices=mesh.size if mesh is not None else 1)
         n_cap = sched.n_cap
     else:
@@ -1518,8 +1523,21 @@ def _fit_subsets_chunked_impl(
     # it stopped and a rider's advances), and a pad is fed its first
     # member's numbers (_PaddedNoise), as the twin's pad carries a clone
     # of that member's key.
+    #
+    # The scheduler speaks the run's subset numbers (0..K-1) and charges
+    # the group's rung over the whole mesh (``g_members``, ``g_kc``,
+    # ``g_written``). On a multi-process mesh each process dispatches
+    # its own survivors alone (``members``, its row numbers), padded to a
+    # rung over its own entries (``kc``), which may be empty while
+    # another process samples on; with one process the two views are
+    # the same. Each boundary's statistics and guard verdicts are
+    # gathered over the process group whenever one is up, so every
+    # process folds the same (K,) vectors and applies the same decision.
     members: list = list(range(k))
     kc = k
+    g_members: list = list(range(k_key))
+    g_kc = k_key
+    g_written: tuple = tuple(range(k_key))
     chunk_noise = noise
     state_full: Optional[_HostState] = None
     full_fresh = False
@@ -1530,9 +1548,55 @@ def _fit_subsets_chunked_impl(
     adaptive_done = False
     sched_saved: list = [None]
     regroup_s: list = []
+    n_local_entries = len(mesh.local_entries()) if mesh is not None else 1
+    # the gather needs the mesh to span the job's processes (a world of
+    # one included); replicas that each fit a one-process mesh share nothing
+    gather_on = (adaptive and mesh is not None and distributed.backend_name() is not None
+                 and len(mesh.process_indices) == distributed.process_count())
+    ranges = all_process_row_ranges(k_key, mesh) if gather_on else [(0, k_key)]
+    gather_s: list = []
+    sweep_s = [0.0]  # the slowest sweep of this process's own chunks, dispatch to boundary
 
     def batch_rows(slots):
         return [j * c + ch for j in slots for ch in range(c)]
+
+    def local_rung(n_local: int) -> int:
+        # the twin's rung over this process's rows and entries (the
+        # scheduler's own rung when this process holds the whole run)
+        return compaction_rung(n_local, k, n_local_entries) if n_local else 0
+
+    def process_rungs() -> list:
+        """Each process's dispatch-group size for ``g_members``: its
+        survivors on a rung over its rows and entries."""
+        out = []
+        for p, (a, b_) in zip(mesh.process_indices, ranges):
+            n_p = sum(1 for j in g_members if a <= j < b_)
+            e_p = sum(1 for e in mesh.devices.flat if e.process_index == p)
+            out.append(compaction_rung(n_p, b_ - a, e_p) if n_p else 0)
+        return out
+
+    def boundary_gather(b, verdict: int, finite, live_rh, live_es):
+        """Boundary ``b``'s agreement over the process group: each
+        process's guard verdict (0 clean, 1 a quarantine rewind, 2 a
+        ``nan_guard`` abort), its rows' finite flags and its rows of the
+        streaming statistics (None at a boundary without them), each
+        placed in the run's subset order. Returns (the largest verdict,
+        the (K,) finite flags, R-hat and ESS). The wait is the commit
+        deadline (``ckpt_commit_timeout_s``) plus the chunk at this
+        process's slowest sweep: a process whose group has emptied waits
+        out a peer's whole chunk."""
+        t0 = monotonic()
+        mine = [[float(verdict)], finite] + ([] if live_rh is None else [live_rh, live_es])
+        parts = [np.frombuffer(b_, np.float64) for b_ in distributed.allgather_bytes(
+            "adaptive_boundary", np.concatenate(mine).astype(np.float64).tobytes(),
+            timeout_s=cfg.ckpt_commit_timeout_s + sweep_s[0] * b["n"])]
+        gather_s.append(monotonic() - t0)
+        out = np.full((3, k_key), np.nan)
+        for p_, (a, b_) in zip(parts, ranges):
+            cols = p_[1:].reshape(-1, b_ - a)
+            out[:len(cols), a:b_] = cols
+        return (int(max(p_[0] for p_ in parts)), out[0] > 0.5,
+                *((None, None) if live_rh is None else (out[1], out[2])))
 
     def merge_state_full(staged: Optional[_HostState] = None):
         """Bring ``state_full`` up to date with the group's member rows:
@@ -1572,9 +1636,10 @@ def _fit_subsets_chunked_impl(
         """The scatter's rows and the stream's mask for the current group:
         members that are not frozen write, pads and frozen riders do
         not."""
-        nonlocal write_members, write_dst, write_src, write_mask_dev
+        nonlocal write_members, write_dst, write_src, write_mask_dev, g_written
         frozen = sched.frozen
-        writing = [(r, j) for r, j in enumerate(members) if not frozen[j]]
+        g_written = tuple(j for j in g_members if not frozen[j])
+        writing = [(r, j) for r, j in enumerate(members) if not frozen[lo + j]]
         write_members = tuple(j for _, j in writing)
         wm = np.zeros(k, bool)
         wm[list(write_members)] = True
@@ -1587,50 +1652,71 @@ def _fit_subsets_chunked_impl(
 
     def apply_group(new_members):
         """(Re)form the dispatch group from ``state_full``: the state and
-        data rows of ``new_members`` padded to the rung with clones of
-        the first. A reopened subset resumes from its stop-time rows and
-        its stream from where it stopped."""
-        nonlocal state, pieces, members, kc, chunk_noise, full_fresh, last_group
+        data rows of this process's ``new_members`` (the run's subset
+        numbers) padded to the rung with clones of the first. A reopened
+        subset resumes from its stop-time rows and its stream from where
+        it stopped."""
+        nonlocal state, pieces, members, kc, chunk_noise, full_fresh, last_group, g_members
+        nonlocal g_kc
         t0 = monotonic()
-        if not new_members:
+        g_members = [int(j) for j in new_members]
+        g_kc = sched.rung(len(g_members)) if g_members else 0
+        if not g_members:
             # the run ends: the finalize reads this group's rows from the
             # live state, so nothing is fetched
             last_group, members, kc = list(members), [], 0
             regroup_s.append(monotonic() - t0)
             return
         merge_state_full()
-        members = [int(j) for j in new_members]
-        kc = sched.rung(len(members))
-        group = members + [members[0]] * (kc - len(members))
-        rows = np.asarray(batch_rows(group), np.int64)
-        gathered = [np.take(full, rows, axis=_row_axis(fp))
-                    for full, fp in zip(state_full.arrays, state_full.layout)]
-        state = _device_state(_HostState(SamplerState(*gathered), state_full.layout), dev,
-                              tag="adaptive_regroup")
-        with explicit_h2d("adaptive_regroup"):
-            sel = torch.as_tensor(group, device=dev)
-            rows_dev = torch.as_tensor(rows, device=dev)
-        gdata = data._replace(coords=data.coords[sel], x=data.x[sel], y=data.y[sel],
-                              mask=data.mask[sel])
-        g_cdata = model.chain_data(gdata)
-        chunk_noise = _PaddedNoise(noise.rows(batch_rows(members)), (kc - len(members)) * c, c)
-        # the compacted group over the same pieces the fixed schedule
-        # uses: on a mesh, kc (a device multiple) laid over every entry
-        pieces = _pieces(model, g_cdata, chunk_noise, kc, c, None, ctx._replace(k=kc))
-        if guard_full is not None:
-            model.guard_rejects = guard_full[rows_dev]
+        members = [j - lo for j in g_members if lo <= j < lo + k]
+        kc = local_rung(len(members))
+        if members:
+            group = members + [members[0]] * (kc - len(members))
+            rows = np.asarray(batch_rows(group), np.int64)
+            gathered = [np.take(full, rows, axis=_row_axis(fp))
+                        for full, fp in zip(state_full.arrays, state_full.layout)]
+            state = _device_state(_HostState(SamplerState(*gathered), state_full.layout), dev,
+                                  tag="adaptive_regroup")
+            with explicit_h2d("adaptive_regroup"):
+                sel = torch.as_tensor(group, device=dev)
+                rows_dev = torch.as_tensor(rows, device=dev)
+            gdata = data._replace(coords=data.coords[sel], x=data.x[sel], y=data.y[sel],
+                                  mask=data.mask[sel])
+            g_cdata = model.chain_data(gdata)
+            chunk_noise = _PaddedNoise(noise.rows(batch_rows(members)), (kc - len(members)) * c,
+                                       c)
+            # the compacted group over the same pieces the fixed schedule
+            # uses: on a mesh, kc (a multiple of this process's entries)
+            # laid over its entries
+            pieces = _pieces(model, g_cdata, chunk_noise, kc, c, None, ctx._replace(k=kc))
+            if guard_full is not None:
+                model.guard_rejects = guard_full[rows_dev]
+        else:
+            # every subset of this process has left the group while
+            # another process samples on: its rows wait in the host
+            # mirror, and its chunks dispatch nothing until a reopen
+            last_group, state, pieces = [], None, []
         set_write_group()
         full_fresh = True
         regroup_s.append(monotonic() - t0)
         if mesh is not None:
-            # the shrunken group replanned onto the unchanged mesh: kc is
-            # a device multiple, so the plan is one full-mesh entry; the
-            # rung's pad waste is reported apart from the m-axis pad
-            mplan = plan_ragged_mesh([m_sub], [kc], mesh.size)
+            # the shrunken group replanned onto the unchanged mesh: g_kc
+            # is a device multiple, so the plan is one full-mesh entry;
+            # the rung's pad waste (the rows its ledger charges) is
+            # reported apart from the m-axis pad. On a multi-process mesh
+            # each process dispatches its own survivors on its own rung:
+            # the rows dispatched and their pad waste are reported too
+            mplan = plan_ragged_mesh([m_sub], [g_kc], mesh.size)
             if run_log is not None:
-                run_log.event("adaptive_mesh_replan", kc=kc, n_active=len(members),
+                layout = {}
+                if mesh.multi_process:
+                    pk = process_rungs()
+                    layout = dict(process_kc=pk,
+                                  dispatch_pad_waste_frac=(sum(pk) - len(g_members)) / sum(pk))
+                run_log.event("adaptive_mesh_replan", kc=g_kc, n_active=len(g_members),
                               entries=len(mplan.entries),
-                              rung_pad_waste_frac=(kc - len(members)) / kc if kc else 0.0)
+                              rung_pad_waste_frac=(g_kc - len(g_members)) / g_kc,
+                              **layout)
 
     if adaptive:
         if holes:
@@ -1677,7 +1763,7 @@ def _fit_subsets_chunked_impl(
         # riders (frozen, no departure stamp) included
         group_now = sorted(set(sched.active_ids) | {
             int(j) for j in np.flatnonzero(sched.frozen) if sched.it_stopped[j] < 0})
-        if len(group_now) == k:
+        if len(group_now) == k_key:
             set_write_group()
         else:
             apply_group(group_now)
@@ -1712,7 +1798,7 @@ def _fit_subsets_chunked_impl(
         # sidecar (written before the manifest)
         for s_g, ln_g in sched.pending_extras(it):
             plan.append(("extra", s_g, ln_g, s_g - n_burn))
-        if not members:
+        if not g_members:
             plan = []  # every subset frozen at resume: straight to the finalize
     elif stop_after_chunks is not None and stop_after_chunks < len(plan):
         # (an adaptive plan grows at its grants: its stop is checked at
@@ -1742,7 +1828,7 @@ def _fit_subsets_chunked_impl(
                     ln = min(sched.l_extra, filled_now - ofs)
                 x = param_draws[:, ofs:ofs + ln].reshape(k, c, ln, d_par)
                 if adaptive:
-                    col = np.ascontiguousarray(sched.rows_valid[:, ofs])
+                    col = np.ascontiguousarray(sched.rows_valid[lo:lo + k, ofs])
                     stream = stream_update(stream, x, ofs, torch.as_tensor(col, device=dev))
                 else:
                     stream = stream_update(stream, x, ofs)
@@ -1914,12 +2000,13 @@ def _fit_subsets_chunked_impl(
         nonlocal state, it, stream, full_fresh
         t0 = monotonic()
         ev_start = _record_event(dev, timing=True) if pstats is not None else None
-        held = None
-        if policy_q:
+        held = draws = None
+        if policy_q and members:
             held = (SamplerState(*(t.clone() for t in state)), chunk_noise.snapshot())
         guards_before = model.guard_rejects
-        state, draws = _run_chunk(model, kind, pieces, state, start, n)
-        full_fresh = False
+        if members:  # an empty group (another process samples on) dispatches nothing
+            state, draws = _run_chunk(model, kind, pieces, state, start, n)
+            full_fresh = False
         if draws is not None:
             if not adaptive:
                 param_draws[:, w_ofs:w_ofs + n] = draws[0]
@@ -1948,13 +2035,14 @@ def _fit_subsets_chunked_impl(
                            stream_stats)(stream)[2:]
         stats = ev_stats = None
         if want_stats:
-            vec = [program(_stats_key(model, kc, m_sub, q_dim, p_dim, mesh=mesh), _chunk_stats)(state, c)]
+            vec = [program(_stats_key(model, kc, m_sub, q_dim, p_dim, mesh=mesh), _chunk_stats)(state, c)
+                   if members else torch.zeros(1, dtype=dtype, device=dev)]
             if live is not None:
                 vec += [live[0].to(dtype), live[1].to(dtype)]
             # one pinned copy behind an event; the boundary reads it
             # under the twin's tags (chunk_stats, streaming_stats)
             stats, ev_stats = _to_host_async(torch.cat(vec))
-        if kind == "burn" and it_end == n_burn:
+        if kind == "burn" and it_end == n_burn and members:
             # post-burn-in acceptance accounting, after the stats (the
             # last burn report carries the full burn-in acceptance)
             state = state._replace(phi_accept=torch.zeros_like(state.phi_accept))
@@ -1994,10 +2082,12 @@ def _fit_subsets_chunked_impl(
             "snap_bytes": snap_bytes,
             "noise_np": noise_np, "filled": filled, "held": held,
             "guards_before": guards_before, "wait_s": wait_s, "d2h_bytes": d2h,
-            "dispatch_s": monotonic() - t0 - wait_s,
-            # the adaptive consult's and rewind's context, as dispatched
-            "kc": kc, "members": tuple(members), "group": tuple(group),
-            "written": write_members, "a": w_ofs, "b": w_ofs + n,
+            "dispatch_s": monotonic() - t0 - wait_s, "t_dispatch": t0,
+            # the adaptive consult's and rewind's context, as dispatched:
+            # the rung and writers the scheduler folds in (the run's
+            # subset numbers), this process's members and group
+            "kc": g_kc, "members": tuple(members), "group": tuple(group),
+            "written": g_written, "written_local": write_members, "a": w_ofs, "b": w_ofs + n,
         }
 
     def apply_decision(dec, b):
@@ -2011,14 +2101,15 @@ def _fit_subsets_chunked_impl(
             plan.append(("extra", s_g, ln_g, s_g - n_burn))
         new_active = [int(j) for j in dec.active]
         new_kc = sched.rung(len(new_active)) if new_active else 0
-        now = set(members)
-        if new_kc != kc or any(j not in now for j in new_active):
+        now = set(g_members)
+        if new_kc != g_kc or any(j not in now for j in new_active):
             keep = set(new_active)
-            sched.mark_stopped([j for j in members if j not in keep], b["it"])
+            sched.mark_stopped([j for j in g_members if j not in keep], b["it"])
             apply_group(new_active)
             if run_log is not None:
                 run_log.event(
-                    "adaptive_compaction", iteration=b["it"], kc=kc, n_active=len(new_active),
+                    "adaptive_compaction", iteration=b["it"], kc=g_kc,
+                    n_active=len(new_active),
                     newly_frozen=list(dec.newly_frozen),
                     newly_budget_frozen=list(dec.newly_budget_frozen),
                     newly_reopened=list(dec.newly_reopened),
@@ -2068,17 +2159,42 @@ def _fit_subsets_chunked_impl(
                 if b["live"]:
                     fetch.enter_context(explicit_d2h("streaming_stats", nbytes=2 * k * esize))
                 stats = b["stats"].numpy()
+            if gather_on and b["members"]:
+                sweep_s[0] = max(sweep_s[0], (monotonic() - b["t_dispatch"]) / b["n"])
             finite = stats[:ks] > 0.5
             if adaptive:
                 # the guard covers the group's rows: a frozen rider or a
                 # pad is never a rewind candidate
                 fin_full = np.ones(k, bool)
-                wset = set(b["written"])
+                wset = set(b["written_local"])
                 for r, j in enumerate(b["members"]):
                     if j in wset:
                         fin_full[j] = bool(finite[r])
                 finite = fin_full
-            if policy_q:
+            live_rh = live_es = None
+            if b["live"]:
+                live_rh = stats[ks + 1:ks + 1 + k].astype(np.float64)
+                live_es = stats[ks + 1 + k:ks + 1 + 2 * k].astype(np.float64)
+            if gather_on and (b["kind"] in ("samp", "extra") or policy_q or nan_guard):
+                # every process takes the same branch: a rewind or an
+                # abort anywhere is one everywhere (a process with no
+                # retry of its own replays the chunk as it ran), and the
+                # consult folds the run's (K,) statistics
+                verdict, rewind = 0, None
+                if policy_q:
+                    try:
+                        quarantine_check(b, finite)
+                    except _QuarantineRewind as rw:
+                        verdict, rewind = 1, rw
+                elif nan_guard and not finite.all():
+                    verdict = 2
+                verdict, finite_all, live_rh, live_es = boundary_gather(
+                    b, verdict, finite, live_rh, live_es)
+                if verdict == 1:
+                    raise rewind or _QuarantineRewind(np.zeros(k, bool))
+                if verdict == 2:
+                    raise SubsetNaNError(np.where(~finite_all)[0], b["it"])
+            elif policy_q:
                 # a rewind skips this boundary's report and save
                 quarantine_check(b, finite)
             elif nan_guard and not finite.all():
@@ -2088,8 +2204,6 @@ def _fit_subsets_chunked_impl(
             merge_staged(b, entry)  # before the consult can regroup
             live_vals = None
             if b["live"]:
-                live_rh = stats[ks + 1:ks + 1 + k].astype(np.float64)
-                live_es = stats[ks + 1 + k:ks + 1 + 2 * k].astype(np.float64)
                 any_rh, any_es = np.isfinite(live_rh).any(), np.isfinite(live_es).any()
                 live_vals = (float(np.nanmax(live_rh)) if any_rh else float("nan"),
                              float(np.nanmin(live_es)) if any_es else float("nan"))
@@ -2141,7 +2255,9 @@ def _fit_subsets_chunked_impl(
             if writer is not None:
                 entry["staging_wait_s"] = b["wait_s"]
             if adaptive:
-                entry["kc"] = b["kc"]  # the chunk's dispatch group
+                entry["kc"] = b["kc"]  # the chunk's dispatch group (the rung charged)
+                if mesh is not None and mesh.multi_process:
+                    entry["local_kc"] = b["k_stats"]  # this process's share of it
             mem = device_memory_stats(dev) if sample_memory else None
             if mem is not None:
                 entry["hbm_bytes_in_use"] = mem.get("bytes_in_use")
@@ -2165,18 +2281,20 @@ def _fit_subsets_chunked_impl(
         streaming monitor forgets every fold-in from the faulted chunk
         on."""
         nonlocal state, it, stream, full_fresh
-        held_state, held_noise = b["held"]
-        # the retry mask is in subset space; the held state is the
-        # chunk's group (all K subsets on the fixed schedule)
-        grp = np.asarray(b["group"] if adaptive else range(k), np.int64)
-        row_mask = np.repeat(rw.retry_mask[grp], c)
-        chunk_noise.restore(held_noise)
-        chunk_noise.fork(row_mask, np.repeat(attempts[grp], c))
-        refork = program(_refork_key(model, len(grp), m_sub, q_dim, p_dim, mesh=mesh), _refork)
-        with explicit_h2d("quarantine_refork"):
-            row_mask_dev = torch.as_tensor(row_mask, device=dev)
-        state = refork(held_state, row_mask_dev, half)
-        full_fresh = False
+        if b["held"] is not None:  # None: this process dispatched nothing
+            held_state, held_noise = b["held"]
+            # the retry mask is in subset space; the held state is the
+            # chunk's group (all K subsets on the fixed schedule)
+            grp = np.asarray(b["group"] if adaptive else range(k), np.int64)
+            row_mask = np.repeat(rw.retry_mask[grp], c)
+            chunk_noise.restore(held_noise)
+            chunk_noise.fork(row_mask, np.repeat(attempts[grp], c))
+            refork = program(_refork_key(model, len(grp), m_sub, q_dim, p_dim, mesh=mesh),
+                             _refork)
+            with explicit_h2d("quarantine_refork"):
+                row_mask_dev = torch.as_tensor(row_mask, device=dev)
+            state = refork(held_state, row_mask_dev, half)
+            full_fresh = False
         if stream is not None:
             stream = b["stream_prev"]
         if b["kind"] != "fill":
@@ -2304,6 +2422,8 @@ def _fit_subsets_chunked_impl(
                 pstats.adaptive = {**sched.summary(), "regroup_s": list(regroup_s),
                                    "host_mirror_bytes": (0 if state_full is None else sum(
                                        a.nbytes for a in state_full.arrays))}
+                if gather_on:
+                    pstats.adaptive["decision_gather_s"] = list(gather_s)
     if truncated:
         return None
     with (run_log.span("finalize") if run_log is not None else contextlib.nullcontext()):
@@ -2311,8 +2431,8 @@ def _fit_subsets_chunked_impl(
             return program(_finalize_key(model, k, m_sub, q_dim, n_kept, d_par, d_w, mesh=mesh),
                            model.finalize)(state, param_draws, w_draws)
         # subsets still in the group at the end ran the whole schedule
-        if members:
-            sched.mark_stopped(members, it)
+        if g_members:
+            sched.mark_stopped(g_members, it)
         # the finalize reads phi_accept alone: the departed subsets' rows
         # from the host mirror, the last group's from its live state
         live = members or last_group
@@ -2330,13 +2450,13 @@ def _fit_subsets_chunked_impl(
             merge_guards(live)
         if guard_full is not None:
             model.guard_rejects = guard_full
-        stops = np.where(sched.it_stopped < 0, it, sched.it_stopped)
+        stops = np.where(sched.it_stopped < 0, it, sched.it_stopped)[lo:lo + k]
         fin_state = SamplerState(*([None] * len(SamplerState._fields)))._replace(
             phi_accept=accept)
         fin = program(compile_programs.aux_bucket_key(model, "finadapt", k, m_sub, q_dim, n_cap,
                                                       d_par, d_w, mesh=mesh),
                       model.finalize_masked)
-        return fin(fin_state, param_draws, w_draws, sched.rows_valid, stops)
+        return fin(fin_state, param_draws, w_draws, sched.rows_valid[lo:lo + k], stops)
 
 
 _PHASES = {"burn": "burn", "samp": "sample", "fill": "fill", "extra": "extra"}

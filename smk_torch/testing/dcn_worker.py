@@ -53,6 +53,22 @@ Usage::
   ``committed_rows_sha``: the digest of the kept draws that were
   committed before it. A one-process job (world 1) on a checkpoint that
   two processes wrote resumes elastically.
+- ``adaptive``: ``fit_meta_kriging`` over the job's mesh under the
+  adaptive schedule (two chains, 120 sweeps in chunks of 10, seed
+  ``ADAPT_SEED``: both subsets of process 0 freeze at iteration 80, so
+  process 1 samples on alone, then a third subset freezes and the last
+  is granted three extra chunks). Every process holds the one scheduler
+  over all K, fed each boundary's statistics gathered over the group.
+  Prints ``DCN_ADAPTIVE`` with the digests of its rows and of the
+  result, ``frozen_at``, ``chunks_saved_frac``, ``extra_granted``, the
+  ``adaptive_mesh_replan`` events, each chunk's rung and this process's
+  share of it, and the number of boundary gathers.
+  ``SMK_DCN_ADAPT_NAN=<subset>:<iteration>`` runs it under
+  ``fault_policy="quarantine"`` with that subset's state poisoned once in
+  the chunk covering that burn-in iteration (testing/faults
+  .inject_subset_nan, on the process that owns the subset): the owner
+  rewinds and retries it, every other process replays the chunk as it
+  ran.
 """
 
 from __future__ import annotations
@@ -80,8 +96,68 @@ def problem():
 def config(**kw):
     from smk_torch.config import SMKConfig
 
-    return SMKConfig(n_subsets=K, n_samples=40, u_solver="cg", cg_iters=16,
-                     phi_update_every=2, n_quantiles=20, **kw)
+    return SMKConfig(**{**dict(n_subsets=K, n_samples=40, u_solver="cg", cg_iters=16,
+                               phi_update_every=2, n_quantiles=20), **kw})
+
+
+ADAPT_SEED = 4
+# the poisoned subset and burn-in iteration of the quarantined adaptive
+# leg (SMK_DCN_ADAPT_NAN): subset 3, process 1's second row
+ADAPT_NAN = (3, 15)
+
+
+def adaptive_fit(mesh, log_dir, nan=None):
+    """The ``adaptive`` mode's fit over ``mesh`` (the job's, or a
+    one-process mesh of two entries for the reference), its run log in
+    ``log_dir``; ``nan``: (subset, iteration) of a poisoned burn-in chunk
+    under quarantine. Returns (result, ChunkPipelineStats, replan
+    events)."""
+    import contextlib
+
+    from smk_torch.api import fit_meta_kriging
+    from smk_torch.obs.reporter import read_jsonl
+    from smk_torch.parallel.executor import process_row_range
+    from smk_torch.testing.faults import inject_subset_nan
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    cfg = config(n_samples=120, burn_in_frac=0.5, n_chains=2, live_diagnostics=True,
+                 adaptive_schedule="on", target_rhat=1.5, target_ess=6.0, adapt_patience=1,
+                 min_samples_before_stop=8, adapt_max_extra_frac=0.5, run_log_dir=log_dir,
+                 fault_policy="abort" if nan is None else "quarantine")
+    poison = contextlib.nullcontext()
+    if nan is not None:
+        lo, hi = process_row_range(K, mesh)
+        if lo <= nan[0] < hi:  # a row of this process's chunk state
+            poison = inject_subset_nan(nan[0] - lo, at_iteration=nan[1])
+    stats = ChunkPipelineStats()
+    with poison:
+        res = fit_meta_kriging(*problem(), config=cfg, seed=ADAPT_SEED, device="cpu",
+                               mesh=mesh, chunk_iters=10, pipeline_stats=stats)
+    replans = [r["attrs"] for r in read_jsonl(res.run_log_path)
+               if r.get("kind") == "event" and r.get("name") == "adaptive_mesh_replan"]
+    return res, stats, replans
+
+
+def adaptive_summary(res, stats, replans) -> dict:
+    """What the ``adaptive`` mode reports of one fit (the rows' digests
+    are the caller's)."""
+    ad = stats.adaptive
+    return {**{f: digest(getattr(res, f)) for f in E2E_FIELDS},
+            "frozen_at": list(res.frozen_at), "chunks_saved_frac": res.chunks_saved_frac,
+            "extra_granted": ad["extra_granted"], "replans": replans,
+            "kc": [ch["kc"] for ch in stats.chunks if "kc" in ch],
+            "local_kc": [ch["local_kc"] for ch in stats.chunks if "local_kc" in ch],
+            "gathers": len(ad.get("decision_gather_s", ())),
+            # this process's quarantine events: (iteration, its retried
+            # rows, its dropped rows)
+            "faults": [[e["iteration"], e["retried"], e["dropped"]]
+                       for e in stats.fault_events]}
+
+
+def adaptive_nan() -> tuple:
+    """``SMK_DCN_ADAPT_NAN`` as (subset, iteration), or None."""
+    spec = os.environ.get("SMK_DCN_ADAPT_NAN")
+    return None if not spec else tuple(int(v) for v in spec.split(":"))
 
 
 def digest(*tensors) -> str:
@@ -233,7 +309,25 @@ def reference() -> dict:
                      for lo in range(0, K, K // 2)],
             "e2e": {f: digest(getattr(e2e, f)) for f in E2E_FIELDS},
             # the ckpt mode's fit without a checkpoint: its SubsetResult
-            "ckpt": ckpt_fit().subset_results}
+            "ckpt": ckpt_fit().subset_results,
+            "adaptive": adaptive_reference(), "adaptive_nan": adaptive_reference(ADAPT_NAN)}
+
+
+
+def adaptive_reference(nan=None) -> dict:
+    """The ``adaptive`` mode's fit in one process on a 2-entry CPU mesh
+    (``nan``: as ``SMK_DCN_ADAPT_NAN``), summarized as the workers
+    summarize theirs, with each process's rows digested."""
+    import tempfile
+
+    from smk_torch.parallel.executor import make_mesh
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        res, stats, replans = adaptive_fit(make_mesh(2, device="cpu"), log_dir, nan)
+    sr = res.subset_results
+    return {**adaptive_summary(res, stats, replans),
+            "rows": [digest(sr.param_samples[lo:lo + K // 2], sr.w_samples[lo:lo + K // 2])
+                     for lo in range(0, K, K // 2)]}
 
 
 def main(argv) -> int:
@@ -273,6 +367,15 @@ def main(argv) -> int:
             # a killed process, or the peer of one: the group's goodbye
             # would wait on the dead
             os._exit(0)
+    elif mode == "adaptive":
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as log_dir:
+            res, stats, replans = adaptive_fit(mesh, log_dir, adaptive_nan())
+        sr = res.subset_results
+        out.update(adaptive_summary(res, stats, replans),
+                   rows=digest(sr.param_samples, sr.w_samples))
+        print("DCN_ADAPTIVE " + json.dumps(out), flush=True)
     elif mode == "e2e":
         from smk_torch.compile.programs import topology_fingerprint
 

@@ -223,7 +223,7 @@ def _twin_problem(n, k, seed=7):
     xt = jnp.asarray(rng.normal(size=(t, q, p)), jnp.float32)
     jp = jpart.random_partition(jax.random.key(0), y, x, coords, k)
     return {"jpart": jp, "ct": ct, "xt": xt, "key": jax.random.key(1),
-            "part": convert.partition_from_numpy(jp),
+            "part": convert.partition_from_numpy(jp, device="cpu"),
             "ct_t": torch.as_tensor(np.array(ct)), "xt_t": torch.as_tensor(np.array(xt))}
 
 

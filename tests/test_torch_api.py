@@ -136,7 +136,8 @@ def test_combine_and_predict_from_the_twins_grids(fits):
     JAX fit's combined posterior and predictions."""
     ref = fits["ref"]
     cfg = SMKConfig(**fits["kw"])
-    pg, wg = convert.grids_from_numpy(ref.subset_results.param_grid, ref.subset_results.w_grid)
+    pg, wg = convert.grids_from_numpy(ref.subset_results.param_grid, ref.subset_results.w_grid,
+                                      device="cpu")
     param_grid, w_grid = api.combine(pg, wg, cfg)
     np.testing.assert_allclose(param_grid.numpy(), np.asarray(ref.param_grid), atol=1e-6)
     idx = JaxRandomness(fits["key"]).resample_index(cfg.resample_size, 996)
@@ -154,7 +155,7 @@ def test_sampler_state_and_partition_from_numpy_round_trip(fits):
     y, x, coords, coords_test, x_test = fits["data"]
     k_part = jax.random.split(fits["key"], 3)[0]
     jp = jpart.random_partition(k_part, y, x, coords, KSUB)
-    part = convert.partition_from_numpy(jp)
+    part = convert.partition_from_numpy(jp, device="cpu")
     mine = tpart.partition_from_indices(
         torch.as_tensor(y), torch.as_tensor(x), torch.as_tensor(coords), part.index
     )
@@ -169,7 +170,7 @@ def test_sampler_state_and_partition_from_numpy_round_trip(fits):
         jm, jax.random.split(fits["key"], KSUB),
         stacked_subset_data(jp, coords_test, x_test), beta0,
     )
-    state, gens = convert.sampler_state_from_numpy(jstate, seed=3)
+    state, gens = convert.sampler_state_from_numpy(jstate, seed=3, device="cpu")
     assert len(gens) == KSUB
     model = tp.SpatialGPSampler(SMKConfig(**fits["kw"]))
     data = tp.SubsetData(part.coords, part.x, part.y, part.mask,
@@ -179,13 +180,13 @@ def test_sampler_state_and_partition_from_numpy_round_trip(fits):
         assert torch.equal(getattr(state, f), getattr(mine, f)), f
     np.testing.assert_allclose(state.chol_r.numpy(), mine.chol_r.numpy(), **TOL)
     back, _ = convert.sampler_state_from_numpy(
-        {f: getattr(state, f).numpy() for f in convert._STATE_FIELDS}
+        {f: getattr(state, f).numpy() for f in convert._STATE_FIELDS}, device="cpu"
     )
     for f in convert._STATE_FIELDS:
         assert torch.equal(getattr(back, f), getattr(state, f))
     with pytest.raises(ValueError, match="leading K"):
         convert.sampler_state_from_numpy({f: np.asarray(getattr(state, f))[0]
-                                          for f in convert._STATE_FIELDS})
+                                          for f in convert._STATE_FIELDS}, device="cpu")
 
 
 def test_chunk_size_must_divide_k():
@@ -226,6 +227,28 @@ def test_no_device_given_and_no_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fit_meta_kriging(*_problem(), config=SMKConfig(n_subsets=2, n_samples=4))
+
+
+@pytest.mark.parametrize("name,args", [
+    ("sampler_state_from_numpy", ({f: np.zeros((2, 1, 2), np.float32)
+                                   for f in convert._STATE_FIELDS},)),
+    ("factor_cache_from_numpy", ({f: None for f in ("r_mv", "nys_z", "chol_inv", "krige_w",
+                                                      "krige_chol")},)),
+    ("partition_from_numpy", ({f: np.zeros((2, 3, 1)) for f in ("y", "x", "coords", "mask",
+                                                                "index")},)),
+    ("grids_from_numpy", (np.zeros((2, 5, 3)), np.zeros((2, 5, 4)))),
+    ("meta_kriging_result_from_numpy", ({},)),
+])
+def test_convert_without_a_device_goes_to_the_card_or_raises(monkeypatch, name, args):
+    """Like every entry point of the port, the carry-over functions put
+    their tensors on the CUDA device unless given ``device``: with no
+    card they raise the port's error, never a quiet drop to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="none is available; pass device='cpu'"):
+        getattr(convert, name)(*args)
+    if name == "grids_from_numpy":
+        pg, wg = convert.grids_from_numpy(*args, device="cpu")
+        assert pg.device.type == wg.device.type == "cpu"
 
 
 def test_default_randomness_fit_is_finite_and_seeded():

@@ -58,7 +58,7 @@ def problem():
     """tests/test_torch_recovery.py's problem: n = 96, m = 24, t = 5."""
     jp, ct, xt, key = recovery_problem()
     return {"jpart": jp, "ct": ct, "xt": xt, "key": key,
-            "part": convert.partition_from_numpy(jp),
+            "part": convert.partition_from_numpy(jp, device="cpu"),
             "ct_t": torch.as_tensor(np.array(ct)), "xt_t": torch.as_tensor(np.array(xt))}
 
 

@@ -170,7 +170,7 @@ def counts():
             JaxSampler(JaxConfig(**kw)), jp, ct, xt, key, n_iters=n_iters, collect=collect,
             with_calls=with_calls)
         cfg = SMKConfig(**kw)
-        part = convert.partition_from_numpy(jp)
+        part = convert.partition_from_numpy(jp, device="cpu")
         mine = executor.count_subset_factorizations(
             SpatialGPSampler(cfg), part, torch.as_tensor(np.array(ct)),
             torch.as_tensor(np.array(xt)), replay(key, cfg, 4, part.subset_size),

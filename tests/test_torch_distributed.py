@@ -26,10 +26,20 @@ thread a process), all legs at once in a module fixture:
   two-process job stopped after 7 generations resumes elastically in one
   process, its committed rows and its whole draws bitwise. Chains of
   jobs (kill then relaunch, stop then resume) run one job after the other,
-  the chains at once.
+  the chains at once;
+- ``adaptive`` (the adaptive schedule over the two processes, A9d): the
+  result, each process's rows, ``frozen_at``, ``chunks_saved_frac``,
+  ``extra_granted``, every chunk's rung and the replan events are bitwise
+  the one-process fit on a 2-entry CPU mesh (``dcn_worker
+  .adaptive_reference``), through a compaction that leaves process 0 no
+  survivor and three granted extra chunks, one gather a sampling
+  boundary on each process; and again under quarantine with subset 3
+  (process 1's) poisoned once in burn-in: process 1 retries it, process
+  0 replays the chunk as it ran, bitwise the one-process fit poisoned
+  alike.
 """
 
-# smklint: test-budget=stubbed initializers (milliseconds); one gloo world of one in this process; one module fixture runs six chains of worker processes at once (four pairs, then a kill and its relaunch, a stop and its one-process resume: about 15 s of wall, the guard leg bounded by its 8 s deadline) and the one-process reference fits (K=4, m=24, ~3 s)
+# smklint: test-budget=stubbed initializers (milliseconds); one gloo world of one in this process; one module fixture runs eight chains of worker processes at once (six pairs, then a kill and its relaunch, a stop and its one-process resume: about 15 s of wall, the guard leg bounded by its 8 s deadline) and the one-process reference fits (K=4, m=24, ~4 s)
 import json
 import os
 import socket
@@ -178,7 +188,7 @@ def test_gloo_world_of_one_through_a_flaky_coordinator(fresh_state):
 # -- two gloo processes ----------------------------------------------------------
 
 TAGS = {"normal": "DCN_RESULT", "e2e": "DCN_E2E", "guard": "DCN_TIMEOUT",
-        "die_mid": "DCN_DYING", "ckpt": "DCN_CKPT"}
+        "die_mid": "DCN_DYING", "ckpt": "DCN_CKPT", "adaptive": "DCN_ADAPTIVE"}
 DEADLINE_S = 8.0
 COMMIT_TIMEOUT_S = 5.0
 KILL_GEN = 7  # the first sampling boundary: 30 burn-in sweeps in chunks of 5
@@ -188,6 +198,9 @@ STOP_GEN = 7
 CHAINS = {
     "normal": [(("normal", "normal"), {})],
     "e2e": [(("e2e", "e2e"), {})],
+    "adaptive": [(("adaptive", "adaptive"), {})],
+    "adaptive_nan": [(("adaptive", "adaptive"),
+                      {"SMK_DCN_ADAPT_NAN": "%d:%d" % dcn_worker.ADAPT_NAN})],
     "guard": [(("guard", "die_mid"), {})],
     "ckpt": [(("ckpt", "ckpt"), {"SMK_DCN_CKPT_PATH": "ckpt/run.ckpt"})],
     "kill": [(("ckpt", "ckpt"), {"SMK_DCN_CKPT_PATH": "kill/run.ckpt",
@@ -326,3 +339,59 @@ def test_stopped_two_process_job_resumes_elastically_on_one_process(legs):
     assert filled == 5
     assert resumed["committed_rows_sha"] == dcn_worker.samples_digest(ref["ckpt"], upto=filled)
     assert resumed["local_sha"] == resumed["global_sha"] == dcn_worker.samples_digest(ref["ckpt"])
+
+
+def test_two_process_adaptive_fit_is_bitwise_the_one_process_mesh_fit(legs):
+    """One scheduler over all K on each process, fed each boundary's
+    gathered statistics: the two-process adaptive fit decides, samples
+    and combines as the one-process fit on two entries does, although
+    each process regroups its own survivors (process 0 none after the
+    first compaction: its chunks then dispatch nothing)."""
+    out, ref = legs
+    want = ref["adaptive"]
+    shared = ("kc", "n_active", "entries", "rung_pad_waste_frac")
+    n_burn_chunks = 60 // 10
+    for r in out["adaptive"][0]:
+        assert (r["num_processes"], r["mesh_size"]) == (2, 2)
+        for key in dcn_worker.E2E_FIELDS + ("frozen_at", "chunks_saved_frac",
+                                            "extra_granted", "kc"):
+            assert r[key] == want[key], key
+        assert [{key: e[key] for key in shared} for e in r["replans"]] == want["replans"]
+        for e in r["replans"]:
+            pk = e["process_kc"]
+            assert sum(pk) >= e["n_active"] and e["dispatch_pad_waste_frac"] == \
+                (sum(pk) - e["n_active"]) / sum(pk)
+        assert r["gathers"] == len(r["kc"]) - n_burn_chunks
+        assert want["gathers"] == 0  # no process group: nothing to gather
+    r0, r1 = out["adaptive"][0]
+    assert [r0["rows"], r1["rows"]] == want["rows"]
+    # the schedule the leg must exercise: a compaction, a grant, and a
+    # regroup whose survivors all sit on one process
+    assert want["replans"] and want["extra_granted"] >= 1
+    assert any(0 in e["process_kc"] and max(e["process_kc"]) > 0 for e in r0["replans"])
+    assert 0 in r0["local_kc"] and 0 not in r1["local_kc"]
+    assert [a + b for a, b in zip(r0["local_kc"], r1["local_kc"])][:n_burn_chunks] == \
+        r0["kc"][:n_burn_chunks]
+
+
+def test_a_quarantine_rewind_on_one_process_is_one_on_every_process(legs):
+    """Subset 3 (process 1's second row) poisoned once in burn-in under
+    quarantine: process 1 retries it on a forked stream, process 0 has no
+    fault of its own and replays the chunk with it as it ran (the
+    boundary gather carries each process's verdict), and the result is
+    bitwise the one-process fit poisoned alike."""
+    out, ref = legs
+    want = ref["adaptive_nan"]
+    r0, r1 = out["adaptive_nan"][0]
+    subset, it = dcn_worker.ADAPT_NAN
+    for r in (r0, r1):
+        for key in dcn_worker.E2E_FIELDS + ("frozen_at", "chunks_saved_frac",
+                                            "extra_granted", "kc"):
+            assert r[key] == want[key], key
+        # every boundary gathers under quarantine, the replayed one twice
+        assert r["gathers"] == len(r["kc"]) + 1
+    assert [r0["rows"], r1["rows"]] == want["rows"]
+    (fault,) = want["faults"]
+    assert fault[1] == [subset] and fault[2] == [] and fault[0] <= it + 10
+    assert r0["faults"] == [] and r1["faults"] == [[fault[0], [subset - dcn_worker.K // 2], []]]
+    assert want["rows"] != ref["adaptive"]["rows"]  # the retry forked subset 3's stream

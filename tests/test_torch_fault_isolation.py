@@ -76,7 +76,7 @@ def problem():
     y, x, coords, ct, xt = _problem()
     jp = jpart.random_partition(jax.random.key(0), *map(jnp.asarray, (y, x, coords)), K)
     return {"jpart": jp, "ct": jnp.asarray(ct), "xt": jnp.asarray(xt),
-            "key": jax.random.key(1), "part": convert.partition_from_numpy(jp),
+            "key": jax.random.key(1), "part": convert.partition_from_numpy(jp, device="cpu"),
             "ct_t": torch.as_tensor(ct), "xt_t": torch.as_tensor(xt)}
 
 

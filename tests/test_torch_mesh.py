@@ -427,20 +427,114 @@ def test_meshed_chunked_layout_checks_and_refusals():
                                      chunk_size=4)
 
 
-def test_adaptive_on_a_multi_process_mesh_is_refused():
-    """Each process of a multi-process mesh holds only its own subsets,
-    so a scheduler per process would decide over its rows alone: the
-    adaptive schedule is refused there (the fixed schedule runs), before
-    the executor touches the process group."""
+def test_adaptive_with_the_distributed_checkpoint_is_refused_like_twin(tmp_path):
+    """The adaptive schedule runs over a multi-process mesh now (A9d),
+    but not with the distributed checkpoint (format 8): the scheduler
+    sidecar and the full-K state merge are single-process operations,
+    in both packages, which refuse it before any chunk runs."""
+    from smk_tpu.parallel import checkpoint as jdck
+    from smk_tpu.parallel import recovery as jrec
+    from smk_tpu.models.probit_gp import SpatialGPSampler as JaxSampler
+    from smk_torch.parallel import checkpoint as tdck
+
     part, ct, xt = _chunked_problem()
-    cpu = torch.device("cpu")
-    mesh = executor.Mesh([executor.MeshEntry(i, cpu, i // 2, "cpu") for i in range(4)],
-                         ("subsets",))
-    assert mesh.multi_process
-    adaptive = tp.SpatialGPSampler(SMKConfig(n_subsets=KSUB, n_samples=8,
-                                             live_diagnostics=True, adaptive_schedule="on"))
-    with pytest.raises(NotImplementedError, match="multi-process mesh"):
-        recovery.fit_subsets_chunked(adaptive, part, ct, xt, chunk_iters=4, mesh=mesh)
+    kw = dict(n_subsets=KSUB, n_samples=8, live_diagnostics=True, adaptive_schedule="on")
+    rng = np.random.default_rng(0)
+    y = jnp.asarray(rng.integers(0, 2, (N, Q)), jnp.float32)
+    x = jnp.asarray(rng.normal(size=(N, Q, P)), jnp.float32)
+    coords = jnp.asarray(rng.uniform(size=(N, 2)), jnp.float32)
+    jp = jpart.random_partition(jax.random.key(0), y, x, coords, KSUB)
+    jct = jnp.asarray(rng.uniform(size=(T, 2)), jnp.float32)
+    jxt = jnp.asarray(rng.normal(size=(T, Q, P)), jnp.float32)
+    messages = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tdck, "FORCE_DISTRIBUTED_FOR_TESTING", True)
+        mp.setattr(jdck, "FORCE_DISTRIBUTED_FOR_TESTING", True)
+        with pytest.raises(NotImplementedError) as port:
+            recovery.fit_subsets_chunked(tp.SpatialGPSampler(SMKConfig(**kw)), part, ct, xt,
+                                         chunk_iters=4, checkpoint_path=str(tmp_path / "p.npz"))
+        with pytest.raises(NotImplementedError) as twin:
+            jrec.fit_subsets_chunked(JaxSampler(JaxConfig(**kw)), jp, jct, jxt,
+                                     jax.random.key(1), chunk_iters=4,
+                                     checkpoint_path=str(tmp_path / "j.npz"))
+        messages = [str(port.value), str(twin.value)]
+    for msg in messages:
+        assert "adaptive_schedule='on' is not supported with the" in msg
+        assert "distributed checkpoint" in msg
+        assert "the scheduler sidecar and the full-K state merge are" in msg
+    assert not os.listdir(tmp_path)
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """The adaptive fits below are many small products a sweep: one
+    thread runs them as fast, and does not contend with the suite's
+    other workers (with every core each, they ran ~100x slower there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_adaptive_gathers_each_boundary_on_a_gloo_world_of_one(one_torch_thread):
+    """Inside a process group (gloo, a world of one) the adaptive fit
+    gathers each sampling boundary's statistics over the group and folds
+    the gathered vectors: its result, decisions and replan events are
+    bitwise the fit outside any group, one gather a sampling boundary,
+    each carrying this process's verdict, finite flags and (K,) R-hat and
+    ESS as the run log's live_diagnostics events record them."""
+    import socket
+    import tempfile
+
+    from smk_torch.obs.reporter import read_jsonl
+    from smk_torch.parallel import distributed as tdist
+    from smk_torch.testing import dcn_worker
+
+    def fit(log_dir):
+        return dcn_worker.adaptive_fit(executor.make_mesh(device="cpu"), log_dir)
+
+    with tempfile.TemporaryDirectory() as d:
+        plain_res, plain_stats, plain_replans = fit(d)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    payloads = []
+    real = tdist.allgather_bytes
+
+    def recording(tag, payload, **kw):
+        out = real(tag, payload, **kw)
+        payloads.append((tag, np.frombuffer(out[0], np.float64)))
+        return out
+
+    tdist._reset_state_for_testing()
+    tdist.init_distributed(f"127.0.0.1:{port}", num_processes=1, process_id=0, device="cpu",
+                           timeout_s=30.0)
+    try:
+        with pytest.MonkeyPatch.context() as mp, tempfile.TemporaryDirectory() as d:
+            mp.setattr(tdist, "allgather_bytes", recording)
+            res, stats, replans = fit(d)
+            live = [r["attrs"] for r in read_jsonl(res.run_log_path)
+                    if r.get("kind") == "event" and r.get("name") == "live_diagnostics"]
+    finally:
+        tdist.destroy_distributed()
+    for f in RESULT_FIELDS:
+        assert _same(getattr(res, f), getattr(plain_res, f)), f
+    for a, b in zip(res.subset_results, plain_res.subset_results):
+        assert _same(a, b)
+    assert (res.frozen_at, res.chunks_saved_frac) == (plain_res.frozen_at,
+                                                      plain_res.chunks_saved_frac)
+    assert replans == plain_replans
+    assert {key: stats.adaptive[key] for key in plain_stats.adaptive if key != "regroup_s"} == \
+        {key: plain_stats.adaptive[key] for key in plain_stats.adaptive if key != "regroup_s"}
+    assert "decision_gather_s" not in plain_stats.adaptive
+    n_consults = sum(1 for ch in stats.chunks if ch["phase"] in ("sample", "extra"))
+    assert len(stats.adaptive["decision_gather_s"]) == len(payloads) == n_consults == len(live)
+    k = dcn_worker.K
+    for (tag, got), ev in zip(payloads, live):
+        assert tag == "adaptive_boundary" and got[0] == 0.0 and (got[1:1 + k] == 1.0).all()
+        np.testing.assert_array_equal(got[1 + k:1 + 2 * k], np.asarray(ev["rhat_max"], float))
+        np.testing.assert_array_equal(got[1 + 2 * k:], np.asarray(ev["ess_min"], float))
 
 
 # -- the adaptive schedule over a mesh (A9c) ----------------------------------
@@ -525,7 +619,7 @@ def _recording(base, script, log):
     return Recording
 
 
-def test_adaptive_on_four_entries_replays_in_the_twins_scheduler(tmp_path):
+def test_adaptive_on_four_entries_replays_in_the_twins_scheduler(tmp_path, one_torch_thread):
     """K = 8 on a 4-entry mesh, the scheduler scripted (the port's own
     noise; no twin fit): the boundaries the executor consulted, replayed
     on the host in the twin's AdaptiveScheduler(n_devices=4), give the

@@ -158,7 +158,7 @@ def _problem(seed=7, t=T):
 def problem():
     jp, ct, xt, key = _problem()
     return {"jpart": jp, "ct": ct, "xt": xt, "key": key,
-            "part": convert.partition_from_numpy(jp),
+            "part": convert.partition_from_numpy(jp, device="cpu"),
             "ct_t": torch.as_tensor(np.array(ct)), "xt_t": torch.as_tensor(np.array(xt))}
 
 
@@ -641,7 +641,7 @@ def _c5_fits(jp, ct, xt, key, dtype):
     kw = dict(C5, dtype=dtype)
     twin = jrec.fit_subsets_chunked(JaxSampler(JaxConfig(**kw)), jp, ct, xt, key,
                                     chunk_iters=CHUNK)
-    part = convert.partition_from_numpy(jp)
+    part = convert.partition_from_numpy(jp, device="cpu")
     cfg = SMKConfig(**kw)
     port = rec.fit_subsets_chunked(
         tp.SpatialGPSampler(cfg), part, torch.as_tensor(np.asarray(ct, np_dt)),
@@ -656,7 +656,7 @@ def _c5_fits(jp, ct, xt, key, dtype):
 def c5():
     jp, ct, xt, key = _problem(seed=11, t=C5_T)
     twin32, port32 = _c5_fits(jp, ct, xt, key, "float32")
-    part = convert.partition_from_numpy(jp)
+    part = convert.partition_from_numpy(jp, device="cpu")
     part64 = part._replace(**{f: getattr(part, f).double() for f in ("coords", "x", "y", "mask")})
     cfg = SMKConfig(**C5, dtype="float64")
     exact = rec.fit_subsets_chunked(

@@ -349,7 +349,7 @@ def test_factor_cache_after_three_sweeps_matches_twin(reference):
     for entries <= 1) from the twin's, where the fp32 entries differ by
     an ulp; everything else is held at the sweep tolerance."""
     _, _, _, cache = _port_sweeps(reference, 3)
-    want = convert.factor_cache_from_numpy(reference["cache"])
+    want = convert.factor_cache_from_numpy(reference["cache"], device="cpu")
     for f in CACHE_FIELDS:
         g, w = getattr(cache, f), getattr(want, f)
         assert (g is None) == (w is None), f

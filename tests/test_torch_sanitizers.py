@@ -56,7 +56,7 @@ def _problem(n, seed):
     ct = jnp.asarray(rng.uniform(size=(t, 2)), jnp.float32)
     xt = jnp.asarray(rng.normal(size=(t, q, p)), jnp.float32)
     jp = jax_random_partition(jax.random.key(0), y, x, coords, K)
-    return {"jpart": jp, "ct": ct, "xt": xt, "part": convert.partition_from_numpy(jp),
+    return {"jpart": jp, "ct": ct, "xt": xt, "part": convert.partition_from_numpy(jp, device="cpu"),
             "ct_t": torch.as_tensor(np.array(ct)), "xt_t": torch.as_tensor(np.array(xt))}
 
 

@@ -85,7 +85,7 @@ def fit():
     y, x, coords, ct, xt = _problem()
     res = japi.fit_meta_kriging(jax.random.key(0), y, x, coords, ct, xt,
                                 config=JaxConfig(**KW))
-    return {"twin": res, "port": convert.meta_kriging_result_from_numpy(res), "ct": ct}
+    return {"twin": res, "port": convert.meta_kriging_result_from_numpy(res, device="cpu"), "ct": ct}
 
 
 @pytest.fixture(scope="module")

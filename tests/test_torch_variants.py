@@ -446,11 +446,12 @@ def test_state_from_numpy_carries_chains_and_float64():
     shapes = dict(beta=(Q, P), u=(M, Q), a=(Q, Q), phi=(Q,), chol_r=(Q, M, M),
                   phi_accept=(Q,), phi_log_step=(Q,))
     src = {f: rng.normal(size=(K, 2) + s) for f, s in shapes.items()}
-    state, gens = convert.sampler_state_from_numpy(src)
+    state, gens = convert.sampler_state_from_numpy(src, device="cpu")
     assert len(gens) == 2 * K
     assert state.beta.dtype == torch.float64 and tuple(state.beta.shape) == (2 * K, Q, P)
     assert torch.equal(state.u[3], torch.as_tensor(src["u"][1, 1]))
-    state32, _ = convert.sampler_state_from_numpy({f: a.astype(np.float32) for f, a in src.items()})
+    state32, _ = convert.sampler_state_from_numpy({f: a.astype(np.float32) for f, a in src.items()},
+                                                 device="cpu")
     assert state32.chol_r.dtype == torch.float32
 
 

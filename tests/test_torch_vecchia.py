@@ -479,7 +479,7 @@ def test_vecchia_state_from_numpy_carries_packed_coefficients(sampler_ref):
     is packed (K*C, q, m, nn+1) as it is, and the port continues the
     chain from it as the twin does."""
     want = sampler_ref["sweeps"][0]["state"]
-    state, gens = convert.sampler_state_from_numpy(want)
+    state, gens = convert.sampler_state_from_numpy(want, device="cpu")
     assert tuple(state.chol_r.shape) == want["chol_r"].shape
     assert len(gens) == want["beta"].shape[0]
     model = tp.SpatialGPSampler(sampler_ref["config"])
