@@ -3446,35 +3446,21 @@ PROFILE_SAMPLES, PROFILE_CHUNK, PROFILE_WINDOW = 32, 8, "1:3"
 STREAM_RTOL, PROFILE_AGREE = 1e-4, 0.25
 
 
-def dispatched_build_calls(cfg, q, chunks):
-    """The launches a chunked run implies from its own record: the
-    initial state's stack plus each dispatched chunk's calls at its rung
-    (``chunks``: ChunkPipelineStats.chunks, the drain left out), each
-    chunk's calls from probit_gp.chunk_build_calls."""
-    from smk_torch.models.probit_gp import chunk_build_calls
-
-    out = chunk_build_calls(cfg, q, "burn", 0, 0)
-    out["fused_masked_correlation_stack"] = 1  # the initial state's R~
-    for ch in chunks:
-        if ch["phase"] == "drain":
-            continue
-        kind = "burn" if ch["phase"] == "burn" else "samp"
-        for key, v in chunk_build_calls(cfg, q, kind, ch["iteration"] - ch["n_iters"],
-                                        ch["n_iters"]).items():
-            out[key] += v
-    return out
-
-
-def replay_schedule(cfg, k, events, chunks):
-    """A fresh AdaptiveScheduler replayed on the host over a run's logged
-    live_diagnostics events, the dispatch group re-formed as the
-    executor does (members, rung, the frozen riders that stop writing,
-    the plan growing at each grant). Returns the scheduler."""
+def replay_schedule(cfg, k, events, chunks, n_devices=1, rungs=None):
+    """A fresh AdaptiveScheduler (over ``n_devices`` mesh entries)
+    replayed on the host over a run's logged live_diagnostics events, the
+    dispatch group re-formed as the executor does (members, rung, the
+    frozen riders that stop writing, the plan growing at each grant).
+    ``events`` and ``chunks`` may be another run's (a cross replay): the
+    replay follows that run's boundaries as far as they go and stops
+    where its own schedule ends. Returns the scheduler; ``rungs``, a
+    list, gets the rung each sampling chunk was dispatched at."""
     import numpy as np
     from smk_torch.parallel.schedule import AdaptiveScheduler
 
     n_burn, n_kept = cfg.n_burn_in, cfg.n_kept
-    sched = AdaptiveScheduler(cfg, k=k, n_kept=n_kept, chunk_iters=ADAPT_CHUNK)
+    sched = AdaptiveScheduler(cfg, k=k, n_kept=n_kept, chunk_iters=ADAPT_CHUNK,
+                              n_devices=n_devices)
     plan_len = -(-n_burn // ADAPT_CHUNK) + -(-n_kept // ADAPT_CHUNK)
     members, kc = list(range(k)), k
     live = {e["iteration"]: e for e in events}
@@ -3483,6 +3469,8 @@ def replay_schedule(cfg, k, events, chunks):
             continue
         ev = live[ch["iteration"]]
         written = [j for j in members if not sched.frozen[j]]
+        if rungs is not None:
+            rungs.append(kc)
         b = ch["iteration"] - n_burn
         dec = sched.observe(
             kind="samp" if ch["phase"] == "sample" else "extra", it=ch["iteration"],
@@ -3497,6 +3485,8 @@ def replay_schedule(cfg, k, events, chunks):
         if new_kc != kc or any(j not in members for j in new):
             sched.mark_stopped([j for j in members if j not in new], ch["iteration"])
             members, kc = new, new_kc
+        if not members:  # the schedule has ended; another run's record may go on
+            break
     return sched
 
 
@@ -3655,6 +3645,7 @@ def fit_adaptive_config5(device, c5_data, tmp):
     import numpy as np
     import torch
     from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import dispatched_build_calls
     from smk_torch.obs import streaming as st
     from smk_torch.obs.reporter import read_jsonl
     from smk_torch.obs.summarize import summarize
@@ -3826,6 +3817,7 @@ def fit_adaptive_small(device, tmp):
     import torch
     from smk_torch import SMKConfig
     from smk_torch.models import probit_gp as tp
+    from smk_torch.models.probit_gp import dispatched_build_calls
     from smk_torch.ops import fused_build as fb
     from smk_torch.parallel import recovery as rec
     from smk_torch.utils.tracing import ChunkPipelineStats
@@ -3926,6 +3918,7 @@ def fit_profile_config5(device, c5_data, tmp):
     import torch
     from smk_torch import fit_meta_kriging
     from smk_torch.models.probit_gp import chunk_build_calls
+    from smk_torch.models.probit_gp import dispatched_build_calls
     from smk_torch.obs import profiling
     from smk_torch.ops import fused_build as fb
     from smk_torch.utils.tracing import ChunkPipelineStats
@@ -4300,7 +4293,7 @@ def mesh_config5(device, c5_data, tmp):
     import torch
     from smk_torch import fit_meta_kriging
     from smk_torch.compile.programs import topology_fingerprint
-    from smk_torch.models.probit_gp import build_calls
+    from smk_torch.models.probit_gp import build_calls, dispatched_build_calls
     from smk_torch.ops import fused_build as fb
     from smk_torch.parallel.executor import make_mesh
     from smk_torch.utils.tracing import ChunkPipelineStats
@@ -4324,7 +4317,9 @@ def mesh_config5(device, c5_data, tmp):
             plain = sum(fb.PLAIN_CALLS.values())
     same = every_field_bitwise(fits["meshed"], fits["unmeshed"])
     check(all(same.values()), f"mesh_config5: meshed fit not bitwise the unmeshed one {same}")
-    want = build_calls(cfg, 1, cfg.n_samples, cfg.n_burn_in)
+    # every entry fits its block: each launches an unmeshed fit's calls
+    want = {e: mesh.size * v for e, v in build_calls(cfg, 1, cfg.n_samples,
+                                                      cfg.n_burn_in).items()}
     check(launches == want, f"mesh_config5: launches {launches} != {want}")
     check(layouts == expected_by_kernel(want), f"mesh_config5: by kernel {layouts}")
     check(all(launches[e] > 0 for e in MAIN_PATH), "mesh_config5: a kernel never launched")
@@ -4360,7 +4355,9 @@ def mesh_config5(device, c5_data, tmp):
             c_layouts = launches_by_kernel()
     same_c = every_field_bitwise(chunked["meshed"], chunked["unmeshed"])
     check(all(same_c.values()), f"mesh_config5: chunked meshed fit not bitwise {same_c}")
-    c_want = build_calls(qcfg, 1, qcfg.n_samples, qcfg.n_burn_in, chunk_iters=16)
+    c_want = dispatched_build_calls(qcfg, 1, stats["meshed"].chunks, entries=mesh.size)
+    check(c_want == build_calls(qcfg, 1, qcfg.n_samples, qcfg.n_burn_in, chunk_iters=16),
+          f"mesh_config5: the chunk records imply {c_want}")
     check(c_launches == c_want, f"mesh_config5: chunked launches {c_launches} != {c_want}")
     check(c_layouts == expected_by_kernel(c_want), f"mesh_config5: chunked by kernel {c_layouts}")
     fp = topology_fingerprint(mesh)
@@ -4381,6 +4378,109 @@ def mesh_config5(device, c5_data, tmp):
         "wall_s": walls,
     })
     print("topology fingerprint:", fp, flush=True)
+    emit(out)
+    # mesh_blocks_config5's reference: the unmeshed chunked fit (not printed)
+    out["chunked_unmeshed_result"] = chunked["unmeshed"]
+    return out
+
+
+def one_card_mesh(n, device):
+    """A mesh of ``n`` entries all on ``device``: the blocks of an
+    ``n``-entry mesh, each run as its entry runs it, one after another on
+    one card (parallel/executor.run_per_device runs the jobs of one
+    device in turn)."""
+    import torch
+    from smk_torch.parallel.executor import Mesh, MeshEntry
+
+    dev = torch.device(device)
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return Mesh([MeshEntry(i, dev, 0, kind) for i in range(n)], ("subsets",))
+
+
+def field_gaps(a, b):
+    """Per result field (and subset_results field) of two fits the
+    largest absolute difference (NaN where NaN in both counts as equal)."""
+    import torch
+
+    def gap(u, v):
+        both = u.isnan() & v.isnan()
+        d = torch.where(both, torch.zeros_like(u), (u.double() - v.double()).abs())
+        return float(d.max()) if d.numel() else 0.0
+
+    out = {f: gap(getattr(a, f), getattr(b, f)) for f in MESH_FIELDS}
+    for f, u, v in zip(a.subset_results._fields, a.subset_results, b.subset_results):
+        out["subset_results." + f] = gap(u, v)
+    return out
+
+
+# a phi that moved by more than this, relative, took another accept
+# decision somewhere (roundoff moves it by ~1e-6)
+PHI_DECISION_RTOL = 1e-3
+
+
+def phi_decisions_differ(a, b, q):
+    """The (subset, component) pairs whose kept phi draws differ by more
+    than PHI_DECISION_RTOL relative between the two fits: a different
+    phi accept decision at an update sweep, not roundoff."""
+    pa = a.subset_results.param_samples[..., -q:].double()
+    pb = b.subset_results.param_samples[..., -q:].double()
+    off = ((pa - pb).abs() > PHI_DECISION_RTOL * pb.abs()).any(dim=-2)
+    return int(off.sum())
+
+
+def mesh_blocks_config5(device, c5_data, m5):
+    """The part of C7 that one card shows: config5's four 8-row blocks,
+    each run as a card of make_mesh(4) runs it (its own initial state,
+    its noise rows, its chunk programs), one after another on this card
+    (one_card_mesh(4)), on mesh_config5's chunked schedule (production,
+    quarantine, 32 sweeps in chunks of 16). Launches == four times an
+    8-row fit's; two runs bitwise; against mesh_config5's unmeshed
+    chunked fit, each field's largest difference and the phi decisions
+    that differ (the batch-size roundoff: 8 rows a call against 32)."""
+    import torch
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import build_calls, dispatched_build_calls
+    from smk_torch.ops import fused_build as fb
+    from smk_torch.utils.tracing import ChunkPipelineStats
+
+    ref = m5["chunked_unmeshed_result"]
+    mesh = one_card_mesh(4, device)
+    qcfg = production_config(k=MAIN_K, n_samples=32, phi_every=16, fault_policy="quarantine")
+    # one 8-row fit's calls: build_calls does not depend on the batch
+    block = build_calls(qcfg, 1, qcfg.n_samples, qcfg.n_burn_in, chunk_iters=16)
+    want = {e: mesh.size * v for e, v in block.items()}
+    runs, walls = [], []
+    for _ in range(2):
+        stats = ChunkPipelineStats()
+        torch.cuda.synchronize()
+        fb.reset_counts()
+        t0 = time.perf_counter()
+        res = fit_meta_kriging(*c5_data, config=qcfg, seed=SEED, device=device,
+                               chunk_iters=16, pipeline_stats=stats, mesh=mesh)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = dict(fb.LAUNCHES)
+        check(launches == want, f"mesh_blocks_config5: launches {launches} != {want}")
+        check(launches == dispatched_build_calls(qcfg, 1, stats.chunks, entries=mesh.size),
+              "mesh_blocks_config5: launches differ from the chunk records'")
+        check(sum(fb.PLAIN_CALLS.values()) == 0, "mesh_blocks_config5: a plain build ran")
+        check(set(fb.DEVICE_LAUNCHES) == {device.index},
+              f"mesh_blocks_config5: launches on {fb.DEVICE_LAUNCHES}")
+        runs.append(res)
+    same = every_field_bitwise(runs[0], runs[1])
+    check(all(same.values()), f"mesh_blocks_config5: two runs not bitwise {same}")
+    gaps = field_gaps(runs[0], ref)
+    out = {"phase": "mesh_blocks_config5", "K": MAIN_K, "m": MAIN_M, "blocks": mesh.size,
+           "rows_per_block": MAIN_K // mesh.size, "n_samples": qcfg.n_samples,
+           "chunk_iters": 16, "wall_s": walls,
+           "ms_per_sweep": [r.phase_seconds["subset_fits"] / qcfg.n_samples * 1e3
+                            for r in runs],
+           "repeat_bitwise": same, "launches": launches, "launches_expected": want,
+           "launches_by_kernel": launches_by_kernel(),
+           "bitwise_unmeshed": every_field_bitwise(runs[0], ref),
+           "max_abs_diff_unmeshed": gaps,
+           "phi_decisions_differ": phi_decisions_differ(runs[0], ref, 1),
+           "phi_decisions_of": MAIN_K, "nvidia_smi": nvidia_smi_line()}
     emit(out)
     return out
 
@@ -5019,6 +5119,7 @@ def adaptive_mesh_config5(device, c5_data, ad5, tmp):
     import torch
     from smk_torch import SMKConfig, fit_meta_kriging
     from smk_torch.models import probit_gp as tp
+    from smk_torch.models.probit_gp import dispatched_build_calls
     from smk_torch.obs.reporter import read_jsonl
     from smk_torch.ops import fused_build as fb
     from smk_torch.parallel import recovery as rec
@@ -5044,7 +5145,7 @@ def adaptive_mesh_config5(device, c5_data, ad5, tmp):
     torch.cuda.synchronize()
     out["wall_s"] = time.perf_counter() - t0
     launches = dict(fb.LAUNCHES)
-    want = dispatched_build_calls(cfg, 1, stats.chunks)
+    want = dispatched_build_calls(cfg, 1, stats.chunks, entries=mesh.size)
     check(launches == want, f"adaptive mesh config5: launches {launches} != {want}")
     same = {f: same_bits(v, ref["fields"][f]) for f, v in _adaptive_fields(res).items()}
     out["bitwise_unmeshed"] = same
@@ -5294,6 +5395,7 @@ def adaptive_dist_config5(device, c5_data, ad5, tmp):
     import torch
     import torch.distributed as tdist
     from smk_torch import fit_meta_kriging
+    from smk_torch.models.probit_gp import dispatched_build_calls
     from smk_torch.ops import fused_build as fb
     from smk_torch.parallel import distributed as D
     from smk_torch.parallel.executor import make_mesh
@@ -5323,7 +5425,7 @@ def adaptive_dist_config5(device, c5_data, ad5, tmp):
         D.destroy_distributed()
     check(not tdist.is_initialized(), "adaptive_dist: the process group survived")
     launches = dict(fb.LAUNCHES)
-    want = dispatched_build_calls(cfg, 1, stats.chunks)
+    want = dispatched_build_calls(cfg, 1, stats.chunks, entries=len(mesh.local_entries()))
     check(launches == want, f"adaptive_dist: launches {launches} != {want}")
     ad = stats.adaptive
     same = {f: same_bits(v, ref["fields"][f]) for f, v in _adaptive_fields(res).items()}
@@ -6209,6 +6311,8 @@ def main() -> int:
         pr5 = phase("fit_profile_config5", fit_profile_config5, device, c5_data, tmp)
         phase("programs_config5", programs_config5, device, c5_data, c4_data, tmp)
         m5 = phase("mesh_config5", mesh_config5, device, c5_data, tmp)
+        mb5 = phase("mesh_blocks_config5", mesh_blocks_config5, device, c5_data, m5)
+        del m5["chunked_unmeshed_result"]
         mc4 = phase("mesh_coherent_config4", mesh_coherent_config4, device, c4_data)
         d1 = phase("dist_world_of_one", dist_world_of_one, device)
         dc5 = phase("dist_ckpt_config5", dist_ckpt_config5, device, c5_data, tmp)
@@ -6231,7 +6335,8 @@ def main() -> int:
              "ingest_config4": ing4, "serve_coalesced_config5": co5,
              "fit_overlap_config5": ov5, "fit_overlap_small_faults": ovs,
              "fit_adaptive_config5": ad5, "fit_adaptive_small": ads,
-             "fit_profile_config5": pr5, "mesh_config5": m5, "mesh_coherent_config4": mc4,
+             "fit_profile_config5": pr5, "mesh_config5": m5, "mesh_blocks_config5": mb5,
+             "mesh_coherent_config4": mc4,
              "dist_world_of_one": d1, "dist_ckpt_config5": dc5, "data_csv_config4": csv4,
              "analysis_config5": an5, "adaptive_mesh_config5": am5,
              "adaptive_dist_config5": ad5d, "r_frontend_config4": rf4}

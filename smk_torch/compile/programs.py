@@ -39,6 +39,7 @@ returned, so a captured program costs one capture and no extra run.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -344,6 +345,7 @@ class GraphProgram:
         self.source = None
         self.compile_s = 0.0
         self.capture_s = None
+        self.capture_wait_s = 0.0
         self.pool_bytes = None
         self.replays = 0
 
@@ -431,7 +433,9 @@ class GraphProgram:
             sh.done[dkey].record(cur)
 
     def _capture(self, count: bool):
+        t0 = monotonic()
         with _CAPTURE_LOCK:
+            self.capture_wait_s = monotonic() - t0
             return self._warm_and_capture(count)
 
     def _warm_and_capture(self, count: bool):
@@ -446,20 +450,19 @@ class GraphProgram:
         torch.cuda.empty_cache()
         cur = torch.cuda.current_stream(dev)
         pool, side = self._shared.pool(dev)
-        before = fused_build.count_snapshot()
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            warm = self.fn(*self._args())
+        # the warm-up's launches are the main path's unless it is a
+        # precompile's; the capture's go to the graph, added at each replay
+        with contextlib.nullcontext() if count else fused_build.diverted_counts():
+            with torch.cuda.stream(side):
+                warm = self.fn(*self._args())
         cur.wait_stream(side)
         warm = self._owned(warm)
         warm_flat, out_spec = tree_flatten(warm)
         for o in warm_flat:
             if isinstance(o, torch.Tensor) and o.device.type == "cuda":
                 o.record_stream(cur)
-        if not count:
-            fused_build.restore_counts(before)
         out_bufs = self._shared.buffers_like("out", warm_flat)
-        before = fused_build.count_snapshot()
         graph = torch.cuda.CUDAGraph()
         # no garbage collection inside the capture: collecting an
         # unreachable graph destroys it, a CUDA call the capturing thread
@@ -467,8 +470,9 @@ class GraphProgram:
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=side,
-                                  capture_error_mode="thread_local"):
+            with fused_build.diverted_counts() as captured, \
+                    torch.cuda.graph(graph, pool=pool, stream=side,
+                                     capture_error_mode="thread_local"):
                 r0 = torch.cuda.memory_reserved(dev)
                 body = tree_flatten(self.fn(*self._args()))[0]
                 for i, buf in enumerate(out_bufs):
@@ -477,15 +481,13 @@ class GraphProgram:
                 del body  # the body's memory goes back to the pool
             r1 = torch.cuda.memory_reserved(dev)
         except Exception as e:
-            fused_build.restore_counts(before)
             raise RuntimeError(
                 f"CUDA graph capture failed for program {self.key!r}: {e}") from e
         finally:
             if gc_was_on:
                 gc.enable()
             cur.wait_stream(side)
-        self._launches = fused_build.count_delta(before)
-        fused_build.restore_counts(before)
+        self._launches = captured
         self._out = (out_bufs, out_spec)
         self._graph = graph
         note_compile()
@@ -493,6 +495,9 @@ class GraphProgram:
         self.capture_s = monotonic() - t0
         self.compile_s += self.capture_s
         _record(self._pending, self.key, self.source or "fresh", self.compile_s, True)
+        rec = getattr(self._pending, "record_capture", None)
+        if rec is not None:
+            rec(key=self.key, device=dev, capture_s=self.capture_s, wait_s=self.capture_wait_s)
         self._pending = None
         return warm
 
@@ -500,5 +505,6 @@ class GraphProgram:
         """Key, source and capture figures, for reports."""
         return {"key": [str(f) for f in self.key], "source": self.source,
                 "compile_s": self.compile_s, "capture_s": self.capture_s,
+                "capture_wait_s": self.capture_wait_s,
                 "pool_bytes": self.pool_bytes, "replays": self.replays,
                 "captured": self._graph is not None}

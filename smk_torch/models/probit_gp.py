@@ -534,6 +534,29 @@ def build_calls(cfg: SMKConfig, q: int, n_sweeps: int, n_burn: int,
     return out
 
 
+def dispatched_build_calls(cfg: SMKConfig, q: int, chunks, entries: int = 1) -> dict:
+    """Calls per fused-build entry point that a chunked run implies from
+    its own record (parallel/recovery.py): the initial state's R~ on
+    each of the ``entries`` that started it (the mesh entries of this
+    process, each its block whole also where ``chunk_size`` splits it;
+    1 unmeshed), then each dispatched chunk's calls at its
+    rung (chunk_build_calls) once per piece that ran it (the record's
+    ``pieces``, one by default). ``chunks``: ChunkPipelineStats.chunks;
+    the drain is left out."""
+    out = chunk_build_calls(cfg, q, "burn", 0, 0)
+    if cfg.subset_engine != "vecchia":
+        out["fused_masked_correlation_stack"] = int(entries)
+    for ch in chunks:
+        if ch["phase"] == "drain":
+            continue
+        kind = "burn" if ch["phase"] == "burn" else "samp"
+        n_pieces = int(ch.get("pieces", 1))
+        for key, v in chunk_build_calls(cfg, q, kind, ch["iteration"] - ch["n_iters"],
+                                        ch["n_iters"]).items():
+            out[key] += n_pieces * v
+    return out
+
+
 def _pad_identity(r: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """R~ = M R M + (I - M) per subset: r is (K, ..., m, m), mask (K, m)."""
     mm = mask[:, :, None] * mask[:, None, :]

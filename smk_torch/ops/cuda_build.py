@@ -31,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -55,6 +56,9 @@ NVCC_FLAGS = (
 BUILD_TIMEOUT_S = 600
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# one build or load at a time in the process: a mesh's host threads (one
+# a card) reach a library at once, and it must be compiled and opened once
+_LOCK = threading.Lock()
 # library name -> where this process got it: "l2" (copied out of the
 # store), "l3" (found in the build directory) or "fresh" (nvcc ran)
 ORIGIN: Dict[str, str] = {}
@@ -196,25 +200,30 @@ def ensure(names: Iterable[str], store=None) -> Dict[str, str]:
     each available first (:func:`build`) if this process has not yet.
     A library already had is not looked up again, though a ``store``
     that lacks it is filled from the build directory."""
-    todo = [n for n in names if n not in ORIGIN]
-    if todo:
-        build(todo, store=store)
-    if store is not None:
-        for n in names:
-            path = library_path(n)
-            if not store.has(store_key(n)) and path.exists():
-                store.save(store_key(n), path.read_bytes())
-    return {n: ORIGIN[n] for n in names}
+    with _LOCK:
+        todo = [n for n in names if n not in ORIGIN]
+        if todo:
+            build(todo, store=store)
+        if store is not None:
+            for n in names:
+                path = library_path(n)
+                if not store.has(store_key(n)) and path.exists():
+                    store.save(store_key(n), path.read_bytes())
+        return {n: ORIGIN[n] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first when missing."""
     lib = _LOADED.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        ORIGIN.setdefault(name, "l3")
-        lib = ctypes.CDLL(str(path))
-        _LOADED[name] = lib
-    return lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            ORIGIN.setdefault(name, "l3")
+            lib = ctypes.CDLL(str(path))
+            _LOADED[name] = lib
+        return lib

@@ -33,15 +33,20 @@ launches the kernel or raises (there is no fall-back); on a CPU tensor
 it runs the plain PyTorch version, :func:`plain_build`, which is also
 what ``chip_smoke.py`` holds the kernel against on the card.
 ``LAUNCHES`` counts kernel launches per entry point, ``LAYOUT_LAUNCHES``
-the same launches per kernel and type (:func:`launch_key`), and
+the same launches per kernel and type (:func:`launch_key`),
+``DEVICE_LAUNCHES`` the same launches per card index, and
 ``PLAIN_CALLS`` the plain version's calls, so a run can show which path
-it took.
+it took and on which cards. The counts are exact when several threads
+launch at once (one host thread a card, parallel/executor
+.run_per_device): every update holds one lock, and a thread that
+captures a CUDA graph counts into its own sink (:func:`diverted_counts`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -69,6 +74,8 @@ TILED, SYMMETRIC, NARROW = 0, 1, 2
 TILED_F64, SYMMETRIC_F64, NARROW_F64 = 3, 4, 5
 LAYOUT_LAUNCHES: Dict[int, int] = dict.fromkeys(
     (TILED, SYMMETRIC, NARROW, TILED_F64, SYMMETRIC_F64, NARROW_F64), 0)
+# kernel launches per card index (a key appears at the card's first)
+DEVICE_LAUNCHES: Dict[int, int] = {}
 # the widest square build the narrow kernel takes: it computes every
 # element, where the symmetric kernel computes one half
 NARROW_MAX_M = 256
@@ -78,41 +85,72 @@ _MODEL_IDS = {"exponential": 0, "matern32": 1, "matern52": 2}
 
 def reset_counts() -> None:
     """Set every launch and plain-call count to 0."""
-    for name in ENTRY_POINTS:
-        LAUNCHES[name] = 0
-        PLAIN_CALLS[name] = 0
-    for layout in LAYOUT_LAUNCHES:
-        LAYOUT_LAUNCHES[layout] = 0
+    with _COUNT_LOCK:
+        for name in ENTRY_POINTS:
+            LAUNCHES[name] = 0
+            PLAIN_CALLS[name] = 0
+        for layout in LAYOUT_LAUNCHES:
+            LAYOUT_LAUNCHES[layout] = 0
+        DEVICE_LAUNCHES.clear()
 
 
 # Launch accounting through CUDA graphs (compile/programs.py): a graph's
 # capture runs the wrappers' Python once and launches nothing, and each
 # replay launches every captured kernel again with no Python. So the
-# capture's counts are taken back out, and each replay adds them.
-_COUNTERS = (LAUNCHES, LAYOUT_LAUNCHES, PLAIN_CALLS)
+# capture counts into a sink of its own thread (diverted_counts), and
+# each replay adds the sink's counts.
+_COUNTERS = (LAUNCHES, LAYOUT_LAUNCHES, PLAIN_CALLS, DEVICE_LAUNCHES)
+_COUNT_LOCK = threading.Lock()
+_SINK = threading.local()
 
 
 def count_snapshot() -> tuple:
     """Every launch and plain-call count, as copies."""
-    return tuple(dict(c) for c in _COUNTERS)
+    with _COUNT_LOCK:
+        return tuple(dict(c) for c in _COUNTERS)
 
 
 def count_delta(before: tuple) -> tuple:
     """The counts added since the snapshot ``before``."""
-    return tuple({k: c[k] - b[k] for k in c} for c, b in zip(_COUNTERS, before))
+    now = count_snapshot()
+    return tuple({k: c[k] - b.get(k, 0) for k in c} for c, b in zip(now, before))
 
 
 def restore_counts(snap: tuple) -> None:
     """Set every count back to the snapshot ``snap``."""
-    for c, s in zip(_COUNTERS, snap):
-        c.update(s)
+    with _COUNT_LOCK:
+        for c, s in zip(_COUNTERS, snap):
+            c.clear()
+            c.update(s)
 
 
 def add_counts(delta: tuple) -> None:
-    """Add ``delta`` (from :func:`count_delta`) to every count."""
-    for c, d in zip(_COUNTERS, delta):
-        for k, v in d.items():
-            c[k] += v
+    """Add ``delta`` (from :func:`count_delta` or :func:`diverted_counts`)
+    to every count, or to this thread's sink while it diverts."""
+    sink = getattr(_SINK, "counts", None)
+    if sink is not None:
+        for c, d in zip(sink, delta):
+            for k, v in d.items():
+                c[k] = c.get(k, 0) + v
+        return
+    with _COUNT_LOCK:
+        for c, d in zip(_COUNTERS, delta):
+            for k, v in d.items():
+                c[k] = c.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def diverted_counts():
+    """Within the block, this thread's launches and plain calls count
+    into the yielded tuple of dicts (shaped as :func:`count_delta`'s) and
+    not into the process's counts; other threads count as usual."""
+    prev = getattr(_SINK, "counts", None)
+    sink = tuple({} for _ in _COUNTERS)
+    _SINK.counts = sink
+    try:
+        yield sink
+    finally:
+        _SINK.counts = prev
 
 
 def bind_kernel(lib):
@@ -293,7 +331,7 @@ def _fused_build(
         sh = torch.as_tensor(shift, dtype=dtype, device=dev)
         sh = torch.zeros((k, ma), dtype=dtype, device=dev) + sh
     if dev.type == "cpu":
-        PLAIN_CALLS[entry] += 1
+        add_counts(({}, {}, {entry: 1}, {}))
         out = plain_build(
             ca.expand(k, ma, d), cb, ph, model, mask=mk, shift=sh,
             zero_diag=zero_diag, row_mask=rm,
@@ -334,8 +372,7 @@ def _fused_build(
         out = torch.empty((k, ph.shape[-1], ma, mb), dtype=dtype, device=dev)
         if out.numel():
             _launch(ca, cb, ph, mk, sh, model, zero_diag, out, layout, rm)
-            LAUNCHES[entry] += 1
-            LAYOUT_LAUNCHES[launch_key(layout, dtype)] += 1
+            add_counts(({entry: 1}, {launch_key(layout, dtype): 1}, {}, {dev.index: 1}))
     return out if batched else out[0]
 
 

@@ -35,6 +35,8 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import json
+import os
+import socket
 import time
 import warnings
 from typing import Optional
@@ -174,6 +176,54 @@ def backend_name() -> Optional[str]:
     return str(dist.get_backend())
 
 
+def local_card(process_id: Optional[int], local_device_ids: Optional[list], n_visible: int,
+               environ=None) -> int:
+    """The card index this process drives: ``local_device_ids[0]``; else
+    ``process_id`` modulo the ``n_visible`` cards; else, in an ``env://``
+    job, ``LOCAL_RANK`` where the environment gives it (torchrun and
+    launchers like it set it to the rank on this host), otherwise
+    ``RANK``, each modulo the visible cards (a launcher that gives every
+    process only its own card leaves one visible); 0 for a lone process."""
+    env = os.environ if environ is None else environ
+    if local_device_ids:
+        return int(local_device_ids[0])
+    n = max(1, int(n_visible))
+    if process_id is not None:
+        return int(process_id) % n
+    if env.get("LOCAL_RANK") is not None:
+        return int(env["LOCAL_RANK"]) % n
+    return int(env.get("RANK", 0)) % n
+
+
+def card_identity(index: int) -> str:
+    """The physical identity of visible card ``index``: its UUID. Unlike
+    the ordinal it is the same in every process, also where each process
+    sees only its own card (a per-process ``CUDA_VISIBLE_DEVICES``, under
+    which every rank's card is ``cuda:0``)."""
+    return str(torch.cuda.get_device_properties(index).uuid)
+
+
+def check_distinct_cards(infos: list) -> None:
+    """Raise :class:`DistributedConfigError` when two ranks drive the same
+    card of one host. ``infos``: each rank's gathered entry, ``[device
+    kind, device type, [index], host, card identity]`` in rank order
+    (:func:`card_identity`); CPU entries may repeat. Cards are told apart
+    by identity, not by ordinal: ranks that each see one card all call it
+    ``cuda:0``. NCCL cannot build a communicator over a duplicated card,
+    so this is checked on the store before the first collective."""
+    seen: dict = {}
+    for rank, (_, typ, idx, host, card) in enumerate(infos):
+        if typ != "cuda":
+            continue
+        other = seen.setdefault((host, card), rank)
+        if other != rank:
+            raise DistributedConfigError(
+                f"ranks {other} and {rank} both drive card {card} (cuda:{idx[0]}) of host "
+                f"{host!r}; "
+                "give each process of a host its own card (LOCAL_RANK in the "
+                "environment, local_device_ids, or a process_id per card)")
+
+
 def init_distributed(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
@@ -195,8 +245,10 @@ def init_distributed(
     process 0, which hosts the rendezvous store; without it the
     ``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` / ``WORLD_SIZE``
     environment is read (``env://``). ``local_device_ids[0]`` is the card
-    this process drives (default: its rank modulo the visible cards),
-    made the current device before the group starts. ``timeout_s``
+    this process drives (default: :func:`local_card`, from ``process_id``
+    or the environment), made the current device before the group
+    starts; two ranks on one card of a host raise
+    :class:`DistributedConfigError` before any collective. ``timeout_s``
     bounds each rendezvous attempt and is the group's collective
     timeout; ``retries`` transient failures are retried after
     :func:`backoff_schedule`. Defaults come from ``config``
@@ -245,10 +297,8 @@ def init_distributed(
     if process_id is not None:
         kwargs["rank"] = int(process_id)
     if cuda:
-        n_vis = torch.cuda.device_count()
-        local = (int(local_device_ids[0]) if local_device_ids
-                 else int(process_id or 0) % max(1, n_vis))
-        torch.cuda.set_device(local)
+        torch.cuda.set_device(local_card(process_id, local_device_ids,
+                                         torch.cuda.device_count()))
     schedule = backoff_schedule(retries, backoff_s, backoff_cap_s)
     attempt = 0
     while True:
@@ -280,16 +330,26 @@ def init_distributed(
     else:  # a stubbed init_process_group (testing/faults.flaky_coordinator)
         pid, nproc = int(process_id or 0), int(num_processes or 1)
     # each rank's mesh entry, gathered once here so that building a mesh
-    # later needs no collective: [device kind, device type, [index]]
+    # later needs no collective: [device kind, device type, [index], host,
+    # card identity]
     if cuda:
         cur = torch.cuda.current_device()
-        info = [torch.cuda.get_device_name(cur), "cuda", [cur]]
+        info = [torch.cuda.get_device_name(cur), "cuda", [cur], socket.gethostname(),
+                card_identity(cur)]
     else:
-        info = ["cpu", "cpu", [None]]
+        info = ["cpu", "cpu", [None], socket.gethostname(), None]
     infos = [json.loads(b) for b in allgather_bytes("init_distributed", json.dumps(info).encode(),
                                                      timeout_s=timeout_s)]
     if len(infos) != nproc:  # a stubbed init: every rank like this one
         infos = [info] * nproc
+    else:
+        try:
+            check_distinct_cards(infos)
+        except DistributedConfigError:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            _KV_SEQ.clear()
+            raise
     n_local = torch.cuda.device_count() if cuda else 1
     topo = ProcessTopology(process_id=pid, num_processes=nproc, local_device_count=n_local,
                            global_device_count=sum(len(i[2]) for i in infos))
@@ -300,7 +360,7 @@ def init_distributed(
 def rank_entries() -> Optional[list]:
     """Each rank's mesh entry as gathered by :func:`init_distributed`:
     ``[device kind, device type, [index]]`` per rank, None before it."""
-    return None if _ACTIVE is None else [list(i) for i in _ACTIVE[2]]
+    return None if _ACTIVE is None else [list(i[:3]) for i in _ACTIVE[2]]
 
 
 def destroy_distributed(timeout_s: float = 60.0) -> None:

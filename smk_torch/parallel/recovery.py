@@ -737,7 +737,8 @@ class _Piece(NamedTuple):
     acquired in. ``sliced``: the piece's noise is rows [lo, hi) of the
     chunk noise drawn once from ``noise``, the whole batch's source (a
     mesh's pieces; the unmeshed ``chunk_size`` pieces draw from their
-    own rows' source)."""
+    own rows' source). ``entry``: the mesh entry (of this process) whose
+    block holds the rows."""
 
     lo: int
     hi: int
@@ -746,6 +747,7 @@ class _Piece(NamedTuple):
     noise: NoiseSource
     ctx: _ProgramCtx
     sliced: bool = False
+    entry: int = 0
 
 
 def _pieces(model: SpatialGPSampler, cdata: SubsetData, noise, k: int, c: int,
@@ -793,7 +795,7 @@ def _mesh_pieces(model, cdata, noise, k, c, chunk_size, ctx) -> List[_Piece]:
                     coords=cdata.coords[lo:hi].to(dev), x=cdata.x[lo:hi].to(dev),
                     y=cdata.y[lo:hi].to(dev), mask=cdata.mask[lo:hi].to(dev),
                     coords_test=cdata.coords_test.to(dev), x_test=cdata.x_test.to(dev))
-            out.append(_Piece(lo, hi, d, model._consts(d), noise, ctx, sliced=True))
+            out.append(_Piece(lo, hi, d, model._consts(d), noise, ctx, sliced=True, entry=i))
     return out
 
 
@@ -919,13 +921,72 @@ def _run_chunk(model: SpatialGPSampler, kind: str, pieces: Sequence[_Piece],
         return st, dr
     guards = [o[2] for o in outs]
     model.guard_rejects = None if guards[0] is None else torch.cat([g.to(home) for g in guards])
-    state = SamplerState(*(torch.cat([f.to(home) for f in fs])
-                           for fs in zip(*(o[0] for o in outs))))
+    state = SamplerState(*(_cat_rows(fs, home) for fs in zip(*(o[0] for o in outs))))
     draws = [o[1] for o in outs if o[1] is not None]
     if not draws:
         return state, None
     return state, (torch.cat([d[0].to(home) for d in draws]),
                    torch.cat([d[1].to(home) for d in draws]))
+
+
+def _cat_rows(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The row blocks ``parts`` (dim 0) as one tensor on ``device``, laid
+    out in the first block's memory order, which is the order a
+    one-piece run keeps (torch.cat would make it row-major): a batched
+    product's kernel, and so its bits, follows its operands' strides, so
+    a state gathered from a mesh's pieces, such as the factors cuSOLVER
+    returns column-major, must keep the layout an unmeshed run gives
+    it. One block moves as it is."""
+    first = parts[0]
+    if len(parts) == 1:
+        return first.to(device)
+    rows = first.shape[0]
+    # a block whose rows are its outermost dimension, each row one dense
+    # slab: the whole keeps the block's strides
+    slab = rows > 0 and first.stride(0) * rows == first.numel() and all(
+        first.stride(0) >= first.stride(d) for d in range(1, first.dim()) if first.shape[d] > 1)
+    if not slab:
+        return torch.cat([p.to(device) for p in parts])
+    shape = (sum(p.shape[0] for p in parts),) + tuple(first.shape[1:])
+    out = torch.empty_strided(shape, first.stride(), dtype=first.dtype, device=device)
+    lo = 0
+    for p in parts:
+        out[lo:lo + p.shape[0]].copy_(p)
+        lo += p.shape[0]
+    return out
+
+
+def _init_state(model: SpatialGPSampler, cdata: SubsetData, beta_init,
+                pieces: Sequence[_Piece]) -> SamplerState:
+    """The run's initial state on the data's device. A mesh's entries each
+    start their own block on their device, at once
+    (parallel/executor.run_per_device), and the rows are gathered: every
+    entry runs its block from the start, as fit_subsets_sharded's
+    entries do. An entry split into ``chunk_size`` pieces starts its
+    block whole, as the block fitted alone with that ``chunk_size`` does.
+    Otherwise the whole batch starts at once."""
+    if not pieces[0].sliced:
+        return model.init_state(cdata, beta_init,
+                                consts=pieces[0].consts if pieces[0].data is cdata else None)
+    home = cdata.x.device
+    blocks: dict = {}
+    for pc in pieces:
+        blocks.setdefault(pc.entry, []).append(pc)
+
+    def job(group):
+        pc = group[0]
+        dev = pc.data.x.device
+        data, consts = pc.data, pc.consts
+        if len(group) > 1:
+            lo, hi = pc.lo, group[-1].hi
+            data = pc.data._replace(coords=cdata.coords[lo:hi].to(dev), x=cdata.x[lo:hi].to(dev),
+                                    y=cdata.y[lo:hi].to(dev), mask=cdata.mask[lo:hi].to(dev))
+            consts = model._consts(data)
+        return _owner(model, pc).init_state(
+            data, None if beta_init is None else beta_init.to(dev), consts=consts)
+
+    outs = run_per_device([(g[0].data.x.device, lambda g=g: job(g)) for g in blocks.values()])
+    return SamplerState(*(_cat_rows(fs, home) for fs in zip(*outs)))
 
 
 def _require(noise, ops, why: str) -> None:
@@ -1505,8 +1566,7 @@ def _fit_subsets_chunked_impl(
             ck.compact(host, ckpt["noise"], param_np, w_np, it, filled)
         del ckpt
     else:
-        state = model.init_state(cdata, beta_init,
-                                 consts=pieces[0].consts if pieces[0].data is cdata else None)
+        state = _init_state(model, cdata, beta_init, pieces)
         it = 0
 
     # ---- the adaptive regime ------------------------------------------
@@ -2087,6 +2147,10 @@ def _fit_subsets_chunked_impl(
             # the rung and writers the scheduler folds in (the run's
             # subset numbers), this process's members and group
             "kc": g_kc, "members": tuple(members), "group": tuple(group),
+            # the pieces that ran the chunk's program (one per mesh entry
+            # of this process, or per chunk_size step; none for an empty
+            # group): each launched the chunk's builds
+            "pieces": len(pieces) if members else 0,
             "written": g_written, "written_local": write_members, "a": w_ofs, "b": w_ofs + n,
         }
 
@@ -2254,6 +2318,7 @@ def _fit_subsets_chunked_impl(
         if pstats is not None:
             if writer is not None:
                 entry["staging_wait_s"] = b["wait_s"]
+            entry["pieces"] = b["pieces"]
             if adaptive:
                 entry["kc"] = b["kc"]  # the chunk's dispatch group (the rung charged)
                 if mesh is not None and mesh.multi_process:

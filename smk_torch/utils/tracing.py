@@ -133,6 +133,9 @@ class ChunkPipelineStats:
     # one entry per program acquisition (record_program, through
     # compile/programs.get_program)
     programs: List[Dict[str, Any]] = field(default_factory=list)
+    # one entry per CUDA-graph capture (record_capture): on a mesh every
+    # entry's device captures its own programs under the same keys
+    captures: List[Dict[str, Any]] = field(default_factory=list)
     _program_keys: set = field(default_factory=set, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
@@ -182,6 +185,16 @@ class ChunkPipelineStats:
         with self._lock:
             self.fault_events.append(ev)
             self._emit("fault", ev)
+
+    def record_capture(self, *, key, device: str, capture_s: float, wait_s: float) -> None:
+        """One CUDA-graph capture (compile/programs.GraphProgram): its
+        bucket ``key``, the ``device`` it was captured on, the warm-up
+        and capture seconds and ``wait_s``, the seconds it waited for
+        the process's one capture at a time."""
+        with self._lock:
+            self.captures.append({"key": [str(f) for f in key], "device": str(device),
+                                  "capture_s": round(float(capture_s), 4),
+                                  "wait_s": round(float(wait_s), 4)})
 
     def record_program(self, *, key, source: str, compile_s: float = 0.0,
                        aot: bool = False) -> None:
