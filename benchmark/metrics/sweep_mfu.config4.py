@@ -1,0 +1,7 @@
+"""sweep_mfu.config4: sweep_mfu (see sweep_mfu.py) of the config4 cells,
+under a name of its own: a per-layer metric names one end-to-end
+metric that it moves, and config4.fit reports sweep_ms.config4."""
+
+from harness import spec
+
+read = spec.metric_reader("sweep_mfu")
