@@ -65,7 +65,13 @@ from smk_torch.parallel.partition import (
     random_permutation,
 )
 from smk_torch.parallel.recovery import find_failed_subsets, fit_subsets_chunked
-from smk_torch.utils.tracing import ChunkPipelineStats, PhaseTimes, phase_timer
+from smk_torch.utils.tracing import (
+    ChunkPipelineStats,
+    PhaseTimes,
+    phase_timer,
+    record_spans,
+    span,
+)
 
 
 class MetaKrigingResult(NamedTuple):
@@ -138,7 +144,8 @@ class TorchRandomness:
     def sweep_noise(self, shapes: SweepShapes) -> NoiseSource:
         """One generator per row of ``shapes.k`` (subsets times chains,
         subset-major)."""
-        gens = subset_generators(self._fit_seed, shapes.k, self.device)
+        with span("smk.streams", rows=shapes.k):
+            gens = subset_generators(self._fit_seed, shapes.k, self.device)
         return GeneratorNoise(gens, shapes, dtype=self.dtype, device=self.device)
 
     def resample_index(self, n_draws: int, n_grid: int) -> torch.Tensor:
@@ -599,7 +606,20 @@ def fit_meta_kriging(
     - ``config.run_log_dir``: one JSONL run log per fit, every phase a
       span and every chunk, fault, checkpoint write and live-diagnostics
       read an event (``python -m smk_torch.obs summarize <log>``); its
-      path is ``result.run_log_path``;
+      path is ``result.run_log_path``. It also arms the span recorder
+      for the fit, and the log ends with one ``span_total`` record a
+      program span name (count, total and self seconds) and the
+      ``factor_mm`` counter;
+    - ``with smk_torch.obs.record_spans() as rec:`` around calls: the
+      program's spans inside each fit, in memory (``rec.spans``; the
+      root ``fit_meta_kriging``, its phases, ``smk.streams``,
+      ``smk.init``, ``smk.cache``, every sweep's ``smk.noise`` and
+      ``smk.sweep`` with its stages ``smk.latent``, ``smk.beta``,
+      ``smk.phi``, ``smk.u_draw``, ``smk.a``, ``smk.krige``, each
+      ``smk.build`` and ``smk.factor``, ``smk.finalize``, a graph
+      replay's ``smk.replay``) and ``rec.counters["factor_mm"]``, the
+      m x m factorizations summed over batch rows; ``rec.export()``
+      puts them on a torch.profiler trace's clock;
     - ``config.live_diagnostics``: the streaming split-R-hat and ESS at
       each chunk boundary (``live_rhat_max`` / ``live_ess_min`` in the
       progress dict); implies chunking;
@@ -645,15 +665,20 @@ def fit_meta_kriging(
     chunked = dict(chunk_iters=chunk_iters or checkpoint_every,
                    checkpoint_path=checkpoint_path, progress=progress,
                    nan_guard=nan_guard, pipeline_stats=pstats)
-    try:
-        with matmul_precision(cfg.matmul_precision, dev), (
-                run_log.span("fit_meta_kriging") if run_log is not None
-                else contextlib.nullcontext()):
-            return _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev,
-                        chunk_size, chunked, asked, run_log, mesh)
-    finally:
-        if run_log is not None:
-            run_log.close(pipeline=pstats.aggregate())
+    with (record_spans() if run_log is not None else contextlib.nullcontext()) as rec:
+        mark = rec.mark() if rec is not None else None
+        try:
+            with matmul_precision(cfg.matmul_precision, dev), (
+                    run_log.span("fit_meta_kriging") if run_log is not None
+                    else contextlib.nullcontext()), span(
+                        "fit_meta_kriging", n=len(y), K=cfg.n_subsets,
+                        rows=cfg.n_subsets * cfg.n_chains):
+                return _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness,
+                            dev, chunk_size, chunked, asked, run_log, mesh)
+        finally:
+            if run_log is not None:
+                run_log.span_totals(rec.totals(since=mark))
+                run_log.close(pipeline=pstats.aggregate())
 
 
 def _fit(y, x, coords, coords_test, x_test, cfg, weight, seed, randomness, dev, chunk_size,

@@ -53,7 +53,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from smk_torch.analysis.sanitizers import note_compile
 from smk_torch.compile.store import ProgramStore
 from smk_torch.compile.xla_cache import persistent_cache_enabled
-from smk_torch.utils.tracing import monotonic
+from smk_torch.utils.tracing import monotonic, span
 
 # one capture at a time in the process: a capture's entry synchronises
 # the device and empties the allocator's cache, which must not fall
@@ -404,7 +404,10 @@ class GraphProgram:
             if self._graph is None:
                 out = self._capture(count=True)
             else:
-                self._graph.replay()
+                # one span a replay: the captured body's own spans
+                # recorded nothing
+                with span("smk.replay", kind=str(self.key[0])):
+                    self._graph.replay()
                 from smk_torch.ops import fused_build
 
                 fused_build.add_counts(self._launches)

@@ -91,6 +91,7 @@ from smk_torch.ops.vecchia import (
     vecchia_loglik,
     vecchia_posterior_draw,
 )
+from smk_torch.utils.tracing import count, span, stage
 from smk_torch.utils.diagnostics import (
     effective_sample_size,
     masked_effective_sample_size,
@@ -399,11 +400,12 @@ class GeneratorNoise:
         self.device = device
 
     def __call__(self, it: int, collect: bool) -> SweepNoise:
-        return stack_noise([
-            draw_sweep_noise(g, self.shapes, collect=collect,
-                             dtype=self.dtype, device=self.device)
-            for g in self.generators
-        ])
+        with span("smk.noise", rows=len(self.generators)):
+            return stack_noise([
+                draw_sweep_noise(g, self.shapes, collect=collect,
+                                 dtype=self.dtype, device=self.device)
+                for g in self.generators
+            ])
 
     def rows(self, ids, *, m: Optional[int] = None) -> "GeneratorNoise":
         """The source of batch rows ``ids`` alone (in that order), their
@@ -612,11 +614,12 @@ class SpatialGPSampler:
         evaluates it in bf16 on bf16 distances and phi, then upcasts
         (the twin's build-dtype gate, probit_gp.py:373-389)."""
         cfg = self.config
-        if cfg.build_dtype == "bfloat16":
-            return correlation(
-                dist.to(torch.bfloat16), phi.to(torch.bfloat16), cfg.cov_model
-            ).to(dist.dtype)
-        return correlation(dist, phi, cfg.cov_model)
+        with span("smk.build", entry="correlation", rows=dist.shape[0]):
+            if cfg.build_dtype == "bfloat16":
+                return correlation(
+                    dist.to(torch.bfloat16), phi.to(torch.bfloat16), cfg.cov_model
+                ).to(dist.dtype)
+            return correlation(dist, phi, cfg.cov_model)
 
     def _masked_corr_stack(self, consts, phis, mask):
         """(K, s, m, m) masked correlation stack for (K, s) phis."""
@@ -642,6 +645,7 @@ class SpatialGPSampler:
         call each. Fused: the shifted stack comes from the kernel and
         r_stack is None (the accept side rebuilds R~ at the selected
         phi); off: r_stack is the masked correlation stack."""
+        count("factor_mm", phis.numel())
         if self._fused:
             s_stk = fused_masked_shifted_build(
                 consts.coords, phis, mask, shift, self.config.cov_model
@@ -655,6 +659,7 @@ class SpatialGPSampler:
         subset. Fused: s_mat is the kernel's shifted build (handed back
         for the u-draw's back-multiply) and r is None; off: r is R~ and
         s_mat None."""
+        count("factor_mm", phi.numel())
         if self._fused:
             s_mat = fused_masked_shifted_build(
                 consts.coords, phi[:, None], mask, shift,
@@ -674,6 +679,7 @@ class SpatialGPSampler:
         jittered_cholesky); the blocked route factors a padded copy."""
         cfg = self.config
         jit_eff = cfg.effective_jitter(r.shape[-1])
+        count("factor_mm", r.shape[:-2].numel())
         if cfg.chol_block_size > 0:
             return blocked_cholesky(r, jit_eff, cfg.chol_block_size)
         r.diagonal(dim1=-2, dim2=-1).add_(jit_eff)
@@ -1004,7 +1010,9 @@ class SpatialGPSampler:
         sweep's Robbins–Monro scale as a 0-d tensor (:meth:`chunk_gains`);
         with it, ``it`` only decides whether phi updates, so any index
         congruent to the sweep's modulo ``phi_update_every`` will do (a
-        captured chunk replays at any start of its phase)."""
+        captured chunk replays at any start of its phase). Each numbered
+        stage below is a stage span of the sweep's span (utils/tracing)."""
+        stage("smk.latent")
         cfg = self.config
         k, m, q, p = data.x.shape
         dtype, dev = data.x.dtype, data.x.device
@@ -1029,6 +1037,7 @@ class SpatialGPSampler:
         ts = 1.0 / cfg.n_subsets if cfg.priors.temper == "power" else 1.0
 
         # --- 2. beta | z, w (conjugate, near-flat normal prior) ------
+        stage("smk.beta")
         resid_b = zbar - w
         prec_b = torch.einsum("kmqp,kmq,kmqr->kqpr", data.x, womega, data.x)
         chol_pb = jittered_cholesky(prec_b, ts / cfg.priors.beta_scale ** 2)
@@ -1054,6 +1063,7 @@ class SpatialGPSampler:
             # with the proposal's coefficients (one batched (q m, nn, nn)
             # factor call) and the sparse loglik in place of the dense
             # factor and its triangular-solve loglik
+            stage("smk.phi")
             step = torch.exp(state.phi_log_step)
             t_cur = torch.log((phi - lo) / (hi - phi))
             t_prop = t_cur + step * noise.kprop
@@ -1074,6 +1084,7 @@ class SpatialGPSampler:
             chol_r = torch.where(accept[..., None, None], packed_prop, state.chol_r)
             accepted = accept.to(dtype)
         elif is_update and not collapsed:
+            stage("smk.phi")
             step = torch.exp(state.phi_log_step)
             t_cur = torch.log((phi - lo) / (hi - phi))
             t_prop = t_cur + step * noise.kprop
@@ -1126,6 +1137,7 @@ class SpatialGPSampler:
         big = cfg.mask_noise_var
         u = u.clone()
         for j in range(q):
+            stage("smk.u_draw")
             a_j = a[:, :, j]  # (K, q)
             w_full = torch.einsum("kmi,kli->kml", u, a)
             partial_resid = e0 - w_full + u[:, :, j, None] * a_j[:, None, :]
@@ -1145,11 +1157,13 @@ class SpatialGPSampler:
                 continue
             chol_s = None
             if collapsed and is_update:
+                stage("smk.phi")
                 phi, chol_r, cache, acc_j, chol_s = self._collapsed_update(
                     consts, mask, state, phi, chol_r, cache, j, ytilde, d_vec,
                     noise, thread_s=thread_s,
                 )
                 accepted[:, j] = acc_j.to(dtype)
+                stage("smk.u_draw")
             elif thread_s:
                 # non-update sweep: the u-draw's S-factor at the current
                 # phi, built here so the draw itself never factors
@@ -1203,6 +1217,7 @@ class SpatialGPSampler:
         phi_log_step = rm_adapt(accepted)
 
         # --- 5. A | z, beta, U (lower-triangular rows) ----------------
+        stage("smk.a")
         prior_prec = ts / float(f(cfg.priors.a_scale)) ** 2
         a_new = torch.zeros_like(a)
         for l in range(q):
@@ -1252,6 +1267,7 @@ class SpatialGPSampler:
             return new_state, cache, None
 
         # --- 6. predictive kriging draw (spPredict equivalent) --------
+        stage("smk.krige")
         if self._vecchia:
             # nearest-neighbor kriging: the test sites' coefficients at
             # the current phi (O(t nn^3), rebuilt per kept draw)
@@ -1335,7 +1351,8 @@ class SpatialGPSampler:
         state, (param_draws, w_draws) = self.sample_chunk(
             data, consts, state, noise, cfg.n_burn_in, cfg.n_kept
         )
-        return self.finalize(state, param_draws, w_draws)
+        with span("smk.finalize", rows=rows):
+            return self.finalize(state, param_draws, w_draws)
 
     def default_noise(self, data: SubsetData, seed: int = 0) -> GeneratorNoise:
         """One generator per (subset, chain) row of ``data``'s K subsets,
@@ -1377,7 +1394,8 @@ class SpatialGPSampler:
         chunks and of the captured chunk programs. ``noise_at(i)`` is
         sweep i's SweepNoise; ``gains`` :meth:`chunk_gains`. Returns
         (state, draws or None)."""
-        cache = self._solve_cache(consts, data.mask, state, predict=collect)
+        with span("smk.cache", predict=collect):
+            cache = self._solve_cache(consts, data.mask, state, predict=collect)
         draws = None
         if collect:
             k, m, q, p = data.x.shape
@@ -1385,11 +1403,14 @@ class SpatialGPSampler:
             opts = dict(dtype=data.x.dtype, device=data.x.device)
             draws = (torch.empty((k, n_iters, n_params(q, p)), **opts),
                      torch.empty((k, n_iters, t * q), **opts))
+        every = self.config.phi_update_every
         for i in range(n_iters):
-            state, cache, out = self._gibbs_step(
-                data, consts, state, cache, it0 + i, noise_at(i), collect=collect,
-                gain=None if gains is None else gains[i],
-            )
+            nz = noise_at(i)
+            with span("smk.sweep", it=it0 + i, collect=collect, phi=(it0 + i) % every == 0):
+                state, cache, out = self._gibbs_step(
+                    data, consts, state, cache, it0 + i, nz, collect=collect,
+                    gain=None if gains is None else gains[i],
+                )
             if collect:
                 draws[0][:, i] = out[0]
                 draws[1][:, i] = out[1]
@@ -1407,11 +1428,16 @@ class SpatialGPSampler:
         The counters are the whole batch's per row (every row factors
         alike)."""
         gains = self.chunk_gains(start_it, n_iters, collect, data.x.dtype, data.x.device)
-        cache = self._solve_cache(consts, data.mask, state, predict=collect)
+        with span("smk.cache", predict=collect):
+            cache = self._solve_cache(consts, data.mask, state, predict=collect)
+        every = self.config.phi_update_every
         for i in range(n_iters):
-            state, cache, _ = self._gibbs_step(
-                data, consts, state, cache, start_it + i, noise(start_it + i, collect),
-                collect=collect, gain=None if gains is None else gains[i])
+            it = start_it + i
+            nz = noise(it, collect)
+            with span("smk.sweep", it=it, collect=collect, phi=it % every == 0):
+                state, cache, _ = self._gibbs_step(
+                    data, consts, state, cache, it, nz, collect=collect,
+                    gain=None if gains is None else gains[i])
         if with_calls:
             return state, (cache.n_chol, cache.n_chol_calls)
         return state, cache.n_chol

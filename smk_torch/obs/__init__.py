@@ -1,5 +1,15 @@
 """Run telemetry — twin of ``smk_tpu/obs``:
 
+- :func:`record_spans` — the program's spans inside a fit, held in
+  memory (utils/tracing.SpanRecorder): the API phases, each sweep, its
+  noise draw and stages (``smk.latent``, ``smk.beta``, ``smk.phi``,
+  ``smk.u_draw``, ``smk.a``, ``smk.krige``), every correlation build
+  (``smk.build``) and factorization (``smk.factor``), and the counter
+  ``factor_mm``. An operator arms it with ``with record_spans() as
+  rec:`` around any calls (``rec.export()`` lays the spans on a
+  torch.profiler trace's Unix clock, ``rec.totals()`` sums them by
+  name), or per fit with ``SMKConfig.run_log_dir``, whose log then ends
+  with one ``span_total`` record a span name;
 - :mod:`smk_torch.obs.events` — nested spans, events and counters in a
   per-fit append-only JSONL run log (``SMKConfig.run_log_dir``);
 - :mod:`smk_torch.obs.streaming` — streaming split-R-hat and
@@ -18,6 +28,7 @@ bitwise unchanged.
 from smk_torch.obs.events import RunLog, open_run_log
 from smk_torch.obs.memory import device_memory_stats, hbm_watermark
 from smk_torch.obs.reporter import JsonlWriter, read_jsonl, write_records
+from smk_torch.utils.tracing import record_spans
 
 __all__ = [
     "RunLog",
@@ -27,4 +38,5 @@ __all__ = [
     "JsonlWriter",
     "read_jsonl",
     "write_records",
+    "record_spans",
 ]

@@ -2,7 +2,7 @@
 
 One :class:`RunLog` per fit, an append-only JSONL timeline written
 through obs/reporter.py (each record flushed as it is written, so a kill
-tears at most one line). Three record kinds:
+tears at most one line). Four record kinds:
 
 - ``span``: a nested wall-clock interval with its id, its parent's id
   and monotonic ``t0``/``t1`` bounds relative to the log's opening.
@@ -11,7 +11,10 @@ tears at most one line). Three record kinds:
 - ``event``: a point-in-time fact attached to the innermost open span
   (chunk boundaries, faults, checkpoint writes, live diagnostics, the
   watchdog, the adaptive schedule's compactions, profiler windows);
-- ``counter``: a named running total, written when bumped.
+- ``counter``: a named running total, written when bumped;
+- ``span_total``: at a fit's end, one per span name of the program's
+  span recorder (utils/tracing.record_spans, armed for the fit by the
+  run log): the spans' count, total and self seconds.
 
 The first record is ``run_start`` (trace id, wall-clock anchor, pid,
 meta), the last ``run_end``. Every other time is monotonic seconds since
@@ -164,6 +167,24 @@ class RunLog:
                 "value": total,
                 "delta": value,
             })
+
+    def span_totals(self, totals: Dict[str, Any]) -> None:
+        """One ``span_total`` record per span name of a span recorder's
+        totals (utils/tracing.SpanRecorder.totals: count, total and self
+        seconds); the recorder's counters become counters of the log."""
+        with self._lock:
+            if self._closed:
+                return
+            for name, tot in sorted(totals["spans"].items()):
+                self._writer.write({
+                    "kind": "span_total",
+                    "name": name,
+                    "count": int(tot["count"]),
+                    "total_s": round(tot["total_s"], 6),
+                    "self_s": round(tot["self_s"], 6),
+                })
+        for name, n in sorted(totals["counters"].items()):
+            self.counter(name, n)
 
     # -- lifecycle -------------------------------------------------
 

@@ -168,12 +168,6 @@ def _is_device(e: dict) -> bool:
             and float(e.get("dur", 0.0)) > 0)
 
 
-def device_pids(events: Iterable[dict]) -> set:
-    """The process ids that carry device events (by category, whatever
-    the processes are named)."""
-    return {e.get("pid") for e in events if _is_device(e)}
-
-
 def device_op_totals(events: Iterable[dict]) -> Dict[str, float]:
     """Total device duration (µs) per op name."""
     by_name: Dict[str, float] = {}

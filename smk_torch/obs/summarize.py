@@ -15,6 +15,8 @@ Rebuilds the timeline a fit wrote (obs/events.py) into:
 - the checkpoint writes, the faults, the watchdog's events, the live
   diagnostics' trajectory, the adaptive schedule's compactions and the
   profiler's windows;
+- the program's span totals (``span_total`` records: count, total and
+  self seconds a span name);
 - the serving view (:func:`serve_block`: coalesced batches, the held-time
   histogram, the admission counters) and the live-fit view
   (:func:`ingest_block`: ingested batches, refits, published generations
@@ -45,6 +47,7 @@ def load_run(path: str) -> Dict[str, Any]:
         "spans": [],
         "events": [],
         "counters": [],
+        "span_totals": [],
         "end": None,
     }
     for r in records[1:]:
@@ -55,6 +58,8 @@ def load_run(path: str) -> Dict[str, Any]:
             out["events"].append(r)
         elif kind == "counter":
             out["counters"].append(r)
+        elif kind == "span_total":
+            out["span_totals"].append(r)
         elif kind == "run_end":
             out["end"] = r
     return out
@@ -322,6 +327,12 @@ def summarize(path: str) -> Dict[str, Any]:
         "serve": serve_block(run),
         "ingest": ingest_block(run),
         "counters": (run["end"] or {}).get("counters", {}),
+        # the program's spans inside the fit (utils/tracing.record_spans),
+        # one entry a span name, the most total seconds first
+        "span_totals": sorted(
+            ({k: t[k] for k in ("name", "count", "total_s", "self_s")}
+             for t in run["span_totals"]),
+            key=lambda t: -t["total_s"]),
     }
 
 
@@ -389,6 +400,10 @@ def main(argv: List[str]) -> int:
         )
         if ch.get("hbm_peak_bytes") is not None:
             print(f"hbm_peak_bytes: {ch['hbm_peak_bytes']}")
+    if summary["span_totals"]:
+        print("\nprogram spans (count, total s, self s):")
+        for t in summary["span_totals"]:
+            print(f"  {t['name']:<24} {t['count']:>8} {t['total_s']:>10.4f} {t['self_s']:>10.4f}")
     cb = summary["combine"]
     if cb["combine_s"] is not None:
         print(f"\ncombine: {cb['combine_s']}s  resample_predict: "

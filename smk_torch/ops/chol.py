@@ -9,6 +9,10 @@ sampler's accept logic relies on that (a NaN log-ratio rejects;
 instead, and ``cholesky_ex`` returns a finite partial factor with
 ``info > 0``, so every factor here is NaN-filled where ``info != 0`` —
 with no host sync.
+
+Each factorization entry point is one ``smk.factor`` span
+(utils/tracing.span; ``m`` the matrix size, ``batch`` the matrices
+factored), its copies and fills included.
 """
 
 from __future__ import annotations
@@ -17,12 +21,23 @@ from typing import Optional
 
 import torch
 
+from smk_torch.utils.tracing import span
+
+
+def _factor_span(mat: torch.Tensor):
+    return span("smk.factor", m=mat.shape[-1], batch=mat.shape[:-2].numel())
+
 
 def cholesky(mat: torch.Tensor) -> torch.Tensor:
     """Lower factor of ``mat`` (batched); where ``mat`` is not PD, its
     lower triangle is all NaN and its upper triangle zero — what the
     twin's ``jnp.tril(lax.linalg.cholesky(mat))`` gives. The fill is
     one in-place select over the factor, with no host sync."""
+    with _factor_span(mat):
+        return _cholesky(mat)
+
+
+def _cholesky(mat: torch.Tensor) -> torch.Tensor:
     chol, info = torch.linalg.cholesky_ex(mat)
     m = mat.shape[-1]
     nan_lower = torch.full((m, m), float("nan"), dtype=chol.dtype,
@@ -39,7 +54,8 @@ def _add_diag(mat: torch.Tensor, diag) -> torch.Tensor:
 
 def jittered_cholesky(mat: torch.Tensor, jitter: float = 1e-5) -> torch.Tensor:
     """Lower Cholesky factor of ``mat + jitter * I`` over (..., m, m)."""
-    return cholesky(_add_diag(mat, jitter))
+    with _factor_span(mat):
+        return _cholesky(_add_diag(mat, jitter))
 
 
 def blocked_cholesky(
@@ -61,9 +77,14 @@ def blocked_cholesky(
     written). A diagonal block that is not positive definite factors
     to NaN (:func:`cholesky`), and the GEMMs carry the NaN into every
     later block column, where the twin's XLA GEMMs carry it."""
+    with _factor_span(mat):
+        return _blocked_cholesky(mat, jitter, block_size)
+
+
+def _blocked_cholesky(mat: torch.Tensor, jitter: float, block_size: int) -> torch.Tensor:
     m = mat.shape[-1]
     if m <= block_size:
-        return jittered_cholesky(mat, jitter)
+        return _cholesky(_add_diag(mat, jitter))
     b = block_size
     nb = -(-m // b)
     mp = nb * b
@@ -79,7 +100,7 @@ def blocked_cholesky(
         s = buf[..., lo:, lo:hi]
         if k > 0:
             s = s - buf[..., lo:, :lo] @ buf[..., lo:hi, :lo].mT
-        l_kk = cholesky(s[..., :b, :])
+        l_kk = _cholesky(s[..., :b, :])
         buf[..., lo:hi, lo:hi] = l_kk
         if hi < mp:
             inv_kk = torch.linalg.solve_triangular(l_kk, eye_b.expand(l_kk.shape), upper=False)
@@ -91,8 +112,13 @@ def blocked_cholesky(
 def shifted_cholesky(r: torch.Tensor, shift) -> torch.Tensor:
     """Lower Cholesky factor of ``r + diag(shift)``; shift is a scalar or
     a (..., m) diagonal."""
+    with _factor_span(r):
+        return _shifted_cholesky(r, shift)
+
+
+def _shifted_cholesky(r: torch.Tensor, shift) -> torch.Tensor:
     shift = torch.zeros(r.shape[:-1], dtype=r.dtype, device=r.device) + shift
-    return cholesky(_add_diag(r, shift))
+    return _cholesky(_add_diag(r, shift))
 
 
 def batched_shifted_cholesky(r_stack: torch.Tensor, shift) -> torch.Tensor:
@@ -100,7 +126,8 @@ def batched_shifted_cholesky(r_stack: torch.Tensor, shift) -> torch.Tensor:
     or (..., m), broadcast across the stack axis)."""
     if torch.is_tensor(shift) and shift.dim() >= 1:
         shift = shift[..., None, :]
-    return shifted_cholesky(r_stack, shift)
+    with _factor_span(r_stack):
+        return _shifted_cholesky(r_stack, shift)
 
 
 def finite_factor(chol_l: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,8 @@ it took and on which cards. The counts are exact when several threads
 launch at once (one host thread a card, parallel/executor
 .run_per_device): every update holds one lock, and a thread that
 captures a CUDA graph counts into its own sink (:func:`diverted_counts`).
+Each build is one ``smk.build`` span (utils/tracing.span: the entry
+point, the batch rows and the stack depth s).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import torch
 
 from smk_torch.ops import cuda_build
 from smk_torch.ops.kernels import CORRELATION_FNS
+from smk_torch.utils.tracing import span
 
 ENTRY_POINTS = (
     "fused_correlation",
@@ -319,60 +322,62 @@ def _fused_build(
     mb = cb.shape[-2]
     dev = ca.device
     dtype = ca.dtype
-    ph = ph.to(dtype).expand(k, ph.shape[-1])
-    mk = sh = rm = None
-    if masked:
-        mk = mask.to(dtype)
-        mk = (mk if mk.dim() == 2 else mk[None]).expand(k, ma)
-    if row_mask is not None:
-        rm = row_mask.to(dtype)
-        rm = (rm if rm.dim() == 2 else rm[None]).expand(k, ma)
-    if shifted:
-        sh = torch.as_tensor(shift, dtype=dtype, device=dev)
-        sh = torch.zeros((k, ma), dtype=dtype, device=dev) + sh
-    if dev.type == "cpu":
-        add_counts(({}, {}, {entry: 1}, {}))
-        out = plain_build(
-            ca.expand(k, ma, d), cb, ph, model, mask=mk, shift=sh,
-            zero_diag=zero_diag, row_mask=rm,
-        )
-    else:
-        if dev.type != "cuda":
-            raise ValueError(f"fused build: unsupported device {dev}")
-        tensors = [("coords_a", ca), ("coords_b", cb), ("phis", ph)]
+    with span("smk.build", entry=entry, rows=k, s=ph.shape[-1]):
+        ph = ph.to(dtype).expand(k, ph.shape[-1])
+        mk = sh = rm = None
         if masked:
-            tensors.append(("mask", mk))
+            mk = mask.to(dtype)
+            mk = (mk if mk.dim() == 2 else mk[None]).expand(k, ma)
+        if row_mask is not None:
+            rm = row_mask.to(dtype)
+            rm = (rm if rm.dim() == 2 else rm[None]).expand(k, ma)
         if shifted:
-            tensors.append(("shift", sh))
-        if rm is not None:
-            tensors.append(("row_mask", rm))
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"fused build: coordinates must be float32 or float64, got {dtype}")
-        for name, t in tensors:
-            if t.device != dev:
-                raise ValueError(f"fused build: {name} is on {t.device}, not {dev}")
-            if t.dtype != dtype:
-                raise TypeError(f"fused build: {name} must be {dtype}, got {t.dtype}")
-        if not 1 <= d <= _MAX_D or cb.shape[-1] != d:
-            raise ValueError(
-                f"fused build: coordinate dimension must be 1..{_MAX_D} "
-                f"and equal on both operands, got {d} and {cb.shape[-1]}"
+            sh = torch.as_tensor(shift, dtype=dtype, device=dev)
+            sh = torch.zeros((k, ma), dtype=dtype, device=dev) + sh
+        if dev.type == "cpu":
+            add_counts(({}, {}, {entry: 1}, {}))
+            out = plain_build(
+                ca.expand(k, ma, d), cb, ph, model, mask=mk, shift=sh,
+                zero_diag=zero_diag, row_mask=rm,
             )
-        # a K-shared operand keeps stride 0 on K (no copy); the (m, d)
-        # block of each k must be contiguous
-        ca = ca.contiguous() if ca.shape[0] == k else ca[:1].contiguous().expand(k, ma, d)
-        if layout == SYMMETRIC:
-            cb = ca
         else:
-            cb = cb.contiguous() if cb.shape[0] == k else cb[:1].contiguous().expand(k, mb, d)
-        ph = ph.contiguous()
-        mk = None if mk is None else mk.contiguous()
-        sh = None if sh is None else sh.contiguous()
-        rm = None if rm is None else rm.contiguous()
-        out = torch.empty((k, ph.shape[-1], ma, mb), dtype=dtype, device=dev)
-        if out.numel():
-            _launch(ca, cb, ph, mk, sh, model, zero_diag, out, layout, rm)
-            add_counts(({entry: 1}, {launch_key(layout, dtype): 1}, {}, {dev.index: 1}))
+            if dev.type != "cuda":
+                raise ValueError(f"fused build: unsupported device {dev}")
+            tensors = [("coords_a", ca), ("coords_b", cb), ("phis", ph)]
+            if masked:
+                tensors.append(("mask", mk))
+            if shifted:
+                tensors.append(("shift", sh))
+            if rm is not None:
+                tensors.append(("row_mask", rm))
+            if dtype not in (torch.float32, torch.float64):
+                raise TypeError(
+                    f"fused build: coordinates must be float32 or float64, got {dtype}")
+            for name, t in tensors:
+                if t.device != dev:
+                    raise ValueError(f"fused build: {name} is on {t.device}, not {dev}")
+                if t.dtype != dtype:
+                    raise TypeError(f"fused build: {name} must be {dtype}, got {t.dtype}")
+            if not 1 <= d <= _MAX_D or cb.shape[-1] != d:
+                raise ValueError(
+                    f"fused build: coordinate dimension must be 1..{_MAX_D} "
+                    f"and equal on both operands, got {d} and {cb.shape[-1]}"
+                )
+            # a K-shared operand keeps stride 0 on K (no copy); the (m, d)
+            # block of each k must be contiguous
+            ca = ca.contiguous() if ca.shape[0] == k else ca[:1].contiguous().expand(k, ma, d)
+            if layout == SYMMETRIC:
+                cb = ca
+            else:
+                cb = cb.contiguous() if cb.shape[0] == k else cb[:1].contiguous().expand(k, mb, d)
+            ph = ph.contiguous()
+            mk = None if mk is None else mk.contiguous()
+            sh = None if sh is None else sh.contiguous()
+            rm = None if rm is None else rm.contiguous()
+            out = torch.empty((k, ph.shape[-1], ma, mb), dtype=dtype, device=dev)
+            if out.numel():
+                _launch(ca, cb, ph, mk, sh, model, zero_diag, out, layout, rm)
+                add_counts(({entry: 1}, {launch_key(layout, dtype): 1}, {}, {dev.index: 1}))
     return out if batched else out[0]
 
 

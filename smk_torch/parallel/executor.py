@@ -36,6 +36,7 @@ from smk_torch.models.probit_gp import (
 )
 from smk_torch.parallel.partition import Partition
 from smk_torch.device import in_callers_context
+from smk_torch.utils.tracing import span, under_current_span
 
 
 def stacked_subset_data(
@@ -64,8 +65,9 @@ def init_subset_states(model: SpatialGPSampler, data: SubsetData, beta_init, con
 def _run(model: SpatialGPSampler, data: SubsetData, beta_init, noise) -> SubsetResult:
     """Init and run of the stacked subsets ``data`` over one build of the
     sampler's geometry, which init and both scans share."""
-    consts = model._consts(model.chain_data(data))
-    state = init_subset_states(model, data, beta_init, consts)
+    with span("smk.init", rows=data.x.shape[0] * model.config.n_chains):
+        consts = model._consts(model.chain_data(data))
+        state = init_subset_states(model, data, beta_init, consts)
     return model.run(data, state, noise, consts=consts)
 
 
@@ -394,7 +396,7 @@ def run_per_device(jobs: Sequence[tuple]) -> list:
         run(range(len(jobs)))
         return out
     with ThreadPoolExecutor(max_workers=len(groups), thread_name_prefix="smk-mesh") as ex:
-        futs = [ex.submit(in_callers_context(lambda ids=ids: run(ids),
+        futs = [ex.submit(in_callers_context(under_current_span(lambda ids=ids: run(ids)),
                                              torch.device(jobs[ids[0]][0])))
                 for ids in groups.values()]
         for f in futs:

@@ -2192,10 +2192,8 @@ def _fit_subsets_chunked_impl(
         the host mirror, which the manifest then holds. Once a boundary,
         after its guard (a rewind discards the staged rows)."""
         if adaptive and b["save"] and b["state_np"] is not state_full:
-            t1 = monotonic()
             merge_state_full(b["state_np"])
             b["state_np"] = state_full
-            entry["mirror_merge_s"] = monotonic() - t1
 
     def boundary_host_work(b, stall):
         """Guard, report and checkpoint one chunk, and consult the

@@ -12,15 +12,24 @@ of the fit's run log (obs/events.py). Every program acquisition of the
 chunked executor and the serving engine (compile/programs.get_program)
 is recorded by ``record_program``, and ``aggregate`` reports their
 sources and seconds as the twin's does.
+
+The span recorder (:func:`record_spans`, :class:`SpanRecorder`; the
+port's own, no twin) holds the program's spans inside a fit in memory:
+the sites :func:`span`, :func:`stage` and :func:`count` in the sampler,
+the factor and build entry points and the API phases cost one read of a
+module-level variable while nothing is armed. Stamps are
+:func:`monotonic_ns`; :func:`to_unix_ns` lays them on a torch.profiler
+trace's clock.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten
@@ -32,6 +41,245 @@ from smk_torch.device import sync
 def monotonic() -> float:
     """The telemetry clock: monotonic seconds, as the twin's."""
     return time.perf_counter()
+
+
+def monotonic_ns() -> int:
+    """The same clock in integer nanoseconds: the stamps of the span
+    recorder (:class:`SpanRecorder`)."""
+    return time.perf_counter_ns()
+
+
+def clock_anchor() -> Tuple[int, int]:
+    """One (monotonic ns, Unix ns) pair: the Unix clock read between two
+    reads of the monotonic one, paired with their midpoint."""
+    a = time.perf_counter_ns()
+    unix = time.time_ns()
+    b = time.perf_counter_ns()
+    return (a + b) // 2, unix
+
+
+def to_unix_ns(t_ns: int, anchor: Tuple[int, int]) -> int:
+    """Monotonic stamp ``t_ns`` on the Unix clock, in nanoseconds, by
+    the recorder's ``anchor`` (:func:`clock_anchor`). A torch.profiler
+    Chrome trace is on that clock: an event starts at
+    ``baseTimeNanoseconds + 1000 * ts``."""
+    return t_ns - anchor[0] + anchor[1]
+
+
+# ---------------------------------------------------------------------------
+# Spans inside the fit: the in-memory recorder
+# ---------------------------------------------------------------------------
+# The recorder armed in the process (record_spans), or None. Every span
+# site reads it first: with it None a site does nothing else.
+_RECORDER: Optional["SpanRecorder"] = None
+
+
+def capturing() -> bool:
+    """Whether this thread's current CUDA stream is capturing a graph (a
+    span or count then records nothing: the graph's replays run no
+    Python)."""
+    rec = _RECORDER
+    return rec is not None and rec.cuda and torch.cuda.is_current_stream_capturing()
+
+
+# what a span site gets while nothing records: one shared, reusable
+# context that does nothing
+_NULL = contextlib.nullcontext()
+
+
+class _Open:
+    """A span open on a thread's stack (a ``with`` span, or a stage
+    opened by :func:`stage`)."""
+
+    __slots__ = ("rec", "sid", "name", "parent", "t0", "attrs", "is_stage")
+
+    def __init__(self, rec, name, attrs, is_stage):
+        self.rec, self.name, self.attrs, self.is_stage = rec, name, attrs, is_stage
+        self.sid = self.parent = self.t0 = None
+
+    def __enter__(self):
+        self.rec._push(self, monotonic_ns())
+        return self.sid
+
+    def __exit__(self, *exc):
+        self.rec._pop(self, monotonic_ns())
+        return False
+
+
+class SpanRecorder:
+    """The program's spans and counters, held in memory while armed
+    (:func:`record_spans`) and written nowhere: a caller reads
+    :attr:`spans`, :meth:`export` or :meth:`totals` when the work ends.
+
+    A span record is the run log's span (obs/events.RunLog): ``name``,
+    ``span_id``, ``parent``, ``t0``/``t1`` (monotonic ns,
+    :func:`monotonic_ns`) and ``attrs``. Each thread keeps its own stack
+    of open spans; a thread started through :func:`under_current_span`
+    opens its first span under the span its starter had open.
+    ``counters``: named totals (``factor_mm``, the m x m factorizations
+    of the subset samplers, summed over batch rows)."""
+
+    def __init__(self):
+        self.anchor = clock_anchor()
+        self.cuda = torch.cuda.is_available()
+        self.spans: List[Dict[str, Any]] = []
+        self.counters: Dict[str, int] = {}
+        self._ids = itertools.count()
+        self._local = threading.local()
+        self._lock = threading.Lock()
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def _push(self, sp: _Open, t: int) -> None:
+        st = self._stack()
+        sp.sid = next(self._ids)
+        sp.parent = st[-1].sid if st else getattr(self._local, "base", None)
+        sp.t0 = t
+        st.append(sp)
+
+    def _close(self, sp: _Open, t: int) -> None:
+        self.spans.append({"name": sp.name, "span_id": sp.sid, "parent": sp.parent,
+                           "t0": sp.t0, "t1": t, "attrs": sp.attrs})
+
+    def _pop(self, sp: _Open, t: int) -> None:
+        """Close ``sp`` and every span still open above it (its stages,
+        or spans an exception unwound past), all at ``t``."""
+        st = self._stack()
+        if sp not in st:
+            return
+        while st:
+            top = st.pop()
+            self._close(top, t)
+            if top is sp:
+                return
+
+    def stage(self, name: str) -> None:
+        """Close the stage open at the top of this thread's stack, if
+        any, and open stage ``name`` in its place (a child of the span
+        below it), at one instant."""
+        t = monotonic_ns()
+        st = self._stack()
+        if st and st[-1].is_stage:
+            self._close(st.pop(), t)
+        self._push(_Open(self, name, {}, True), t)
+
+    def add(self, name: str, n: int) -> None:
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + int(n)
+
+    def current(self) -> Optional[int]:
+        """The id of this thread's innermost open span, or None."""
+        st = self._stack()
+        return st[-1].sid if st else getattr(self._local, "base", None)
+
+    def mark(self) -> Tuple[int, Dict[str, int]]:
+        """A point to total from (:meth:`totals`)."""
+        with self._lock:
+            return len(self.spans), dict(self.counters)
+
+    def export(self) -> List[Dict[str, Any]]:
+        """Every closed span with ``t0``/``t1`` on the Unix clock in ns
+        (:func:`to_unix_ns`), the conversion made once, here."""
+        return [dict(s, t0=to_unix_ns(s["t0"], self.anchor), t1=to_unix_ns(s["t1"], self.anchor))
+                for s in list(self.spans)]
+
+    def totals(self, since: Optional[Tuple[int, Dict[str, int]]] = None) -> Dict[str, Any]:
+        """Per span name ``count``, ``total_s`` and ``self_s`` (a span's
+        wall less the union of its children's), and the counters, over
+        the spans closed since ``since`` (:meth:`mark`; default: all)."""
+        first, base = since if since is not None else (0, {})
+        spans = list(self.spans)[first:]
+        kids: Dict[int, list] = {}
+        for s in spans:
+            if s["parent"] is not None:
+                kids.setdefault(s["parent"], []).append((s["t0"], s["t1"]))
+        out: Dict[str, Dict[str, Any]] = {}
+        for s in spans:
+            wall = s["t1"] - s["t0"]
+            covered, end = 0, s["t0"]
+            for a, b in sorted(kids.get(s["span_id"], ())):
+                a, b = max(a, end), min(b, s["t1"])
+                if b > a:
+                    covered += b - a
+                    end = b
+            e = out.setdefault(s["name"], {"count": 0, "total_s": 0.0, "self_s": 0.0})
+            e["count"] += 1
+            e["total_s"] += wall * 1e-9
+            e["self_s"] += (wall - covered) * 1e-9
+        with self._lock:
+            counters = {k: v - base.get(k, 0) for k, v in self.counters.items()
+                        if v != base.get(k, 0)}
+        return {"spans": out, "counters": counters}
+
+
+def span(name: str, **attrs: Any):
+    """A span of the armed recorder around a ``with`` block: ``with
+    span("smk.noise", rows=k):``. ``attrs`` are plain Python values
+    (never a tensor read: no span waits for the device). With nothing
+    armed, or while a CUDA graph is being captured, the block runs under
+    a shared object that records nothing."""
+    rec = _RECORDER
+    if rec is None or capturing():
+        return _NULL
+    return _Open(rec, name, attrs, False)
+
+
+def stage(name: str) -> None:
+    """Open stage ``name`` of the enclosing span (closing the previous
+    stage): consecutive stages of one body, such as a sweep's, without
+    re-nesting it; the enclosing ``with`` span closes the last."""
+    rec = _RECORDER
+    if rec is None or capturing():
+        return
+    rec.stage(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to counter ``name`` of the armed recorder."""
+    rec = _RECORDER
+    if rec is None or capturing():
+        return
+    rec.add(name, n)
+
+
+def under_current_span(fn):
+    """``fn`` wrapped to run on another thread with the caller's
+    innermost open span as the parent of its first span (the one host
+    thread a card of parallel/executor.run_per_device)."""
+    rec = _RECORDER
+    if rec is None:
+        return fn
+    parent = rec.current()
+
+    def run():
+        rec._local.base = parent
+        try:
+            return fn()
+        finally:
+            rec._local.base = None
+    return run
+
+
+@contextlib.contextmanager
+def record_spans() -> Iterator[SpanRecorder]:
+    """Arm span recording in this process for the block and yield the
+    :class:`SpanRecorder`; an inner arming shares the outer recorder.
+    Recording reads no tensor and syncs nothing: the draws are bitwise
+    those of an unarmed run."""
+    global _RECORDER
+    if _RECORDER is not None:
+        yield _RECORDER
+        return
+    rec = SpanRecorder()
+    _RECORDER = rec
+    try:
+        yield rec
+    finally:
+        _RECORDER = None
 
 
 def device_sync(tree: Any) -> None:
@@ -67,19 +315,23 @@ def phase_timer(
 ) -> Iterator[None]:
     """Time a phase; on a CUDA ``device`` the phase ends with a stream
     sync. With ``log`` (an obs/events.RunLog) the phase is also a span of
-    the run log."""
+    the run log; with a recorder armed (:func:`record_spans`), a span of
+    the recorder."""
     start = monotonic()
-    span = log.span(name) if log is not None else None
-    if span is not None:
-        span.__enter__()
+    log_span = log.span(name) if log is not None else None
+    if log_span is not None:
+        log_span.__enter__()
+    rec_span = span(name)
+    rec_span.__enter__()
     try:
         yield
     finally:
         if device is not None:
             with explicit_wait("device_sync"):
                 sync(device)
-        if span is not None:
-            span.__exit__(None, None, None)
+        rec_span.__exit__(None, None, None)
+        if log_span is not None:
+            log_span.__exit__(None, None, None)
         times.record(name, monotonic() - start)
 
 
@@ -96,9 +348,7 @@ class ChunkPipelineStats:
     (the boundary's device-to-host bytes) and, where they apply,
     ``device_wait_s`` (the wait for the chunk's own stats: the sweeps'
     device time the dispatch did not cover), ``state_fetch_s`` (the
-    state's copy into the staging buffer, after that), ``mirror_merge_s``
-    (adaptive schedule: the staged group rows merged into the host
-    mirror the manifest holds), ``ckpt_write_s``
+    state's copy into the staging buffer, after that), ``ckpt_write_s``
     and ``ckpt_bytes`` (an inline write's files) and ``staging_wait_s``
     (overlap: the wait for the writer job that held the buffer). Under
     "overlap" a last ``phase="drain"`` entry holds the terminal drain
@@ -217,7 +467,6 @@ class ChunkPipelineStats:
                 return
             self._program_keys.add(key_t)
             self.programs.append(entry)
-            self._emit("program", entry)
 
     def program_summary(self) -> Dict[str, Any]:
         """Total acquisition seconds and a histogram of sources."""

@@ -6,7 +6,8 @@ public name of the twin's modules, as the trace scopes); and the port
 exports nothing the twin lacks but the names its README lists (the top
 level's randomness objects and ``param_names``, the serving manifest
 name and ``hash_row_noise``, the ragged-mesh planner's types,
-``GraphProgram`` and ``STORE_FORMAT``)."""
+``GraphProgram`` and ``STORE_FORMAT``, the span recorder's
+``record_spans``)."""
 
 # smklint: test-budget=imports of both packages' __init__ modules and attribute lookups; no fit, well under a second a package
 import importlib
@@ -23,6 +24,7 @@ PORT_ONLY = {
     "serve": {"GENERATION_MANIFEST", "hash_row_noise"},
     "compile": {"RaggedMeshEntry", "RaggedMeshPlan", "plan_ragged_mesh", "GraphProgram",
                 "STORE_FORMAT"},
+    "obs": {"record_spans"},
 }
 
 

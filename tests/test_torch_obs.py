@@ -54,6 +54,7 @@ from smk_torch.parallel import recovery as rec
 from smk_torch.parallel.partition import random_partition, random_permutation
 from smk_torch.testing import faults as tfaults
 from smk_torch.utils.diagnostics import rhat
+from smk_torch.utils import tracing
 from smk_torch.utils.tracing import ChunkPipelineStats
 
 
@@ -480,3 +481,246 @@ def test_ragged_fit_sums_each_groups_last_ess_and_logs_its_groups(tmp_path):
     spans = [r for r in read_jsonl(res.run_log_path) if r.get("kind") == "span"]
     assert sum(r["name"] == "bucket_group" for r in spans) == 2
     assert sum(r["name"] == "fit_subsets_ragged" for r in spans) == 1
+
+
+# ---------------------------------------------------------------------
+# the span recorder (utils/tracing.record_spans)
+# ---------------------------------------------------------------------
+# the benchmark's production sampler at tiny sizes: collapsed phi every 4
+# sweeps, the Nystrom CG u-draw, the fused build's CPU version
+PRODUCTION = dict(phi_sampler="collapsed", phi_update_every=4, u_solver="cg",
+                  cg_precond="nystrom", cg_precond_rank=8, cg_iters=4, fused_build="pallas")
+
+
+def _tiny_data(q: int, n: int = 64, t: int = 4, seed: int = 5):
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(size=(n, 2)).astype(np.float32)
+    x = np.concatenate([np.ones((n, q, 1)), rng.normal(size=(n, q, 1))], -1).astype(np.float32)
+    y = (rng.uniform(size=(n, q)) < 0.5).astype(np.float32)
+    ct = rng.uniform(size=(t, 2)).astype(np.float32)
+    xt = np.ones((t, q, 2), np.float32)
+    return y, x, coords, ct, xt
+
+
+def _tiny_fit(q: int = 1, **cfg_kw):
+    cfg = SMKConfig(**dict(dict(n_subsets=2, n_samples=12, burn_in_frac=0.5), **cfg_kw))
+    return fit_meta_kriging(*_tiny_data(q), config=cfg, seed=11, device="cpu")
+
+
+def test_span_tree_of_a_fit():
+    with tracing.record_spans() as rec:
+        _tiny_fit(**PRODUCTION)
+    spans = rec.spans
+    by_id = {s["span_id"]: s for s in spans}
+    parent = {s["span_id"]: by_id[s["parent"]]["name"] if s["parent"] is not None else None
+              for s in spans}
+    named = lambda n: [s for s in spans if s["name"] == n]  # noqa: E731
+    (root,) = named("fit_meta_kriging")
+    assert root["parent"] is None and root["attrs"] == {"n": 64, "K": 2, "rows": 2}
+    assert sorted(s["name"] for s in spans if s["parent"] == root["span_id"]) == sorted(
+        ["partition", "warm_start", "subset_fits", "combine", "resample_predict"])
+    sweeps, noise = named("smk.sweep"), named("smk.noise")
+    assert [s["attrs"]["it"] for s in sweeps] == list(range(12))
+    assert [s["attrs"]["phi"] for s in sweeps] == [it % 4 == 0 for it in range(12)]
+    assert [s["attrs"]["collect"] for s in sweeps] == [it >= 6 for it in range(12)]
+    assert len(noise) == 12 and all(parent[s["span_id"]] == "subset_fits" for s in noise)
+    # each sweep's noise is drawn just before it, a sibling under subset_fits
+    for nz, sw in zip(noise, sweeps):
+        assert nz["parent"] == sw["parent"] and nz["t1"] <= sw["t0"]
+        assert nz["attrs"] == {"rows": 2}
+    stage_names = {"smk.latent", "smk.beta", "smk.phi", "smk.u_draw", "smk.a", "smk.krige"}
+    for sw in sweeps:
+        kids = sorted((s for s in spans if s["parent"] == sw["span_id"]), key=lambda s: s["t0"])
+        names = [s["name"] for s in kids]
+        want = ["smk.latent", "smk.beta"] + (
+            ["smk.u_draw", "smk.phi", "smk.u_draw"] if sw["attrs"]["phi"] else ["smk.u_draw"]
+        ) + ["smk.a"] + (["smk.krige"] if sw["attrs"]["collect"] else [])
+        assert names == want
+        # the stages tile the sweep: each opens where the last closed,
+        # the last closes with it
+        assert kids[0]["t0"] >= sw["t0"] and kids[-1]["t1"] == sw["t1"]
+        assert all(a["t1"] == b["t0"] for a, b in zip(kids, kids[1:]))
+    for s in named("smk.factor") + named("smk.build"):
+        assert parent[s["span_id"]] in stage_names | {"smk.cache", "smk.init", "warm_start",
+                                                      "resample_predict"}
+    assert all(parent[s["span_id"]] == "subset_fits" for s in named("smk.init"))
+    m_factors = [s for s in named("smk.factor") if s["attrs"]["m"] == 32]
+    assert m_factors and all(s["attrs"]["batch"] in (2,) for s in m_factors)
+
+
+def _updates(n: int, every: int) -> int:
+    return sum(1 for it in range(n) if it % every == 0)
+
+
+@pytest.mark.parametrize("case", ["production_q2_logit_chains", "conditional_chol",
+                                  "collapsed_chol_reuse"])
+def test_factor_mm_counts_the_m_by_m_factorizations(case):
+    """The counter sums the m x m factorizations over batch rows: the
+    benchmark's count (harness/work.factorizations: R~ of each
+    component at the start, then S_cur, S_prop and R~(phi') per update
+    sweep and component) under the production sampler, and the other
+    samplers' own counts."""
+    n, rows = 12, 2
+    if case == "production_q2_logit_chains":
+        q, kw = 2, dict(PRODUCTION, link="logit", n_chains=2)
+        rows, want_per = 4, 1 + 3 * _updates(n, 4)
+    elif case == "conditional_chol":
+        q, kw = 1, {}
+        want_per = 1 + 2 * n  # R~(phi') and the u-draw's S each sweep
+    else:
+        q, kw = 1, dict(phi_sampler="collapsed", phi_update_every=4)
+        u = _updates(n, 4)
+        want_per = 1 + 3 * u + (n - u)  # the threaded S-factor between updates
+    with tracing.record_spans() as rec:
+        _tiny_fit(q, **kw)
+    assert rec.counters == {"factor_mm": rows * q * want_per}
+
+
+def test_recording_off_records_nothing_and_reads_no_clock(monkeypatch):
+    import itertools
+    import tracemalloc
+
+    def no_clock():
+        raise AssertionError("a span site read the clock with nothing armed")
+
+    monkeypatch.setattr(tracing, "monotonic_ns", no_clock)
+    monkeypatch.setattr(tracing, "clock_anchor", no_clock)
+    assert tracing._RECORDER is None
+    res = _tiny_fit(**PRODUCTION)  # every span site of a fit, unarmed
+    assert torch.isfinite(res.p_quant).all()
+    site = lambda: tracing.span("smk.noise", rows=4)  # noqa: E731
+    assert site() is site() is tracing.span("smk.sweep")  # one shared object
+    for _ in range(10):  # warm the interpreter's caches
+        with site():
+            tracing.stage("smk.beta")
+            tracing.count("factor_mm", 3)
+    tracemalloc.start()
+    try:
+        before = tracemalloc.get_traced_memory()[0]
+        for _ in itertools.repeat(None, 1000):  # no loop counter to allocate
+            with site():
+                tracing.stage("smk.beta")
+                tracing.count("factor_mm", 3)
+        after = tracemalloc.get_traced_memory()[0]
+    finally:
+        tracemalloc.stop()
+    assert after - before == 0
+
+
+def test_the_draws_are_bitwise_with_recording_on_and_off(tmp_path):
+    off = _tiny_fit(**PRODUCTION)
+    with tracing.record_spans():
+        on = _tiny_fit(**PRODUCTION)
+    logged = _tiny_fit(**dict(PRODUCTION, run_log_dir=str(tmp_path)))
+    for res in (on, logged):
+        assert torch.equal(res.p_quant, off.p_quant)
+        assert torch.equal(res.subset_results.param_grid, off.subset_results.param_grid)
+        assert torch.equal(res.subset_results.w_grid, off.subset_results.w_grid)
+
+
+def test_two_threads_keep_separate_stacks():
+    """Two threads open nested spans at the same time: each span's
+    parent is its own thread's; a thread started through
+    under_current_span opens its first span under the starter's span,
+    another thread at the top."""
+    import threading
+
+    barrier = threading.Barrier(2, timeout=30)
+
+    def work(tag, wait=True):
+        with tracing.span(f"outer.{tag}"):
+            if wait:
+                barrier.wait()  # both outer spans open at once
+            with tracing.span(f"inner.{tag}"):
+                tracing.stage(f"stage.{tag}")
+                if wait:
+                    barrier.wait()
+
+    with tracing.record_spans() as rec:
+        with tracing.span("main"):
+            threads = [threading.Thread(target=tracing.under_current_span(
+                lambda tag=tag: work(tag))) for tag in "ab"]
+            threads.append(threading.Thread(target=lambda: work("c", wait=False)))
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=30)
+            assert not any(t.is_alive() for t in threads)
+    by_name = {s["name"]: s for s in rec.spans}
+    by_id = {s["span_id"]: s for s in rec.spans}
+    for tag in "abc":
+        assert by_id[by_name[f"stage.{tag}"]["parent"]]["name"] == f"inner.{tag}"
+        assert by_id[by_name[f"inner.{tag}"]["parent"]]["name"] == f"outer.{tag}"
+    assert by_name["outer.a"]["parent"] == by_name["outer.b"]["parent"] == by_name["main"][
+        "span_id"]
+    assert by_name["outer.c"]["parent"] is None
+
+
+def test_a_span_under_a_capture_records_nothing(monkeypatch):
+    with tracing.record_spans() as rec:
+        monkeypatch.setattr(tracing, "capturing", lambda: True)
+        with tracing.span("captured") as sid:
+            tracing.stage("smk.beta")
+            tracing.count("factor_mm", 5)
+        monkeypatch.undo()
+        with tracing.span("replay"):
+            pass
+    assert sid is None
+    assert [s["name"] for s in rec.spans] == ["replay"] and rec.counters == {}
+
+
+def test_spans_land_on_a_cpu_profiler_trace(tmp_path):
+    """The export's Unix-clock bounds lay a span onto the Chrome trace's
+    user_annotation event of the same range (baseTimeNanoseconds + 1000
+    ts), within 1 ms: the median over five ranges, so that one range
+    the scheduler interrupts between its two stamps cannot decide."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.randn(128, 128)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.record_spans() as rec:
+            for i in range(5):
+                with record_function(f"probe{i}"), tracing.span(f"probe{i}"):
+                    for _ in range(10):
+                        x = torch.tanh(x @ x)
+    path = tmp_path / "t.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    base = int(doc["baseTimeNanoseconds"])
+    ann = {e["name"]: e for e in doc["traceEvents"] if e.get("cat") == "user_annotation"}
+    errs = []
+    for sp in rec.export():
+        ev = ann[sp["name"]]
+        start = base + 1000 * float(ev["ts"])
+        errs += [abs(sp["t0"] - start), abs(sp["t1"] - (start + 1000 * float(ev["dur"])))]
+    assert len(errs) == 10 and statistics.median(errs) < 1e6, errs
+    assert tracing.to_unix_ns(rec.spans[0]["t0"], rec.anchor) == rec.export()[0]["t0"]
+
+
+def test_run_log_gets_the_span_totals_and_the_factor_counter(tmp_path):
+    res = _tiny_fit(**dict(PRODUCTION, run_log_dir=str(tmp_path)))
+    recs = read_jsonl(res.run_log_path)
+    totals = {r["name"]: r for r in recs if r.get("kind") == "span_total"}
+    assert totals["smk.sweep"]["count"] == 12 and totals["smk.noise"]["count"] == 12
+    assert totals["fit_meta_kriging"]["count"] == 1
+    for t in totals.values():
+        assert 0.0 <= t["self_s"] <= t["total_s"] + 1e-6
+    assert recs[-1]["kind"] == "run_end"
+    assert recs[-1]["counters"] == {"factor_mm": 2 * (1 + 3 * _updates(12, 4))}
+    s = summarize(res.run_log_path)
+    assert {t["name"] for t in s["span_totals"]} == set(totals)
+    assert s["n_orphan_spans"] == 0 and tracing._RECORDER is None
+
+
+@pytest.mark.parametrize("path", ["smk_torch/utils/tracing.py", "smk_torch/models/probit_gp.py",
+                                  "smk_torch/ops/chol.py", "smk_torch/ops/fused_build.py",
+                                  "smk_torch/parallel/executor.py", "smk_torch/api.py",
+                                  "smk_torch/compile/programs.py", "smk_torch/obs/events.py"])
+def test_span_sites_lint_clean(path):
+    from smk_torch.analysis import lint_paths
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    findings = lint_paths([os.path.join(repo, path)], repo_root=repo)
+    assert findings == [], "\n".join(f.render() for f in findings)
