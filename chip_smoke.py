@@ -392,10 +392,21 @@ H100, so every mesh here has one entry):
 35. thread_launch — the symmetric and narrow kernels launched from a
               worker thread with its own current device and stream,
               bitwise the main thread's launches.
+11b. noise_kernel (after fit_production_config4) — the sweep noise
+              kernel (ops/sweep_noise.py, csrc/sweep_noise.cu) at
+              config5's (32 probit rows, m = 3906) and config4's (128
+              logit rows, m = 1024, 64 series terms) per-sweep shapes:
+              every field and every generator's state bitwise the per-row
+              path's over four sweeps (collecting and not); its device ms
+              (behind a device sleep), its ms with the wrapper's host
+              time, the per-row path's ms for the same sweep ("plain")
+              and the bound (the fields' bytes once over 3.35 TB/s) on a
+              collecting sweep; then a 16-sweep production fit at each
+              cell's config: one launch a sweep, every row batched.
 
 Then each phase's wall time and the script's, the kernel summary line
 {"kernels": [...]} (launches from fit_config5, the double kernels' from
-fit_config5_float64, and per path, the Vecchia paths' and the coalesced
+fit_config5_float64, the noise kernel's from noise_kernel's fits, and per path, the Vecchia paths' and the coalesced
 serving path's all 0: serving builds its correlations with torch ops, as
 the twin does outside Pallas), the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. A failing phase
@@ -4249,6 +4260,68 @@ def programs_config5(device, c5_data, c4_data, tmp):
 
 
 # ----------------------------------------------------------------------
+# phase 11b: the sweep noise kernel (ops/sweep_noise.py)
+# ----------------------------------------------------------------------
+NOISE_SOURCE = "smk_torch/csrc/sweep_noise.cu"
+
+
+def noise_kernel(device, c5_data, c4_data):
+    """The sweep noise kernel against the per-row path at both cells'
+    per-sweep shapes (bitwise, every field and generator state), its
+    times beside the per-row path's and its bound, and its launches and
+    batched rows in a 16-sweep fit at each cell's config."""
+    import torch
+
+    from smk_torch import fit_meta_kriging
+    from smk_torch.models import probit_gp as tp
+    from smk_torch.ops import sweep_noise as sn
+    from smk_torch.utils import tracing
+
+    out = {"phase": "noise_kernel", "source": NOISE_SOURCE, "cells": {}}
+    cells = (
+        ("config5", tp.SweepShapes(MAIN_K, MAIN_M, 1, 2, MAIN_T),
+         production_config(k=MAIN_K, n_samples=16, phi_every=16), c5_data),
+        ("config4", tp.SweepShapes(2 * C4_K, C4_M, C4_Q, C4_P, C4_T, link="logit"),
+         production_config(k=C4_K, n_samples=16, link="logit", phi_every=8, n_chains=2),
+         c4_data))
+    for name, shapes, cfg, data_np in cells:
+        fast, slow = (tp.GeneratorNoise(tp.subset_generators(SEED, shapes.k, device), shapes,
+                                        device=device) for _ in range(2))
+        check(fast.batched, f"noise_kernel {name}: the kernel does not cover the cell")
+        slow.batched = False
+        for it in range(4):
+            a, b = fast(it, it % 2 == 1), slow(it, it % 2 == 1)
+            for field, x, y in zip(tp.SweepNoise._fields, a, b):
+                check((x is None and y is None) or torch.equal(x, y),
+                      f"noise_kernel {name}: {field} differs at sweep {it}")
+            check(all(torch.equal(g.get_state(), h.get_state())
+                      for g, h in zip(fast.generators, slow.generators)),
+                  f"noise_kernel {name}: a generator's state differs at sweep {it}")
+        out_bytes = sum(x.numel() * x.element_size() for x in fast(4, True) if x is not None)
+        rec = {
+            "rows": shapes.k, "out_bytes": out_bytes, "max_abs_err": 0.0,
+            "device_ms": ms_median(lambda: fast(0, True), device_only=True),
+            "ms": ms_median(lambda: fast(0, True)),
+            "plain_ms": ms_median(lambda: slow(0, True)),
+            "bound_ms": out_bytes / HBM_BYTES_PER_S * 1e3,
+        }
+        before = sn.LAUNCHES
+        with tracing.record_spans() as spans:
+            res = fit_meta_kriging(*data_np, config=cfg, seed=SEED, device=device)
+        torch.cuda.synchronize()
+        rec["fit_launches"] = sn.LAUNCHES - before
+        rec["fit_rows_batched"] = spans.counters.get("noise_rows_batched", 0)
+        rec["fit_rows_rowwise"] = spans.counters.get("noise_rows_rowwise", 0)
+        check(rec["fit_launches"] == cfg.n_samples and rec["fit_rows_rowwise"] == 0
+              and rec["fit_rows_batched"] == cfg.n_samples * shapes.k
+              and bool(torch.isfinite(res.p_quant).all()),
+              f"noise_kernel {name}: the fit's noise {rec}")
+        out["cells"][name] = rec
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
 # phases 31-35: the device mesh and the process group (ROADMAP A9a)
 # ----------------------------------------------------------------------
 MESH_FIELDS = ("param_grid", "w_grid", "sample_par", "sample_w", "p_samples", "param_quant",
@@ -6268,6 +6341,7 @@ def main() -> int:
         "fit_production_config4", fit_production, "fit_production_config4",
         cfg=production_config(k=C4_K, n_samples=64, link="logit", phi_every=8),
         data_np=c4_data, device=device)
+    nk = phase("noise_kernel", noise_kernel, device, c5_data, c4_data)
     f64 = phase("kernels_float64", kernels_float64, device)
     phase("fit_variants_small_parity", fit_variants_small_parity, device)
     phase("chol_blocked", chol_blocked, device, c5_data)
@@ -6375,6 +6449,16 @@ def main() -> int:
          "tile_kernel_device_ms": f64_time[build]["tile_kernel_device_ms"],
          "device_bound_fraction": f64_time[build]["device_bound_fraction"]}
         for label, key, build in f64_kernels
+    ] + [
+        # the sweep noise kernel: replaces no TPU kernel (the per-row
+        # generator calls of draw_sweep_noise), timed at both cells'
+        # per-sweep shapes, bitwise the per-row path
+        {"name": f"sweep noise, {cell}", "route": "cuda", "source": NOISE_SOURCE,
+         "replaces": "none: the per-row torch generator calls (models/probit_gp"
+                     ".draw_sweep_noise)",
+         **{k_: v for k_, v in rec.items() if k_ not in ("fit_rows_batched",
+                                                         "fit_rows_rowwise")}}
+        for cell, rec in nk["cells"].items()
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -609,7 +609,7 @@ def fit_meta_kriging(
       path is ``result.run_log_path``. It also arms the span recorder
       for the fit, and the log ends with one ``span_total`` record a
       program span name (count, total and self seconds) and the
-      ``factor_mm`` counter;
+      counters;
     - ``with smk_torch.obs.record_spans() as rec:`` around calls: the
       program's spans inside each fit, in memory (``rec.spans``; the
       root ``fit_meta_kriging``, its phases, ``smk.streams``,
@@ -617,9 +617,12 @@ def fit_meta_kriging(
       ``smk.sweep`` with its stages ``smk.latent``, ``smk.beta``,
       ``smk.phi``, ``smk.u_draw``, ``smk.a``, ``smk.krige``, each
       ``smk.build`` and ``smk.factor``, ``smk.finalize``, a graph
-      replay's ``smk.replay``) and ``rec.counters["factor_mm"]``, the
-      m x m factorizations summed over batch rows; ``rec.export()``
-      puts them on a torch.profiler trace's clock;
+      replay's ``smk.replay``) and ``rec.counters``: ``factor_mm``, the
+      m x m factorizations summed over batch rows, and
+      ``noise_rows_batched`` / ``noise_rows_rowwise``, the rows whose
+      sweep noise the one-launch kernel (ops/sweep_noise.py) or the
+      per-row draws drew; ``rec.export()`` puts them on a
+      torch.profiler trace's clock;
     - ``config.live_diagnostics``: the streaming split-R-hat and ESS at
       each chunk boundary (``live_rhat_max`` / ``live_ess_min`` in the
       progress dict); implies chunking;

@@ -79,6 +79,7 @@ from smk_torch.ops.fused_build import (
     fused_masked_shifted_build,
 )
 from smk_torch.ops.kernels import correlation
+from smk_torch.ops import sweep_noise
 from smk_torch.ops.polya_gamma import gamma_draws, sample_pg
 from smk_torch.ops.quantiles import masked_quantile_grid, quantile_grid
 from smk_torch.ops.truncnorm import _TINY, sample_albert_chib_latent
@@ -249,6 +250,10 @@ class SweepNoise(NamedTuple):
 NoiseSource = Callable[[int, bool], SweepNoise]
 
 
+# the floor of the accept tests' uniforms (kphi, ka_u)
+_ACCEPT_FLOOR = 1e-12
+
+
 def _uniform(u01: torch.Tensor, minval: float) -> torch.Tensor:
     """[0, 1) uniforms mapped to [minval, 1), as jax.random.uniform."""
     return torch.clamp(u01 * (1.0 - minval) + minval, min=minval)
@@ -335,11 +340,11 @@ def draw_sweep_noise(
         kz=kz,
         kb=kb.reshape(q, p),
         kprop=kprop,
-        kphi=_uniform(uni[n_z : n_z + q], 1e-12),
+        kphi=_uniform(uni[n_z : n_z + q], _ACCEPT_FLOOR),
         ku_prior=ku_p.reshape(q, m),
         ku_noise=ku_n.reshape(q, m),
         ka=ka.reshape(q, q),
-        ka_u=_uniform(uni[n_z + q], 1e-12),
+        ka_u=_uniform(uni[n_z + q], _ACCEPT_FLOOR),
         kpred=kpred[0].reshape(q, t) if collect else None,
         ksel=ksel,
         krev=krev,
@@ -388,7 +393,10 @@ class GeneratorNoise:
     """The default noise source: each batch row (subset, or (subset,
     chain)) draws its sweep noise from its own generator. ``seeds``:
     the rows' initial seeds (default: each generator's), which name the
-    stream and seed its quarantine forks."""
+    stream and seed its quarantine forks. ``batched``: whether a sweep's
+    noise is one kernel launch for every row (ops/sweep_noise.py: the
+    per-row draws' numbers, bit for bit, and each generator advanced as
+    they advance it) instead of :func:`draw_sweep_noise` row by row."""
 
     def __init__(self, generators: Sequence[torch.Generator], shapes: SweepShapes,
                  *, dtype=torch.float32, device=None, seeds: Optional[Sequence[int]] = None):
@@ -398,9 +406,22 @@ class GeneratorNoise:
         self.shapes = shapes
         self.dtype = dtype
         self.device = device
+        # one launch a sweep for every row (ops/sweep_noise.py) where the
+        # kernel covers the shapes and each row has a CUDA generator of
+        # its own; else the per-row draws
+        self.batched = (device is not None and sweep_noise.covers(shapes, dtype, device)
+                        and all(g.device.type == "cuda" for g in self.generators)
+                        and len({id(g) for g in self.generators}) == len(self.generators))
 
     def __call__(self, it: int, collect: bool) -> SweepNoise:
-        with span("smk.noise", rows=len(self.generators)):
+        rows = len(self.generators)
+        with span("smk.noise", rows=rows):
+            if self.batched and not torch.cuda.is_current_stream_capturing():
+                count("noise_rows_batched", rows)
+                return SweepNoise(**sweep_noise.draw(
+                    self.generators, self.shapes, collect=collect, dtype=self.dtype,
+                    device=self.device, z_floor=_TINY, u_floor=_ACCEPT_FLOOR))
+            count("noise_rows_rowwise", rows)
             return stack_noise([
                 draw_sweep_noise(g, self.shapes, collect=collect,
                                  dtype=self.dtype, device=self.device)
@@ -1477,10 +1498,17 @@ class SpatialGPSampler:
     def kernel_libraries(self, dtype, device) -> tuple:
         """The CUDA kernel libraries (ops/cuda_build.SOURCES) the sampler
         launches on ``dtype`` data on ``device``: the correlation build of
-        that dtype on the fused dense path on the card, none elsewhere."""
-        if not self._fused or self._vecchia or torch.device(device).type != "cuda":
+        that dtype on the fused dense path on the card, and the sweep
+        noise kernel where it covers the config's draws (ops/sweep_noise
+        .covers); none elsewhere."""
+        if torch.device(device).type != "cuda":
             return ()
-        return ("fused_corr_f64",) if dtype == torch.float64 else ("fused_corr",)
+        libs = ()
+        if self._fused and not self._vecchia:
+            libs = ("fused_corr_f64",) if dtype == torch.float64 else ("fused_corr",)
+        if sweep_noise.covers(sweep_shapes(self.config, 1, 1, 1, 1, 1), dtype, device):
+            libs += (sweep_noise.LIBRARY,)
+        return libs
 
     def chunk_touches_guard(self, phase: int, n_iters: int) -> bool:
         """Whether sweeps phase .. phase + n_iters - 1 (modulo

@@ -4,8 +4,9 @@
   memory (utils/tracing.SpanRecorder): the API phases, each sweep, its
   noise draw and stages (``smk.latent``, ``smk.beta``, ``smk.phi``,
   ``smk.u_draw``, ``smk.a``, ``smk.krige``), every correlation build
-  (``smk.build``) and factorization (``smk.factor``), and the counter
-  ``factor_mm``. An operator arms it with ``with record_spans() as
+  (``smk.build``) and factorization (``smk.factor``), and the counters
+  ``factor_mm`` and ``noise_rows_batched`` / ``noise_rows_rowwise``
+  (the rows drawn by the sweep noise kernel or row by row). An operator arms it with ``with record_spans() as
   rec:`` around any calls (``rec.export()`` lays the spans on a
   torch.profiler trace's Unix clock, ``rec.totals()`` sums them by
   name), or per fit with ``SMKConfig.run_log_dir``, whose log then ends

@@ -40,10 +40,12 @@ from smk_torch.utils.tracing import monotonic
 
 # library name -> (source file under smk_torch/csrc, its own nvcc flags):
 # the correlation build's float32 and float64 entry points are one
-# source built twice, so that the two builds run side by side
+# source built twice, so that the two builds run side by side; the sweep
+# noise kernel (ops/sweep_noise.py) is one library at both types
 SOURCES = {
     "fused_corr": ("fused_corr.cu", ()),
     "fused_corr_f64": ("fused_corr.cu", ("-DSMK_FUSED_CORR_F64",)),
+    "sweep_noise": ("sweep_noise.cu", ()),
 }
 
 NVCC_FLAGS = (

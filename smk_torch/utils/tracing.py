@@ -117,7 +117,9 @@ class SpanRecorder:
     of open spans; a thread started through :func:`under_current_span`
     opens its first span under the span its starter had open.
     ``counters``: named totals (``factor_mm``, the m x m factorizations
-    of the subset samplers, summed over batch rows)."""
+    of the subset samplers, summed over batch rows; ``noise_rows_batched``
+    and ``noise_rows_rowwise``, the rows each sweep's noise source drew
+    in one launch or row by row)."""
 
     def __init__(self):
         self.anchor = clock_anchor()

@@ -573,7 +573,8 @@ def test_factor_mm_counts_the_m_by_m_factorizations(case):
         want_per = 1 + 3 * u + (n - u)  # the threaded S-factor between updates
     with tracing.record_spans() as rec:
         _tiny_fit(q, **kw)
-    assert rec.counters == {"factor_mm": rows * q * want_per}
+    # every sweep's noise drawn row by row on the CPU (ops/sweep_noise)
+    assert rec.counters == {"factor_mm": rows * q * want_per, "noise_rows_rowwise": rows * n}
 
 
 def test_recording_off_records_nothing_and_reads_no_clock(monkeypatch):
@@ -708,7 +709,8 @@ def test_run_log_gets_the_span_totals_and_the_factor_counter(tmp_path):
     for t in totals.values():
         assert 0.0 <= t["self_s"] <= t["total_s"] + 1e-6
     assert recs[-1]["kind"] == "run_end"
-    assert recs[-1]["counters"] == {"factor_mm": 2 * (1 + 3 * _updates(12, 4))}
+    assert recs[-1]["counters"] == {"factor_mm": 2 * (1 + 3 * _updates(12, 4)),
+                                    "noise_rows_rowwise": 2 * 12}
     s = summarize(res.run_log_path)
     assert {t["name"] for t in s["span_totals"]} == set(totals)
     assert s["n_orphan_spans"] == 0 and tracing._RECORDER is None
