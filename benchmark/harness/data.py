@@ -85,10 +85,3 @@ def ebird_proxy(n: int, q: int, p: int, t: int, seed: int, n_hotspots: int = 96,
 
 
 GENERATORS = {"binary_field": binary_field, "ebird_proxy": ebird_proxy}
-
-
-def make_inputs(cfg: dict, seed: int):
-    """The inputs of configuration ``cfg`` (its ``data`` generator at
-    its n, q, p, t) from ``seed``."""
-    gen = GENERATORS[cfg["data"]]
-    return gen(cfg["n"], cfg["q"], cfg["p"], cfg["t"], seed)

@@ -27,6 +27,9 @@ benchmark):
 A CUDA generator's numbers depend on its seed, the call's size and the
 order of calls alone, so the reference, drawing row by row in the
 sweeps' order on the port's device, gets the port's numbers.
+
+A configuration whose noise this layout does not draw (``LAYOUT``) names
+a noise module of its own (harness/spec.py); ``streams`` refuses it.
 """
 
 from __future__ import annotations
@@ -36,6 +39,12 @@ import torch
 
 TINY_Z = 1e-7  # the Albert-Chib uniforms' floor
 TINY_U = 1e-12  # the accept tests' floor
+# The sampler settings this layout is drawn for; each is also the port's
+# default (smk_torch/config.SMKConfig), so a key left out is drawn too.
+# The proposals are the collapsed move's: the conditional sampler (the
+# port's default) draws one gaussian proposal whatever they say.
+LAYOUT = {"dtype": "float32", "subset_engine": "dense", "phi_proposals": 1,
+          "phi_proposal_family": "gaussian"}
 
 
 def child_seed(*words: int) -> int:
@@ -124,3 +133,26 @@ class SweepStreams:
         per = [self._row(g, collect) for g in self.generators]
         return {k: None if per[0][k] is None else torch.stack([r[k] for r in per])
                 for k in per[0]}
+
+
+def check_layout(cfg: dict) -> None:
+    """A ValueError naming the first sampler key of configuration
+    ``cfg`` whose noise this layout does not draw."""
+    s = cfg["sampler"]
+    collapsed = s.get("phi_sampler") == "collapsed"
+    for key, want in LAYOUT.items():
+        got = s.get(key, want)
+        if got != want and (collapsed or not key.startswith("phi_proposal")):
+            raise ValueError(f"{key}: harness/noise.py draws {want!r} only, not {got!r}; "
+                             "name the configuration's own noise module")
+
+
+def streams(seed: int, cfg: dict, device) -> SweepStreams:
+    """The sweeps' noise of fit seed ``seed`` of configuration ``cfg``:
+    every batch row (K subsets by C chains) at the subset size."""
+    check_layout(cfg)
+    s = cfg["sampler"]
+    k = cfg["n_subsets"]
+    return SweepStreams(seed, k * s.get("n_chains", 1), device, m=-(-cfg["n"] // k),
+                        q=cfg["q"], p=cfg["p"], t=cfg["t"], link=s.get("link", "probit"),
+                        pg_n_terms=s.get("pg_n_terms", 64))

@@ -19,6 +19,10 @@ inverse-Wishart A prior, probit or logit link, C chains):
    subsets, the resample of the combined grids and p(y = 1) at the test
    sites with its median and 95 % bounds.
 
+``knobs`` refuses, with a ValueError naming the key, a configuration
+outside this path (``PATH``): such a configuration names a reference
+of its own (harness/spec.py).
+
 The random numbers are the port's default ones, drawn again by
 ``noise.py``'s frozen copy of their layout from the same seed.
 Distances are summed coordinate by coordinate; every matrix
@@ -38,12 +42,43 @@ from torch.special import log_ndtr, ndtr, ndtri
 
 NYSTROM_JITTER = 1e-4  # K_rr's jitter in the Nystrom factor
 CG_EPS = 1e-20  # the CG step's guard
+# The path this reference computes: for each sampler setting its value,
+# and the port's default (smk_torch/config.SMKConfig), which is what a
+# configuration that leaves the key out runs; the priors' likewise.
+PATH = {
+    "cov_model": ("exponential", "exponential"),
+    "subset_engine": ("dense", "dense"),
+    "phi_sampler": ("collapsed", "conditional"),
+    "phi_proposals": (1, 1),
+    "phi_proposal_family": ("gaussian", "gaussian"),
+    "u_solver": ("cg", "chol"),
+    "cg_precond": ("nystrom", "jacobi"),
+    "dtype": ("float32", "float32"),
+    "partition_method": ("random", "random"),
+    "build_dtype": ("float32", "float32"),
+    "combiner": ("wasserstein_mean", "wasserstein_mean"),
+    "adaptive_schedule": ("off", "off"),
+}
+PRIOR_PATH = {"a_prior": ("invwishart", "invwishart"), "temper": ("none", "none")}
+
+
+def check_path(s: dict) -> None:
+    """A ValueError naming the first setting of sampler fields ``s``
+    outside ``PATH``."""
+    for fields, path, where in ((s, PATH, ""), (s.get("priors", {}), PRIOR_PATH, "priors.")):
+        for key, (want, default) in path.items():
+            got = fields.get(key, default)
+            if got != want:
+                raise ValueError(f"{where}{key}: harness/reference.py computes {want!r} only, "
+                                 f"not {got!r}; name the configuration's own reference")
 
 
 def knobs(cfg: dict) -> dict:
     """The sampler's settings from a configuration file: its ``sampler``
-    fields over this module's needs, and the subset size."""
+    fields over this module's needs, and the subset size. A ValueError
+    for a configuration outside ``PATH``."""
     s = dict(cfg["sampler"])
+    check_path(s)
     s.update(n=cfg["n"], q=cfg["q"], p=cfg["p"], t=cfg["t"], n_subsets=cfg["n_subsets"],
              n_samples=cfg["n_samples"])
     s["m"] = -(-cfg["n"] // s["n_subsets"])

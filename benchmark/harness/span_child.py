@@ -6,10 +6,12 @@ before, cannot time the host.
     python3 benchmark/harness/span_child.py < request.json
 
 The request (standard input, JSON): ``config`` (the cell's configuration
-as run), ``seed``, ``fit`` (the first fit's index: fit i's seed is
-``noise.fit_seed(seed, i)``), ``device`` ("cuda" or "cpu"),
-``warmup_samples`` and ``sweeps``. The inputs are made from the seed and
-a short fit at the cell's shapes warms every kernel. Then, at ``sweeps``
+as run), ``fit_args`` (its fits' arguments, harness/spec.fit_args),
+``root`` (the checkout), ``seed``, ``fit`` (the first fit's index: fit
+i's seed is the configuration's ``noise.fit_seed(seed, i)``), ``device``
+("cuda" or "cpu"), ``warmup_samples`` and ``sweeps``. The inputs are
+made from the seed, as the run made them (harness/spec.pieces), and a
+short fit at the cell's shapes warms every kernel. Then, at ``sweeps``
 sweeps (the schedule's burn-in share and phi updates kept), with the
 program's spans armed (harness/port_spans.py):
 
@@ -54,17 +56,21 @@ def main() -> int:
 
     import torch
 
-    from harness import data, port, port_spans, spans, spec, trace, work
+    from harness import port, port_spans, spans, spec, trace, work
 
     req = json.loads(sys.stdin.read())
     cfg, seed, first = req["config"], int(req["seed"]), int(req["fit"])
+    root = Path(req["root"])
     pcfg = dict(cfg, n_samples=min(int(req["sweeps"]), int(cfg["n_samples"])))
     dev = torch.device("cuda", 0) if req["device"] == "cuda" else torch.device("cpu")
-    inputs = tuple(torch.as_tensor(a, device=dev) for a in data.make_inputs(cfg, seed))
+    pieces = spec.pieces(cfg, root)
+    inputs = tuple(torch.as_tensor(a, device=dev) for a in pieces.inputs(seed))
+    files = spec.fit_files(root)
     step("inputs")
 
     def fit(i, n_samples=None):
-        res = port.fit_once(pcfg, inputs, seed, i, device=dev, n_samples=n_samples)
+        res = port.fit_once(pcfg, inputs, seed, i, device=dev, n_samples=n_samples,
+                            fit_args=req["fit_args"], files=files, noise=pieces.noise)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return res

@@ -7,11 +7,11 @@ The fits run in a process of their own (harness/span_child.py): a host
 fit for the host clock and a profiled fit for the device, both at
 ``SWEEPS`` sweeps of the cell's shapes, on the window's inputs made
 again from the run's seed, each with a seed of its own after the traced
-fit's. Their ``span fits:`` lines are passed on to standard error.
-``SWEEPS`` keeps the traced run inside its time: on an H100 the
-profiler's start, stop, trace writing and reading took about 11 s and a
-third of a second a sweep, and the readings at 32 sweeps were those at
-64 (PERF.md).
+fit's and the window's fit arguments. Their ``span fits:`` lines are
+passed on to standard error. ``SWEEPS`` keeps the traced run inside its
+time: on an H100 the profiler's start, stop, trace writing and reading
+took about 11 s and a third of a second a sweep, and the readings at 32
+sweeps were those at 64 (PERF.md).
 
 The seed is read from the command line as the benchmark is run
 (``--workload <cell> --seed <n>``): the readers are handed no seed.
@@ -24,10 +24,11 @@ import argparse
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
-from harness import port_spans, spec
+from harness import port_spans
 
 SWEEPS = 32
 TIMEOUT_S = 300
@@ -62,15 +63,17 @@ def _measure(ctx: dict):
     seed = run_seed(ctx["cell"]["workload"]["name"])
     if seed is None or not port_spans.available():
         return None
-    req = {"config": ctx["config"], "seed": seed,
+    root = Path(ctx["root"])
+    req = {"config": ctx["config"], "fit_args": ctx["fit_args"], "root": str(root),
+           "seed": seed,
            "fit": ctx["window"].attempted + 1,  # the harness's traced fit is `attempted`
            "device": "cuda" if torch.cuda.is_available() else "cpu",
            "warmup_samples": int(ctx["cell"]["traffic"]["warmup_samples"]),
            "sweeps": SWEEPS}
     try:
-        out = subprocess.run([sys.executable, str(spec.BENCH / "harness" / "span_child.py")],
+        out = subprocess.run([sys.executable, str(root / "benchmark/harness/span_child.py")],
                              input=json.dumps(req), capture_output=True, text=True,
-                             timeout=TIMEOUT_S, cwd=str(spec.ROOT))
+                             timeout=TIMEOUT_S, cwd=str(root))
     except subprocess.TimeoutExpired:
         print(f"span fits: ran past {TIMEOUT_S} s", file=sys.stderr)
         return None

@@ -8,7 +8,8 @@ cell's shapes. The window then calls ``smk_torch.fit_meta_kriging``
 fit after fit, each whole at the cell's depth, until ``--seconds`` have
 passed; the fit under way then is finished and counted. After the window
 one fit, drawn from the seed, is checked against the plain reference
-(harness/reference.py). The last line of standard output is the result
+(harness/reference.py, or the one the configuration file names: see
+harness/spec.pieces). The last line of standard output is the result
 as one JSON object; the numbers compared, each beside its limit, are the
 last lines of standard error.
 
@@ -46,7 +47,7 @@ for p in (str(ROOT), str(BENCH)):
 
 import torch  # noqa: E402
 
-from harness import data, judge, noise, reference, spec, trace, work  # noqa: E402
+from harness import judge, spec, trace, work  # noqa: E402
 from harness.window import run_window  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "smk_tpu")
@@ -90,32 +91,32 @@ def to_host(out: dict) -> dict:
             for k, v in out.items()}
 
 
-def reference_check(cell: dict, inputs, seed: int, fit: int, port_out: dict, home) -> dict:
-    """The numbers compared for fit ``fit`` of the window."""
-    cfg = cell["config"]
+def reference_check(pieces, cfg: dict, inputs, seed: int, fit: int, port_out: dict,
+                    home) -> dict:
+    """The numbers compared for fit ``fit`` of the window, by the
+    configuration's reference and noise layout (spec.pieces)."""
+    reference, noise = pieces.reference, pieces.noise
     s = reference.knobs(cfg)
     n_grid = int(round((1.0 - 1.0 / s["n_quantiles"]) / s["interp_grid_step"])) + 1
     fs = noise.fit_seed(seed, fit)
     perm = noise.permutation(fs, cfg["n"], home)
     idx = noise.resample_index(fs, s["resample_size"], n_grid, home)
-    streams = noise.SweepStreams(fs, s["n_subsets"] * s["n_chains"], home, m=s["m"],
-                                 q=cfg["q"], p=cfg["p"], t=cfg["t"], link=s["link"],
-                                 pg_n_terms=s["pg_n_terms"])
-    ref = reference.fit(cfg, inputs, perm, idx, streams, home)
+    ref = reference.fit(cfg, inputs, perm, idx, noise.streams(fs, cfg, home), home)
     ref_of_port = reference.fit(cfg, inputs, perm, idx, None, home,
                                 subset_grids=(port_out["subset_param_grid"],
                                               port_out["subset_w_grid"]))
     return judge.numbers(port_out, ref, ref_of_port)
 
 
-def run(argv=None, *, device=None, overrides=None, control=None) -> tuple:
+def run(argv=None, *, device=None, overrides=None, control=None, root=spec.ROOT) -> tuple:
     """One run; returns (result dict, checks lines). ``device``: "cpu"
     runs the cell on the CPU (the tests' rehearsal; no card is looked
     for); ``overrides``: configuration keys to replace (the tests' small
     shapes); ``control``: "tf32" runs the port with its TF32 path on
-    (the control of the check, never in a benchmark run)."""
+    (the control of the check, never in a benchmark run); ``root``: the
+    checkout whose BENCHMARK.json and benchmark/ files name the cell."""
     args = parse(argv)
-    cell = spec.cell(args.workload)
+    cell = spec.cell(args.workload, root)
     cfg = json.loads(json.dumps(cell["config"]))
     if overrides:
         for k, v in overrides.items():
@@ -139,12 +140,23 @@ def run(argv=None, *, device=None, overrides=None, control=None) -> tuple:
 
     home = devs[0]
     traffic = cell["traffic"]
+    try:
+        # the check's pieces; a configuration outside what they compute
+        # gives no result rather than a comparison with another model
+        pieces = spec.pieces(cfg, root)
+        fit_args = spec.fit_args(cfg, traffic)
+        pieces.reference.knobs(cfg)
+        pieces.noise.streams(0, cfg, torch.device("cpu"))
+    except ValueError as e:
+        raise RunError(f"the cell's check cannot be made: {e}") from e
     seed = int(args.seed)
-    inputs = data.make_inputs(cfg, seed)
+    inputs = pieces.inputs(seed)
     dev_inputs = tuple(torch.as_tensor(a, device=home) for a in inputs)
+    files = spec.fit_files(root)
 
     def one_fit(i, n_samples=None):
-        return port.fit_once(cfg, dev_inputs, seed, i, device=home, n_samples=n_samples)
+        return port.fit_once(cfg, dev_inputs, seed, i, device=home, n_samples=n_samples,
+                             fit_args=fit_args, files=files, noise=pieces.noise)
 
     # set-up: one short fit at the cell's shapes builds and warms every kernel
     warm = one_fit(-1, n_samples=int(traffic["warmup_samples"]))
@@ -165,7 +177,8 @@ def run(argv=None, *, device=None, overrides=None, control=None) -> tuple:
         raise RunError(f"modules of JAX or the JAX package are loaded: {bad}")
 
     ok_fits = sorted(kept)
-    ctx = {"cell": cell, "config": cfg, "window": window, "peaks": spec.peaks(),
+    ctx = {"cell": cell, "config": cfg, "fit_args": fit_args, "root": root,
+           "window": window, "peaks": spec.peaks(),
            "setup_s": setup_s, "peak_bytes": peak,
            "fits": [dict(f, phase_seconds=kept[f["index"]]["phase_seconds"])
                     for f in window.fits if f["index"] in kept],
@@ -181,7 +194,7 @@ def run(argv=None, *, device=None, overrides=None, control=None) -> tuple:
         ctx["trace"] = summary
     metrics = {}
     for m in cell["per_layer"] if args.trace else cell["end_to_end"]:
-        v = spec.metric_reader(m["name"])(ctx)
+        v = spec.metric_reader(m["name"], root)(ctx)
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
 
@@ -189,12 +202,12 @@ def run(argv=None, *, device=None, overrides=None, control=None) -> tuple:
     # program's state is freed and the peak is read
     correct, checks = False, {}
     if ok_fits:
-        pick = ok_fits[noise.child_seed(seed, 0x5EED) % len(ok_fits)]
+        pick = ok_fits[pieces.noise.child_seed(seed, 0x5EED) % len(ok_fits)]
         port_out = kept[pick]
         kept.clear()
         if home.type == "cuda":
             torch.cuda.empty_cache()
-        values = reference_check(cell, inputs, seed, pick, port_out, home)
+        values = reference_check(pieces, cfg, inputs, seed, pick, port_out, home)
         correct, checks = judge.verdict(values, cell["checks"]["limits"])
     correct = bool(correct and window.failed == 0)
     kind = torch.cuda.get_device_name(home) if home.type == "cuda" else "cpu"

@@ -12,7 +12,7 @@ import copy
 import numpy as np
 import pytest
 
-from harness import data, judge, noise, reference, spec
+from harness import judge, noise, reference, spec
 from _tiny import TINY, run_cpu
 
 
@@ -27,13 +27,6 @@ def small(cell: str, **sampler):
     return cfg
 
 
-def streams(cfg, fs, dev):
-    s = reference.knobs(cfg)
-    return noise.SweepStreams(fs, s["n_subsets"] * s["n_chains"], dev, m=s["m"], q=cfg["q"],
-                              p=cfg["p"], t=cfg["t"], link=s["link"],
-                              pg_n_terms=s["pg_n_terms"])
-
-
 @pytest.mark.parametrize("cell", ["config5.fit", "config4.fit"])
 def test_reference_follows_the_port_to_round_off(cell):
     import torch
@@ -42,14 +35,14 @@ def test_reference_follows_the_port_to_round_off(cell):
 
     cfg = small(cell, cg_matvec_dtype="float32")
     seed, fit, dev = 987654321098, 3, torch.device("cpu")
-    inputs = data.make_inputs(cfg, seed)
+    inputs = spec.pieces(cfg).inputs(seed)
     res = port.fit_once(cfg, inputs, seed, fit, device=dev)
     s = reference.knobs(cfg)
     n_grid = int(round((1.0 - 1.0 / s["n_quantiles"]) / s["interp_grid_step"])) + 1
     fs = noise.fit_seed(seed, fit)
     perm = noise.permutation(fs, cfg["n"], dev)
     idx = noise.resample_index(fs, s["resample_size"], n_grid, dev)
-    ref = reference.fit(cfg, inputs, perm, idx, streams(cfg, fs, dev), dev)
+    ref = reference.fit(cfg, inputs, perm, idx, noise.streams(fs, cfg, dev), dev)
     sr = res.subset_results
     host = lambda a: a.double().numpy()  # noqa: E731
     assert np.abs(host(sr.param_grid) - ref["subset_param_grid"]).max() < 1e-3
@@ -90,7 +83,7 @@ def test_frozen_noise_is_the_ports_default_noise(cell):
     rows = s["n_subsets"] * s["n_chains"]
     shapes = SweepShapes(k=rows, m=s["m"], q=cfg["q"], p=cfg["p"], t=cfg["t"],
                          link=s["link"], pg_n_terms=s["pg_n_terms"])
-    theirs, ours = rng.sweep_noise(shapes), streams(cfg, fs, dev)
+    theirs, ours = rng.sweep_noise(shapes), noise.streams(fs, cfg, dev)
     for it, collect in [(0, False), (1, False), (2, True), (3, True)]:
         a, b = theirs(it, collect), ours(collect)
         for f in b:

@@ -205,10 +205,10 @@ def test_factor_count_at_the_cells_shapes(card, cell):
     is harness/work.py's count of m x m factorizations."""
     import torch
 
-    from harness import data, port, port_spans
+    from harness import port, port_spans
 
     cfg = dict(spec.cell(cell)["config"], n_samples=16)
-    inputs = tuple(torch.as_tensor(a, device=card) for a in data.make_inputs(cfg, 2147483711))
+    inputs = tuple(torch.as_tensor(a, device=card) for a in spec.pieces(cfg).inputs(2147483711))
     _res, rec = port_spans.recorded(
         lambda: port.fit_once(cfg, inputs, 2147483711, 0, device=card))
     print(cell, rec.counters, work.factorizations(cfg))
